@@ -20,21 +20,44 @@ Phases, in order; any failure ends the run with a non-zero exit:
    too.
 4. Serving: an InferenceServer on port 0 around that predictor answers
    /healthz and /stats and resolves clips submitted from threads.
+2b. (run after 2) Kernels 2-4, the training path's: the lse forward and the
+   dQ and dK/dV backward against their plain twins (``attention_plain_lse``,
+   ``attention_plain_bwd``) at the ViViT-B shape in bf16 and f32, at N=300
+   with kv_valid (masked keys' dK/dV exactly 0) and at Nq != Nk, each under
+   its elementwise limit; timed beside the plain versions, their bounds and
+   ``F.scaled_dot_product_attention``'s forward and autograd backward.
+5. Training at full width: ViViT-B/16x2 32f 224^2, B=8, bf16 compute, seeded
+   weights, through ``make_train_step`` on a uint8 batch: 12 launches each
+   of kernels 2-4 and none of kernel 1 per step, 12 of kernel 1 and none of
+   2-4 per eval step; loss finite; step time, clips/s, peak memory and the
+   time of each stage. Then every parameter's gradient at B=2, with the
+   kernels against the same model on the plain attention, f32 and bf16.
+6. The training CLI at full width: ``cli.main --model vivit --bf16`` on a
+   small synthetic dataset in a temporary directory, 1 epoch, then
+   ``--resume auto`` for a second; best_model/, latest/,
+   training_history.json and test_metrics_uniform.json exist;
+   ``Predictor.from_checkpoint`` serves best_model/ in f32 through kernel 1.
+   The directory is deleted at the end.
 
-The second-to-last line of output is ``{"kernels": [...]}``; the last is
-``{"ok": true, "device": {...}}``. Decode is skipped (clips are uint8 arrays).
+The launch counts are set to 0 before the serving path (3-4) and before the
+training path (5-6) and read after each. The second-to-last line of output
+is ``{"kernels": [...]}``; the last is ``{"ok": true, "device": {...}}``.
+Decode is skipped in 3-5 (clips are uint8 arrays); phase 6 decodes mp4s.
 """
 
 from __future__ import annotations
 
 import json
 import math
+import shutil
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import urllib.request
 from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -46,6 +69,14 @@ VIVIT_B = dict(B=8, N=3137, H=12, D=64)
 F32_TOL = 1e-4  # f32 kernel vs plain, absolute (TF32 off)
 # Model logits, kernel vs plain attention, absolute, scaled by max(1, max |logit|).
 LOGIT_TOL = {torch.bfloat16: 3e-2, torch.float32: 1e-4}
+# Full-width gradients, kernels vs plain attention: relative L2 over all the
+# parameters but the key biases (their gradient is round-off: softmax is
+# shift-invariant per query row), and per parameter tensor in f32. In bf16 the
+# key projections' weight gradients are differences of nearly equal sums
+# (sum_k dK_k = 0), so the kernels' bf16 dS, rounded where the JAX kernels
+# round it, moves them by tens of percent against the plain attention's f32
+# autograd; the per-tensor reading is printed, and the f32 check bounds them.
+GRAD_TOL = {torch.float32: (1e-4, 1e-3), torch.bfloat16: (3e-2, None)}
 
 
 def log(msg: str) -> None:
@@ -155,6 +186,118 @@ def check_attention():
     return entry
 
 
+def kernel_bound_ms(b, nq, nk, h, d, dtype, matmuls, q_tensors, k_tensors, f32_rows):
+    """Least time for ``matmuls`` (Nq x Nk x D) products per head at the
+    tensor-core (bf16) or FMA (f32) peak, against the bytes moved once:
+    ``q_tensors`` (B, Nq, H, D) and ``k_tensors`` (B, Nk, H, D) tensors of
+    the input dtype read or written, and ``f32_rows`` f32 (B, H, Nq) rows
+    (lse, delta). Returns (ms, 'operations' | 'bytes')."""
+    flops = 2.0 * matmuls * b * h * nq * nk * d
+    size = torch.tensor([], dtype=dtype).element_size()
+    nbytes = (q_tensors * nq + k_tensors * nk) * b * h * d * size + f32_rows * b * h * nq * 4
+    t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def check_training_kernels():
+    """Phase 2b: kernels 2-4 vs their plain twins on the card; timings at
+    the ViViT-B shape. Returns {entry name: numbers} for the kernels line."""
+    import torch.nn.functional as F
+
+    from laryngeal_tpu_torch.ops import flash_attention as fa
+
+    entries = {"flash_attention_fwd_lse": {}, "flash_attention_bwd_dq": {},
+               "flash_attention_bwd_dkv": {}}
+    cases = [("vivit_b", VIVIT_B["B"], VIVIT_B["N"], VIVIT_B["N"], None),
+             ("n300_kv_valid", 2, 300, 300, 250),
+             ("nq_ne_nk", 2, 257, 1100, None)]
+    h, d = VIVIT_B["H"], VIVIT_B["D"]
+    for dtype in (torch.bfloat16, torch.float32):
+        tag = str(dtype)[6:]
+        for seed, (name, b, nq, nk, kv_valid) in enumerate(cases):
+            q, k, v = qkv(b, nq, nk, h, d, dtype, 10 + seed)
+            g = torch.randn((b, nq, h, d), generator=torch.Generator(device="cuda")
+                            .manual_seed(20 + seed), device="cuda").to(dtype)
+            # kernel 2
+            o, lse = fa.flash_attention_lse(q, k, v, kv_valid)
+            o_ref, lse_ref = fa.attention_plain_lse(q, k, v, kv_valid)
+            o_use = ((o.float() - o_ref.float()).abs()
+                     / fa.error_limit(q, k, v, kv_valid, o_ref, F32_TOL)).max().item()
+            lse_err = (lse - lse_ref).abs().max().item()
+            o_err = (o.float() - o_ref.float()).abs().max().item()
+            # kernels 3 and 4, fed the plain forward's o and lse
+            grads = fa.flash_attention_bwd(q, k, v, o_ref, lse_ref, g, kv_valid)
+            refs = fa.attention_plain_bwd(q, k, v, o_ref, lse_ref, g, kv_valid)
+            limits = fa.backward_error_limit(q, k, v, o_ref, lse_ref, g, kv_valid, refs)
+            uses, errs = [], []
+            for got, ref, lim in zip(grads, refs, limits):
+                diff = (got.float() - ref.float()).abs()
+                uses.append((diff / lim).max().item())
+                errs.append(diff.max().item())
+            del limits
+            masked_zero = True
+            if kv_valid is not None:
+                masked_zero = (torch.count_nonzero(grads[1][:, kv_valid:]).item() == 0
+                               and torch.count_nonzero(grads[2][:, kv_valid:]).item() == 0)
+            ok = (o_use <= 1.0 and lse_err <= fa.LSE_TOL and max(uses) <= 1.0 and masked_zero
+                  and all(math.isfinite(x) for x in uses + errs + [o_err, lse_err]))
+            log(f"training kernels {name} {tag}: lse o max_abs_err {o_err:.3e} "
+                f"(|err|/limit {o_use:.3f}), lse max_abs_err {lse_err:.3e} (tol "
+                f"{fa.LSE_TOL:g}); dq/dk/dv max_abs_err {errs[0]:.3e}/{errs[1]:.3e}/"
+                f"{errs[2]:.3e}, largest |err|/limit {uses[0]:.3f}/{uses[1]:.3f}/"
+                f"{uses[2]:.3f}; masked dk/dv exactly 0: {masked_zero} "
+                f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"training kernels disagree with plain twins: {name} {tag}")
+            if name != "vivit_b":
+                del q, k, v, g, o, lse, o_ref, lse_ref, grads, refs
+                torch.cuda.empty_cache()
+                continue
+            delta = fa.attention_delta(o_ref, g)
+            ms2 = cuda_time_ms(lambda: fa.flash_attention_lse_cuda(q, k, v))
+            ms3 = cuda_time_ms(lambda: fa.flash_attention_dq_cuda(q, k, v, g, lse_ref, delta))
+            ms4 = cuda_time_ms(lambda: fa.flash_attention_dkv_cuda(q, k, v, g, lse_ref, delta))
+            plain_fwd = cuda_time_ms(lambda: fa.attention_plain_lse(q, k, v), reps=3, warmup=1)
+            plain_bwd = cuda_time_ms(
+                lambda: fa.attention_plain_bwd(q, k, v, o_ref, lse_ref, g), reps=3, warmup=1)
+            qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
+            gt = g.transpose(1, 2)
+            lib_fwd = cuda_time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt))
+            out = F.scaled_dot_product_attention(qt, kt, vt)
+            lib_bwd = cuda_time_ms(
+                lambda: torch.autograd.grad(out, (qt, kt, vt), gt, retain_graph=True))
+            del out, qt, kt, vt, gt
+            numbers = {}
+            # (entry, kernel ms, plain ms, library ms, products, Nq-long
+            # tensors, Nk-long tensors, f32 rows, max |err|, |err| / limit)
+            for entry, ms, plain_ms, lib_ms, mm, nq_t, nk_t, rows, err, use in (
+                    ("flash_attention_fwd_lse", ms2, plain_fwd, lib_fwd, 2, 2, 2, 1,
+                     max(o_err, lse_err), max(o_use, lse_err / fa.LSE_TOL)),
+                    ("flash_attention_bwd_dq", ms3, plain_bwd, lib_bwd, 3, 3, 2, 2, errs[0],
+                     uses[0]),
+                    ("flash_attention_bwd_dkv", ms4, plain_bwd, lib_bwd, 4, 2, 4, 2,
+                     max(errs[1:]), max(uses[1:]))):
+                bound_ms, bound_by = kernel_bound_ms(b, nq, nk, h, d, dtype, mm, nq_t, nk_t,
+                                                     rows)
+                numbers[entry] = dict(max_abs_err=err, err_over_limit=use, ms=ms, kernel_ms=ms,
+                                      plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                                      library_ms=lib_ms)
+                log(f"{entry} vivit_b {tag}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+                    f"sdpa {lib_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+            for entry, nums in numbers.items():
+                if dtype == torch.bfloat16:
+                    entries[entry].update(nums)
+                else:
+                    entries[entry]["f32"] = nums
+            del q, k, v, g, o, lse, o_ref, lse_ref, grads, refs, delta
+            torch.cuda.empty_cache()
+    tol = ("bf16: error_limit / backward_error_limit (rounding-derived, elementwise), "
+           f"lse {fa.LSE_TOL:g}; f32: {F32_TOL:g} (o), F32_REL*A (grads)")
+    for e in entries.values():
+        e["tol"] = tol
+    return entries
+
+
 def check_logits(label, logits, logits_plain, tol):
     scale = max(1.0, logits_plain.abs().max().item())
     err = (logits.float() - logits_plain.float()).abs().max().item()
@@ -167,7 +310,7 @@ def check_logits(label, logits, logits_plain, tol):
 
 def main_path() -> dict:
     """Phases 3 and 4: the ViViT-B serving path on the card. Returns each
-    kernel's launches in this run (the counts start at 0 here)."""
+    kernel's launches since the counts were set to 0."""
     from laryngeal_tpu_torch.infer.predictor import Predictor
     from laryngeal_tpu_torch.models.registry import get_model_spec
     from laryngeal_tpu_torch.models.vivit import create_vivit
@@ -183,7 +326,6 @@ def main_path() -> dict:
     n_layers = model.config.num_layers
     clips = np.random.default_rng(0).integers(0, 256, (8, 32, 224, 224, 3), dtype=np.uint8)
 
-    fa.launches = 0
     # -- phase 3: forward, probabilities, launches, kernel vs plain logits --
     probs = predictor.predict_clip(clips)
     if fa.launches != n_layers:
@@ -290,7 +432,203 @@ def main_path() -> dict:
     np.testing.assert_allclose(rows[:8], probs, atol=2e-2)
     log(f"server: {n_req} clips in {stats['batches']} batches "
         f"(mean fill {stats['mean_batch_fill']:.2f}) in {serve_s:.2f} s")
-    return {"flash_attention_fwd": fa.launches}
+    counts = fa.launch_counts()
+    if any(counts[k] for k in counts if k != "flash_attention_fwd"):
+        raise AssertionError(f"the serving path launched a training kernel: {counts}")
+    return counts
+
+
+def vivit_train_flops(cfg, batch: int) -> float:
+    """Model operations of one train step: 3x the forward's products (the
+    backward does two per forward product); the flash backward's recompute
+    of S is not counted."""
+    n, dim, inter = cfg.num_patches + 1, cfg.hidden_size, cfg.intermediate_size
+    t, ph, pw = cfg.tubelet_size
+    embed = 2.0 * cfg.num_patches * 3 * t * ph * pw * dim
+    layer = 2.0 * n * dim * dim * 4 + 2.0 * n * dim * inter * 2 + 4.0 * n * n * dim
+    return 3.0 * batch * (embed + cfg.num_layers * layer)
+
+
+def grad_check(pixel, labels, dtype):
+    """Every parameter's gradient at full width and depth, with the kernels
+    against the same model on the plain attention (relative L2)."""
+    from laryngeal_tpu_torch.models.vivit import create_vivit
+    from laryngeal_tpu_torch.ops import attention as att
+    from laryngeal_tpu_torch.train.losses import cross_entropy
+
+    model = create_vivit(num_classes=2, num_frames=32, image_size=224, dtype=dtype,
+                         seed=1).cuda().train()
+
+    def grads():
+        model.zero_grad(set_to_none=True)
+        cross_entropy(model(pixel), labels).backward()
+        return {n: p.grad.float() for n, p in model.named_parameters()}
+
+    with_kernels = grads()
+    att.set_attention_impl("plain")
+    try:
+        plain = grads()
+    finally:
+        att.set_attention_impl(None)
+    names = [n for n in plain if not n.endswith("attention.attention.key.bias")]
+    num = math.sqrt(sum(((with_kernels[n] - plain[n]) ** 2).sum().item() for n in names))
+    den = math.sqrt(sum((plain[n] ** 2).sum().item() for n in names))
+    per = {n: ((with_kernels[n] - plain[n]).norm() / plain[n].norm().clamp_min(1e-30)).item()
+           for n in names}
+    worst = max(per, key=per.get)
+    finite = all(torch.isfinite(g).all().item() for g in with_kernels.values())
+    tol_all, tol_each = GRAD_TOL[dtype]
+    ok = finite and num / den <= tol_all and (tol_each is None or per[worst] <= tol_each)
+    log(f"vivit-b {str(dtype)[6:]} gradients B=2, kernels vs plain attention: relative L2 "
+        f"{num / den:.3e} over {len(names)} tensors (tol {tol_all:g}), worst tensor "
+        f"{worst} {per[worst]:.3e} (tol {tol_each}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{dtype} gradients with the kernels disagree with plain attention")
+    del model, with_kernels, plain
+    torch.cuda.empty_cache()
+
+
+def training_path(kernel_ms: dict) -> None:
+    """Phases 5 and 6: the ViViT-B training path on the card, and the CLI."""
+    from laryngeal_tpu_torch.models.vivit import create_vivit
+    from laryngeal_tpu_torch.ops import flash_attention as fa
+    from laryngeal_tpu_torch.preprocess.transforms import batch_preprocess
+    from laryngeal_tpu_torch.train.losses import cross_entropy
+    from laryngeal_tpu_torch.train.state import create_train_state
+    from laryngeal_tpu_torch.train.steps import make_eval_step, make_train_step
+
+    b = 8
+    model = create_vivit(num_classes=2, num_frames=32, image_size=224, dtype=torch.bfloat16,
+                         seed=0).cuda()
+    n_layers = model.config.num_layers
+    state = create_train_state(model, "adamw", 1e-4, 0.01)
+    step = make_train_step(model, "vivit", "ce", crop=224)
+    eval_step = make_eval_step(model, "vivit", "ce", crop=224)
+    rng = np.random.default_rng(1)
+    clips = rng.integers(0, 256, (b, 32, 224, 224, 3), dtype=np.uint8)
+    labels = torch.from_numpy(rng.integers(0, 2, b)).cuda()
+    mask = torch.ones(b, dtype=torch.bool, device="cuda")
+    pixel_u8 = torch.from_numpy(clips).cuda()
+
+    def launched(fn):
+        before = fa.launch_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, {k: v - before[k] for k, v in fa.launch_counts().items()}
+
+    # -- phase 5: launches per step, loss, timing --
+    (state, m), per_step = launched(lambda: step(state, pixel_u8, labels, mask))
+    want = {"flash_attention_fwd": 0, "flash_attention_fwd_lse": n_layers,
+            "flash_attention_bwd_dq": n_layers, "flash_attention_bwd_dkv": n_layers}
+    if per_step != want:
+        raise AssertionError(f"launches per train step {per_step}, want {want}")
+    em, per_eval = launched(lambda: eval_step(state, pixel_u8, labels, mask))
+    want_eval = {k: (n_layers if k == "flash_attention_fwd" else 0) for k in want}
+    if per_eval != want_eval:
+        raise AssertionError(f"launches per eval step {per_eval}, want {want_eval}")
+    log(f"launches per train step {per_step}; per eval step {per_eval}")
+    for _ in range(2):
+        step(state, pixel_u8, labels, mask)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reps = 5
+    t0 = time.perf_counter()
+    losses = [step(state, pixel_u8, labels, mask)[1]["loss"] for _ in range(reps)]
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / reps
+    peak = torch.cuda.max_memory_allocated()
+    losses = [x.item() for x in [m["loss"], em["loss"]] + losses]
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"non-finite loss {losses}")
+    flops = vivit_train_flops(model.config, b)
+    log(f"vivit-b 32f 224 bf16 B=8 train step: {step_s * 1e3:.2f} ms -> {b / step_s:.2f} "
+        f"clips/s (uint8 batch on the card -> updated weights), peak memory "
+        f"{peak / 2**30:.2f} GiB, model operations {flops:.4e} per step = "
+        f"{flops / step_s / 989e12:.4f} of 989 TFLOP/s; losses {losses}")
+
+    # Where the step's time goes: each stage between CUDA events, median of 3.
+    t0 = time.perf_counter()
+    torch.from_numpy(clips).cuda()
+    torch.cuda.synchronize()
+    h2d_ms = (time.perf_counter() - t0) * 1e3
+    pre_ms = cuda_time_ms(lambda: batch_preprocess(pixel_u8, "vivit", crop=224), reps=3)
+    stages = []
+    model.train()
+    for _ in range(4):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        pixel = batch_preprocess(pixel_u8, "vivit", crop=224)
+        ev[0].record()
+        loss = cross_entropy(model(pixel), labels, mask)
+        ev[1].record()
+        state.optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        ev[2].record()
+        state.optimizer.step()
+        ev[3].record()
+        torch.cuda.synchronize()
+        stages.append([ev[i].elapsed_time(ev[i + 1]) for i in range(3)])
+    fwd_ms, bwd_ms, opt_ms = np.median(np.asarray(stages[1:]), axis=0)
+    attn_ms = n_layers * sum(kernel_ms.values())
+    log(f"train step stages (bf16 B=8): h2d {h2d_ms:.2f} ms (pageable uint8 batch, host "
+        f"clock), preprocess {pre_ms:.2f} ms, forward+loss {fwd_ms:.2f} ms, backward "
+        f"{bwd_ms:.2f} ms, optimizer {opt_ms:.2f} ms; attention kernels {n_layers} x "
+        f"({' + '.join(f'{v:.3f}' for v in kernel_ms.values())}) = {attn_ms:.2f} ms = "
+        f"{attn_ms / (step_s * 1e3):.3f} of the step")
+    del state, step, eval_step, model, m, em, loss, pixel
+    torch.cuda.empty_cache()
+
+    pixel2 = batch_preprocess(pixel_u8[:2], "vivit", crop=224)
+    for dtype in (torch.float32, torch.bfloat16):
+        grad_check(pixel2, labels[:2], dtype)
+    del pixel_u8, pixel2
+    torch.cuda.empty_cache()
+
+    # -- phase 6: the training CLI, then the predictor on its checkpoint --
+    from laryngeal_tpu_torch.cli import main as cli
+    from laryngeal_tpu_torch.data.synthetic import make_synthetic_dataset
+    from laryngeal_tpu_torch.infer.predictor import Predictor
+
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_cli_"))
+    try:
+        data = make_synthetic_dataset(str(tmp / "data"), {"train": 4, "val": 2, "test": 2},
+                                      num_frames=40, h=112, w=112, seed=0)
+        flags = ["--model", "vivit", "--data_dir", str(data), "--log_dir", str(tmp / "logs"),
+                 "--bf16", "--batch_size", "8", "--no-pretrained", "--decode_workers", "4"]
+        t0 = time.perf_counter()
+        first = cli.main(flags + ["--epochs", "1"])
+        t1 = time.perf_counter()
+        time.sleep(1.1)  # experiment directories are stamped to the second
+        second = cli.main(flags + ["--epochs", "2", "--resume", "auto"])
+        t2 = time.perf_counter()
+        exp1, exp2 = Path(first["exp_dir"]), Path(second["exp_dir"])
+        for f in ("best_model", "latest", "training_history.json", "test_metrics_uniform.json"):
+            if not (exp1 / f).exists():
+                raise AssertionError(f"cli run 1 wrote no {f}")
+        for f in ("latest", "training_history.json", "test_metrics_uniform.json"):
+            if not (exp2 / f).exists():
+                raise AssertionError(f"cli run 2 wrote no {f}")
+        h1, h2 = first["history"], second["history"]
+        if len(h2["train_loss"]) != 2 or h2["train_loss"][0] != h1["train_loss"][0] \
+                or not all(math.isfinite(x) for x in h2["train_loss"] + h2["val_loss"]):
+            raise AssertionError(f"resumed history {h2} does not continue {h1}")
+        log(f"cli --bf16: 1 epoch in {t1 - t0:.1f} s, resumed for epoch 2 in {t2 - t1:.1f} s "
+            f"(8 train / 4 val / 4 test videos, checkpoints with AdamW state included); "
+            f"history {h2['train_loss']} / {h2['val_loss']}; test auroc {second['auroc']:.3f}")
+        predictor = Predictor.from_checkpoint("vivit", exp1 / "best_model")
+        if predictor.model.config.dtype != torch.float32:
+            raise AssertionError("a checkpoint without a dtype must be served in f32")
+        before = fa.launches
+        probs = predictor.predict_clip(clips[:2])
+        if fa.launches - before != n_layers or not np.isfinite(probs).all() \
+                or not np.allclose(probs.sum(-1), 1.0, atol=1e-5):
+            raise AssertionError(f"predictor on the cli checkpoint: {probs}, "
+                                 f"{fa.launches - before} launches")
+        log(f"Predictor.from_checkpoint(best_model) f32: {n_layers} launches of kernel 1, "
+            f"probabilities {probs.tolist()}")
+        del predictor
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -311,14 +649,29 @@ def main() -> int:
         f"{torch.cuda.get_device_name(0)}")
     build_kernels()
     entry = check_attention()
-    counts = main_path()
+    train_entries = check_training_kernels()
+    from laryngeal_tpu_torch.ops import flash_attention as fa
+
+    fa.reset_launches()
+    serve_counts = main_path()
+    fa.reset_launches()
+    training_path({k: v["ms"] for k, v in train_entries.items()})
+    train_counts = fa.launch_counts()
+    log(f"launches: serving path {serve_counts}; training path {train_counts}")
+    tpu = "laryngeal_tpu/ops/flash_attention.py"
     kernels = [dict(name="flash_attention_fwd", route="cuda",
                     source="laryngeal_tpu_torch/csrc/flash_attention_fwd.cu",
-                    replaces="laryngeal_tpu/ops/flash_attention.py:51",
-                    launches=counts["flash_attention_fwd"], **entry)]
+                    replaces=f"{tpu}:51", launches=serve_counts["flash_attention_fwd"],
+                    **entry)]
+    for name, src, line in (("flash_attention_fwd_lse", "flash_attention_fwd.cu", 93),
+                            ("flash_attention_bwd_dq", "flash_attention_bwd.cu", 131),
+                            ("flash_attention_bwd_dkv", "flash_attention_bwd.cu", 168)):
+        kernels.append(dict(name=name, route="cuda", source=f"laryngeal_tpu_torch/csrc/{src}",
+                            replaces=f"{tpu}:{line}", launches=train_counts[name],
+                            **train_entries[name]))
     for k in kernels:
         if k["launches"] < 1:
-            raise AssertionError(f"kernel {k['name']} never launched on the main path")
+            raise AssertionError(f"kernel {k['name']} never launched on its path")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(card_line())
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,11 +1,18 @@
 // Flash-attention forward for Hopper (sm_90a), bound through a plain C
 // interface (ctypes; see laryngeal_tpu_torch/ops/flash_attention.py).
 //
-// Replaces laryngeal_tpu/ops/flash_attention.py::_attention_kernel, the
-// Pallas TPU forward that every ViViT attention call takes on inference:
-// non-causal online-softmax attention over (B, Nq, H, D) x (B, Nk, H, D),
-// keys at index >= n_actual masked with -1e30 (the trailing-key / kv_valid
-// mask), the row sum floored at 1e-30, f32 statistics and accumulation.
+// Replaces two Pallas TPU kernels of laryngeal_tpu/ops/flash_attention.py:
+//   * _attention_kernel (entry flash_attention_fwd): the forward that every
+//     ViViT attention call takes on inference;
+//   * _attention_kernel_lse (entry flash_attention_fwd_lse): the same
+//     forward plus the per-row log-sum-exp lse = m + log(max(l, 1e-30)) in
+//     f32, stored (B, H, Nq) contiguous -- the residual the backward kernels
+//     (flash_attention_bwd.cu) recompute P from. Every training forward
+//     takes it.
+// Both: non-causal online-softmax attention over (B, Nq, H, D) x
+// (B, Nk, H, D), keys at index >= n_actual masked with -1e30 (the
+// trailing-key / kv_valid mask), the row sum floored at 1e-30, f32
+// statistics and accumulation. One template, two instantiations.
 //
 // What bounds it on the H100: at the ViViT-B bf16 shape (B=8, N=3137,
 // H=12, D=64) one launch does 4*B*H*N^2*D ~ 2.4e11 FLOP against ~154 MB
@@ -32,14 +39,11 @@
 // persistent schedule -- mma.sync reaches only part of Hopper's tensor-core
 // rate.
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <stdint.h>
+#include "flash_attention_common.cuh"
 
 namespace {
 
-constexpr float kMaskValue = -1e30f;
-constexpr float kLog2e = 1.4426950408889634f;
+using namespace flash;
 
 // ---------------------------------------------------------------------------
 // bf16 tensor-core kernel
@@ -47,77 +51,14 @@ constexpr float kLog2e = 1.4426950408889634f;
 
 constexpr int kBM = 64;       // query rows per block (16 per warp)
 constexpr int kBN = 64;       // keys per K/V tile
-constexpr int kWarps = 4;
-constexpr int kPad = 8;       // shared-memory row padding (elements)
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16-byte async copy; src_bytes = 0 writes zeros (out-of-range rows).
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(smem_addr(dst)), "l"(src), "r"(src_bytes));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-// D(16x8 f32) += A(16x16 bf16, row) * B(16x8 bf16, col)
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// Copy rows [row0, row0 + ROWS) x [0, HD) of one (batch, head) slice into a
-// padded shared tile; rows >= n_rows and columns >= d are zero-filled.
-template <int ROWS, int HD>
-__device__ __forceinline__ void load_tile_async(__nv_bfloat16* tile,
-                                                const __nv_bfloat16* base,
-                                                long long row_stride, int row0,
-                                                int n_rows, int d) {
-  constexpr int kChunksPerRow = HD / 8;
-  constexpr int kChunks = ROWS * kChunksPerRow;
-  for (int c = threadIdx.x; c < kChunks; c += kWarps * 32) {
-    const int r = c / kChunksPerRow;
-    const int col = (c % kChunksPerRow) * 8;
-    const int row = row0 + r;
-    const bool ok = row < n_rows && col < d;
-    const __nv_bfloat16* src = ok ? base + row * row_stride + col : base;
-    cp_async16(tile + r * (HD + kPad) + col, src, ok ? 16 : 0);
-  }
-}
-
-template <int HD>
+template <int HD, bool kLse>
 __global__ void __launch_bounds__(kWarps * 32)
 flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
                       const __nv_bfloat16* __restrict__ k,
                       const __nv_bfloat16* __restrict__ v,
                       __nv_bfloat16* __restrict__ o,
+                      float* __restrict__ lse,
                       int H, int Nq, int Nk, int D, int n_actual,
                       long long sqb, long long sqn, long long sqh,
                       long long skb, long long skn, long long skh,
@@ -268,7 +209,11 @@ flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
   for (int r = 0; r < 2; ++r) {
     l_row[r] += __shfl_xor_sync(0xffffffffu, l_row[r], 1);
     l_row[r] += __shfl_xor_sync(0xffffffffu, l_row[r], 2);
-    l_row[r] = 1.f / fmaxf(l_row[r], 1e-30f);
+    const float l_safe = fmaxf(l_row[r], 1e-30f);
+    const int row = q0 + warp * 16 + g + r * 8;
+    if (kLse && tig == 0 && row < Nq)
+      lse[(long long)bh * Nq + row] = m_row[r] * kLn2 + logf(l_safe);
+    l_row[r] = 1.f / l_safe;
   }
   __nv_bfloat16* ob = o + b * sob + h * soh;
 #pragma unroll
@@ -291,14 +236,13 @@ flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
 // f32 kernel (FMA units)
 // ---------------------------------------------------------------------------
 
-constexpr int kF32Threads = 128;
 constexpr int kF32BN = 32;  // keys per K/V tile
 
-template <int HD>
+template <int HD, bool kLse>
 __global__ void __launch_bounds__(kF32Threads)
 flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, float* __restrict__ o,
-                     int H, int Nq, int Nk, int D, int n_actual,
+                     float* __restrict__ lse, int H, int Nq, int Nk, int D, int n_actual,
                      long long sqb, long long sqn, long long sqh,
                      long long skb, long long skn, long long skh,
                      long long svb, long long svn, long long svh,
@@ -373,6 +317,7 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 
   if (!row_ok) return;
+  if (kLse && c0 == 0) lse[(long long)bh * Nq + row] = m + logf(fmaxf(l, 1e-30f));
   const float inv = 1.f / fmaxf(l, 1e-30f);
   float* ob = o + b * sob + h * soh + row * son;
 #pragma unroll
@@ -380,36 +325,56 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     if (c0 + c < D) ob[c0 + c] = acc[c] * inv;
 }
 
-template <int HD>
-cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o,
+template <int HD, bool kLse>
+cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o, float* lse,
                         int B, int Nq, int Nk, int H, int D, int n_actual,
                         const long long* st, float scale, cudaStream_t stream) {
   const size_t smem = (size_t)(kBM + 4 * kBN) * (HD + kPad) * sizeof(__nv_bfloat16);
-  cudaError_t err = cudaFuncSetAttribute(flash_fwd_bf16_kernel<HD>,
+  cudaError_t err = cudaFuncSetAttribute(flash_fwd_bf16_kernel<HD, kLse>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
   if (err != cudaSuccess) return err;
   dim3 grid((Nq + kBM - 1) / kBM, B * H);
-  flash_fwd_bf16_kernel<HD><<<grid, kWarps * 32, smem, stream>>>(
+  flash_fwd_bf16_kernel<HD, kLse><<<grid, kWarps * 32, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), lse,
       H, Nq, Nk, D, n_actual, st[0], st[1], st[2], st[3], st[4], st[5],
       st[6], st[7], st[8], st[9], st[10], st[11], scale);
   return cudaGetLastError();
 }
 
-template <int HD>
-cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o,
+template <int HD, bool kLse>
+cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o, float* lse,
                        int B, int Nq, int Nk, int H, int D, int n_actual,
                        const long long* st, float scale, cudaStream_t stream) {
   constexpr int kRows = kF32Threads / (HD / 32);
   dim3 grid((Nq + kRows - 1) / kRows, B * H);
-  flash_fwd_f32_kernel<HD><<<grid, kF32Threads, 0, stream>>>(
+  flash_fwd_f32_kernel<HD, kLse><<<grid, kF32Threads, 0, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o),
+      static_cast<const float*>(v), static_cast<float*>(o), lse,
       H, Nq, Nk, D, n_actual, st[0], st[1], st[2], st[3], st[4], st[5],
       st[6], st[7], st[8], st[9], st[10], st[11], scale);
   return cudaGetLastError();
+}
+
+template <bool kLse>
+int launch(const void* q, const void* k, const void* v, void* o, float* lse, int dtype,
+           int B, int Nq, int Nk, int H, int D, int n_actual, const long long* st,
+           float scale, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (D <= 0 || D > 128 || D % 8 != 0 || B * H > 65535 || n_actual < 1)
+    return (int)cudaErrorInvalidValue;
+  if (dtype == 1) {
+    if (D <= 32) return (int)launch_bf16<32, kLse>(q, k, v, o, lse, B, Nq, Nk, H, D, n_actual, st, scale, s);
+    if (D <= 64) return (int)launch_bf16<64, kLse>(q, k, v, o, lse, B, Nq, Nk, H, D, n_actual, st, scale, s);
+    return (int)launch_bf16<128, kLse>(q, k, v, o, lse, B, Nq, Nk, H, D, n_actual, st, scale, s);
+  }
+  if (dtype == 0) {
+    if (D <= 32) return (int)launch_f32<32, kLse>(q, k, v, o, lse, B, Nq, Nk, H, D, n_actual, st, scale, s);
+    if (D <= 64) return (int)launch_f32<64, kLse>(q, k, v, o, lse, B, Nq, Nk, H, D, n_actual, st, scale, s);
+    return (int)launch_f32<128, kLse>(q, k, v, o, lse, B, Nq, Nk, H, D, n_actual, st, scale, s);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -428,18 +393,22 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
                                    float scale, void* stream) {
   const long long st[12] = {sqb, sqn, sqh, skb, skn, skh,
                             svb, svn, svh, sob, son, soh};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D <= 0 || D > 128 || D % 8 != 0 || B * H > 65535 || n_actual < 1)
-    return (int)cudaErrorInvalidValue;
-  if (dtype == 1) {
-    if (D <= 32) return (int)launch_bf16<32>(q, k, v, o, B, Nq, Nk, H, D, n_actual, st, scale, s);
-    if (D <= 64) return (int)launch_bf16<64>(q, k, v, o, B, Nq, Nk, H, D, n_actual, st, scale, s);
-    return (int)launch_bf16<128>(q, k, v, o, B, Nq, Nk, H, D, n_actual, st, scale, s);
-  }
-  if (dtype == 0) {
-    if (D <= 32) return (int)launch_f32<32>(q, k, v, o, B, Nq, Nk, H, D, n_actual, st, scale, s);
-    if (D <= 64) return (int)launch_f32<64>(q, k, v, o, B, Nq, Nk, H, D, n_actual, st, scale, s);
-    return (int)launch_f32<128>(q, k, v, o, B, Nq, Nk, H, D, n_actual, st, scale, s);
-  }
-  return (int)cudaErrorInvalidValue;
+  return launch<false>(q, k, v, o, nullptr, dtype, B, Nq, Nk, H, D, n_actual, st,
+                       scale, stream);
+}
+
+// As flash_attention_fwd, plus lse: float32 (B, H, Nq) contiguous, the
+// natural-log log-sum-exp of each query row's masked, scaled logits.
+extern "C" int flash_attention_fwd_lse(const void* q, const void* k, const void* v,
+                                       void* o, void* lse, int dtype, int B, int Nq,
+                                       int Nk, int H, int D, int n_actual,
+                                       long long sqb, long long sqn, long long sqh,
+                                       long long skb, long long skn, long long skh,
+                                       long long svb, long long svn, long long svh,
+                                       long long sob, long long son, long long soh,
+                                       float scale, void* stream) {
+  const long long st[12] = {sqb, sqn, sqh, skb, skn, skh,
+                            svb, svn, svh, sob, son, soh};
+  return launch<true>(q, k, v, o, static_cast<float*>(lse), dtype, B, Nq, Nk, H, D,
+                      n_actual, st, scale, stream);
 }

@@ -1,6 +1,6 @@
-"""Host-side video decode with OpenCV (counterpart of
-``get_video_properties`` and ``decode_frames`` in
-``laryngeal_tpu/data/video.py``).
+"""Host-side video decode and encode with OpenCV (counterpart of
+``get_video_properties``, ``verify_video_integrity``, ``decode_frames`` and
+``write_video`` in ``laryngeal_tpu/data/video.py``).
 
 cv2 is imported on first use, so the package imports without it; the
 functions raise a clear error when it is missing. Index-based OpenCV decode
@@ -10,6 +10,7 @@ placeholder frame.
 
 from __future__ import annotations
 
+from pathlib import Path
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
@@ -41,6 +42,23 @@ def get_video_properties(path) -> Tuple[int, float, float, int, int]:
     h = int(cap.get(cv2.CAP_PROP_FRAME_HEIGHT))
     cap.release()
     return total, float(fps), total / float(fps), w, h
+
+
+def verify_video_integrity(path) -> bool:
+    """Openable + >=1 readable frame + positive frame count
+    (reference dataset.py:48-72)."""
+    try:
+        cv2 = _cv2()
+    except ImportError:
+        return Path(path).exists()
+    cap = cv2.VideoCapture(str(path))
+    try:
+        if not cap.isOpened():
+            return False
+        ret, _ = cap.read()
+        return bool(ret) and int(cap.get(cv2.CAP_PROP_FRAME_COUNT)) > 0
+    finally:
+        cap.release()
 
 
 def decode_frames(path, indices: Sequence[int],
@@ -100,3 +118,21 @@ def decode_frames(path, indices: Sequence[int],
     placeholder = np.full((*shape_hw, 3), 127, dtype=np.uint8)
     return np.stack([decoded[i] if decoded.get(i) is not None else placeholder
                      for i in indices])
+
+
+def write_video(path, frames_rgb: np.ndarray, fps: float = 30.0) -> str:
+    """Encode RGB uint8 (T, H, W, C) to a video file with cv2, trying mp4v,
+    avc1 and XVID in that order (the JAX package's ``codec="auto"`` chain);
+    returns the codec used. The native libx264 encoder is not ported."""
+    cv2 = _cv2()
+    path = str(path)
+    _, h, w, _ = frames_rgb.shape
+    for codec in ("mp4v", "avc1", "XVID"):
+        writer = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*codec), fps, (w, h))
+        if writer.isOpened():
+            for f in frames_rgb:
+                writer.write(cv2.cvtColor(f, cv2.COLOR_RGB2BGR))
+            writer.release()
+            return codec
+        writer.release()
+    raise RuntimeError(f"No working video codec found for {path}")

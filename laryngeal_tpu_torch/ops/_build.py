@@ -3,8 +3,9 @@
 Each kernel source in ``laryngeal_tpu_torch/csrc/`` has a plain C interface.
 It is compiled on first use with ``nvcc`` for ``sm_90a`` into a shared
 library under ``laryngeal_tpu_torch/_build/`` and loaded with ``ctypes``.
-The library's name carries a hash of its source, so an edited source is
-rebuilt and a stale library is never loaded. A file lock serialises
+The library's name carries a hash of its source and of the shared headers
+(``csrc/*.cuh``), so an edited source is rebuilt and a stale library is
+never loaded. A file lock serialises
 concurrent builds (several processes, or several sources at once).
 """
 
@@ -53,8 +54,11 @@ def find_nvcc() -> str:
 
 
 def library_path(source: str) -> Path:
+    """The library's path; its name hashes the source, every shared header
+    (``csrc/*.cuh``) and the flags."""
     src = CSRC_DIR / source
-    digest = hashlib.sha1(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    content = src.read_bytes() + b"".join(h.read_bytes() for h in sorted(CSRC_DIR.glob("*.cuh")))
+    digest = hashlib.sha1(content + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"{src.stem}-{digest}.so"
 
 

@@ -5,16 +5,19 @@ Layout: (batch, seq, heads, head_dim) everywhere.
 
 Implementations, chosen per call or globally with ``set_attention_impl``:
 
-- ``kernel``: the hand-written CUDA flash kernel (ops/flash_attention.py).
-  The default for CUDA tensors: every bias-free call with head_dim <= 128
-  goes there at any sequence length. (The JAX package sends N < 512 to its
-  short-sequence kernel instead; that kernel is not ported yet.)
-- ``plain``: ``attention_plain`` (f32 logits, optional bias), the kernel's
-  plain twin and the port's counterpart of the JAX ``attention_reference``.
-  The default on the CPU, and the comparison for the kernel on the card.
+- ``kernel``: ``flash_attention`` (ops/flash_attention.py): the CUDA flash
+  kernel, or under autograd ``FlashAttentionFn`` (the lse forward and the
+  dQ / dK-dV backward kernels). The default for CUDA tensors: every
+  bias-free call with head_dim <= 128 goes there at any sequence length.
+  (The JAX package sends N < 512 to its short-sequence kernel instead; that
+  kernel is not ported yet.) On CPU tensors it runs the kernels' plain twins.
+- ``plain``: ``attention_plain`` (f32 logits, optional bias, differentiable
+  by autograd), the port's counterpart of the JAX ``attention_reference``.
+  The default on the CPU, and the comparison for the kernels on the card.
 
 A logits bias has no kernel yet: on CUDA it raises rather than silently
-taking the plain path. ``kv_valid`` masks keys at index >= kv_valid (the
+taking the plain path; on the CPU it takes ``attention_plain`` (autograd
+differentiates it, as the JAX biased path differentiates its reference). ``kv_valid`` masks keys at index >= kv_valid (the
 trailing-padding mask of the JAX package's ``TrailingKeyMask``).
 """
 

@@ -1,50 +1,87 @@
-"""Flash-attention forward: the hand-written CUDA kernel and its plain twin.
+"""Flash attention: the hand-written CUDA kernels, their plain twins and the
+autograd wiring.
 
-Counterpart of ``laryngeal_tpu/ops/flash_attention.py`` (the Pallas TPU
-kernel ``_attention_kernel``, ``:51``, launched at ``:343``). The CUDA
-source is ``csrc/flash_attention_fwd.cu``: online softmax over K/V tiles
-streamed through shared memory, f32 running max / sum / accumulator, keys at
-index >= ``kv_valid`` masked with -1e30 and the row sum floored at 1e-30.
+Counterpart of ``laryngeal_tpu/ops/flash_attention.py``. Four Pallas TPU
+kernels there have CUDA counterparts here:
+
+====  =========================================  ==============================
+ #    TPU kernel (launch)                         CUDA entry, source
+====  =========================================  ==============================
+ 1    ``_attention_kernel`` :51 (:343)            ``flash_attention_fwd``
+ 2    ``_attention_kernel_lse`` :93 (:330)        ``flash_attention_fwd_lse``
+                                                  (both ``csrc/flash_attention_fwd.cu``)
+ 3    ``_dq_kernel`` :131 (:437)                  ``flash_attention_bwd_dq``
+ 4    ``_dkv_kernel`` :168 (:451)                 ``flash_attention_bwd_dkv``
+                                                  (both ``csrc/flash_attention_bwd.cu``)
+====  =========================================  ==============================
 
 ``flash_attention`` takes (B, Nq, H, D) x (B, Nk, H, D), non-causal,
-D <= 128, Nq != Nk allowed, float32 or bfloat16. On a CPU tensor it runs
-``attention_plain`` (the ``_reference`` of the JAX module, ``:468``, plus the
-trailing-key mask); on a CUDA tensor it launches the kernel or raises.
-``attention_plain`` is the port's one plain attention: it also takes the
-logits bias, and ``ops/attention.py`` routes its ``plain`` impl to it. The
-bias kernel, the log-sum-exp output and the backward kernels of the JAX
-module are not ported yet (ROADMAP.md).
+D <= 128, Nq != Nk allowed, float32 or bfloat16; ``kv_valid`` masks keys at
+index >= kv_valid. When a gradient is needed (``torch.is_grad_enabled()``
+and q, k or v requires grad) it goes through ``FlashAttentionFn``, the
+counterpart of the JAX ``custom_vjp`` (``:261-284``, ``:478-513``): kernel 2
+forward saving (q, k, v, o, lse), then delta = rowsum(dO * O) in PyTorch and
+kernels 3 and 4. Otherwise it takes kernel 1. On a CPU tensor every kernel
+is replaced by its plain twin (``attention_plain``, ``attention_plain_lse``,
+``attention_plain_bwd``), so the CPU runs the same wiring; on a CUDA tensor
+each wrapper launches its kernel or raises. ``attention_plain`` is the port's
+one plain attention: it also takes the logits bias, and ``ops/attention.py``
+routes its ``plain`` impl to it. The bias kernel (``_attention_kernel_bias``)
+is not ported yet (ROADMAP.md).
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
-from typing import Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from . import _build
 
 SOURCE = "flash_attention_fwd.cu"
+BWD_SOURCE = "flash_attention_bwd.cu"
 MAX_HEAD_DIM = 128
-# Kernel launches since the count was last set to 0 (plain CPU calls do not
-# count); ``chip_smoke.py`` reads it to prove the main path used the kernel.
-launches = 0
+# Kernel launches since the counts were last set to 0 (plain CPU calls do not
+# count); ``chip_smoke.py`` reads them to prove the main path used the kernels.
+launches = 0          # kernel 1, flash_attention_fwd
+lse_launches = 0      # kernel 2, flash_attention_fwd_lse
+dq_launches = 0       # kernel 3, flash_attention_bwd_dq
+dkv_launches = 0      # kernel 4, flash_attention_bwd_dkv
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_fn = None
+_fns: Dict[str, object] = {}
 
 
-def _kernel():
-    global _fn
-    if _fn is None:
-        fn = _build.load(SOURCE).flash_attention_fwd
+def reset_launches() -> None:
+    global launches, lse_launches, dq_launches, dkv_launches
+    launches = lse_launches = dq_launches = dkv_launches = 0
+
+
+def launch_counts() -> Dict[str, int]:
+    """Launches of each kernel, by its CUDA entry name."""
+    return {"flash_attention_fwd": launches, "flash_attention_fwd_lse": lse_launches,
+            "flash_attention_bwd_dq": dq_launches, "flash_attention_bwd_dkv": dkv_launches}
+
+
+def _kernel(name: str):
+    if name not in _fns:
+        ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        strides = ctypes.POINTER(i64)
+        if name == "flash_attention_fwd":
+            source, args = SOURCE, [ptr] * 4 + [i32] * 7 + [i64] * 12
+        elif name == "flash_attention_fwd_lse":
+            source, args = SOURCE, [ptr] * 5 + [i32] * 7 + [i64] * 12
+        elif name == "flash_attention_bwd_dq":
+            source, args = BWD_SOURCE, [ptr] * 7 + [i32] * 7 + [strides]
+        else:
+            source, args = BWD_SOURCE, [ptr] * 8 + [i32] * 7 + [strides]
+        fn = getattr(_build.load(source), name)
         fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
-                       + [ctypes.c_longlong] * 12 + [ctypes.c_float, ctypes.c_void_p])
-        _fn = fn
-    return _fn
+        fn.argtypes = args + [ctypes.c_float, ptr]
+        _fns[name] = fn
+    return _fns[name]
 
 
 def _check(q, k, v, kv_valid):
@@ -61,40 +98,106 @@ def _check(q, k, v, kv_valid):
 
 
 def _check_kernel(q, k, v, kv_valid):
-    """The kernel's contract: ``_check`` plus head_dim <= MAX_HEAD_DIM."""
+    """The kernels' contract: ``_check`` plus head_dim <= MAX_HEAD_DIM."""
     _check(q, k, v, kv_valid)
     if q.shape[-1] > MAX_HEAD_DIM:
         raise ValueError(f"head dim {q.shape[-1]} > {MAX_HEAD_DIM} is not supported")
+
+
+def _check_cuda(name, *xs):
+    if not all(x.is_cuda for x in xs):
+        raise ValueError(f"{name} needs CUDA tensors")
+    if xs[0].dtype not in _DTYPE_CODE:
+        raise ValueError(f"flash_attention supports float32 and bfloat16, got {xs[0].dtype}")
 
 
 def _n_actual(n_k: int, kv_valid: Optional[int]) -> int:
     return n_k if kv_valid is None else min(int(kv_valid), n_k)
 
 
-def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    kv_valid: Optional[int] = None,
-                    bias: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """The kernel's function in plain PyTorch: f32 logits scaled by
-    1/sqrt(D), plus ``bias`` (broadcastable to (B, H, Nq, Nk)) if given,
-    keys >= ``kv_valid`` masked to -1e30, softmax, P·V in f32, cast back to
-    the input dtype (``_reference`` of the JAX module with the kernel's
-    trailing-key mask). Any head_dim."""
-    _check(q, k, v, kv_valid)
-    d = q.shape[-1]
-    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) / math.sqrt(d)
+def _logits(q, k, kv_valid, bias=None) -> torch.Tensor:
+    """(B, H, Nq, Nk) f32 logits scaled by 1/sqrt(D), plus ``bias``, keys >=
+    ``kv_valid`` set to -1e30."""
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) / math.sqrt(q.shape[-1])
     if bias is not None:
         s = s + bias.float()
     n_act = _n_actual(k.shape[1], kv_valid)
     if n_act < k.shape[1]:
         s[..., n_act:] = -1e30
-    p = torch.softmax(s, dim=-1)
+    return s
+
+
+def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    kv_valid: Optional[int] = None,
+                    bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Kernel 1's function in plain PyTorch: f32 logits scaled by
+    1/sqrt(D), plus ``bias`` (broadcastable to (B, H, Nq, Nk)) if given,
+    keys >= ``kv_valid`` masked to -1e30, softmax, P·V in f32, cast back to
+    the input dtype (``_reference`` of the JAX module with the kernel's
+    trailing-key mask). Any head_dim; differentiable."""
+    _check(q, k, v, kv_valid)
+    p = torch.softmax(_logits(q, k, kv_valid, bias), dim=-1)
     return torch.einsum("bhqk,bkhd->bqhd", p, v.float()).to(q.dtype)
+
+
+def attention_plain_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        kv_valid: Optional[int] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Kernel 2's function: ``attention_plain``'s output (the same bits) and
+    the f32 log-sum-exp of each row's masked logits, (B, H, Nq) contiguous
+    (the JAX kernel's m + log(max(l, 1e-30)))."""
+    _check(q, k, v, kv_valid)
+    s = _logits(q, k, kv_valid)
+    o = torch.einsum("bhqk,bkhd->bqhd", torch.softmax(s, dim=-1), v.float()).to(q.dtype)
+    return o, torch.logsumexp(s, dim=-1)
+
+
+def attention_delta(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
+    """delta = rowsum(dO * O) in f32, (B, H, Nq) contiguous: what the JAX
+    package computes in XLA between its forward and backward kernels
+    (``flash_attention.py:414``)."""
+    return (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+
+
+def attention_plain_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+                        kv_valid: Optional[int] = None
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Kernels 3 and 4's function with the JAX kernels' arithmetic: f32
+    S = scale·QKᵀ, P = exp(S − lse) recomputed (keys >= ``kv_valid`` give
+    P = 0), dP = dO·Vᵀ, dS = P∘(dP − δ) rounded to the input dtype;
+    dQ = scale·dS·K, dK = scale·dSᵀ·Q, dV = P(rounded)ᵀ·dO, accumulated in f32
+    and cast to the input dtype. Returns (dq, dk, dv) shaped like q, k, v."""
+    _check(q, k, v, kv_valid)
+    dt = q.dtype
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    p = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()).mul_(scale)
+    p.sub_(lse.float()[..., None]).exp_()
+    n_act = _n_actual(k.shape[1], kv_valid)
+    if n_act < k.shape[1]:
+        p[..., n_act:] = 0.0
+    ds = torch.einsum("bqhd,bkhd->bhqk", do.float(), v.float())
+    ds.sub_(attention_delta(o, do)[..., None]).mul_(p)
+    ds = ds.to(dt).float()
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, k.float()).mul_(scale)
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.float()).mul_(scale)
+    del ds
+    dv = torch.einsum("bhqk,bqhd->bkhd", p.to(dt).float(), do.float())
+    return dq.to(dt), dk.to(dt), dv.to(dt)
+
+
+# Largest |kernel - plain| allowed for lse (f32 on both sides: the logits'
+# summation order and exp2 vs exp; a dropped key moves lse by its weight,
+# ~1/N = 3e-4 at the ViViT-B shape).
+LSE_TOL = 1e-4
+# f32 rounding slack relative to the absolute sums a gradient is made of.
+F32_REL = 2e-5
 
 
 def error_limit(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 kv_valid: Optional[int], ref: torch.Tensor,
                 f32_tol: float = 1e-4) -> torch.Tensor:
-    """Elementwise limit on |kernel - attention_plain| for the on-card checks.
+    """Elementwise limit on |kernel - attention_plain| for the on-card checks
+    of kernels 1 and 2's output.
 
     float32: ``f32_tol`` (TF32 off). bfloat16: the kernel rounds P to bf16
     for P.V, off by at most 2^-8 of sum(p |v|) / l, and both sides round
@@ -107,8 +210,38 @@ def error_limit(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return 2.0 ** -8 * p_abs_v + 2.0 ** -7 * ref.float().abs() + 1e-5
 
 
+def backward_error_limit(q, k, v, o, lse, do, kv_valid, refs):
+    """Elementwise limits on |kernel - attention_plain_bwd| for (dq, dk, dv).
+
+    Each gradient is a sum of products; A is the same sum over absolute
+    values (|dS| bounded by P·(|dO|·|V|ᵀ + |δ|), so it also covers dP's f32
+    error). Both sides round dS (and P for dV) to the input dtype at the
+    same place, but from f32 values that differ in the last bits, so a
+    bf16 rounding can land one ulp apart: at most 2^-7 of each term, 2^-7·A.
+    Both round their output: 2^-7·|ref|. f32 arithmetic: ``F32_REL``·A.
+    1e-6 absolute keeps exact zeros (masked keys) from dividing by zero.
+    float32 keeps the f32 terms only. ``refs`` = attention_plain_bwd(...)."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    qa, ka, va, da = (x.float().abs() for x in (q, k, v, do))
+    p = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()).mul_(scale)
+    p.sub_(lse.float()[..., None]).exp_()
+    n_act = _n_actual(k.shape[1], kv_valid)
+    if n_act < k.shape[1]:
+        p[..., n_act:] = 0.0
+    ds_abs = torch.einsum("bqhd,bkhd->bhqk", da, va)
+    ds_abs.add_(attention_delta(o, do).abs()[..., None]).mul_(p)
+    a_dq = torch.einsum("bhqk,bkhd->bqhd", ds_abs, ka).mul_(scale)
+    a_dk = torch.einsum("bhqk,bqhd->bkhd", ds_abs, qa).mul_(scale)
+    del ds_abs
+    a_dv = torch.einsum("bhqk,bqhd->bkhd", p, da)
+    rel = F32_REL if q.dtype == torch.float32 else 2.0 ** -7 + F32_REL
+    out_rel = 0.0 if q.dtype == torch.float32 else 2.0 ** -7
+    return tuple(rel * a + out_rel * r.float().abs() + 1e-6
+                 for a, r in zip((a_dq, a_dk, a_dv), refs))
+
+
 def _prepare(x: torch.Tensor, d_pad: int) -> torch.Tensor:
-    """Lay a (B, N, H, D) tensor out as the kernel reads it: unit head-dim
+    """Lay a (B, N, H, D) tensor out as the kernels read it: unit head-dim
     stride, D padded with zeros to a multiple of 8, every other stride a
     multiple of 8 elements and a 16-byte aligned base."""
     d = x.shape[-1]
@@ -119,45 +252,177 @@ def _prepare(x: torch.Tensor, d_pad: int) -> torch.Tensor:
     return x if ok else x.contiguous()
 
 
-def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                         kv_valid: Optional[int] = None) -> torch.Tensor:
-    """Launch the CUDA kernel on CUDA tensors; raises if it cannot."""
-    global launches
+def _head_dims(q):
+    """(D, D padded to a multiple of 8) of a launch."""
+    d = q.shape[-1]
+    return d, -(-d // 8) * 8
+
+
+def _stream(x):
+    return torch.cuda.current_stream(x.device).cuda_stream
+
+
+def _forward_cuda(name: str, q, k, v, kv_valid, with_lse: bool):
     _check_kernel(q, k, v, kv_valid)
-    if not (q.is_cuda and k.is_cuda and v.is_cuda):
-        raise ValueError("flash_attention_cuda needs CUDA tensors")
-    if q.dtype not in _DTYPE_CODE:
-        raise ValueError(f"flash_attention supports float32 and bfloat16, got {q.dtype}")
-    b, n_q, h, d = q.shape
+    _check_cuda(name, q, k, v)
+    b, n_q, h, _ = q.shape
     n_k = k.shape[1]
-    d_pad = -(-d // 8) * 8
+    d, d_pad = _head_dims(q)
     qp, kp, vp = (_prepare(x, d_pad) for x in (q, k, v))
     out = torch.empty((b, n_q, h, d_pad), dtype=q.dtype, device=q.device)
-    if n_q == 0:
-        return out[..., :d]
-    fn = _kernel()
+    lse = torch.empty((b, h, n_q), dtype=torch.float32, device=q.device) if with_lse else None
+    if n_q > 0:
+        ptrs = [qp.data_ptr(), kp.data_ptr(), vp.data_ptr(), out.data_ptr()]
+        if with_lse:
+            ptrs.append(lse.data_ptr())
+        with torch.cuda.device(q.device):
+            err = _kernel(name)(*ptrs, _DTYPE_CODE[q.dtype], b, n_q, n_k, h, d_pad,
+                                _n_actual(n_k, kv_valid), *qp.stride()[:3],
+                                *kp.stride()[:3], *vp.stride()[:3], *out.stride()[:3],
+                                1.0 / math.sqrt(d), _stream(q))
+        if err != 0:
+            raise RuntimeError(f"{name} launch failed: cudaError {err}")
+    out = out if d_pad == d else out[..., :d]
+    return (out, lse) if with_lse else out
+
+
+def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         kv_valid: Optional[int] = None) -> torch.Tensor:
+    """Kernel 1 on CUDA tensors; raises if it cannot launch."""
+    global launches
+    out = _forward_cuda("flash_attention_fwd", q, k, v, kv_valid, with_lse=False)
+    if q.shape[1] > 0:
+        launches += 1
+    return out
+
+
+def flash_attention_lse_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                             kv_valid: Optional[int] = None
+                             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Kernel 2 on CUDA tensors: (o, lse), lse f32 (B, H, Nq); raises if it
+    cannot launch."""
+    global lse_launches
+    out = _forward_cuda("flash_attention_fwd_lse", q, k, v, kv_valid, with_lse=True)
+    if q.shape[1] > 0:
+        lse_launches += 1
+    return out
+
+
+def _backward_launch(name, q, k, v, do, lse, delta, outs, kv_valid):
+    b, n_q, h, _ = q.shape
+    n_k = k.shape[1]
+    d, d_pad = _head_dims(q)
+    qp, kp, vp, dop = (_prepare(x, d_pad) for x in (q, k, v, do))
+    if lse.shape != (b, h, n_q) or delta.shape != (b, h, n_q):
+        raise ValueError(f"lse and delta must be (B, H, Nq) = {(b, h, n_q)}")
+    lse = lse.float().contiguous()
+    delta = delta.float().contiguous()
+    strides = [s for x in (qp, kp, vp, dop, *outs) for s in x.stride()[:3]]
+    st = (ctypes.c_longlong * len(strides))(*strides)
     with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = fn(qp.data_ptr(), kp.data_ptr(), vp.data_ptr(), out.data_ptr(),
-                 _DTYPE_CODE[q.dtype], b, n_q, n_k, h, d_pad, _n_actual(n_k, kv_valid),
-                 *qp.stride()[:3], *kp.stride()[:3], *vp.stride()[:3],
-                 *out.stride()[:3], 1.0 / math.sqrt(d), stream)
+        err = _kernel(name)(qp.data_ptr(), kp.data_ptr(), vp.data_ptr(), dop.data_ptr(),
+                            lse.data_ptr(), delta.data_ptr(), *(o.data_ptr() for o in outs),
+                            _DTYPE_CODE[q.dtype], b, n_q, n_k, h, d_pad,
+                            _n_actual(n_k, kv_valid), st, 1.0 / math.sqrt(d), _stream(q))
     if err != 0:
-        raise RuntimeError(f"flash_attention_fwd launch failed: cudaError {err}")
-    launches += 1
-    return out if d_pad == d else out[..., :d]
+        raise RuntimeError(f"{name} launch failed: cudaError {err}")
+
+
+def flash_attention_dq_cuda(q, k, v, do, lse, delta, kv_valid=None) -> torch.Tensor:
+    """Kernel 3 on CUDA tensors: dq shaped like q; raises if it cannot launch."""
+    global dq_launches
+    _check_kernel(q, k, v, kv_valid)
+    _check_cuda("flash_attention_bwd_dq", q, k, v, do, lse, delta)
+    d, d_pad = _head_dims(q)
+    dq = torch.empty((*q.shape[:3], d_pad), dtype=q.dtype, device=q.device)
+    if q.shape[1] > 0 and k.shape[1] > 0:
+        _backward_launch("flash_attention_bwd_dq", q, k, v, do, lse, delta, (dq,), kv_valid)
+        dq_launches += 1
+    else:
+        dq.zero_()
+    return dq if d_pad == d else dq[..., :d]
+
+
+def flash_attention_dkv_cuda(q, k, v, do, lse, delta, kv_valid=None
+                             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Kernel 4 on CUDA tensors: (dk, dv) shaped like k; raises if it cannot
+    launch."""
+    global dkv_launches
+    _check_kernel(q, k, v, kv_valid)
+    _check_cuda("flash_attention_bwd_dkv", q, k, v, do, lse, delta)
+    d, d_pad = _head_dims(q)
+    dk, dv = (torch.empty((*k.shape[:3], d_pad), dtype=k.dtype, device=k.device)
+              for _ in range(2))
+    if q.shape[1] > 0 and k.shape[1] > 0:
+        _backward_launch("flash_attention_bwd_dkv", q, k, v, do, lse, delta, (dk, dv),
+                         kv_valid)
+        dkv_launches += 1
+    else:
+        dk.zero_()
+        dv.zero_()
+    return (dk, dv) if d_pad == d else (dk[..., :d], dv[..., :d])
+
+
+def _on_cpu(q) -> bool:
+    if q.is_cuda:
+        return False
+    if q.device.type != "cpu":
+        raise ValueError(f"flash_attention runs on CUDA or CPU, got {q.device}")
+    return True
+
+
+def flash_attention_lse(q, k, v, kv_valid=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(o, lse): kernel 2 on CUDA, ``attention_plain_lse`` on the CPU."""
+    _check_kernel(q, k, v, kv_valid)
+    if _on_cpu(q):
+        return attention_plain_lse(q, k, v, kv_valid)
+    return flash_attention_lse_cuda(q, k, v, kv_valid)
+
+
+def flash_attention_bwd(q, k, v, o, lse, do, kv_valid=None):
+    """(dq, dk, dv): delta in PyTorch, then kernels 3 and 4 on CUDA;
+    ``attention_plain_bwd`` on the CPU."""
+    _check_kernel(q, k, v, kv_valid)
+    if _on_cpu(q):
+        return attention_plain_bwd(q, k, v, o, lse, do, kv_valid)
+    delta = attention_delta(o, do)
+    dq = flash_attention_dq_cuda(q, k, v, do, lse, delta, kv_valid)
+    dk, dv = flash_attention_dkv_cuda(q, k, v, do, lse, delta, kv_valid)
+    return dq, dk, dv
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """Attention with the flash backward: the port's counterpart of the JAX
+    ``custom_vjp``. Forward: kernel 2, saving (q, k, v, o, lse); backward:
+    delta, kernel 3 (dq) and kernel 4 (dk, dv). Plain twins on the CPU."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kv_valid):
+        o, lse = flash_attention_lse(q, k, v, kv_valid)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.kv_valid = kv_valid
+        return o
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do, ctx.kv_valid)
+        return dq, dk, dv, None
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     kv_valid: Optional[int] = None) -> torch.Tensor:
     """Scaled dot-product attention over (B, Nq, H, D) x (B, Nk, H, D).
 
-    CPU tensors take ``attention_plain``; CUDA tensors take the kernel (no
-    fallback: a failed build or launch raises). ``kv_valid`` masks keys at
-    index >= kv_valid out of the softmax."""
+    Under autograd (grad enabled and q, k or v requiring grad) it runs
+    ``FlashAttentionFn`` (kernels 2-4); otherwise kernel 1. CPU tensors take
+    the plain twins; CUDA tensors take the kernels (no fallback: a failed
+    build or launch raises). ``kv_valid`` masks keys at index >= kv_valid
+    out of the softmax."""
     _check_kernel(q, k, v, kv_valid)
-    if q.is_cuda:
-        return flash_attention_cuda(q, k, v, kv_valid)
-    if q.device.type != "cpu":
-        raise ValueError(f"flash_attention runs on CUDA or CPU, got {q.device}")
-    return attention_plain(q, k, v, kv_valid)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return FlashAttentionFn.apply(q, k, v, kv_valid)
+    if _on_cpu(q):
+        return attention_plain(q, k, v, kv_valid)
+    return flash_attention_cuda(q, k, v, kv_valid)

@@ -1,0 +1,107 @@
+"""Train / eval step factories (counterpart of ``laryngeal_tpu/train/steps.py``).
+
+One call per batch runs, eagerly on the model's device: uint8 (B, T, H, W, C)
+batch -> ``decode_wire_batch`` -> ``batch_preprocess`` -> model -> masked
+loss -> backward -> optimizer step, and returns ``{loss, correct, count,
+probs}`` as device tensors, so the caller can keep them on the device until
+the epoch's end. Under autograd every attention call of the model goes
+through ``FlashAttentionFn`` (kernels 2-4 on the card); the eval step runs
+under ``torch.inference_mode`` and takes kernel 1.
+
+The ViViT regime draws no augmentation (``steps.py:89-90`` of the JAX
+package) and ViViT has no dropout, so the train step is deterministic. Ported:
+one device and the rgb wire. Gradient accumulation, the mesh / tensor-parallel
+arguments and the non-rgb wires raise, and so does preprocessing for any
+regime but vivit.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Dict, Tuple
+
+import numpy as np
+import torch
+
+from ..preprocess.transforms import batch_preprocess, decode_wire_batch
+from .losses import make_loss_fn, probs_fn
+from .state import TrainState
+
+
+def _check_ported(mesh, tp: bool, grad_accum: int, wire: str) -> None:
+    if grad_accum < 1:
+        raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
+    unported = {
+        "grad_accum > 1": grad_accum > 1,
+        "a device mesh": mesh is not None,
+        "tensor parallelism (tp)": tp,
+        f"wire format {wire!r}": wire != "rgb",
+    }
+    for what, asked in unported.items():
+        if asked:
+            raise NotImplementedError(
+                f"{what} is not yet ported to laryngeal_tpu_torch, see ROADMAP.md")
+
+
+def _metrics(loss_val, logits, labels, mask, get_probs) -> Dict[str, torch.Tensor]:
+    probs = get_probs(logits.detach())
+    preds = probs.argmax(-1)
+    valid = mask.float()
+    return {"loss": loss_val.detach(), "correct": ((preds == labels.long()) * valid).sum(),
+            "count": valid.sum(), "probs": probs}
+
+
+def make_train_step(model: torch.nn.Module, regime: str, loss: str, pos_weight: float = 1.0,
+                    mesh=None, crop: int = 224, tp: bool = False, grad_accum: int = 1,
+                    wire: str = "rgb") -> Callable:
+    """Returns train_step(state, pixel_u8, labels, mask) -> (state, metrics).
+
+    ``state`` holds ``model`` and its optimizer; the step updates both in
+    place and counts ``state.step``."""
+    _check_ported(mesh, tp, grad_accum, wire)
+    loss_fn = make_loss_fn(loss, pos_weight)
+    get_probs = probs_fn(loss)
+
+    def step(state: TrainState, pixel_u8, labels, mask):
+        model.train()
+        clips = batch_preprocess(decode_wire_batch(pixel_u8, wire), regime, train=False,
+                                 crop=crop)
+        logits = model(clips)
+        loss_val = loss_fn(logits, labels, mask)
+        state.optimizer.zero_grad(set_to_none=True)
+        loss_val.backward()
+        state.optimizer.step()
+        state.step += 1
+        return state, _metrics(loss_val, logits, labels, mask, get_probs)
+
+    return step
+
+
+def make_eval_step(model: torch.nn.Module, regime: str, loss: str, pos_weight: float = 1.0,
+                   mesh=None, crop: int = 224, tp: bool = False,
+                   wire: str = "rgb") -> Callable:
+    """Returns eval_step(state, pixel_u8, labels, mask) -> metrics (incl. probs)."""
+    _check_ported(mesh, tp, 1, wire)
+    loss_fn = make_loss_fn(loss, pos_weight)
+    get_probs = probs_fn(loss)
+
+    @torch.inference_mode()
+    def step(state: TrainState, pixel_u8, labels, mask):
+        model.eval()
+        clips = batch_preprocess(decode_wire_batch(pixel_u8, wire), regime, train=False,
+                                 crop=crop)
+        logits = model(clips)
+        return _metrics(loss_fn(logits, labels, mask), logits, labels, mask, get_probs)
+
+    return step
+
+
+def prepare_batch(batch: Dict, device) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Host batch dict -> (pixel_u8, labels, mask) tensors on ``device``."""
+    pixel = batch["pixel_values"]
+    if not isinstance(pixel, np.ndarray):
+        raise NotImplementedError(
+            "wire-format payload tuples are not yet ported to laryngeal_tpu_torch, "
+            "see ROADMAP.md")
+    return (torch.from_numpy(pixel).to(device),
+            torch.from_numpy(np.asarray(batch["labels"], np.int64)).to(device),
+            torch.from_numpy(np.asarray(batch["mask"], np.bool_)).to(device))

@@ -1,4 +1,5 @@
-"""Port tests that need the card: the CUDA kernel against its plain version.
+"""Port tests that need the card: the CUDA kernels against their plain
+versions, gradients through them, and the training step on the card.
 
 They skip on a machine without CUDA. On the card, run them with
 ``python -m pytest --noconftest -p no:cacheprovider tests/test_torch_gpu.py``
@@ -132,3 +133,120 @@ def test_predictor_on_card_matches_cpu(cuda):
     probs = card.predict_clip(clip)
     assert fa.launches == before + 2
     np.testing.assert_allclose(probs, cpu.predict_clip(clip), atol=1e-4)
+
+
+# -- kernels 2-4: the training path --------------------------------------
+
+
+def _grad_inputs(shape, dtype, device, seed=0):
+    b, nq, nk, h, d, _ = shape
+    q, k, v = _qkv((b, nq, h, d), (b, nk, h, d), dtype, device, seed)
+    g = torch.from_numpy(np.random.default_rng(seed + 100).standard_normal(
+        (b, nq, h, d), dtype=np.float32)).to(device=device, dtype=dtype)
+    return q, k, v, g
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", SHAPES)
+def test_lse_kernel_matches_plain(cuda, shape, dtype):
+    b, nq, nk, h, d, kv_valid = shape
+    q, k, v = _qkv((b, nq, h, d), (b, nk, h, d), dtype, cuda)
+    before = fa.lse_launches
+    out, lse = fa.flash_attention_lse(q, k, v, kv_valid)
+    torch.cuda.synchronize()
+    assert fa.lse_launches == before + 1
+    assert out.dtype == dtype and lse.shape == (b, h, nq) and lse.dtype == torch.float32
+    ref, ref_lse = fa.attention_plain_lse(q, k, v, kv_valid)
+    assert _within_limit(q, k, v, kv_valid, out, ref) <= 1.0
+    assert (lse - ref_lse).abs().max().item() <= fa.LSE_TOL
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", SHAPES)
+def test_backward_kernels_match_plain(cuda, shape, dtype):
+    b, nq, nk, h, d, kv_valid = shape
+    q, k, v, g = _grad_inputs(shape, dtype, cuda)
+    o, lse = fa.attention_plain_lse(q, k, v, kv_valid)
+    before = (fa.dq_launches, fa.dkv_launches)
+    grads = fa.flash_attention_bwd(q, k, v, o, lse, g, kv_valid)
+    torch.cuda.synchronize()
+    assert (fa.dq_launches, fa.dkv_launches) == (before[0] + 1, before[1] + 1)
+    refs = fa.attention_plain_bwd(q, k, v, o, lse, g, kv_valid)
+    limits = fa.backward_error_limit(q, k, v, o, lse, g, kv_valid, refs)
+    for name, got, ref, lim in zip(("dq", "dk", "dv"), grads, refs, limits):
+        assert got.dtype == dtype and got.shape == ref.shape, name
+        use = ((got.float() - ref.float()).abs() / lim).max().item()
+        assert use <= 1.0, (name, use)
+    if kv_valid is not None and kv_valid < nk:
+        assert torch.count_nonzero(grads[1][:, kv_valid:]) == 0
+        assert torch.count_nonzero(grads[2][:, kv_valid:]) == 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_autograd_carries_gradients_through_the_kernels(cuda, dtype):
+    """A CUDA attention call under autograd gives q, k and v gradients,
+    through kernels 2-4 (not kernel 1), matching the plain attention's."""
+    shape = (2, 300, 300, 3, 32, 250)
+    q, k, v, g = _grad_inputs(shape, dtype, cuda, seed=4)
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    counts = fa.launch_counts()
+    out = fa.flash_attention(*leaves, kv_valid=250)
+    (out.float() * g.float()).sum().backward()
+    torch.cuda.synchronize()
+    after = fa.launch_counts()
+    assert {n: after[n] - counts[n] for n in after} == {
+        "flash_attention_fwd": 0, "flash_attention_fwd_lse": 1,
+        "flash_attention_bwd_dq": 1, "flash_attention_bwd_dkv": 1}
+    plain = [x.clone().requires_grad_() for x in (q, k, v)]
+    (fa.attention_plain(*plain, kv_valid=250).float() * g.float()).sum().backward()
+    o, lse = fa.attention_plain_lse(q, k, v, 250)
+    refs = fa.attention_plain_bwd(q, k, v, o, lse, g, 250)
+    limits = fa.backward_error_limit(q, k, v, o, lse, g, 250, refs)
+    for x, p, lim in zip(leaves, plain, limits):
+        assert x.grad is not None and torch.isfinite(x.grad).all()
+        if dtype == torch.float32:
+            assert ((x.grad - p.grad).abs() / lim).max().item() <= 1.0
+        else:  # the bf16 plain autograd rounds elsewhere: same direction, loose
+            cos = torch.nn.functional.cosine_similarity(
+                x.grad.float().flatten(), p.grad.float().flatten(), dim=0)
+            assert cos.item() > 0.99
+
+
+def test_train_step_on_card_launches_kernels_2_to_4(cuda):
+    """A tiny ViViT train step on the card: 2 launches each of kernels 2-4
+    and none of kernel 1 (2 layers); the eval step launches kernel 1 twice.
+    Loss and updated weights agree with the same step on the CPU (f32)."""
+    from laryngeal_tpu_torch.train.state import create_train_state
+    from laryngeal_tpu_torch.train.steps import make_eval_step, make_train_step
+
+    rng = np.random.default_rng(5)
+    pix = torch.from_numpy(rng.integers(0, 256, (2, 16, 128, 128, 3), dtype=np.uint8))
+    labels, mask = torch.tensor([0, 1]), torch.tensor([True, True])
+    results = {}
+    for dev in ("cpu", cuda):
+        model = _tiny_vivit(torch.float32).to(dev)
+        state = create_train_state(model, "adamw", 1e-3, 0.01)
+        step = make_train_step(model, "vivit", "ce", crop=128)
+        before = fa.launch_counts()
+        state, m = step(state, pix.to(dev), labels.to(dev), mask.to(dev))
+        if dev == cuda:
+            torch.cuda.synchronize()
+            after = fa.launch_counts()
+            assert {k: after[k] - before[k] for k in after} == {
+                "flash_attention_fwd": 0, "flash_attention_fwd_lse": 2,
+                "flash_attention_bwd_dq": 2, "flash_attention_bwd_dkv": 2}
+            before = after
+            make_eval_step(model, "vivit", "ce", crop=128)(state, pix.to(dev), labels.to(dev),
+                                                           mask.to(dev))
+            torch.cuda.synchronize()
+            after = fa.launch_counts()
+            assert after["flash_attention_fwd"] - before["flash_attention_fwd"] == 2
+            assert after["flash_attention_fwd_lse"] == before["flash_attention_fwd_lse"]
+        results[str(dev)] = (m["loss"].item(), {n: p.detach().cpu() for n, p in
+                                                model.state_dict().items()})
+    (loss_c, w_c), (loss_g, w_g) = results["cpu"], results[str(cuda)]
+    assert abs(loss_c - loss_g) <= 1e-4 * max(1.0, abs(loss_c))
+    for n, w in w_c.items():
+        if n.endswith("attention.attention.key.bias"):
+            continue  # its gradient is round-off (softmax is shift-invariant)
+        assert ((w_g[n] - w).norm() / w.norm()).item() <= 1e-4, n
