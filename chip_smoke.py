@@ -38,11 +38,33 @@ Phases, in order; any failure ends the run with a non-zero exit:
    training_history.json and test_metrics_uniform.json exist;
    ``Predictor.from_checkpoint`` serves best_model/ in f32 through kernel 1.
    The directory is deleted at the end.
+7. (run after 2b) Kernels 6-7, TimeSformer's short-sequence attention: the
+   forward and the backward against their plain twins
+   (``short_attention_plain``, ``short_attention_plain_bwd``) at the two
+   TimeSformer-B shapes (temporal (1568, 32, 12, 64), spatial
+   (256, 197, 12, 64), views of a fused qkv) in bf16 and f32, and at N from
+   1 to 511 with D from 16 to 128 and odd B*H, each under its elementwise
+   limit; timed beside the plain twins, their bounds and
+   ``F.scaled_dot_product_attention``'s forward and autograd backward.
+7b. The routing decision's data: kernel 1, and the flash training pair
+   (kernel 2; delta and kernels 3-4), timed at the same two shapes.
+8. TimeSformer-B serving at full width: a 32-frame 224^2 Predictor in bf16,
+   seeded weights, a (8, 32, 224, 224, 3) uint8 batch: probabilities finite
+   and summing to 1, exactly 24 launches of kernel 6 and none of kernels 1-4
+   per forward, logits against the same model on the plain attention in
+   bf16 and (two clips) f32; an InferenceServer round trip.
+9. TimeSformer-B training at full width, B=8, bf16 compute: 24 launches
+   each of kernels 6 and 7 and none of kernels 1-4 per step, 24 of kernel 6
+   per eval step; loss finite; step time, clips/s, stages, peak memory. Then
+   every parameter's gradient at B=2, kernels against plain attention.
+10. ``cli.main --model timesformer --bf16``: 1 epoch, ``--resume auto`` for
+   a second, ``Predictor.from_checkpoint("timesformer", best_model)``.
 
-The launch counts are set to 0 before the serving path (3-4) and before the
-training path (5-6) and read after each. The second-to-last line of output
-is ``{"kernels": [...]}``; the last is ``{"ok": true, "device": {...}}``.
-Decode is skipped in 3-5 (clips are uint8 arrays); phase 6 decodes mp4s.
+The launch counts are set to 0 before each path (ViViT serving 3-4, ViViT
+training 5-6, TimeSformer serving 8, TimeSformer training 9-10) and read
+after it. The second-to-last line of output is ``{"kernels": [...]}``; the
+last is ``{"ok": true, "device": {...}}``. Decode is skipped in 3-5 and 8-9
+(clips are uint8 arrays); phases 6 and 10 decode mp4s.
 """
 
 from __future__ import annotations
@@ -66,6 +88,9 @@ import torch
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 PEAK_BYTES_PER_S = 3.35e12
 VIVIT_B = dict(B=8, N=3137, H=12, D=64)
+# TimeSformer-B 32f 224^2 at B=8: the temporal (B*196 sequences of T=32) and
+# spatial (B*32 sequences of 1+196) attention calls of every layer.
+TS_SHAPES = {"temporal": (8 * 196, 32, 12, 64), "spatial": (8 * 32, 197, 12, 64)}
 F32_TOL = 1e-4  # f32 kernel vs plain, absolute (TF32 off)
 # Model logits, kernel vs plain attention, absolute, scaled by max(1, max |logit|).
 LOGIT_TOL = {torch.bfloat16: 3e-2, torch.float32: 1e-4}
@@ -88,6 +113,22 @@ def card_line() -> str:
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
+
+
+def launch_counts() -> dict:
+    """Every kernel's launches since the counts were last set to 0."""
+    from laryngeal_tpu_torch.ops import flash_attention as fa
+    from laryngeal_tpu_torch.ops import short_attention as sa
+
+    return {**fa.launch_counts(), **sa.launch_counts()}
+
+
+def reset_launches() -> None:
+    from laryngeal_tpu_torch.ops import flash_attention as fa
+    from laryngeal_tpu_torch.ops import short_attention as sa
+
+    fa.reset_launches()
+    sa.reset_launches()
 
 
 def build_kernels():
@@ -298,10 +339,10 @@ def check_training_kernels():
     return entries
 
 
-def check_logits(label, logits, logits_plain, tol):
+def check_logits(label, logits, logits_plain, tol, model="vivit-b"):
     scale = max(1.0, logits_plain.abs().max().item())
     err = (logits.float() - logits_plain.float()).abs().max().item()
-    log(f"vivit-b {label} logits kernel vs plain attention: max_abs_err {err:.3e} "
+    log(f"{model} {label} logits kernel vs plain attention: max_abs_err {err:.3e} "
         f"(tol {tol:g} x {scale:.3f})")
     if not (np.isfinite(err) and err <= tol * scale):
         raise AssertionError(f"{label} model logits with the kernel disagree with "
@@ -432,10 +473,20 @@ def main_path() -> dict:
     np.testing.assert_allclose(rows[:8], probs, atol=2e-2)
     log(f"server: {n_req} clips in {stats['batches']} batches "
         f"(mean fill {stats['mean_batch_fill']:.2f}) in {serve_s:.2f} s")
-    counts = fa.launch_counts()
+    counts = launch_counts()
     if any(counts[k] for k in counts if k != "flash_attention_fwd"):
-        raise AssertionError(f"the serving path launched a training kernel: {counts}")
+        raise AssertionError(f"the ViViT serving path launched another kernel than kernel 1: "
+                             f"{counts}")
     return counts
+
+
+def launched(fn):
+    """Run ``fn``, synchronise; returns (its result, each kernel's launches
+    during it)."""
+    before = launch_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {k: v - before[k] for k, v in launch_counts().items()}
 
 
 def vivit_train_flops(cfg, batch: int) -> float:
@@ -449,20 +500,33 @@ def vivit_train_flops(cfg, batch: int) -> float:
     return 3.0 * batch * (embed + cfg.num_layers * layer)
 
 
-def grad_check(pixel, labels, dtype):
+def vivit_key_free(name, grad):
+    """ViViT's gradients without the key biases (round-off, see GRAD_TOL)."""
+    return None if name.endswith("attention.attention.key.bias") else grad
+
+
+def timesformer_key_free(name, grad):
+    """TimeSformer's gradients without the key slice [D, 2D) of each fused
+    qkv bias (round-off, see GRAD_TOL)."""
+    if name.endswith("attention.attention.qkv.bias"):
+        d = grad.shape[0] // 3
+        return torch.cat([grad[:d], grad[2 * d:]])
+    return grad
+
+
+def grad_check(make_model, pixel, labels, dtype, key_free=vivit_key_free, label="vivit-b"):
     """Every parameter's gradient at full width and depth, with the kernels
     against the same model on the plain attention (relative L2)."""
-    from laryngeal_tpu_torch.models.vivit import create_vivit
     from laryngeal_tpu_torch.ops import attention as att
     from laryngeal_tpu_torch.train.losses import cross_entropy
 
-    model = create_vivit(num_classes=2, num_frames=32, image_size=224, dtype=dtype,
-                         seed=1).cuda().train()
+    model = make_model(dtype).cuda().train()
 
     def grads():
         model.zero_grad(set_to_none=True)
         cross_entropy(model(pixel), labels).backward()
-        return {n: p.grad.float() for n, p in model.named_parameters()}
+        out = {n: key_free(n, p.grad.float()) for n, p in model.named_parameters()}
+        return {n: g for n, g in out.items() if g is not None}
 
     with_kernels = grads()
     att.set_attention_impl("plain")
@@ -470,7 +534,7 @@ def grad_check(pixel, labels, dtype):
         plain = grads()
     finally:
         att.set_attention_impl(None)
-    names = [n for n in plain if not n.endswith("attention.attention.key.bias")]
+    names = list(plain)
     num = math.sqrt(sum(((with_kernels[n] - plain[n]) ** 2).sum().item() for n in names))
     den = math.sqrt(sum((plain[n] ** 2).sum().item() for n in names))
     per = {n: ((with_kernels[n] - plain[n]).norm() / plain[n].norm().clamp_min(1e-30)).item()
@@ -479,7 +543,7 @@ def grad_check(pixel, labels, dtype):
     finite = all(torch.isfinite(g).all().item() for g in with_kernels.values())
     tol_all, tol_each = GRAD_TOL[dtype]
     ok = finite and num / den <= tol_all and (tol_each is None or per[worst] <= tol_each)
-    log(f"vivit-b {str(dtype)[6:]} gradients B=2, kernels vs plain attention: relative L2 "
+    log(f"{label} {str(dtype)[6:]} gradients B=2, kernels vs plain attention: relative L2 "
         f"{num / den:.3e} over {len(names)} tensors (tol {tol_all:g}), worst tensor "
         f"{worst} {per[worst]:.3e} (tol {tol_each}) {'ok' if ok else 'FAIL'}")
     if not ok:
@@ -510,16 +574,11 @@ def training_path(kernel_ms: dict) -> None:
     mask = torch.ones(b, dtype=torch.bool, device="cuda")
     pixel_u8 = torch.from_numpy(clips).cuda()
 
-    def launched(fn):
-        before = fa.launch_counts()
-        out = fn()
-        torch.cuda.synchronize()
-        return out, {k: v - before[k] for k, v in fa.launch_counts().items()}
-
     # -- phase 5: launches per step, loss, timing --
     (state, m), per_step = launched(lambda: step(state, pixel_u8, labels, mask))
     want = {"flash_attention_fwd": 0, "flash_attention_fwd_lse": n_layers,
-            "flash_attention_bwd_dq": n_layers, "flash_attention_bwd_dkv": n_layers}
+            "flash_attention_bwd_dq": n_layers, "flash_attention_bwd_dkv": n_layers,
+            "short_attention_fwd": 0, "short_attention_bwd": 0}
     if per_step != want:
         raise AssertionError(f"launches per train step {per_step}, want {want}")
     em, per_eval = launched(lambda: eval_step(state, pixel_u8, labels, mask))
@@ -578,8 +637,10 @@ def training_path(kernel_ms: dict) -> None:
     torch.cuda.empty_cache()
 
     pixel2 = batch_preprocess(pixel_u8[:2], "vivit", crop=224)
+    make = lambda dt: create_vivit(num_classes=2, num_frames=32, image_size=224, dtype=dt,
+                                   seed=1)
     for dtype in (torch.float32, torch.bfloat16):
-        grad_check(pixel2, labels[:2], dtype)
+        grad_check(make, pixel2, labels[:2], dtype)
     del pixel_u8, pixel2
     torch.cuda.empty_cache()
 
@@ -631,6 +692,370 @@ def training_path(kernel_ms: dict) -> None:
     torch.cuda.empty_cache()
 
 
+def fused_qkv(shape, dtype, seed):
+    """q, k, v as views of one fused (B, N, 3, H, D) tensor (TimeSformer's
+    qkv projection), and an output gradient g, on the card."""
+    b, n, h, d = shape
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    fused = torch.randn((b, n, 3, h, d), generator=gen, device="cuda").to(dtype)
+    g = torch.randn((b, n, h, d), generator=gen, device="cuda").to(dtype)
+    return (*fused.unbind(2), g)
+
+
+def short_bound_ms(shape, dtype, backward: bool):
+    """Kernel 6: two (N x N x D) products per head, q/k/v read and o written
+    once (4 tensors). Kernel 7: five products, q/k/v/g read and dq/dk/dv
+    written once (7 tensors)."""
+    b, n, h, d = shape
+    if backward:
+        return kernel_bound_ms(b, n, n, h, d, dtype, 5, 3, 4, 0)
+    return kernel_bound_ms(b, n, n, h, d, dtype, 2, 2, 2, 0)
+
+
+def check_short_kernels():
+    """Phases 7 and 7b: kernels 6-7 vs their plain twins on the card, across
+    the router's domain; timings at the TimeSformer-B shapes beside the
+    twins, the bounds, sdpa, and kernel 1 and the flash training pair (the
+    routing decision's data). Returns {entry name: numbers}."""
+    import torch.nn.functional as F
+
+    from laryngeal_tpu_torch.ops import flash_attention as fa
+    from laryngeal_tpu_torch.ops import short_attention as sa
+
+    entries = {"short_attention_fwd": {}, "short_attention_bwd": {}}
+    worst = {"short_attention_fwd": [0.0, 0.0], "short_attention_bwd": [0.0, 0.0]}
+    # (name, (B, N, H, D)): the TimeSformer-B shapes, then N in 1..511 and D
+    # in 16..128 (40 is padded to 48 inside the wrapper), odd B*H.
+    cases = list(TS_SHAPES.items()) + [
+        ("n1_d64", (3, 1, 5, 64)), ("n5_d16", (5, 5, 3, 16)), ("n33_d40", (3, 33, 5, 40)),
+        ("n300_d128", (1, 300, 3, 128)), ("n511_d64", (1, 511, 3, 64)),
+        ("n511_d128", (3, 511, 1, 128)), ("n100_d16", (7, 100, 3, 16))]
+    for dtype in (torch.bfloat16, torch.float32):
+        tag = str(dtype)[6:]
+        for seed, (name, shape) in enumerate(cases):
+            q, k, v, g = fused_qkv(shape, dtype, 30 + seed)
+            out = sa.short_attention_fwd_cuda(q, k, v)
+            ref = sa.short_attention_plain(q, k, v)
+            diff = (out.float() - ref.float()).abs()
+            use_f = (diff / sa.error_limit(q, k, v, ref, F32_TOL)).max().item()
+            err_f = diff.max().item()
+            del diff, out, ref
+            grads = sa.short_attention_bwd_cuda(q, k, v, g)
+            refs = sa.short_attention_plain_bwd(q, k, v, g)
+            uses, errs = [], []
+            for got, ref_g, lim in zip(grads, refs, sa.backward_error_limit(q, k, v, g, refs)):
+                diff = (got.float() - ref_g.float()).abs()
+                uses.append((diff / lim).max().item())
+                errs.append(diff.max().item())
+            del grads, refs, diff
+            ok = max([use_f] + uses) <= 1.0 and all(math.isfinite(x) for x in [err_f] + errs)
+            log(f"short attention {name} {shape} {tag}: fwd max_abs_err {err_f:.3e} "
+                f"(|err|/limit {use_f:.3f}); dq/dk/dv max_abs_err {errs[0]:.3e}/{errs[1]:.3e}/"
+                f"{errs[2]:.3e}, |err|/limit {uses[0]:.3f}/{uses[1]:.3f}/{uses[2]:.3f} "
+                f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"kernels 6-7 disagree with their plain twins: {name} {tag}")
+            if dtype == torch.bfloat16:
+                for e, (err, use) in (("short_attention_fwd", (err_f, use_f)),
+                                      ("short_attention_bwd", (max(errs), max(uses)))):
+                    worst[e] = [max(worst[e][0], err), max(worst[e][1], use)]
+            if name not in TS_SHAPES:
+                del q, k, v, g
+                continue
+            ms6 = cuda_time_ms(lambda: sa.short_attention_fwd_cuda(q, k, v))
+            ms7 = cuda_time_ms(lambda: sa.short_attention_bwd_cuda(q, k, v, g))
+            plain6 = cuda_time_ms(lambda: sa.short_attention_plain(q, k, v), reps=3, warmup=1)
+            plain7 = cuda_time_ms(lambda: sa.short_attention_plain_bwd(q, k, v, g), reps=3,
+                                  warmup=1)
+            qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
+            gt = g.transpose(1, 2)
+            lib6 = cuda_time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt))
+            lib_out = F.scaled_dot_product_attention(qt, kt, vt)
+            lib7 = cuda_time_ms(
+                lambda: torch.autograd.grad(lib_out, (qt, kt, vt), gt, retain_graph=True))
+            del lib_out, qt, kt, vt, gt
+            # 7b: what the flash kernels cost at the same shape.
+            ms1 = cuda_time_ms(lambda: fa.flash_attention_cuda(q, k, v))
+            ms2 = cuda_time_ms(lambda: fa.flash_attention_lse_cuda(q, k, v))
+            o, lse = fa.flash_attention_lse_cuda(q, k, v)
+            ms34 = cuda_time_ms(lambda: fa.flash_attention_bwd(q, k, v, o, lse, g))
+            del o, lse
+            log(f"routing data {name} {shape} {tag}: forward kernel 6 {ms6:.4f} ms vs kernel 1 "
+                f"{ms1:.4f} ms; training forward kernel 6 {ms6:.4f} vs kernel 2 {ms2:.4f} ms; "
+                f"backward kernel 7 {ms7:.4f} vs delta + kernels 3-4 {ms34:.4f} ms")
+            for e, ms, plain_ms, lib_ms, backward in (
+                    ("short_attention_fwd", ms6, plain6, lib6, False),
+                    ("short_attention_bwd", ms7, plain7, lib7, True)):
+                bound_ms, bound_by = short_bound_ms(shape, dtype, backward)
+                numbers = dict(shape=list(shape), ms=ms, kernel_ms=ms, plain_ms=plain_ms,
+                               bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms)
+                if backward:
+                    numbers["flash_bwd_ms"] = ms34
+                else:
+                    numbers.update(flash_fwd_ms=ms1, flash_fwd_lse_ms=ms2)
+                log(f"{e} {name} {tag}: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, sdpa "
+                    f"{lib_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
+                    f"{bound_ms / ms:.3f} of the bound")
+                key = name if dtype == torch.bfloat16 else f"{name}_f32"
+                entries[e][key] = numbers
+            del q, k, v, g
+            torch.cuda.empty_cache()
+    tol = ("bf16: short_attention.error_limit / backward_error_limit (one-ulp bf16 rounding "
+           f"flips, elementwise); f32: {F32_TOL:g} (o), F32_REL*A (grads)")
+    for e, nums in entries.items():
+        # The line's headline numbers: the spatial call in bf16, the larger of
+        # the two; the temporal call and f32 stay under their own keys.
+        nums.update({k: v for k, v in nums["spatial"].items() if k != "shape"})
+        nums.update(max_abs_err=worst[e][0], err_over_limit=worst[e][1], tol=tol,
+                    headline="spatial (256, 197, 12, 64) bf16")
+    return entries
+
+
+def timesformer_b(dtype, seed=0):
+    from laryngeal_tpu_torch.models.timesformer import create_timesformer
+
+    return create_timesformer(num_classes=2, num_frames=32, image_size=224, dtype=dtype,
+                              seed=seed)
+
+
+def timesformer_serving() -> dict:
+    """Phase 8: the TimeSformer-B serving path on the card. Returns each
+    kernel's launches since the counts were set to 0."""
+    from laryngeal_tpu_torch.infer.predictor import Predictor
+    from laryngeal_tpu_torch.models.registry import get_model_spec
+    from laryngeal_tpu_torch.ops import attention as att
+    from laryngeal_tpu_torch.preprocess.transforms import batch_preprocess
+    from laryngeal_tpu_torch.serve.server import InferenceServer
+
+    spec = get_model_spec("timesformer")
+    model = timesformer_b(torch.bfloat16)
+    predictor = Predictor(model, spec, num_frames=32, crop_size=224, device="cuda")
+    n_calls = 2 * model.config.num_layers
+    want = {k: 0 for k in launch_counts()}
+    want["short_attention_fwd"] = n_calls
+    clips = np.random.default_rng(3).integers(0, 256, (8, 32, 224, 224, 3), dtype=np.uint8)
+
+    probs, per_forward = launched(lambda: predictor.predict_clip(clips))
+    if per_forward != want:
+        raise AssertionError(f"launches per TimeSformer forward {per_forward}, want {want}")
+    if probs.shape != (8, 2) or not np.isfinite(probs).all() \
+            or not np.allclose(probs.sum(-1), 1.0, atol=1e-5):
+        raise AssertionError(f"bad probabilities {probs}")
+    with torch.inference_mode():
+        clips_dev = torch.from_numpy(clips).cuda()
+        pixel = batch_preprocess(clips_dev, "timesformer", crop=224)
+        preprocess_ms = cuda_time_ms(
+            lambda: batch_preprocess(clips_dev, "timesformer", crop=224), reps=5, warmup=1)
+        logits, per_model = launched(lambda: model(pixel))
+        if per_model != want:
+            raise AssertionError(f"launches per TimeSformer forward {per_model}, want {want}")
+        att.set_attention_impl("plain")
+        try:
+            logits_plain = model(pixel)
+        finally:
+            att.set_attention_impl(None)
+        forward_ms = cuda_time_ms(lambda: model(pixel), reps=5, warmup=1)
+    check_logits("bf16", logits, logits_plain, LOGIT_TOL[torch.bfloat16], "timesformer-b")
+    torch.cuda.synchronize()
+    reps = 5
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        predictor.predict_clip(clips)
+    e2e_s = (time.perf_counter() - t0) / reps
+    flops = timesformer_forward_flops(model.config, 8)
+    log(f"timesformer-b 32f 224 bf16 B=8: preprocess {preprocess_ms:.2f} ms, forward "
+        f"{forward_ms:.2f} ms (model only; {flops:.4e} model operations = "
+        f"{flops / (forward_ms * 1e-3) / 989e12:.4f} of 989 TFLOP/s), predict_clip "
+        f"{e2e_s * 1e3:.2f} ms -> {8 / e2e_s:.2f} clips/s (uint8 host batch -> probabilities "
+        f"on the host); launches per forward {per_forward}")
+
+    # The same weights in f32 (no dtype in a checkpoint's metadata), two clips.
+    model_f32 = timesformer_b(torch.float32)
+    pred_f32 = Predictor(model_f32, spec, num_frames=32, crop_size=224, device="cuda")
+    probs_f32, per_f32 = launched(lambda: pred_f32.predict_clip(clips[:2]))
+    if per_f32 != want or not np.isfinite(probs_f32).all() \
+            or not np.allclose(probs_f32.sum(-1), 1.0, atol=1e-5):
+        raise AssertionError(f"f32 TimeSformer predictor: {probs_f32}, launches {per_f32}")
+    with torch.inference_mode():
+        logits_f32 = model_f32(pixel[:2])
+        att.set_attention_impl("plain")
+        try:
+            logits_f32_plain = model_f32(pixel[:2])
+        finally:
+            att.set_attention_impl(None)
+    check_logits("f32", logits_f32, logits_f32_plain, LOGIT_TOL[torch.float32], "timesformer-b")
+    log(f"timesformer-b bf16 logits vs the f32 model (2 clips): kernel "
+        f"{(logits[:2] - logits_f32_plain).abs().max().item():.3e}, plain attention "
+        f"{(logits_plain[:2] - logits_f32_plain).abs().max().item():.3e}")
+    del pred_f32, model_f32, pixel, clips_dev
+    torch.cuda.empty_cache()
+
+    server = InferenceServer(predictor, port=0, max_batch=8, batch_timeout_ms=50)
+    thread = threading.Thread(target=server.httpd.serve_forever, daemon=True)
+    thread.start()
+    try:
+        base = f"http://127.0.0.1:{server.port}"
+        with urllib.request.urlopen(base + "/healthz", timeout=30) as r:
+            health = json.loads(r.read())
+        if health.get("status") != "ok" or health.get("model") != "timesformer":
+            raise AssertionError(f"/healthz: {health}")
+        t0 = time.perf_counter()
+        row = server.batcher.submit(clips[0]).result(timeout=300)
+        serve_s = time.perf_counter() - t0
+    finally:
+        server.close()
+        thread.join(timeout=10)
+    if not np.isfinite(row).all() or not np.allclose(row.sum(-1), 1.0, atol=1e-5):
+        raise AssertionError("server returned bad probabilities")
+    np.testing.assert_allclose(row, probs[0], atol=2e-2)
+    log(f"timesformer server: /healthz ok, one clip in {serve_s * 1e3:.1f} ms")
+    return launch_counts()
+
+
+def timesformer_forward_flops(cfg, batch: int) -> float:
+    """Model operations of one forward: the per-frame patch embedding, per
+    layer the temporal (qkv, out, temporal_dense) and spatial (qkv, out)
+    projections, the MLP, and both attentions' two products."""
+    d, inter, t = cfg.hidden_size, cfg.intermediate_size, cfg.num_frames
+    n = cfg.num_spatial_patches
+    tokens = n * t + 1
+    embed = 2.0 * n * t * 3 * cfg.patch_size ** 2 * d
+    dense = (2.0 * n * t * d * (3 * d + d + d) + 2.0 * (n + 1) * t * d * (3 * d + d)
+             + 2.0 * tokens * d * inter * 2)
+    attn = 4.0 * (n * t * t + t * (n + 1) ** 2) * d
+    return batch * (embed + cfg.num_layers * (dense + attn))
+
+
+def timesformer_training(kernel_ms: dict) -> None:
+    """Phases 9 and 10: the TimeSformer-B training path on the card, and
+    the training CLI."""
+    from laryngeal_tpu_torch.preprocess.transforms import batch_preprocess
+    from laryngeal_tpu_torch.train.losses import cross_entropy
+    from laryngeal_tpu_torch.train.state import create_train_state
+    from laryngeal_tpu_torch.train.steps import make_eval_step, make_train_step
+
+    b = 8
+    model = timesformer_b(torch.bfloat16).cuda()
+    n_calls = 2 * model.config.num_layers
+    state = create_train_state(model, "adamw", 1e-4, 0.01)
+    step = make_train_step(model, "timesformer", "ce", crop=224)
+    eval_step = make_eval_step(model, "timesformer", "ce", crop=224)
+    rng = np.random.default_rng(4)
+    clips = rng.integers(0, 256, (b, 32, 224, 224, 3), dtype=np.uint8)
+    labels = torch.from_numpy(rng.integers(0, 2, b)).cuda()
+    mask = torch.ones(b, dtype=torch.bool, device="cuda")
+    pixel_u8 = torch.from_numpy(clips).cuda()
+
+    # -- phase 9: launches per step, loss, timing --
+    (state, m), per_step = launched(lambda: step(state, pixel_u8, labels, mask))
+    want = {k: 0 for k in per_step}
+    want.update(short_attention_fwd=n_calls, short_attention_bwd=n_calls)
+    if per_step != want:
+        raise AssertionError(f"launches per TimeSformer train step {per_step}, want {want}")
+    em, per_eval = launched(lambda: eval_step(state, pixel_u8, labels, mask))
+    want_eval = {k: (n_calls if k == "short_attention_fwd" else 0) for k in want}
+    if per_eval != want_eval:
+        raise AssertionError(f"launches per TimeSformer eval step {per_eval}, want {want_eval}")
+    log(f"timesformer launches per train step {per_step}; per eval step {per_eval}")
+    for _ in range(2):
+        step(state, pixel_u8, labels, mask)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reps = 5
+    t0 = time.perf_counter()
+    losses = [step(state, pixel_u8, labels, mask)[1]["loss"] for _ in range(reps)]
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / reps
+    peak = torch.cuda.max_memory_allocated()
+    losses = [x.item() for x in [m["loss"], em["loss"]] + losses]
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"non-finite loss {losses}")
+    flops = 3.0 * timesformer_forward_flops(model.config, b)
+    log(f"timesformer-b 32f 224 bf16 B=8 train step: {step_s * 1e3:.2f} ms -> "
+        f"{b / step_s:.2f} clips/s (uint8 batch on the card -> updated weights), peak memory "
+        f"{peak / 2**30:.2f} GiB, model operations {flops:.4e} per step = "
+        f"{flops / step_s / 989e12:.4f} of 989 TFLOP/s; losses {losses}")
+
+    pre_ms = cuda_time_ms(lambda: batch_preprocess(pixel_u8, "timesformer", crop=224), reps=3)
+    stages = []
+    model.train()
+    for _ in range(4):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        pixel = batch_preprocess(pixel_u8, "timesformer", crop=224)
+        ev[0].record()
+        loss = cross_entropy(model(pixel), labels, mask)
+        ev[1].record()
+        state.optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        ev[2].record()
+        state.optimizer.step()
+        ev[3].record()
+        torch.cuda.synchronize()
+        stages.append([ev[i].elapsed_time(ev[i + 1]) for i in range(3)])
+    fwd_ms, bwd_ms, opt_ms = np.median(np.asarray(stages[1:]), axis=0)
+    attn_ms = model.config.num_layers * sum(kernel_ms.values())
+    log(f"timesformer train step stages (bf16 B=8): preprocess {pre_ms:.2f} ms, forward+loss "
+        f"{fwd_ms:.2f} ms, backward {bwd_ms:.2f} ms, optimizer {opt_ms:.2f} ms; attention "
+        f"kernels {model.config.num_layers} x "
+        f"({' + '.join(f'{k} {v:.4f}' for k, v in kernel_ms.items())}) = {attn_ms:.2f} ms = "
+        f"{attn_ms / (step_s * 1e3):.3f} of the step")
+    del state, step, eval_step, model, m, em, loss, pixel
+    torch.cuda.empty_cache()
+
+    pixel2 = batch_preprocess(pixel_u8[:2], "timesformer", crop=224)
+    for dtype in (torch.float32, torch.bfloat16):
+        grad_check(lambda dt: timesformer_b(dt, seed=1), pixel2, labels[:2], dtype,
+                   timesformer_key_free, "timesformer-b")
+    del pixel_u8, pixel2
+    torch.cuda.empty_cache()
+
+    # -- phase 10: the training CLI, then the predictor on its checkpoint --
+    from laryngeal_tpu_torch.cli import main as cli
+    from laryngeal_tpu_torch.data.synthetic import make_synthetic_dataset
+    from laryngeal_tpu_torch.infer.predictor import Predictor
+
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_ts_cli_"))
+    try:
+        data = make_synthetic_dataset(str(tmp / "data"), {"train": 4, "val": 2, "test": 2},
+                                      num_frames=40, h=112, w=112, seed=1)
+        flags = ["--model", "timesformer", "--data_dir", str(data), "--log_dir",
+                 str(tmp / "logs"), "--bf16", "--batch_size", "8", "--no-pretrained",
+                 "--decode_workers", "4"]
+        t0 = time.perf_counter()
+        first = cli.main(flags + ["--epochs", "1"])
+        t1 = time.perf_counter()
+        time.sleep(1.1)  # experiment directories are stamped to the second
+        second = cli.main(flags + ["--epochs", "2", "--resume", "auto"])
+        t2 = time.perf_counter()
+        exp1, exp2 = Path(first["exp_dir"]), Path(second["exp_dir"])
+        for f in ("best_model", "latest", "training_history.json", "test_metrics_uniform.json"):
+            if not (exp1 / f).exists():
+                raise AssertionError(f"timesformer cli run 1 wrote no {f}")
+        for f in ("latest", "training_history.json", "test_metrics_uniform.json"):
+            if not (exp2 / f).exists():
+                raise AssertionError(f"timesformer cli run 2 wrote no {f}")
+        h1, h2 = first["history"], second["history"]
+        if len(h2["train_loss"]) != 2 or h2["train_loss"][0] != h1["train_loss"][0] \
+                or not all(math.isfinite(x) for x in h2["train_loss"] + h2["val_loss"]):
+            raise AssertionError(f"resumed history {h2} does not continue {h1}")
+        log(f"timesformer cli --bf16: 1 epoch in {t1 - t0:.1f} s, resumed for epoch 2 in "
+            f"{t2 - t1:.1f} s (8 train / 4 val / 4 test videos); history {h2['train_loss']} / "
+            f"{h2['val_loss']}; test auroc {second['auroc']:.3f}")
+        predictor = Predictor.from_checkpoint("timesformer", exp1 / "best_model")
+        if predictor.model.config.dtype != torch.float32 or predictor.model.config.num_frames != 32:
+            raise AssertionError("the checkpoint must be served in f32 at 32 frames")
+        probs, per = launched(lambda: predictor.predict_clip(clips[:2]))
+        if per["short_attention_fwd"] != n_calls or not np.isfinite(probs).all() \
+                or not np.allclose(probs.sum(-1), 1.0, atol=1e-5):
+            raise AssertionError(f"predictor on the timesformer cli checkpoint: {probs}, {per}")
+        log(f"Predictor.from_checkpoint('timesformer', best_model) f32: {n_calls} launches of "
+            f"kernel 6, probabilities {probs.tolist()}")
+        del predictor
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -650,14 +1075,22 @@ def main() -> int:
     build_kernels()
     entry = check_attention()
     train_entries = check_training_kernels()
-    from laryngeal_tpu_torch.ops import flash_attention as fa
+    short_entries = check_short_kernels()
 
-    fa.reset_launches()
+    reset_launches()
     serve_counts = main_path()
-    fa.reset_launches()
+    reset_launches()
     training_path({k: v["ms"] for k, v in train_entries.items()})
-    train_counts = fa.launch_counts()
-    log(f"launches: serving path {serve_counts}; training path {train_counts}")
+    train_counts = launch_counts()
+    reset_launches()
+    ts_serve_counts = timesformer_serving()
+    reset_launches()
+    timesformer_training({f"{e} {shape}": short_entries[e][shape]["ms"]
+                          for e in short_entries for shape in TS_SHAPES})
+    ts_train_counts = launch_counts()
+    log(f"launches: vivit serving path {serve_counts}; vivit training path {train_counts}; "
+        f"timesformer serving path {ts_serve_counts}; timesformer training path "
+        f"{ts_train_counts}")
     tpu = "laryngeal_tpu/ops/flash_attention.py"
     kernels = [dict(name="flash_attention_fwd", route="cuda",
                     source="laryngeal_tpu_torch/csrc/flash_attention_fwd.cu",
@@ -669,6 +1102,12 @@ def main() -> int:
         kernels.append(dict(name=name, route="cuda", source=f"laryngeal_tpu_torch/csrc/{src}",
                             replaces=f"{tpu}:{line}", launches=train_counts[name],
                             **train_entries[name]))
+    for name, line, counts in (("short_attention_fwd", 101, ts_serve_counts),
+                               ("short_attention_bwd", 118, ts_train_counts)):
+        kernels.append(dict(name=name, route="cuda",
+                            source="laryngeal_tpu_torch/csrc/short_attention.cu",
+                            replaces=f"laryngeal_tpu/ops/short_attention.py:{line}",
+                            launches=counts[name], **short_entries[name]))
     for k in kernels:
         if k["launches"] < 1:
             raise AssertionError(f"kernel {k['name']} never launched on its path")

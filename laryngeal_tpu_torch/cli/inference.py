@@ -1,13 +1,13 @@
 """Inference CLI — single-video and batch modes (counterpart of
 ``laryngeal_tpu/cli/inference.py``).
 
-``python -m laryngeal_tpu_torch.cli.inference --model vivit --model_path CKPT
---video_path V.mp4 [--device cuda]``
+``python -m laryngeal_tpu_torch.cli.inference --model {vivit,timesformer}
+--model_path CKPT --video_path V.mp4 [--device cuda]``
 
 Single video -> JSON result (schema of ``vivit_transformer/inference.py:225-248``);
 ``--video_dir`` walks a tree of .mp4s and writes a CSV + JSON summary
-(``resnet50-2d-lstm/inference.py:250-351``). Ported: ``--model vivit`` on
-the rgb wire. AOT artifacts (``--exported``), the other wires, frame
+(``resnet50-2d-lstm/inference.py:250-351``). Ported: ``--model vivit`` and
+``--model timesformer`` on the rgb wire. AOT artifacts (``--exported``), the other wires, frame
 visualisations and the batch-mode plots are not yet ported (ROADMAP.md).
 """
 

@@ -1,13 +1,14 @@
 """Training CLI (counterpart of ``laryngeal_tpu/cli/main.py``).
 
-``python -m laryngeal_tpu_torch.cli.main --model vivit --data_dir D [--bf16]
-[--device cuda]`` runs the JAX CLI's chain (``cli/main.py:220-585``) on one
-device: dataset and loaders, the trainer's train/validation epochs with
-model selection, early stopping, best and rolling ``latest`` checkpoints and
-the best-model reload, then the test-set evaluator. The parser keeps the
+``python -m laryngeal_tpu_torch.cli.main --model {vivit,timesformer} --data_dir D
+[--bf16] [--device cuda]`` runs the JAX CLI's chain (``cli/main.py:220-585``)
+on one device: dataset and loaders, the trainer's train/validation epochs
+with model selection, early stopping, best and rolling ``latest`` checkpoints
+and the best-model reload, then the test-set evaluator. The parser keeps the
 JAX flag surface, plus ``--device`` (default ``cuda``; the CPU only when
-asked for). Ported: ``--model vivit`` on the rgb wire. Flags of features not
-yet ported (ROADMAP.md) raise when set to anything but their default:
+asked for). Ported: ``--model vivit`` and ``--model timesformer`` on the rgb
+wire. Flags of features not yet ported (ROADMAP.md) raise when set to
+anything but their default:
 the mesh / pipeline / fsdp axes, ``--remat``, ``--grad_accum_steps > 1``,
 non-rgb wires, ``--torch_weights``, ``--profile_dir``, the on-disk clip and
 compile caches and the multi-process flags. ``--pretrained`` (the default)
@@ -23,6 +24,7 @@ from pathlib import Path
 
 import numpy as np
 
+PORTED_MODELS = ("vivit", "timesformer")
 # Flags of features not yet ported, with their defaults.
 NOT_PORTED = {
     "mesh_data": None, "mesh_model": 1, "mesh_seq": 1, "pp_stages": 1,
@@ -231,7 +233,7 @@ def _refuse_unported(args) -> None:
         if getattr(args, flag) != default:
             raise SystemExit(f"--{flag} is not yet ported to laryngeal_tpu_torch "
                              "(see ROADMAP.md)")
-    if args.model != "vivit":
+    if args.model not in PORTED_MODELS:
         raise SystemExit(f"--model {args.model} is not yet ported to laryngeal_tpu_torch "
                          "(see ROADMAP.md)")
 

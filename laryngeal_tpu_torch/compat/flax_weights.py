@@ -1,13 +1,16 @@
 """Flax params -> torch state_dict (HF names).
 
-The inverse of ``laryngeal_tpu/compat/torch_port.py::port_vivit``: it
-takes the nested dict of numpy arrays that ``create_vivit(...).init``
-produces in the JAX package (``variables["params"]``, converted with
-``np.asarray``) and returns the state_dict of the port's
-``VivitForVideoClassification``. No JAX import: the input is plain numpy.
+The inverses of ``laryngeal_tpu/compat/torch_port.py::port_vivit`` and
+``::port_timesformer``: each takes the nested dict of numpy arrays that the
+JAX package's ``create_vivit(...).init`` / ``create_timesformer(...).init``
+produces (``variables["params"]``, converted with ``np.asarray``) and
+returns the state_dict of the port's ``VivitForVideoClassification`` /
+``TimesformerForVideoClassification``. No JAX import: the input is plain
+numpy.
 
 - Dense ``kernel`` (in, out) -> ``weight`` (out, in);
-- Conv ``kernel`` (kt, kh, kw, C, D) -> ``weight`` (D, C, kt, kh, kw);
+- Conv3d ``kernel`` (kt, kh, kw, C, D) -> ``weight`` (D, C, kt, kh, kw);
+- Conv2d ``kernel`` (kh, kw, C, D) -> ``weight`` (D, C, kh, kw);
 - LayerNorm ``scale`` -> ``weight``.
 
 Every array is copied: a CPU JAX array can alias the numpy buffer it was
@@ -61,5 +64,34 @@ def vivit_state_dict_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
         _layernorm(blk["layernorm_before"], f"{p}.layernorm_before", sd)
         _layernorm(blk["layernorm_after"], f"{p}.layernorm_after", sd)
     _layernorm(params["layernorm"], "vivit.layernorm", sd)
+    _dense(params["classifier"], "classifier", sd)
+    return sd
+
+
+def timesformer_state_dict_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """Flax TimeSformer params (flat layout, ``layer_{i}`` blocks) ->
+    HF-named torch state_dict."""
+    sd: Dict[str, torch.Tensor] = {}
+    emb = params["embeddings"]
+    e = "timesformer.embeddings"
+    for name in ("cls_token", "position_embeddings", "time_embeddings"):
+        sd[f"{e}.{name}"] = _t(emb[name])
+    proj = emb["projection"]
+    sd[f"{e}.patch_embeddings.projection.weight"] = _t(
+        np.asarray(proj["kernel"]).transpose(3, 2, 0, 1))
+    sd[f"{e}.patch_embeddings.projection.bias"] = _t(proj["bias"])
+    n_layers = sum(1 for k in params if k.startswith("layer_"))
+    for i in range(n_layers):
+        blk = params[f"layer_{i}"]
+        p = f"timesformer.encoder.layer.{i}"
+        for att in ("attention", "temporal_attention"):
+            _dense(blk[att]["qkv"], f"{p}.{att}.attention.qkv", sd)
+            _dense(blk[att]["out"], f"{p}.{att}.output.dense", sd)
+        _dense(blk["temporal_dense"], f"{p}.temporal_dense", sd)
+        _dense(blk["mlp_fc1"], f"{p}.intermediate.dense", sd)
+        _dense(blk["mlp_fc2"], f"{p}.output.dense", sd)
+        for ln in ("layernorm_before", "temporal_layernorm", "layernorm_after"):
+            _layernorm(blk[ln], f"{p}.{ln}", sd)
+    _layernorm(params["layernorm"], "timesformer.layernorm", sd)
     _dense(params["classifier"], "classifier", sd)
     return sd

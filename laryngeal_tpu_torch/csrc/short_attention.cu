@@ -1,0 +1,846 @@
+// Short-sequence self-attention for Hopper (sm_90a), forward and backward,
+// bound through a plain C interface (ctypes; see
+// laryngeal_tpu_torch/ops/short_attention.py).
+//
+// Replaces the two Pallas TPU kernels of laryngeal_tpu/ops/short_attention.py
+// that TimeSformer's divided attention takes (N < 512, D <= 128, Nq == Nk,
+// no bias, no mask):
+//   * _fwd_kernel (entry short_attention_fwd): S = (Q K^T, f32) * scale, a
+//     full softmax in f32 (row max subtracted, exp, normalised BEFORE P V),
+//     P rounded to v's dtype, P V accumulated in f32, cast to q's dtype;
+//   * _bwd_kernel (entry short_attention_bwd): P recomputed as above, then
+//     dV = P(rounded)^T G, dP = G V^T (f32), delta = sum_k dP * P per row
+//     (from the f32 P and dP, not rowsum(dO * O)), dS = P * (dP - delta) *
+//     scale rounded to q's dtype, dQ = dS K, dK = dS^T Q; every product
+//     accumulates in f32 and each output is cast to its input's dtype. dQ,
+//     dK and dV come out of one launch.
+// The TPU kernels pack several sequences into one 128-lane score block with
+// a block-diagonal mask; that is a TPU layout device that changes no result,
+// and is not carried over. q, k, v (and G, dQ, dK, dV) are read through
+// their (batch, sequence, head) strides, so views of a fused (B, N, 3, H, D)
+// qkv projection need no copy.
+//
+// What bounds it on the H100: at TimeSformer-B, bf16, B=8 (temporal
+// (1568, 32, 12, 64), spatial (256, 197, 12, 64)) the forward moves ~310 MB
+// (q, k, v read, o written) against 5-31 GFLOP, and the backward ~540 MB
+// (q, k, v, G read, dQ, dK, dV written) against 12-76 GFLOP: both are bound
+// by bytes (~0.09 and ~0.16 ms at 3.35 TB/s). The design therefore keeps
+// every (N, N) tile in registers and reads each sequence from device memory
+// about once (the re-reads of a sequence come from L2):
+//   * bf16: mma.sync.m16n8k16, f32 accumulators. A block of W warps (W = 1,
+//     2 or 4, the smallest with 16 W >= N, else 4) owns 16 W rows. The
+//     TPU kernel holds the whole (N, N) score matrix in VMEM; a Hopper
+//     block cannot at N = 511, so the forward makes two passes over 16 W-key
+//     tiles streamed through shared memory with cp.async (double-buffered
+//     when there is more than one tile): the first for each row's max and
+//     sum, the second forms the normalised P, rounds it and accumulates P V.
+//     The exact softmax needs no online rescale of the output.
+//   * bf16 backward: one block owns a whole (sequence, head) pair, so the
+//     reduction over queries of dK and dV stays inside the block (no atomics,
+//     deterministic). Phase 1 walks the query tiles: one pass over the key
+//     tiles for the row max, sum and delta (an online sum of exp(S - m) dP,
+//     divided by the row sum at the end), kept in shared memory for all N
+//     rows, and a second pass for dS and dQ = dS K. Phase 2 walks the key
+//     tiles with the keys as rows: S^T = K Q^T and dP^T = V G^T come out of
+//     the accumulators in the A-fragment layout of P^T G and dS^T Q (as in
+//     flash_attention_bwd.cu), with P rebuilt from the stored statistics.
+//     S and dP are computed three times in all (the TPU kernel computes them
+//     once): a product costs little next to the bytes here.
+//   * f32: the FMA units, TF32 off (as the flash kernels): 1-4 threads per
+//     row, each owning a 32-wide slice of the head dim; the same passes.
+// Not yet done (later work): several short sequences per block for N <= 16,
+// wgmma/TMA, a persistent schedule.
+
+#include <cstring>
+
+#include "flash_attention_common.cuh"
+
+namespace {
+
+using namespace flash;
+using bf16 = __nv_bfloat16;
+
+constexpr int kMaxN = 511;  // the router sends N < 512 here
+
+struct FwdStrides {
+  long long qb, qn, qh, kb, kn, kh, vb, vn, vh, ob, on, oh;
+};
+struct BwdStrides {
+  long long qb, qn, qh, kb, kn, kh, vb, vn, vh, gb, gn, gh;
+  long long dqb, dqn, dqh, dkb, dkn, dkh, dvb, dvn, dvh;
+};
+
+// Copy rows [row0, row0 + ROWS) x [0, HD) of one (batch, head) slice into a
+// padded shared tile with THREADS threads; rows >= n_rows and columns >= d
+// are zero-filled.
+template <int ROWS, int HD, int THREADS>
+__device__ __forceinline__ void load_rows_async(bf16* tile, const bf16* base,
+                                                long long row_stride, int row0, int n_rows,
+                                                int d) {
+  constexpr int kChunksPerRow = HD / 8;
+  constexpr int kChunks = ROWS * kChunksPerRow;
+  for (int c = threadIdx.x; c < kChunks; c += THREADS) {
+    const int r = c / kChunksPerRow;
+    const int col = (c % kChunksPerRow) * 8;
+    const int row = row0 + r;
+    const bool ok = row < n_rows && col < d;
+    const bf16* src = ok ? base + row * row_stride + col : base;
+    cp_async16(tile + r * (HD + kPad) + col, src, ok ? 16 : 0);
+  }
+}
+
+// acc (16 rows x COLS) = A (this warp's 16 rows of a_tile) x B^T (rows
+// [0, COLS) of b_tile), contracting over the head dim.
+template <int HD, int COLS>
+__device__ __forceinline__ void product_abt(float (&acc)[COLS / 8][4], const bf16* a_tile,
+                                            int a_row0, const bf16* b_tile) {
+  zero(acc);
+#pragma unroll
+  for (int ks = 0; ks < HD / 16; ++ks) {
+    uint32_t a[4];
+    load_a_frag<HD>(a, a_tile, a_row0, ks);
+#pragma unroll
+    for (int nt = 0; nt < COLS / 8; nt += 2) mma_abt<HD>(acc[nt], acc[nt + 1], a, b_tile, nt, ks);
+  }
+}
+
+// The same product with the A fragments already in registers.
+template <int HD, int COLS>
+__device__ __forceinline__ void product_abt_regs(float (&acc)[COLS / 8][4],
+                                                 const uint32_t (&a)[HD / 16][4],
+                                                 const bf16* b_tile) {
+  zero(acc);
+#pragma unroll
+  for (int ks = 0; ks < HD / 16; ++ks)
+#pragma unroll
+    for (int nt = 0; nt < COLS / 8; nt += 2) mma_abt<HD>(acc[nt], acc[nt + 1], a[ks], b_tile, nt, ks);
+}
+
+// acc (16 x HD) += bf16(p) (16 x ROWS, from registers) x tile (ROWS x HD).
+template <int HD, int ROWS>
+__device__ __forceinline__ void product_pv(float (&acc)[HD / 8][4], const float (&p)[ROWS / 8][4],
+                                           const bf16* tile) {
+#pragma unroll
+  for (int kk = 0; kk < ROWS / 16; ++kk) {
+    uint32_t a[4];
+    pack_a_frag(a, p, kk);
+#pragma unroll
+    for (int dt = 0; dt < HD / 8; dt += 2) mma_ab<HD>(acc[dt], acc[dt + 1], a, tile, kk, dt);
+  }
+}
+
+// Scale the raw logits of key columns [key0, key0 + COLS) and mask keys >= N.
+template <int COLS>
+__device__ __forceinline__ void scale_mask(float (&s)[COLS / 8][4], int key0, int N, float scale) {
+  const int tig = threadIdx.x % 4;
+#pragma unroll
+  for (int nt = 0; nt < COLS / 8; ++nt)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int key = key0 + nt * 8 + tig * 2 + (j & 1);
+      s[nt][j] = key < N ? s[nt][j] * scale : kMaskValue;
+    }
+}
+
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// Store rows g and g + 8 of this warp's 16 (row0 = the warp's first row) of
+// a 16 x HD f32 accumulator as bf16; rows >= N and columns >= D are not
+// written.
+template <int HD>
+__device__ __forceinline__ void store_rows(bf16* base, long long row_stride,
+                                           const float (&acc)[HD / 8][4], int row0, int N,
+                                           int D) {
+  const int lane = threadIdx.x % 32, g = lane / 4, tig = lane % 4;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + g + r * 8;
+    if (row >= N) continue;
+#pragma unroll
+    for (int dt = 0; dt < HD / 8; ++dt) {
+      const int col = dt * 8 + tig * 2;
+      if (col < D)
+        *reinterpret_cast<__nv_bfloat162*>(base + row * row_stride + col) =
+            __floats2bfloat162_rn(acc[dt][2 * r], acc[dt][2 * r + 1]);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// bf16 forward (kernel 6)
+// ---------------------------------------------------------------------------
+
+template <int HD, int W>
+__global__ void __launch_bounds__(W * 32)
+short_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                      const bf16* __restrict__ v, bf16* __restrict__ o, int H, int N, int D,
+                      FwdStrides st, float scale) {
+  constexpr int T = W * 32;
+  constexpr int BM = 16 * W;  // query rows of the block
+  constexpr int BN = 16 * W;  // keys per streamed tile
+  constexpr int NBUF = W == 4 ? 2 : 1;  // W < 4 means one tile holds all N keys
+  constexpr int kLd = HD + kPad;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* q_s = reinterpret_cast<bf16*>(smem_raw);
+  bf16* k_s = q_s + BM * kLd;
+  bf16* v_s = k_s + NBUF * BN * kLd;
+
+  const int bh = blockIdx.x;
+  const int b = bh / H, h = bh % H;
+  const int q0 = blockIdx.y * BM;
+  const int warp = threadIdx.x / 32;
+  const bf16* qb = q + b * st.qb + h * st.qh;
+  const bf16* kb = k + b * st.kb + h * st.kh;
+  const bf16* vb = v + b * st.vb + h * st.vh;
+  const int n_tiles = (N + BN - 1) / BN;
+
+  load_rows_async<BM, HD, T>(q_s, qb, st.qn, q0, N, D);
+  load_rows_async<BN, HD, T>(k_s, kb, st.kn, 0, N, D);
+  if (n_tiles == 1) load_rows_async<BN, HD, T>(v_s, vb, st.vn, 0, N, D);
+  cp_async_commit();
+
+  uint32_t qa[HD / 16][4];
+  // Rows g and g + 8 of this warp's 16: the row max, and this thread's
+  // partial row sum (the quad's partials add up after the pass).
+  float m_row[2] = {kMaskValue, kMaskValue};
+  float l_row[2] = {0.f, 0.f};
+
+  // Pass 1: row max and row sum over all key tiles.
+  for (int t = 0; t < n_tiles; ++t) {
+    const int buf = t % NBUF;
+    if (t + 1 < n_tiles) {
+      load_rows_async<BN, HD, T>(k_s + ((t + 1) % NBUF) * BN * kLd, kb, st.kn, (t + 1) * BN, N, D);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    if (t == 0) {
+#pragma unroll
+      for (int ks = 0; ks < HD / 16; ++ks) load_a_frag<HD>(qa[ks], q_s, warp * 16, ks);
+    }
+    float s[BN / 8][4];
+    product_abt_regs<HD, BN>(s, qa, k_s + buf * BN * kLd);
+    scale_mask<BN>(s, t * BN, N, scale);
+    float mx[2] = {m_row[0], m_row[1]};
+#pragma unroll
+    for (int nt = 0; nt < BN / 8; ++nt)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) mx[j >> 1] = fmaxf(mx[j >> 1], s[nt][j]);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = quad_max(mx[r]);
+      l_row[r] *= expf(m_row[r] - mx[r]);
+      m_row[r] = mx[r];
+    }
+#pragma unroll
+    for (int nt = 0; nt < BN / 8; ++nt)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) l_row[j >> 1] += expf(s[nt][j] - m_row[j >> 1]);
+    __syncthreads();  // the next copy overwrites this buffer
+  }
+  float inv_l[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) inv_l[r] = 1.f / quad_sum(l_row[r]);
+
+  // Pass 2: P = exp(S - m) / l, rounded to bf16, O = P V.
+  if (n_tiles > 1) {
+    load_rows_async<BN, HD, T>(k_s, kb, st.kn, 0, N, D);
+    load_rows_async<BN, HD, T>(v_s, vb, st.vn, 0, N, D);
+    cp_async_commit();
+  }
+  float acc[HD / 8][4];
+  zero(acc);
+  for (int t = 0; t < n_tiles; ++t) {
+    const int buf = t % NBUF;
+    if (t + 1 < n_tiles) {
+      const int nb = (t + 1) % NBUF;
+      load_rows_async<BN, HD, T>(k_s + nb * BN * kLd, kb, st.kn, (t + 1) * BN, N, D);
+      load_rows_async<BN, HD, T>(v_s + nb * BN * kLd, vb, st.vn, (t + 1) * BN, N, D);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    float s[BN / 8][4];
+    product_abt_regs<HD, BN>(s, qa, k_s + buf * BN * kLd);
+    scale_mask<BN>(s, t * BN, N, scale);
+#pragma unroll
+    for (int nt = 0; nt < BN / 8; ++nt)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s[nt][j] = expf(s[nt][j] - m_row[j >> 1]) * inv_l[j >> 1];
+    product_pv<HD, BN>(acc, s, v_s + buf * BN * kLd);
+    __syncthreads();
+  }
+  store_rows<HD>(o + b * st.ob + h * st.oh, st.on, acc, q0 + warp * 16, N, D);
+}
+
+// ---------------------------------------------------------------------------
+// bf16 backward (kernel 7)
+// ---------------------------------------------------------------------------
+
+template <int HD, int W>
+__global__ void __launch_bounds__(W * 32)
+short_bwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                      const bf16* __restrict__ v, const bf16* __restrict__ gr,
+                      bf16* __restrict__ dq, bf16* __restrict__ dk, bf16* __restrict__ dv,
+                      int H, int N, int D, BwdStrides st, float scale) {
+  constexpr int T = W * 32;
+  constexpr int BM = 16 * W;  // rows the block's warps own (queries, then keys)
+  constexpr int BN = 16 * W;  // phase 1: keys per streamed tile
+  // Phase 2: queries per streamed tile; 32 at D = 128 keeps the two 128-wide
+  // accumulators and the S / dP tiles within the register file.
+  constexpr int BQ = (HD == 128 && W == 4) ? 32 : 16 * W;
+  constexpr int NBUF = W == 4 ? 2 : 1;
+  constexpr int kLd = HD + kPad;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* a_s = reinterpret_cast<bf16*>(smem_raw);  // Q rows, then K rows
+  bf16* b_s = a_s + BM * kLd;                      // G rows, then V rows
+  bf16* c_s = b_s + BM * kLd;                      // K tiles, then Q tiles
+  bf16* d_s = c_s + NBUF * BN * kLd;               // V tiles, then G tiles
+  const int n_pad = (N + 63) / 64 * 64;
+  float* m_s = reinterpret_cast<float*>(d_s + NBUF * BN * kLd);  // row max
+  float* il_s = m_s + n_pad;                                     // 1 / row sum
+  float* dl_s = il_s + n_pad;                                    // delta
+
+  const int bh = blockIdx.x;
+  const int b = bh / H, h = bh % H;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, tig = lane % 4;
+  const bf16* qb = q + b * st.qb + h * st.qh;
+  const bf16* kb = k + b * st.kb + h * st.kh;
+  const bf16* vb = v + b * st.vb + h * st.vh;
+  const bf16* gb = gr + b * st.gb + h * st.gh;
+  const int n_tiles = (N + BN - 1) / BN;
+
+  // ---- phase 1: per query tile, row statistics, then dQ ----
+  for (int q0 = 0; q0 < N; q0 += BM) {
+    load_rows_async<BM, HD, T>(a_s, qb, st.qn, q0, N, D);
+    load_rows_async<BM, HD, T>(b_s, gb, st.gn, q0, N, D);
+    load_rows_async<BN, HD, T>(c_s, kb, st.kn, 0, N, D);
+    load_rows_async<BN, HD, T>(d_s, vb, st.vn, 0, N, D);
+    cp_async_commit();
+    float m_row[2] = {kMaskValue, kMaskValue};
+    float l_row[2] = {0.f, 0.f};
+    float dd_row[2] = {0.f, 0.f};  // partial sums of exp(S - m) dP
+    for (int t = 0; t < n_tiles; ++t) {
+      const int buf = t % NBUF;
+      if (t + 1 < n_tiles) {
+        const int nb = (t + 1) % NBUF;
+        load_rows_async<BN, HD, T>(c_s + nb * BN * kLd, kb, st.kn, (t + 1) * BN, N, D);
+        load_rows_async<BN, HD, T>(d_s + nb * BN * kLd, vb, st.vn, (t + 1) * BN, N, D);
+        cp_async_commit();
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
+      }
+      __syncthreads();
+      float s[BN / 8][4], dp[BN / 8][4];
+      product_abt<HD, BN>(s, a_s, warp * 16, c_s + buf * BN * kLd);
+      product_abt<HD, BN>(dp, b_s, warp * 16, d_s + buf * BN * kLd);
+      scale_mask<BN>(s, t * BN, N, scale);
+      float mx[2] = {m_row[0], m_row[1]};
+#pragma unroll
+      for (int nt = 0; nt < BN / 8; ++nt)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) mx[j >> 1] = fmaxf(mx[j >> 1], s[nt][j]);
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = quad_max(mx[r]);
+        const float alpha = expf(m_row[r] - mx[r]);
+        l_row[r] *= alpha;
+        dd_row[r] *= alpha;
+        m_row[r] = mx[r];
+      }
+#pragma unroll
+      for (int nt = 0; nt < BN / 8; ++nt)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const float e = expf(s[nt][j] - m_row[j >> 1]);
+          l_row[j >> 1] += e;
+          dd_row[j >> 1] += e * dp[nt][j];
+        }
+      __syncthreads();
+    }
+    float il[2], dl[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      il[r] = 1.f / quad_sum(l_row[r]);
+      dl[r] = quad_sum(dd_row[r]) * il[r];
+      const int row = q0 + warp * 16 + g + r * 8;
+      if (tig == 0 && row < N) {
+        m_s[row] = m_row[r];
+        il_s[row] = il[r];
+        dl_s[row] = dl[r];
+      }
+    }
+    // Second pass: dS = P (dP - delta) scale, rounded to bf16; dQ += dS K.
+    if (n_tiles > 1) {
+      load_rows_async<BN, HD, T>(c_s, kb, st.kn, 0, N, D);
+      load_rows_async<BN, HD, T>(d_s, vb, st.vn, 0, N, D);
+      cp_async_commit();
+    }
+    float acc[HD / 8][4];
+    zero(acc);
+    for (int t = 0; t < n_tiles; ++t) {
+      const int buf = t % NBUF;
+      if (t + 1 < n_tiles) {
+        const int nb = (t + 1) % NBUF;
+        load_rows_async<BN, HD, T>(c_s + nb * BN * kLd, kb, st.kn, (t + 1) * BN, N, D);
+        load_rows_async<BN, HD, T>(d_s + nb * BN * kLd, vb, st.vn, (t + 1) * BN, N, D);
+        cp_async_commit();
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
+      }
+      __syncthreads();
+      const bf16* kt = c_s + buf * BN * kLd;
+      float s[BN / 8][4], dp[BN / 8][4];
+      product_abt<HD, BN>(s, a_s, warp * 16, kt);
+      product_abt<HD, BN>(dp, b_s, warp * 16, d_s + buf * BN * kLd);
+      scale_mask<BN>(s, t * BN, N, scale);
+#pragma unroll
+      for (int nt = 0; nt < BN / 8; ++nt)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int r = j >> 1;
+          const float p = expf(s[nt][j] - m_row[r]) * il[r];
+          s[nt][j] = p * (dp[nt][j] - dl[r]) * scale;
+        }
+      product_pv<HD, BN>(acc, s, kt);
+      __syncthreads();
+    }
+    store_rows<HD>(dq + b * st.dqb + h * st.dqh, st.dqn, acc, q0 + warp * 16, N, D);
+  }
+  __syncthreads();  // the statistics of every row are in shared memory
+
+  // ---- phase 2: per key tile, dK and dV over all query tiles ----
+  const int nq_tiles = (N + BQ - 1) / BQ;
+  for (int k0 = 0; k0 < N; k0 += BM) {
+    load_rows_async<BM, HD, T>(a_s, kb, st.kn, k0, N, D);
+    load_rows_async<BM, HD, T>(b_s, vb, st.vn, k0, N, D);
+    load_rows_async<BQ, HD, T>(c_s, qb, st.qn, 0, N, D);
+    load_rows_async<BQ, HD, T>(d_s, gb, st.gn, 0, N, D);
+    cp_async_commit();
+    bool key_ok[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) key_ok[r] = k0 + warp * 16 + g + r * 8 < N;
+    float acc_dk[HD / 8][4], acc_dv[HD / 8][4];
+    zero(acc_dk);
+    zero(acc_dv);
+    for (int t = 0; t < nq_tiles; ++t) {
+      const int buf = t % NBUF;
+      if (t + 1 < nq_tiles) {
+        const int nb = (t + 1) % NBUF;
+        load_rows_async<BQ, HD, T>(c_s + nb * BN * kLd, qb, st.qn, (t + 1) * BQ, N, D);
+        load_rows_async<BQ, HD, T>(d_s + nb * BN * kLd, gb, st.gn, (t + 1) * BQ, N, D);
+        cp_async_commit();
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
+      }
+      __syncthreads();
+      const bf16* qt = c_s + buf * BN * kLd;
+      const bf16* gt = d_s + buf * BN * kLd;
+      // S^T = K Q^T and dP^T = V G^T: this warp's 16 keys x BQ queries.
+      float st_[BQ / 8][4], dpt[BQ / 8][4];
+      product_abt<HD, BQ>(st_, a_s, warp * 16, qt);
+      product_abt<HD, BQ>(dpt, b_s, warp * 16, gt);
+#pragma unroll
+      for (int nt = 0; nt < BQ / 8; ++nt)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int qi = t * BQ + nt * 8 + tig * 2 + (j & 1);
+          float p = 0.f, ds = 0.f;
+          if (key_ok[j >> 1] && qi < N) {
+            p = expf(st_[nt][j] * scale - m_s[qi]) * il_s[qi];
+            ds = p * (dpt[nt][j] - dl_s[qi]) * scale;
+          }
+          st_[nt][j] = p;
+          dpt[nt][j] = ds;
+        }
+      product_pv<HD, BQ>(acc_dv, st_, gt);  // dV += P^T G
+      product_pv<HD, BQ>(acc_dk, dpt, qt);  // dK += dS^T Q
+      __syncthreads();
+    }
+    store_rows<HD>(dk + b * st.dkb + h * st.dkh, st.dkn, acc_dk, k0 + warp * 16, N, D);
+    store_rows<HD>(dv + b * st.dvb + h * st.dvh, st.dvn, acc_dv, k0 + warp * 16, N, D);
+    __syncthreads();  // the next key tile's copies overwrite a_s .. d_s
+  }
+}
+
+// ---------------------------------------------------------------------------
+// f32 (FMA units)
+// ---------------------------------------------------------------------------
+
+constexpr int kF32Tile = 32;  // rows per streamed tile
+
+template <int kTpr>
+__device__ __forceinline__ float group_sum(float part) {
+#pragma unroll
+  for (int off = kTpr / 2; off > 0; off /= 2) part += __shfl_xor_sync(0xffffffffu, part, off);
+  return part;
+}
+
+// Copy rows [row0, row0 + kF32Tile) of one or two (batch, head) slices into
+// shared tiles; rows >= N and columns >= D are zero.
+template <int HD>
+__device__ __forceinline__ void load_f32_tiles(float (*a)[HD], const float* a_base, long long a_rs,
+                                               float (*b)[HD], const float* b_base, long long b_rs,
+                                               int row0, int N, int D) {
+  for (int i = threadIdx.x; i < kF32Tile * HD / 4; i += kF32Threads) {
+    const int r = i / (HD / 4), col = (i % (HD / 4)) * 4;
+    const int row = row0 + r;
+    float4 av = make_float4(0.f, 0.f, 0.f, 0.f), bv = av;
+    if (row < N && col < D) {
+      av = *reinterpret_cast<const float4*>(a_base + row * a_rs + col);
+      if (b) bv = *reinterpret_cast<const float4*>(b_base + row * b_rs + col);
+    }
+    *reinterpret_cast<float4*>(&a[r][col]) = av;
+    if (b) *reinterpret_cast<float4*>(&b[r][col]) = bv;
+  }
+}
+
+template <int HD>
+__global__ void __launch_bounds__(kF32Threads)
+short_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, float* __restrict__ o, int H, int N, int D,
+                     FwdStrides st, float scale) {
+  constexpr int kTpr = HD / 32;              // threads per query row
+  constexpr int kRows = kF32Threads / kTpr;  // query rows per block
+  __shared__ __align__(16) float k_s[kF32Tile][HD];
+  __shared__ __align__(16) float v_s[kF32Tile][HD];
+
+  const int bh = blockIdx.x;
+  const int b = bh / H, h = bh % H;
+  const int row = blockIdx.y * kRows + threadIdx.x / kTpr;
+  const int c0 = (threadIdx.x % kTpr) * 32;
+  const bool row_ok = row < N;
+  const float* kb = k + b * st.kb + h * st.kh;
+  const float* vb = v + b * st.vb + h * st.vh;
+  const float* qr_p = q + b * st.qb + h * st.qh + row * st.qn;
+
+  float qr[32], acc[32];
+#pragma unroll
+  for (int c = 0; c < 32; ++c) {
+    qr[c] = (row_ok && c0 + c < D) ? qr_p[c0 + c] : 0.f;
+    acc[c] = 0.f;
+  }
+  // Pass 1: row max and row sum.
+  float m = kMaskValue, l = 0.f;
+  for (int key0 = 0; key0 < N; key0 += kF32Tile) {
+    __syncthreads();
+    load_f32_tiles<HD>(k_s, kb, st.kn, nullptr, nullptr, 0, key0, N, D);
+    __syncthreads();
+    float s[kF32Tile];
+    float mx = m;
+#pragma unroll
+    for (int j = 0; j < kF32Tile; ++j) {
+      float part = 0.f;
+#pragma unroll
+      for (int c = 0; c < 32; ++c) part = fmaf(qr[c], k_s[j][c0 + c], part);
+      part = group_sum<kTpr>(part);
+      s[j] = key0 + j < N ? part * scale : kMaskValue;
+      mx = fmaxf(mx, s[j]);
+    }
+    l *= expf(m - mx);
+    m = mx;
+#pragma unroll
+    for (int j = 0; j < kF32Tile; ++j) l += expf(s[j] - m);
+  }
+  const float inv_l = 1.f / l;
+  // Pass 2: P = exp(S - m) / l, O = P V.
+  for (int key0 = 0; key0 < N; key0 += kF32Tile) {
+    __syncthreads();
+    load_f32_tiles<HD>(k_s, kb, st.kn, v_s, vb, st.vn, key0, N, D);
+    __syncthreads();
+#pragma unroll 4
+    for (int j = 0; j < kF32Tile; ++j) {
+      float part = 0.f;
+#pragma unroll
+      for (int c = 0; c < 32; ++c) part = fmaf(qr[c], k_s[j][c0 + c], part);
+      part = group_sum<kTpr>(part);
+      const float p = key0 + j < N ? expf(part * scale - m) * inv_l : 0.f;
+#pragma unroll
+      for (int c = 0; c < 32; ++c) acc[c] = fmaf(p, v_s[j][c0 + c], acc[c]);
+    }
+  }
+  if (!row_ok) return;
+  float* out = o + b * st.ob + h * st.oh + row * st.on;
+#pragma unroll
+  for (int c = 0; c < 32; ++c)
+    if (c0 + c < D) out[c0 + c] = acc[c];
+}
+
+template <int HD>
+__global__ void __launch_bounds__(kF32Threads)
+short_bwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, const float* __restrict__ gr,
+                     float* __restrict__ dq, float* __restrict__ dk, float* __restrict__ dv,
+                     int H, int N, int D, BwdStrides st, float scale) {
+  constexpr int kTpr = HD / 32;              // threads per row
+  constexpr int kRows = kF32Threads / kTpr;  // rows owned at once
+  __shared__ __align__(16) float a_s[kF32Tile][HD];  // K tiles, then Q tiles
+  __shared__ __align__(16) float b_s[kF32Tile][HD];  // V tiles, then G tiles
+  __shared__ float m_s[kMaxN + 1], il_s[kMaxN + 1], dl_s[kMaxN + 1];
+
+  const int bh = blockIdx.x;
+  const int b = bh / H, h = bh % H;
+  const int c0 = (threadIdx.x % kTpr) * 32;
+  const float* qb = q + b * st.qb + h * st.qh;
+  const float* kb = k + b * st.kb + h * st.kh;
+  const float* vb = v + b * st.vb + h * st.vh;
+  const float* gb = gr + b * st.gb + h * st.gh;
+
+  // ---- phase 1: one query row per kTpr threads ----
+  for (int row0 = 0; row0 < N; row0 += kRows) {
+    const int row = row0 + threadIdx.x / kTpr;
+    const bool row_ok = row < N;
+    float qr[32], gv[32], acc[32];
+#pragma unroll
+    for (int c = 0; c < 32; ++c) {
+      const bool ok = row_ok && c0 + c < D;
+      qr[c] = ok ? qb[row * st.qn + c0 + c] : 0.f;
+      gv[c] = ok ? gb[row * st.gn + c0 + c] : 0.f;
+      acc[c] = 0.f;
+    }
+    float m = kMaskValue, l = 0.f, dd = 0.f;
+    for (int key0 = 0; key0 < N; key0 += kF32Tile) {
+      __syncthreads();
+      load_f32_tiles<HD>(a_s, kb, st.kn, b_s, vb, st.vn, key0, N, D);
+      __syncthreads();
+      float s[kF32Tile], dp[kF32Tile];
+      float mx = m;
+#pragma unroll
+      for (int j = 0; j < kF32Tile; ++j) {
+        float ps = 0.f, pd = 0.f;
+#pragma unroll
+        for (int c = 0; c < 32; ++c) {
+          ps = fmaf(qr[c], a_s[j][c0 + c], ps);
+          pd = fmaf(gv[c], b_s[j][c0 + c], pd);
+        }
+        ps = group_sum<kTpr>(ps);
+        dp[j] = group_sum<kTpr>(pd);
+        s[j] = key0 + j < N ? ps * scale : kMaskValue;
+        mx = fmaxf(mx, s[j]);
+      }
+      const float alpha = expf(m - mx);
+      l *= alpha;
+      dd *= alpha;
+      m = mx;
+#pragma unroll
+      for (int j = 0; j < kF32Tile; ++j) {
+        const float e = expf(s[j] - m);
+        l += e;
+        dd += e * dp[j];
+      }
+    }
+    const float il = 1.f / l, dl = dd * il;
+    if (row_ok && c0 == 0) {
+      m_s[row] = m;
+      il_s[row] = il;
+      dl_s[row] = dl;
+    }
+    for (int key0 = 0; key0 < N; key0 += kF32Tile) {
+      __syncthreads();
+      load_f32_tiles<HD>(a_s, kb, st.kn, b_s, vb, st.vn, key0, N, D);
+      __syncthreads();
+#pragma unroll 4
+      for (int j = 0; j < kF32Tile; ++j) {
+        float ps = 0.f, pd = 0.f;
+#pragma unroll
+        for (int c = 0; c < 32; ++c) {
+          ps = fmaf(qr[c], a_s[j][c0 + c], ps);
+          pd = fmaf(gv[c], b_s[j][c0 + c], pd);
+        }
+        ps = group_sum<kTpr>(ps);
+        pd = group_sum<kTpr>(pd);
+        const float p = key0 + j < N ? expf(ps * scale - m) * il : 0.f;
+        const float ds = p * (pd - dl) * scale;
+#pragma unroll
+        for (int c = 0; c < 32; ++c) acc[c] = fmaf(ds, a_s[j][c0 + c], acc[c]);
+      }
+    }
+    if (row_ok) {
+      float* out = dq + b * st.dqb + h * st.dqh + row * st.dqn;
+#pragma unroll
+      for (int c = 0; c < 32; ++c)
+        if (c0 + c < D) out[c0 + c] = acc[c];
+    }
+  }
+
+  // ---- phase 2: one key row per kTpr threads ----
+  for (int key0r = 0; key0r < N; key0r += kRows) {
+    const int key = key0r + threadIdx.x / kTpr;
+    const bool key_ok = key < N;
+    float kr[32], vr[32], adk[32], adv[32];
+#pragma unroll
+    for (int c = 0; c < 32; ++c) {
+      const bool ok = key_ok && c0 + c < D;
+      kr[c] = ok ? kb[key * st.kn + c0 + c] : 0.f;
+      vr[c] = ok ? vb[key * st.vn + c0 + c] : 0.f;
+      adk[c] = 0.f;
+      adv[c] = 0.f;
+    }
+    for (int row0 = 0; row0 < N; row0 += kF32Tile) {
+      __syncthreads();  // also orders phase 1's statistics before their use
+      load_f32_tiles<HD>(a_s, qb, st.qn, b_s, gb, st.gn, row0, N, D);
+      __syncthreads();
+#pragma unroll 4
+      for (int i = 0; i < kF32Tile; ++i) {
+        float ps = 0.f, pd = 0.f;
+#pragma unroll
+        for (int c = 0; c < 32; ++c) {
+          ps = fmaf(kr[c], a_s[i][c0 + c], ps);
+          pd = fmaf(vr[c], b_s[i][c0 + c], pd);
+        }
+        ps = group_sum<kTpr>(ps);
+        pd = group_sum<kTpr>(pd);
+        const int qi = row0 + i;
+        float p = 0.f, ds = 0.f;
+        if (key_ok && qi < N) {
+          p = expf(ps * scale - m_s[qi]) * il_s[qi];
+          ds = p * (pd - dl_s[qi]) * scale;
+        }
+#pragma unroll
+        for (int c = 0; c < 32; ++c) {
+          adv[c] = fmaf(p, b_s[i][c0 + c], adv[c]);
+          adk[c] = fmaf(ds, a_s[i][c0 + c], adk[c]);
+        }
+      }
+    }
+    if (key_ok) {
+      float* ok_ = dk + b * st.dkb + h * st.dkh + key * st.dkn;
+      float* ov = dv + b * st.dvb + h * st.dvh + key * st.dvn;
+#pragma unroll
+      for (int c = 0; c < 32; ++c)
+        if (c0 + c < D) {
+          ok_[c0 + c] = adk[c];
+          ov[c0 + c] = adv[c];
+        }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Launchers
+// ---------------------------------------------------------------------------
+
+int warps_for(int N) { return N <= 16 ? 1 : (N <= 32 ? 2 : 4); }
+
+template <int HD, int W>
+cudaError_t launch_fwd_bf16(const void* q, const void* k, const void* v, void* o, int BH, int H,
+                            int N, int D, const FwdStrides& st, float scale, cudaStream_t s) {
+  constexpr int NBUF = W == 4 ? 2 : 1;
+  const size_t smem = (size_t)(16 * W + 2 * NBUF * 16 * W) * (HD + kPad) * sizeof(bf16);
+  cudaError_t err = cudaFuncSetAttribute(short_fwd_bf16_kernel<HD, W>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  dim3 grid(BH, (N + 16 * W - 1) / (16 * W));
+  short_fwd_bf16_kernel<HD, W><<<grid, W * 32, smem, s>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<bf16*>(o), H, N, D, st, scale);
+  return cudaGetLastError();
+}
+
+template <int HD, int W>
+cudaError_t launch_bwd_bf16(const void* q, const void* k, const void* v, const void* g, void* dq,
+                            void* dk, void* dv, int BH, int H, int N, int D,
+                            const BwdStrides& st, float scale, cudaStream_t s) {
+  constexpr int NBUF = W == 4 ? 2 : 1;
+  const int n_pad = (N + 63) / 64 * 64;
+  const size_t smem = (size_t)(2 * 16 * W + 2 * NBUF * 16 * W) * (HD + kPad) * sizeof(bf16)
+                      + 3 * n_pad * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(short_bwd_bf16_kernel<HD, W>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  short_bwd_bf16_kernel<HD, W><<<BH, W * 32, smem, s>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<const bf16*>(g), static_cast<bf16*>(dq), static_cast<bf16*>(dk),
+      static_cast<bf16*>(dv), H, N, D, st, scale);
+  return cudaGetLastError();
+}
+
+template <int HD>
+cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* o, int dtype, int BH,
+                       int H, int N, int D, const FwdStrides& st, float scale, cudaStream_t s) {
+  if (dtype == 1) {
+    const int w = warps_for(N);
+    if (w == 1) return launch_fwd_bf16<HD, 1>(q, k, v, o, BH, H, N, D, st, scale, s);
+    if (w == 2) return launch_fwd_bf16<HD, 2>(q, k, v, o, BH, H, N, D, st, scale, s);
+    return launch_fwd_bf16<HD, 4>(q, k, v, o, BH, H, N, D, st, scale, s);
+  }
+  constexpr int kRows = kF32Threads / (HD / 32);
+  dim3 grid(BH, (N + kRows - 1) / kRows);
+  short_fwd_f32_kernel<HD><<<grid, kF32Threads, 0, s>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<float*>(o), H, N, D, st, scale);
+  return cudaGetLastError();
+}
+
+template <int HD>
+cudaError_t launch_bwd(const void* q, const void* k, const void* v, const void* g, void* dq,
+                       void* dk, void* dv, int dtype, int BH, int H, int N, int D,
+                       const BwdStrides& st, float scale, cudaStream_t s) {
+  if (dtype == 1) {
+    const int w = warps_for(N);
+    if (w == 1) return launch_bwd_bf16<HD, 1>(q, k, v, g, dq, dk, dv, BH, H, N, D, st, scale, s);
+    if (w == 2) return launch_bwd_bf16<HD, 2>(q, k, v, g, dq, dk, dv, BH, H, N, D, st, scale, s);
+    return launch_bwd_bf16<HD, 4>(q, k, v, g, dq, dk, dv, BH, H, N, D, st, scale, s);
+  }
+  short_bwd_f32_kernel<HD><<<BH, kF32Threads, 0, s>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<const float*>(g), static_cast<float*>(dq), static_cast<float*>(dk),
+      static_cast<float*>(dv), H, N, D, st, scale);
+  return cudaGetLastError();
+}
+
+bool bad_args(int dtype, int B, int H, int N, int D) {
+  return (dtype != 0 && dtype != 1) || B < 1 || H < 1 || N < 1 || N > kMaxN || D <= 0
+         || D > 128 || D % 8 != 0 || (long long)B * H > 0x7fffffffLL;
+}
+
+}  // namespace
+
+// dtype: 0 = float32, 1 = bfloat16. q, k, v, o are (B, N, H, D) with N < 512;
+// `st` holds 12 strides in elements (batch, sequence, head of q, k, v, o).
+// The head-dim stride must be 1, D a multiple of 8 (<= 128), every stride a
+// multiple of 8 and every pointer 16-byte aligned (the Python wrapper
+// guarantees all of it). Returns the cudaError_t of the launch (0 = success).
+extern "C" int short_attention_fwd(const void* q, const void* k, const void* v, void* o,
+                                   int dtype, int B, int N, int H, int D, const long long* st,
+                                   float scale, void* stream) {
+  if (bad_args(dtype, B, H, N, D)) return (int)cudaErrorInvalidValue;
+  FwdStrides s;
+  std::memcpy(&s, st, sizeof(s));
+  cudaStream_t cs = static_cast<cudaStream_t>(stream);
+  const int BH = B * H;
+  if (D <= 32) return (int)launch_fwd<32>(q, k, v, o, dtype, BH, H, N, D, s, scale, cs);
+  if (D <= 64) return (int)launch_fwd<64>(q, k, v, o, dtype, BH, H, N, D, s, scale, cs);
+  return (int)launch_fwd<128>(q, k, v, o, dtype, BH, H, N, D, s, scale, cs);
+}
+
+// As short_attention_fwd, for the gradient: g (the output's gradient, in the
+// input dtype) in, dq, dk, dv out, all (B, N, H, D); `st` holds 21 strides:
+// q, k, v, g, dq, dk, dv (batch, sequence, head each).
+extern "C" int short_attention_bwd(const void* q, const void* k, const void* v, const void* g,
+                                   void* dq, void* dk, void* dv, int dtype, int B, int N, int H,
+                                   int D, const long long* st, float scale, void* stream) {
+  if (bad_args(dtype, B, H, N, D)) return (int)cudaErrorInvalidValue;
+  BwdStrides s;
+  std::memcpy(&s, st, sizeof(s));
+  cudaStream_t cs = static_cast<cudaStream_t>(stream);
+  const int BH = B * H;
+  if (D <= 32) return (int)launch_bwd<32>(q, k, v, g, dq, dk, dv, dtype, BH, H, N, D, s, scale, cs);
+  if (D <= 64) return (int)launch_bwd<64>(q, k, v, g, dq, dk, dv, dtype, BH, H, N, D, s, scale, cs);
+  return (int)launch_bwd<128>(q, k, v, g, dq, dk, dv, dtype, BH, H, N, D, s, scale, cs);
+}

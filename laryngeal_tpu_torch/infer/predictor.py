@@ -3,8 +3,9 @@
 
 Decode and frame sampling stay on the host; from the uint8 clip batch on,
 everything runs eagerly under ``torch.inference_mode()`` on ``device``:
-rgb wire passthrough, ViViT preprocessing, the model (its attention in the
-CUDA flash kernel), softmax. ``device=None`` means ``cuda`` and raises
+rgb wire passthrough, the model's preprocessing regime (ViViT or
+TimeSformer), the model (its attention in the CUDA kernels: flash for ViViT,
+short-sequence for TimeSformer), softmax. ``device=None`` means ``cuda`` and raises
 without a card; the CPU is used only when asked for.
 """
 

@@ -53,6 +53,11 @@ def gelu_fast(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x, approximate="tanh")
 
 
+def gelu_exact(x: torch.Tensor) -> torch.Tensor:
+    """Exact (erf) gelu, HF 'gelu' (TimeSformer's MLP)."""
+    return F.gelu(x)
+
+
 class _QKV(nn.Module):
     """HF ``VivitSelfAttention``: the three projections."""
 

@@ -1,7 +1,7 @@
 """Model registry (counterpart of ``laryngeal_tpu/models/registry.py``).
 
-Only ViViT is ported; the other four families raise until their slice
-lands (ROADMAP.md).
+Ported: ViViT and TimeSformer; the other three families raise until their
+slice lands (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -9,9 +9,10 @@ from __future__ import annotations
 import dataclasses
 from typing import Callable, Dict
 
+from .timesformer import create_timesformer
 from .vivit import create_vivit
 
-NOT_PORTED = ("resnet50_lstm", "resnet3d", "timesformer", "swin3d")
+NOT_PORTED = ("resnet50_lstm", "resnet3d", "swin3d")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -38,6 +39,15 @@ MODEL_REGISTRY: Dict[str, ModelSpec] = {
         default_weight_decay=0.01, label_policy="sorted",
         selection="min_loss",
         reference="vivit_transformer/vivit_classifier/models/vivit_model.py:4-52",
+    ),
+    "timesformer": ModelSpec(
+        name="timesformer", factory=create_timesformer,
+        preprocess_regime="timesformer", loss="ce",
+        # 32 frames, the reference CLI's default (timesformer/main.py:39).
+        optimizer="adamw", default_num_frames=32, default_lr=1e-3,
+        default_weight_decay=0.01, label_policy="sorted",
+        selection="min_loss",
+        reference="timesformer/timesformer_classifier/models/timesformer_model.py:27-43",
     ),
 }
 

@@ -5,20 +5,25 @@ Layout: (batch, seq, heads, head_dim) everywhere.
 
 Implementations, chosen per call or globally with ``set_attention_impl``:
 
-- ``kernel``: ``flash_attention`` (ops/flash_attention.py): the CUDA flash
-  kernel, or under autograd ``FlashAttentionFn`` (the lse forward and the
-  dQ / dK-dV backward kernels). The default for CUDA tensors: every
-  bias-free call with head_dim <= 128 goes there at any sequence length.
-  (The JAX package sends N < 512 to its short-sequence kernel instead; that
-  kernel is not ported yet.) On CPU tensors it runs the kernels' plain twins.
+- ``kernel``: the hand-written CUDA kernels, routed as the JAX package
+  routes its ``pallas`` impl (``laryngeal_tpu/ops/attention.py:94-121``):
+  a bias-free, unmasked self-attention call (Nq == Nk) with head_dim <= 128
+  and N < 512 (TimeSformer's divided attention) goes to ``short_attention``
+  (ops/short_attention.py: kernel 6, under autograd ``ShortAttentionFn``
+  with kernel 7); every other bias-free call with head_dim <= 128 goes to
+  ``flash_attention`` (ops/flash_attention.py: kernel 1, under autograd
+  ``FlashAttentionFn`` with kernels 2-4) at any N. The 512 threshold is the
+  JAX package's, so both sides run the same function on the same shapes.
+  The default for CUDA tensors. On CPU tensors each kernel's plain twin runs.
 - ``plain``: ``attention_plain`` (f32 logits, optional bias, differentiable
   by autograd), the port's counterpart of the JAX ``attention_reference``.
   The default on the CPU, and the comparison for the kernels on the card.
 
 A logits bias has no kernel yet: on CUDA it raises rather than silently
 taking the plain path; on the CPU it takes ``attention_plain`` (autograd
-differentiates it, as the JAX biased path differentiates its reference). ``kv_valid`` masks keys at index >= kv_valid (the
-trailing-padding mask of the JAX package's ``TrailingKeyMask``).
+differentiates it, as the JAX biased path differentiates its reference).
+``kv_valid`` masks keys at index >= kv_valid (the trailing-padding mask of
+the JAX package's ``TrailingKeyMask``).
 """
 
 from __future__ import annotations
@@ -28,6 +33,11 @@ from typing import Optional
 import torch
 
 from .flash_attention import MAX_HEAD_DIM, attention_plain, flash_attention
+from .short_attention import short_attention
+
+# Sequences shorter than this go to the short-sequence kernel (the JAX
+# router's threshold, ``laryngeal_tpu/ops/attention.py:96``).
+SHORT_SEQ_LIMIT = 512
 
 IMPLS = ("kernel", "plain")
 _IMPL = None  # None => by device
@@ -69,6 +79,8 @@ def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     "(flash_attention.py::_attention_kernel_bias is not yet "
                     "ported, see ROADMAP.md)")
         elif q.shape[-1] <= MAX_HEAD_DIM:
+            if kv_valid is None and 0 < q.shape[1] == k.shape[1] < SHORT_SEQ_LIMIT:
+                return short_attention(q, k, v)
             return flash_attention(q, k, v, kv_valid)
         elif q.is_cuda:
             raise NotImplementedError(

@@ -108,7 +108,7 @@ def _check_cuda(name, *xs):
     if not all(x.is_cuda for x in xs):
         raise ValueError(f"{name} needs CUDA tensors")
     if xs[0].dtype not in _DTYPE_CODE:
-        raise ValueError(f"flash_attention supports float32 and bfloat16, got {xs[0].dtype}")
+        raise ValueError(f"{name} supports float32 and bfloat16, got {xs[0].dtype}")
 
 
 def _n_actual(n_k: int, kv_valid: Optional[int]) -> int:

@@ -3,8 +3,10 @@
 
 Ported: the ViViT regime (VivitImageProcessor semantics: resize shortest
 edge 256 -> center crop 224 -> rescale 2/255 with offset -1 -> normalize
-(.5, .5), net affine 4x/255 - 3) and the rgb wire. The pytorchvideo and
-timesformer regimes, train-mode augmentation, the bit-exact Pillow resize
+(.5, .5), net affine 4x/255 - 3), the TimeSformer regime
+(VideoMAEImageProcessor semantics: shortest edge 224 -> center crop 224 ->
+x/255 -> normalize (.5, .5), net affine 2x/255 - 1) and the rgb wire. The
+pytorchvideo regime, train-mode augmentation, the bit-exact Pillow resize
 (``LARYNGEAL_PIL_EXACT``) and the i420/delta/dct/dctp wires are not yet
 ported (ROADMAP.md).
 
@@ -101,6 +103,14 @@ def vivit_pixels(video_u8: torch.Tensor, crop: int = 224, size: int = 256) -> to
     return v * (4.0 / 255.0) - 3.0
 
 
+def timesformer_pixels(video_u8: torch.Tensor, crop: int = 224, size: int = 224) -> torch.Tensor:
+    """VideoMAEImageProcessor semantics (the TimeSformer trainer's): shortest
+    edge 224 -> center crop 224 -> x/255 -> normalize(.5, .5). Net affine:
+    2x/255 - 1."""
+    v = center_crop_scale(video_u8, size, crop, antialias=True)
+    return v * (2.0 / 255.0) - 1.0
+
+
 def batch_preprocess(clips_u8: torch.Tensor, regime: str, train: bool = False,
                      crop: int = 224) -> torch.Tensor:
     """(B, T, H, W, C) uint8 (or float 0-255) -> (B, T, crop, crop, C) float32.
@@ -108,7 +118,7 @@ def batch_preprocess(clips_u8: torch.Tensor, regime: str, train: bool = False,
     ``crop`` scales the whole geometry proportionally (224 in every reference
     config; smaller values keep tests cheap)."""
     scale = lambda v: max(1, int(round(v * crop / 224)))
-    if regime != "vivit":
+    if regime not in ("vivit", "timesformer"):
         raise NotImplementedError(
             f"preprocessing regime {regime!r} is not yet ported to "
             "laryngeal_tpu_torch, see ROADMAP.md")
@@ -119,6 +129,8 @@ def batch_preprocess(clips_u8: torch.Tensor, regime: str, train: bool = False,
         raise NotImplementedError(
             "LARYNGEAL_PIL_EXACT (the bit-exact Pillow resize) is not yet "
             "ported, see ROADMAP.md")
+    if regime == "timesformer":
+        return timesformer_pixels(clips_u8, crop=crop, size=crop)
     return vivit_pixels(clips_u8, crop=crop, size=scale(256))
 
 

@@ -5,14 +5,16 @@ batch -> ``decode_wire_batch`` -> ``batch_preprocess`` -> model -> masked
 loss -> backward -> optimizer step, and returns ``{loss, correct, count,
 probs}`` as device tensors, so the caller can keep them on the device until
 the epoch's end. Under autograd every attention call of the model goes
-through ``FlashAttentionFn`` (kernels 2-4 on the card); the eval step runs
-under ``torch.inference_mode`` and takes kernel 1.
+through ``FlashAttentionFn`` (kernels 2-4 on the card: ViViT) or
+``ShortAttentionFn`` (kernels 6-7: TimeSformer); the eval step runs under
+``torch.inference_mode`` and takes kernel 1 or kernel 6.
 
-The ViViT regime draws no augmentation (``steps.py:89-90`` of the JAX
-package) and ViViT has no dropout, so the train step is deterministic. Ported:
-one device and the rgb wire. Gradient accumulation, the mesh / tensor-parallel
-arguments and the non-rgb wires raise, and so does preprocessing for any
-regime but vivit.
+The step is model-agnostic: ``batch_preprocess`` dispatches on the
+regime. The ViViT and TimeSformer regimes draw no augmentation
+(``steps.py:89-90`` of the JAX package) and neither model has dropout, so
+the train step is deterministic. Ported: one device and the rgb wire.
+Gradient accumulation, the mesh / tensor-parallel arguments and the non-rgb
+wires raise.
 """
 
 from __future__ import annotations

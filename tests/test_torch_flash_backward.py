@@ -160,13 +160,15 @@ def test_grad_routing_follows_is_grad_enabled(monkeypatch):
 
 def test_function_carries_the_gradient_not_a_plain_call(monkeypatch):
     """The gradient comes from FlashAttentionFn.backward (kernels 3-4's
-    twin): with that backward stubbed to zeros, the model's attention
-    inputs get zero gradient, though a plain call would have given one."""
+    twin): with that backward stubbed to zeros, the attention inputs get
+    zero gradient, though a plain call would have given one. (The call goes
+    to ``flash_attention`` directly: through the dispatcher, N = 64
+    self-attention takes the short-sequence route.)"""
     q, k, v, g = _inputs((1, 64, 64, 2, 32, None), seed=5)
     qt, kt, vt = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
     monkeypatch.setattr(fa, "attention_plain_bwd",
                         lambda q_, k_, v_, *a: tuple(torch.zeros_like(x) for x in (q_, k_, v_)))
-    (att.dot_product_attention(qt, kt, vt, impl="kernel") * torch.from_numpy(g)).sum().backward()
+    (fa.flash_attention(qt, kt, vt) * torch.from_numpy(g)).sum().backward()
     assert all(torch.count_nonzero(x.grad) == 0 for x in (qt, kt, vt))
     q2, k2, v2 = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
     (att.dot_product_attention(q2, k2, v2, impl="plain") * torch.from_numpy(g)).sum().backward()

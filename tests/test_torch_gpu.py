@@ -1,5 +1,7 @@
-"""Port tests that need the card: the CUDA kernels against their plain
-versions, gradients through them, and the training step on the card.
+"""Port tests that need the card: the CUDA kernels (flash, kernels 1-4;
+short-sequence, kernels 6-7) against their plain versions, gradients
+through them, the routing, and the ViViT and TimeSformer train steps on
+the card.
 
 They skip on a machine without CUDA. On the card, run them with
 ``python -m pytest --noconftest -p no:cacheprovider tests/test_torch_gpu.py``
@@ -12,6 +14,7 @@ import pytest
 import torch
 
 from laryngeal_tpu_torch.ops import flash_attention as fa
+from laryngeal_tpu_torch.ops import short_attention as sa
 
 pytestmark = pytest.mark.gpu
 
@@ -250,3 +253,188 @@ def test_train_step_on_card_launches_kernels_2_to_4(cuda):
         if n.endswith("attention.attention.key.bias"):
             continue  # its gradient is round-off (softmax is shift-invariant)
         assert ((w_g[n] - w).norm() / w.norm()).item() <= 1e-4, n
+
+
+# -- kernels 6-7: short-sequence attention (TimeSformer) -------------------
+# (B, N, H, D) across the router's domain: N in 1..511, D <= 128, odd B*H.
+SHORT_SHAPES = [
+    (3, 1, 5, 64),
+    (5, 5, 3, 16),
+    (7, 16, 3, 32),
+    (3, 32, 5, 64),
+    (2, 33, 3, 40),     # D padded to 48 inside the wrapper
+    (3, 64, 3, 128),
+    (2, 100, 3, 64),
+    (1, 197, 5, 64),
+    (1, 300, 3, 128),
+    (1, 511, 3, 16),
+    (1, 511, 1, 128),
+]
+
+
+def _short_inputs(shape, dtype, device, seed=0):
+    b, n, h, d = shape
+    rng = np.random.default_rng(seed)
+    return tuple(torch.from_numpy(rng.standard_normal((b, n, h, d), dtype=np.float32))
+                 .to(device=device, dtype=dtype) for _ in range(4))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", SHORT_SHAPES)
+def test_short_forward_kernel_matches_plain(cuda, shape, dtype):
+    q, k, v, _ = _short_inputs(shape, dtype, cuda)
+    before = sa.fwd_launches
+    out = sa.short_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert sa.fwd_launches == before + 1
+    assert out.dtype == dtype and out.shape == q.shape
+    ref = sa.short_attention_plain(q, k, v)
+    use = ((out.float() - ref.float()).abs() / sa.error_limit(q, k, v, ref)).max().item()
+    assert use <= 1.0, use
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", SHORT_SHAPES)
+def test_short_backward_kernel_matches_plain(cuda, shape, dtype):
+    q, k, v, g = _short_inputs(shape, dtype, cuda, seed=1)
+    before = sa.bwd_launches
+    grads = sa.short_attention_backward(q, k, v, g)
+    torch.cuda.synchronize()
+    assert sa.bwd_launches == before + 1
+    refs = sa.short_attention_plain_bwd(q, k, v, g)
+    limits = sa.backward_error_limit(q, k, v, g, refs)
+    for name, got, ref, lim in zip(("dq", "dk", "dv"), grads, refs, limits):
+        assert got.dtype == dtype and got.shape == ref.shape, name
+        use = ((got.float() - ref.float()).abs() / lim).max().item()
+        assert use <= 1.0, (name, use)
+
+
+def test_short_kernels_read_strided_views(cuda):
+    """q/k/v as views into one fused (B, N, 3, H, D) qkv, as TimeSformer
+    gives them; the gradient of the fused tensor through autograd."""
+    rng = np.random.default_rng(2)
+    qkv = torch.from_numpy(rng.standard_normal((4, 197, 3, 4, 64), dtype=np.float32))
+    qkv = qkv.to(cuda, torch.bfloat16).requires_grad_()
+    g = torch.from_numpy(rng.standard_normal((4, 197, 4, 64), dtype=np.float32)).to(
+        cuda, torch.bfloat16)
+    before = sa.launch_counts()
+    out = sa.short_attention(*qkv.unbind(2))
+    (out.float() * g.float()).sum().backward()
+    torch.cuda.synchronize()
+    after = sa.launch_counts()
+    assert {n: after[n] - before[n] for n in after} == {"short_attention_fwd": 1,
+                                                        "short_attention_bwd": 1}
+    q, k, v = (x.detach() for x in qkv.unbind(2))
+    ref = sa.short_attention_plain(q, k, v)
+    assert ((out.float() - ref.float()).abs() / sa.error_limit(q, k, v, ref)).max() <= 1.0
+    refs = sa.short_attention_plain_bwd(q, k, v, g)
+    for got, ref_g, lim in zip(qkv.grad.unbind(2), refs,
+                               sa.backward_error_limit(q, k, v, g, refs)):
+        assert ((got.float() - ref_g.float()).abs() / lim).max() <= 1.0
+
+
+def test_router_sends_short_self_attention_to_kernel_6(cuda):
+    """N < 512 self-attention launches kernel 6; N = 513, Nq != Nk and
+    kv_valid launch kernel 1 (the JAX router's split)."""
+    from laryngeal_tpu_torch.ops import attention as att
+
+    def counts(fn):
+        b6, b1 = sa.fwd_launches, fa.launches
+        fn()
+        torch.cuda.synchronize()
+        return sa.fwd_launches - b6, fa.launches - b1
+
+    q, k, v, _ = _short_inputs((2, 511, 2, 64), torch.bfloat16, cuda)
+    assert counts(lambda: att.dot_product_attention(q, k, v)) == (1, 0)
+    q2, k2, v2, _ = _short_inputs((2, 512, 2, 64), torch.bfloat16, cuda)
+    assert counts(lambda: att.dot_product_attention(q2, k2, v2)) == (0, 1)
+    assert counts(lambda: att.dot_product_attention(q, k, v, kv_valid=300)) == (0, 1)
+    assert counts(lambda: att.dot_product_attention(q[:, :100], k, v)) == (0, 1)
+
+
+def test_short_kernel_rejects_bad_input(cuda):
+    q, k, v, _ = _short_inputs((1, 8, 1, 16), torch.float16, cuda)
+    with pytest.raises(ValueError):
+        sa.short_attention(q, k, v)
+    q, k, v, _ = _short_inputs((1, 512, 1, 16), torch.bfloat16, cuda)
+    with pytest.raises(ValueError):
+        sa.short_attention(q, k, v)
+
+
+def _tiny_timesformer(dtype):
+    from laryngeal_tpu_torch.models.timesformer import create_timesformer
+
+    return create_timesformer(num_frames=8, image_size=64, hidden_size=64, num_layers=2,
+                              num_heads=4, intermediate_size=128, dtype=dtype, seed=0)
+
+
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-4), (torch.bfloat16, 3e-2)])
+def test_timesformer_kernel_matches_plain_attention(cuda, dtype, atol):
+    """Each layer launches kernel 6 twice (temporal, spatial) and kernel 1
+    never; the logits agree with the same model on the plain attention."""
+    from laryngeal_tpu_torch.ops import attention as att
+
+    model = _tiny_timesformer(dtype).to(cuda)
+    x = torch.from_numpy(np.random.default_rng(2).standard_normal(
+        (2, 8, 64, 64, 3), dtype=np.float32)).to(cuda)
+    with torch.inference_mode():
+        before, before_fa = sa.fwd_launches, fa.launches
+        out = model(x)
+        assert (sa.fwd_launches - before, fa.launches - before_fa) == (4, 0)
+        att.set_attention_impl("plain")
+        try:
+            ref = model(x)
+        finally:
+            att.set_attention_impl(None)
+    assert out.dtype == torch.float32
+    err = (out - ref).abs().max().item()
+    assert err <= atol, err
+
+
+def test_timesformer_train_step_on_card_matches_cpu(cuda):
+    """A tiny TimeSformer train step on the card: 4 launches each of kernels
+    6 and 7 and none of kernels 1-4 (2 layers, 2 attention calls each); the
+    eval step launches kernel 6 four times. Loss and updated weights agree
+    with the same step on the CPU (f32)."""
+    from laryngeal_tpu_torch.train.state import create_train_state
+    from laryngeal_tpu_torch.train.steps import make_eval_step, make_train_step
+
+    rng = np.random.default_rng(5)
+    pix = torch.from_numpy(rng.integers(0, 256, (2, 8, 64, 64, 3), dtype=np.uint8))
+    labels, mask = torch.tensor([0, 1]), torch.tensor([True, True])
+    counts = lambda: {**fa.launch_counts(), **sa.launch_counts()}
+    results = {}
+    for dev in ("cpu", cuda):
+        model = _tiny_timesformer(torch.float32).to(dev)
+        state = create_train_state(model, "adamw", 1e-3, 0.01)
+        step = make_train_step(model, "timesformer", "ce", crop=64)
+        before = counts()
+        state, m = step(state, pix.to(dev), labels.to(dev), mask.to(dev))
+        if dev == cuda:
+            torch.cuda.synchronize()
+            after = counts()
+            assert {k: after[k] - before[k] for k in after} == {
+                "flash_attention_fwd": 0, "flash_attention_fwd_lse": 0,
+                "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0,
+                "short_attention_fwd": 4, "short_attention_bwd": 4}
+            before = after
+            make_eval_step(model, "timesformer", "ce", crop=64)(
+                state, pix.to(dev), labels.to(dev), mask.to(dev))
+            torch.cuda.synchronize()
+            after = counts()
+            assert after["short_attention_fwd"] - before["short_attention_fwd"] == 4
+            assert after["short_attention_bwd"] == before["short_attention_bwd"]
+        results[str(dev)] = (m["loss"].item(), {n: p.detach().cpu() for n, p in
+                                                model.state_dict().items()})
+    (loss_c, w_c), (loss_g, w_g) = results["cpu"], results[str(cuda)]
+    assert abs(loss_c - loss_g) <= 1e-4 * max(1.0, abs(loss_c))
+    hidden = 64
+    for n, w in w_c.items():
+        if n.endswith("attention.attention.qkv.bias"):
+            # The key slice's gradient is round-off (softmax is shift-invariant).
+            keep = torch.ones_like(w, dtype=torch.bool)
+            keep[hidden:2 * hidden] = False
+            w, wg = w[keep], w_g[n][keep]
+        else:
+            wg = w_g[n]
+        assert ((wg - w).norm() / w.norm()).item() <= 1e-4, n

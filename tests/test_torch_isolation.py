@@ -24,6 +24,8 @@ def test_every_module_is_listed():
     assert "laryngeal_tpu_torch" in MODULES
     assert "laryngeal_tpu_torch.ops.flash_attention" in MODULES
     assert "laryngeal_tpu_torch.cli.serve" in MODULES
+    assert "laryngeal_tpu_torch.ops.short_attention" in MODULES
+    assert "laryngeal_tpu_torch.models.timesformer" in MODULES
 
 
 def test_importing_the_port_loads_no_jax():

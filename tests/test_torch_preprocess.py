@@ -83,11 +83,12 @@ def test_rgb_wire_passthrough_and_unported_paths(monkeypatch):
     for wire in ("i420", "delta", "dct", "dctp"):
         with pytest.raises(NotImplementedError, match="not yet ported"):
             tt.decode_wire_batch(x, wire)
-    for regime in ("pytorchvideo", "timesformer"):
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            tt.batch_preprocess(x, regime)
-    with pytest.raises(NotImplementedError):
-        tt.batch_preprocess(x, "vivit", train=True)
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        tt.batch_preprocess(x, "pytorchvideo")
+    for regime in ("vivit", "timesformer"):
+        with pytest.raises(NotImplementedError):
+            tt.batch_preprocess(x, regime, train=True)
     monkeypatch.setenv("LARYNGEAL_PIL_EXACT", "1")
-    with pytest.raises(NotImplementedError, match="PIL"):
-        tt.batch_preprocess(x, "vivit")
+    for regime in ("vivit", "timesformer"):
+        with pytest.raises(NotImplementedError, match="PIL"):
+            tt.batch_preprocess(x, regime)
