@@ -59,12 +59,43 @@ Phases, in order; any failure ends the run with a non-zero exit:
    every parameter's gradient at B=2, kernels against plain attention.
 10. ``cli.main --model timesformer --bf16``: 1 epoch, ``--resume auto`` for
    a second, ``Predictor.from_checkpoint("timesformer", best_model)``.
+11. (run after 7) Kernels 8-9, Swin3D's shifted-window attention: the
+   forward and the backward (dq, dk, dv and the cross-window dbias) against
+   their plain twins at the four Swin3D-T 32f 224^2 B=8 stage shapes
+   (N = 392, D = 32; 1024/256/64/16 windows, 3/6/12/24 heads), shifted (the
+   model's own region ids) and unshifted, and at six other shapes (N % 8 !=
+   0, a single-window region id, N from 1 to 448, D 16 to 128), bf16 and
+   f32, each under its elementwise limit; timed at each stage beside the
+   bound, the twins and ``F.scaled_dot_product_attention`` with the
+   materialised (B·nW, H, N, N) bias (forward, and backward with the mask's
+   gradient).
+11b. Kernels 11-12, the ablation variants of kernel 8 (the counterpart of
+   ``scripts/bench_window_kernel.py``): bf16 and exp2 softmaxes, 2-3 heads
+   a block, at the four stage shapes; the launch counts are set to 0 around
+   the ablation; then each is held against its twin and timed beside
+   kernel 8.
+12. Swin3D-T serving at full width and depth: a 32-frame 224^2 Predictor in
+   bf16, seeded weights, a (8, 32, 224, 224, 3) uint8 batch: probabilities
+   finite and summing to 1, exactly 12 launches of kernel 8 and none of any
+   other kernel per forward, logits against the same model on the plain
+   attention in bf16 and (two clips) f32; an InferenceServer round trip.
+13. Swin3D-T training, B=8, bf16 compute, the pytorchvideo augmentation and
+   stochastic depth 0.1 on: 12 launches each of kernels 8 and 9 per step and
+   none of any other kernel, 12 of kernel 8 per eval step; loss finite; step
+   time, clips/s, stages, peak memory. Then every parameter's gradient at
+   B=2 (every relative-position table included), kernels against plain
+   attention.
+14. ``cli.main --model swin3d --model_size tiny --bf16``: 1 epoch (no early
+   stopping), ``--resume auto`` for a second, and
+   ``Predictor.from_checkpoint("swin3d", best_model)`` in f32.
 
-The launch counts are set to 0 before each path (ViViT serving 3-4, ViViT
-training 5-6, TimeSformer serving 8, TimeSformer training 9-10) and read
-after it. The second-to-last line of output is ``{"kernels": [...]}``; the
-last is ``{"ok": true, "device": {...}}``. Decode is skipped in 3-5 and 8-9
-(clips are uint8 arrays); phases 6 and 10 decode mp4s.
+The kernel checks (2, 2b, 7, 11, 11b) run first, then the paths. The launch
+counts are set to 0 before each path (ViViT serving 3-4, ViViT training 5-6,
+TimeSformer serving 8, TimeSformer training 9-10, Swin3D serving 12, Swin3D
+training 13-14, and the ablation of 11b) and read after it. Each phase
+prints its time. The second-to-last line of output is ``{"kernels": [...]}``;
+the last is ``{"ok": true, "device": {...}}``. Decode is skipped in 3-5, 8-9
+and 12-13 (clips are uint8 arrays); phases 6, 10 and 14 decode mp4s.
 """
 
 from __future__ import annotations
@@ -119,16 +150,19 @@ def launch_counts() -> dict:
     """Every kernel's launches since the counts were last set to 0."""
     from laryngeal_tpu_torch.ops import flash_attention as fa
     from laryngeal_tpu_torch.ops import short_attention as sa
+    from laryngeal_tpu_torch.ops import window_attention as wa
 
-    return {**fa.launch_counts(), **sa.launch_counts()}
+    return {**fa.launch_counts(), **sa.launch_counts(), **wa.launch_counts()}
 
 
 def reset_launches() -> None:
     from laryngeal_tpu_torch.ops import flash_attention as fa
     from laryngeal_tpu_torch.ops import short_attention as sa
+    from laryngeal_tpu_torch.ops import window_attention as wa
 
     fa.reset_launches()
     sa.reset_launches()
+    wa.reset_launches()
 
 
 def build_kernels():
@@ -576,9 +610,9 @@ def training_path(kernel_ms: dict) -> None:
 
     # -- phase 5: launches per step, loss, timing --
     (state, m), per_step = launched(lambda: step(state, pixel_u8, labels, mask))
-    want = {"flash_attention_fwd": 0, "flash_attention_fwd_lse": n_layers,
-            "flash_attention_bwd_dq": n_layers, "flash_attention_bwd_dkv": n_layers,
-            "short_attention_fwd": 0, "short_attention_bwd": 0}
+    want = {k: 0 for k in per_step}
+    want.update(flash_attention_fwd_lse=n_layers, flash_attention_bwd_dq=n_layers,
+                flash_attention_bwd_dkv=n_layers)
     if per_step != want:
         raise AssertionError(f"launches per train step {per_step}, want {want}")
     em, per_eval = launched(lambda: eval_step(state, pixel_u8, labels, mask))
@@ -645,16 +679,29 @@ def training_path(kernel_ms: dict) -> None:
     torch.cuda.empty_cache()
 
     # -- phase 6: the training CLI, then the predictor on its checkpoint --
+    cli_phase("vivit", [], 0, "flash_attention_fwd", n_layers, clips, "vivit-b")
+
+
+def cli_phase(model: str, extra: list, seed: int, launch_key: str, n_calls: int, clips,
+              label: str):
+    """The training CLI at full width on 8 / 4 / 4 synthetic videos in a
+    temporary directory (deleted at the end): ``cli.main --model <model>
+    --bf16`` for one epoch, then ``--resume auto`` for a second; the
+    checkpoints, history and test metrics are checked, and best_model/ is
+    served in f32 by ``Predictor.from_checkpoint`` on two clips with
+    ``n_calls`` launches of ``launch_key``. Returns (the served model's
+    config, the first run's training_config.json)."""
     from laryngeal_tpu_torch.cli import main as cli
     from laryngeal_tpu_torch.data.synthetic import make_synthetic_dataset
     from laryngeal_tpu_torch.infer.predictor import Predictor
 
-    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_cli_"))
+    tmp = Path(tempfile.mkdtemp(prefix=f"chip_smoke_{model}_cli_"))
     try:
         data = make_synthetic_dataset(str(tmp / "data"), {"train": 4, "val": 2, "test": 2},
-                                      num_frames=40, h=112, w=112, seed=0)
-        flags = ["--model", "vivit", "--data_dir", str(data), "--log_dir", str(tmp / "logs"),
-                 "--bf16", "--batch_size", "8", "--no-pretrained", "--decode_workers", "4"]
+                                      num_frames=40, h=112, w=112, seed=seed)
+        flags = ["--model", model, *extra, "--data_dir", str(data), "--log_dir",
+                 str(tmp / "logs"), "--bf16", "--batch_size", "8", "--no-pretrained",
+                 "--decode_workers", "4"]
         t0 = time.perf_counter()
         first = cli.main(flags + ["--epochs", "1"])
         t1 = time.perf_counter()
@@ -664,32 +711,34 @@ def training_path(kernel_ms: dict) -> None:
         exp1, exp2 = Path(first["exp_dir"]), Path(second["exp_dir"])
         for f in ("best_model", "latest", "training_history.json", "test_metrics_uniform.json"):
             if not (exp1 / f).exists():
-                raise AssertionError(f"cli run 1 wrote no {f}")
+                raise AssertionError(f"{label} cli run 1 wrote no {f}")
         for f in ("latest", "training_history.json", "test_metrics_uniform.json"):
             if not (exp2 / f).exists():
-                raise AssertionError(f"cli run 2 wrote no {f}")
+                raise AssertionError(f"{label} cli run 2 wrote no {f}")
         h1, h2 = first["history"], second["history"]
         if len(h2["train_loss"]) != 2 or h2["train_loss"][0] != h1["train_loss"][0] \
                 or not all(math.isfinite(x) for x in h2["train_loss"] + h2["val_loss"]):
             raise AssertionError(f"resumed history {h2} does not continue {h1}")
-        log(f"cli --bf16: 1 epoch in {t1 - t0:.1f} s, resumed for epoch 2 in {t2 - t1:.1f} s "
-            f"(8 train / 4 val / 4 test videos, checkpoints with AdamW state included); "
-            f"history {h2['train_loss']} / {h2['val_loss']}; test auroc {second['auroc']:.3f}")
-        predictor = Predictor.from_checkpoint("vivit", exp1 / "best_model")
+        log(f"{label} cli --bf16: 1 epoch in {t1 - t0:.1f} s, resumed for epoch 2 in "
+            f"{t2 - t1:.1f} s (8 train / 4 val / 4 test videos, checkpoints with the AdamW "
+            f"state); history {h2['train_loss']} / {h2['val_loss']}; test auroc "
+            f"{second['auroc']:.3f}")
+        predictor = Predictor.from_checkpoint(model, exp1 / "best_model")
         if predictor.model.config.dtype != torch.float32:
             raise AssertionError("a checkpoint without a dtype must be served in f32")
-        before = fa.launches
-        probs = predictor.predict_clip(clips[:2])
-        if fa.launches - before != n_layers or not np.isfinite(probs).all() \
+        probs, per = launched(lambda: predictor.predict_clip(clips[:2]))
+        if per[launch_key] != n_calls or not np.isfinite(probs).all() \
                 or not np.allclose(probs.sum(-1), 1.0, atol=1e-5):
-            raise AssertionError(f"predictor on the cli checkpoint: {probs}, "
-                                 f"{fa.launches - before} launches")
-        log(f"Predictor.from_checkpoint(best_model) f32: {n_layers} launches of kernel 1, "
-            f"probabilities {probs.tolist()}")
+            raise AssertionError(f"predictor on the {label} cli checkpoint: {probs}, {per}")
+        log(f"Predictor.from_checkpoint({model!r}, best_model) f32: {n_calls} launches of "
+            f"{launch_key}, probabilities {probs.tolist()}")
+        config = predictor.model.config
+        saved = json.loads((exp1 / "training_config.json").read_text())
         del predictor
+        return config, saved
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    torch.cuda.empty_cache()
+        torch.cuda.empty_cache()
 
 
 def fused_qkv(shape, dtype, seed):
@@ -818,64 +867,75 @@ def timesformer_b(dtype, seed=0):
                               seed=seed)
 
 
-def timesformer_serving() -> dict:
-    """Phase 8: the TimeSformer-B serving path on the card. Returns each
-    kernel's launches since the counts were set to 0."""
+def serving_phase(name: str, label: str, make_model, launch_key: str, calls, flops, seed: int
+                  ) -> dict:
+    """A model's serving path on the card at full width (TimeSformer-B, phase 8;
+    Swin3D-T, phase 12): a 32-frame 224^2 Predictor in bf16 with seeded
+    weights on a (8, 32, 224, 224, 3) uint8 batch: probabilities finite and
+    summing to 1, exactly ``calls(model)`` launches of ``launch_key`` and none
+    of any other kernel per forward, logits against the same model on the
+    plain attention in bf16 and (two clips) f32, the forward's device time by
+    kernel, an InferenceServer round trip. Returns each kernel's launches
+    since the counts were set to 0."""
     from laryngeal_tpu_torch.infer.predictor import Predictor
     from laryngeal_tpu_torch.models.registry import get_model_spec
     from laryngeal_tpu_torch.ops import attention as att
     from laryngeal_tpu_torch.preprocess.transforms import batch_preprocess
     from laryngeal_tpu_torch.serve.server import InferenceServer
 
-    spec = get_model_spec("timesformer")
-    model = timesformer_b(torch.bfloat16)
+    spec = get_model_spec(name)
+    regime = spec.preprocess_regime
+    model = make_model(torch.bfloat16)
     predictor = Predictor(model, spec, num_frames=32, crop_size=224, device="cuda")
-    n_calls = 2 * model.config.num_layers
     want = {k: 0 for k in launch_counts()}
-    want["short_attention_fwd"] = n_calls
-    clips = np.random.default_rng(3).integers(0, 256, (8, 32, 224, 224, 3), dtype=np.uint8)
+    want[launch_key] = calls(model)
+    clips = np.random.default_rng(seed).integers(0, 256, (8, 32, 224, 224, 3), dtype=np.uint8)
 
     probs, per_forward = launched(lambda: predictor.predict_clip(clips))
     if per_forward != want:
-        raise AssertionError(f"launches per TimeSformer forward {per_forward}, want {want}")
+        raise AssertionError(f"launches per {label} forward {per_forward}, want {want}")
     if probs.shape != (8, 2) or not np.isfinite(probs).all() \
             or not np.allclose(probs.sum(-1), 1.0, atol=1e-5):
         raise AssertionError(f"bad probabilities {probs}")
     with torch.inference_mode():
         clips_dev = torch.from_numpy(clips).cuda()
-        pixel = batch_preprocess(clips_dev, "timesformer", crop=224)
-        preprocess_ms = cuda_time_ms(
-            lambda: batch_preprocess(clips_dev, "timesformer", crop=224), reps=5, warmup=1)
+        pixel = batch_preprocess(clips_dev, regime, crop=224)
+        preprocess_ms = cuda_time_ms(lambda: batch_preprocess(clips_dev, regime, crop=224),
+                                     reps=5, warmup=1)
         logits, per_model = launched(lambda: model(pixel))
         if per_model != want:
-            raise AssertionError(f"launches per TimeSformer forward {per_model}, want {want}")
+            raise AssertionError(f"launches per {label} forward {per_model}, want {want}")
         att.set_attention_impl("plain")
         try:
             logits_plain = model(pixel)
         finally:
             att.set_attention_impl(None)
         forward_ms = cuda_time_ms(lambda: model(pixel), reps=5, warmup=1)
-    check_logits("bf16", logits, logits_plain, LOGIT_TOL[torch.bfloat16], "timesformer-b")
+        parts = launch_breakdown(lambda: model(pixel))
+    check_logits("bf16", logits, logits_plain, LOGIT_TOL[torch.bfloat16], label)
+    total = sum(parts.values())
+    log(f"{label} forward device time (torch.profiler): {total:.2f} ms in kernels; top: "
+        + ", ".join(f"{k} {v:.2f}" for k, v in sorted(parts.items(), key=lambda kv: -kv[1])[:10]))
     torch.cuda.synchronize()
     reps = 5
     t0 = time.perf_counter()
     for _ in range(reps):
         predictor.predict_clip(clips)
     e2e_s = (time.perf_counter() - t0) / reps
-    flops = timesformer_forward_flops(model.config, 8)
-    log(f"timesformer-b 32f 224 bf16 B=8: preprocess {preprocess_ms:.2f} ms, forward "
-        f"{forward_ms:.2f} ms (model only; {flops:.4e} model operations = "
-        f"{flops / (forward_ms * 1e-3) / 989e12:.4f} of 989 TFLOP/s), predict_clip "
+    ops = flops(model)
+    log(f"{label} 32f 224 bf16 B=8: preprocess {preprocess_ms:.2f} ms, forward "
+        f"{forward_ms:.2f} ms (model only; {ops:.4e} model operations = "
+        f"{ops / (forward_ms * 1e-3) / 989e12:.4f} of 989 TFLOP/s), predict_clip "
         f"{e2e_s * 1e3:.2f} ms -> {8 / e2e_s:.2f} clips/s (uint8 host batch -> probabilities "
         f"on the host); launches per forward {per_forward}")
 
     # The same weights in f32 (no dtype in a checkpoint's metadata), two clips.
-    model_f32 = timesformer_b(torch.float32)
+    model_f32 = make_model(torch.float32)
     pred_f32 = Predictor(model_f32, spec, num_frames=32, crop_size=224, device="cuda")
     probs_f32, per_f32 = launched(lambda: pred_f32.predict_clip(clips[:2]))
     if per_f32 != want or not np.isfinite(probs_f32).all() \
             or not np.allclose(probs_f32.sum(-1), 1.0, atol=1e-5):
-        raise AssertionError(f"f32 TimeSformer predictor: {probs_f32}, launches {per_f32}")
+        raise AssertionError(f"f32 {label} predictor: {probs_f32}, launches {per_f32}")
     with torch.inference_mode():
         logits_f32 = model_f32(pixel[:2])
         att.set_attention_impl("plain")
@@ -883,8 +943,8 @@ def timesformer_serving() -> dict:
             logits_f32_plain = model_f32(pixel[:2])
         finally:
             att.set_attention_impl(None)
-    check_logits("f32", logits_f32, logits_f32_plain, LOGIT_TOL[torch.float32], "timesformer-b")
-    log(f"timesformer-b bf16 logits vs the f32 model (2 clips): kernel "
+    check_logits("f32", logits_f32, logits_f32_plain, LOGIT_TOL[torch.float32], label)
+    log(f"{label} bf16 logits vs the f32 model (2 clips): kernel "
         f"{(logits[:2] - logits_f32_plain).abs().max().item():.3e}, plain attention "
         f"{(logits_plain[:2] - logits_f32_plain).abs().max().item():.3e}")
     del pred_f32, model_f32, pixel, clips_dev
@@ -897,19 +957,28 @@ def timesformer_serving() -> dict:
         base = f"http://127.0.0.1:{server.port}"
         with urllib.request.urlopen(base + "/healthz", timeout=30) as r:
             health = json.loads(r.read())
-        if health.get("status") != "ok" or health.get("model") != "timesformer":
+        if health.get("status") != "ok" or health.get("model") != name:
             raise AssertionError(f"/healthz: {health}")
         t0 = time.perf_counter()
-        row = server.batcher.submit(clips[0]).result(timeout=300)
+        futures = [server.batcher.submit(clips[i]) for i in range(3)]
+        rows = np.stack([f.result(timeout=300) for f in futures])
         serve_s = time.perf_counter() - t0
     finally:
         server.close()
         thread.join(timeout=10)
-    if not np.isfinite(row).all() or not np.allclose(row.sum(-1), 1.0, atol=1e-5):
+    if not np.isfinite(rows).all() or not np.allclose(rows.sum(-1), 1.0, atol=1e-5):
         raise AssertionError("server returned bad probabilities")
-    np.testing.assert_allclose(row, probs[0], atol=2e-2)
-    log(f"timesformer server: /healthz ok, one clip in {serve_s * 1e3:.1f} ms")
+    np.testing.assert_allclose(rows, probs[:3], atol=2e-2)
+    log(f"{label} server: /healthz ok, 3 clips in {serve_s * 1e3:.1f} ms")
     return launch_counts()
+
+
+def timesformer_serving() -> dict:
+    """Phase 8: the TimeSformer-B serving path (24 launches of kernel 6 a
+    forward)."""
+    return serving_phase("timesformer", "timesformer-b", timesformer_b, "short_attention_fwd",
+                         lambda m: 2 * m.config.num_layers,
+                         lambda m: timesformer_forward_flops(m.config, 8), seed=3)
 
 
 def timesformer_forward_flops(cfg, batch: int) -> float:
@@ -1010,50 +1079,388 @@ def timesformer_training(kernel_ms: dict) -> None:
     torch.cuda.empty_cache()
 
     # -- phase 10: the training CLI, then the predictor on its checkpoint --
-    from laryngeal_tpu_torch.cli import main as cli
-    from laryngeal_tpu_torch.data.synthetic import make_synthetic_dataset
-    from laryngeal_tpu_torch.infer.predictor import Predictor
+    config, _ = cli_phase("timesformer", [], 1, "short_attention_fwd", n_calls, clips,
+                          "timesformer-b")
+    if config.num_frames != 32:
+        raise AssertionError("the timesformer checkpoint must be served at 32 frames")
 
-    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_ts_cli_"))
-    try:
-        data = make_synthetic_dataset(str(tmp / "data"), {"train": 4, "val": 2, "test": 2},
-                                      num_frames=40, h=112, w=112, seed=1)
-        flags = ["--model", "timesformer", "--data_dir", str(data), "--log_dir",
-                 str(tmp / "logs"), "--bf16", "--batch_size", "8", "--no-pretrained",
-                 "--decode_workers", "4"]
-        t0 = time.perf_counter()
-        first = cli.main(flags + ["--epochs", "1"])
-        t1 = time.perf_counter()
-        time.sleep(1.1)  # experiment directories are stamped to the second
-        second = cli.main(flags + ["--epochs", "2", "--resume", "auto"])
-        t2 = time.perf_counter()
-        exp1, exp2 = Path(first["exp_dir"]), Path(second["exp_dir"])
-        for f in ("best_model", "latest", "training_history.json", "test_metrics_uniform.json"):
-            if not (exp1 / f).exists():
-                raise AssertionError(f"timesformer cli run 1 wrote no {f}")
-        for f in ("latest", "training_history.json", "test_metrics_uniform.json"):
-            if not (exp2 / f).exists():
-                raise AssertionError(f"timesformer cli run 2 wrote no {f}")
-        h1, h2 = first["history"], second["history"]
-        if len(h2["train_loss"]) != 2 or h2["train_loss"][0] != h1["train_loss"][0] \
-                or not all(math.isfinite(x) for x in h2["train_loss"] + h2["val_loss"]):
-            raise AssertionError(f"resumed history {h2} does not continue {h1}")
-        log(f"timesformer cli --bf16: 1 epoch in {t1 - t0:.1f} s, resumed for epoch 2 in "
-            f"{t2 - t1:.1f} s (8 train / 4 val / 4 test videos); history {h2['train_loss']} / "
-            f"{h2['val_loss']}; test auroc {second['auroc']:.3f}")
-        predictor = Predictor.from_checkpoint("timesformer", exp1 / "best_model")
-        if predictor.model.config.dtype != torch.float32 or predictor.model.config.num_frames != 32:
-            raise AssertionError("the checkpoint must be served in f32 at 32 frames")
-        probs, per = launched(lambda: predictor.predict_clip(clips[:2]))
-        if per["short_attention_fwd"] != n_calls or not np.isfinite(probs).all() \
-                or not np.allclose(probs.sum(-1), 1.0, atol=1e-5):
-            raise AssertionError(f"predictor on the timesformer cli checkpoint: {probs}, {per}")
-        log(f"Predictor.from_checkpoint('timesformer', best_model) f32: {n_calls} launches of "
-            f"kernel 6, probabilities {probs.tolist()}")
-        del predictor
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+
+# Swin3D-T 32f 224^2 at B=8: each stage's window attention call, (B·nW, N, H,
+# D), its patch grid (T, H, W) and its blocks. The windows are (8, 7, 7) and
+# the shifted blocks' region ids come from the model's own helpers.
+SWIN_STAGES = {1: ((1024, 392, 3, 32), (16, 56, 56), 2), 2: ((256, 392, 6, 32), (16, 28, 28), 2),
+               3: ((64, 392, 12, 32), (16, 14, 14), 6), 4: ((16, 392, 24, 32), (16, 7, 7), 2)}
+
+
+def stage_region_ids(grid):
+    """The (nW, N) region ids of a shifted block on ``grid`` (the model's
+    own ``adjust_window`` and ``shift_region_ids``), on the card."""
+    from laryngeal_tpu_torch.models.swin3d import adjust_window, shift_region_ids
+
+    window, shift = adjust_window(grid, (8, 7, 7), (4, 3, 3))
+    return torch.from_numpy(shift_region_ids(grid, window, shift)).cuda()
+
+
+def window_bound_ms(shape, dtype, backward: bool, rid):
+    """Kernel 8 (and 11, 12): two (N x N x D) products per (window, head);
+    q, k, v read and o written once, the f32 (H, N, N) bias read once.
+    Kernel 9: five products; q, k, v, g read and dq, dk, dv written once,
+    the bias read and dbias written once (f32). A shifted block's (nW, N)
+    int32 region ids are read once; an unshifted block (``rid`` None) reads
+    none."""
+    b, n, h, d = shape
+    rid_bytes = 0 if rid is None else rid.numel() * rid.element_size()
+    bias_bytes = h * n * n * 4 * (2 if backward else 1) + rid_bytes
+    flops = 2.0 * (5 if backward else 2) * b * h * n * n * d
+    size = torch.tensor([], dtype=dtype).element_size()
+    nbytes = (7 if backward else 4) * b * n * h * d * size + bias_bytes
+    t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def launch_breakdown(fn, reps: int = 3) -> dict:
+    """Device time per call of each CUDA kernel ``fn`` launches, from
+    ``torch.profiler`` over ``reps`` calls after a warm-up call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        if e.device_time_total > 0:
+            key = e.key.replace("(anonymous namespace)::", "")
+            name = key.split("(")[0].split("<")[0].split("::")[-1].replace("void ", "").strip()
+            out[name] = out.get(name, 0.0) + e.device_time_total / reps / 1e3
+    return out
+
+
+def window_inputs(shape, dtype, seed):
+    """q, k, v (views of a fused qkv), g, and a unit-normal f32 bias."""
+    q, k, v, g = fused_qkv(shape, dtype, seed)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 1000)
+    bias = torch.randn((shape[2], shape[1], shape[1]), generator=gen, device="cuda")
+    return q, k, v, g, bias
+
+
+def sdpa_bias(bias, rid, bw, dtype):
+    """The materialised (B·nW, H, N, N) bias the library call takes: the
+    table gather plus -100 across region boundaries, in the compute dtype."""
+    from laryngeal_tpu_torch.ops import window_attention as wa
+
+    h, n = bias.shape[0], bias.shape[1]
+    full = bias[None].expand(bw, h, n, n)
+    if rid is not None:
+        nw = rid.shape[0]
+        m = wa.region_mask(rid).float() * wa.MASK_VALUE
+        full = (full.view(bw // nw, nw, h, n, n) + m[None, :, None]).reshape(bw, h, n, n)
+    return full.to(dtype).contiguous()
+
+
+def check_window_kernels():
+    """Phase 11: kernels 8-9 vs their plain twins at the four Swin3D-T stage
+    shapes, shifted and unshifted, and at other shapes (N % 8 != 0, a
+    single-window region id, D 64 and 128), f32 and bf16; dq, dk, dv and
+    dbias elementwise. Timings at each stage shape (shifted) beside the
+    bound, the twins and sdpa with the materialised bias (forward, and the
+    autograd backward with the mask's gradient). Returns {entry: numbers}."""
+    import torch.nn.functional as F
+
+    from laryngeal_tpu_torch.ops import window_attention as wa
+
+    entries = {"window_attention_fwd": {}, "window_attention_bwd": {}}
+    worst = {e: [0.0, 0.0] for e in entries}
+    cases = []
+    for stage, (shape, grid, _) in SWIN_STAGES.items():
+        cases.append((f"stage{stage}", shape, grid))
+        cases.append((f"stage{stage}_unshifted", shape, None))
+    cases += [("n245_nw4", (64, 245, 4, 32), "rand4"), ("n392_nw1", (8, 392, 3, 32), "rand1"),
+              ("n100_d64", (32, 100, 6, 64), "rand4"), ("n27_d128", (12, 27, 2, 128), "rand3"),
+              ("n1_d16", (4, 1, 3, 16), None), ("n448_d40", (2, 448, 2, 40), "rand1")]
+    for dtype in (torch.bfloat16, torch.float32):
+        tag = str(dtype)[6:]
+        for seed, (name, shape, grid) in enumerate(cases):
+            q, k, v, g, bias = window_inputs(shape, dtype, 40 + seed)
+            if grid is None:
+                rid = None
+            elif isinstance(grid, str):
+                gen = torch.Generator(device="cuda").manual_seed(seed)
+                rid = torch.randint(0, 4, (int(grid[4:]), shape[1]), generator=gen,
+                                    device="cuda", dtype=torch.int32)
+            else:
+                rid = stage_region_ids(grid)
+            out = wa.window_attention_fwd_cuda(q, k, v, bias, rid)
+            ref = wa.window_attention_plain(q, k, v, bias, rid)
+            diff = (out.float() - ref.float()).abs()
+            use_f = (diff / wa.error_limit(q, k, v, bias, rid, ref, f32_tol=F32_TOL)).max().item()
+            err_f = diff.max().item()
+            del diff, out, ref
+            grads = wa.window_attention_bwd_cuda(q, k, v, bias, rid, g)
+            refs = wa.window_attention_plain_bwd(q, k, v, bias, rid, g)
+            uses, errs = [], []
+            for got, ref_g, lim in zip(grads, refs,
+                                       wa.backward_error_limit(q, k, v, bias, rid, g, refs)):
+                diff = (got.float() - ref_g.float()).abs()
+                uses.append((diff / lim).max().item())
+                errs.append(diff.max().item())
+            del grads, refs, diff
+            torch.cuda.empty_cache()
+            ok = max([use_f] + uses) <= 1.0 and all(math.isfinite(x) for x in [err_f] + errs)
+            log(f"window attention {name} {shape} nW={None if rid is None else rid.shape[0]} "
+                f"{tag}: fwd max_abs_err {err_f:.3e} (|err|/limit {use_f:.3f}); dq/dk/dv/dbias "
+                f"max_abs_err {'/'.join(f'{e:.3e}' for e in errs)}, |err|/limit "
+                f"{'/'.join(f'{u:.3f}' for u in uses)} {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"kernels 8-9 disagree with their plain twins: {name} {tag}")
+            if dtype == torch.bfloat16:
+                for e, (err, use) in (("window_attention_fwd", (err_f, use_f)),
+                                      ("window_attention_bwd", (max(errs), max(uses)))):
+                    worst[e] = [max(worst[e][0], err), max(worst[e][1], use)]
+            if not (name.startswith("stage") and not name.endswith("unshifted")):
+                del q, k, v, g, bias, rid
+                continue
+            ms8 = cuda_time_ms(lambda: wa.window_attention_fwd_cuda(q, k, v, bias, rid))
+            ms9 = cuda_time_ms(lambda: wa.window_attention_bwd_cuda(q, k, v, bias, rid, g))
+            parts = launch_breakdown(lambda: wa.window_attention_bwd_cuda(q, k, v, bias, rid, g))
+            log(f"window_attention_bwd {name} {tag} launches (torch.profiler device ms a call): "
+                + ", ".join(f"{k_} {v_:.4f}" for k_, v_ in parts.items()))
+            plain8 = cuda_time_ms(lambda: wa.window_attention_plain(q, k, v, bias, rid), reps=3,
+                                  warmup=1)
+            plain9 = cuda_time_ms(lambda: wa.window_attention_plain_bwd(q, k, v, bias, rid, g),
+                                  reps=3, warmup=1)
+            torch.cuda.empty_cache()
+            qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
+            mask = sdpa_bias(bias, rid, shape[0], dtype).requires_grad_()
+            gt = g.transpose(1, 2)
+            lib8 = cuda_time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask))
+            lib_out = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
+            lib9 = cuda_time_ms(lambda: torch.autograd.grad(lib_out, (qt, kt, vt, mask), gt,
+                                                            retain_graph=True))
+            del lib_out, qt, kt, vt, gt, mask
+            for e, ms, plain_ms, lib_ms, backward in (
+                    ("window_attention_fwd", ms8, plain8, lib8, False),
+                    ("window_attention_bwd", ms9, plain9, lib9, True)):
+                bound_ms, bound_by = window_bound_ms(shape, dtype, backward, rid)
+                numbers = dict(shape=list(shape), ms=ms, kernel_ms=ms, plain_ms=plain_ms,
+                               bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms)
+                if backward:
+                    numbers["launches_ms"] = parts
+                log(f"{e} {name} {tag}: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, sdpa "
+                    f"{lib_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
+                    f"{bound_ms / ms:.3f} of the bound")
+                entries[e][name if dtype == torch.bfloat16 else f"{name}_f32"] = numbers
+            del q, k, v, g, bias, rid
+            torch.cuda.empty_cache()
+    tol = ("bf16: window_attention.error_limit / backward_error_limit (one-ulp bf16 rounding "
+           f"flips, elementwise; dbias F32_REL*A); f32: {F32_TOL:g} (o), F32_REL*A (grads)")
+    for e, nums in entries.items():
+        nums.update({k: v for k, v in nums["stage1"].items() if k != "shape"})
+        nums.update(max_abs_err=worst[e][0], err_over_limit=worst[e][1], tol=tol,
+                    headline="stage 1 (1024, 392, 3, 32) shifted bf16")
+    return entries
+
+
+def window_variants(kernel8: dict):
+    """Phase 11b, the counterpart of ``scripts/bench_window_kernel.py``'s
+    ablation: kernels 11 (bf16sm, exp2 softmax) and 12 (heads a block) at
+    the four stage shapes (shifted, bf16). The launch counts are set to 0,
+    the ablation runs each variant once per stage, and the counts are read;
+    then each variant is held against its plain twin and timed beside
+    kernel 8. Returns ({entry: numbers}, launches during the ablation)."""
+    from laryngeal_tpu_torch.ops import window_attention as wa
+
+    inputs = {}
+    for stage, (shape, grid, _) in SWIN_STAGES.items():
+        q, k, v, _, bias = window_inputs(shape, torch.bfloat16, 80 + stage)
+        inputs[stage] = (q, k, v, bias, stage_region_ids(grid))
+    reset_launches()
+    outs = {(stage, kind): wa.window_attention_variant(*inputs[stage], kind)
+            for stage in SWIN_STAGES for kind in wa.VARIANTS}
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    entries = {f"window_attention_fwd_{kind}": {} for kind in wa.VARIANTS}
+    worst = {e: [0.0, 0.0] for e in entries}
+    for stage, (shape, _, _) in SWIN_STAGES.items():
+        q, k, v, bias, rid = inputs[stage]
+        row = [f"stage {stage} {shape}: kernel 8 {kernel8[f'stage{stage}']['ms']:.4f} ms"]
+        for kind in wa.VARIANTS:
+            e = f"window_attention_fwd_{kind}"
+            out = outs[(stage, kind)]
+            ref = wa.window_attention_plain(q, k, v, bias, rid, kind)
+            diff = (out.float() - ref.float()).abs()
+            use = (diff / wa.error_limit(q, k, v, bias, rid, ref, kind)).max().item()
+            err = diff.max().item()
+            del diff, ref
+            if not (math.isfinite(err) and use <= 1.0):
+                raise AssertionError(f"kernel {e} disagrees with its twin at stage {stage}: "
+                                     f"|err|/limit {use}")
+            worst[e] = [max(worst[e][0], err), max(worst[e][1], use)]
+            ms = cuda_time_ms(lambda: wa.window_attention_variant_cuda(q, k, v, bias, rid, kind))
+            plain_ms = cuda_time_ms(lambda: wa.window_attention_plain(q, k, v, bias, rid, kind),
+                                    reps=3, warmup=1)
+            bound_ms, bound_by = window_bound_ms(shape, torch.bfloat16, False, rid)
+            entries[e][f"stage{stage}"] = dict(
+                shape=list(shape), ms=ms, kernel_ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=kernel8[f"stage{stage}"]["library_ms"],
+                max_abs_err=err, err_over_limit=use)
+            row.append(f"{kind} {ms:.4f} ms (|err|/limit {use:.3f})")
+            torch.cuda.empty_cache()
+        log("window ablation " + ", ".join(row))
+    for e, nums in entries.items():
+        nums.update({k: v for k, v in nums["stage1"].items()
+                     if k not in ("shape", "max_abs_err", "err_over_limit")})
+        nums.update(max_abs_err=worst[e][0], err_over_limit=worst[e][1],
+                    tol="window_attention.error_limit (bf16; bf16sm adds its z-rounding term)",
+                    headline="stage 1 (1024, 392, 3, 32) shifted bf16")
+    del inputs, outs
     torch.cuda.empty_cache()
+    return entries, counts
+
+
+def swin3d_t(dtype, seed=0):
+    from laryngeal_tpu_torch.models.swin3d import create_swin3d
+
+    return create_swin3d("tiny", num_classes=2, dtype=dtype, seed=seed)
+
+
+def swin_forward_flops(batch: int) -> float:
+    """Model operations of one Swin3D-T forward at 32f 224^2: the patch
+    embedding, per block the qkv, proj and MLP products and the two window
+    attention products, the patch-merging products."""
+    embed = 2.0 * 16 * 56 * 56 * (3 * 2 * 4 * 4) * 96
+    total = embed
+    dim = 96
+    for stage, (shape, grid, depth) in SWIN_STAGES.items():
+        tokens = grid[0] * grid[1] * grid[2]
+        bw, n, h, d = shape
+        block = 2.0 * tokens * dim * (3 * dim + dim + 8 * dim) + 4.0 * (bw // 8) * h * n * n * d
+        total += depth * block
+        if stage < 4:
+            total += 2.0 * (tokens // 4) * 4 * dim * 2 * dim
+            dim *= 2
+    return batch * total
+
+
+def swin_serving() -> dict:
+    """Phase 12: the Swin3D-T serving path (12 launches of kernel 8 a
+    forward)."""
+    return serving_phase("swin3d", "swin3d-t", swin3d_t, "window_attention_fwd",
+                         lambda m: sum(m.config.depths), lambda m: swin_forward_flops(8),
+                         seed=5)
+
+
+def swin_key_free(name, grad):
+    """Swin3D's gradients without the key slice [C, 2C) of each fused qkv
+    bias (round-off, see GRAD_TOL)."""
+    if name.endswith("attn.qkv.bias"):
+        c = grad.shape[0] // 3
+        return torch.cat([grad[:c], grad[2 * c:]])
+    return grad
+
+
+def swin_training(kernel_ms: dict) -> None:
+    """Phases 13 and 14: the Swin3D-T training path on the card (with the
+    pytorchvideo augmentation and stochastic depth 0.1 on), and the CLI."""
+    from laryngeal_tpu_torch.preprocess.transforms import batch_preprocess
+    from laryngeal_tpu_torch.train.losses import cross_entropy
+    from laryngeal_tpu_torch.train.state import create_train_state
+    from laryngeal_tpu_torch.train.steps import make_eval_step, make_train_step, step_generators
+
+    b = 8
+    model = swin3d_t(torch.bfloat16).cuda()
+    n_calls = sum(depth for _, _, depth in SWIN_STAGES.values())
+    state = create_train_state(model, "adamw", 1e-4, 0.05)
+    step = make_train_step(model, "pytorchvideo", "ce", crop=224, seed=0)
+    eval_step = make_eval_step(model, "pytorchvideo", "ce", crop=224)
+    rng = np.random.default_rng(6)
+    clips = rng.integers(0, 256, (b, 32, 224, 224, 3), dtype=np.uint8)
+    labels = torch.from_numpy(rng.integers(0, 2, b)).cuda()
+    mask = torch.ones(b, dtype=torch.bool, device="cuda")
+    pixel_u8 = torch.from_numpy(clips).cuda()
+
+    # -- phase 13: launches per step, loss, timing --
+    (state, m), per_step = launched(lambda: step(state, pixel_u8, labels, mask))
+    want = {k: 0 for k in per_step}
+    want.update(window_attention_fwd=n_calls, window_attention_bwd=n_calls)
+    if per_step != want:
+        raise AssertionError(f"launches per Swin3D train step {per_step}, want {want}")
+    em, per_eval = launched(lambda: eval_step(state, pixel_u8, labels, mask))
+    want_eval = {k: (n_calls if k == "window_attention_fwd" else 0) for k in want}
+    if per_eval != want_eval:
+        raise AssertionError(f"launches per Swin3D eval step {per_eval}, want {want_eval}")
+    log(f"swin3d launches per train step {per_step}; per eval step {per_eval}")
+    for _ in range(2):
+        step(state, pixel_u8, labels, mask)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reps = 5
+    t0 = time.perf_counter()
+    losses = [step(state, pixel_u8, labels, mask)[1]["loss"] for _ in range(reps)]
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / reps
+    peak = torch.cuda.max_memory_allocated()
+    losses = [x.item() for x in [m["loss"], em["loss"]] + losses]
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"non-finite loss {losses}")
+    flops = 3.0 * swin_forward_flops(b)
+    log(f"swin3d-t 32f 224 bf16 B=8 train step: {step_s * 1e3:.2f} ms -> {b / step_s:.2f} "
+        f"clips/s (uint8 batch on the card -> augmented -> updated weights), peak memory "
+        f"{peak / 2**30:.2f} GiB, model operations {flops:.4e} per step = "
+        f"{flops / step_s / 989e12:.4f} of 989 TFLOP/s; losses {losses}")
+
+    aug, drop = step_generators(0, 99, "cuda")
+    pre_ms = cuda_time_ms(lambda: batch_preprocess(pixel_u8, "pytorchvideo", train=True,
+                                                   crop=224, generator=aug), reps=3)
+    stages = []
+    model.train()
+    for _ in range(4):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        pixel = batch_preprocess(pixel_u8, "pytorchvideo", train=True, crop=224, generator=aug)
+        ev[0].record()
+        loss = cross_entropy(model(pixel, generator=drop), labels, mask)
+        ev[1].record()
+        state.optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        ev[2].record()
+        state.optimizer.step()
+        ev[3].record()
+        torch.cuda.synchronize()
+        stages.append([ev[i].elapsed_time(ev[i + 1]) for i in range(3)])
+    fwd_ms, bwd_ms, opt_ms = np.median(np.asarray(stages[1:]), axis=0)
+    attn_ms = sum(depth * kernel_ms[stage] for stage, (_, _, depth) in SWIN_STAGES.items())
+    log(f"swin3d train step stages (bf16 B=8): preprocess with augmentation {pre_ms:.2f} ms, "
+        f"forward+loss {fwd_ms:.2f} ms, backward {bwd_ms:.2f} ms, optimizer {opt_ms:.2f} ms; "
+        f"kernels 8 + 9 over the 12 blocks "
+        f"({', '.join(f'stage {s} {v:.4f}' for s, v in kernel_ms.items())} ms a block) = "
+        f"{attn_ms:.2f} ms = {attn_ms / (step_s * 1e3):.3f} of the step")
+    # Where the step's device time goes: every kernel of one train step.
+    parts = launch_breakdown(lambda: step(state, pixel_u8, labels, mask), reps=2)
+    total = sum(parts.values())
+    window = sum(v for k, v in parts.items() if "window" in k or "dbias" in k)
+    top = sorted(parts.items(), key=lambda kv: -kv[1])[:12]
+    log(f"swin3d train step device time (torch.profiler, a step): {total:.2f} ms in kernels, "
+        f"{window:.2f} ms = {window / total:.3f} in the window kernels; top: "
+        + ", ".join(f"{k} {v:.2f}" for k, v in top))
+    del state, step, eval_step, model, m, em, loss, pixel
+    torch.cuda.empty_cache()
+
+    pixel2 = batch_preprocess(pixel_u8[:2], "pytorchvideo", crop=224)
+    for dtype in (torch.float32, torch.bfloat16):
+        grad_check(lambda dt: swin3d_t(dt, seed=1), pixel2, labels[:2], dtype, swin_key_free,
+                   "swin3d-t")
+    del pixel_u8, pixel2
+    torch.cuda.empty_cache()
+
+    # -- phase 14: the training CLI (no early stopping), the predictor on its checkpoint --
+    config, saved = cli_phase("swin3d", ["--model_size", "tiny"], 2, "window_attention_fwd",
+                              n_calls, clips, "swin3d-t")
+    if saved.get("use_early_stopping") is not False:
+        raise AssertionError("swin3d must train without early stopping")
+    if config.depths != (2, 2, 6, 2) or config.embed_dim != 96:
+        raise AssertionError("the swin3d checkpoint must be served as Swin3D-T")
 
 
 def main() -> int:
@@ -1069,28 +1476,57 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False  # f32 comparisons in full f32
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
+    t_phase = [t_start]
+
+    def phase_done(name):
+        now = time.perf_counter()
+        log(f"[phase {name}: {now - t_phase[0]:.1f} s]")
+        t_phase[0] = now
+
     log(card_line())
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)}")
     build_kernels()
+    phase_done("1 build")
     entry = check_attention()
+    phase_done("2 kernel 1")
     train_entries = check_training_kernels()
+    phase_done("2b kernels 2-4")
     short_entries = check_short_kernels()
+    phase_done("7 kernels 6-7")
+    window_entries = check_window_kernels()
+    phase_done("11 kernels 8-9")
+    variant_entries, variant_counts = window_variants(window_entries["window_attention_fwd"])
+    phase_done("11b kernels 11-12")
 
     reset_launches()
     serve_counts = main_path()
+    phase_done("3-4 vivit serving")
     reset_launches()
     training_path({k: v["ms"] for k, v in train_entries.items()})
     train_counts = launch_counts()
+    phase_done("5-6 vivit training")
     reset_launches()
     ts_serve_counts = timesformer_serving()
+    phase_done("8 timesformer serving")
     reset_launches()
     timesformer_training({f"{e} {shape}": short_entries[e][shape]["ms"]
                           for e in short_entries for shape in TS_SHAPES})
     ts_train_counts = launch_counts()
+    phase_done("9-10 timesformer training")
+    reset_launches()
+    swin_serve_counts = swin_serving()
+    phase_done("12 swin3d serving")
+    reset_launches()
+    swin_training({stage: window_entries["window_attention_fwd"][f"stage{stage}"]["ms"]
+                   + window_entries["window_attention_bwd"][f"stage{stage}"]["ms"]
+                   for stage in SWIN_STAGES})
+    swin_train_counts = launch_counts()
+    phase_done("13-14 swin3d training")
     log(f"launches: vivit serving path {serve_counts}; vivit training path {train_counts}; "
         f"timesformer serving path {ts_serve_counts}; timesformer training path "
-        f"{ts_train_counts}")
+        f"{ts_train_counts}; swin3d serving path {swin_serve_counts}; swin3d training path "
+        f"{swin_train_counts}; window ablation {variant_counts}")
     tpu = "laryngeal_tpu/ops/flash_attention.py"
     kernels = [dict(name="flash_attention_fwd", route="cuda",
                     source="laryngeal_tpu_torch/csrc/flash_attention_fwd.cu",
@@ -1108,6 +1544,17 @@ def main() -> int:
                             source="laryngeal_tpu_torch/csrc/short_attention.cu",
                             replaces=f"laryngeal_tpu/ops/short_attention.py:{line}",
                             launches=counts[name], **short_entries[name]))
+    window_src = "laryngeal_tpu_torch/csrc/window_attention.cu"
+    for name, line, counts in (("window_attention_fwd", 55, swin_serve_counts),
+                               ("window_attention_bwd", 95, swin_train_counts)):
+        kernels.append(dict(name=name, route="cuda", source=window_src,
+                            replaces=f"laryngeal_tpu/ops/window_attention.py:{line}",
+                            launches=counts[name], **window_entries[name]))
+    for name, line in (("window_attention_fwd_bf16sm", 76), ("window_attention_fwd_exp2", 76),
+                       ("window_attention_fwd_h2", 96)):
+        kernels.append(dict(name=name, route="cuda", source=window_src,
+                            replaces=f"scripts/bench_window_kernel.py:{line}",
+                            launches=variant_counts[name], **variant_entries[name]))
     for k in kernels:
         if k["launches"] < 1:
             raise AssertionError(f"kernel {k['name']} never launched on its path")

@@ -1,13 +1,13 @@
 """Inference CLI — single-video and batch modes (counterpart of
 ``laryngeal_tpu/cli/inference.py``).
 
-``python -m laryngeal_tpu_torch.cli.inference --model {vivit,timesformer}
---model_path CKPT --video_path V.mp4 [--device cuda]``
+``python -m laryngeal_tpu_torch.cli.inference --model {vivit,timesformer,swin3d}
+--model_path CKPT --video_path V.mp4 [--model_size tiny] [--device cuda]``
 
 Single video -> JSON result (schema of ``vivit_transformer/inference.py:225-248``);
 ``--video_dir`` walks a tree of .mp4s and writes a CSV + JSON summary
-(``resnet50-2d-lstm/inference.py:250-351``). Ported: ``--model vivit`` and
-``--model timesformer`` on the rgb wire. AOT artifacts (``--exported``), the other wires, frame
+(``resnet50-2d-lstm/inference.py:250-351``). Ported: ``--model vivit``,
+``timesformer`` and ``swin3d`` on the rgb wire. AOT artifacts (``--exported``), the other wires, frame
 visualisations and the batch-mode plots are not yet ported (ROADMAP.md).
 """
 
@@ -35,6 +35,8 @@ def add_model_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--crop_size", type=int, default=None,
                    help="Input resolution (default: checkpoint metadata, else 224)")
     p.add_argument("--image_size", type=int, default=None)
+    p.add_argument("--model_size", type=str, default="tiny",
+                   help="swin3d size: tiny|small|base|base_in22k (checkpoint metadata wins)")
     p.add_argument("--log_dir", type=str, default="logs")
     p.add_argument("--wire", type=str, default="rgb",
                    choices=("rgb", "i420", "delta", "dct", "dctp"),
@@ -45,15 +47,18 @@ def add_model_args(p: argparse.ArgumentParser) -> None:
 
 def load_predictor(args, logger):
     from ..infer.predictor import Predictor
+    from ..models.registry import get_model_spec
 
     if not args.model or not args.model_path:
         raise SystemExit("--model and --model_path are required")
+    arch_defaults = {k: getattr(args, k) for k in get_model_spec(args.model).arch_flags
+                     if getattr(args, k, None) is not None}
     return Predictor.from_checkpoint(
         model_name=args.model, checkpoint_path=args.model_path,
         num_frames=args.num_frames, sampling_method=args.sampling_method,
         num_classes=args.num_classes, crop_size=args.crop_size,
-        image_size=args.image_size, logger=logger, wire=args.wire,
-        device=args.device)
+        image_size=args.image_size, arch_defaults=arch_defaults, logger=logger,
+        wire=args.wire, device=args.device)
 
 
 def build_parser() -> argparse.ArgumentParser:

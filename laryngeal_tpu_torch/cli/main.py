@@ -1,13 +1,13 @@
 """Training CLI (counterpart of ``laryngeal_tpu/cli/main.py``).
 
-``python -m laryngeal_tpu_torch.cli.main --model {vivit,timesformer} --data_dir D
-[--bf16] [--device cuda]`` runs the JAX CLI's chain (``cli/main.py:220-585``)
+``python -m laryngeal_tpu_torch.cli.main --model {vivit,timesformer,swin3d}
+--data_dir D [--model_size tiny] [--stochastic_depth R] [--bf16] [--device cuda]`` runs the JAX CLI's chain (``cli/main.py:220-585``)
 on one device: dataset and loaders, the trainer's train/validation epochs
 with model selection, early stopping, best and rolling ``latest`` checkpoints
 and the best-model reload, then the test-set evaluator. The parser keeps the
 JAX flag surface, plus ``--device`` (default ``cuda``; the CPU only when
-asked for). Ported: ``--model vivit`` and ``--model timesformer`` on the rgb
-wire. Flags of features not yet ported (ROADMAP.md) raise when set to
+asked for). Ported: ``--model vivit``, ``timesformer`` and ``swin3d`` on the
+rgb wire; Swin3D, as in the JAX CLI, trains without early stopping. Flags of features not yet ported (ROADMAP.md) raise when set to
 anything but their default:
 the mesh / pipeline / fsdp axes, ``--remat``, ``--grad_accum_steps > 1``,
 non-rgb wires, ``--torch_weights``, ``--profile_dir``, the on-disk clip and
@@ -24,7 +24,7 @@ from pathlib import Path
 
 import numpy as np
 
-PORTED_MODELS = ("vivit", "timesformer")
+PORTED_MODELS = ("vivit", "timesformer", "swin3d")
 # Flags of features not yet ported, with their defaults.
 NOT_PORTED = {
     "mesh_data": None, "mesh_model": 1, "mesh_seq": 1, "pp_stages": 1,
@@ -269,9 +269,11 @@ def run(args) -> dict:
                 torch.cuda.get_device_name(device) if device.type == "cuda" else "host")
 
     dtype = torch.bfloat16 if args.bf16 else torch.float32
+    # The architecture pinned in the checkpoint's metadata, as the JAX CLI
+    # pins it (cli/main.py:290-327).
     model_kwargs = dict(num_classes=args.num_classes, dtype=dtype, num_frames=num_frames,
                         image_size=image_size)
-    for k in ("hidden_size", "num_layers", "num_heads", "intermediate_size"):
+    for k in spec.arch_flags:
         if getattr(args, k) is not None:
             model_kwargs[k] = getattr(args, k)
     model = create_model(args.model, seed=args.seed, **model_kwargs)

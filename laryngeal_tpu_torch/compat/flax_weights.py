@@ -1,16 +1,19 @@
-"""Flax params -> torch state_dict (HF names).
+"""Flax params -> torch state_dict (HF / torchvision names).
 
-The inverses of ``laryngeal_tpu/compat/torch_port.py::port_vivit`` and
-``::port_timesformer``: each takes the nested dict of numpy arrays that the
-JAX package's ``create_vivit(...).init`` / ``create_timesformer(...).init``
-produces (``variables["params"]``, converted with ``np.asarray``) and
-returns the state_dict of the port's ``VivitForVideoClassification`` /
-``TimesformerForVideoClassification``. No JAX import: the input is plain
-numpy.
+The inverses of ``laryngeal_tpu/compat/torch_port.py::port_vivit``,
+``::port_timesformer`` and ``::port_swin3d``: each takes the nested dict of
+numpy arrays that the JAX package's ``create_vivit(...).init`` /
+``create_timesformer(...).init`` / ``create_swin3d(...).init`` produces
+(``variables["params"]``, converted with ``np.asarray``) and returns the
+state_dict of the port's ``VivitForVideoClassification`` /
+``TimesformerForVideoClassification`` / ``SwinTransformer3D``. No JAX
+import: the input is plain numpy.
 
 - Dense ``kernel`` (in, out) -> ``weight`` (out, in);
 - Conv3d ``kernel`` (kt, kh, kw, C, D) -> ``weight`` (D, C, kt, kh, kw);
 - Conv2d ``kernel`` (kh, kw, C, D) -> ``weight`` (D, C, kh, kw);
+- arrays without a layout (embeddings, Swin's relative-position tables) as
+  they are;
 - LayerNorm ``scale`` -> ``weight``.
 
 Every array is copied: a CPU JAX array can alias the numpy buffer it was
@@ -94,4 +97,34 @@ def timesformer_state_dict_from_flax(params: Mapping) -> Dict[str, torch.Tensor]
             _layernorm(blk[ln], f"{p}.{ln}", sd)
     _layernorm(params["layernorm"], "timesformer.layernorm", sd)
     _dense(params["classifier"], "classifier", sd)
+    return sd
+
+
+def swin3d_state_dict_from_flax(params: Mapping, depths=(2, 2, 6, 2)) -> Dict[str, torch.Tensor]:
+    """Flax Swin3D params (``stage{s}_block{i}``, ``merge{s}``) ->
+    torchvision-named torch state_dict (``features.{2s}.{i}`` blocks,
+    ``features.{2s+1}`` patch merging)."""
+    sd: Dict[str, torch.Tensor] = {}
+    proj = params["patch_embed_proj"]
+    sd["patch_embed.proj.weight"] = _t(np.asarray(proj["kernel"]).transpose(4, 3, 0, 1, 2))
+    sd["patch_embed.proj.bias"] = _t(proj["bias"])
+    _layernorm(params["patch_embed_norm"], "patch_embed.norm", sd)
+    for stage, depth in enumerate(depths):
+        for i in range(depth):
+            blk = params[f"stage{stage + 1}_block{i}"]
+            p = f"features.{2 * stage}.{i}"
+            _layernorm(blk["norm1"], f"{p}.norm1", sd)
+            _dense(blk["attn"]["qkv"], f"{p}.attn.qkv", sd)
+            _dense(blk["attn"]["proj"], f"{p}.attn.proj", sd)
+            sd[f"{p}.attn.relative_position_bias_table"] = _t(
+                blk["attn"]["relative_position_bias_table"])
+            _layernorm(blk["norm2"], f"{p}.norm2", sd)
+            _dense(blk["mlp_fc1"], f"{p}.mlp.0", sd)
+            _dense(blk["mlp_fc2"], f"{p}.mlp.3", sd)
+        if stage < len(depths) - 1:
+            m = params[f"merge{stage + 1}"]
+            _layernorm(m["norm"], f"features.{2 * stage + 1}.norm", sd)
+            _dense(m["reduction"], f"features.{2 * stage + 1}.reduction", sd)
+    _layernorm(params["norm"], "norm", sd)
+    _dense(params["head"], "head", sd)
     return sd

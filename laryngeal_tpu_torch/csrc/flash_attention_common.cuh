@@ -1,6 +1,8 @@
-// Device helpers shared by flash_attention_fwd.cu and flash_attention_bwd.cu:
-// cp.async tile copies, ldmatrix fragment loads and the bf16 m16n8k16
-// tensor-core product, plus the tile constants both kernels use.
+// Device helpers shared by the attention kernels (flash_attention_fwd.cu,
+// flash_attention_bwd.cu, short_attention.cu, window_attention.cu): cp.async
+// tile copies, ldmatrix fragment loads, the bf16 m16n8k16 tensor-core
+// product and the warp-level tile products built on it, plus the tile
+// constants.
 //
 // Fragment conventions (PTX ISA, mma.m16n8k16 with .row.col): in a warp,
 // lane = 4 * g + tig. A C/D accumulator float[4] holds rows g (elements 0,
@@ -149,6 +151,59 @@ __device__ __forceinline__ void zero(float (&acc)[N][4]) {
   for (int i = 0; i < N; ++i)
 #pragma unroll
     for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+}
+
+
+// ---- warp-level tile products (the short and window attention kernels) ----
+// A warp owns 16 rows; tiles are padded (HD + kPad columns) in shared memory.
+
+// acc (16 rows x COLS) = A (rows [a_row0, a_row0 + 16) of a_tile) x B^T
+// (rows [0, COLS) of b_tile), contracting over the head dim.
+template <int HD, int COLS>
+__device__ __forceinline__ void product_abt(float (&acc)[COLS / 8][4], const __nv_bfloat16* a_tile,
+                                            int a_row0, const __nv_bfloat16* b_tile) {
+  zero(acc);
+#pragma unroll
+  for (int ks = 0; ks < HD / 16; ++ks) {
+    uint32_t a[4];
+    load_a_frag<HD>(a, a_tile, a_row0, ks);
+#pragma unroll
+    for (int nt = 0; nt < COLS / 8; nt += 2) mma_abt<HD>(acc[nt], acc[nt + 1], a, b_tile, nt, ks);
+  }
+}
+
+// The same product with the A fragments already in registers.
+template <int HD, int COLS>
+__device__ __forceinline__ void product_abt_regs(float (&acc)[COLS / 8][4],
+                                                 const uint32_t (&a)[HD / 16][4],
+                                                 const __nv_bfloat16* b_tile) {
+  zero(acc);
+#pragma unroll
+  for (int ks = 0; ks < HD / 16; ++ks)
+#pragma unroll
+    for (int nt = 0; nt < COLS / 8; nt += 2) mma_abt<HD>(acc[nt], acc[nt + 1], a[ks], b_tile, nt, ks);
+}
+
+// acc (16 x HD) += bf16(p) (16 x ROWS, from registers) x tile (ROWS x HD).
+template <int HD, int ROWS>
+__device__ __forceinline__ void product_pv(float (&acc)[HD / 8][4], const float (&p)[ROWS / 8][4],
+                                           const __nv_bfloat16* tile) {
+#pragma unroll
+  for (int kk = 0; kk < ROWS / 16; ++kk) {
+    uint32_t a[4];
+    pack_a_frag(a, p, kk);
+#pragma unroll
+    for (int dt = 0; dt < HD / 8; dt += 2) mma_ab<HD>(acc[dt], acc[dt + 1], a, tile, kk, dt);
+  }
+}
+
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
 }  // namespace flash

@@ -89,46 +89,6 @@ __device__ __forceinline__ void load_rows_async(bf16* tile, const bf16* base,
   }
 }
 
-// acc (16 rows x COLS) = A (this warp's 16 rows of a_tile) x B^T (rows
-// [0, COLS) of b_tile), contracting over the head dim.
-template <int HD, int COLS>
-__device__ __forceinline__ void product_abt(float (&acc)[COLS / 8][4], const bf16* a_tile,
-                                            int a_row0, const bf16* b_tile) {
-  zero(acc);
-#pragma unroll
-  for (int ks = 0; ks < HD / 16; ++ks) {
-    uint32_t a[4];
-    load_a_frag<HD>(a, a_tile, a_row0, ks);
-#pragma unroll
-    for (int nt = 0; nt < COLS / 8; nt += 2) mma_abt<HD>(acc[nt], acc[nt + 1], a, b_tile, nt, ks);
-  }
-}
-
-// The same product with the A fragments already in registers.
-template <int HD, int COLS>
-__device__ __forceinline__ void product_abt_regs(float (&acc)[COLS / 8][4],
-                                                 const uint32_t (&a)[HD / 16][4],
-                                                 const bf16* b_tile) {
-  zero(acc);
-#pragma unroll
-  for (int ks = 0; ks < HD / 16; ++ks)
-#pragma unroll
-    for (int nt = 0; nt < COLS / 8; nt += 2) mma_abt<HD>(acc[nt], acc[nt + 1], a[ks], b_tile, nt, ks);
-}
-
-// acc (16 x HD) += bf16(p) (16 x ROWS, from registers) x tile (ROWS x HD).
-template <int HD, int ROWS>
-__device__ __forceinline__ void product_pv(float (&acc)[HD / 8][4], const float (&p)[ROWS / 8][4],
-                                           const bf16* tile) {
-#pragma unroll
-  for (int kk = 0; kk < ROWS / 16; ++kk) {
-    uint32_t a[4];
-    pack_a_frag(a, p, kk);
-#pragma unroll
-    for (int dt = 0; dt < HD / 8; dt += 2) mma_ab<HD>(acc[dt], acc[dt + 1], a, tile, kk, dt);
-  }
-}
-
 // Scale the raw logits of key columns [key0, key0 + COLS) and mask keys >= N.
 template <int COLS>
 __device__ __forceinline__ void scale_mask(float (&s)[COLS / 8][4], int key0, int N, float scale) {
@@ -140,15 +100,6 @@ __device__ __forceinline__ void scale_mask(float (&s)[COLS / 8][4], int key0, in
       const int key = key0 + nt * 8 + tig * 2 + (j & 1);
       s[nt][j] = key < N ? s[nt][j] * scale : kMaskValue;
     }
-}
-
-__device__ __forceinline__ float quad_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-}
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
 // Store rows g and g + 8 of this warp's 16 (row0 = the warp's first row) of

@@ -3,9 +3,10 @@
 
 Decode and frame sampling stay on the host; from the uint8 clip batch on,
 everything runs eagerly under ``torch.inference_mode()`` on ``device``:
-rgb wire passthrough, the model's preprocessing regime (ViViT or
-TimeSformer), the model (its attention in the CUDA kernels: flash for ViViT,
-short-sequence for TimeSformer), softmax. ``device=None`` means ``cuda`` and raises
+rgb wire passthrough, the model's preprocessing regime (ViViT, TimeSformer
+or pytorchvideo for Swin3D), the model (its attention in the CUDA kernels:
+flash for ViViT, short-sequence for TimeSformer, shifted-window for Swin3D),
+softmax. ``device=None`` means ``cuda`` and raises
 without a card; the CPU is used only when asked for.
 """
 
@@ -74,14 +75,17 @@ class Predictor(VideoPredictorBase):
                         num_frames: Optional[int] = None,
                         sampling_method: str = "uniform", num_classes: int = 2,
                         crop_size: Optional[int] = None,
-                        image_size: Optional[int] = None, logger=None,
+                        image_size: Optional[int] = None,
+                        arch_defaults: Optional[Dict] = None, logger=None,
                         model_kwargs: Optional[Dict] = None, wire: str = "rgb",
                         device: Optional[Union[str, torch.device]] = None) -> "Predictor":
         """Load a port checkpoint (``train/checkpoint.py``). Metadata may pin
         the architecture: explicit caller arguments win, metadata fills the
         gaps, spec defaults last (the JAX predictor's precedence). The
         compute dtype is part of it: ``model_kwargs['dtype']`` ('bfloat16',
-        'float32'), float32 when neither names one."""
+        'float32'), float32 when neither names one. ``arch_defaults`` (the
+        CLIs' architecture flags, e.g. Swin3D's ``model_size``) apply only
+        where the metadata names nothing."""
         spec = get_model_spec(model_name)
         device = resolve_device(device)
         meta_cfg = read_metadata(checkpoint_path).get("config", {})
@@ -95,7 +99,7 @@ class Predictor(VideoPredictorBase):
         resolution = (crop_size or image_size or saved_image
                       or meta_cfg.get("crop_size") or 224)
         kwargs = dict(num_classes=num_classes, num_frames=num_frames,
-                      image_size=resolution)
+                      image_size=resolution, **(arch_defaults or {}))
         kwargs.update(saved_kwargs)
         kwargs.update(model_kwargs or {})
         if "dtype" in kwargs:

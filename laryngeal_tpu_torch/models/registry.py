@@ -1,18 +1,20 @@
 """Model registry (counterpart of ``laryngeal_tpu/models/registry.py``).
 
-Ported: ViViT and TimeSformer; the other three families raise until their
-slice lands (ROADMAP.md).
+Ported: ViViT, TimeSformer and Swin3D; the two CNN families raise until
+their slice lands (ROADMAP.md).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict
+from typing import Callable, Dict, Tuple
 
+from .swin3d import create_swin3d
 from .timesformer import create_timesformer
 from .vivit import create_vivit
 
-NOT_PORTED = ("resnet50_lstm", "resnet3d", "swin3d")
+NOT_PORTED = ("resnet50_lstm", "resnet3d")
+VIT_FLAGS = ("hidden_size", "num_layers", "num_heads", "intermediate_size")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -29,6 +31,9 @@ class ModelSpec:
     selection: str                # 'min_loss' | 'composite' | 'loss_acc_threshold'
     per_video_seed: bool = False  # resnet3d-style deterministic sampling
     reference: str = ""
+    # CLI flags that pin the family's architecture in a checkpoint's
+    # model_kwargs (written by the training CLI, read by the predictor).
+    arch_flags: Tuple[str, ...] = ()
 
 
 MODEL_REGISTRY: Dict[str, ModelSpec] = {
@@ -39,6 +44,7 @@ MODEL_REGISTRY: Dict[str, ModelSpec] = {
         default_weight_decay=0.01, label_policy="sorted",
         selection="min_loss",
         reference="vivit_transformer/vivit_classifier/models/vivit_model.py:4-52",
+        arch_flags=VIT_FLAGS,
     ),
     "timesformer": ModelSpec(
         name="timesformer", factory=create_timesformer,
@@ -48,6 +54,16 @@ MODEL_REGISTRY: Dict[str, ModelSpec] = {
         default_weight_decay=0.01, label_policy="sorted",
         selection="min_loss",
         reference="timesformer/timesformer_classifier/models/timesformer_model.py:27-43",
+        arch_flags=VIT_FLAGS,
+    ),
+    "swin3d": ModelSpec(
+        name="swin3d", factory=create_swin3d,
+        preprocess_regime="pytorchvideo", loss="ce",
+        optimizer="adamw", default_num_frames=32, default_lr=1e-4,
+        default_weight_decay=0.05, label_policy="referral",
+        selection="loss_acc_threshold",
+        reference="videoswintransformer/swin_video_classifier/models/swin3d.py:7-53",
+        arch_flags=("model_size", "stochastic_depth"),
     ),
 }
 

@@ -215,7 +215,10 @@ class TimesformerForVideoClassification(nn.Module):
         self.timesformer = TimesformerModel(config)
         self.classifier = Dense(config.hidden_size, config.num_classes)
 
-    def forward(self, pixel_values: torch.Tensor) -> torch.Tensor:
+    def forward(self, pixel_values: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """``generator`` is the train step's stochastic-depth generator;
+        this model has no stochastic depth and ignores it."""
         x = self.timesformer(pixel_values)
         return self.classifier(x[:, 0]).float()
 

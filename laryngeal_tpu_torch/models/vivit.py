@@ -116,7 +116,10 @@ class VivitForVideoClassification(nn.Module):
         self.vivit = VivitModel(config)
         self.classifier = Dense(config.hidden_size, config.num_classes)
 
-    def forward(self, pixel_values: torch.Tensor) -> torch.Tensor:
+    def forward(self, pixel_values: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """``generator`` is the train step's stochastic-depth generator;
+        this model has no stochastic depth and ignores it."""
         x = self.vivit(pixel_values)
         return self.classifier(x[:, 0]).float()
 

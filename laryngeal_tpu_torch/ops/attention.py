@@ -19,8 +19,13 @@ Implementations, chosen per call or globally with ``set_attention_impl``:
   by autograd), the port's counterpart of the JAX ``attention_reference``.
   The default on the CPU, and the comparison for the kernels on the card.
 
-A logits bias has no kernel yet: on CUDA it raises rather than silently
-taking the plain path; on the CPU it takes ``attention_plain`` (autograd
+``window_attention`` is Swin3D's entry (the JAX ``window_attention``,
+``laryngeal_tpu/ops/attention.py:124-166``): ``kernel`` takes kernels 8-9
+(ops/window_attention.py, ``WindowAttentionFn`` under autograd), ``plain``
+the same function in plain PyTorch, differentiable by autograd.
+
+A generic logits bias (kernel 5) has no kernel yet: on CUDA it raises rather
+than silently taking the plain path; on the CPU it takes ``attention_plain`` (autograd
 differentiates it, as the JAX biased path differentiates its reference).
 ``kv_valid`` masks keys at index >= kv_valid (the trailing-padding mask of
 the JAX package's ``TrailingKeyMask``).
@@ -34,6 +39,7 @@ import torch
 
 from .flash_attention import MAX_HEAD_DIM, attention_plain, flash_attention
 from .short_attention import short_attention
+from .window_attention import window_attention_kernel, window_attention_plain
 
 # Sequences shorter than this go to the short-sequence kernel (the JAX
 # router's threshold, ``laryngeal_tpu/ops/attention.py:96``).
@@ -86,3 +92,33 @@ def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             raise NotImplementedError(
                 f"head_dim {q.shape[-1]} > {MAX_HEAD_DIM} has no CUDA kernel")
     return attention_plain(q, k, v, kv_valid, bias)
+
+
+def window_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bias: torch.Tensor,
+                     region_id: Optional[torch.Tensor] = None,
+                     impl: Optional[str] = None) -> torch.Tensor:
+    """Swin3D windowed attention over (B·nW, N, H, D).
+
+    bias: (H, N, N) relative-position bias (the model's table gather).
+    region_id: (nW, N) integer shifted-window region labels (window ``w``
+    uses row ``w % nW``), or None for an unshifted block.
+
+    ``kernel`` (the default on CUDA) runs kernel 8, and kernel 9 under
+    autograd (``WindowAttentionFn``); the -100 region mask is rebuilt in the
+    kernel from ``region_id`` and the bias stays (H, N, N) f32, so the
+    (B·nW, H, N, N) broadcast never exists. The kernels cover every
+    N <= 448 (Swin3D's windows, clamped or not, are at most 392) and
+    D <= 128, so a CUDA call never needs the JAX package's XLA fallback,
+    which for N % 8 != 0 rounds the bias to the compute dtype
+    (``laryngeal_tpu/ops/attention.py:155-166``); here the bias is f32 at
+    every N. A shape outside the kernels' domain raises ``ValueError``
+    (``window_attention._check_kernel``) on CUDA and CPU tensors alike. With
+    ``plain``, and on CPU tensors with ``kernel``, ``window_attention_plain``
+    runs (autograd differentiates it).
+    """
+    impl = impl or get_attention_impl(q.device)
+    if impl not in IMPLS:
+        raise ValueError(f"Unknown attention impl {impl!r}; expected one of {IMPLS}")
+    if impl == "kernel":
+        return window_attention_kernel(q, k, v, bias, region_id)
+    return window_attention_plain(q, k, v, bias, region_id)

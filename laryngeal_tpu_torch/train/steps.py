@@ -5,20 +5,30 @@ batch -> ``decode_wire_batch`` -> ``batch_preprocess`` -> model -> masked
 loss -> backward -> optimizer step, and returns ``{loss, correct, count,
 probs}`` as device tensors, so the caller can keep them on the device until
 the epoch's end. Under autograd every attention call of the model goes
-through ``FlashAttentionFn`` (kernels 2-4 on the card: ViViT) or
-``ShortAttentionFn`` (kernels 6-7: TimeSformer); the eval step runs under
-``torch.inference_mode`` and takes kernel 1 or kernel 6.
+through ``FlashAttentionFn`` (kernels 2-4 on the card: ViViT),
+``ShortAttentionFn`` (kernels 6-7: TimeSformer) or ``WindowAttentionFn``
+(kernels 8-9: Swin3D); the eval step runs under ``torch.inference_mode`` and
+takes kernel 1, 6 or 8.
 
-The step is model-agnostic: ``batch_preprocess`` dispatches on the
-regime. The ViViT and TimeSformer regimes draw no augmentation
-(``steps.py:89-90`` of the JAX package) and neither model has dropout, so
-the train step is deterministic. Ported: one device and the rgb wire.
+The step is model-agnostic: ``batch_preprocess`` dispatches on the regime.
+Like the JAX step (``steps.py:108-123``), each step derives its randomness
+from the seed and ``state.step``, so a resumed run draws what an
+uninterrupted one draws: a CPU generator for the pytorchvideo regime's
+augmentation and one on the model's device for Swin3D's stochastic depth
+(every model's forward takes it as ``generator``). The ViViT and
+TimeSformer regimes draw no augmentation and neither model has dropout, so
+those forwards ignore it.
+``LARYNGEAL_NO_AUGMENT=1``, read once when the step is made (as the JAX
+factory reads it, ``:82-90``), trains the pytorchvideo regime on its
+deterministic eval transform, so the port and JAX steps can be compared
+without aligning their random streams. Ported: one device and the rgb wire.
 Gradient accumulation, the mesh / tensor-parallel arguments and the non-rgb
 wires raise.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Callable, Dict, Tuple
 
 import numpy as np
@@ -52,22 +62,33 @@ def _metrics(loss_val, logits, labels, mask, get_probs) -> Dict[str, torch.Tenso
             "count": valid.sum(), "probs": probs}
 
 
+def step_generators(seed: int, step: int, device) -> Tuple[torch.Generator, torch.Generator]:
+    """(augmentation generator on the CPU, stochastic-depth generator on
+    ``device``) of one train step, seeded from (seed, step) only."""
+    aug_seed, drop_seed = np.random.SeedSequence([int(seed), int(step)]).generate_state(2)
+    return (torch.Generator().manual_seed(int(aug_seed)),
+            torch.Generator(device=device).manual_seed(int(drop_seed)))
+
+
 def make_train_step(model: torch.nn.Module, regime: str, loss: str, pos_weight: float = 1.0,
                     mesh=None, crop: int = 224, tp: bool = False, grad_accum: int = 1,
-                    wire: str = "rgb") -> Callable:
+                    wire: str = "rgb", seed: int = 0) -> Callable:
     """Returns train_step(state, pixel_u8, labels, mask) -> (state, metrics).
 
     ``state`` holds ``model`` and its optimizer; the step updates both in
-    place and counts ``state.step``."""
+    place and counts ``state.step``. ``seed`` and ``state.step`` seed the
+    step's augmentation and stochastic depth (``step_generators``)."""
     _check_ported(mesh, tp, grad_accum, wire)
     loss_fn = make_loss_fn(loss, pos_weight)
     get_probs = probs_fn(loss)
+    augment = regime == "pytorchvideo" and os.environ.get("LARYNGEAL_NO_AUGMENT") != "1"
 
     def step(state: TrainState, pixel_u8, labels, mask):
         model.train()
-        clips = batch_preprocess(decode_wire_batch(pixel_u8, wire), regime, train=False,
-                                 crop=crop)
-        logits = model(clips)
+        aug_gen, drop_gen = step_generators(seed, state.step, pixel_u8.device)
+        clips = batch_preprocess(decode_wire_batch(pixel_u8, wire), regime, train=augment,
+                                 crop=crop, generator=aug_gen)
+        logits = model(clips, generator=drop_gen)
         loss_val = loss_fn(logits, labels, mask)
         state.optimizer.zero_grad(set_to_none=True)
         loss_val.backward()

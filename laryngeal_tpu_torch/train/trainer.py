@@ -8,7 +8,9 @@ rolling ``latest/`` every ``save_every`` epochs, ``training_history.json``;
 at the end the best model is reloaded. ``resume`` restores model, optimizer
 state, history and epoch counter and re-primes selection, early stopping and
 plateau from the history, so a resumed run continues as an uninterrupted
-one. Runs on the card unless ``device="cpu"`` is asked for. Not ported: the
+one: the train step's random draws (Swin3D's augmentation and stochastic
+depth) come from the config's seed and the restored step count. Runs on the
+card unless ``device="cpu"`` is asked for. Not ported: the
 mesh / tensor / pipeline / fsdp axes, the multi-process mode, the tracker
 and the training-history plots (ROADMAP.md).
 """
@@ -65,7 +67,7 @@ class Trainer:
         self.train_step = make_train_step(
             self.model, spec.preprocess_regime, spec.loss, self.pos_weight, crop=self.crop,
             grad_accum=int(config.get("grad_accum_steps", 1)),
-            wire=getattr(train_ds, "wire", "rgb"))
+            wire=getattr(train_ds, "wire", "rgb"), seed=int(config.get("seed", 42)))
         self.eval_step = make_eval_step(
             self.model, spec.preprocess_regime, spec.loss, self.pos_weight, crop=self.crop,
             wire=getattr(train_ds, "wire", "rgb"))

@@ -1,7 +1,7 @@
 """Port tests that need the card: the CUDA kernels (flash, kernels 1-4;
-short-sequence, kernels 6-7) against their plain versions, gradients
-through them, the routing, and the ViViT and TimeSformer train steps on
-the card.
+short-sequence, kernels 6-7; shifted-window, kernels 8-9 and the ablation
+variants 11-12) against their plain versions, gradients through them, the
+routing, and the ViViT, TimeSformer and Swin3D train steps on the card.
 
 They skip on a machine without CUDA. On the card, run them with
 ``python -m pytest --noconftest -p no:cacheprovider tests/test_torch_gpu.py``
@@ -15,6 +15,7 @@ import torch
 
 from laryngeal_tpu_torch.ops import flash_attention as fa
 from laryngeal_tpu_torch.ops import short_attention as sa
+from laryngeal_tpu_torch.ops import window_attention as wa
 
 pytestmark = pytest.mark.gpu
 
@@ -437,4 +438,229 @@ def test_timesformer_train_step_on_card_matches_cpu(cuda):
             w, wg = w[keep], w_g[n][keep]
         else:
             wg = w_g[n]
+        assert ((wg - w).norm() / w.norm()).item() <= 1e-4, n
+
+
+# -- kernels 8-9, 11-12: shifted-window attention (Swin3D) -----------------
+# (B·nW, N, H, D, nW): nW = None is an unshifted block (no region ids). The
+# Swin3D-T stage shapes at small batch, then N in 1..448 (multiples of 8 or
+# not, clamped and padded windows), D in 16..128, a single-window region id.
+WINDOW_SHAPES = [
+    (4, 392, 3, 32, 2),
+    (4, 392, 3, 32, None),
+    (2, 392, 24, 32, 2),
+    (1, 1, 2, 16, None),
+    (3, 7, 2, 32, 3),
+    (2, 49, 5, 40, 1),      # D padded to 48 inside the wrapper
+    (4, 100, 3, 64, 2),
+    (2, 196, 2, 128, None),
+    (8, 245, 3, 32, 4),
+    (2, 333, 2, 64, 1),
+    (1, 448, 1, 32, 1),
+    (2, 392, 2, 128, 2),
+]
+
+
+def _window_inputs(shape, dtype, device, seed=0):
+    bw, n, h, d, nw = shape
+    rng = np.random.default_rng(seed)
+    q, k, v, g = (torch.from_numpy(rng.standard_normal((bw, n, h, d), dtype=np.float32))
+                  .to(device=device, dtype=dtype) for _ in range(4))
+    bias = torch.from_numpy(rng.standard_normal((h, n, n), dtype=np.float32)).to(device)
+    rid = None if nw is None else torch.from_numpy(
+        rng.integers(0, 4, (nw, n)).astype(np.int32)).to(device)
+    return q, k, v, bias, rid, g
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", WINDOW_SHAPES, ids=str)
+def test_window_forward_kernel_matches_plain(cuda, shape, dtype):
+    q, k, v, bias, rid, _ = _window_inputs(shape, dtype, cuda)
+    before = wa.fwd_launches
+    out = wa.window_attention_forward(q, k, v, bias, rid)
+    torch.cuda.synchronize()
+    assert wa.fwd_launches == before + 1
+    assert out.dtype == dtype and out.shape == q.shape
+    ref = wa.window_attention_plain(q, k, v, bias, rid)
+    use = ((out.float() - ref.float()).abs()
+           / wa.error_limit(q, k, v, bias, rid, ref)).max().item()
+    assert use <= 1.0, use
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", WINDOW_SHAPES, ids=str)
+def test_window_backward_kernel_matches_plain(cuda, shape, dtype):
+    q, k, v, bias, rid, g = _window_inputs(shape, dtype, cuda, seed=1)
+    before = wa.bwd_launches
+    grads = wa.window_attention_backward(q, k, v, bias, rid, g)
+    torch.cuda.synchronize()
+    assert wa.bwd_launches == before + 1
+    refs = wa.window_attention_plain_bwd(q, k, v, bias, rid, g)
+    limits = wa.backward_error_limit(q, k, v, bias, rid, g, refs)
+    for name, got, ref, lim in zip(("dq", "dk", "dv", "dbias"), grads, refs, limits):
+        assert got.dtype == ref.dtype and got.shape == ref.shape, name
+        use = ((got.float() - ref.float()).abs() / lim).max().item()
+        assert use <= 1.0, (name, use)
+
+
+@pytest.mark.parametrize("kind", wa.VARIANTS)
+@pytest.mark.parametrize("shape", [(4, 392, 3, 32, 2), (2, 392, 6, 32, None),
+                                   (2, 392, 12, 32, 2), (2, 392, 24, 32, 1),
+                                   (3, 77, 5, 64, 3), (2, 30, 9, 16, None)], ids=str)
+def test_window_variant_kernels_match_plain(cuda, shape, kind):
+    q, k, v, bias, rid, _ = _window_inputs(shape, torch.bfloat16, cuda, seed=2)
+    before = dict(wa.variant_launches)
+    out = wa.window_attention_variant(q, k, v, bias, rid, kind)
+    torch.cuda.synchronize()
+    assert wa.variant_launches[kind] == before[kind] + 1
+    ref = wa.window_attention_plain(q, k, v, bias, rid, kind)
+    use = ((out.float() - ref.float()).abs()
+           / wa.error_limit(q, k, v, bias, rid, ref, kind)).max().item()
+    assert use <= 1.0, use
+
+
+def test_window_kernels_read_strided_views_and_carry_gradients(cuda):
+    """q/k/v as views of one fused (B·nW, N, 3, H, D) qkv, as Swin3D gives
+    them; under autograd the router runs kernel 8 then kernel 9, and the
+    fused tensor and the bias get the plain backward's gradients."""
+    from laryngeal_tpu_torch.ops import attention as att
+
+    rng = np.random.default_rng(3)
+    qkv = torch.from_numpy(rng.standard_normal((8, 392, 3, 3, 32), dtype=np.float32))
+    qkv = qkv.to(cuda, torch.bfloat16).requires_grad_()
+    bias = torch.from_numpy(rng.standard_normal((3, 392, 392), dtype=np.float32)).to(cuda)
+    bias.requires_grad_()
+    rid = torch.from_numpy(rng.integers(0, 3, (4, 392)).astype(np.int32)).to(cuda)
+    g = torch.from_numpy(rng.standard_normal((8, 392, 3, 32), dtype=np.float32)).to(
+        cuda, torch.bfloat16)
+    before = wa.launch_counts()
+    out = att.window_attention(*qkv.unbind(2), bias, rid)
+    (out.float() * g.float()).sum().backward()
+    torch.cuda.synchronize()
+    after = wa.launch_counts()
+    assert {n: after[n] - before[n] for n in after} == {
+        "window_attention_fwd": 1, "window_attention_bwd": 1, "window_attention_fwd_bf16sm": 0,
+        "window_attention_fwd_exp2": 0, "window_attention_fwd_h2": 0}
+    q, k, v = (x.detach() for x in qkv.unbind(2))
+    b = bias.detach()
+    ref = wa.window_attention_plain(q, k, v, b, rid)
+    assert ((out.float() - ref.float()).abs()
+            / wa.error_limit(q, k, v, b, rid, ref)).max() <= 1.0
+    refs = wa.window_attention_plain_bwd(q, k, v, b, rid, g)
+    limits = wa.backward_error_limit(q, k, v, b, rid, g, refs)
+    for got, ref_g, lim in zip((*qkv.grad.unbind(2), bias.grad), refs, limits):
+        assert ((got.float() - ref_g.float()).abs() / lim).max() <= 1.0
+
+
+def test_window_router_and_bad_input(cuda):
+    """The router's kernel impl launches kernel 8 on CUDA at every N up to
+    448 and raises beyond; the kernels refuse float16 and D > 128, and the
+    variants refuse f32 and D > 64."""
+    from laryngeal_tpu_torch.ops import attention as att
+
+    q, k, v, bias, rid, _ = _window_inputs((2, 7, 2, 32, 1), torch.bfloat16, cuda)
+    before = wa.fwd_launches
+    att.window_attention(q, k, v, bias, rid)
+    torch.cuda.synchronize()
+    assert wa.fwd_launches == before + 1
+    q, k, v, bias, rid, _ = _window_inputs((1, 449, 1, 32, None), torch.bfloat16, cuda)
+    with pytest.raises(ValueError):
+        att.window_attention(q, k, v, bias, rid)
+    q, k, v, bias, rid, _ = _window_inputs((1, 8, 1, 16, None), torch.float16, cuda)
+    with pytest.raises(ValueError):
+        wa.window_attention_forward(q, k, v, bias, rid)
+    q, k, v, bias, rid, _ = _window_inputs((1, 8, 1, 136, None), torch.bfloat16, cuda)
+    with pytest.raises(ValueError):
+        att.window_attention(q, k, v, bias, rid)
+    q, k, v, bias, rid, _ = _window_inputs((1, 8, 2, 32, None), torch.float32, cuda)
+    with pytest.raises(ValueError):
+        wa.window_attention_variant(q, k, v, bias, rid, "h2")
+    q, k, v, bias, rid, _ = _window_inputs((1, 8, 2, 128, None), torch.bfloat16, cuda)
+    with pytest.raises(ValueError):
+        wa.window_attention_variant(q, k, v, bias, rid, "exp2")
+
+
+def _tiny_swin(dtype, stochastic_depth=0.0):
+    from laryngeal_tpu_torch.models.swin3d import create_swin3d
+
+    return create_swin3d("tiny", embed_dim=32, depths=(2, 2), num_heads=(2, 4),
+                         window=(4, 7, 7), stochastic_depth=stochastic_depth, dtype=dtype,
+                         seed=0)
+
+
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-4), (torch.bfloat16, 3e-2)])
+def test_swin3d_kernel_matches_plain_attention_and_cpu(cuda, dtype, atol):
+    """A tiny Swin3D (windows of 4x7x7 = 196, padded and shifted; stage 2
+    clamps to 4x7x7 of a 4x7x7 grid): each block launches kernel 8 once and
+    no other kernel; the logits agree with the same model on the plain
+    attention, and in f32 with the model on the CPU."""
+    from laryngeal_tpu_torch.ops import attention as att
+
+    model = _tiny_swin(dtype).to(cuda)
+    x = torch.from_numpy(np.random.default_rng(2).standard_normal(
+        (2, 8, 52, 56, 3), dtype=np.float32))
+    counts = lambda: {**fa.launch_counts(), **sa.launch_counts(), **wa.launch_counts()}
+    with torch.inference_mode():
+        before = counts()
+        out = model(x.to(cuda))
+        torch.cuda.synchronize()
+        after = counts()
+        assert {k: after[k] - before[k] for k in after if after[k] != before[k]} == {
+            "window_attention_fwd": 4}
+        att.set_attention_impl("plain")
+        try:
+            ref = model(x.to(cuda))
+        finally:
+            att.set_attention_impl(None)
+        cpu = _tiny_swin(dtype)(x) if dtype == torch.float32 else None
+    assert out.dtype == torch.float32
+    assert (out - ref).abs().max().item() <= atol
+    if cpu is not None:
+        assert (out.cpu() - cpu).abs().max().item() <= atol
+
+
+def test_swin3d_train_step_on_card_matches_cpu(cuda, monkeypatch):
+    """A tiny Swin3D train step on the card (LARYNGEAL_NO_AUGMENT=1,
+    stochastic depth 0): 4 launches each of kernels 8 and 9 and none of any
+    other kernel; the eval step launches kernel 8 four times. Loss and
+    updated weights (the relative-position tables included) agree with the
+    same step on the CPU (f32)."""
+    from laryngeal_tpu_torch.train.state import create_train_state
+    from laryngeal_tpu_torch.train.steps import make_eval_step, make_train_step
+
+    monkeypatch.setenv("LARYNGEAL_NO_AUGMENT", "1")
+    rng = np.random.default_rng(5)
+    pix = torch.from_numpy(rng.integers(0, 256, (2, 8, 60, 64, 3), dtype=np.uint8))
+    labels, mask = torch.tensor([0, 1]), torch.tensor([True, True])
+    counts = lambda: {**fa.launch_counts(), **sa.launch_counts(), **wa.launch_counts()}
+    results = {}
+    for dev in ("cpu", cuda):
+        model = _tiny_swin(torch.float32).to(dev)
+        state = create_train_state(model, "adamw", 1e-3, 0.05)
+        step = make_train_step(model, "pytorchvideo", "ce", crop=56)
+        before = counts()
+        state, m = step(state, pix.to(dev), labels.to(dev), mask.to(dev))
+        if dev == cuda:
+            torch.cuda.synchronize()
+            after = counts()
+            assert {k: after[k] - before[k] for k in after if after[k] != before[k]} == {
+                "window_attention_fwd": 4, "window_attention_bwd": 4}
+            before = after
+            make_eval_step(model, "pytorchvideo", "ce", crop=56)(
+                state, pix.to(dev), labels.to(dev), mask.to(dev))
+            torch.cuda.synchronize()
+            after = counts()
+            assert {k: after[k] - before[k] for k in after if after[k] != before[k]} == {
+                "window_attention_fwd": 4}
+        results[str(dev)] = (m["loss"].item(), {n: p.detach().cpu() for n, p in
+                                                model.state_dict().items()})
+    (loss_c, w_c), (loss_g, w_g) = results["cpu"], results[str(cuda)]
+    assert abs(loss_c - loss_g) <= 1e-4 * max(1.0, abs(loss_c))
+    for n, w in w_c.items():
+        wg = w_g[n]
+        if n.endswith("attn.qkv.bias"):
+            # The key slice's gradient is round-off (softmax is shift-invariant).
+            keep = torch.ones_like(w, dtype=torch.bool)
+            keep[w.shape[0] // 3:2 * w.shape[0] // 3] = False
+            w, wg = w[keep], wg[keep]
         assert ((wg - w).norm() / w.norm()).item() <= 1e-4, n

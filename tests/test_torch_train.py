@@ -1,7 +1,10 @@
 """The port's training pieces against the JAX package's: losses, model
 selection / early stopping / plateau, the optimizer, and 3 AdamW train steps
-of a tiny ViViT from shared weights on the same uint8 batches. Inputs are
-numpy arrays from a seed; everything runs in float32 on the CPU.
+of a tiny ViViT and of a tiny Swin3D from shared weights on the same uint8
+batches (Swin3D with ``LARYNGEAL_NO_AUGMENT=1`` and stochastic depth 0 on
+both sides, so no random stream has to be aligned); Swin3D's ``DropPath``
+and the step's seeded generators. Inputs are numpy arrays from a seed;
+everything runs in float32 on the CPU.
 
 Tolerances: losses 1e-6 absolute (one f32 log-softmax per sample); the train
 steps 1e-5 relative (per-step loss, and per parameter tensor in L2, see
@@ -15,7 +18,9 @@ import optax
 import pytest
 import torch
 
-from laryngeal_tpu.compat.torch_port import port_vivit
+from laryngeal_tpu.compat.torch_port import port_swin3d, port_vivit
+from laryngeal_tpu.models.swin3d import Swin3DConfig as JaxSwin3DConfig
+from laryngeal_tpu.models.swin3d import SwinTransformer3D as JaxSwinTransformer3D
 from laryngeal_tpu.models.vivit import create_vivit as jax_create_vivit
 from laryngeal_tpu.train import losses as jax_losses
 from laryngeal_tpu.train import selection as jax_selection
@@ -24,7 +29,9 @@ from laryngeal_tpu.train.state import make_optimizer as jax_make_optimizer
 from laryngeal_tpu.train.state import set_learning_rate as jax_set_learning_rate
 from laryngeal_tpu.train.steps import make_eval_step as jax_make_eval_step
 from laryngeal_tpu.train.steps import make_train_step as jax_make_train_step
-from laryngeal_tpu_torch.compat.flax_weights import vivit_state_dict_from_flax
+from laryngeal_tpu_torch.compat.flax_weights import (swin3d_state_dict_from_flax,
+                                                     vivit_state_dict_from_flax)
+from laryngeal_tpu_torch.models import swin3d
 from laryngeal_tpu_torch.models.vivit import create_vivit
 from laryngeal_tpu_torch.train import losses, selection, state as st, steps
 
@@ -287,3 +294,122 @@ def test_prepare_batch_moves_to_device():
          "mask": [True, False]}, "cpu")
     assert pix.dtype == torch.uint8 and lab.dtype == torch.int64 and mask.dtype == torch.bool
     assert mask.tolist() == [True, False]
+
+
+# ---------- Swin3D: train steps against the JAX train step ----------
+
+SWIN = dict(embed_dim=8, depths=(2, 2), num_heads=(2, 2), window=(2, 2, 2),
+            patch_size=(2, 4, 4))
+
+
+@pytest.fixture(scope="module")
+def swin_shared():
+    """Tiny Swin3D params (the port's seeded init through ``port_swin3d``,
+    perturbed) and three uint8 batches of 3 clips, the last row masked.
+    4 frames at 32^2 give a 2x8x8 grid: stage 1 shifts (1, 1, 1), stage 2
+    (2x4x4) clamps T and keeps the spatial shift."""
+    weights = swin3d.create_swin3d(seed=0, stochastic_depth=0.0, **SWIN).state_dict()
+    rng = np.random.default_rng(5)
+    params = jax.tree_util.tree_map(
+        lambda p: p + 0.02 * rng.standard_normal(p.shape).astype(np.float32),
+        port_swin3d(weights, depths=SWIN["depths"]))
+    batches = [(rng.integers(0, 256, (3, FRAMES, 40, 48, 3), dtype=np.uint8),
+                rng.integers(0, 2, 3).astype(np.int32), np.array([True, True, False]))
+               for _ in range(3)]
+    model = JaxSwinTransformer3D(JaxSwin3DConfig(num_classes=2, stochastic_depth=0.0, **SWIN))
+    return model, params, batches
+
+
+def _swin_port(params, lr=1e-3, wd=0.05):
+    model = swin3d.create_swin3d(seed=None, stochastic_depth=0.0, **SWIN)
+    model.load_state_dict(swin3d_state_dict_from_flax(params, SWIN["depths"]))
+    return model, st.create_train_state(model, "adamw", lr, wd)
+
+
+def test_swin_three_adamw_steps_and_an_eval_step_match_jax(swin_shared, monkeypatch):
+    """The pytorchvideo regime with LARYNGEAL_NO_AUGMENT=1 (both factories
+    read it when the step is made): per-step loss within 1e-5 relative;
+    afterwards every parameter tensor within 1e-5 relative (L2), the
+    relative-position tables (where dbias lands) included. The key slice of
+    each fused qkv bias gets only round-off gradient (softmax is
+    shift-invariant per query row) and is held to 3 lr per step and side.
+    Then the eval step on the trained weights."""
+    monkeypatch.setenv("LARYNGEAL_NO_AUGMENT", "1")
+    jmodel, params, batches = swin_shared
+    lr = 1e-3
+    jstate = _jax_state(params, lr, 0.05)
+    jstep = jax_make_train_step(jmodel, "pytorchvideo", "ce", crop=32)
+    model, state = _swin_port(params, lr)
+    step = steps.make_train_step(model, "pytorchvideo", "ce", crop=32, seed=0)
+    for batch in batches:
+        jstate, jm = jstep(jstate, *(jnp.asarray(x) for x in batch), jax.random.PRNGKey(0))
+        state, m = step(state, *_torch_batch(batch))
+        assert _rel(m["loss"].item(), float(jm["loss"])) <= 1e-5
+        assert m["correct"].item() == float(jm["correct"]) and m["count"].item() == 2.0
+        np.testing.assert_allclose(m["probs"].numpy(), np.asarray(jm["probs"]), atol=1e-5)
+    want = swin3d_state_dict_from_flax(jax.tree_util.tree_map(np.asarray, jstate.params),
+                                       SWIN["depths"])
+    got = model.state_dict()
+    start = swin3d_state_dict_from_flax(params, SWIN["depths"])
+    tables = 0
+    for name, w in want.items():
+        a, b = got[name].numpy(), w.numpy()
+        if name.endswith("attn.qkv.bias"):
+            c = a.shape[0] // 3
+            assert np.abs(a[c:2 * c] - b[c:2 * c]).max() <= 2 * 3 * 3 * lr, name
+            a, b = np.delete(a, np.s_[c:2 * c]), np.delete(b, np.s_[c:2 * c])
+        assert _rel_l2(a, b) <= 1e-5, name
+        if name.endswith("relative_position_bias_table"):
+            tables += 1
+            # The table moved by more than its weight decay: dbias reached it.
+            decay_only = start[name].numpy() * (1 - lr * 0.05) ** 3
+            assert np.abs(a - decay_only).max() > 10 * np.abs(b - a).max(), name
+    assert tables == sum(SWIN["depths"])
+    jm = jax_make_eval_step(jmodel, "pytorchvideo", "ce", crop=32)(
+        jstate, *(jnp.asarray(x) for x in batches[0]))
+    m = steps.make_eval_step(model, "pytorchvideo", "ce", crop=32)(
+        state, *_torch_batch(batches[0]))
+    assert _rel(m["loss"].item(), float(jm["loss"])) <= 1e-5
+    np.testing.assert_allclose(m["probs"].numpy(), np.asarray(jm["probs"]), atol=1e-5)
+
+
+def test_swin_augmented_step_draws_from_seed_and_step(swin_shared, monkeypatch):
+    """Without LARYNGEAL_NO_AUGMENT the step augments and drops paths from
+    generators seeded by (seed, state.step) only: two runs from the same
+    weights take identical steps (what a resumed run relies on), another
+    seed takes another step."""
+    monkeypatch.delenv("LARYNGEAL_NO_AUGMENT", raising=False)
+    _, params, batches = swin_shared
+    losses = {}
+    for run, seed in (("a", 0), ("b", 0), ("c", 1)):
+        model = swin3d.create_swin3d(seed=None, stochastic_depth=0.3, **SWIN)
+        model.load_state_dict(swin3d_state_dict_from_flax(params, SWIN["depths"]))
+        state = st.create_train_state(model, "adamw", 1e-3, 0.05)
+        step = steps.make_train_step(model, "pytorchvideo", "ce", crop=32, seed=seed)
+        losses[run] = [step(state, *_torch_batch(b))[1]["loss"].item() for b in batches]
+    assert losses["a"] == losses["b"] and losses["a"] != losses["c"]
+    a_gen, d_gen = steps.step_generators(0, 7, "cpu")
+    b_gen, e_gen = steps.step_generators(0, 7, "cpu")
+    assert torch.equal(torch.rand(4, generator=a_gen), torch.rand(4, generator=b_gen))
+    assert torch.equal(torch.rand(4, generator=d_gen), torch.rand(4, generator=e_gen))
+    assert not torch.equal(torch.rand(4, generator=steps.step_generators(0, 8, "cpu")[0]),
+                           torch.rand(4, generator=steps.step_generators(0, 7, "cpu")[0]))
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.25, 0.9])
+def test_drop_path_zeroes_or_rescales_whole_rows(rate):
+    """Each sample's row is either zero or x / (1 - rate); the choice is
+    reproducible from the generator's seed and keeps about 1 - rate of the
+    rows; without a generator it is the identity."""
+    x = torch.from_numpy(np.random.default_rng(6).standard_normal((4000, 3, 5))
+                         .astype(np.float32)) + 3.0
+    dp = swin3d.DropPath(rate)
+    assert dp(x) is x
+    out = dp(x, torch.Generator().manual_seed(9))
+    again = dp(x, torch.Generator().manual_seed(9))
+    assert torch.equal(out, again)
+    kept = (out != 0).flatten(1).all(1)
+    dropped = (out == 0).flatten(1).all(1)
+    assert bool((kept | dropped).all())
+    torch.testing.assert_close(out[kept], x[kept] / (1.0 - rate), rtol=0, atol=0)
+    assert abs(kept.float().mean().item() - (1.0 - rate)) < 0.03

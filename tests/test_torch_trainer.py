@@ -233,8 +233,9 @@ def test_cli_trains_resumes_evaluates_and_serves(root, tmp_path):
 
 @pytest.mark.parametrize("flags", [["--fsdp"], ["--remat"], ["--grad_accum_steps", "2"],
                                    ["--wire", "i420"], ["--mesh_model", "2"],
-                                   ["--model", "swin3d"]],
-                         ids=["fsdp", "remat", "grad_accum", "wire", "mesh", "swin3d"])
+                                   ["--model", "swin3d", "--remat"], ["--model", "resnet3d"]],
+                         ids=["fsdp", "remat", "grad_accum", "wire", "mesh", "swin3d",
+                              "resnet3d"])
 def test_cli_refuses_unported_flags(flags, tmp_path):
     with pytest.raises(SystemExit, match="not yet ported"):
         cli.main(CLI_FLAGS + ["--data_dir", str(tmp_path), "--log_dir",

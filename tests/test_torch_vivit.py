@@ -146,14 +146,14 @@ def test_layers_gelu_fast_matches_jax():
 
 
 def test_registry_only_vivit():
-    """ViViT and TimeSformer are registered; the other families raise."""
+    """ViViT and TimeSformer are registered; the CNN families raise."""
     assert get_model_spec("vivit").preprocess_regime == "vivit"
     assert get_model_spec("timesformer").preprocess_regime == "timesformer"
     for name in ("vivit", "timesformer"):
         assert isinstance(create_model(name, num_frames=4, image_size=32, num_layers=1,
                                        hidden_size=32, num_heads=2, intermediate_size=64),
                           torch.nn.Module)
-    for name in ("swin3d", "resnet3d", "resnet50_lstm"):
+    for name in ("resnet3d", "resnet50_lstm"):
         with pytest.raises(NotImplementedError, match="not yet ported"):
             get_model_spec(name)
     with pytest.raises(ValueError):
