@@ -88,14 +88,31 @@ Phases, in order; any failure ends the run with a non-zero exit:
 14. ``cli.main --model swin3d --model_size tiny --bf16``: 1 epoch (no early
    stopping), ``--resume auto`` for a second, and
    ``Predictor.from_checkpoint("swin3d", best_model)`` in f32.
+15. Kernel 10, the tubelet embedding: against ``tubelet_embed_plain`` at the
+   ViViT-B stem shape (video (8, 32, 224, 224, 3), D = 768), an M tail and
+   D = 48, bf16 and f32, under ``tubelet.error_limit``; timed beside cuDNN's
+   conv3d and extract_tubelets + addmm. Then the path: the port's vivit
+   preprocessing of a uint8 batch, ``tubelet_embed(impl="kernel")`` with the
+   seeded ViViT-B model's own projection weights, held against the model's
+   conv3d stem; one launch of kernel 10 and none of any other kernel.
+16. Kernel 5, the biased flash forward: against ``attention_plain_bias`` at
+   the ViViT-B shape with a (1, 12, N, N) per-head and an (8, 1, 1, N)
+   key-padding bias, at N = 300 with kv_valid and at Nq != Nk, bf16 and f32;
+   timed beside the twin and ``F.scaled_dot_product_attention(attn_mask=)``.
+   Then the path: ViViT-B's first TransformerBlock on the model's embeddings
+   of the batch with each bias, bf16 and f32, against plain attention (one
+   launch of kernel 5 a call, no other kernel); every gradient and dbias at
+   B=2 against plain attention; one forward + backward + AdamW step of the
+   block at B=8 timed, with its peak memory.
 
-The kernel checks (2, 2b, 7, 11, 11b) run first, then the paths. The launch
-counts are set to 0 before each path (ViViT serving 3-4, ViViT training 5-6,
-TimeSformer serving 8, TimeSformer training 9-10, Swin3D serving 12, Swin3D
-training 13-14, and the ablation of 11b) and read after it. Each phase
+The kernel checks (2, 2b, 7, 11, 11b, 15, 16) run first, then the paths. The
+launch counts are set to 0 before each path (ViViT serving 3-4, ViViT
+training 5-6, TimeSformer serving 8, TimeSformer training 9-10, Swin3D
+serving 12, Swin3D training 13-14, the ablation of 11b, the ViViT-B stem of
+15 and the biased block of 16) and read after it. Each phase
 prints its time. The second-to-last line of output is ``{"kernels": [...]}``;
-the last is ``{"ok": true, "device": {...}}``. Decode is skipped in 3-5, 8-9
-and 12-13 (clips are uint8 arrays); phases 6, 10 and 14 decode mp4s.
+the last is ``{"ok": true, "device": {...}}``. Decode is skipped in 3-5, 8-9,
+12-13 and 15-16 (clips are uint8 arrays); phases 6, 10 and 14 decode mp4s.
 """
 
 from __future__ import annotations
@@ -150,19 +167,23 @@ def launch_counts() -> dict:
     """Every kernel's launches since the counts were last set to 0."""
     from laryngeal_tpu_torch.ops import flash_attention as fa
     from laryngeal_tpu_torch.ops import short_attention as sa
+    from laryngeal_tpu_torch.ops import tubelet as tt
     from laryngeal_tpu_torch.ops import window_attention as wa
 
-    return {**fa.launch_counts(), **sa.launch_counts(), **wa.launch_counts()}
+    return {**fa.launch_counts(), **sa.launch_counts(), **wa.launch_counts(),
+            **tt.launch_counts()}
 
 
 def reset_launches() -> None:
     from laryngeal_tpu_torch.ops import flash_attention as fa
     from laryngeal_tpu_torch.ops import short_attention as sa
+    from laryngeal_tpu_torch.ops import tubelet as tt
     from laryngeal_tpu_torch.ops import window_attention as wa
 
     fa.reset_launches()
     sa.reset_launches()
     wa.reset_launches()
+    tt.reset_launches()
 
 
 def build_kernels():
@@ -1463,6 +1484,355 @@ def swin_training(kernel_ms: dict) -> None:
         raise AssertionError("the swin3d checkpoint must be served as Swin3D-T")
 
 
+# Phase 15: (name, video (B, T, H, W, C), D), tubelet (2, 16, 16); M = B*T'*H'*W'.
+TUBELET = (2, 16, 16)
+TUBELET_CASES = [("vivit_b", (8, 32, 224, 224, 3), 768),  # M = 25088
+                 ("m_tail", (5, 4, 64, 112, 3), 768),      # M = 280, not a multiple of a tile
+                 ("d48", (2, 6, 48, 64, 3), 48)]           # M = 72, D = 48
+# Phase 16: (name, B, Nq, Nk, kv_valid, bias), H = 12, D = 64. Biases: "head" a
+# (1, H, Nq, Nk) f32 per-head bias; "keys" a (B, 1, 1, Nk) f32 key-padding bias
+# (0, and -1e9 on the last 64 keys: TrailingKeyMask.materialize's form); "full"
+# a (B, H, Nq, Nk) bf16 bias.
+BIAS_CASES = [("vivit_b", VIVIT_B["B"], VIVIT_B["N"], VIVIT_B["N"], None, "head"),
+              ("vivit_b", VIVIT_B["B"], VIVIT_B["N"], VIVIT_B["N"], None, "keys"),
+              ("n300_kv_valid", 2, 300, 300, 250, "head"),
+              ("nq_ne_nk", 2, 257, 1100, None, "full")]
+
+
+def tubelet_bound_ms(video_shape, d, dtype):
+    """Least time for kernel 10: 2*M*K*D operations at the peak for the type,
+    against the video, W and bias read once and the output written once."""
+    b, t, h, w, c = video_shape
+    kt, kh, kw = TUBELET
+    m, k = b * (t // kt) * (h // kh) * (w // kw), kt * kh * kw * c
+    size = torch.tensor([], dtype=dtype).element_size()
+    t_ops = 2.0 * m * k * d / PEAK_FLOPS[dtype]
+    t_bytes = (b * t * h * w * c + k * d + d + m * d) * size / PEAK_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def tubelet_inputs(shape, d, dtype, seed):
+    """A unit-normal video, a LeCun-normal Flax-layout kernel, a small bias."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    video = torch.randn(shape, generator=g, device="cuda").to(dtype)
+    fan_in = TUBELET[0] * TUBELET[1] * TUBELET[2] * shape[-1]
+    kernel = torch.randn((*TUBELET, shape[-1], d), generator=g, device="cuda") / math.sqrt(fan_in)
+    return video, kernel, 0.1 * torch.randn((d,), generator=g, device="cuda")
+
+
+def check_tubelet_kernel():
+    """Phase 15, the kernel: kernel 10 vs ``tubelet_embed_plain`` under
+    ``tubelet.error_limit`` at the ViViT-B stem shape, an M tail and D = 48,
+    bf16 and f32; timed at the stem shape beside cuDNN's conv3d (the model's
+    stem) and extract_tubelets + addmm, yardsticks the kernel route never
+    calls."""
+    import torch.nn.functional as F
+
+    from laryngeal_tpu_torch.ops import tubelet as tt
+
+    entry = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        tag = str(dtype)[6:]
+        for seed, (name, shape, d) in enumerate(TUBELET_CASES):
+            video, kernel, bias = tubelet_inputs(shape, d, dtype, 40 + seed)
+            out = tt.tubelet_embed_cuda(video, kernel, bias)
+            ref = tt.tubelet_embed_plain(video, kernel, bias)
+            diff = (out.float() - ref.float()).abs()
+            limit = tt.error_limit(video, kernel, ref)
+            err, use = diff.max().item(), (diff / limit).max().item()
+            ok = out.shape == ref.shape and math.isfinite(err) and use <= 1.0
+            log(f"tubelet {name} {tag} (M={out.shape[0] * out.shape[1]}, D={d}): max_abs_err "
+                f"{err:.3e}, largest |err| / limit {use:.3f} {'ok' if ok else 'FAIL'}")
+            del diff, limit
+            if not ok:
+                raise AssertionError(f"kernel 10 disagrees with its plain twin: {name} {tag}")
+            if name != "vivit_b":
+                continue
+            ms = cuda_time_ms(lambda: tt.tubelet_embed_cuda(video, kernel, bias))
+            plain_ms = cuda_time_ms(lambda: tt.tubelet_embed_plain(video, kernel, bias),
+                                    reps=3, warmup=1)
+            x_cf, b_dt = video.permute(0, 4, 1, 2, 3), bias.to(dtype)
+            w_cf = kernel.to(dtype).permute(4, 3, 0, 1, 2).contiguous()
+            conv_ms = cuda_time_ms(lambda: F.conv3d(x_cf, w_cf, b_dt, stride=TUBELET))
+            w2 = tt.flatten_kernel(kernel).to(dtype)
+            mm_ms = cuda_time_ms(lambda: torch.addmm(
+                b_dt, tt.extract_tubelets(video, TUBELET).reshape(-1, w2.shape[0]), w2))
+            bound_ms, bound_by = tubelet_bound_ms(shape, d, dtype)
+            log(f"tubelet_embed vivit_b {tag}: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, "
+                f"cuDNN conv3d {conv_ms:.4f} ms, extract_tubelets + addmm {mm_ms:.4f} ms, "
+                f"bound {bound_ms:.4f} ms ({bound_by})")
+            tol = ("1e-5*sum|x*w| + 1e-6" if dtype == torch.float32
+                   else "2^-7*|ref| + 1e-5*sum|x*w| + 1e-6")
+            numbers = dict(max_abs_err=err, tol=tol, err_over_limit=use, ms=ms, kernel_ms=ms,
+                           plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                           library_ms=conv_ms, matmul_ms=mm_ms)
+            if dtype == torch.bfloat16:
+                entry.update(numbers)
+            else:
+                entry["f32"] = numbers
+            del video, kernel, bias, out, ref, x_cf, w_cf, w2
+            torch.cuda.empty_cache()
+    return entry
+
+
+def vivit_b_and_pixels():
+    """The seeded ViViT-B (bf16 compute) on the card, and the port's vivit
+    preprocessing of a seeded uint8 (8, 32, 224, 224, 3) batch."""
+    from laryngeal_tpu_torch.models.vivit import create_vivit
+    from laryngeal_tpu_torch.preprocess.transforms import batch_preprocess
+
+    model = create_vivit(num_classes=2, num_frames=32, image_size=224, dtype=torch.bfloat16,
+                         seed=0).cuda()
+    clips = np.random.default_rng(0).integers(0, 256, (8, 32, 224, 224, 3), dtype=np.uint8)
+    with torch.inference_mode():
+        pixel = batch_preprocess(torch.from_numpy(clips).cuda(), "vivit", crop=224)
+    return model, pixel
+
+
+def tubelet_path(model, pixel) -> dict:
+    """Phase 15, the path: the ViViT-B stem computed by kernel 10 from the
+    seeded ViViT-B model's own projection weights, on the port's
+    preprocessing of a uint8 batch (``vivit_b_and_pixels``), held against
+    the model's own stem (cuDNN conv3d, which may round the product to bf16
+    before it adds the bias: 2^-8*|ref - bias| more than kernel 10's limit).
+    Returns the launches."""
+    from laryngeal_tpu_torch.ops import tubelet as tt
+
+    proj = model.vivit.embeddings.patch_embeddings.projection
+    with torch.inference_mode():
+        video = pixel.to(torch.bfloat16)
+        kernel = tt.kernel_from_conv3d(proj.weight)
+        tokens, counts = launched(
+            lambda: tt.tubelet_embed(video, kernel, proj.bias, TUBELET, impl="kernel"))
+        ref = model.vivit.embeddings.patch_embeddings(pixel)
+        limit = (tt.error_limit(video, kernel, ref)
+                 + 2.0 ** -8 * (ref.float() - proj.bias.to(torch.bfloat16).float()).abs())
+        diff = (tokens.float() - ref.float()).abs()
+        err, use = diff.max().item(), (diff / limit).max().item()
+    want = {k: 0 for k in counts}
+    want["tubelet_embed"] = 1
+    ok = (counts == want and tokens.shape == ref.shape == (8, 3136, 768)
+          and math.isfinite(err) and use <= 1.0)
+    log(f"vivit-b stem through kernel 10 (bf16, B=8, the model's weights): tokens "
+        f"{tuple(tokens.shape)}, vs the model's conv3d stem max_abs_err {err:.3e}, largest "
+        f"|err| / limit {use:.3f}; launches {counts} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the ViViT-B stem through kernel 10 disagrees with the model's")
+    del video, tokens, ref, limit, diff
+    torch.cuda.empty_cache()
+    return launch_counts()
+
+
+def attention_bias(kind, b, nq, nk, h, seed):
+    """A phase-16 bias (see BIAS_CASES)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    if kind == "head":
+        return torch.randn((1, h, nq, nk), generator=g, device="cuda")
+    if kind == "full":
+        return torch.randn((b, h, nq, nk), generator=g, device="cuda").to(torch.bfloat16)
+    bias = torch.zeros((b, 1, 1, nk), device="cuda")
+    bias[..., nk - 64:] = -1e9
+    return bias
+
+
+def bias_bound_ms(b, nq, nk, h, d, dtype, bias):
+    """Least time for kernel 5: kernel 1's two products against q, k, v and o
+    plus the bias in its own shape, each moved once."""
+    size = torch.tensor([], dtype=dtype).element_size()
+    t_ops = 4.0 * b * h * nq * nk * d / PEAK_FLOPS[dtype]
+    t_bytes = ((2 * nq + 2 * nk) * b * h * d * size
+               + bias.numel() * bias.element_size()) / PEAK_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def check_bias_kernel():
+    """Phase 16, the kernel: kernel 5 vs ``attention_plain_bias`` under
+    ``error_limit`` (bf16) and 1e-4 (f32) at the ViViT-B shape with a
+    per-head and a key-padding bias, at N = 300 with kv_valid and at
+    Nq != Nk with a bf16 bias; timed at the ViViT-B shape beside the twin
+    and ``F.scaled_dot_product_attention(attn_mask=...)``, a yardstick the
+    port never calls."""
+    import torch.nn.functional as F
+
+    from laryngeal_tpu_torch.ops import flash_attention as fa
+
+    entry = {}
+    h, d = VIVIT_B["H"], VIVIT_B["D"]
+    for dtype in (torch.bfloat16, torch.float32):
+        tag = str(dtype)[6:]
+        for seed, (name, b, nq, nk, kv_valid, kind) in enumerate(BIAS_CASES):
+            q, k, v = qkv(b, nq, nk, h, d, dtype, 60 + seed)
+            bias = attention_bias(kind, b, nq, nk, h, 70 + seed)
+            out = fa.flash_attention_bias_cuda(q, k, v, bias, kv_valid)
+            ref = fa.attention_plain_bias(q, k, v, bias, kv_valid)
+            diff = (out.float() - ref.float()).abs()
+            limit = fa.error_limit(q, k, v, kv_valid, ref, F32_TOL, bias.to(dtype))
+            err, use = diff.max().item(), (diff / limit).max().item()
+            ok = math.isfinite(err) and use <= 1.0
+            log(f"biased attention {name} {kind} bias {tuple(bias.shape)} "
+                f"{str(bias.dtype)[6:]}, {tag}: max_abs_err {err:.3e}, largest |err| / limit "
+                f"{use:.3f} {'ok' if ok else 'FAIL'}")
+            del diff, limit
+            if not ok:
+                raise AssertionError(f"kernel 5 disagrees with its plain twin: {name} {kind} {tag}")
+            if name != "vivit_b":
+                continue
+            ms = cuda_time_ms(lambda: fa.flash_attention_bias_cuda(q, k, v, bias))
+            plain_ms = cuda_time_ms(lambda: fa.attention_plain_bias(q, k, v, bias),
+                                    reps=3, warmup=1)
+            qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+            mask = bias.to(dtype)
+            library_ms = cuda_time_ms(
+                lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask))
+            bound_ms, bound_by = bias_bound_ms(b, nq, nk, h, d, dtype, bias)
+            bias_ms = bias.numel() * bias.element_size() / PEAK_BYTES_PER_S * 1e3
+            log(f"flash_attention_fwd_bias vivit_b {kind} bias {tag}: kernel {ms:.3f} ms, plain "
+                f"{plain_ms:.3f} ms, sdpa with attn_mask {library_ms:.3f} ms, bound "
+                f"{bound_ms:.4f} ms ({bound_by}); the bias alone {bias_ms:.4f} ms")
+            tol = F32_TOL if dtype == torch.float32 else "2^-8*plain(|v|)+2^-7*|ref|+1e-5"
+            numbers = dict(max_abs_err=err, tol=tol, err_over_limit=use, ms=ms, kernel_ms=ms,
+                           plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                           library_ms=library_ms)
+            target = entry if dtype == torch.bfloat16 else entry.setdefault("f32", {})
+            if kind == "head":
+                target.update(numbers)
+            else:
+                target["key_padding"] = numbers
+            del q, k, v, bias, out, ref, qt, kt, vt, mask
+            torch.cuda.empty_cache()
+    return entry
+
+
+def bias_block_path(model, pixel) -> dict:
+    """Phase 16, the path: ViViT-B's first TransformerBlock, from the seeded
+    full model, on the model's embeddings of the batch
+    (``vivit_b_and_pixels``), with a per-head and a key-padding bias: the
+    forward in bf16 and f32 against the same block on the plain attention
+    (exactly one launch of kernel 5 a call, no other kernel); the gradients
+    at B=2 (kernel 5 forward, the f32 recompute backward) of every parameter
+    and of the bias against plain attention; then one forward + backward +
+    AdamW step of the block at B=8 timed (it updates the model's block), with
+    its peak memory. Returns the launches."""
+    from laryngeal_tpu_torch.models.layers import TransformerBlock, gelu_fast
+    from laryngeal_tpu_torch.ops import attention as att
+
+    cfg = model.config
+    with torch.inference_mode():
+        x = model.vivit.embeddings(pixel)
+    x = x.clone()  # a normal tensor, which autograd may save
+    blocks = {torch.bfloat16: model.vivit.encoder.layer[0]}
+    blocks[torch.float32] = TransformerBlock(
+        cfg.hidden_size, cfg.num_heads, cfg.intermediate_size, act=gelu_fast,
+        layer_norm_eps=cfg.layer_norm_eps, dtype=torch.float32).cuda()
+    blocks[torch.float32].load_state_dict(blocks[torch.bfloat16].state_dict())
+    b, n, h = x.shape[0], x.shape[1], cfg.num_heads
+    biases = {kind: attention_bias(kind, b, n, n, h, 80) for kind in ("head", "keys")}
+
+    def one_launch(counts):
+        want = {k: 0 for k in counts}
+        want["flash_attention_fwd_bias"] = 1
+        if counts != want:
+            raise AssertionError(f"a biased block call launched {counts}, want {want}")
+
+    for dtype, block in blocks.items():
+        xd = x.to(dtype)
+        for kind, bias in biases.items():
+            with torch.inference_mode():
+                out, counts = launched(lambda: block(xd, bias))
+                att.set_attention_impl("plain")
+                try:
+                    ref = block(xd, bias)
+                finally:
+                    att.set_attention_impl(None)
+            one_launch(counts)
+            scale = max(1.0, ref.abs().max().item())
+            err = (out.float() - ref.float()).abs().max().item()
+            # the model-logit limits, scaled by max(1, max |ref|): the bf16
+            # block rounds P and its projections in bf16
+            ok = out.shape == (b, n, cfg.hidden_size) and math.isfinite(err) \
+                and err <= LOGIT_TOL[dtype] * scale
+            log(f"vivit-b block 0 with the {kind} bias, {str(dtype)[6:]} B=8: kernel 5 vs plain "
+                f"attention max_abs_err {err:.3e} (tol {LOGIT_TOL[dtype]:g} x {scale:.3f}) "
+                f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"the biased block disagrees with plain attention: {kind}")
+            del out, ref
+
+    # Gradients at B=2: kernel 5 forward + recompute backward vs plain attention.
+    g = torch.Generator(device="cuda").manual_seed(81)
+    weight = torch.randn((2, n, cfg.hidden_size), generator=g, device="cuda")
+    for dtype, block in blocks.items():
+        x2 = x[:2].to(dtype)
+        bias = biases["head"].clone().requires_grad_()
+
+        def grads():
+            block.zero_grad(set_to_none=True)
+            bias.grad = None
+            (block(x2, bias).float() * weight).sum().backward()
+            out = {nm: vivit_key_free(nm, p.grad.float()) for nm, p in block.named_parameters()}
+            out = {nm: gr for nm, gr in out.items() if gr is not None}
+            out["dbias"] = bias.grad.float()
+            return out
+
+        with_kernel, counts = launched(grads)
+        one_launch(counts)
+        att.set_attention_impl("plain")
+        try:
+            plain = grads()
+        finally:
+            att.set_attention_impl(None)
+        names = list(plain)
+        num = math.sqrt(sum(((with_kernel[nm] - plain[nm]) ** 2).sum().item() for nm in names))
+        den = math.sqrt(sum((plain[nm] ** 2).sum().item() for nm in names))
+        per = {nm: ((with_kernel[nm] - plain[nm]).norm()
+                    / plain[nm].norm().clamp_min(1e-30)).item() for nm in names}
+        worst = max(per, key=per.get)
+        tol_all, tol_each = GRAD_TOL[dtype]
+        finite = all(torch.isfinite(t).all().item() for t in with_kernel.values())
+        ok = (finite and with_kernel["dbias"].shape == bias.shape and num / den <= tol_all
+              and (tol_each is None or per[worst] <= tol_each))
+        log(f"vivit-b block 0 {str(dtype)[6:]} gradients B=2 with the head bias, kernel 5 vs "
+            f"plain attention: relative L2 {num / den:.3e} over {len(names)} tensors (tol "
+            f"{tol_all:g}), dbias {per['dbias']:.3e}, worst tensor {worst} {per[worst]:.3e} "
+            f"(tol {tol_each}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"{dtype} gradients through kernel 5 disagree with plain")
+        del with_kernel, plain, bias
+    del blocks[torch.float32]
+    torch.cuda.empty_cache()
+
+    # One forward + backward + AdamW step of the bf16 block at B=8.
+    block = blocks[torch.bfloat16]
+    bias = biases["head"].clone().requires_grad_()
+    opt = torch.optim.AdamW(list(block.parameters()) + [bias], lr=1e-4)
+    weight = torch.randn(x.shape, generator=g, device="cuda")
+
+    def step():
+        opt.zero_grad(set_to_none=True)
+        loss = (block(x, bias).float() * weight).sum()
+        loss.backward()
+        opt.step()
+        return loss
+
+    _, counts = launched(step)
+    one_launch(counts)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        loss = step().item()
+        times.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated()
+    if not math.isfinite(loss):
+        raise AssertionError(f"non-finite loss {loss}")
+    log(f"vivit-b block 0 bf16 B=8 with the head bias: forward + backward (f32 recompute) + "
+        f"AdamW {np.median(times) * 1e3:.2f} ms (host clock, median of 3), peak memory "
+        f"{peak / 2**30:.2f} GiB")
+    del blocks, block, opt, x, biases, bias, weight
+    torch.cuda.empty_cache()
+    return launch_counts()
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1498,6 +1868,10 @@ def main() -> int:
     phase_done("11 kernels 8-9")
     variant_entries, variant_counts = window_variants(window_entries["window_attention_fwd"])
     phase_done("11b kernels 11-12")
+    tubelet_entry = check_tubelet_kernel()
+    phase_done("15 kernel 10")
+    bias_entry = check_bias_kernel()
+    phase_done("16 kernel 5")
 
     reset_launches()
     serve_counts = main_path()
@@ -1523,10 +1897,20 @@ def main() -> int:
                    for stage in SWIN_STAGES})
     swin_train_counts = launch_counts()
     phase_done("13-14 swin3d training")
+    model, pixel = vivit_b_and_pixels()
+    reset_launches()
+    tubelet_counts = tubelet_path(model, pixel)
+    phase_done("15 vivit-b stem through kernel 10")
+    reset_launches()
+    bias_counts = bias_block_path(model, pixel)
+    phase_done("16 vivit-b block with a bias through kernel 5")
+    del model, pixel
+    torch.cuda.empty_cache()
     log(f"launches: vivit serving path {serve_counts}; vivit training path {train_counts}; "
         f"timesformer serving path {ts_serve_counts}; timesformer training path "
         f"{ts_train_counts}; swin3d serving path {swin_serve_counts}; swin3d training path "
-        f"{swin_train_counts}; window ablation {variant_counts}")
+        f"{swin_train_counts}; window ablation {variant_counts}; vivit-b stem path "
+        f"{tubelet_counts}; biased block path {bias_counts}")
     tpu = "laryngeal_tpu/ops/flash_attention.py"
     kernels = [dict(name="flash_attention_fwd", route="cuda",
                     source="laryngeal_tpu_torch/csrc/flash_attention_fwd.cu",
@@ -1555,6 +1939,14 @@ def main() -> int:
         kernels.append(dict(name=name, route="cuda", source=window_src,
                             replaces=f"scripts/bench_window_kernel.py:{line}",
                             launches=variant_counts[name], **variant_entries[name]))
+    kernels.append(dict(name="flash_attention_fwd_bias", route="cuda",
+                        source="laryngeal_tpu_torch/csrc/flash_attention_fwd.cu",
+                        replaces=f"{tpu}:213", launches=bias_counts["flash_attention_fwd_bias"],
+                        **bias_entry))
+    kernels.append(dict(name="tubelet_embed", route="cuda",
+                        source="laryngeal_tpu_torch/csrc/tubelet_embed.cu",
+                        replaces="laryngeal_tpu/ops/tubelet.py:73",
+                        launches=tubelet_counts["tubelet_embed"], **tubelet_entry))
     for k in kernels:
         if k["launches"] < 1:
             raise AssertionError(f"kernel {k['name']} never launched on its path")

@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from ..train.steps import prepare_batch
+from ..utils.device import resolve_device
 from . import metrics as M
 
 
@@ -38,14 +39,14 @@ def _jsonable(obj):
 class Evaluator:
     def __init__(self, eval_step, loader, class_names: Sequence[str] = ("non_referral",
                                                                        "referral"),
-                 logger=None, exp_dir=None, visualizer=None, device="cpu"):
+                 logger=None, exp_dir=None, visualizer=None, device=None):
         self.eval_step = eval_step
         self.loader = loader
         self.class_names = list(class_names)
         self.logger = logger or logging.getLogger(__name__)
         self.exp_dir = Path(exp_dir) if exp_dir else None
         self.visualizer = visualizer
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
 
     def _run_pass(self, state):
         probs_dev, loss_dev, masks, labels_all, paths = [], [], [], [], []

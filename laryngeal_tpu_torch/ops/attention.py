@@ -12,9 +12,14 @@ Implementations, chosen per call or globally with ``set_attention_impl``:
   (ops/short_attention.py: kernel 6, under autograd ``ShortAttentionFn``
   with kernel 7); every other bias-free call with head_dim <= 128 goes to
   ``flash_attention`` (ops/flash_attention.py: kernel 1, under autograd
-  ``FlashAttentionFn`` with kernels 2-4) at any N. The 512 threshold is the
-  JAX package's, so both sides run the same function on the same shapes.
-  The default for CUDA tensors. On CPU tensors each kernel's plain twin runs.
+  ``FlashAttentionFn`` with kernels 2-4) at any N. A call with a logits
+  bias, head_dim <= 128 and max(Nq, Nk) >= 512 goes to ``flash_attention``
+  with the bias (kernel 5, under autograd ``FlashAttentionBiasFn`` with the
+  f32 recompute backward); a biased call below 512 takes ``attention_plain``
+  with the f32 bias, the counterpart of the JAX package's XLA route there.
+  A bias never goes to ``short_attention``. The 512 threshold is the JAX
+  package's, so both sides run the same function on the same shapes. The
+  default for CUDA tensors. On CPU tensors each kernel's plain twin runs.
 - ``plain``: ``attention_plain`` (f32 logits, optional bias, differentiable
   by autograd), the port's counterpart of the JAX ``attention_reference``.
   The default on the CPU, and the comparison for the kernels on the card.
@@ -24,11 +29,9 @@ Implementations, chosen per call or globally with ``set_attention_impl``:
 (ops/window_attention.py, ``WindowAttentionFn`` under autograd), ``plain``
 the same function in plain PyTorch, differentiable by autograd.
 
-A generic logits bias (kernel 5) has no kernel yet: on CUDA it raises rather
-than silently taking the plain path; on the CPU it takes ``attention_plain`` (autograd
-differentiates it, as the JAX biased path differentiates its reference).
-``kv_valid`` masks keys at index >= kv_valid (the trailing-padding mask of
-the JAX package's ``TrailingKeyMask``).
+A head_dim above 128 has no kernel: on CUDA the ``kernel`` impl raises for
+it, with or without a bias. ``kv_valid`` masks keys at index >= kv_valid
+(the trailing-padding mask of the JAX package's ``TrailingKeyMask``).
 """
 
 from __future__ import annotations
@@ -70,24 +73,22 @@ def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           kv_valid: Optional[int] = None) -> torch.Tensor:
     """Scaled dot-product attention over (B, N, H, D) tensors.
 
-    bias: optional additive logits bias broadcastable to (B, H, Nq, Nk);
-    plain path only (its kernel is not ported yet). kv_valid: keys at index
-    >= kv_valid are padding and get no probability mass.
+    bias: optional additive logits bias broadcastable to (B, H, Nq, Nk)
+    (kernel 5 at max(Nq, Nk) >= 512). kv_valid: keys at index >= kv_valid
+    are padding and get no probability mass.
     """
     impl = impl or get_attention_impl(q.device)
     if impl not in IMPLS:
         raise ValueError(f"Unknown attention impl {impl!r}; expected one of {IMPLS}")
     if impl == "kernel":
-        if bias is not None:
-            if q.is_cuda:
-                raise NotImplementedError(
-                    "attention with a logits bias has no CUDA kernel yet "
-                    "(flash_attention.py::_attention_kernel_bias is not yet "
-                    "ported, see ROADMAP.md)")
-        elif q.shape[-1] <= MAX_HEAD_DIM:
-            if kv_valid is None and 0 < q.shape[1] == k.shape[1] < SHORT_SEQ_LIMIT:
+        if q.shape[-1] <= MAX_HEAD_DIM:
+            if bias is not None:
+                if max(q.shape[1], k.shape[1]) >= SHORT_SEQ_LIMIT:
+                    return flash_attention(q, k, v, kv_valid, bias)
+            elif kv_valid is None and 0 < q.shape[1] == k.shape[1] < SHORT_SEQ_LIMIT:
                 return short_attention(q, k, v)
-            return flash_attention(q, k, v, kv_valid)
+            else:
+                return flash_attention(q, k, v, kv_valid)
         elif q.is_cuda:
             raise NotImplementedError(
                 f"head_dim {q.shape[-1]} > {MAX_HEAD_DIM} has no CUDA kernel")

@@ -1,8 +1,8 @@
 """Flash attention: the hand-written CUDA kernels, their plain twins and the
 autograd wiring.
 
-Counterpart of ``laryngeal_tpu/ops/flash_attention.py``. Four Pallas TPU
-kernels there have CUDA counterparts here:
+Counterpart of ``laryngeal_tpu/ops/flash_attention.py``. Its five Pallas
+TPU kernels have CUDA counterparts here:
 
 ====  =========================================  ==============================
  #    TPU kernel (launch)                         CUDA entry, source
@@ -13,6 +13,8 @@ kernels there have CUDA counterparts here:
  3    ``_dq_kernel`` :131 (:437)                  ``flash_attention_bwd_dq``
  4    ``_dkv_kernel`` :168 (:451)                 ``flash_attention_bwd_dkv``
                                                   (both ``csrc/flash_attention_bwd.cu``)
+ 5    ``_attention_kernel_bias`` :213 (:359)      ``flash_attention_fwd_bias``
+                                                  (``csrc/flash_attention_bias.cu``)
 ====  =========================================  ==============================
 
 ``flash_attention`` takes (B, Nq, H, D) x (B, Nk, H, D), non-causal,
@@ -26,8 +28,20 @@ is replaced by its plain twin (``attention_plain``, ``attention_plain_lse``,
 ``attention_plain_bwd``), so the CPU runs the same wiring; on a CUDA tensor
 each wrapper launches its kernel or raises. ``attention_plain`` is the port's
 one plain attention: it also takes the logits bias, and ``ops/attention.py``
-routes its ``plain`` impl to it. The bias kernel (``_attention_kernel_bias``)
-is not ported yet (ROADMAP.md).
+routes its ``plain`` impl to it.
+
+With a logits ``bias`` (broadcastable to (B, H, Nq, Nk), float32 or
+bfloat16) ``flash_attention`` takes kernel 5, which rounds the bias to q's
+dtype and adds it in f32 after the scale, as the TPU kernel does
+(``:351``, ``:234``); its plain twin is ``attention_plain_bias``. The
+kernel reads the bias through a strided view of its broadcast, so the
+(B·H, Nq, Nk) copy is never made. Under autograd it goes through
+``FlashAttentionBiasFn``: kernel 5 forward saving (q, k, v, bias), and the
+JAX package's backward for a biased call (``:488-513``), a recompute of
+``attention_plain`` in f32 with the unrounded bias and the ``kv_valid`` mask
+applied inside the recomputed function, so dbias comes back in the bias's
+own broadcastable shape. The JAX package has no Pallas backward for a
+biased call, so this backward is plain PyTorch on both devices.
 """
 
 from __future__ import annotations
@@ -42,6 +56,7 @@ from . import _build
 
 SOURCE = "flash_attention_fwd.cu"
 BWD_SOURCE = "flash_attention_bwd.cu"
+BIAS_SOURCE = "flash_attention_bias.cu"
 MAX_HEAD_DIM = 128
 # Kernel launches since the counts were last set to 0 (plain CPU calls do not
 # count); ``chip_smoke.py`` reads them to prove the main path used the kernels.
@@ -49,20 +64,22 @@ launches = 0          # kernel 1, flash_attention_fwd
 lse_launches = 0      # kernel 2, flash_attention_fwd_lse
 dq_launches = 0       # kernel 3, flash_attention_bwd_dq
 dkv_launches = 0      # kernel 4, flash_attention_bwd_dkv
+bias_launches = 0     # kernel 5, flash_attention_fwd_bias
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _fns: Dict[str, object] = {}
 
 
 def reset_launches() -> None:
-    global launches, lse_launches, dq_launches, dkv_launches
-    launches = lse_launches = dq_launches = dkv_launches = 0
+    global launches, lse_launches, dq_launches, dkv_launches, bias_launches
+    launches = lse_launches = dq_launches = dkv_launches = bias_launches = 0
 
 
 def launch_counts() -> Dict[str, int]:
     """Launches of each kernel, by its CUDA entry name."""
     return {"flash_attention_fwd": launches, "flash_attention_fwd_lse": lse_launches,
-            "flash_attention_bwd_dq": dq_launches, "flash_attention_bwd_dkv": dkv_launches}
+            "flash_attention_bwd_dq": dq_launches, "flash_attention_bwd_dkv": dkv_launches,
+            "flash_attention_fwd_bias": bias_launches}
 
 
 def _kernel(name: str):
@@ -73,6 +90,8 @@ def _kernel(name: str):
             source, args = SOURCE, [ptr] * 4 + [i32] * 7 + [i64] * 12
         elif name == "flash_attention_fwd_lse":
             source, args = SOURCE, [ptr] * 5 + [i32] * 7 + [i64] * 12
+        elif name == "flash_attention_fwd_bias":
+            source, args = BIAS_SOURCE, [ptr] * 5 + [i32] * 8 + [i64] * 15 + [i32]
         elif name == "flash_attention_bwd_dq":
             source, args = BWD_SOURCE, [ptr] * 7 + [i32] * 7 + [strides]
         else:
@@ -140,6 +159,13 @@ def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.einsum("bhqk,bkhd->bqhd", p, v.float()).to(q.dtype)
 
 
+def attention_plain_bias(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         bias: torch.Tensor, kv_valid: Optional[int] = None) -> torch.Tensor:
+    """Kernel 5's function: ``attention_plain`` with the bias rounded to q's
+    dtype first, as the TPU wrapper rounds it (``bias.astype(q.dtype)``)."""
+    return attention_plain(q, k, v, kv_valid, bias.to(q.dtype))
+
+
 def attention_plain_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         kv_valid: Optional[int] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Kernel 2's function: ``attention_plain``'s output (the same bits) and
@@ -195,18 +221,19 @@ F32_REL = 2e-5
 
 def error_limit(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 kv_valid: Optional[int], ref: torch.Tensor,
-                f32_tol: float = 1e-4) -> torch.Tensor:
+                f32_tol: float = 1e-4, bias: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Elementwise limit on |kernel - attention_plain| for the on-card checks
-    of kernels 1 and 2's output.
+    of kernels 1, 2 and 5's output (kernel 5: against
+    ``attention_plain_bias``, with ``bias`` rounded as it rounds it).
 
     float32: ``f32_tol`` (TF32 off). bfloat16: the kernel rounds P to bf16
     for P.V, off by at most 2^-8 of sum(p |v|) / l, and both sides round
     their f32 output to bf16, at most 2^-8 of each value, so 2^-7 of |ref|;
     1e-5 more for f32 arithmetic (exp2, summation order). ``ref`` is
-    ``attention_plain(q, k, v, kv_valid)``."""
+    ``attention_plain(q, k, v, kv_valid, bias)``."""
     if q.dtype == torch.float32:
         return torch.full(ref.shape, f32_tol, device=ref.device)
-    p_abs_v = attention_plain(q, k, v.abs(), kv_valid).float()
+    p_abs_v = attention_plain(q, k, v.abs(), kv_valid, bias).float()
     return 2.0 ** -8 * p_abs_v + 2.0 ** -7 * ref.float().abs() + 1e-5
 
 
@@ -262,9 +289,35 @@ def _stream(x):
     return torch.cuda.current_stream(x.device).cuda_stream
 
 
-def _forward_cuda(name: str, q, k, v, kv_valid, with_lse: bool):
+def bias_view(bias: torch.Tensor, q: torch.Tensor, k: torch.Tensor) -> Tuple[torch.Tensor, int]:
+    """Kernel 5's view of ``bias``: its broadcast to (B, H, Nq, Nk) with
+    numpy's right-aligned rule, stride 0 on every broadcast dimension (no
+    copy), in float32 or bfloat16 (another dtype is cast to q's, the one
+    rounding the TPU wrapper makes), with unit key stride (a bias broadcast
+    or strided along the keys is copied in its own leading shape). Also the
+    block order that runs the blocks reading the same bias tile together
+    (``block_coords`` in ``csrc/flash_attention_fwd.cuh``): 1 when only the
+    batch is broadcast, 2 only the heads, 3 both, else 0."""
+    if bias.ndim > 4:
+        raise ValueError(f"bias of {bias.ndim} dimensions cannot broadcast to (B, H, Nq, Nk)")
+    if bias.dtype not in _DTYPE_CODE:
+        bias = bias.to(q.dtype)
+    b, n_q, h, _ = q.shape
+    n_k = k.shape[1]
+    bias = bias[(None,) * (4 - bias.ndim)]
+    keys = bias.expand(*bias.shape[:3], n_k)
+    if n_k > 1 and keys.stride(3) != 1:
+        bias = keys.contiguous()
+    view = bias.expand(b, h, n_q, n_k)
+    shared_b = b > 1 and view.stride(0) == 0
+    shared_h = h > 1 and view.stride(1) == 0
+    order = 3 if shared_b and shared_h else 1 if shared_b else 2 if shared_h else 0
+    return view, order
+
+
+def _forward_cuda(name: str, q, k, v, kv_valid, with_lse: bool = False, bias=None):
     _check_kernel(q, k, v, kv_valid)
-    _check_cuda(name, q, k, v)
+    _check_cuda(name, q, k, v, *(() if bias is None else (bias,)))
     b, n_q, h, _ = q.shape
     n_k = k.shape[1]
     d, d_pad = _head_dims(q)
@@ -272,14 +325,21 @@ def _forward_cuda(name: str, q, k, v, kv_valid, with_lse: bool):
     out = torch.empty((b, n_q, h, d_pad), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, n_q), dtype=torch.float32, device=q.device) if with_lse else None
     if n_q > 0:
-        ptrs = [qp.data_ptr(), kp.data_ptr(), vp.data_ptr(), out.data_ptr()]
+        ptrs = [qp.data_ptr(), kp.data_ptr(), vp.data_ptr()]
+        codes, bias_args = [_DTYPE_CODE[q.dtype]], []
+        if bias is not None:
+            view, order = bias_view(bias, q, k)
+            ptrs.append(view.data_ptr())
+            codes.append(_DTYPE_CODE[view.dtype])
+            bias_args = [*view.stride()[:3], order]
+        ptrs.append(out.data_ptr())
         if with_lse:
             ptrs.append(lse.data_ptr())
         with torch.cuda.device(q.device):
-            err = _kernel(name)(*ptrs, _DTYPE_CODE[q.dtype], b, n_q, n_k, h, d_pad,
+            err = _kernel(name)(*ptrs, *codes, b, n_q, n_k, h, d_pad,
                                 _n_actual(n_k, kv_valid), *qp.stride()[:3],
                                 *kp.stride()[:3], *vp.stride()[:3], *out.stride()[:3],
-                                1.0 / math.sqrt(d), _stream(q))
+                                *bias_args, 1.0 / math.sqrt(d), _stream(q))
         if err != 0:
             raise RuntimeError(f"{name} launch failed: cudaError {err}")
     out = out if d_pad == d else out[..., :d]
@@ -305,6 +365,18 @@ def flash_attention_lse_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = _forward_cuda("flash_attention_fwd_lse", q, k, v, kv_valid, with_lse=True)
     if q.shape[1] > 0:
         lse_launches += 1
+    return out
+
+
+def flash_attention_bias_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                              bias: torch.Tensor, kv_valid: Optional[int] = None
+                              ) -> torch.Tensor:
+    """Kernel 5 on CUDA tensors: ``bias`` broadcastable to (B, H, Nq, Nk);
+    raises if it cannot launch."""
+    global bias_launches
+    out = _forward_cuda("flash_attention_fwd_bias", q, k, v, kv_valid, bias=bias)
+    if q.shape[1] > 0:
+        bias_launches += 1
     return out
 
 
@@ -379,6 +451,14 @@ def flash_attention_lse(q, k, v, kv_valid=None) -> Tuple[torch.Tensor, torch.Ten
     return flash_attention_lse_cuda(q, k, v, kv_valid)
 
 
+def flash_attention_bias(q, k, v, bias, kv_valid=None) -> torch.Tensor:
+    """Kernel 5 on CUDA, ``attention_plain_bias`` on the CPU (no autograd)."""
+    _check_kernel(q, k, v, kv_valid)
+    if _on_cpu(q):
+        return attention_plain_bias(q, k, v, bias, kv_valid)
+    return flash_attention_bias_cuda(q, k, v, bias, kv_valid)
+
+
 def flash_attention_bwd(q, k, v, o, lse, do, kv_valid=None):
     """(dq, dk, dv): delta in PyTorch, then kernels 3 and 4 on CUDA;
     ``attention_plain_bwd`` on the CPU."""
@@ -411,16 +491,48 @@ class FlashAttentionFn(torch.autograd.Function):
         return dq, dk, dv, None
 
 
+class FlashAttentionBiasFn(torch.autograd.Function):
+    """Biased attention: the port's counterpart of the JAX ``custom_vjp`` on
+    its biased path. Forward: kernel 5 (its plain twin on the CPU), saving
+    (q, k, v, bias). Backward: ``attention_plain`` recomputed in f32 with the
+    unrounded bias and the ``kv_valid`` mask applied inside it, then
+    differentiated by autograd, so dbias has the bias's own shape."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, bias, kv_valid):
+        ctx.save_for_backward(q, k, v, bias)
+        ctx.kv_valid = kv_valid
+        return flash_attention_bias(q, k, v, bias, kv_valid)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, do):
+        inputs = [x.detach().requires_grad_(need)
+                  for x, need in zip(ctx.saved_tensors, ctx.needs_input_grad)]
+        q, k, v, bias = inputs
+        with torch.enable_grad():
+            o = attention_plain(q, k, v, ctx.kv_valid, bias)
+            grads = iter(torch.autograd.grad(o, [x for x in inputs if x.requires_grad], do))
+        return (*(next(grads) if x.requires_grad else None for x in inputs), None)
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    kv_valid: Optional[int] = None) -> torch.Tensor:
+                    kv_valid: Optional[int] = None,
+                    bias: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Scaled dot-product attention over (B, Nq, H, D) x (B, Nk, H, D).
 
     Under autograd (grad enabled and q, k or v requiring grad) it runs
-    ``FlashAttentionFn`` (kernels 2-4); otherwise kernel 1. CPU tensors take
-    the plain twins; CUDA tensors take the kernels (no fallback: a failed
-    build or launch raises). ``kv_valid`` masks keys at index >= kv_valid
-    out of the softmax."""
+    ``FlashAttentionFn`` (kernels 2-4); otherwise kernel 1. With a logits
+    ``bias`` (broadcastable to (B, H, Nq, Nk)) it runs kernel 5, under
+    autograd (q, k, v or the bias requiring grad) ``FlashAttentionBiasFn``.
+    CPU tensors take the plain twins; CUDA tensors take the kernels (no
+    fallback: a failed build or launch raises). ``kv_valid`` masks keys at
+    index >= kv_valid out of the softmax."""
     _check_kernel(q, k, v, kv_valid)
+    if bias is not None:
+        if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v, bias)):
+            return FlashAttentionBiasFn.apply(q, k, v, bias, kv_valid)
+        return flash_attention_bias(q, k, v, bias, kv_valid)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
         return FlashAttentionFn.apply(q, k, v, kv_valid)
     if _on_cpu(q):

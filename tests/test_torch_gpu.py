@@ -1,6 +1,7 @@
 """Port tests that need the card: the CUDA kernels (flash, kernels 1-4;
 short-sequence, kernels 6-7; shifted-window, kernels 8-9 and the ablation
-variants 11-12) against their plain versions, gradients through them, the
+variants 11-12; the biased flash forward, kernel 5; the tubelet embedding,
+kernel 10) against their plain versions, gradients through them, the
 routing, and the ViViT, TimeSformer and Swin3D train steps on the card.
 
 They skip on a machine without CUDA. On the card, run them with
@@ -15,6 +16,7 @@ import torch
 
 from laryngeal_tpu_torch.ops import flash_attention as fa
 from laryngeal_tpu_torch.ops import short_attention as sa
+from laryngeal_tpu_torch.ops import tubelet as tt
 from laryngeal_tpu_torch.ops import window_attention as wa
 
 pytestmark = pytest.mark.gpu
@@ -200,7 +202,8 @@ def test_autograd_carries_gradients_through_the_kernels(cuda, dtype):
     after = fa.launch_counts()
     assert {n: after[n] - counts[n] for n in after} == {
         "flash_attention_fwd": 0, "flash_attention_fwd_lse": 1,
-        "flash_attention_bwd_dq": 1, "flash_attention_bwd_dkv": 1}
+        "flash_attention_bwd_dq": 1, "flash_attention_bwd_dkv": 1,
+        "flash_attention_fwd_bias": 0}
     plain = [x.clone().requires_grad_() for x in (q, k, v)]
     (fa.attention_plain(*plain, kv_valid=250).float() * g.float()).sum().backward()
     o, lse = fa.attention_plain_lse(q, k, v, 250)
@@ -238,7 +241,8 @@ def test_train_step_on_card_launches_kernels_2_to_4(cuda):
             after = fa.launch_counts()
             assert {k: after[k] - before[k] for k in after} == {
                 "flash_attention_fwd": 0, "flash_attention_fwd_lse": 2,
-                "flash_attention_bwd_dq": 2, "flash_attention_bwd_dkv": 2}
+                "flash_attention_bwd_dq": 2, "flash_attention_bwd_dkv": 2,
+                "flash_attention_fwd_bias": 0}
             before = after
             make_eval_step(model, "vivit", "ce", crop=128)(state, pix.to(dev), labels.to(dev),
                                                            mask.to(dev))
@@ -417,6 +421,7 @@ def test_timesformer_train_step_on_card_matches_cpu(cuda):
             assert {k: after[k] - before[k] for k in after} == {
                 "flash_attention_fwd": 0, "flash_attention_fwd_lse": 0,
                 "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0,
+                "flash_attention_fwd_bias": 0,
                 "short_attention_fwd": 4, "short_attention_bwd": 4}
             before = after
             make_eval_step(model, "timesformer", "ce", crop=64)(
@@ -664,3 +669,175 @@ def test_swin3d_train_step_on_card_matches_cpu(cuda, monkeypatch):
             keep[w.shape[0] // 3:2 * w.shape[0] // 3] = False
             w, wg = w[keep], wg[keep]
         assert ((wg - w).norm() / w.norm()).item() <= 1e-4, n
+
+
+# -- kernel 5: the biased flash forward -------------------------------------
+# (B, Nq, Nk, H, D, kv_valid, bias layout): the four broadcast forms, N from
+# 1 to 3137, kv_valid, Nq != Nk, D from 16 to 128 (40 is padded to 48).
+BIAS_SHAPES = [
+    (2, 1, 1, 2, 16, None, "bhqk"),
+    (2, 63, 63, 3, 32, None, "1hqk"),
+    (2, 300, 300, 3, 64, 250, "hqk"),
+    (1, 520, 520, 2, 128, None, "111k"),
+    (1, 3137, 3137, 2, 64, 3073, "1hqk"),
+    (1, 100, 333, 2, 64, None, "bhqk"),
+    (2, 520, 200, 2, 40, 150, "hqk"),
+]
+
+
+def _bias(layout, b, h, nq, nk, dtype, device, seed=7):
+    shape = {"bhqk": (b, h, nq, nk), "1hqk": (1, h, nq, nk), "hqk": (h, nq, nk),
+             "111k": (1, 1, 1, nk)}[layout]
+    x = 2.0 * np.random.default_rng(seed).standard_normal(shape, dtype=np.float32)
+    return torch.from_numpy(x).to(device=device, dtype=dtype)
+
+
+@pytest.mark.parametrize("bias_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", BIAS_SHAPES, ids=str)
+def test_bias_kernel_matches_plain(cuda, shape, dtype, bias_dtype):
+    b, nq, nk, h, d, kv_valid, layout = shape
+    q, k, v = _qkv((b, nq, h, d), (b, nk, h, d), dtype, cuda)
+    bias = _bias(layout, b, h, nq, nk, bias_dtype, cuda)
+    before = fa.bias_launches
+    out = fa.flash_attention(q, k, v, kv_valid, bias)
+    torch.cuda.synchronize()
+    assert fa.bias_launches == before + 1
+    assert out.dtype == dtype and out.shape == (b, nq, h, d)
+    ref = fa.attention_plain_bias(q, k, v, bias, kv_valid)
+    limit = fa.error_limit(q, k, v, kv_valid, ref, bias=bias.to(dtype))
+    use = ((out.float() - ref.float()).abs() / limit).max().item()
+    assert use <= 1.0, use
+
+
+def test_bias_kernel_rounds_the_bias_to_q_dtype(cuda):
+    """In bf16 the kernel adds the bias rounded to bf16, as the TPU wrapper
+    does: against the unrounded bias it is off by more than its limit."""
+    q, k, v = _qkv((1, 600, 2, 64), (1, 600, 2, 64), torch.bfloat16, cuda, seed=3)
+    bias = 16.0 * _bias("1hqk", 1, 2, 600, 600, torch.float32, cuda, seed=4)
+    out = fa.flash_attention(q, k, v, bias=bias)
+    rounded = fa.attention_plain_bias(q, k, v, bias)
+    unrounded = fa.attention_plain(q, k, v, None, bias)
+    limit = fa.error_limit(q, k, v, None, rounded, bias=bias.to(torch.bfloat16))
+    assert ((out.float() - rounded.float()).abs() / limit).max().item() <= 1.0
+    assert ((out.float() - unrounded.float()).abs() / limit).max().item() > 1.0
+
+
+def test_router_sends_a_biased_call_to_kernel_5(cuda):
+    """With a bias, N >= 512 launches kernel 5 (also at Nq != Nk); N < 512
+    takes the plain attention with the f32 bias and launches nothing; head
+    dim > 128 raises on CUDA."""
+    from laryngeal_tpu_torch.ops import attention as att
+
+    def counts(fn):
+        before = {**fa.launch_counts(), **sa.launch_counts()}
+        out = fn()
+        torch.cuda.synchronize()
+        after = {**fa.launch_counts(), **sa.launch_counts()}
+        return out, {n: after[n] - before[n] for n in after if after[n] != before[n]}
+
+    q, k, v = _qkv((2, 512, 2, 64), (2, 512, 2, 64), torch.bfloat16, cuda)
+    bias = _bias("1hqk", 2, 2, 512, 512, torch.float32, cuda)
+    assert counts(lambda: att.dot_product_attention(q, k, v, bias=bias))[1] == {
+        "flash_attention_fwd_bias": 1}
+    assert counts(lambda: att.dot_product_attention(
+        q[:, :100], k, v, bias=bias[:, :, :100], kv_valid=400))[1] == {
+        "flash_attention_fwd_bias": 1}
+    small = bias[..., :511, :511]
+    out, launched = counts(lambda: att.dot_product_attention(
+        q[:, :511], k[:, :511], v[:, :511], bias=small))
+    assert launched == {}
+    assert torch.equal(out, fa.attention_plain(q[:, :511], k[:, :511], v[:, :511], None, small))
+    qb, kb, vb = _qkv((1, 600, 1, 160), (1, 600, 1, 160), torch.bfloat16, cuda)
+    with pytest.raises(NotImplementedError):
+        att.dot_product_attention(qb, kb, vb, bias=_bias("111k", 1, 1, 600, 600,
+                                                         torch.float32, cuda))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("layout,kv_valid", [("1hqk", None), ("hqk", 480), ("111k", 500)])
+def test_bias_autograd_matches_plain(cuda, dtype, layout, kv_valid):
+    """FlashAttentionBiasFn: kernel 5 forward, the f32 recompute backward;
+    dq, dk, dv and dbias (in the bias's own shape) as plain attention's."""
+    q, k, v, g = _grad_inputs((1, 520, 520, 2, 32, kv_valid), dtype, cuda, seed=6)
+    bias = _bias(layout, 1, 2, 520, 520, torch.float32, cuda)
+    leaves = [x.clone().requires_grad_() for x in (q, k, v, bias)]
+    before = fa.launch_counts()
+    out = fa.flash_attention(*leaves[:3], kv_valid, leaves[3])
+    (out.float() * g.float()).sum().backward()
+    torch.cuda.synchronize()
+    after = fa.launch_counts()
+    assert {n: after[n] - before[n] for n in after if after[n] != before[n]} == {
+        "flash_attention_fwd_bias": 1}
+    plain = [x.clone().requires_grad_() for x in (q, k, v, bias)]
+    (fa.attention_plain(*plain[:3], kv_valid, plain[3]).float() * g.float()).sum().backward()
+    assert leaves[3].grad.shape == bias.shape
+    for x, p in zip(leaves, plain):
+        assert x.grad.dtype == p.grad.dtype
+        # The backward is the same plain function of the same inputs.
+        assert torch.allclose(x.grad.float(), p.grad.float(), atol=1e-5, rtol=1e-5)
+
+
+# -- kernel 10: the tubelet embedding ---------------------------------------
+# (video (B, T, H, W, C), tubelet, D): M = B*T'*H'*W' = 24, 45, 196, 280, 32,
+# 8; kw*C = 48, 48, 48, 48, 32, 64.
+TUBELET_SHAPES = [
+    ((2, 4, 32, 48, 3), (2, 16, 16), 48),
+    ((3, 2, 48, 80, 3), (2, 16, 16), 96),
+    ((1, 2, 224, 224, 3), (2, 16, 16), 768),
+    ((5, 4, 64, 112, 3), (2, 16, 16), 768),
+    ((1, 4, 16, 32, 4), (2, 4, 8), 32),
+    ((2, 2, 32, 32, 4), (2, 16, 16), 96),
+]
+
+
+def _tubelet_inputs(shape, tubelet, d, dtype, device, seed=0):
+    rng = np.random.default_rng(seed)
+    k = tubelet[0] * tubelet[1] * tubelet[2] * shape[-1]
+    video = rng.standard_normal(shape, dtype=np.float32)
+    kernel = rng.standard_normal((*tubelet, shape[-1], d), dtype=np.float32) / np.sqrt(k)
+    bias = 0.1 * rng.standard_normal((d,), dtype=np.float32)
+    return (torch.from_numpy(video).to(device=device, dtype=dtype),
+            torch.from_numpy(kernel).to(device), torch.from_numpy(bias).to(device))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,tubelet,d", TUBELET_SHAPES, ids=str)
+def test_tubelet_kernel_matches_plain(cuda, shape, tubelet, d, dtype):
+    video, kernel, bias = _tubelet_inputs(shape, tubelet, d, dtype, cuda)
+    before = tt.launches
+    out = tt.tubelet_embed(video, kernel, bias, tubelet, impl="kernel")
+    torch.cuda.synchronize()
+    assert tt.launches == before + 1
+    ref = tt.tubelet_embed_plain(video, kernel, bias, tubelet)
+    assert out.dtype == dtype and out.shape == ref.shape
+    use = ((out.float() - ref.float()).abs() / tt.error_limit(video, kernel, ref, tubelet)).max()
+    assert use.item() <= 1.0, use.item()
+
+
+def test_tubelet_kernel_reads_a_strided_video_and_refuses_bad_input(cuda):
+    video, kernel, bias = _tubelet_inputs((2, 4, 32, 48, 3), (2, 16, 16), 48,
+                                          torch.bfloat16, cuda)
+    wide = torch.cat([video, video], dim=-1)[..., :3]  # a strided view
+    out = tt.tubelet_embed(wide, kernel, bias, impl="kernel")
+    assert torch.equal(out, tt.tubelet_embed(video, kernel, bias, impl="kernel"))
+    with pytest.raises(ValueError):  # kw * C = 16 * 5 is not a run length it takes
+        tt.tubelet_embed_cuda(torch.zeros((1, 2, 16, 16, 5), device=cuda),
+                              torch.zeros((2, 16, 16, 5, 8), device=cuda),
+                              torch.zeros(8, device=cuda))
+    with pytest.raises(ValueError):  # D = 44 is not a multiple of 8
+        tt.tubelet_embed_cuda(video, kernel[..., :44], bias[:44])
+
+
+def test_tubelet_kernel_refuses_autograd(cuda):
+    video, kernel, bias = _tubelet_inputs((1, 2, 32, 32, 3), (2, 16, 16), 48,
+                                          torch.float32, cuda)
+    kernel.requires_grad_()
+    before = tt.launches
+    with pytest.raises(RuntimeError, match="no gradient"):
+        tt.tubelet_embed(video, kernel, bias, impl="kernel")
+    assert tt.launches == before
+    out = tt.tubelet_embed(video, kernel, bias, impl="conv")
+    out.sum().backward()
+    assert kernel.grad is not None
+

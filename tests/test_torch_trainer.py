@@ -129,6 +129,15 @@ def test_trainer_history_matches_jax(both_trained):
         set(json.loads((jt.exp_dir / "training_config.json").read_text()))
 
 
+def test_evaluator_defaults_to_the_card(monkeypatch):
+    """Like every entry of the port, Evaluator takes the card unless asked
+    for the CPU by name, and raises on a host without one."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Evaluator(lambda *a: None, [])
+    assert Evaluator(lambda *a: None, [], device="cpu").device == torch.device("cpu")
+
+
 def test_evaluator_matches_jax(both_trained, root):
     jt, pt = both_trained
     mp = pytest.MonkeyPatch()
