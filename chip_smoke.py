@@ -44,8 +44,13 @@ Phases, in order; any failure ends the run with a non-zero exit:
    TimeSformer-B shapes (temporal (1568, 32, 12, 64), spatial
    (256, 197, 12, 64), views of a fused qkv) in bf16 and f32, and at N from
    1 to 511 with D from 16 to 128 and odd B*H, each under its elementwise
-   limit; timed beside the plain twins, their bounds and
-   ``F.scaled_dot_product_attention``'s forward and autograd backward.
+   limit; kernel 6's earlier mma.sync design (``short_attention_fwd_mma``)
+   under the same limit at every case. The ptxas report of kernel 6's wgmma
+   instances is printed. Timed beside the plain twins, their bounds and
+   ``F.scaled_dot_product_attention``'s forward and autograd backward;
+   kernel 6 also beside its earlier design in turns (old, new, new, old),
+   single calls and queued (20 calls back to back: the card's time without
+   the wrapper's host-side launch).
 7b. The routing decision's data: kernel 1, and the flash training pair
    (kernel 2; delta and kernels 3-4), timed at the same two shapes.
 8. TimeSformer-B serving at full width: a 32-frame 224^2 Predictor in bf16,
@@ -201,18 +206,23 @@ def build_kernels():
     log(f"build phase: {time.perf_counter() - t0:.2f} s")
 
 
-def cuda_time_ms(fn, reps: int = 10, warmup: int = 2) -> float:
-    """Median over ``reps`` single calls timed with CUDA events."""
+def cuda_time_ms(fn, reps: int = 10, warmup: int = 2, queued: bool = False) -> float:
+    """Median over ``reps`` single calls timed with CUDA events. With
+    ``queued``, the median over 3 rounds of ``reps`` calls launched back to
+    back between one pair of events, divided by ``reps``: the card's time
+    for a call whose host-side launch (the Python wrapper, tens of
+    microseconds) would otherwise show in the single-call reading."""
     for _ in range(warmup):
         fn()
     times = []
-    for _ in range(reps):
+    for _ in range(3 if queued else reps):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(reps if queued else 1):
+            fn()
         end.record()
         torch.cuda.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / (reps if queued else 1))
     return float(np.median(times))
 
 
@@ -782,34 +792,72 @@ def short_bound_ms(shape, dtype, backward: bool):
     return kernel_bound_ms(b, n, n, h, d, dtype, 2, 2, 2, 0)
 
 
+# Kernel 6's bf16 designs: wgmma at 64 < N <= 256, mma.sync elsewhere (and
+# always through short_attention_fwd_mma, the earlier design kept to time).
+SHORT_FWD_DESIGN = ("wgmma + TMA, a persistent block per SM, a (sequence, head) pair's q/k/v "
+                    "resident in shared memory, one-pass whole-row softmax (64 < N <= 256); "
+                    "mma.sync two-pass over streamed key tiles elsewhere")
+
+
+def short_fwd_design(n: int, dtype) -> str:
+    if dtype != torch.bfloat16:
+        return "fma"
+    return "wgmma" if 64 < n <= 256 else "mma.sync"
+
+
+def ptxas_lines(source: str, kernel: str) -> list:
+    """The ptxas report (registers, shared memory, spills) of every
+    instance of ``kernel`` in the last build of ``source``."""
+    from laryngeal_tpu_torch.ops import _build
+
+    out, keep = [], False
+    for line in (_build.build_log(source) or "").splitlines():
+        if "Compiling entry function" in line:
+            keep = kernel in line
+            if keep:
+                out.append(line.split("'")[1][-60:])
+        elif keep and ("Used" in line or "spill" in line or "C7512" in line
+                       or "C7508" in line):
+            out.append("  " + line.strip()[:200])
+    return out
+
+
 def check_short_kernels():
     """Phases 7 and 7b: kernels 6-7 vs their plain twins on the card, across
-    the router's domain; timings at the TimeSformer-B shapes beside the
-    twins, the bounds, sdpa, and kernel 1 and the flash training pair (the
-    routing decision's data). Returns {entry name: numbers}."""
+    the router's domain (kernel 6's earlier mma.sync design too); timings at
+    the TimeSformer-B shapes beside the twins, the bounds, sdpa, kernel 6's
+    earlier design, and kernel 1 and the flash training pair (the routing
+    decision's data). Returns {entry name: numbers}."""
     import torch.nn.functional as F
 
     from laryngeal_tpu_torch.ops import flash_attention as fa
     from laryngeal_tpu_torch.ops import short_attention as sa
 
+    for line in ptxas_lines("short_attention.cu", "short_fwd_wgmma_kernel"):
+        log(f"ptxas {line}")
     entries = {"short_attention_fwd": {}, "short_attention_bwd": {}}
     worst = {"short_attention_fwd": [0.0, 0.0], "short_attention_bwd": [0.0, 0.0]}
     # (name, (B, N, H, D)): the TimeSformer-B shapes, then N in 1..511 and D
-    # in 16..128 (40 is padded to 48 inside the wrapper), odd B*H.
+    # in 16..128 (40 is padded to 48 inside the wrapper), odd B*H; the wgmma
+    # design's edges (N = 65, 256, D = 32, 128).
     cases = list(TS_SHAPES.items()) + [
         ("n1_d64", (3, 1, 5, 64)), ("n5_d16", (5, 5, 3, 16)), ("n33_d40", (3, 33, 5, 40)),
         ("n300_d128", (1, 300, 3, 128)), ("n511_d64", (1, 511, 3, 64)),
-        ("n511_d128", (3, 511, 1, 128)), ("n100_d16", (7, 100, 3, 16))]
+        ("n511_d128", (3, 511, 1, 128)), ("n100_d16", (7, 100, 3, 16)),
+        ("n65_d32", (3, 65, 5, 32)), ("n256_d128", (3, 256, 1, 128))]
     for dtype in (torch.bfloat16, torch.float32):
         tag = str(dtype)[6:]
         for seed, (name, shape) in enumerate(cases):
             q, k, v, g = fused_qkv(shape, dtype, 30 + seed)
-            out = sa.short_attention_fwd_cuda(q, k, v)
             ref = sa.short_attention_plain(q, k, v)
-            diff = (out.float() - ref.float()).abs()
-            use_f = (diff / sa.error_limit(q, k, v, ref, F32_TOL)).max().item()
+            limit = sa.error_limit(q, k, v, ref, F32_TOL)
+            diff = (sa.short_attention_fwd_cuda(q, k, v).float() - ref.float()).abs()
+            use_f = (diff / limit).max().item()
             err_f = diff.max().item()
-            del diff, out, ref
+            # The earlier mma.sync design under the same limit.
+            use_old = ((sa.short_attention_fwd_mma_cuda(q, k, v).float() - ref.float()).abs()
+                       / limit).max().item()
+            del diff, ref, limit
             grads = sa.short_attention_bwd_cuda(q, k, v, g)
             refs = sa.short_attention_plain_bwd(q, k, v, g)
             uses, errs = [], []
@@ -818,9 +866,11 @@ def check_short_kernels():
                 uses.append((diff / lim).max().item())
                 errs.append(diff.max().item())
             del grads, refs, diff
-            ok = max([use_f] + uses) <= 1.0 and all(math.isfinite(x) for x in [err_f] + errs)
-            log(f"short attention {name} {shape} {tag}: fwd max_abs_err {err_f:.3e} "
-                f"(|err|/limit {use_f:.3f}); dq/dk/dv max_abs_err {errs[0]:.3e}/{errs[1]:.3e}/"
+            ok = (max([use_f, use_old] + uses) <= 1.0
+                  and all(math.isfinite(x) for x in [err_f] + errs))
+            log(f"short attention {name} {shape} {tag}: fwd ({short_fwd_design(shape[1], dtype)}) "
+                f"max_abs_err {err_f:.3e} (|err|/limit {use_f:.3f}; mma.sync design "
+                f"{use_old:.3f}); dq/dk/dv max_abs_err {errs[0]:.3e}/{errs[1]:.3e}/"
                 f"{errs[2]:.3e}, |err|/limit {uses[0]:.3f}/{uses[1]:.3f}/{uses[2]:.3f} "
                 f"{'ok' if ok else 'FAIL'}")
             if not ok:
@@ -832,7 +882,16 @@ def check_short_kernels():
             if name not in TS_SHAPES:
                 del q, k, v, g
                 continue
-            ms6 = cuda_time_ms(lambda: sa.short_attention_fwd_cuda(q, k, v))
+            # Kernel 6 and its earlier design in turns (old, new, new, old),
+            # single calls and queued (the card's time; see cuda_time_ms).
+            fwd_new = lambda: sa.short_attention_fwd_cuda(q, k, v)
+            fwd_old = lambda: sa.short_attention_fwd_mma_cuda(q, k, v)
+            turns = {"old": [], "new": [], "old_q": [], "new_q": []}
+            for which, fn in (("old", fwd_old), ("new", fwd_new), ("new", fwd_new),
+                              ("old", fwd_old)):
+                turns[which].append(cuda_time_ms(fn))
+                turns[which + "_q"].append(cuda_time_ms(fn, reps=20, queued=True))
+            ms6, old6, ms6_q, old6_q = (sum(turns[x]) / 2 for x in ("new", "old", "new_q", "old_q"))
             ms7 = cuda_time_ms(lambda: sa.short_attention_bwd_cuda(q, k, v, g))
             plain6 = cuda_time_ms(lambda: sa.short_attention_plain(q, k, v), reps=3, warmup=1)
             plain7 = cuda_time_ms(lambda: sa.short_attention_plain_bwd(q, k, v, g), reps=3,
@@ -840,6 +899,8 @@ def check_short_kernels():
             qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
             gt = g.transpose(1, 2)
             lib6 = cuda_time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt))
+            lib6_q = cuda_time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt), reps=20,
+                                  queued=True)
             lib_out = F.scaled_dot_product_attention(qt, kt, vt)
             lib7 = cuda_time_ms(
                 lambda: torch.autograd.grad(lib_out, (qt, kt, vt), gt, retain_graph=True))
@@ -862,10 +923,18 @@ def check_short_kernels():
                 if backward:
                     numbers["flash_bwd_ms"] = ms34
                 else:
-                    numbers.update(flash_fwd_ms=ms1, flash_fwd_lse_ms=ms2)
+                    numbers.update(flash_fwd_ms=ms1, flash_fwd_lse_ms=ms2, old_ms=old6,
+                                   queued_ms=ms6_q, old_queued_ms=old6_q,
+                                   library_queued_ms=lib6_q,
+                                   design=short_fwd_design(shape[1], dtype))
                 log(f"{e} {name} {tag}: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, sdpa "
                     f"{lib_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
-                    f"{bound_ms / ms:.3f} of the bound")
+                    f"{bound_ms / ms:.3f} of the bound"
+                    + ("" if backward else
+                       f"; design {short_fwd_design(shape[1], dtype)}, the earlier mma.sync "
+                       f"design {old6:.4f} ms ({old6 / ms:.2f}x); queued: kernel {ms6_q:.4f}, "
+                       f"earlier design {old6_q:.4f} ({old6_q / ms6_q:.2f}x), sdpa "
+                       f"{lib6_q:.4f} ms, {bound_ms / ms6_q:.3f} of the bound"))
                 key = name if dtype == torch.bfloat16 else f"{name}_f32"
                 entries[e][key] = numbers
             del q, k, v, g
@@ -875,9 +944,10 @@ def check_short_kernels():
     for e, nums in entries.items():
         # The line's headline numbers: the spatial call in bf16, the larger of
         # the two; the temporal call and f32 stay under their own keys.
-        nums.update({k: v for k, v in nums["spatial"].items() if k != "shape"})
+        nums.update({k: v for k, v in nums["spatial"].items() if k not in ("shape", "design")})
         nums.update(max_abs_err=worst[e][0], err_over_limit=worst[e][1], tol=tol,
                     headline="spatial (256, 197, 12, 64) bf16")
+    entries["short_attention_fwd"]["design"] = SHORT_FWD_DESIGN
     return entries
 
 

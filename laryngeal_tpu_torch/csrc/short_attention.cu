@@ -24,17 +24,34 @@
 // (1568, 32, 12, 64), spatial (256, 197, 12, 64)) the forward moves ~310 MB
 // (q, k, v read, o written) against 5-31 GFLOP, and the backward ~540 MB
 // (q, k, v, G read, dQ, dK, dV written) against 12-76 GFLOP: both are bound
-// by bytes (~0.09 and ~0.16 ms at 3.35 TB/s). The design therefore keeps
-// every (N, N) tile in registers and reads each sequence from device memory
-// about once (the re-reads of a sequence come from L2):
-//   * bf16: mma.sync.m16n8k16, f32 accumulators. A block of W warps (W = 1,
-//     2 or 4, the smallest with 16 W >= N, else 4) owns 16 W rows. The
-//     TPU kernel holds the whole (N, N) score matrix in VMEM; a Hopper
-//     block cannot at N = 511, so the forward makes two passes over 16 W-key
-//     tiles streamed through shared memory with cp.async (double-buffered
-//     when there is more than one tile): the first for each row's max and
-//     sum, the second forms the normalised P, rounds it and accumulates P V.
-//     The exact softmax needs no online rescale of the output.
+// by bytes (~0.09 and ~0.16 ms at 3.35 TB/s). The designs therefore keep
+// the score tiles in registers and read each sequence from device memory
+// about once:
+//   * bf16 forward at 64 < N <= 256 (TimeSformer's spatial N = 197): one
+//     (sequence, head) pair is the unit of work. A persistent block per SM
+//     walks over the pairs; its producer warp loads a pair's whole Q, K and V
+//     into shared memory with TMA (a 4-D tensor map over the (B, N, H, D)
+//     strides, 128-byte swizzle, rows past N filled with zeros), a pair
+//     ahead in a 2-stage ring (1 stage at D = 128), and hands its registers
+//     to two consumer warpgroups (setmaxnreg). A consumer takes a 64-row
+//     query tile: S = Q K^T comes out of wgmma.m64n64k16 over up to four
+//     64-key chunks, every key of the row at once, so the row max and sum
+//     are exact in one pass (no second pass over K, no online rescale); P,
+//     multiplied by 1/l and rounded to bf16, is packed in registers as the A
+//     operand of O = P V (wgmma with V from shared memory, transposed); O
+//     leaves through the tile's spent Q slot with a TMA store. K and V leave
+//     device memory once per pair and are read from shared memory by every
+//     query tile. On the H100 the design is bound by the consumers' work (a
+//     pair's loads hide behind it): both warpgroups' products on the tensor
+//     cores and the exp2/convert/max chains of the softmax between them.
+//   * other bf16 forward calls (N <= 64, TimeSformer's temporal N = 32, and
+//     256 < N < 512): mma.sync.m16n8k16, f32 accumulators. A block of W
+//     warps (W = 1, 2 or 4, the smallest with 16 W >= N, else 4) owns 16 W
+//     rows and makes two passes over 16 W-key tiles streamed through shared
+//     memory with cp.async (double-buffered when there is more than one
+//     tile): the first for each row's max and sum, the second forms the
+//     normalised P, rounds it and accumulates P V. This design also stays
+//     callable at every N as short_attention_fwd_mma, to time against.
 //   * bf16 backward: one block owns a whole (sequence, head) pair, so the
 //     reduction over queries of dK and dV stays inside the block (no atomics,
 //     deterministic). Phase 1 walks the query tiles: one pass over the key
@@ -48,12 +65,13 @@
 //     once): a product costs little next to the bytes here.
 //   * f32: the FMA units, TF32 off (as the flash kernels): 1-4 threads per
 //     row, each owning a 32-wide slice of the head dim; the same passes.
-// Not yet done (later work): several short sequences per block for N <= 16,
-// wgmma/TMA, a persistent schedule.
+// Not yet done (later work): the backward and the f32 paths on wgmma/TMA,
+// several short sequences per block for N <= 16.
 
 #include <cstring>
 
 #include "flash_attention_common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -233,6 +251,264 @@ short_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     __syncthreads();
   }
   store_rows<HD>(o + b * st.ob + h * st.oh, st.on, acc, q0 + warp * 16, N, D);
+}
+
+// ---------------------------------------------------------------------------
+// bf16 forward on wgmma and TMA (kernel 6 at 64 < N <= 256)
+// ---------------------------------------------------------------------------
+
+constexpr int kWgMaxN = 256;      // keys of a (batch, head) held in shared memory at once
+constexpr int kWgThreads = 384;   // warpgroup 0 loads, warpgroups 1-2 compute
+constexpr int kWgConsumerWarps = 8;
+
+// Shared-memory geometry at head dim HD: q, k and v of one (batch, head)
+// pair per stage, each as 256 rows of 64 (HD = 32: 32) head-dim values per
+// swizzled panel.
+template <int HD>
+struct WgTile {
+  static constexpr int kPanelCols = HD == 32 ? 32 : 64;
+  static constexpr int kPanels = HD / kPanelCols;
+  static constexpr int kRowBytes = 2 * kPanelCols;  // the swizzle width, 64 or 128 bytes
+  static constexpr int kGroupBytes = 8 * kRowBytes;  // one 8-row swizzle group
+  static constexpr uint64_t kLayout = HD == 32 ? hopper::kLayoutSw64 : hopper::kLayoutSw128;
+  static constexpr int kPanelBytes = kWgMaxN * kRowBytes;
+  static constexpr int kTensorBytes = kPanels * kPanelBytes;  // 512 HD
+  static constexpr int kStageBytes = 3 * kTensorBytes;
+  static constexpr int kStages = HD == 128 ? 1 : 2;  // 192 KB a stage at HD = 128
+  static constexpr size_t kSmemBytes = (size_t)kStages * kStageBytes + 1024 + 64;
+};
+
+// Issue the TMA loads of rows [0, 64 nb) of one (batch, head) slice of a
+// tensor into its stage slot: nb boxes of 64 rows per panel.
+template <int HD>
+__device__ __forceinline__ void wg_load(unsigned char* dst, const CUtensorMap* map, int pos,
+                                        uint64_t* bar, int h, int b, int nb) {
+  using T = WgTile<HD>;
+#pragma unroll
+  for (int p = 0; p < T::kPanels; ++p)
+    for (int r = 0; r < nb; ++r) {
+      int c1, c2, c3;
+      hopper::bnhd_coords(pos, h, r * 64, b, c1, c2, c3);
+      hopper::tma_load_4d(dst + p * T::kPanelBytes + r * 64 * T::kRowBytes, map, bar,
+                          p * T::kPanelCols, c1, c2, c3);
+    }
+}
+
+// One 64-row query tile qt of a (batch, head) pair whose q, k and v sit in
+// shared memory, computed by one warpgroup (named barrier `bar`) over NB =
+// ceil(N / 64) key chunks: S = Q K^T on wgmma (every key of the row at once,
+// f32 in registers), the exact softmax from the accumulators (row max, exp2,
+// row sum, multiply by 1/l), P rounded to bf16 and packed in registers as
+// the A operand of O = P V. O goes to global memory through the tile's Q
+// slot, free once S is done, with a TMA store (rows past N are not written);
+// the issuing thread waits for the store's reads before its warp releases
+// the stage. Every register index is static.
+template <int HD, int NB>
+__device__ __forceinline__ void wg_tile(unsigned char* q_s, const unsigned char* k_s,
+                                        const unsigned char* v_s, const CUtensorMap* to,
+                                        int pos_o, int b, int h, int qt, int N, float scale_log2,
+                                        int bar, int warp, int g, int t4) {
+  using T = WgTile<HD>;
+  constexpr int kSteps = T::kPanelCols / 16;  // k16 steps per panel
+  unsigned char* tile = q_s + qt * 64 * T::kRowBytes;
+  const uint64_t dq = hopper::smem_desc(tile, 16, T::kGroupBytes, T::kLayout);
+  const uint64_t dk = hopper::smem_desc(k_s, 16, T::kGroupBytes, T::kLayout);
+  // V is read MN-major (its head-dim values contiguous); a product spans one
+  // swizzle atom along them, so only the 8-row group stride matters, and it
+  // goes in both offset fields.
+  const uint64_t dv = hopper::smem_desc(v_s, T::kGroupBytes, T::kGroupBytes, T::kLayout);
+
+  float s[NB][32];
+  hopper::wgmma_fence();
+#pragma unroll
+  for (int c = 0; c < NB; ++c)
+#pragma unroll
+    for (int p = 0; p < T::kPanels; ++p)
+#pragma unroll
+      for (int ks = 0; ks < kSteps; ++ks)
+        hopper::wgmma_m64n64k16_ss(
+            s[c], dq + ((p * T::kPanelBytes + ks * 32) >> 4),
+            dk + ((p * T::kPanelBytes + c * 64 * T::kRowBytes + ks * 32) >> 4), p + ks > 0);
+  hopper::wgmma_commit();
+  hopper::wgmma_wait<0>();
+#pragma unroll
+  for (int c = 0; c < NB; ++c) hopper::fence_regs(s[c]);
+
+  // Keys >= N (the last chunk's tail) are masked; then the row max of rows
+  // g and g + 8 of this warp's 16, in four partial maxima per row (short
+  // dependency chains).
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int key = (NB - 1) * 64 + j * 8 + 2 * t4 + (e & 1);
+      s[NB - 1][4 * j + e] = key < N ? s[NB - 1][4 * j + e] : kMaskValue;
+    }
+  float mx[2][4];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) mx[i & 1][i >> 1] = kMaskValue;
+#pragma unroll
+  for (int c = 0; c < NB; ++c)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      float& m = mx[(i >> 1) & 1][(i >> 2) & 3];
+      m = fmaxf(m, s[c][i]);
+    }
+  float sum[2][4], mb[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mb[r] = quad_max(fmaxf(fmaxf(mx[r][0], mx[r][1]), fmaxf(mx[r][2], mx[r][3]))) * scale_log2;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) sum[r][i] = 0.f;
+  }
+#pragma unroll
+  for (int c = 0; c < NB; ++c)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      if (c < NB - 1 || c * 64 + j * 8 < N) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float x = hopper::exp2_approx(fmaf(s[c][4 * j + e], scale_log2, -mb[e >> 1]));
+          s[c][4 * j + e] = x;
+          sum[e >> 1][j & 3] += x;
+        }
+      } else {  // no key of this 8-column block is valid
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[c][4 * j + e] = 0.f;
+      }
+    }
+  float inv[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r)
+    inv[r] = 1.f / quad_sum((sum[r][0] + sum[r][1]) + (sum[r][2] + sum[r][3]));
+  // P = exp(S - m) / l rounded to bf16: the A fragment of keys
+  // [64 c + 16 kk, 64 c + 16 kk + 16).
+  uint32_t pa[NB][4][4];
+#pragma unroll
+  for (int c = 0; c < NB; ++c)
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+        pa[c][kk][r] = pack_bf16(s[c][8 * kk + 2 * r] * inv[r & 1],
+                                 s[c][8 * kk + 2 * r + 1] * inv[r & 1]);
+
+  float acc[T::kPanels][T::kPanelCols / 2];
+  hopper::wgmma_fence();
+#pragma unroll
+  for (int c = 0; c < NB; ++c)
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int p = 0; p < T::kPanels; ++p) {
+        const uint64_t db = dv + ((p * T::kPanelBytes + (c * 64 + kk * 16) * T::kRowBytes) >> 4);
+        if constexpr (T::kPanelCols == 64)
+          hopper::wgmma_m64n64k16_rs_tb(acc[p], pa[c][kk], db, c + kk > 0);
+        else
+          hopper::wgmma_m64n32k16_rs_tb(acc[p], pa[c][kk], db, c + kk > 0);
+      }
+  hopper::wgmma_commit();
+  hopper::wgmma_wait<0>();
+#pragma unroll
+  for (int p = 0; p < T::kPanels; ++p) hopper::fence_regs(acc[p]);
+
+  // O in bf16 into the Q slot, in the layout TMA reads (the swizzle the
+  // loads wrote), then one TMA store per panel.
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = warp * 16 + g + 8 * r;
+    const int x = T::kRowBytes == 128 ? row & 7 : (row >> 1) & 3;
+#pragma unroll
+    for (int p = 0; p < T::kPanels; ++p)
+#pragma unroll
+      for (int j = 0; j < T::kPanelCols / 8; ++j)
+        *reinterpret_cast<uint32_t*>(tile + p * T::kPanelBytes + row * T::kRowBytes
+                                     + ((j ^ x) << 4) + 4 * t4) =
+            pack_bf16(acc[p][4 * j + 2 * r], acc[p][4 * j + 2 * r + 1]);
+  }
+  hopper::fence_async_smem();
+  hopper::named_sync(bar, 128);
+  if (warp == 0 && g == 0 && t4 == 0) {
+    int c1, c2, c3;
+    hopper::bnhd_coords(pos_o, h, qt * 64, b, c1, c2, c3);
+#pragma unroll
+    for (int p = 0; p < T::kPanels; ++p)
+      hopper::tma_store_4d(to, tile + p * T::kPanelBytes, p * T::kPanelCols, c1, c2, c3);
+    hopper::tma_store_commit();
+  }
+}
+
+// A persistent block per SM walks over the (batch, head) pairs. Warpgroup 0
+// (one thread) loads each pair's q, k and v whole into a shared-memory stage
+// with TMA, a stage ahead of the consumers where two fit; warpgroups 1 and 2
+// take the pair's query tiles in turn (tiles wg, wg + 2) and release the
+// stage when both are done.
+template <int HD>
+__global__ void __launch_bounds__(kWgThreads, 1)
+short_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                       const __grid_constant__ CUtensorMap tk,
+                       const __grid_constant__ CUtensorMap tv,
+                       const __grid_constant__ CUtensorMap to, int BH, int H, int N,
+                       float scale_log2, int pos_q, int pos_k, int pos_v, int pos_o) {
+  using T = WgTile<HD>;
+  extern __shared__ __align__(1024) unsigned char wg_smem_raw[];
+  unsigned char* smem = wg_smem_raw + ((1024 - (hopper::smem_u32(wg_smem_raw) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + T::kStages * T::kStageBytes);
+  uint64_t* empty = full + T::kStages;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < T::kStages; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], kWgConsumerWarps);
+    }
+    hopper::mbar_init_fence();
+  }
+  __syncthreads();
+  const int nb = (N + 63) / 64;  // 64-row boxes per tensor = query tiles = key chunks
+
+  // The role of this thread's warpgroup, broadcast from lane 0 so that the
+  // compiler sees a warp-uniform branch.
+  const int role = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+  if (role == 0) {
+    hopper::regs_release<40>();
+    if (threadIdx.x == 0) {
+      const uint32_t bytes = 3u * T::kPanels * nb * 64 * T::kRowBytes;
+      for (int u = blockIdx.x, i = 0; u < BH; u += gridDim.x, ++i) {
+        const int s = i % T::kStages;
+        hopper::mbar_wait(&empty[s], ((i / T::kStages) & 1) ^ 1);
+        hopper::mbar_arrive_expect_tx(&full[s], bytes);
+        const int b = u / H, h = u % H;
+        unsigned char* stage = smem + s * T::kStageBytes;
+        wg_load<HD>(stage, &tq, pos_q, &full[s], h, b, nb);
+        wg_load<HD>(stage + T::kTensorBytes, &tk, pos_k, &full[s], h, b, nb);
+        wg_load<HD>(stage + 2 * T::kTensorBytes, &tv, pos_v, &full[s], h, b, nb);
+      }
+    }
+  } else {
+    hopper::regs_claim<232>();
+    const int tid = threadIdx.x - 128;
+    const int wg = tid / 128, warp = (tid / 32) % 4, lane = tid % 32;
+    const int g = lane / 4, t4 = lane % 4;
+    for (int u = blockIdx.x, i = 0; u < BH; u += gridDim.x, ++i) {
+      const int s = i % T::kStages;
+      hopper::mbar_wait(&full[s], (i / T::kStages) & 1);
+      unsigned char* q_s = smem + s * T::kStageBytes;
+      const unsigned char* k_s = q_s + T::kTensorBytes;
+      const unsigned char* v_s = k_s + T::kTensorBytes;
+      const int b = u / H, h = u % H;
+      for (int qt = wg; qt < nb; qt += 2) {
+        if (nb == 4)
+          wg_tile<HD, 4>(q_s, k_s, v_s, &to, pos_o, b, h, qt, N, scale_log2, 1 + wg, warp, g, t4);
+        else if (nb == 3)
+          wg_tile<HD, 3>(q_s, k_s, v_s, &to, pos_o, b, h, qt, N, scale_log2, 1 + wg, warp, g, t4);
+        else
+          wg_tile<HD, 2>(q_s, k_s, v_s, &to, pos_o, b, h, qt, N, scale_log2, 1 + wg, warp, g, t4);
+      }
+      if (warp == 0 && lane == 0) hopper::tma_store_wait_read();  // O left the Q slots
+      __syncwarp();
+      if (lane == 0) hopper::mbar_arrive(&empty[s]);
+    }
+    if (warp == 0 && lane == 0) hopper::tma_store_wait_all();
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -722,9 +998,51 @@ cudaError_t launch_bwd_bf16(const void* q, const void* k, const void* v, const v
 }
 
 template <int HD>
-cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* o, int dtype, int BH,
-                       int H, int N, int D, const FwdStrides& st, float scale, cudaStream_t s) {
+cudaError_t launch_fwd_wgmma(const void* q, const void* k, const void* v, void* o, int B, int H,
+                             int N, int D, const FwdStrides& st, float scale, cudaStream_t s) {
+  using T = WgTile<HD>;
+  const CUtensorMapSwizzle sw = HD == 32 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_128B;
+  CUtensorMap tq, tk, tv, to;
+  int pq, pk, pv, po;
+  const int cols = T::kPanelCols;
+  if (!hopper::encode_bnhd_map(&tq, q, B, N, H, D, st.qb, st.qn, st.qh, cols, 64, sw, &pq)
+      || !hopper::encode_bnhd_map(&tk, k, B, N, H, D, st.kb, st.kn, st.kh, cols, 64, sw, &pk)
+      || !hopper::encode_bnhd_map(&tv, v, B, N, H, D, st.vb, st.vn, st.vh, cols, 64, sw, &pv)
+      || !hopper::encode_bnhd_map(&to, o, B, N, H, D, st.ob, st.on, st.oh, cols, 64, sw, &po))
+    return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(short_fwd_wgmma_kernel<HD>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)T::kSmemBytes);
+  if (err != cudaSuccess) return err;
+  int dev = 0, sms = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return err;
+  const int BH = B * H;
+  short_fwd_wgmma_kernel<HD><<<BH < sms ? BH : sms, kWgThreads, T::kSmemBytes, s>>>(
+      tq, tk, tv, to, BH, H, N, scale * kLog2e, pq, pk, pv, po);
+  return cudaGetLastError();
+}
+
+// The wgmma design takes 64 < N <= 256 when TMA can read q, k and v and
+// write o (every batch, sequence and head stride positive; a broadcast
+// stride of 0 cannot be described to it).
+bool wgmma_takes(int N, const FwdStrides& st) {
+  const long long s[12] = {st.qb, st.qn, st.qh, st.kb, st.kn, st.kh,
+                           st.vb, st.vn, st.vh, st.ob, st.on, st.oh};
+  for (long long x : s)
+    if (x <= 0) return false;
+  return N > 64 && N <= kWgMaxN;
+}
+
+template <int HD>
+cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* o, int dtype, int B,
+                       int H, int N, int D, const FwdStrides& st, float scale, bool mma_only,
+                       cudaStream_t s) {
+  const int BH = B * H;
   if (dtype == 1) {
+    if (!mma_only && wgmma_takes(N, st))
+      return launch_fwd_wgmma<HD>(q, k, v, o, B, H, N, D, st, scale, s);
     const int w = warps_for(N);
     if (w == 1) return launch_fwd_bf16<HD, 1>(q, k, v, o, BH, H, N, D, st, scale, s);
     if (w == 2) return launch_fwd_bf16<HD, 2>(q, k, v, o, BH, H, N, D, st, scale, s);
@@ -760,24 +1078,38 @@ bool bad_args(int dtype, int B, int H, int N, int D) {
          || D > 128 || D % 8 != 0 || (long long)B * H > 0x7fffffffLL;
 }
 
+int fwd(const void* q, const void* k, const void* v, void* o, int dtype, int B, int N, int H,
+        int D, const long long* st, float scale, bool mma_only, void* stream) {
+  if (bad_args(dtype, B, H, N, D)) return (int)cudaErrorInvalidValue;
+  FwdStrides s;
+  std::memcpy(&s, st, sizeof(s));
+  cudaStream_t cs = static_cast<cudaStream_t>(stream);
+  if (D <= 32) return (int)launch_fwd<32>(q, k, v, o, dtype, B, H, N, D, s, scale, mma_only, cs);
+  if (D <= 64) return (int)launch_fwd<64>(q, k, v, o, dtype, B, H, N, D, s, scale, mma_only, cs);
+  return (int)launch_fwd<128>(q, k, v, o, dtype, B, H, N, D, s, scale, mma_only, cs);
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. q, k, v, o are (B, N, H, D) with N < 512;
 // `st` holds 12 strides in elements (batch, sequence, head of q, k, v, o).
 // The head-dim stride must be 1, D a multiple of 8 (<= 128), every stride a
 // multiple of 8 and every pointer 16-byte aligned (the Python wrapper
-// guarantees all of it). Returns the cudaError_t of the launch (0 = success).
+// guarantees all of it). bf16 at 64 < N <= 256 runs the wgmma design, other
+// bf16 calls the mma.sync one, f32 the FMA kernel. Returns the cudaError_t
+// of the launch (0 = success).
 extern "C" int short_attention_fwd(const void* q, const void* k, const void* v, void* o,
                                    int dtype, int B, int N, int H, int D, const long long* st,
                                    float scale, void* stream) {
-  if (bad_args(dtype, B, H, N, D)) return (int)cudaErrorInvalidValue;
-  FwdStrides s;
-  std::memcpy(&s, st, sizeof(s));
-  cudaStream_t cs = static_cast<cudaStream_t>(stream);
-  const int BH = B * H;
-  if (D <= 32) return (int)launch_fwd<32>(q, k, v, o, dtype, BH, H, N, D, s, scale, cs);
-  if (D <= 64) return (int)launch_fwd<64>(q, k, v, o, dtype, BH, H, N, D, s, scale, cs);
-  return (int)launch_fwd<128>(q, k, v, o, dtype, BH, H, N, D, s, scale, cs);
+  return fwd(q, k, v, o, dtype, B, N, H, D, st, scale, false, stream);
+}
+
+// As short_attention_fwd, with the mma.sync design at every N (the earlier
+// bf16 kernel, kept to time the wgmma one against it).
+extern "C" int short_attention_fwd_mma(const void* q, const void* k, const void* v, void* o,
+                                       int dtype, int B, int N, int H, int D,
+                                       const long long* st, float scale, void* stream) {
+  return fwd(q, k, v, o, dtype, B, N, H, D, st, scale, true, stream);
 }
 
 // As short_attention_fwd, for the gradient: g (the output's gradient, in the

@@ -29,8 +29,11 @@ Implementations, chosen per call or globally with ``set_attention_impl``:
 (ops/window_attention.py, ``WindowAttentionFn`` under autograd), ``plain``
 the same function in plain PyTorch, differentiable by autograd.
 
-A head_dim above 128 has no kernel: on CUDA the ``kernel`` impl raises for
-it, with or without a bias. ``kv_valid`` masks keys at index >= kv_valid
+A head_dim above 128 has no kernel: the ``kernel`` impl routes such a call
+to ``attention_plain`` on any device, with or without a bias, the
+counterpart of the JAX router's XLA route for it
+(``laryngeal_tpu/ops/attention.py:121``), where no Pallas kernel exists
+either. ``kv_valid`` masks keys at index >= kv_valid
 (the trailing-padding mask of the JAX package's ``TrailingKeyMask``).
 """
 
@@ -80,18 +83,14 @@ def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     impl = impl or get_attention_impl(q.device)
     if impl not in IMPLS:
         raise ValueError(f"Unknown attention impl {impl!r}; expected one of {IMPLS}")
-    if impl == "kernel":
-        if q.shape[-1] <= MAX_HEAD_DIM:
-            if bias is not None:
-                if max(q.shape[1], k.shape[1]) >= SHORT_SEQ_LIMIT:
-                    return flash_attention(q, k, v, kv_valid, bias)
-            elif kv_valid is None and 0 < q.shape[1] == k.shape[1] < SHORT_SEQ_LIMIT:
-                return short_attention(q, k, v)
-            else:
-                return flash_attention(q, k, v, kv_valid)
-        elif q.is_cuda:
-            raise NotImplementedError(
-                f"head_dim {q.shape[-1]} > {MAX_HEAD_DIM} has no CUDA kernel")
+    if impl == "kernel" and q.shape[-1] <= MAX_HEAD_DIM:
+        if bias is not None:
+            if max(q.shape[1], k.shape[1]) >= SHORT_SEQ_LIMIT:
+                return flash_attention(q, k, v, kv_valid, bias)
+        elif kv_valid is None and 0 < q.shape[1] == k.shape[1] < SHORT_SEQ_LIMIT:
+            return short_attention(q, k, v)
+        else:
+            return flash_attention(q, k, v, kv_valid)
     return attention_plain(q, k, v, kv_valid, bias)
 
 

@@ -11,6 +11,13 @@ kernels there have CUDA counterparts here (``csrc/short_attention.cu``):
  7    ``_bwd_kernel`` :118 (:249)     ``short_attention_bwd``
 ====  ==============================  =====================================
 
+Kernel 6 has two bf16 designs behind its one entry: ``wgmma`` (a whole
+(sequence, head) pair in shared memory through TMA, S and P·V on wgmma) at
+64 < N <= 256, and ``mma.sync`` (two passes over streamed key tiles) at
+every other N. ``short_attention_fwd_mma_cuda`` runs the ``mma.sync`` design
+at any N; only ``chip_smoke.py`` and the card tests call it, to time and
+hold the two against each other, and it counts no launch.
+
 ``short_attention`` takes (B, N, H, D) self-attention (Nq == Nk), no bias
 and no mask, N < 512, D <= 128, float32 or bfloat16: the calls the router
 in ``ops/attention.py`` sends here, which are TimeSformer's divided
@@ -63,7 +70,7 @@ def launch_counts() -> Dict[str, int]:
 def _kernel(name: str):
     if name not in _fns:
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        n_ptrs = 4 if name == "short_attention_fwd" else 7
+        n_ptrs = 7 if name == "short_attention_bwd" else 4
         fn = getattr(_build.load(SOURCE), name)
         fn.restype = ctypes.c_int
         fn.argtypes = ([ptr] * n_ptrs + [i32] * 5
@@ -189,17 +196,33 @@ def _launch(name, inputs, outputs, d):
         raise RuntimeError(f"{name} launch failed: cudaError {err}")
 
 
+def _fwd_cuda(name: str, q, k, v) -> Tuple[torch.Tensor, bool]:
+    """(output, launched) of kernel 6's C entry ``name`` on CUDA tensors;
+    raises if it cannot launch."""
+    _check_kernel(q, k, v)
+    _check_cuda(name, q, k, v)
+    d, d_pad = _head_dims(q)
+    out = torch.empty((*q.shape[:3], d_pad), dtype=q.dtype, device=q.device)
+    launched = q.shape[0] * q.shape[2] > 0
+    if launched:
+        _launch(name, [_prepare(x, d_pad) for x in (q, k, v)], [out], d)
+    return (out if d_pad == d else out[..., :d]), launched
+
+
 def short_attention_fwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """Kernel 6 on CUDA tensors; raises if it cannot launch."""
     global fwd_launches
-    _check_kernel(q, k, v)
-    _check_cuda("short_attention_fwd", q, k, v)
-    d, d_pad = _head_dims(q)
-    out = torch.empty((*q.shape[:3], d_pad), dtype=q.dtype, device=q.device)
-    if q.shape[0] * q.shape[2] > 0:
-        _launch("short_attention_fwd", [_prepare(x, d_pad) for x in (q, k, v)], [out], d)
-        fwd_launches += 1
-    return out if d_pad == d else out[..., :d]
+    out, launched = _fwd_cuda("short_attention_fwd", q, k, v)
+    fwd_launches += launched
+    return out
+
+
+def short_attention_fwd_mma_cuda(q: torch.Tensor, k: torch.Tensor,
+                                 v: torch.Tensor) -> torch.Tensor:
+    """Kernel 6's earlier ``mma.sync`` design at any N, on CUDA tensors (the
+    yardstick of the ``wgmma`` one); counts no launch, raises if it cannot
+    launch."""
+    return _fwd_cuda("short_attention_fwd_mma", q, k, v)[0]
 
 
 def short_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

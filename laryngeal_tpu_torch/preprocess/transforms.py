@@ -182,7 +182,9 @@ def batch_preprocess(clips_u8: torch.Tensor, regime: str, train: bool = False,
     ``crop`` scales the whole geometry proportionally (224 in every reference
     config; smaller values keep tests cheap). Train mode augments the
     pytorchvideo regime only and needs ``generator`` (CPU), from which each
-    sample takes its own draw."""
+    sample takes its own draw. The vivit and timesformer regimes (the HF
+    processors) have no augmentation: train mode returns their eval pixels,
+    as the JAX function does."""
     scale = lambda v: max(1, int(round(v * crop / 224)))
     if regime == "pytorchvideo":
         if not train:
@@ -193,10 +195,6 @@ def batch_preprocess(clips_u8: torch.Tensor, regime: str, train: bool = False,
         return pytorchvideo_train(clips_u8, draws, crop)
     if regime not in ("vivit", "timesformer"):
         raise ValueError(f"Unknown preprocessing regime {regime!r}")
-    if train:
-        raise NotImplementedError(
-            f"train-mode preprocessing of the {regime} regime is not yet ported, see "
-            "ROADMAP.md")
     if os.environ.get("LARYNGEAL_PIL_EXACT") == "1":
         raise NotImplementedError(
             "LARYNGEAL_PIL_EXACT (the bit-exact Pillow resize) is not yet "

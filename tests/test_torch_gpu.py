@@ -261,7 +261,8 @@ def test_train_step_on_card_launches_kernels_2_to_4(cuda):
 
 
 # -- kernels 6-7: short-sequence attention (TimeSformer) -------------------
-# (B, N, H, D) across the router's domain: N in 1..511, D <= 128, odd B*H.
+# (B, N, H, D) across the router's domain: N in 1..511, D <= 128, odd B*H;
+# then the edges of kernel 6's wgmma design (64 < N <= 256) at D 32, 64, 128.
 SHORT_SHAPES = [
     (3, 1, 5, 64),
     (5, 5, 3, 16),
@@ -274,6 +275,19 @@ SHORT_SHAPES = [
     (1, 300, 3, 128),
     (1, 511, 3, 16),
     (1, 511, 1, 128),
+    (3, 65, 1, 32),
+    (1, 65, 3, 128),
+    (1, 128, 3, 64),
+    (3, 100, 1, 72),    # D padded to 72, the 128-wide design
+    (3, 192, 1, 128),
+    (1, 197, 3, 32),
+    (3, 208, 1, 64),
+    (1, 255, 3, 128),
+    (1, 256, 3, 32),
+    (3, 256, 1, 128),
+    (1, 256, 5, 64),
+    (1, 257, 3, 64),
+    (3, 257, 1, 32),
 ]
 
 
@@ -336,6 +350,56 @@ def test_short_kernels_read_strided_views(cuda):
     for got, ref_g, lim in zip(qkv.grad.unbind(2), refs,
                                sa.backward_error_limit(q, k, v, g, refs)):
         assert ((got.float() - ref_g.float()).abs() / lim).max() <= 1.0
+
+
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("layout", ["fused", "bhnd"])
+def test_short_forward_reads_fused_and_transposed_views(cuda, d, layout):
+    """Kernel 6 at N = 197 on q, k, v as views of a fused (B, N, 3, H, D)
+    qkv (TimeSformer's) and as (B, H, N, D) tensors transposed to
+    (B, N, H, D) (the sequence stride below the head stride)."""
+    rng = np.random.default_rng(d)
+    if layout == "fused":
+        x = torch.from_numpy(rng.standard_normal((3, 197, 3, 5, d), dtype=np.float32))
+        q, k, v = x.to(cuda, torch.bfloat16).unbind(2)
+    else:
+        q, k, v = (torch.from_numpy(rng.standard_normal((3, 5, 197, d), dtype=np.float32))
+                   .to(cuda, torch.bfloat16).transpose(1, 2) for _ in range(3))
+    out = sa.short_attention(q, k, v)
+    ref = sa.short_attention_plain(q, k, v)
+    assert ((out.float() - ref.float()).abs() / sa.error_limit(q, k, v, ref)).max() <= 1.0
+
+
+@pytest.mark.parametrize("shape", [(1, 65, 3, 64), (2, 197, 3, 64), (1, 256, 3, 128),
+                                   (3, 150, 1, 32), (1, 32, 3, 64), (1, 300, 3, 64)])
+def test_short_forward_designs_both_match_plain(cuda, shape):
+    """The production entry (wgmma at 64 < N <= 256, mma.sync elsewhere) and
+    the kept mma.sync design (``short_attention_fwd_mma``) each stay within
+    ``error_limit`` of the twin; only the production entry counts a launch."""
+    q, k, v, _ = _short_inputs(shape, torch.bfloat16, cuda, seed=3)
+    ref = sa.short_attention_plain(q, k, v)
+    limit = sa.error_limit(q, k, v, ref)
+    before = sa.launch_counts()
+    for fn in (sa.short_attention_fwd_cuda, sa.short_attention_fwd_mma_cuda):
+        out = fn(q, k, v)
+        torch.cuda.synchronize()
+        assert out.dtype == torch.bfloat16 and out.shape == q.shape
+        assert ((out.float() - ref.float()).abs() / limit).max().item() <= 1.0, fn.__name__
+    after = sa.launch_counts()
+    assert {n: after[n] - before[n] for n in after} == {"short_attention_fwd": 1,
+                                                        "short_attention_bwd": 0}
+
+
+def test_short_forward_counts_one_launch_per_call(cuda):
+    """Each production call of kernel 6 adds exactly one to ``fwd_launches``,
+    at the wgmma design's N and at the mma.sync design's."""
+    for shape in ((2, 197, 3, 64), (4, 32, 3, 64), (1, 400, 1, 32)):
+        q, k, v, _ = _short_inputs(shape, torch.bfloat16, cuda)
+        for i in range(1, 4):
+            before = sa.fwd_launches
+            sa.short_attention(q, k, v)
+            torch.cuda.synchronize()
+            assert sa.fwd_launches == before + 1, (shape, i)
 
 
 def test_router_sends_short_self_attention_to_kernel_6(cuda):
@@ -726,7 +790,7 @@ def test_bias_kernel_rounds_the_bias_to_q_dtype(cuda):
 def test_router_sends_a_biased_call_to_kernel_5(cuda):
     """With a bias, N >= 512 launches kernel 5 (also at Nq != Nk); N < 512
     takes the plain attention with the f32 bias and launches nothing; head
-    dim > 128 raises on CUDA."""
+    dim > 128 takes the plain attention too (no kernel has it)."""
     from laryngeal_tpu_torch.ops import attention as att
 
     def counts(fn):
@@ -749,9 +813,26 @@ def test_router_sends_a_biased_call_to_kernel_5(cuda):
     assert launched == {}
     assert torch.equal(out, fa.attention_plain(q[:, :511], k[:, :511], v[:, :511], None, small))
     qb, kb, vb = _qkv((1, 600, 1, 160), (1, 600, 1, 160), torch.bfloat16, cuda)
-    with pytest.raises(NotImplementedError):
-        att.dot_product_attention(qb, kb, vb, bias=_bias("111k", 1, 1, 600, 600,
-                                                         torch.float32, cuda))
+    wide = _bias("111k", 1, 1, 600, 600, torch.float32, cuda)
+    out, launched = counts(lambda: att.dot_product_attention(qb, kb, vb, bias=wide))
+    assert launched == {}
+    assert torch.equal(out, fa.attention_plain(qb, kb, vb, None, wide))
+
+
+@pytest.mark.parametrize("shape", [(2, 197, 3, 160), (1, 600, 2, 256)])
+def test_head_dim_above_128_takes_plain_attention(cuda, shape):
+    """No kernel takes D > 128: the router sends such a call to
+    ``attention_plain`` on the card, as the JAX router sends it to XLA, and
+    launches nothing."""
+    from laryngeal_tpu_torch.ops import attention as att
+
+    b, n, h, d = shape
+    q, k, v = _qkv((b, n, h, d), (b, n, h, d), torch.bfloat16, cuda)
+    before = {**fa.launch_counts(), **sa.launch_counts()}
+    out = att.dot_product_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert {**fa.launch_counts(), **sa.launch_counts()} == before
+    assert torch.equal(out, fa.attention_plain(q, k, v, None, None))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -78,6 +78,20 @@ def test_center_crop_scale_matches_jax():
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=1e-3, rtol=1e-6)
 
 
+@pytest.mark.parametrize("regime", ["vivit", "timesformer"])
+def test_hf_regimes_train_mode_matches_jax(regime):
+    """The HF-processor regimes have no augmentation: train mode gives JAX's
+    train-mode pixels, which are their eval pixels."""
+    clips = _clip((2, 3, 40, 56, 3), seed=5)
+    ref = jt.batch_preprocess(jnp.asarray(clips), regime, train=True, crop=32)
+    out = tt.batch_preprocess(torch.from_numpy(clips), regime, train=True, crop=32)
+    assert out.shape == (2, 3, 32, 32, 3)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=1e-4, rtol=0)
+    torch.testing.assert_close(
+        out, tt.batch_preprocess(torch.from_numpy(clips), regime, train=False, crop=32),
+        rtol=0, atol=0)
+
+
 def test_rgb_wire_passthrough_and_unported_paths(monkeypatch):
     x = torch.zeros((1, 2, 8, 8, 3), dtype=torch.uint8)
     assert tt.decode_wire_batch(x, "rgb") is x
@@ -88,9 +102,6 @@ def test_rgb_wire_passthrough_and_unported_paths(monkeypatch):
         tt.batch_preprocess(x, "nope")
     with pytest.raises(ValueError, match="Generator"):
         tt.batch_preprocess(x, "pytorchvideo", train=True)
-    for regime in ("vivit", "timesformer"):
-        with pytest.raises(NotImplementedError):
-            tt.batch_preprocess(x, regime, train=True)
     monkeypatch.setenv("LARYNGEAL_PIL_EXACT", "1")
     for regime in ("vivit", "timesformer"):
         with pytest.raises(NotImplementedError, match="PIL"):

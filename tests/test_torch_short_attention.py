@@ -213,3 +213,17 @@ def test_router_matches_jax(shape, jax_route, monkeypatch):
     want = jax_route if jax_route != "other" else (
         "plain" if bias or d > fa.MAX_HEAD_DIM else "flash")
     assert _port_route(*shape, monkeypatch) == [want]
+
+
+@pytest.mark.parametrize("bias", [False, True])
+def test_head_dim_above_128_takes_plain_attention_as_jax_takes_xla(bias):
+    """D = 160 has no kernel in either package: the port's ``kernel`` impl
+    routes it to ``attention_plain`` (any device), JAX's ``pallas`` impl to
+    XLA; the two agree to f32 round-off."""
+    q, k, v, _ = _inputs((2, 40, 3, 160), seed=11)
+    b = np.random.default_rng(12).standard_normal((1, 3, 40, 40), dtype=np.float32)
+    ref = jax_att.dot_product_attention(*(jnp.asarray(x) for x in (q, k, v)),
+                                        jnp.asarray(b) if bias else None, impl="pallas")
+    out = att.dot_product_attention(*(torch.from_numpy(x) for x in (q, k, v)),
+                                    bias=torch.from_numpy(b) if bias else None, impl="kernel")
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=ATOL, rtol=RTOL)
