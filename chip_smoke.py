@@ -23,9 +23,15 @@ Phases, in order; any failure ends the run with a non-zero exit:
 2b. (run after 2) Kernels 2-4, the training path's: the lse forward and the
    dQ and dK/dV backward against their plain twins (``attention_plain_lse``,
    ``attention_plain_bwd``) at the ViViT-B shape in bf16 and f32, at N=300
-   with kv_valid (masked keys' dK/dV exactly 0) and at Nq != Nk, each under
-   its elementwise limit; timed beside the plain versions, their bounds and
-   ``F.scaled_dot_product_attention``'s forward and autograd backward.
+   with kv_valid (masked keys' dK/dV exactly 0), at Nq < Nk and Nq > Nk, at
+   D = 32, 40 (padded to 48) and 128, and on views of a fused qkv and of a
+   (B, H, N, D) layout, each under its elementwise limit; kernels 3-4 in
+   both bf16 designs (wgmma, and the earlier mma.sync one,
+   ``flash_attention_*_mma_cuda``). The ptxas report of the wgmma
+   instances is printed. Timed at the ViViT-B shape beside the plain
+   versions, their bounds and ``F.scaled_dot_product_attention``'s forward
+   and autograd backward; kernels 3-4 also beside their mma.sync design in
+   turns, single calls and queued, and sdpa's backward both ways.
 5. Training at full width: ViViT-B/16x2 32f 224^2, B=8, bf16 compute, seeded
    weights, through ``make_train_step`` on a uint8 batch: 12 launches each
    of kernels 2-4 and none of kernel 1 per step, 12 of kernel 1 and none of
@@ -305,25 +311,61 @@ def kernel_bound_ms(b, nq, nk, h, d, dtype, matmuls, q_tensors, k_tensors, f32_r
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
+# Kernels 3-4's wgmma design; which design a call runs is the C side's choice
+# (``launch_dq`` / ``launch_dkv``), read back with ``last_backward_designs``.
+FLASH_BWD_DESIGN = ("wgmma + TMA: a block's 128 (dK/dV) or 192 (dQ, D <= 64) rows resident in "
+                    "shared memory, the other side's 64-row tiles streamed through a 3-4 stage "
+                    "mbarrier ring that 2-3 consumer warpgroups share, P and dS from the "
+                    "accumulators in registers, no atomics")
+
+
+# Phase 2b's cases: (name, B, Nq, Nk, H, D, kv_valid, layout). "fused": q, k
+# and v are views of one (B, N, 3, H, D) projection; "bhnd": (B, H, N, D)
+# tensors transposed to (B, N, H, D) views.
+TRAIN_CASES = [("vivit_b", VIVIT_B["B"], VIVIT_B["N"], VIVIT_B["N"], 12, 64, None, "contiguous"),
+               ("n300_kv_valid", 2, 300, 300, 12, 64, 250, "contiguous"),
+               ("nq_ne_nk", 2, 257, 1100, 12, 64, None, "contiguous"),
+               ("nq_gt_nk_kv_valid", 2, 1100, 257, 12, 64, 200, "contiguous"),
+               ("d32_kv_valid", 2, 1000, 1000, 6, 32, 900, "contiguous"),
+               ("d40", 2, 700, 700, 6, 40, None, "contiguous"),
+               ("d128_kv_valid", 2, 600, 600, 4, 128, 555, "contiguous"),
+               ("fused_qkv", 2, 3137, 3137, 12, 64, None, "fused"),
+               ("bhnd_view", 2, 1000, 777, 5, 64, 700, "bhnd")]
+
+
+def train_inputs(b, nq, nk, h, d, dtype, layout, seed):
+    """q, k, v (in ``layout``) and a contiguous output gradient g, on the card."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    mk = lambda *shape: torch.randn(shape, generator=gen, device="cuda").to(dtype)
+    if layout == "fused":
+        q, k, v = mk(b, nq, 3, h, d).unbind(2)
+    elif layout == "bhnd":
+        q = mk(b, h, nq, d).transpose(1, 2)
+        k, v = (mk(b, h, nk, d).transpose(1, 2) for _ in range(2))
+    else:
+        q, k, v = mk(b, nq, h, d), mk(b, nk, h, d), mk(b, nk, h, d)
+    return q, k, v, mk(b, nq, h, d)
+
+
 def check_training_kernels():
-    """Phase 2b: kernels 2-4 vs their plain twins on the card; timings at
-    the ViViT-B shape. Returns {entry name: numbers} for the kernels line."""
+    """Phase 2b: kernels 2-4 vs their plain twins on the card (kernels 3-4 in
+    both bf16 designs); timings at the ViViT-B shape, kernels 3-4 beside their
+    mma.sync design in turns. Returns {entry name: numbers} for the kernels
+    line."""
     import torch.nn.functional as F
 
     from laryngeal_tpu_torch.ops import flash_attention as fa
 
+    for kernel in ("dq_wgmma_kernel", "dkv_wgmma_kernel"):
+        for line in ptxas_lines("flash_attention_bwd.cu", kernel):
+            log(f"ptxas {line}")
     entries = {"flash_attention_fwd_lse": {}, "flash_attention_bwd_dq": {},
                "flash_attention_bwd_dkv": {}}
-    cases = [("vivit_b", VIVIT_B["B"], VIVIT_B["N"], VIVIT_B["N"], None),
-             ("n300_kv_valid", 2, 300, 300, 250),
-             ("nq_ne_nk", 2, 257, 1100, None)]
-    h, d = VIVIT_B["H"], VIVIT_B["D"]
+    worst = {e: [0.0, 0.0] for e in entries}
     for dtype in (torch.bfloat16, torch.float32):
         tag = str(dtype)[6:]
-        for seed, (name, b, nq, nk, kv_valid) in enumerate(cases):
-            q, k, v = qkv(b, nq, nk, h, d, dtype, 10 + seed)
-            g = torch.randn((b, nq, h, d), generator=torch.Generator(device="cuda")
-                            .manual_seed(20 + seed), device="cuda").to(dtype)
+        for seed, (name, b, nq, nk, h, d, kv_valid, layout) in enumerate(TRAIN_CASES):
+            q, k, v, g = train_inputs(b, nq, nk, h, d, dtype, layout, 10 + seed)
             # kernel 2
             o, lse = fa.flash_attention_lse(q, k, v, kv_valid)
             o_ref, lse_ref = fa.attention_plain_lse(q, k, v, kv_valid)
@@ -331,38 +373,74 @@ def check_training_kernels():
                      / fa.error_limit(q, k, v, kv_valid, o_ref, F32_TOL)).max().item()
             lse_err = (lse - lse_ref).abs().max().item()
             o_err = (o.float() - o_ref.float()).abs().max().item()
-            # kernels 3 and 4, fed the plain forward's o and lse
-            grads = fa.flash_attention_bwd(q, k, v, o_ref, lse_ref, g, kv_valid)
+            # kernels 3 and 4, fed the plain forward's o and lse: the design
+            # the entries choose, then the mma.sync design
             refs = fa.attention_plain_bwd(q, k, v, o_ref, lse_ref, g, kv_valid)
             limits = fa.backward_error_limit(q, k, v, o_ref, lse_ref, g, kv_valid, refs)
-            uses, errs = [], []
-            for got, ref, lim in zip(grads, refs, limits):
-                diff = (got.float() - ref.float()).abs()
-                uses.append((diff / lim).max().item())
-                errs.append(diff.max().item())
+            delta = fa.attention_delta(o_ref, g)
+            runs = {"new": fa.flash_attention_bwd(q, k, v, o_ref, lse_ref, g, kv_valid)}
+            design = "/".join(fa.last_backward_designs())
+            runs["old"] = (fa.flash_attention_dq_mma_cuda(q, k, v, g, lse_ref, delta, kv_valid),
+                           *fa.flash_attention_dkv_mma_cuda(q, k, v, g, lse_ref, delta,
+                                                            kv_valid))
+            uses, errs, masked_zero = {}, {}, True
+            for which, grads in runs.items():
+                uses[which], errs[which] = [], []
+                for got, ref, lim in zip(grads, refs, limits):
+                    diff = (got.float() - ref.float()).abs()
+                    uses[which].append((diff / lim).max().item())
+                    errs[which].append(diff.max().item())
+                if kv_valid is not None and kv_valid < nk:
+                    masked_zero &= (torch.count_nonzero(grads[1][:, kv_valid:]).item() == 0
+                                    and torch.count_nonzero(grads[2][:, kv_valid:]).item() == 0)
             del limits
-            masked_zero = True
-            if kv_valid is not None:
-                masked_zero = (torch.count_nonzero(grads[1][:, kv_valid:]).item() == 0
-                               and torch.count_nonzero(grads[2][:, kv_valid:]).item() == 0)
-            ok = (o_use <= 1.0 and lse_err <= fa.LSE_TOL and max(uses) <= 1.0 and masked_zero
-                  and all(math.isfinite(x) for x in uses + errs + [o_err, lse_err]))
-            log(f"training kernels {name} {tag}: lse o max_abs_err {o_err:.3e} "
-                f"(|err|/limit {o_use:.3f}), lse max_abs_err {lse_err:.3e} (tol "
-                f"{fa.LSE_TOL:g}); dq/dk/dv max_abs_err {errs[0]:.3e}/{errs[1]:.3e}/"
-                f"{errs[2]:.3e}, largest |err|/limit {uses[0]:.3f}/{uses[1]:.3f}/"
-                f"{uses[2]:.3f}; masked dk/dv exactly 0: {masked_zero} "
-                f"{'ok' if ok else 'FAIL'}")
+            every = uses["new"] + uses["old"] + errs["new"] + errs["old"] + [o_err, lse_err]
+            ok = (o_use <= 1.0 and lse_err <= fa.LSE_TOL and max(uses["new"] + uses["old"]) <= 1.0
+                  and masked_zero and all(math.isfinite(x) for x in every))
+            log(f"training kernels {name} (B={b}, Nq={nq}, Nk={nk}, H={h}, D={d}, kv_valid="
+                f"{kv_valid}, {layout}) {tag}: lse o max_abs_err {o_err:.3e} (|err|/limit "
+                f"{o_use:.3f}), lse max_abs_err {lse_err:.3e} (tol {fa.LSE_TOL:g}); dq/dk/dv "
+                f"({design}) max_abs_err {'/'.join(f'{x:.3e}' for x in errs['new'])}, largest "
+                f"|err|/limit {'/'.join(f'{x:.3f}' for x in uses['new'])}; mma.sync design "
+                f"{'/'.join(f'{x:.3f}' for x in uses['old'])}; masked dk/dv exactly 0: "
+                f"{masked_zero} {'ok' if ok else 'FAIL'}")
             if not ok:
                 raise AssertionError(f"training kernels disagree with plain twins: {name} {tag}")
+            if dtype == torch.bfloat16:
+                for e, err, use in (
+                        ("flash_attention_fwd_lse", max(o_err, lse_err),
+                         max(o_use, lse_err / fa.LSE_TOL)),
+                        ("flash_attention_bwd_dq", errs["new"][0], uses["new"][0]),
+                        ("flash_attention_bwd_dkv", max(errs["new"][1:]),
+                         max(uses["new"][1:]))):
+                    worst[e] = [max(worst[e][0], err), max(worst[e][1], use)]
+            del runs, refs
             if name != "vivit_b":
-                del q, k, v, g, o, lse, o_ref, lse_ref, grads, refs
+                del q, k, v, g, o, lse, o_ref, lse_ref, delta
                 torch.cuda.empty_cache()
                 continue
-            delta = fa.attention_delta(o_ref, g)
+            # Kernels 3 and 4 beside their mma.sync design in turns (old, new,
+            # new, old), single calls and queued (the card's time; see
+            # cuda_time_ms); kernel 2 and the twins single-call.
+            turns, designs = {}, {}
+            calls = {"flash_attention_bwd_dq": {
+                         "new": lambda: fa.flash_attention_dq_cuda(q, k, v, g, lse_ref, delta),
+                         "old": lambda: fa.flash_attention_dq_mma_cuda(q, k, v, g, lse_ref,
+                                                                       delta)},
+                     "flash_attention_bwd_dkv": {
+                         "new": lambda: fa.flash_attention_dkv_cuda(q, k, v, g, lse_ref, delta),
+                         "old": lambda: fa.flash_attention_dkv_mma_cuda(q, k, v, g, lse_ref,
+                                                                        delta)}}
+            for e, fns in calls.items():
+                t = {"old": [], "new": [], "old_q": [], "new_q": []}
+                for which in (("old", "new", "new", "old") if dtype == torch.bfloat16
+                              else ("new",)):
+                    t[which].append(cuda_time_ms(fns[which]))
+                    t[which + "_q"].append(cuda_time_ms(fns[which], reps=20, queued=True))
+                    if which == "new":
+                        designs[e] = fa.last_backward_designs()[0 if "dq" in e else 1]
+                turns[e] = {x: (sum(v) / len(v) if v else None) for x, v in t.items()}
             ms2 = cuda_time_ms(lambda: fa.flash_attention_lse_cuda(q, k, v))
-            ms3 = cuda_time_ms(lambda: fa.flash_attention_dq_cuda(q, k, v, g, lse_ref, delta))
-            ms4 = cuda_time_ms(lambda: fa.flash_attention_dkv_cuda(q, k, v, g, lse_ref, delta))
             plain_fwd = cuda_time_ms(lambda: fa.attention_plain_lse(q, k, v), reps=3, warmup=1)
             plain_bwd = cuda_time_ms(
                 lambda: fa.attention_plain_bwd(q, k, v, o_ref, lse_ref, g), reps=3, warmup=1)
@@ -370,37 +448,59 @@ def check_training_kernels():
             gt = g.transpose(1, 2)
             lib_fwd = cuda_time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt))
             out = F.scaled_dot_product_attention(qt, kt, vt)
-            lib_bwd = cuda_time_ms(
-                lambda: torch.autograd.grad(out, (qt, kt, vt), gt, retain_graph=True))
+            sdpa_bwd = lambda: torch.autograd.grad(out, (qt, kt, vt), gt, retain_graph=True)
+            lib_bwd = cuda_time_ms(sdpa_bwd)
+            lib_bwd_q = cuda_time_ms(sdpa_bwd, reps=20, queued=True)
             del out, qt, kt, vt, gt
-            numbers = {}
             # (entry, kernel ms, plain ms, library ms, products, Nq-long
-            # tensors, Nk-long tensors, f32 rows, max |err|, |err| / limit)
-            for entry, ms, plain_ms, lib_ms, mm, nq_t, nk_t, rows, err, use in (
-                    ("flash_attention_fwd_lse", ms2, plain_fwd, lib_fwd, 2, 2, 2, 1,
-                     max(o_err, lse_err), max(o_use, lse_err / fa.LSE_TOL)),
-                    ("flash_attention_bwd_dq", ms3, plain_bwd, lib_bwd, 3, 3, 2, 2, errs[0],
-                     uses[0]),
-                    ("flash_attention_bwd_dkv", ms4, plain_bwd, lib_bwd, 4, 2, 4, 2,
-                     max(errs[1:]), max(uses[1:]))):
+            # tensors, Nk-long tensors, f32 rows)
+            for entry, ms, plain_ms, lib_ms, mm, nq_t, nk_t, rows in (
+                    ("flash_attention_fwd_lse", ms2, plain_fwd, lib_fwd, 2, 2, 2, 1),
+                    ("flash_attention_bwd_dq", turns["flash_attention_bwd_dq"]["new"], plain_bwd,
+                     lib_bwd, 3, 3, 2, 2),
+                    ("flash_attention_bwd_dkv", turns["flash_attention_bwd_dkv"]["new"],
+                     plain_bwd, lib_bwd, 4, 2, 4, 2)):
                 bound_ms, bound_by = kernel_bound_ms(b, nq, nk, h, d, dtype, mm, nq_t, nk_t,
                                                      rows)
-                numbers[entry] = dict(max_abs_err=err, err_over_limit=use, ms=ms, kernel_ms=ms,
-                                      plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                                      library_ms=lib_ms)
-                log(f"{entry} vivit_b {tag}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
-                    f"sdpa {lib_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by})")
-            for entry, nums in numbers.items():
+                numbers = dict(ms=ms, kernel_ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                               bound_by=bound_by, library_ms=lib_ms)
+                line = (f"{entry} vivit_b {tag}: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, "
+                        f"sdpa {lib_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
+                        f"{bound_ms / ms:.3f} of the bound")
+                if entry in turns:
+                    tt = turns[entry]
+                    numbers.update(queued_ms=tt["new_q"], library_queued_ms=lib_bwd_q,
+                                   design=designs[entry])
+                    line += (f"; design {numbers['design']}; queued {tt['new_q']:.4f} ms "
+                             f"({bound_ms / tt['new_q']:.3f} of the bound), sdpa backward "
+                             f"queued {lib_bwd_q:.4f} ms")
+                    if dtype == torch.bfloat16:
+                        numbers.update(old_ms=tt["old"], old_queued_ms=tt["old_q"])
+                        line += (f"; the mma.sync design {tt['old']:.4f} ms "
+                                 f"({tt['old'] / ms:.2f}x), queued {tt['old_q']:.4f} ms "
+                                 f"({tt['old_q'] / tt['new_q']:.2f}x)")
+                log(line)
                 if dtype == torch.bfloat16:
-                    entries[entry].update(nums)
+                    entries[entry].update(numbers)
                 else:
-                    entries[entry]["f32"] = nums
-            del q, k, v, g, o, lse, o_ref, lse_ref, grads, refs, delta
+                    entries[entry]["f32"] = numbers
+            if dtype == torch.bfloat16:
+                pair, pair_q = (turns["flash_attention_bwd_dq"][x]
+                                + turns["flash_attention_bwd_dkv"][x] for x in ("new", "new_q"))
+                log(f"kernels 3 + 4 vivit_b bf16: {pair:.4f} ms single-call, {pair_q:.4f} ms "
+                    f"queued, against sdpa's backward {lib_bwd:.4f} / {lib_bwd_q:.4f} ms "
+                    f"({pair / lib_bwd:.3f}x / {pair_q / lib_bwd_q:.3f}x)")
+            del q, k, v, g, o, lse, o_ref, lse_ref, delta
             torch.cuda.empty_cache()
     tol = ("bf16: error_limit / backward_error_limit (rounding-derived, elementwise), "
            f"lse {fa.LSE_TOL:g}; f32: {F32_TOL:g} (o), F32_REL*A (grads)")
-    for e in entries.values():
-        e["tol"] = tol
+    for e, nums in entries.items():
+        nums.update(max_abs_err=worst[e][0], err_over_limit=worst[e][1], tol=tol,
+                    headline="vivit_b (8, 3137, 12, 64) bf16; max_abs_err and err_over_limit "
+                             "over every phase-2b case, of the design the entries ran (the "
+                             "mma.sync design's |err|/limit is logged per case)")
+    for e in ("flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
+        entries[e]["design"] = f"{entries[e]['design']} at vivit_b; {FLASH_BWD_DESIGN}"
     return entries
 
 
@@ -807,7 +907,10 @@ def short_fwd_design(n: int, dtype) -> str:
 
 def ptxas_lines(source: str, kernel: str) -> list:
     """The ptxas report (registers, shared memory, spills) of every
-    instance of ``kernel`` in the last build of ``source``."""
+    instance of ``kernel`` in the last build of ``source``, and ptxas's
+    performance advisories that name it (C75xx: a serialised wgmma
+    pipeline, an ignored setmaxnreg), which it prints apart from the
+    report."""
     from laryngeal_tpu_torch.ops import _build
 
     out, keep = [], False
@@ -816,8 +919,9 @@ def ptxas_lines(source: str, kernel: str) -> list:
             keep = kernel in line
             if keep:
                 out.append(line.split("'")[1][-60:])
-        elif keep and ("Used" in line or "spill" in line or "C7512" in line
-                       or "C7508" in line):
+        elif "(C75" in line and kernel in line:
+            out.append("  " + line[line.index("(C75"):].strip()[:160])
+        elif keep and ("Used" in line or "spill" in line):
             out.append("  " + line.strip()[:200])
     return out
 

@@ -3,13 +3,13 @@
 //
 // Replaces two Pallas TPU kernels of laryngeal_tpu/ops/flash_attention.py,
 // the two-kernel recompute scheme under its custom_vjp (_flash_backward):
-//   * _dq_kernel  (entry flash_attention_bwd_dq): one block per (batch*head,
-//     64 query rows) streams K/V tiles, recomputes S = scale * Q K^T and
+//   * _dq_kernel  (entry flash_attention_bwd_dq): a block owns query rows of
+//     one (batch, head) and streams K/V tiles, recomputes S = scale * Q K^T and
 //     P = exp(S - lse) (keys >= n_actual give P = 0), dP = dO V^T,
 //     dS = P * (dP - delta) rounded to the input dtype, dQ += dS K in f32,
 //     and scales dQ by `scale` at the end;
-//   * _dkv_kernel (entry flash_attention_bwd_dkv): one block per
-//     (batch*head, 64 key rows) streams Q/dO tiles with their lse / delta,
+//   * _dkv_kernel (entry flash_attention_bwd_dkv): a block owns key rows and
+//     streams Q/dO tiles with their lse / delta,
 //     dV += P^T dO (P rounded to the input dtype), dK += dS^T Q, dK scaled
 //     by `scale` at the end. Keys >= n_actual get P = 0 and so exactly-zero
 //     dK and dV; query rows past Nq are masked to P = 0 as well (the TPU
@@ -22,23 +22,51 @@
 // What bounds it on the H100: at the ViViT-B bf16 shape (B=8, N=3137,
 // H=12, D=64) dQ does 3 products of 2*N^2*D per head (6*B*H*N^2*D ~ 3.6e11
 // FLOP) and dK/dV 4 (the dK/dV kernel recomputes dP too), against ~0.2 GB
-// of traffic: both are bound by tensor-core operations. So, as in the
-// forward, no (N, N) tile ever reaches device memory:
-//   * bf16: mma.sync.m16n8k16 with f32 accumulators, 4 warps of 16 rows.
-//     The dK/dV kernel computes S^T = K Q^T and dP^T = V dO^T directly, with
-//     the keys as rows, so P^T and dS^T come out of the accumulators in the
-//     A-fragment layout of the next products (P^T dO, dS^T Q) and stay in
-//     registers: no transposed fragment is ever built. The streamed tiles are
-//     double-buffered with cp.async; rows padded by 8 elements for ldmatrix.
-//     At D = 128 the dK/dV kernel streams 32-query tiles to keep its two
-//     accumulators plus S/dP tiles within the register file.
+// of traffic: both are bound by tensor-core operations (0.37 and 0.49 ms at
+// the bf16 peak), and each does ~9.4e8 exponentials besides. So no (N, N)
+// tile ever reaches device memory, and each design keeps one side's rows
+// in shared memory while the other side streams past them:
+//   * bf16, the wgmma design (dQ at every head dim, dK/dV at D <= 64; the
+//     tensor maps need every batch, sequence and head stride positive): a
+//     block of a producer warpgroup and two or three consumer warpgroups
+//     owns 64 rows per consumer (queries for dQ: three consumers at
+//     D <= 64, which need ~140 registers a thread, two at 128; keys for
+//     dK/dV: two, which need ~200). The producer thread loads the block's
+//     two resident tensors (Q and dO; K and V) once with TMA, then streams
+//     the other two in 64-row tiles through a 3-4 stage mbarrier ring that
+//     every consumer reads, so each streamed tile feeds 128 or 192 rows;
+//     for dK/dV the producer warp also copies each tile's lse and delta with
+//     ordinary loads (a row of Nq f32 values is not 16-byte aligned, as TMA
+//     needs), lse = +inf past Nq so those queries get P = 0. Per tile a
+//     consumer runs the two score products on wgmma m64n64k16 (S = Q K^T
+//     and dP = dO V^T, or S^T = K Q^T and dP^T = V dO^T with the keys as
+//     rows, both operands K-major in shared memory), forms P and dS in
+//     registers from the accumulators, which are already the A fragments of
+//     the next products, and runs dQ += dS K (or dV += P^T dO and
+//     dK += dS^T Q) as RS wgmma with the streamed tile read MN-major. The
+//     accumulators stay in registers for the block's life and are scaled,
+//     rounded and stored once. The dK/dV kernel's two consumers take turns
+//     issuing their products (named barriers), which is faster there and
+//     slower for dQ on the H100. Keys >= n_actual get dK = dV = 0 at the
+//     store (a block of masked keys only stores zeros).
+//   * bf16, the mma.sync design (dK/dV at D = 128, strides of 0; kept
+//     callable at every shape as the _mma entries, to time against):
+//     mma.sync.m16n8k16, 4 warps of 16 rows, one block per (batch*head, 64
+//     rows). The dK/dV kernel computes S^T = K Q^T and dP^T = V dO^T
+//     directly, with the keys as rows, so P^T and dS^T come out of the
+//     accumulators in the A-fragment layout of the next products. The
+//     streamed tiles are double-buffered with cp.async; rows padded by 8
+//     elements for ldmatrix. At D = 128 the dK/dV kernel streams 32-query
+//     tiles to keep its two accumulators plus S/dP tiles within the
+//     register file.
 //   * f32: on the FMA units, TF32 off (the same reason as the forward): one
 //     query row (dQ) or key row (dK/dV) per 1-4 threads, each owning a
 //     32-wide slice of the head dim, dot products combined by warp shuffles.
-// Not yet done (later work): wgmma/TMA, warp specialisation, keeping the
-// block's resident tiles in registers.
+// Not yet done (later work): the f32 paths on the tensor cores (split-bf16
+// operands), dK/dV on wgmma at D = 128.
 
 #include "flash_attention_common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -484,17 +512,570 @@ dkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
+// bf16 on wgmma and TMA: dQ (HD <= 128) and dK/dV (HD <= 64)
+// ---------------------------------------------------------------------------
+
+// A block of the wgmma design: warpgroup 0 loads, CWG consumer warpgroups
+// compute, 64 rows each.
+template <int CWG>
+struct WgBlock {
+  static constexpr int kThreads = 128 * (CWG + 1);
+  static constexpr int kRows = 64 * CWG;
+  static constexpr int kConsumerWarps = 4 * CWG;
+  // Registers a consumer thread claims from the producer's warpgroup (which
+  // keeps 24): 24 + CWG x kRegs <= 512, the 64K-register file over 128 threads.
+  static constexpr int kRegs = CWG == 2 ? 240 : 160;
+};
+
+// Shared-memory geometry at head dim HD: a 64-row tile of one tensor is
+// kPanels swizzled panels of 64 rows x kPanelCols head-dim values, as TMA
+// writes them and wgmma's descriptors read them.
+template <int HD>
+struct WgGeom {
+  static constexpr int kPanelCols = HD == 32 ? 32 : 64;
+  static constexpr int kPanels = HD / kPanelCols;
+  static constexpr int kRowBytes = 2 * kPanelCols;  // the swizzle width, 64 or 128 bytes
+  static constexpr int kGroupBytes = 8 * kRowBytes;  // one 8-row swizzle group
+  static constexpr uint64_t kLayout = HD == 32 ? hopper::kLayoutSw64 : hopper::kLayoutSw128;
+  static constexpr int kPanelBytes = 64 * kRowBytes;
+  static constexpr int kTileBytes = kPanels * kPanelBytes;  // 128 HD
+  static constexpr int kStages = HD == 128 ? 3 : 4;         // streamed tile pairs in flight
+  // Resident: 2 tensors x CWG tiles; streamed: kStages x 2 tiles; then
+  // kernel 4's per-stage lse / delta rows, the barriers, and 1024 B of slack
+  // for the base alignment.
+  __host__ __device__ static constexpr size_t tiles_bytes(int cwg) {
+    return (size_t)(2 * cwg + 2 * kStages) * kTileBytes;
+  }
+  __host__ __device__ static constexpr size_t smem_bytes(int cwg) {
+    return tiles_bytes(cwg) + kStages * 2 * 64 * sizeof(float)
+           + (2 * kStages + 1) * sizeof(uint64_t) + 1024;
+  }
+};
+
+__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
+  return p + ((1024 - (hopper::smem_u32(p) & 1023)) & 1023);
+}
+
+// TMA loads of rows [row, row + 64) of one (batch, head) slice of a tensor
+// into a tile (one box per panel; rows past N arrive as zeros).
+template <int HD>
+__device__ __forceinline__ void wg_load_tile(unsigned char* dst, const CUtensorMap* map, int pos,
+                                             uint64_t* bar, int h, int row, int b) {
+  using G = WgGeom<HD>;
+  int c1, c2, c3;
+  hopper::bnhd_coords(pos, h, row, b, c1, c2, c3);
+#pragma unroll
+  for (int p = 0; p < G::kPanels; ++p)
+    hopper::tma_load_4d(dst + p * G::kPanelBytes, map, bar, p * G::kPanelCols, c1, c2, c3);
+}
+
+// d (64 x 64 f32) = A B^T, contracting over the head dim: A and B are
+// 64-row tiles, both read K-major (SS wgmma).
+template <int HD>
+__device__ __forceinline__ void wg_abt(float (&d)[32], const unsigned char* a,
+                                       const unsigned char* b) {
+  using G = WgGeom<HD>;
+  const uint64_t da = hopper::smem_desc(a, 16, G::kGroupBytes, G::kLayout);
+  const uint64_t db = hopper::smem_desc(b, 16, G::kGroupBytes, G::kLayout);
+#pragma unroll
+  for (int p = 0; p < G::kPanels; ++p)
+#pragma unroll
+    for (int ks = 0; ks < G::kPanelCols / 16; ++ks) {
+      const uint32_t off = (p * G::kPanelBytes + ks * 32) >> 4;
+      hopper::wgmma_m64n64k16_ss(d, da + off, db + off, p + ks > 0);
+    }
+}
+
+// acc (64 x HD f32, one array per panel) += A B: A (64 x 64 bf16) in
+// registers as four k16 fragments, B a 64-row tile read MN-major (the
+// product contracts over its rows; RS wgmma, transposed B).
+template <int HD>
+__device__ __forceinline__ void wg_ab(float (&acc)[WgGeom<HD>::kPanels][WgGeom<HD>::kPanelCols / 2],
+                                      const uint32_t (&a)[4][4], const unsigned char* b) {
+  using G = WgGeom<HD>;
+  // Only the 8-row group stride matters for an MN-major operand that spans
+  // one swizzle atom; it goes in both offset fields.
+  const uint64_t db = hopper::smem_desc(b, G::kGroupBytes, G::kGroupBytes, G::kLayout);
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int p = 0; p < G::kPanels; ++p) {
+      const uint64_t d = db + ((p * G::kPanelBytes + kk * 16 * G::kRowBytes) >> 4);
+      if constexpr (G::kPanelCols == 64)
+        hopper::wgmma_m64n64k16_rs_tb(acc[p], a[kk], d, 1);
+      else
+        hopper::wgmma_m64n32k16_rs_tb(acc[p], a[kk], d, 1);
+    }
+}
+
+template <int HD>
+__device__ __forceinline__ void zero_panels(float (&acc)[WgGeom<HD>::kPanels][WgGeom<HD>::kPanelCols / 2]) {
+#pragma unroll
+  for (int p = 0; p < WgGeom<HD>::kPanels; ++p)
+#pragma unroll
+    for (int i = 0; i < WgGeom<HD>::kPanelCols / 2; ++i) acc[p][i] = 0.f;
+}
+
+// Kernel 3's tile, in place: dp becomes dS = P (dP - delta) in f32, with
+// P = exp2(S scale log2(e) - lse2) of this thread's rows g and g + 8 (keys
+// >= n_valid of the tile give P = 0 when TAIL). Accumulator element i sits
+// at column 8 (i / 4) + 2 t4 + (i & 1) of row g + 8 ((i / 2) & 1).
+template <bool TAIL>
+__device__ __forceinline__ void dq_scores(const float (&s)[32], float (&dp)[32],
+                                          const float (&lse2)[2], const float (&dl)[2],
+                                          float sl2, int n_valid, int t4) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    const int r = (i >> 1) & 1;
+    float p = hopper::exp2_approx(fmaf(s[i], sl2, -lse2[r]));
+    if (TAIL && 8 * (i >> 2) + 2 * t4 + (i & 1) >= n_valid) p = 0.f;
+    dp[i] = p * (dp[i] - dl[r]);
+  }
+}
+
+// Kernel 4's tile, keys as rows, in place: st becomes P^T = exp2(S^T scale
+// log2(e) - lse2[query]) and dpt dS^T = P^T (dP^T - delta[query]), in f32.
+// lse2 / delta of the tile's 64 queries come from shared memory (lse2 =
+// +inf past Nq, so those columns give P = 0).
+__device__ __forceinline__ void dkv_scores(float (&st)[32], float (&dpt)[32],
+                                           const float* lse_s, const float* dl_s, float sl2,
+                                           int t4) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const float2 l = *reinterpret_cast<const float2*>(lse_s + 8 * j + 2 * t4);
+    const float2 d = *reinterpret_cast<const float2*>(dl_s + 8 * j + 2 * t4);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float p = hopper::exp2_approx(fmaf(st[4 * j + e], sl2, -((e & 1) ? l.y : l.x)));
+      st[4 * j + e] = p;
+      dpt[4 * j + e] = p * (dpt[4 * j + e] - ((e & 1) ? d.y : d.x));
+    }
+  }
+}
+
+// The A fragments (four k16 steps) of a 64 x 64 f32 accumulator, rounded to
+// bf16: fragment register r of step kk holds elements 8 kk + 2 r and + 1.
+__device__ __forceinline__ void pack_frags(uint32_t (&a)[4][4], const float (&x)[32]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) a[kk][r] = pack_bf16(x[8 * kk + 2 * r], x[8 * kk + 2 * r + 1]);
+}
+
+// Write a warpgroup's 64 x HD accumulator, times `mul`, as bf16 rows
+// [row0, row0 + 64) of one (batch, head) slice: rows >= n_rows are skipped,
+// rows >= n_zero written as 0, columns >= D skipped.
+template <int HD>
+__device__ __forceinline__ void wg_store(const float (&acc)[WgGeom<HD>::kPanels][WgGeom<HD>::kPanelCols / 2],
+                                         __nv_bfloat16* base, long long row_stride, int row0,
+                                         int n_rows, int n_zero, int D, float mul, int warp,
+                                         int g, int t4) {
+  using G = WgGeom<HD>;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + warp * 16 + g + 8 * r;
+    if (row >= n_rows) continue;
+    const float m = row < n_zero ? mul : 0.f;
+#pragma unroll
+    for (int p = 0; p < G::kPanels; ++p)
+#pragma unroll
+      for (int j = 0; j < G::kPanelCols / 8; ++j) {
+        const int col = p * G::kPanelCols + 8 * j + 2 * t4;
+        if (col < D)
+          *reinterpret_cast<__nv_bfloat162*>(base + row * row_stride + col) =
+              __floats2bfloat162_rn(acc[p][4 * j + 2 * r] * m, acc[p][4 * j + 2 * r + 1] * m);
+      }
+  }
+}
+
+// Shared-memory layout of both kernels (after the 1024-byte alignment):
+// resident tiles A0 .. A(CWG-1) B0 .. B(CWG-1) (the block's rows of two
+// tensors), then
+// kStages streamed stages of two tiles each, then kernel 4's lse2 / delta
+// rows (kStages x 2 x 64 f32), then the barriers full[kStages],
+// empty[kStages] and the resident tiles' `res`.
+
+// Kernel 4's two consumer warpgroups take turns issuing their products:
+// wait for this warpgroup's turn (barrier 1 + wg), then hand it to the
+// other. (Kernel 3 is faster without turns on the H100.)
+__device__ __forceinline__ void turn_wait(int wg) { hopper::named_sync(1 + wg, 256); }
+__device__ __forceinline__ void turn_pass(int wg) { hopper::named_arrive(2 - wg, 256); }
+
+// Kernel 3: one block per (64 CWG query rows, batch * head); Q and dO
+// resident, K and V streamed over ceil(n_actual / 64) key tiles.
+template <int HD, int CWG>
+__global__ void __launch_bounds__(WgBlock<CWG>::kThreads, 1)
+dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
+                const float* __restrict__ lse, const float* __restrict__ delta,
+                __nv_bfloat16* __restrict__ dq, int H, int Nq, int D, int n_actual,
+                long long sgb, long long sgn, long long sgh, float scale, int pos_q, int pos_k,
+                int pos_v, int pos_do) {
+  using G = WgGeom<HD>;
+  using W = WgBlock<CWG>;
+  constexpr int S = G::kStages;
+  extern __shared__ __align__(1024) unsigned char wg_smem_raw[];
+  unsigned char* smem = align1024(wg_smem_raw);
+  unsigned char* stages = smem + 2 * CWG * G::kTileBytes;
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + G::tiles_bytes(CWG) + S * 2 * 64 * sizeof(float));
+  uint64_t* empty = full + S;
+  uint64_t* res = empty + S;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < S; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], W::kConsumerWarps);
+    }
+    hopper::mbar_init(res, 1);
+    hopper::mbar_init_fence();
+  }
+  __syncthreads();
+  const int bh = blockIdx.y, b = bh / H, h = bh % H;
+  const int row0 = blockIdx.x * W::kRows;
+  const int n_tiles = (n_actual + 63) / 64;
+
+  const int role = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+  if (role == 0) {
+    hopper::regs_release<24>();
+    if (threadIdx.x == 0) {
+      hopper::mbar_arrive_expect_tx(res, 2 * CWG * G::kTileBytes);
+      for (int r = 0; r < CWG; ++r) {
+        wg_load_tile<HD>(smem + r * G::kTileBytes, &tq, pos_q, res, h, row0 + 64 * r, b);
+        wg_load_tile<HD>(smem + (CWG + r) * G::kTileBytes, &tdo, pos_do, res, h, row0 + 64 * r,
+                         b);
+      }
+      for (int t = 0; t < n_tiles; ++t) {
+        const int s = t % S;
+        hopper::mbar_wait(&empty[s], ((t / S) & 1) ^ 1);
+        hopper::mbar_arrive_expect_tx(&full[s], 2 * G::kTileBytes);
+        unsigned char* st = stages + s * 2 * G::kTileBytes;
+        wg_load_tile<HD>(st, &tk, pos_k, &full[s], h, t * 64, b);
+        wg_load_tile<HD>(st + G::kTileBytes, &tv, pos_v, &full[s], h, t * 64, b);
+      }
+    }
+  } else {
+    hopper::regs_claim<W::kRegs>();
+    const int tid = threadIdx.x - 128;
+    const int wg = tid / 128, warp = (tid / 32) % 4, lane = tid % 32;
+    const int g = lane / 4, t4 = lane % 4;
+    const float sl2 = scale * kLog2e;
+    float lse2[2], dl[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row0 + 64 * wg + 16 * warp + g + 8 * r;
+      const bool ok = row < Nq;
+      lse2[r] = ok ? lse[(long long)bh * Nq + row] * kLog2e : 0.f;
+      dl[r] = ok ? delta[(long long)bh * Nq + row] : 0.f;
+    }
+    const unsigned char* q_w = smem + wg * G::kTileBytes;
+    const unsigned char* do_w = smem + (CWG + wg) * G::kTileBytes;
+    float acc[G::kPanels][G::kPanelCols / 2];
+    zero_panels<HD>(acc);
+    float s[32], dp[32];
+    uint32_t pd[4][4];
+    auto tile = [&](int t) { return stages + (t % S) * 2 * G::kTileBytes; };
+    auto score_products = [&](const unsigned char* kv) {  // S = Q K^T, dP = dO V^T
+      wg_abt<HD>(s, q_w, kv);
+      wg_abt<HD>(dp, do_w, kv + G::kTileBytes);
+    };
+    hopper::mbar_wait(res, 0);
+    hopper::mbar_wait(&full[0], 0);
+    hopper::wgmma_fence();
+    score_products(tile(0));
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(s);
+    hopper::fence_regs(dp);
+    // Per key tile: dS from this tile's scores, then one batch of products,
+    // dQ += dS K and the next tile's S and dP (the last tile's again,
+    // unused, after the last: no branch among the products). Each batch is
+    // waited for in the iteration that issues it: a batch in flight across
+    // the loop edge would have the accumulators' registers moved there, and
+    // ptxas would serialise every wgmma (C7515).
+    for (int t = 0; t < n_tiles; ++t) {
+      const int n_valid = n_actual - t * 64;
+      if (n_valid < 64)
+        dq_scores<true>(s, dp, lse2, dl, sl2, n_valid, t4);
+      else
+        dq_scores<false>(s, dp, lse2, dl, sl2, n_valid, t4);
+      pack_frags(pd, dp);
+      const int tn = t + 1 < n_tiles ? t + 1 : t;
+      hopper::mbar_wait(&full[tn % S], (tn / S) & 1);
+      hopper::wgmma_fence();
+      wg_ab<HD>(acc, pd, tile(t));
+      score_products(tile(tn));
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(s);
+      hopper::fence_regs(dp);
+      __syncwarp();  // tile t's products are done: release its stage
+      if (lane == 0) hopper::mbar_arrive(&empty[t % S]);
+    }
+#pragma unroll
+    for (int p = 0; p < G::kPanels; ++p) hopper::fence_regs(acc[p]);
+    wg_store<HD>(acc, dq + b * sgb + h * sgh, sgn, row0 + 64 * wg, Nq, Nq, D, scale, warp, g, t4);
+  }
+}
+
+// Kernel 4: one block per (128 key rows, batch * head); K and V resident,
+// Q and dO streamed over ceil(Nq / 64) query tiles with their lse2 / delta
+// rows, which the producer warp copies into the stage with ordinary loads
+// (a row of Nq f32 values need not be 16-byte aligned, as TMA requires).
+// Keys >= n_actual get exactly zero dK and dV at the store.
+template <int HD>
+__global__ void __launch_bounds__(WgBlock<2>::kThreads, 1)
+dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                 const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
+                 const float* __restrict__ lse, const float* __restrict__ delta,
+                 __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, int H, int Nq,
+                 int Nk, int D, int n_actual, long long sgkb, long long sgkn, long long sgkh,
+                 long long sgvb, long long sgvn, long long sgvh, float scale, int pos_q,
+                 int pos_k, int pos_v, int pos_do) {
+  using G = WgGeom<HD>;
+  using W = WgBlock<2>;
+  constexpr int S = G::kStages;
+  const int bh = blockIdx.y, b = bh / H, h = bh % H;
+  const int row0 = blockIdx.x * W::kRows;
+  __nv_bfloat16* gk = dk + b * sgkb + h * sgkh;
+  __nv_bfloat16* gv = dv + b * sgvb + h * sgvh;
+  if (row0 >= n_actual) {  // every key of the block is masked: zero dK, dV
+    const int cols = D / 2;
+    for (int i = threadIdx.x; i < W::kRows * cols; i += W::kThreads) {
+      const int row = row0 + i / cols, col = 2 * (i % cols);
+      if (row < Nk) {
+        const __nv_bfloat162 z = __floats2bfloat162_rn(0.f, 0.f);
+        *reinterpret_cast<__nv_bfloat162*>(gk + row * sgkn + col) = z;
+        *reinterpret_cast<__nv_bfloat162*>(gv + row * sgvn + col) = z;
+      }
+    }
+    return;
+  }
+  extern __shared__ __align__(1024) unsigned char wg_smem_raw[];
+  unsigned char* smem = align1024(wg_smem_raw);
+  unsigned char* stages = smem + 4 * G::kTileBytes;
+  float* rows_s = reinterpret_cast<float*>(smem + G::tiles_bytes(2));  // [stage][lse2 64, delta 64]
+  uint64_t* full = reinterpret_cast<uint64_t*>(rows_s + S * 2 * 64);
+  uint64_t* empty = full + S;
+  uint64_t* res = empty + S;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < S; ++s) {
+      hopper::mbar_init(&full[s], 32);  // the producer warp's lanes
+      hopper::mbar_init(&empty[s], W::kConsumerWarps);
+    }
+    hopper::mbar_init(res, 1);
+    hopper::mbar_init_fence();
+  }
+  __syncthreads();
+  const int n_tiles = (Nq + 63) / 64;
+
+  const int role = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+  if (role == 0) {
+    hopper::regs_release<24>();
+    if (threadIdx.x < 32) {
+      const int lane = threadIdx.x;
+      if (lane == 0) {
+        hopper::mbar_arrive_expect_tx(res, 4 * G::kTileBytes);
+        for (int r = 0; r < 2; ++r) {
+          wg_load_tile<HD>(smem + r * G::kTileBytes, &tk, pos_k, res, h, row0 + 64 * r, b);
+          wg_load_tile<HD>(smem + (2 + r) * G::kTileBytes, &tv, pos_v, res, h, row0 + 64 * r, b);
+        }
+      }
+      const float* lse_b = lse + (long long)bh * Nq;
+      const float* dl_b = delta + (long long)bh * Nq;
+      // This lane's rows lane and lane + 32 of tile t (lse2 = +inf past Nq:
+      // P = 0), loaded a tile ahead so that their latency overlaps the wait
+      // for the stage.
+      auto fetch_rows = [&](int t, float (&l)[2], float (&d)[2]) {
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int row = t * 64 + lane + 32 * r;
+          l[r] = row < Nq ? lse_b[row] * kLog2e : __int_as_float(0x7f800000);
+          d[r] = row < Nq ? dl_b[row] : 0.f;
+        }
+      };
+      float l[2], d[2];
+      fetch_rows(0, l, d);
+      for (int t = 0; t < n_tiles; ++t) {
+        const int s = t % S;
+        float l_next[2], d_next[2];
+        fetch_rows(t + 1, l_next, d_next);
+        hopper::mbar_wait(&empty[s], ((t / S) & 1) ^ 1);
+        float* rs = rows_s + s * 128;
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          rs[lane + 32 * r] = l[r];
+          rs[64 + lane + 32 * r] = d[r];
+          l[r] = l_next[r];
+          d[r] = d_next[r];
+        }
+        if (lane == 0) {
+          hopper::mbar_arrive_expect_tx(&full[s], 2 * G::kTileBytes);
+          unsigned char* st = stages + s * 2 * G::kTileBytes;
+          wg_load_tile<HD>(st, &tq, pos_q, &full[s], h, t * 64, b);
+          wg_load_tile<HD>(st + G::kTileBytes, &tdo, pos_do, &full[s], h, t * 64, b);
+        } else {
+          hopper::mbar_arrive(&full[s]);
+        }
+      }
+    }
+  } else {
+    hopper::regs_claim<W::kRegs>();
+    const int tid = threadIdx.x - 128;
+    const int wg = tid / 128, warp = (tid / 32) % 4, lane = tid % 32;
+    const int g = lane / 4, t4 = lane % 4;
+    const float sl2 = scale * kLog2e;
+    const unsigned char* k_w = smem + wg * G::kTileBytes;
+    const unsigned char* v_w = smem + (2 + wg) * G::kTileBytes;
+    float acc_dk[G::kPanels][G::kPanelCols / 2], acc_dv[G::kPanels][G::kPanelCols / 2];
+    zero_panels<HD>(acc_dk);
+    zero_panels<HD>(acc_dv);
+    float st[32], dpt[32];
+    uint32_t pp[4][4], pd[4][4];
+    auto tile = [&](int t) { return stages + (t % S) * 2 * G::kTileBytes; };
+    auto rows = [&](int t) { return rows_s + (t % S) * 128; };
+    hopper::mbar_wait(res, 0);
+    if (wg == 1) turn_pass(wg);  // warpgroup 0 issues first
+    turn_wait(wg);
+    hopper::mbar_wait(&full[0], 0);
+    hopper::wgmma_fence();
+    wg_abt<HD>(st, k_w, tile(0));
+    wg_abt<HD>(dpt, v_w, tile(0) + G::kTileBytes);
+    hopper::wgmma_commit();
+    turn_pass(wg);
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(st);
+    hopper::fence_regs(dpt);
+    for (int t = 0; t < n_tiles; ++t) {  // as in kernel 3
+      dkv_scores(st, dpt, rows(t), rows(t) + 64, sl2, t4);
+      pack_frags(pp, st);
+      pack_frags(pd, dpt);
+      const int tn = t + 1 < n_tiles ? t + 1 : t;
+      turn_wait(wg);
+      hopper::mbar_wait(&full[tn % S], (tn / S) & 1);
+      hopper::wgmma_fence();
+      wg_ab<HD>(acc_dv, pp, tile(t) + G::kTileBytes);
+      wg_ab<HD>(acc_dk, pd, tile(t));
+      wg_abt<HD>(st, k_w, tile(tn));
+      wg_abt<HD>(dpt, v_w, tile(tn) + G::kTileBytes);
+      hopper::wgmma_commit();
+      if (wg == 0 || t + 1 < n_tiles) turn_pass(wg);
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(st);
+      hopper::fence_regs(dpt);
+      __syncwarp();
+      if (lane == 0) hopper::mbar_arrive(&empty[t % S]);
+    }
+#pragma unroll
+    for (int p = 0; p < G::kPanels; ++p) {
+      hopper::fence_regs(acc_dk[p]);
+      hopper::fence_regs(acc_dv[p]);
+    }
+    const int r0 = row0 + 64 * wg;
+    wg_store<HD>(acc_dk, gk, sgkn, r0, Nk, n_actual, D, scale, warp, g, t4);
+    wg_store<HD>(acc_dv, gv, sgvn, r0, Nk, n_actual, D, 1.f, warp, g, t4);
+  }
+}
+
+// ---------------------------------------------------------------------------
 // Launchers
 // ---------------------------------------------------------------------------
 
 // Strides, in elements, in this order: q, k, v, dO, then the outputs (dq;
 // or dk, dv), three each (batch, sequence, head).
+
+// The wgmma design takes bf16 when TMA can read q, k, v and dO (every batch,
+// sequence and head stride positive: a broadcast stride of 0 cannot be
+// described to it): dQ at every head dim, dK/dV at D <= 64 (at 128 its two
+// accumulators and the score tiles would not fit the registers).
+// Consumer warpgroups of the dQ kernel: three at HD <= 64 (192 query rows a
+// block, 160 registers a thread), two at 128 (its accumulators need more).
+// The dK/dV kernel needs ~200 registers a thread, so it keeps two.
+template <int HD>
+constexpr int kDqWarpgroups = HD <= 64 ? 3 : 2;
+
+bool wgmma_takes(const long long* st) {
+  for (int i = 0; i < 12; ++i)
+    if (st[i] <= 0) return false;
+  return true;
+}
+
+// The four tensor maps of a wgmma launch (q and dO over Nq rows, k and v
+// over Nk), in boxes of 64 rows; false if cuTensorMapEncodeTiled refuses one.
+template <int HD>
+bool encode_maps(CUtensorMap (&maps)[4], int (&pos)[4], const void* q, const void* k,
+                 const void* v, const void* dout, int B, int Nq, int Nk, int H, int D,
+                 const long long* st) {
+  const CUtensorMapSwizzle sw = HD == 32 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_128B;
+  const void* ptrs[4] = {q, k, v, dout};
+  const int rows[4] = {Nq, Nk, Nk, Nq};
+  for (int i = 0; i < 4; ++i)
+    if (!hopper::encode_bnhd_map(&maps[i], ptrs[i], B, rows[i], H, D, st[3 * i], st[3 * i + 1],
+                                 st[3 * i + 2], WgGeom<HD>::kPanelCols, 64, sw, &pos[i]))
+      return false;
+  return true;
+}
+
+template <int HD>
+cudaError_t launch_dq_wgmma(const void* q, const void* k, const void* v, const void* dout,
+                            const float* lse, const float* delta, void* dq, int B, int Nq,
+                            int Nk, int H, int D, int n_actual, const long long* st, float scale,
+                            cudaStream_t stream) {
+  using G = WgGeom<HD>;
+  CUtensorMap m[4];
+  int pos[4];
+  if (!encode_maps<HD>(m, pos, q, k, v, dout, B, Nq, Nk, H, D, st)) return cudaErrorInvalidValue;
+  constexpr int CWG = kDqWarpgroups<HD>;
+  using W = WgBlock<CWG>;
+  cudaError_t err = cudaFuncSetAttribute(dq_wgmma_kernel<HD, CWG>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)G::smem_bytes(CWG));
+  if (err != cudaSuccess) return err;
+  dim3 grid((Nq + W::kRows - 1) / W::kRows, B * H);
+  dq_wgmma_kernel<HD, CWG><<<grid, W::kThreads, G::smem_bytes(CWG), stream>>>(
+      m[0], m[1], m[2], m[3], lse, delta, static_cast<__nv_bfloat16*>(dq), H, Nq, D, n_actual,
+      st[12], st[13], st[14], scale, pos[0], pos[1], pos[2], pos[3]);
+  return cudaGetLastError();
+}
+
+template <int HD>
+cudaError_t launch_dkv_wgmma(const void* q, const void* k, const void* v, const void* dout,
+                             const float* lse, const float* delta, void* dk, void* dv, int B,
+                             int Nq, int Nk, int H, int D, int n_actual, const long long* st,
+                             float scale, cudaStream_t stream) {
+  using G = WgGeom<HD>;
+  CUtensorMap m[4];
+  int pos[4];
+  if (!encode_maps<HD>(m, pos, q, k, v, dout, B, Nq, Nk, H, D, st)) return cudaErrorInvalidValue;
+  using W = WgBlock<2>;
+  cudaError_t err = cudaFuncSetAttribute(dkv_wgmma_kernel<HD>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)G::smem_bytes(2));
+  if (err != cudaSuccess) return err;
+  dim3 grid((Nk + W::kRows - 1) / W::kRows, B * H);
+  dkv_wgmma_kernel<HD><<<grid, W::kThreads, G::smem_bytes(2), stream>>>(
+      m[0], m[1], m[2], m[3], lse, delta, static_cast<__nv_bfloat16*>(dk),
+      static_cast<__nv_bfloat16*>(dv), H, Nq, Nk, D, n_actual, st[12], st[13], st[14], st[15],
+      st[16], st[17], scale, pos[0], pos[1], pos[2], pos[3]);
+  return cudaGetLastError();
+}
+
+// The design of the last launch of kernel 3 ([0]) and kernel 4 ([1]), as
+// launch_dq and launch_dkv choose it: 0 = FMA (f32), 1 = mma.sync, 2 = wgmma;
+// -1 before the first launch. Read through flash_attention_bwd_last_design.
+enum Design { kFma = 0, kMmaSync = 1, kWgmma = 2 };
+int g_last_design[2] = {-1, -1};
+
 template <int HD>
 cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* dout,
                       const float* lse, const float* delta, void* dq, int dtype, int B,
                       int Nq, int Nk, int H, int D, int n_actual, const long long* st,
-                      float scale, cudaStream_t stream) {
+                      float scale, bool mma_only, cudaStream_t stream) {
   if (dtype == 1) {
+    if (!mma_only && wgmma_takes(st)) {
+      g_last_design[0] = kWgmma;
+      return launch_dq_wgmma<HD>(q, k, v, dout, lse, delta, dq, B, Nq, Nk, H, D, n_actual, st,
+                                 scale, stream);
+    }
+    g_last_design[0] = kMmaSync;
     using T = __nv_bfloat16;
     const size_t smem = (size_t)(2 * kBM + 4 * kBN) * (HD + kPad) * sizeof(T);
     cudaError_t err = cudaFuncSetAttribute(dq_bf16_kernel<HD>,
@@ -508,6 +1089,7 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* d
         n_actual, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8],
         st[9], st[10], st[11], st[12], st[13], st[14], scale);
   } else {
+    g_last_design[0] = kFma;
     constexpr int kRows = kF32Threads / (HD / 32);
     dim3 grid((Nq + kRows - 1) / kRows, B * H);
     dq_f32_kernel<HD><<<grid, kF32Threads, 0, stream>>>(
@@ -524,8 +1106,15 @@ template <int HD>
 cudaError_t launch_dkv(const void* q, const void* k, const void* v, const void* dout,
                        const float* lse, const float* delta, void* dk, void* dv, int dtype,
                        int B, int Nq, int Nk, int H, int D, int n_actual,
-                       const long long* st, float scale, cudaStream_t stream) {
+                       const long long* st, float scale, bool mma_only, cudaStream_t stream) {
   if (dtype == 1) {
+    if constexpr (HD <= 64)
+      if (!mma_only && wgmma_takes(st)) {
+        g_last_design[1] = kWgmma;
+        return launch_dkv_wgmma<HD>(q, k, v, dout, lse, delta, dk, dv, B, Nq, Nk, H, D,
+                                    n_actual, st, scale, stream);
+      }
+    g_last_design[1] = kMmaSync;
     using T = __nv_bfloat16;
     constexpr int BQ = HD <= 64 ? 64 : 32;
     const size_t smem = (size_t)(2 * kBM + 4 * BQ) * (HD + kPad) * sizeof(T)
@@ -542,6 +1131,7 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v, const void* 
         st[8], st[9], st[10], st[11], st[12], st[13], st[14], st[15], st[16], st[17],
         scale);
   } else {
+    g_last_design[1] = kFma;
     constexpr int kRows = kF32Threads / (HD / 32);
     dim3 grid((Nk + kRows - 1) / kRows, B * H);
     dkv_f32_kernel<HD><<<grid, kF32Threads, 0, stream>>>(
@@ -559,39 +1149,84 @@ bool bad_args(int dtype, int B, int H, int D, int n_actual) {
          || (dtype != 0 && dtype != 1);
 }
 
+int dq_entry(const void* q, const void* k, const void* v, const void* dout, const void* lse,
+             const void* delta, void* dq, int dtype, int B, int Nq, int Nk, int H, int D,
+             int n_actual, const long long* st, float scale, bool mma_only, void* stream) {
+  if (bad_args(dtype, B, H, D, n_actual)) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* l = static_cast<const float*>(lse);
+  const float* dl = static_cast<const float*>(delta);
+  if (D <= 32) return (int)launch_dq<32>(q, k, v, dout, l, dl, dq, dtype, B, Nq, Nk, H, D, n_actual, st, scale, mma_only, s);
+  if (D <= 64) return (int)launch_dq<64>(q, k, v, dout, l, dl, dq, dtype, B, Nq, Nk, H, D, n_actual, st, scale, mma_only, s);
+  return (int)launch_dq<128>(q, k, v, dout, l, dl, dq, dtype, B, Nq, Nk, H, D, n_actual, st, scale, mma_only, s);
+}
+
+int dkv_entry(const void* q, const void* k, const void* v, const void* dout, const void* lse,
+              const void* delta, void* dk, void* dv, int dtype, int B, int Nq, int Nk, int H,
+              int D, int n_actual, const long long* st, float scale, bool mma_only,
+              void* stream) {
+  if (bad_args(dtype, B, H, D, n_actual)) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* l = static_cast<const float*>(lse);
+  const float* dl = static_cast<const float*>(delta);
+  if (D <= 32) return (int)launch_dkv<32>(q, k, v, dout, l, dl, dk, dv, dtype, B, Nq, Nk, H, D, n_actual, st, scale, mma_only, s);
+  if (D <= 64) return (int)launch_dkv<64>(q, k, v, dout, l, dl, dk, dv, dtype, B, Nq, Nk, H, D, n_actual, st, scale, mma_only, s);
+  return (int)launch_dkv<128>(q, k, v, dout, l, dl, dk, dv, dtype, B, Nq, Nk, H, D, n_actual, st, scale, mma_only, s);
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. Strides are in elements; the head-dim
 // stride must be 1, D a multiple of 8 (<= 128), every stride a multiple of
 // 8 and every pointer 16-byte aligned (the Python wrapper guarantees all of
 // it). lse and delta: float32 (B, H, Nq) contiguous. `st` holds 15 strides:
-// q, k, v, dO, dq (batch, sequence, head each). Returns the cudaError_t of
-// the launch (0 = success).
+// q, k, v, dO, dq (batch, sequence, head each). bf16 runs the wgmma design
+// when every input stride is positive, else the mma.sync one; f32 the FMA
+// kernel. Returns the cudaError_t of the launch (0 = success).
 extern "C" int flash_attention_bwd_dq(const void* q, const void* k, const void* v,
                                       const void* dout, const void* lse, const void* delta,
                                       void* dq, int dtype, int B, int Nq, int Nk, int H,
                                       int D, int n_actual, const long long* st, float scale,
                                       void* stream) {
-  if (bad_args(dtype, B, H, D, n_actual)) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* l = static_cast<const float*>(lse);
-  const float* dl = static_cast<const float*>(delta);
-  if (D <= 32) return (int)launch_dq<32>(q, k, v, dout, l, dl, dq, dtype, B, Nq, Nk, H, D, n_actual, st, scale, s);
-  if (D <= 64) return (int)launch_dq<64>(q, k, v, dout, l, dl, dq, dtype, B, Nq, Nk, H, D, n_actual, st, scale, s);
-  return (int)launch_dq<128>(q, k, v, dout, l, dl, dq, dtype, B, Nq, Nk, H, D, n_actual, st, scale, s);
+  return dq_entry(q, k, v, dout, lse, delta, dq, dtype, B, Nq, Nk, H, D, n_actual, st, scale,
+                  false, stream);
 }
 
-// As flash_attention_bwd_dq, with 18 strides: q, k, v, dO, dk, dv.
+// As flash_attention_bwd_dq, with 18 strides: q, k, v, dO, dk, dv. bf16 runs
+// the wgmma design at D <= 64 when every input stride is positive, else the
+// mma.sync one.
 extern "C" int flash_attention_bwd_dkv(const void* q, const void* k, const void* v,
                                        const void* dout, const void* lse, const void* delta,
                                        void* dk, void* dv, int dtype, int B, int Nq, int Nk,
                                        int H, int D, int n_actual, const long long* st,
                                        float scale, void* stream) {
-  if (bad_args(dtype, B, H, D, n_actual)) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* l = static_cast<const float*>(lse);
-  const float* dl = static_cast<const float*>(delta);
-  if (D <= 32) return (int)launch_dkv<32>(q, k, v, dout, l, dl, dk, dv, dtype, B, Nq, Nk, H, D, n_actual, st, scale, s);
-  if (D <= 64) return (int)launch_dkv<64>(q, k, v, dout, l, dl, dk, dv, dtype, B, Nq, Nk, H, D, n_actual, st, scale, s);
-  return (int)launch_dkv<128>(q, k, v, dout, l, dl, dk, dv, dtype, B, Nq, Nk, H, D, n_actual, st, scale, s);
+  return dkv_entry(q, k, v, dout, lse, delta, dk, dv, dtype, B, Nq, Nk, H, D, n_actual, st,
+                   scale, false, stream);
+}
+
+// The two entries above with the mma.sync design for bf16 at every shape
+// (the earlier kernels, kept to time the wgmma ones against).
+extern "C" int flash_attention_bwd_dq_mma(const void* q, const void* k, const void* v,
+                                          const void* dout, const void* lse, const void* delta,
+                                          void* dq, int dtype, int B, int Nq, int Nk, int H,
+                                          int D, int n_actual, const long long* st, float scale,
+                                          void* stream) {
+  return dq_entry(q, k, v, dout, lse, delta, dq, dtype, B, Nq, Nk, H, D, n_actual, st, scale,
+                  true, stream);
+}
+
+extern "C" int flash_attention_bwd_dkv_mma(const void* q, const void* k, const void* v,
+                                           const void* dout, const void* lse,
+                                           const void* delta, void* dk, void* dv, int dtype,
+                                           int B, int Nq, int Nk, int H, int D, int n_actual,
+                                           const long long* st, float scale, void* stream) {
+  return dkv_entry(q, k, v, dout, lse, delta, dk, dv, dtype, B, Nq, Nk, H, D, n_actual, st,
+                   scale, true, stream);
+}
+
+// The design (0 = FMA, 1 = mma.sync, 2 = wgmma) of the last launch of kernel
+// 3 (which = 0) or kernel 4 (which = 1) through any entry above; -1 before
+// the first.
+extern "C" int flash_attention_bwd_last_design(int which) {
+  return which == 0 || which == 1 ? g_last_design[which] : -1;
 }

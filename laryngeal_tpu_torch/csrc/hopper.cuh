@@ -108,6 +108,10 @@ __device__ __forceinline__ void fence_async_smem() {
 __device__ __forceinline__ void named_sync(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(threads) : "memory");
 }
+// Arrive at barrier `id` without waiting (the others of its `threads` sync).
+__device__ __forceinline__ void named_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" :: "r"(id), "r"(threads) : "memory");
+}
 
 // ---- register hand-over between warpgroups ----
 

@@ -26,8 +26,11 @@ Implementations, chosen per call or globally with ``set_attention_impl``:
 
 ``window_attention`` is Swin3D's entry (the JAX ``window_attention``,
 ``laryngeal_tpu/ops/attention.py:124-166``): ``kernel`` takes kernels 8-9
-(ops/window_attention.py, ``WindowAttentionFn`` under autograd), ``plain``
-the same function in plain PyTorch, differentiable by autograd.
+(ops/window_attention.py, ``WindowAttentionFn`` under autograd) where they
+take the shape (N <= 448, D <= 128), JAX's XLA route in plain PyTorch where
+the JAX package takes XLA, and raises on CUDA where only JAX's Pallas kernel
+takes the shape; ``plain`` the same function in plain PyTorch,
+differentiable by autograd.
 
 A head_dim above 128 has no kernel: the ``kernel`` impl routes such a call
 to ``attention_plain`` on any device, with or without a bias, the
@@ -45,7 +48,8 @@ import torch
 
 from .flash_attention import MAX_HEAD_DIM, attention_plain, flash_attention
 from .short_attention import short_attention
-from .window_attention import window_attention_kernel, window_attention_plain
+from .window_attention import jax_takes_pallas, kernel_takes, window_attention_kernel, \
+    window_attention_plain, window_attention_xla
 
 # Sequences shorter than this go to the short-sequence kernel (the JAX
 # router's threshold, ``laryngeal_tpu/ops/attention.py:96``).
@@ -104,21 +108,28 @@ def window_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bias: to
     uses row ``w % nW``), or None for an unshifted block.
 
     ``kernel`` (the default on CUDA) runs kernel 8, and kernel 9 under
-    autograd (``WindowAttentionFn``); the -100 region mask is rebuilt in the
-    kernel from ``region_id`` and the bias stays (H, N, N) f32, so the
-    (B·nW, H, N, N) broadcast never exists. The kernels cover every
-    N <= 448 (Swin3D's windows, clamped or not, are at most 392) and
-    D <= 128, so a CUDA call never needs the JAX package's XLA fallback,
-    which for N % 8 != 0 rounds the bias to the compute dtype
-    (``laryngeal_tpu/ops/attention.py:155-166``); here the bias is f32 at
-    every N. A shape outside the kernels' domain raises ``ValueError``
-    (``window_attention._check_kernel``) on CUDA and CPU tensors alike. With
-    ``plain``, and on CPU tensors with ``kernel``, ``window_attention_plain``
-    runs (autograd differentiates it).
+    autograd (``WindowAttentionFn``), at every N <= 448 (Swin3D's windows,
+    clamped or not, are at most 392) and D <= 128; the -100 region mask is
+    rebuilt in the kernel from ``region_id`` and the bias stays (H, N, N)
+    f32 at every such N, so the (B·nW, H, N, N) broadcast never exists.
+    Where neither kernels 8-9 nor the JAX package's Pallas kernel takes the
+    shape (N % 8 != 0 or D > 256), JAX takes XLA, and so does this route on
+    CUDA and CPU tensors alike: ``window_attention_xla``, which rounds the
+    bias to the compute dtype (``laryngeal_tpu/ops/attention.py:155-166``),
+    no kernel launched. Where JAX's Pallas kernel takes a shape kernels 8-9
+    do not (N > 448 or 128 < D <= 256, N % 8 == 0), a CUDA call raises
+    ``ValueError`` (``window_attention._check_kernel``) until the kernels
+    are widened; a CPU call computes ``window_attention_plain``, the f32-bias
+    function of JAX's Pallas kernel. With ``plain``, and on CPU tensors with
+    ``kernel``, ``window_attention_plain`` runs (autograd differentiates it).
     """
     impl = impl or get_attention_impl(q.device)
     if impl not in IMPLS:
         raise ValueError(f"Unknown attention impl {impl!r}; expected one of {IMPLS}")
     if impl == "kernel":
-        return window_attention_kernel(q, k, v, bias, region_id)
+        n, d = q.shape[1], q.shape[-1]
+        if not kernel_takes(n, d) and not jax_takes_pallas(n, d):
+            return window_attention_xla(q, k, v, bias, region_id)
+        if q.is_cuda or kernel_takes(n, d):
+            return window_attention_kernel(q, k, v, bias, region_id)
     return window_attention_plain(q, k, v, bias, region_id)

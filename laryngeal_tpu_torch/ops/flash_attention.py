@@ -17,6 +17,15 @@ TPU kernels have CUDA counterparts here:
                                                   (``csrc/flash_attention_bias.cu``)
 ====  =========================================  ==============================
 
+Kernels 3 and 4 have two bf16 designs behind their entries, ``wgmma`` (a
+block's query rows, or key rows, resident in shared memory through TMA,
+the other side streamed past them) and ``mma.sync``; the C side picks one
+per call (``launch_dq`` and ``launch_dkv`` in ``csrc/flash_attention_bwd.cu``
+say where each runs) and ``last_backward_designs`` reports which ran.
+``flash_attention_dq_mma_cuda`` and ``flash_attention_dkv_mma_cuda`` run
+the ``mma.sync`` design at every shape, so that ``chip_smoke.py`` and the
+card tests can hold the two against each other; they count no launch.
+
 ``flash_attention`` takes (B, Nq, H, D) x (B, Nk, H, D), non-causal,
 D <= 128, Nq != Nk allowed, float32 or bfloat16; ``kv_valid`` masks keys at
 index >= kv_valid. When a gradient is needed (``torch.is_grad_enabled()``
@@ -92,7 +101,7 @@ def _kernel(name: str):
             source, args = SOURCE, [ptr] * 5 + [i32] * 7 + [i64] * 12
         elif name == "flash_attention_fwd_bias":
             source, args = BIAS_SOURCE, [ptr] * 5 + [i32] * 8 + [i64] * 15 + [i32]
-        elif name == "flash_attention_bwd_dq":
+        elif name in ("flash_attention_bwd_dq", "flash_attention_bwd_dq_mma"):
             source, args = BWD_SOURCE, [ptr] * 7 + [i32] * 7 + [strides]
         else:
             source, args = BWD_SOURCE, [ptr] * 8 + [i32] * 7 + [strides]
@@ -400,19 +409,42 @@ def _backward_launch(name, q, k, v, do, lse, delta, outs, kv_valid):
         raise RuntimeError(f"{name} launch failed: cudaError {err}")
 
 
+def _dq(name, q, k, v, do, lse, delta, kv_valid) -> Tuple[torch.Tensor, bool]:
+    """(dq, launched) of kernel 3's C entry ``name`` on CUDA tensors."""
+    _check_kernel(q, k, v, kv_valid)
+    _check_cuda(name, q, k, v, do, lse, delta)
+    d, d_pad = _head_dims(q)
+    dq = torch.empty((*q.shape[:3], d_pad), dtype=q.dtype, device=q.device)
+    launched = q.shape[1] > 0 and k.shape[1] > 0
+    if launched:
+        _backward_launch(name, q, k, v, do, lse, delta, (dq,), kv_valid)
+    else:
+        dq.zero_()
+    return (dq if d_pad == d else dq[..., :d]), launched
+
+
+def _dkv(name, q, k, v, do, lse, delta, kv_valid):
+    """((dk, dv), launched) of kernel 4's C entry ``name`` on CUDA tensors."""
+    _check_kernel(q, k, v, kv_valid)
+    _check_cuda(name, q, k, v, do, lse, delta)
+    d, d_pad = _head_dims(q)
+    dk, dv = (torch.empty((*k.shape[:3], d_pad), dtype=k.dtype, device=k.device)
+              for _ in range(2))
+    launched = q.shape[1] > 0 and k.shape[1] > 0
+    if launched:
+        _backward_launch(name, q, k, v, do, lse, delta, (dk, dv), kv_valid)
+    else:
+        dk.zero_()
+        dv.zero_()
+    return ((dk, dv) if d_pad == d else (dk[..., :d], dv[..., :d])), launched
+
+
 def flash_attention_dq_cuda(q, k, v, do, lse, delta, kv_valid=None) -> torch.Tensor:
     """Kernel 3 on CUDA tensors: dq shaped like q; raises if it cannot launch."""
     global dq_launches
-    _check_kernel(q, k, v, kv_valid)
-    _check_cuda("flash_attention_bwd_dq", q, k, v, do, lse, delta)
-    d, d_pad = _head_dims(q)
-    dq = torch.empty((*q.shape[:3], d_pad), dtype=q.dtype, device=q.device)
-    if q.shape[1] > 0 and k.shape[1] > 0:
-        _backward_launch("flash_attention_bwd_dq", q, k, v, do, lse, delta, (dq,), kv_valid)
-        dq_launches += 1
-    else:
-        dq.zero_()
-    return dq if d_pad == d else dq[..., :d]
+    dq, launched = _dq("flash_attention_bwd_dq", q, k, v, do, lse, delta, kv_valid)
+    dq_launches += launched
+    return dq
 
 
 def flash_attention_dkv_cuda(q, k, v, do, lse, delta, kv_valid=None
@@ -420,19 +452,36 @@ def flash_attention_dkv_cuda(q, k, v, do, lse, delta, kv_valid=None
     """Kernel 4 on CUDA tensors: (dk, dv) shaped like k; raises if it cannot
     launch."""
     global dkv_launches
-    _check_kernel(q, k, v, kv_valid)
-    _check_cuda("flash_attention_bwd_dkv", q, k, v, do, lse, delta)
-    d, d_pad = _head_dims(q)
-    dk, dv = (torch.empty((*k.shape[:3], d_pad), dtype=k.dtype, device=k.device)
-              for _ in range(2))
-    if q.shape[1] > 0 and k.shape[1] > 0:
-        _backward_launch("flash_attention_bwd_dkv", q, k, v, do, lse, delta, (dk, dv),
-                         kv_valid)
-        dkv_launches += 1
-    else:
-        dk.zero_()
-        dv.zero_()
-    return (dk, dv) if d_pad == d else (dk[..., :d], dv[..., :d])
+    grads, launched = _dkv("flash_attention_bwd_dkv", q, k, v, do, lse, delta, kv_valid)
+    dkv_launches += launched
+    return grads
+
+
+def flash_attention_dq_mma_cuda(q, k, v, do, lse, delta, kv_valid=None) -> torch.Tensor:
+    """Kernel 3's earlier ``mma.sync`` design for bfloat16 at every shape (f32
+    takes the FMA kernel, as in kernel 3), on CUDA tensors: the yardstick of
+    the ``wgmma`` design. Counts no launch; raises if it cannot launch."""
+    return _dq("flash_attention_bwd_dq_mma", q, k, v, do, lse, delta, kv_valid)[0]
+
+
+def flash_attention_dkv_mma_cuda(q, k, v, do, lse, delta, kv_valid=None
+                                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Kernel 4's earlier ``mma.sync`` design, as ``flash_attention_dq_mma_cuda``."""
+    return _dkv("flash_attention_bwd_dkv_mma", q, k, v, do, lse, delta, kv_valid)[0]
+
+
+# Designs of kernels 3-4, by the code ``flash_attention_bwd_last_design``
+# returns.
+BWD_DESIGNS = ("fma", "mma.sync", "wgmma")
+
+
+def last_backward_designs() -> Tuple[Optional[str], Optional[str]]:
+    """The designs (``BWD_DESIGNS``) of the last launches of kernel 3 and of
+    kernel 4 in this process, as the C side chose them; None before the
+    first."""
+    fn = _build.load(BWD_SOURCE).flash_attention_bwd_last_design
+    fn.restype, fn.argtypes = ctypes.c_int, [ctypes.c_int]
+    return tuple(BWD_DESIGNS[c] if c >= 0 else None for c in (fn(0), fn(1)))
 
 
 def _on_cpu(q) -> bool:

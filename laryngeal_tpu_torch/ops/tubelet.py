@@ -17,7 +17,10 @@ product. Three routes, picked by ``tubelet_embed(impl=...)`` or
   runs its plain twin ``tubelet_embed_plain``, which rounds where the TPU
   kernel rounds: the weight and the bias are cast to the video's dtype, the
   product is accumulated in f32, the bias added in f32 and the output
-  rounded once. The TPU kernel has no VJP, so this route raises
+  rounded once. On a CUDA tensor of a shape kernel 10 does not take
+  (``kernel_takes``: kw·C in ``RUN_LENGTHS``, W·C and D multiples of 8) it
+  raises ``ValueError`` until the kernel is widened: the TPU kernel takes
+  any shape. The TPU kernel has no VJP, so this route raises
   ``RuntimeError`` when autograd would need a gradient, on both devices.
 
 All take channels-last video (B, T, H, W, C) and the Flax kernel layout
@@ -132,6 +135,13 @@ def _aligned(x: torch.Tensor) -> torch.Tensor:
     return x if x.data_ptr() % 16 == 0 else x.clone()
 
 
+def kernel_takes(video, kernel, tubelet=(2, 16, 16)) -> bool:
+    """Whether kernel 10 takes this shape: kw·C in ``RUN_LENGTHS``, W·C and D
+    multiples of 8."""
+    c, w, d = video.shape[-1], video.shape[-2], kernel.shape[-1]
+    return tubelet[2] * c in RUN_LENGTHS and (w * c) % 8 == 0 and d % 8 == 0
+
+
 def tubelet_embed_cuda(video, kernel, bias, tubelet=(2, 16, 16)) -> torch.Tensor:
     """Kernel 10 on CUDA tensors: (B, N, D) in the video's dtype; raises if
     it cannot launch. It takes kw·C in ``RUN_LENGTHS``, W·C and D multiples
@@ -145,7 +155,7 @@ def tubelet_embed_cuda(video, kernel, bias, tubelet=(2, 16, 16)) -> torch.Tensor
     b, t, h, w, c = video.shape
     kt, kh, kw = tubelet
     d = kernel.shape[4]
-    if kw * c not in RUN_LENGTHS or (w * c) % 8 or d % 8:
+    if not kernel_takes(video, kernel, tubelet):
         raise ValueError(f"tubelet_embed_cuda needs kw*C in {RUN_LENGTHS} (got {kw * c}), "
                          f"W*C (got {w * c}) and D (got {d}) multiples of 8")
     x = _aligned(video)

@@ -36,10 +36,15 @@ CUDA tensor each wrapper launches its kernel or raises.
 
 The kernels take every N <= ``MAX_SEQ`` (448 = 7 key tiles of 64; Swin3D's
 full (8, 7, 7) window is 392) and D <= 128 (padded to a multiple of 8 inside
-the wrapper), N a multiple of 8 or not. The JAX package needs N % 8 == 0
-for its Pallas kernel and otherwise falls back to XLA's attention with the
-bias rounded to the compute dtype; the port has no such fallback and keeps
-the bias in f32 at every N.
+the wrapper), N a multiple of 8 or not, and keep the bias in f32 at every
+such N. The JAX package takes its Pallas kernel at N % 8 == 0 and D <= 256
+and XLA's attention elsewhere, with the bias rounded to the compute dtype
+(``laryngeal_tpu/ops/attention.py:124-166``). Where JAX takes XLA and the
+kernels do not take the shape, the router (``ops.attention.window_attention``)
+runs ``window_attention_xla`` (the rounded bias) on either device,
+differentiated by autograd and counting no launch. Where JAX's Pallas kernel
+takes a shape the kernels do not (N > 448 or 128 < D <= 256, N % 8 == 0),
+a CUDA call raises until the kernels are widened.
 """
 
 from __future__ import annotations
@@ -57,6 +62,9 @@ from .flash_attention import F32_REL, _DTYPE_CODE, _check_cuda, _head_dims, _on_
 SOURCE = "window_attention.cu"
 MAX_HEAD_DIM = 128
 MAX_SEQ = 448
+# The JAX package's gate for its Pallas window kernel (``supports_shape``,
+# ``laryngeal_tpu/ops/window_attention.py:247-250``): N % 8 == 0 and D <= this.
+JAX_PALLAS_MAX_HEAD_DIM = 256
 MASK_VALUE = -100.0  # torchvision's Swin adds -100 across shifted-region boundaries
 # Softmax modes of the forward kernel: 0 = exp (kernel 8), 1 = (s - m) rounded
 # to bf16 before exp, 2 = exp2 of (s - m)·log2(e) (kernel 11's two softmaxes).
@@ -129,6 +137,17 @@ def _check_kernel(q, k, v, bias, region_id):
         raise ValueError(f"head dim {q.shape[-1]} > {MAX_HEAD_DIM} is not supported")
 
 
+def kernel_takes(n: int, d: int) -> bool:
+    """Whether kernels 8-9 take windows of ``n`` positions at head dim ``d``."""
+    return 1 <= n <= MAX_SEQ and d <= MAX_HEAD_DIM
+
+
+def jax_takes_pallas(n: int, d: int) -> bool:
+    """Whether the JAX package takes its Pallas kernel (f32 bias) at (n, d);
+    elsewhere it takes XLA with the bias rounded to the compute dtype."""
+    return n % 8 == 0 and d <= JAX_PALLAS_MAX_HEAD_DIM
+
+
 def region_mask(region_id: torch.Tensor) -> torch.Tensor:
     """(nW, N) region ids -> (nW, N, N) bool, True where two positions lie
     in different regions (where the kernels add ``MASK_VALUE``)."""
@@ -180,6 +199,26 @@ def window_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"unknown variant {kind!r}; expected one of {VARIANTS}")
     return _pv(_probs(q, k, bias, region_id, "bf16sm" if kind == "bf16sm" else "exp"), v,
                q.dtype)
+
+
+def window_attention_xla(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         bias: torch.Tensor,
+                         region_id: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The JAX package's XLA route (``laryngeal_tpu/ops/attention.py:152-166``
+    into ``jax.nn.dot_product_attention``): the bias, with ``MASK_VALUE``
+    added in f32 across region boundaries, rounded to q's dtype, added to the
+    f32 scaled logits; then ``window_attention_plain``'s softmax and P·V.
+    Differentiable by autograd (dbias through the rounding)."""
+    _check(q, k, v, bias, region_id)
+    bw, n, h, d = q.shape
+    full = bias.float()[None]  # (1, H, N, N)
+    if region_id is not None:
+        mask = region_mask(region_id.to(q.device))
+        full = full + MASK_VALUE * mask[:, None].float()  # (nW, H, N, N)
+    nw = full.shape[0]
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * (1.0 / math.sqrt(d))
+    s = (s.view(bw // nw, nw, h, n, n) + full.to(q.dtype).float()[None]).view(bw, h, n, n)
+    return _pv(_softmax(s), v, q.dtype)
 
 
 def window_attention_plain_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -1,8 +1,9 @@
-"""Port tests that need the card: the CUDA kernels (flash, kernels 1-4;
-short-sequence, kernels 6-7; shifted-window, kernels 8-9 and the ablation
-variants 11-12; the biased flash forward, kernel 5; the tubelet embedding,
-kernel 10) against their plain versions, gradients through them, the
-routing, and the ViViT, TimeSformer and Swin3D train steps on the card.
+"""Port tests that need the card: the CUDA kernels (flash, kernels 1-4,
+with kernels 3-4 in both bf16 designs; short-sequence, kernels 6-7;
+shifted-window, kernels 8-9 and the ablation variants 11-12; the biased
+flash forward, kernel 5; the tubelet embedding, kernel 10) against their
+plain versions, gradients through them, the routing, and the ViViT,
+TimeSformer and Swin3D train steps on the card.
 
 They skip on a machine without CUDA. On the card, run them with
 ``python -m pytest --noconftest -p no:cacheprovider tests/test_torch_gpu.py``
@@ -167,8 +168,19 @@ def test_lse_kernel_matches_plain(cuda, shape, dtype):
     assert (lse - ref_lse).abs().max().item() <= fa.LSE_TOL
 
 
+# Kernels 3-4: SHAPES, then the ViViT-B sequence (N = 3137 = 49 x 64 + 1, a
+# one-row last tile) at D = 64 and at D = 128 with kv_valid, and Nq != Nk both
+# ways at D = 32 (kv_valid) and 40 (padded to 48).
+BWD_SHAPES = SHAPES + [
+    (1, 3137, 3137, 2, 64, None),
+    (1, 3137, 3137, 1, 128, 3000),
+    (2, 200, 700, 2, 32, 650),
+    (1, 700, 200, 3, 40, None),
+]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("shape", BWD_SHAPES)
 def test_backward_kernels_match_plain(cuda, shape, dtype):
     b, nq, nk, h, d, kv_valid = shape
     q, k, v, g = _grad_inputs(shape, dtype, cuda)
@@ -217,6 +229,121 @@ def test_autograd_carries_gradients_through_the_kernels(cuda, dtype):
             cos = torch.nn.functional.cosine_similarity(
                 x.grad.float().flatten(), p.grad.float().flatten(), dim=0)
             assert cos.item() > 0.99
+
+
+def _bwd_calls(q, k, v, g, kv_valid):
+    """(lse, delta, refs, limits) of a backward case: the plain forward's lse,
+    delta from its o, and attention_plain_bwd's (dq, dk, dv) with their
+    limits."""
+    o, lse = fa.attention_plain_lse(q, k, v, kv_valid)
+    refs = fa.attention_plain_bwd(q, k, v, o, lse, g, kv_valid)
+    limits = fa.backward_error_limit(q, k, v, o, lse, g, kv_valid, refs)
+    return lse, fa.attention_delta(o, g), refs, limits
+
+
+@pytest.mark.parametrize("shape", BWD_SHAPES)
+def test_backward_designs_both_match_plain(cuda, shape):
+    """bf16: the entries' design (wgmma; dK/dV at D = 128 mma.sync) and the
+    earlier mma.sync design (the _mma entries) are both within
+    backward_error_limit, and both give masked keys exactly zero dK, dV."""
+    b, nq, nk, h, d, kv_valid = shape
+    q, k, v, g = _grad_inputs(shape, torch.bfloat16, cuda, seed=6)
+    lse, delta, refs, limits = _bwd_calls(q, k, v, g, kv_valid)
+    designs = {
+        "entries": (fa.flash_attention_dq_cuda(q, k, v, g, lse, delta, kv_valid),
+                    *fa.flash_attention_dkv_cuda(q, k, v, g, lse, delta, kv_valid)),
+        "mma.sync": (fa.flash_attention_dq_mma_cuda(q, k, v, g, lse, delta, kv_valid),
+                     *fa.flash_attention_dkv_mma_cuda(q, k, v, g, lse, delta, kv_valid))}
+    torch.cuda.synchronize()
+    for design, grads in designs.items():
+        for name, got, ref, lim in zip(("dq", "dk", "dv"), grads, refs, limits):
+            assert got.dtype == torch.bfloat16 and got.shape == ref.shape, (design, name)
+            use = ((got.float() - ref.float()).abs() / lim).max().item()
+            assert use <= 1.0, (design, name, use)
+        if kv_valid is not None and kv_valid < nk:
+            assert torch.count_nonzero(grads[1][:, kv_valid:]) == 0, design
+            assert torch.count_nonzero(grads[2][:, kv_valid:]) == 0, design
+
+
+@pytest.mark.parametrize("shape", [(2, 1000, 1000, 3, 64, 900), (1, 600, 300, 2, 128, 250),
+                                   (2, 3137, 3137, 2, 32, None)])
+def test_backward_kernels_are_deterministic(cuda, shape):
+    """Two calls give bitwise the same dq, dk and dv: each block owns its
+    output rows and no sum uses atomics."""
+    b, nq, nk, h, d, kv_valid = shape
+    q, k, v, g = _grad_inputs(shape, torch.bfloat16, cuda, seed=7)
+    lse, delta, _, _ = _bwd_calls(q, k, v, g, kv_valid)
+    first, second = ((fa.flash_attention_dq_cuda(q, k, v, g, lse, delta, kv_valid),
+                      *fa.flash_attention_dkv_cuda(q, k, v, g, lse, delta, kv_valid))
+                     for _ in range(2))
+    torch.cuda.synchronize()
+    for name, a, b_ in zip(("dq", "dk", "dv"), first, second):
+        assert torch.equal(a, b_), name
+
+
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("layout", ["fused", "bhnd"])
+def test_backward_kernels_read_fused_and_transposed_views(cuda, d, layout):
+    """q, k, v as views of one fused (B, N, 3, H, D) projection, or (B, H, N,
+    D) tensors transposed to (B, N, H, D) views (Nq != Nk): the kernels read
+    them through their strides and give bitwise the dq, dk, dv of contiguous
+    copies."""
+    rng = np.random.default_rng(8)
+    b, n, h = 2, 333, 3
+    if layout == "fused":
+        fused = torch.from_numpy(rng.standard_normal((b, n, 3, h, d), dtype=np.float32))
+        q, k, v = fused.to(cuda, torch.bfloat16).unbind(2)
+    else:
+        q = torch.from_numpy(rng.standard_normal((b, h, n, d), dtype=np.float32))
+        q = q.to(cuda, torch.bfloat16).transpose(1, 2)
+        k, v = (torch.from_numpy(rng.standard_normal((b, h, 200, d), dtype=np.float32))
+                .to(cuda, torch.bfloat16).transpose(1, 2) for _ in range(2))
+    g = torch.from_numpy(rng.standard_normal(q.shape, dtype=np.float32)).to(cuda, torch.bfloat16)
+    lse, delta, _, _ = _bwd_calls(q, k, v, g, None)
+
+    def grads(*xs):
+        qq, kk, vv = xs
+        return (fa.flash_attention_dq_cuda(qq, kk, vv, g, lse, delta),
+                *fa.flash_attention_dkv_cuda(qq, kk, vv, g, lse, delta))
+
+    views, copies = grads(q, k, v), grads(*(x.contiguous() for x in (q, k, v)))
+    torch.cuda.synchronize()
+    for name, a, b_ in zip(("dq", "dk", "dv"), views, copies):
+        assert torch.equal(a, b_), name
+
+
+def test_backward_kernels_count_one_launch_per_call(cuda):
+    """Kernel 3's wrapper counts one launch of kernel 3, kernel 4's one of
+    kernel 4; the mma.sync design's wrappers count none."""
+    shape = (1, 300, 300, 2, 64, None)
+    q, k, v, g = _grad_inputs(shape, torch.bfloat16, cuda, seed=9)
+    lse, delta, _, _ = _bwd_calls(q, k, v, g, None)
+    for fn, want in ((fa.flash_attention_dq_cuda, (1, 0)), (fa.flash_attention_dkv_cuda, (0, 1)),
+                     (fa.flash_attention_dq_mma_cuda, (0, 0)),
+                     (fa.flash_attention_dkv_mma_cuda, (0, 0))):
+        before = (fa.dq_launches, fa.dkv_launches)
+        fn(q, k, v, g, lse, delta)
+        assert (fa.dq_launches - before[0], fa.dkv_launches - before[1]) == want, fn.__name__
+
+
+def test_backward_kernels_report_the_design_they_ran(cuda):
+    """The C side reports the design of its last launch: bf16 at D = 64
+    takes wgmma for both kernels, at D = 128 wgmma for dQ and mma.sync for
+    dK/dV; the _mma wrappers run mma.sync and f32 the FMA kernels."""
+    for d, dtype, fns, want in (
+            (64, torch.bfloat16, (fa.flash_attention_dq_cuda, fa.flash_attention_dkv_cuda),
+             ("wgmma", "wgmma")),
+            (128, torch.bfloat16, (fa.flash_attention_dq_cuda, fa.flash_attention_dkv_cuda),
+             ("wgmma", "mma.sync")),
+            (64, torch.bfloat16, (fa.flash_attention_dq_mma_cuda,
+                                  fa.flash_attention_dkv_mma_cuda), ("mma.sync", "mma.sync")),
+            (64, torch.float32, (fa.flash_attention_dq_cuda, fa.flash_attention_dkv_cuda),
+             ("fma", "fma"))):
+        q, k, v, g = _grad_inputs((1, 200, 200, 2, d, None), dtype, cuda, seed=10)
+        lse, delta, _, _ = _bwd_calls(q, k, v, g, None)
+        for fn in fns:
+            fn(q, k, v, g, lse, delta)
+        assert fa.last_backward_designs() == want, (d, dtype)
 
 
 def test_train_step_on_card_launches_kernels_2_to_4(cuda):
@@ -623,8 +750,11 @@ def test_window_kernels_read_strided_views_and_carry_gradients(cuda):
 
 def test_window_router_and_bad_input(cuda):
     """The router's kernel impl launches kernel 8 on CUDA at every N up to
-    448 and raises beyond; the kernels refuse float16 and D > 128, and the
-    variants refuse f32 and D > 64."""
+    448. Beyond it at N % 8 != 0 (449) the JAX package takes XLA and so does
+    the router (the rounded bias, no launch); at D = 136, N = 8, JAX runs
+    its Pallas kernel, which kernels 8-9 do not match yet, and the router
+    raises. The kernels refuse float16 and D > 128, and the variants refuse
+    f32 and D > 64."""
     from laryngeal_tpu_torch.ops import attention as att
 
     q, k, v, bias, rid, _ = _window_inputs((2, 7, 2, 32, 1), torch.bfloat16, cuda)
@@ -633,8 +763,12 @@ def test_window_router_and_bad_input(cuda):
     torch.cuda.synchronize()
     assert wa.fwd_launches == before + 1
     q, k, v, bias, rid, _ = _window_inputs((1, 449, 1, 32, None), torch.bfloat16, cuda)
+    before = wa.launch_counts()
+    out = att.window_attention(q, k, v, bias, rid)
+    assert wa.launch_counts() == before
+    assert torch.equal(out, wa.window_attention_xla(q, k, v, bias, rid))
     with pytest.raises(ValueError):
-        att.window_attention(q, k, v, bias, rid)
+        wa.window_attention_kernel(q, k, v, bias, rid)
     q, k, v, bias, rid, _ = _window_inputs((1, 8, 1, 16, None), torch.float16, cuda)
     with pytest.raises(ValueError):
         wa.window_attention_forward(q, k, v, bias, rid)
@@ -647,6 +781,31 @@ def test_window_router_and_bad_input(cuda):
     q, k, v, bias, rid, _ = _window_inputs((1, 8, 2, 128, None), torch.bfloat16, cuda)
     with pytest.raises(ValueError):
         wa.window_attention_variant(q, k, v, bias, rid, "exp2")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(2, 456, 1, 32, 2), (2, 453, 1, 32, 1), (4, 64, 2, 160, 2)],
+                         ids=str)
+def test_window_router_outside_the_kernels_domain_follows_jax(cuda, shape, dtype):
+    """Outside N <= 448, D <= 128, where the JAX package takes XLA
+    (N % 8 != 0: 453) the router computes window_attention_xla (the bias
+    rounded to q's dtype) on the card; where JAX runs its Pallas kernel
+    (N % 8 == 0, D <= 256: 456, and 64 at D = 160) it raises until kernels
+    8-9 take the shape. No kernel launches either way."""
+    from laryngeal_tpu_torch.ops import attention as att
+
+    q, k, v, bias, rid, _ = _window_inputs(shape, dtype, cuda)
+    _, n, _, d, _ = shape
+    before = wa.launch_counts()
+    if wa.jax_takes_pallas(n, d):
+        with pytest.raises(ValueError):
+            att.window_attention(q, k, v, bias, rid)
+    else:
+        out = att.window_attention(q, k, v, bias, rid)
+        torch.cuda.synchronize()
+        assert out.dtype == dtype and torch.equal(out, wa.window_attention_xla(q, k, v, bias,
+                                                                               rid))
+    assert wa.launch_counts() == before
 
 
 def _tiny_swin(dtype, stochastic_depth=0.0):
@@ -908,6 +1067,20 @@ def test_tubelet_kernel_reads_a_strided_video_and_refuses_bad_input(cuda):
                               torch.zeros(8, device=cuda))
     with pytest.raises(ValueError):  # D = 44 is not a multiple of 8
         tt.tubelet_embed_cuda(video, kernel[..., :44], bias[:44])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("tubelet,d", [((2, 8, 8), 48), ((2, 16, 16), 20)], ids=str)
+def test_tubelet_kernel_route_outside_its_shapes_raises(cuda, tubelet, d, dtype):
+    """kw·C = 24 and D = 20, shapes kernel 10 does not take (the JAX Pallas
+    kernel takes any): the kernel route raises on the card, launching
+    nothing, until the kernel is widened."""
+    video, kernel, bias = _tubelet_inputs((2, 4, 32, 48, 3), tubelet, d, dtype, cuda)
+    assert not tt.kernel_takes(video, kernel, tubelet)
+    before = tt.launches
+    with pytest.raises(ValueError):
+        tt.tubelet_embed(video, kernel, bias, tubelet, impl="kernel")
+    assert tt.launches == before
 
 
 def test_tubelet_kernel_refuses_autograd(cuda):

@@ -137,6 +137,22 @@ def test_dispatch(data, monkeypatch):
         tt.tubelet_embed(video[:, :3], kernel, bias, impl="kernel")  # T = 3, kt = 2
 
 
+@pytest.mark.parametrize("tubelet,d", [((2, 8, 8), 48), ((2, 16, 16), 20)], ids=str)
+def test_kernel_route_outside_the_kernels_shapes_matches_jax(data, tubelet, d):
+    """kw·C = 24 and D = 20 are shapes kernel 10 does not take (the JAX
+    Pallas kernel takes any): on a CPU tensor the kernel route computes the
+    twin, JAX's Pallas function, at the f32 tolerance."""
+    video, _, _ = data
+    rng = np.random.default_rng(1)
+    kernel = 0.05 * rng.standard_normal((*tubelet, 3, d), dtype=np.float32)
+    bias = rng.standard_normal(d, dtype=np.float32)
+    assert not tt.kernel_takes(torch.from_numpy(video), torch.from_numpy(kernel), tubelet)
+    want = np.asarray(jt.tubelet_embed_pallas(jnp.asarray(video), jnp.asarray(kernel),
+                                              jnp.asarray(bias), tubelet, block_n=5))
+    got = tt.tubelet_embed(*_torch(video, kernel, bias), tubelet, impl="kernel")
+    np.testing.assert_allclose(got.numpy(), want, atol=TOL, rtol=TOL)
+
+
 def test_kernel_route_refuses_autograd_and_counts_no_cpu_launch(data):
     """Kernel 10 has no gradient, as the JAX Pallas route has none; conv and
     matmul stay differentiable. A CPU call is the twin and not a launch."""

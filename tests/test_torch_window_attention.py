@@ -144,6 +144,54 @@ def test_bias_is_not_rounded_at_unaligned_n():
     assert torch.equal(out16, ref)
 
 
+# (B·nW, N, H, D, nW) outside kernels 8-9's domain (N <= 448, D <= 128): the
+# JAX router takes its Pallas kernel at N % 8 == 0 and D <= 256 (456, and 64
+# at D = 160) and XLA elsewhere (453).
+OUTSIDE_SHAPES = [(2, 456, 1, 32, 2), (2, 453, 1, 32, 1), (4, 64, 2, 160, 2)]
+
+
+@pytest.mark.parametrize("shape", OUTSIDE_SHAPES, ids=str)
+def test_kernel_impl_outside_the_kernels_domain_matches_jax(shape):
+    """A window the kernels do not take: on CPU tensors the port's kernel
+    impl computes what the JAX package's ``window_attention(impl="pallas")``
+    computes there (its Pallas kernel in interpret mode, or its XLA route),
+    forward and every gradient, at the f32 tolerances."""
+    q, k, v, bias, rid, g = _inputs(shape, seed=13)
+    _, n, _, d, _ = shape
+    assert not wa.kernel_takes(n, d)
+    jfn = functools.partial(jax_att.window_attention, impl="pallas")
+    ref = np.asarray(jfn(*(_jax(x) for x in (q, k, v, bias)), jnp.asarray(rid)))
+    leaves = [_torch(x).requires_grad_() for x in (q, k, v, bias)]
+    out = att.window_attention(*leaves, _rid_t(rid), impl="kernel")
+    assert out.shape == q.shape
+    np.testing.assert_allclose(out.detach().numpy(), ref, atol=ATOL, rtol=RTOL)
+    (out * torch.from_numpy(g)).sum().backward()
+    for name, x, want in zip(("dq", "dk", "dv", "dbias"), leaves,
+                             _jax_grads(q, k, v, bias, rid, g, jfn)):
+        np.testing.assert_allclose(x.grad.numpy(), np.asarray(want), atol=GRAD_ATOL,
+                                   rtol=GRAD_RTOL, err_msg=name)
+
+
+def test_xla_route_rounds_the_bias_as_jax_does():
+    """N = 453 > 448 and not a multiple of 8: JAX takes XLA, which rounds the
+    bias (with the region mask added) to bf16; the port's kernel impl
+    computes ``window_attention_xla``, within the twins' bf16 limit of JAX's
+    output, while the f32-bias function is not."""
+    q, k, v, bias, rid, _ = _inputs((2, 453, 1, 32, 1), seed=14)
+    bias = bias * 8.0
+    tq, tk, tv = (_torch(x, torch.bfloat16) for x in (q, k, v))
+    tb, tr = _torch(bias), _rid_t(rid)
+    out = att.window_attention(tq, tk, tv, tb, tr, impl="kernel")
+    assert torch.equal(out, wa.window_attention_xla(tq, tk, tv, tb, tr))
+    ref = torch.from_numpy(np.asarray(jax_att.window_attention(
+        *(_jax(x, jnp.bfloat16) for x in (q, k, v)), jnp.asarray(bias), jnp.asarray(rid),
+        impl="pallas"), np.float32))
+    limit = wa.error_limit(tq, tk, tv, tb, tr, out)
+    assert ((out.float() - ref).abs() / limit).max() <= 1.0
+    f32_bias = wa.window_attention_plain(tq, tk, tv, tb, tr)
+    assert ((f32_bias.float() - ref).abs() / limit).max() > 1.0
+
+
 def test_region_mask_matches_jax():
     rid = np.random.default_rng(4).integers(0, 4, (5, 24)).astype(np.int32)
     want = np.asarray(WA.region_mask(jnp.asarray(rid))) != 0
