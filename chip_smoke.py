@@ -6,10 +6,16 @@ Phases, in order; any failure ends the run with a non-zero exit:
 
 1. Print the card's name and power limit; build every kernel in
    ``laryngeal_tpu_torch/csrc/`` (one nvcc per source, all at once).
-2. Hold the flash-attention kernel against its plain PyTorch version at the
-   ViViT-B shape (B=8, N=3137, H=12, D=64) in bf16 and f32, at N=300 with
-   kv_valid, and at Nq != Nk; time the kernel, the plain version and
-   ``F.scaled_dot_product_attention`` (a yardstick the port never calls).
+2. Hold the flash-attention forward, kernels 1 and 2, in both bf16 designs
+   (wgmma, and the earlier mma.sync one, ``flash_attention_mma_cuda`` /
+   ``flash_attention_lse_mma_cuda``) against the plain PyTorch version over
+   phase 2b's cases (the ViViT-B shape B=8, N=3137, H=12, D=64; N=300 with
+   kv_valid; Nq != Nk both ways; D = 32, 40, 128; fused-qkv and (B, H, N, D)
+   views), lse within ``LSE_TOL``, and in f32 at three of them; print the
+   design each case ran and the ptxas report of the wgmma instances; time
+   at the ViViT-B shape the wgmma design, the mma.sync one and
+   ``F.scaled_dot_product_attention`` (a yardstick the port never calls) in
+   turns, single calls and queued, beside the plain version.
 3. The main path at full width: a ViViT-B/16x2 32-frame 224^2 Predictor on
    the card in bf16, weights from a seeded torch.Generator, fed a
    (8, 32, 224, 224, 3) uint8 batch. Probabilities are finite and sum to 1,
@@ -30,8 +36,8 @@ Phases, in order; any failure ends the run with a non-zero exit:
    ``flash_attention_*_mma_cuda``). The ptxas report of the wgmma
    instances is printed. Timed at the ViViT-B shape beside the plain
    versions, their bounds and ``F.scaled_dot_product_attention``'s forward
-   and autograd backward; kernels 3-4 also beside their mma.sync design in
-   turns, single calls and queued, and sdpa's backward both ways.
+   and autograd backward; kernels 2-4 also beside their mma.sync design in
+   turns, single calls and queued, and sdpa both ways.
 5. Training at full width: ViViT-B/16x2 32f 224^2, B=8, bf16 compute, seeded
    weights, through ``make_train_step`` on a uint8 batch: 12 launches each
    of kernels 2-4 and none of kernel 1 per step, 12 of kernel 1 and none of
@@ -74,9 +80,11 @@ Phases, in order; any failure ends the run with a non-zero exit:
    forward and the backward (dq, dk, dv and the cross-window dbias) against
    their plain twins at the four Swin3D-T 32f 224^2 B=8 stage shapes
    (N = 392, D = 32; 1024/256/64/16 windows, 3/6/12/24 heads), shifted (the
-   model's own region ids) and unshifted, and at six other shapes (N % 8 !=
-   0, a single-window region id, N from 1 to 448, D 16 to 128), bf16 and
-   f32, each under its elementwise limit; timed at each stage beside the
+   model's own region ids) and unshifted, at six other shapes (N % 8 !=
+   0, a single-window region id, N from 1 to 448, D 16 to 128), and at four
+   shapes of the wide path (N = 512 and 784 at D = 32, N = 392 at D = 192
+   and 256, with and without region ids), bf16 and f32, each under its
+   elementwise limit and in the design the C side reports; timed at each stage beside the
    bound, the twins and ``F.scaled_dot_product_attention`` with the
    materialised (B·nW, H, N, N) bias (forward, and backward with the mask's
    gradient).
@@ -100,8 +108,10 @@ Phases, in order; any failure ends the run with a non-zero exit:
    stopping), ``--resume auto`` for a second, and
    ``Predictor.from_checkpoint("swin3d", best_model)`` in f32.
 15. Kernel 10, the tubelet embedding: against ``tubelet_embed_plain`` at the
-   ViViT-B stem shape (video (8, 32, 224, 224, 3), D = 768), an M tail and
-   D = 48, bf16 and f32, under ``tubelet.error_limit``; timed beside cuDNN's
+   ViViT-B stem shape (video (8, 32, 224, 224, 3), D = 768), an M tail,
+   D = 48, and four shapes of the general path (kw*C = 24 and 42, D = 100,
+   an odd W*C), bf16 and f32, under ``tubelet.error_limit`` and in the
+   design the C side reports; timed beside cuDNN's
    conv3d and extract_tubelets + addmm. Then the path: the port's vivit
    preprocessing of a uint8 batch, ``tubelet_embed(impl="kernel")`` with the
    seeded ViViT-B model's own projection weights, held against the model's
@@ -249,52 +259,112 @@ def qkv(b, nq, nk, h, d, dtype, seed):
     return mk(nq), mk(nk), mk(nk)
 
 
+def turns_ms(fns: dict, order=("old", "new", "new", "old")) -> dict:
+    """Two designs timed in turns (old, new, new, old), single calls and
+    queued (see cuda_time_ms): {which: mean ms, which + "_q": mean queued ms}."""
+    t = {}
+    for which in order:
+        t.setdefault(which, []).append(cuda_time_ms(fns[which]))
+        t.setdefault(which + "_q", []).append(cuda_time_ms(fns[which], reps=20, queued=True))
+    return {x: sum(v) / len(v) for x, v in t.items()}
+
+
+# Kernels 1-2's wgmma design; which design a call runs is the C side's choice
+# (``launch_fwd``), read back with ``last_forward_designs``.
+FLASH_FWD_DESIGN = ("wgmma + TMA: a persistent block an SM walking work items of 192 query "
+                    "rows (3 consumer warpgroups; 128 at D = 128), Q the register A operand of "
+                    "S = Q K^T, 64-key K/V tiles streamed through a 4-stage mbarrier ring (K and "
+                    "V on barriers of their own), per step the online softmax, then P V and the "
+                    "next step's S as one batch, the warpgroups' softmaxes overlapping each "
+                    "other's products")
+
+
 def check_attention():
-    """Phase 2: kernel vs plain on the card; timings at the ViViT-B shape."""
+    """Phase 2: kernel 1 in both bf16 designs (the wgmma design the entries
+    run, and the mma.sync one, ``flash_attention_mma_cuda``) vs plain on the
+    card over phase 2b's cases, with kernel 2's lse of both designs within
+    ``LSE_TOL``; f32 at three cases. Timings at the ViViT-B shape: the two
+    designs and sdpa's forward in turns, single calls and queued."""
     import torch.nn.functional as F
 
     from laryngeal_tpu_torch.ops import flash_attention as fa
 
-    entry = {}
-    cases = [("vivit_b", VIVIT_B["B"], VIVIT_B["N"], VIVIT_B["N"], None),
-             ("n300_kv_valid", 2, 300, 300, 250),
-             ("nq_ne_nk", 2, 257, 1100, None)]
+    for line in ptxas_lines("flash_attention_fwd.cu", "fwd_wgmma_kernel"):
+        log(f"ptxas {line}")
+    entry, worst = {}, [0.0, 0.0]
+    f32_cases = {"vivit_b", "n300_kv_valid", "nq_ne_nk"}
     for dtype in (torch.bfloat16, torch.float32):
-        for seed, (name, b, nq, nk, kv_valid) in enumerate(cases):
-            q, k, v = qkv(b, nq, nk, VIVIT_B["H"], VIVIT_B["D"], dtype, seed)
-            out = fa.flash_attention(q, k, v, kv_valid)
-            ref = fa.attention_plain(q, k, v, kv_valid)
-            diff = (out.float() - ref.float()).abs()
+        tag = str(dtype)[6:]
+        for seed, (name, b, nq, nk, h, d, kv_valid, layout) in enumerate(TRAIN_CASES):
+            if dtype == torch.float32 and name not in f32_cases:
+                continue
+            q, k, v, _ = train_inputs(b, nq, nk, h, d, dtype, layout, seed)
+            ref, lse_ref = fa.attention_plain_lse(q, k, v, kv_valid)
             limit = fa.error_limit(q, k, v, kv_valid, ref, F32_TOL)
-            err = diff.max().item()
-            use = (diff / limit).max().item()
-            ok = math.isfinite(err) and use <= 1.0
-            log(f"attention {name} {str(dtype)[6:]}: max_abs_err {err:.3e}, largest "
-                f"|err| / limit {use:.3f}, limit max {limit.max().item():.3e} "
+            runs = {"new": (fa.flash_attention(q, k, v, kv_valid),
+                            *fa.flash_attention_lse_cuda(q, k, v, kv_valid))}
+            design = "/".join(fa.last_forward_designs())
+            runs["old"] = (fa.flash_attention_mma_cuda(q, k, v, kv_valid),
+                           *fa.flash_attention_lse_mma_cuda(q, k, v, kv_valid))
+            errs, uses, lse_errs = {}, {}, {}
+            for which, (out, o2, lse) in runs.items():
+                diff = (out.float() - ref.float()).abs()
+                errs[which] = diff.max().item()
+                uses[which] = max((diff / limit).max().item(),
+                                  ((o2.float() - ref.float()).abs() / limit).max().item())
+                lse_errs[which] = (lse - lse_ref).abs().max().item()
+            ok = (max(uses.values()) <= 1.0 and max(lse_errs.values()) <= fa.LSE_TOL
+                  and all(math.isfinite(x) for x in [*errs.values(), *lse_errs.values()]))
+            log(f"attention {name} (B={b}, Nq={nq}, Nk={nk}, H={h}, D={d}, kv_valid={kv_valid}, "
+                f"{layout}) {tag}: kernels 1/2 ({design}) max_abs_err {errs['new']:.3e}, largest "
+                f"|err| / limit {uses['new']:.3f}, lse max_abs_err {lse_errs['new']:.2e}; "
+                f"mma.sync design {uses['old']:.3f}, lse {lse_errs['old']:.2e} "
                 f"{'ok' if ok else 'FAIL'}")
-            del diff, limit
+            del runs, limit
             if not ok:
                 raise AssertionError(f"kernel disagrees with plain version: {name} {dtype}")
+            if dtype == torch.bfloat16:
+                worst = [max(worst[0], errs["new"]), max(worst[1], uses["new"])]
             if name != "vivit_b":
+                del q, k, v, ref, lse_ref
+                torch.cuda.empty_cache()
                 continue
-            ms = cuda_time_ms(lambda: fa.flash_attention(q, k, v))
+            t = turns_ms({"new": lambda: fa.flash_attention_cuda(q, k, v),
+                          "old": lambda: fa.flash_attention_mma_cuda(q, k, v)},
+                         ("old", "new", "new", "old") if dtype == torch.bfloat16 else ("new",))
+            ms = t["new"]
             plain_ms = cuda_time_ms(lambda: fa.attention_plain(q, k, v), reps=3, warmup=1)
             qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-            library_ms = cuda_time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt))
-            bound_ms, bound_by = attention_bound_ms(b, nq, nk, VIVIT_B["H"], VIVIT_B["D"], dtype)
-            log(f"attention vivit_b {str(dtype)[6:]}: kernel {ms:.3f} ms, plain "
-                f"{plain_ms:.3f} ms, sdpa {library_ms:.3f} ms, bound {bound_ms:.4f} ms "
-                f"({bound_by})")
-            tol = F32_TOL if dtype == torch.float32 else "2^-8*plain(|v|)+2^-7*|ref|+1e-5"
-            numbers = dict(max_abs_err=err, tol=tol, err_over_limit=use, ms=ms, kernel_ms=ms,
-                           plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                           library_ms=library_ms)
+            sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt)
+            library_ms = cuda_time_ms(sdpa)
+            library_q = cuda_time_ms(sdpa, reps=20, queued=True)
+            bound_ms, bound_by = attention_bound_ms(b, nq, nk, h, d, dtype)
+            numbers = dict(max_abs_err=errs["new"], err_over_limit=uses["new"], ms=ms,
+                           kernel_ms=ms, queued_ms=t["new_q"], plain_ms=plain_ms,
+                           bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
+                           library_queued_ms=library_q)
+            line = (f"flash_attention_fwd vivit_b {tag}: kernel {ms:.4f} ms ({design}), queued "
+                    f"{t['new_q']:.4f} ms, plain {plain_ms:.3f} ms, sdpa {library_ms:.4f} / "
+                    f"queued {library_q:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
+                    f"{bound_ms / ms:.3f} / {bound_ms / t['new_q']:.3f} of the bound")
             if dtype == torch.bfloat16:
+                numbers.update(old_ms=t["old"], old_queued_ms=t["old_q"], design=design)
+                line += (f"; the mma.sync design {t['old']:.4f} ms ({t['old'] / ms:.2f}x), queued "
+                         f"{t['old_q']:.4f} ms ({t['old_q'] / t['new_q']:.2f}x); against sdpa "
+                         f"{ms / library_ms:.3f}x / {t['new_q'] / library_q:.3f}x")
                 entry.update(numbers)
             else:
                 entry["f32"] = numbers
-            del q, k, v, qt, kt, vt, out, ref
+            log(line)
+            del q, k, v, qt, kt, vt, ref, lse_ref
             torch.cuda.empty_cache()
+    entry.update(max_abs_err=worst[0], err_over_limit=worst[1],
+                 tol=(f"bf16: error_limit (2^-8*plain(|v|)+2^-7*|ref|+1e-5), lse "
+                      f"{fa.LSE_TOL:g}; f32: {F32_TOL:g}"),
+                 headline="vivit_b (8, 3137, 12, 64) bf16; max_abs_err and err_over_limit over "
+                          "every phase-2 case, of the design the entries ran (the mma.sync "
+                          "design's |err|/limit is logged per case)")
+    entry["design"] = f"{entry['design']} at vivit_b; {FLASH_FWD_DESIGN}"
     return entry
 
 
@@ -419,11 +489,14 @@ def check_training_kernels():
                 del q, k, v, g, o, lse, o_ref, lse_ref, delta
                 torch.cuda.empty_cache()
                 continue
-            # Kernels 3 and 4 beside their mma.sync design in turns (old, new,
-            # new, old), single calls and queued (the card's time; see
-            # cuda_time_ms); kernel 2 and the twins single-call.
+            # Kernels 2, 3 and 4 beside their mma.sync design in turns (old,
+            # new, new, old), single calls and queued (the card's time; see
+            # cuda_time_ms); the twins single-call.
             turns, designs = {}, {}
-            calls = {"flash_attention_bwd_dq": {
+            calls = {"flash_attention_fwd_lse": {
+                         "new": lambda: fa.flash_attention_lse_cuda(q, k, v),
+                         "old": lambda: fa.flash_attention_lse_mma_cuda(q, k, v)},
+                     "flash_attention_bwd_dq": {
                          "new": lambda: fa.flash_attention_dq_cuda(q, k, v, g, lse_ref, delta),
                          "old": lambda: fa.flash_attention_dq_mma_cuda(q, k, v, g, lse_ref,
                                                                        delta)},
@@ -438,15 +511,17 @@ def check_training_kernels():
                     t[which].append(cuda_time_ms(fns[which]))
                     t[which + "_q"].append(cuda_time_ms(fns[which], reps=20, queued=True))
                     if which == "new":
-                        designs[e] = fa.last_backward_designs()[0 if "dq" in e else 1]
+                        designs[e] = (fa.last_forward_designs()[1] if "lse" in e else
+                                      fa.last_backward_designs()[0 if "dq" in e else 1])
                 turns[e] = {x: (sum(v) / len(v) if v else None) for x, v in t.items()}
-            ms2 = cuda_time_ms(lambda: fa.flash_attention_lse_cuda(q, k, v))
             plain_fwd = cuda_time_ms(lambda: fa.attention_plain_lse(q, k, v), reps=3, warmup=1)
             plain_bwd = cuda_time_ms(
                 lambda: fa.attention_plain_bwd(q, k, v, o_ref, lse_ref, g), reps=3, warmup=1)
             qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
             gt = g.transpose(1, 2)
             lib_fwd = cuda_time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt))
+            lib_fwd_q = cuda_time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt),
+                                     reps=20, queued=True)
             out = F.scaled_dot_product_attention(qt, kt, vt)
             sdpa_bwd = lambda: torch.autograd.grad(out, (qt, kt, vt), gt, retain_graph=True)
             lib_bwd = cuda_time_ms(sdpa_bwd)
@@ -455,7 +530,8 @@ def check_training_kernels():
             # (entry, kernel ms, plain ms, library ms, products, Nq-long
             # tensors, Nk-long tensors, f32 rows)
             for entry, ms, plain_ms, lib_ms, mm, nq_t, nk_t, rows in (
-                    ("flash_attention_fwd_lse", ms2, plain_fwd, lib_fwd, 2, 2, 2, 1),
+                    ("flash_attention_fwd_lse", turns["flash_attention_fwd_lse"]["new"],
+                     plain_fwd, lib_fwd, 2, 2, 2, 1),
                     ("flash_attention_bwd_dq", turns["flash_attention_bwd_dq"]["new"], plain_bwd,
                      lib_bwd, 3, 3, 2, 2),
                     ("flash_attention_bwd_dkv", turns["flash_attention_bwd_dkv"]["new"],
@@ -467,18 +543,20 @@ def check_training_kernels():
                 line = (f"{entry} vivit_b {tag}: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, "
                         f"sdpa {lib_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
                         f"{bound_ms / ms:.3f} of the bound")
-                if entry in turns:
-                    tt = turns[entry]
-                    numbers.update(queued_ms=tt["new_q"], library_queued_ms=lib_bwd_q,
-                                   design=designs[entry])
-                    line += (f"; design {numbers['design']}; queued {tt['new_q']:.4f} ms "
-                             f"({bound_ms / tt['new_q']:.3f} of the bound), sdpa backward "
-                             f"queued {lib_bwd_q:.4f} ms")
-                    if dtype == torch.bfloat16:
-                        numbers.update(old_ms=tt["old"], old_queued_ms=tt["old_q"])
-                        line += (f"; the mma.sync design {tt['old']:.4f} ms "
-                                 f"({tt['old'] / ms:.2f}x), queued {tt['old_q']:.4f} ms "
-                                 f"({tt['old_q'] / tt['new_q']:.2f}x)")
+                tt = turns[entry]
+                fwd = entry == "flash_attention_fwd_lse"
+                lib_q = lib_fwd_q if fwd else lib_bwd_q
+                numbers.update(queued_ms=tt["new_q"], library_queued_ms=lib_q,
+                               design=designs[entry])
+                line += (f"; design {numbers['design']}; queued {tt['new_q']:.4f} ms "
+                         f"({bound_ms / tt['new_q']:.3f} of the bound), sdpa "
+                         f"{'forward' if fwd else 'backward'} queued {lib_q:.4f} ms "
+                         f"({tt['new_q'] / lib_q:.3f}x)")
+                if dtype == torch.bfloat16:
+                    numbers.update(old_ms=tt["old"], old_queued_ms=tt["old_q"])
+                    line += (f"; the mma.sync design {tt['old']:.4f} ms "
+                             f"({tt['old'] / ms:.2f}x), queued {tt['old_q']:.4f} ms "
+                             f"({tt['old_q'] / tt['new_q']:.2f}x)")
                 log(line)
                 if dtype == torch.bfloat16:
                     entries[entry].update(numbers)
@@ -501,6 +579,8 @@ def check_training_kernels():
                              "mma.sync design's |err|/limit is logged per case)")
     for e in ("flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
         entries[e]["design"] = f"{entries[e]['design']} at vivit_b; {FLASH_BWD_DESIGN}"
+    e = "flash_attention_fwd_lse"
+    entries[e]["design"] = f"{entries[e]['design']} at vivit_b; {FLASH_FWD_DESIGN}"
     return entries
 
 
@@ -551,6 +631,7 @@ def main_path() -> dict:
         before = fa.launches
         logits = model(pixel)
         forward_launches = fa.launches - before
+        forward_design = fa.last_forward_designs()[0]
         att.set_attention_impl("plain")
         try:
             logits_plain = model(pixel)
@@ -559,6 +640,9 @@ def main_path() -> dict:
         forward_ms = cuda_time_ms(lambda: model(pixel), reps=5, warmup=1)
     if forward_launches != n_layers:
         raise AssertionError(f"{forward_launches} launches per forward, want {n_layers}")
+    if forward_design != "wgmma":
+        raise AssertionError(f"the bf16 ViViT-B forward ran kernel 1 as {forward_design}")
+    log(f"vivit-b bf16 forward: {forward_launches} launches of kernel 1 ({forward_design})")
     check_logits("bf16", logits, logits_plain, LOGIT_TOL[torch.bfloat16])
 
     torch.cuda.synchronize()
@@ -746,11 +830,16 @@ def training_path(kernel_ms: dict) -> None:
                 flash_attention_bwd_dkv=n_layers)
     if per_step != want:
         raise AssertionError(f"launches per train step {per_step}, want {want}")
+    step_designs = (fa.last_forward_designs()[1], *fa.last_backward_designs())
     em, per_eval = launched(lambda: eval_step(state, pixel_u8, labels, mask))
     want_eval = {k: (n_layers if k == "flash_attention_fwd" else 0) for k in want}
     if per_eval != want_eval:
         raise AssertionError(f"launches per eval step {per_eval}, want {want_eval}")
-    log(f"launches per train step {per_step}; per eval step {per_eval}")
+    if step_designs != ("wgmma",) * 3 or fa.last_forward_designs()[0] != "wgmma":
+        raise AssertionError(f"the train step ran kernels 2-4 as {step_designs} and the eval "
+                             f"step kernel 1 as {fa.last_forward_designs()[0]}, want wgmma")
+    log(f"launches per train step {per_step}; per eval step {per_eval}; designs: kernels 2-4 "
+        f"{step_designs}, kernel 1 {fa.last_forward_designs()[0]}")
     for _ in range(2):
         step(state, pixel_u8, labels, mask)
     torch.cuda.synchronize()
@@ -1374,7 +1463,12 @@ def check_window_kernels():
         cases.append((f"stage{stage}_unshifted", shape, None))
     cases += [("n245_nw4", (64, 245, 4, 32), "rand4"), ("n392_nw1", (8, 392, 3, 32), "rand1"),
               ("n100_d64", (32, 100, 6, 64), "rand4"), ("n27_d128", (12, 27, 2, 128), "rand3"),
-              ("n1_d16", (4, 1, 3, 16), None), ("n448_d40", (2, 448, 2, 40), "rand1")]
+              ("n1_d16", (4, 1, 3, 16), None), ("n448_d40", (2, 448, 2, 40), "rand1"),
+              # the wide path: shapes JAX's Pallas kernel takes beyond N <= 448, D <= 128
+              ("wide_n512_d32", (8, 512, 3, 32), "rand2"),
+              ("wide_n784_d32", (4, 784, 3, 32), None),
+              ("wide_n392_d192", (4, 392, 2, 192), "rand2"),
+              ("wide_n392_d256", (2, 392, 2, 256), None)]
     for dtype in (torch.bfloat16, torch.float32):
         tag = str(dtype)[6:]
         for seed, (name, shape, grid) in enumerate(cases):
@@ -1394,6 +1488,9 @@ def check_window_kernels():
             err_f = diff.max().item()
             del diff, out, ref
             grads = wa.window_attention_bwd_cuda(q, k, v, bias, rid, g)
+            designs = wa.last_designs()
+            want = ("wide" if not wa.held_takes(shape[1], shape[3]) else
+                    "mma.sync" if dtype == torch.bfloat16 else "fma")
             refs = wa.window_attention_plain_bwd(q, k, v, bias, rid, g)
             uses, errs = [], []
             for got, ref_g, lim in zip(grads, refs,
@@ -1403,9 +1500,11 @@ def check_window_kernels():
                 errs.append(diff.max().item())
             del grads, refs, diff
             torch.cuda.empty_cache()
-            ok = max([use_f] + uses) <= 1.0 and all(math.isfinite(x) for x in [err_f] + errs)
+            ok = (max([use_f] + uses) <= 1.0 and all(math.isfinite(x) for x in [err_f] + errs)
+                  and designs == (want, want))
             log(f"window attention {name} {shape} nW={None if rid is None else rid.shape[0]} "
-                f"{tag}: fwd max_abs_err {err_f:.3e} (|err|/limit {use_f:.3f}); dq/dk/dv/dbias "
+                f"{tag} ({'/'.join(designs)}): fwd max_abs_err {err_f:.3e} (|err|/limit "
+                f"{use_f:.3f}); dq/dk/dv/dbias "
                 f"max_abs_err {'/'.join(f'{e:.3e}' for e in errs)}, |err|/limit "
                 f"{'/'.join(f'{u:.3f}' for u in uses)} {'ok' if ok else 'FAIL'}")
             if not ok:
@@ -1660,9 +1759,14 @@ def swin_training(kernel_ms: dict) -> None:
 
 # Phase 15: (name, video (B, T, H, W, C), D), tubelet (2, 16, 16); M = B*T'*H'*W'.
 TUBELET = (2, 16, 16)
-TUBELET_CASES = [("vivit_b", (8, 32, 224, 224, 3), 768),  # M = 25088
-                 ("m_tail", (5, 4, 64, 112, 3), 768),      # M = 280, not a multiple of a tile
-                 ("d48", (2, 6, 48, 64, 3), 48)]           # M = 72, D = 48
+TUBELET_CASES = [("vivit_b", (8, 32, 224, 224, 3), 768, TUBELET),  # M = 25088
+                 ("m_tail", (5, 4, 64, 112, 3), 768, TUBELET),      # M = 280, not a tile multiple
+                 ("d48", (2, 6, 48, 64, 3), 48, TUBELET),           # M = 72, D = 48
+                 # the general path: shapes the run-length instances do not take
+                 ("kwc24", (2, 4, 64, 64, 3), 96, (2, 8, 8)),       # kw*C = 24
+                 ("kwc42", (2, 4, 56, 56, 3), 768, (2, 14, 14)),    # kw*C = 42
+                 ("d100", (2, 4, 32, 48, 3), 100, TUBELET),         # D not a multiple of 8
+                 ("odd_wc", (2, 4, 21, 49, 3), 64, (2, 7, 7))]      # W*C = 147, kw*C = 21
 # Phase 16: (name, B, Nq, Nk, kv_valid, bias), H = 12, D = 64. Biases: "head" a
 # (1, H, Nq, Nk) f32 per-head bias; "keys" a (B, 1, 1, Nk) f32 key-padding bias
 # (0, and -1e9 on the last 64 keys: TrailingKeyMask.materialize's form); "full"
@@ -1685,21 +1789,22 @@ def tubelet_bound_ms(video_shape, d, dtype):
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def tubelet_inputs(shape, d, dtype, seed):
+def tubelet_inputs(shape, d, dtype, seed, tubelet=TUBELET):
     """A unit-normal video, a LeCun-normal Flax-layout kernel, a small bias."""
     g = torch.Generator(device="cuda").manual_seed(seed)
     video = torch.randn(shape, generator=g, device="cuda").to(dtype)
-    fan_in = TUBELET[0] * TUBELET[1] * TUBELET[2] * shape[-1]
-    kernel = torch.randn((*TUBELET, shape[-1], d), generator=g, device="cuda") / math.sqrt(fan_in)
+    fan_in = tubelet[0] * tubelet[1] * tubelet[2] * shape[-1]
+    kernel = torch.randn((*tubelet, shape[-1], d), generator=g, device="cuda") / math.sqrt(fan_in)
     return video, kernel, 0.1 * torch.randn((d,), generator=g, device="cuda")
 
 
 def check_tubelet_kernel():
     """Phase 15, the kernel: kernel 10 vs ``tubelet_embed_plain`` under
-    ``tubelet.error_limit`` at the ViViT-B stem shape, an M tail and D = 48,
-    bf16 and f32; timed at the stem shape beside cuDNN's conv3d (the model's
-    stem) and extract_tubelets + addmm, yardsticks the kernel route never
-    calls."""
+    ``tubelet.error_limit`` at the ViViT-B stem shape, an M tail, D = 48, and
+    four shapes of the general path (kw*C = 24 and 42, D = 100, an odd W*C),
+    bf16 and f32, each in the design the C side reports; timed at the stem
+    shape beside cuDNN's conv3d (the model's stem) and extract_tubelets +
+    addmm, yardsticks the kernel route never calls."""
     import torch.nn.functional as F
 
     from laryngeal_tpu_torch.ops import tubelet as tt
@@ -1707,16 +1812,22 @@ def check_tubelet_kernel():
     entry = {}
     for dtype in (torch.bfloat16, torch.float32):
         tag = str(dtype)[6:]
-        for seed, (name, shape, d) in enumerate(TUBELET_CASES):
-            video, kernel, bias = tubelet_inputs(shape, d, dtype, 40 + seed)
-            out = tt.tubelet_embed_cuda(video, kernel, bias)
-            ref = tt.tubelet_embed_plain(video, kernel, bias)
+        for seed, (name, shape, d, tubelet) in enumerate(TUBELET_CASES):
+            video, kernel, bias = tubelet_inputs(shape, d, dtype, 40 + seed, tubelet)
+            out = tt.tubelet_embed_cuda(video, kernel, bias, tubelet)
+            design = tt.last_design()
+            want = ("general" if not tt.run_length_takes(video, kernel, tubelet) else
+                    "mma.sync" if dtype == torch.bfloat16 else "fma")
+            ref = tt.tubelet_embed_plain(video, kernel, bias, tubelet)
             diff = (out.float() - ref.float()).abs()
-            limit = tt.error_limit(video, kernel, ref)
+            limit = tt.error_limit(video, kernel, ref, tubelet)
             err, use = diff.max().item(), (diff / limit).max().item()
-            ok = out.shape == ref.shape and math.isfinite(err) and use <= 1.0
-            log(f"tubelet {name} {tag} (M={out.shape[0] * out.shape[1]}, D={d}): max_abs_err "
-                f"{err:.3e}, largest |err| / limit {use:.3f} {'ok' if ok else 'FAIL'}")
+            ok = (out.shape == ref.shape and math.isfinite(err) and use <= 1.0
+                  and design == want)
+            log(f"tubelet {name} {tag} (M={out.shape[0] * out.shape[1]}, kw*C="
+                f"{tubelet[2] * shape[-1]}, W*C={shape[3] * shape[4]}, D={d}; {design}): "
+                f"max_abs_err {err:.3e}, largest |err| / limit {use:.3f} "
+                f"{'ok' if ok else 'FAIL'}")
             del diff, limit
             if not ok:
                 raise AssertionError(f"kernel 10 disagrees with its plain twin: {name} {tag}")

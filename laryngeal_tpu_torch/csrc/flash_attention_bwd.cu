@@ -67,10 +67,12 @@
 
 #include "flash_attention_common.cuh"
 #include "hopper.cuh"
+#include "wgmma_tiles.cuh"
 
 namespace {
 
 using namespace flash;
+using namespace wgtile;
 
 constexpr int kBM = 64;   // rows each bf16 block owns (16 per warp)
 constexpr int kBN = 64;   // dQ: keys per streamed K/V tile
@@ -527,18 +529,11 @@ struct WgBlock {
   static constexpr int kRegs = CWG == 2 ? 240 : 160;
 };
 
-// Shared-memory geometry at head dim HD: a 64-row tile of one tensor is
-// kPanels swizzled panels of 64 rows x kPanelCols head-dim values, as TMA
-// writes them and wgmma's descriptors read them.
+// Shared-memory geometry at head dim HD (wgtile::WgTile: a 64-row tile of
+// kPanels swizzled panels), with the ring's depth and the block's bytes.
 template <int HD>
-struct WgGeom {
-  static constexpr int kPanelCols = HD == 32 ? 32 : 64;
-  static constexpr int kPanels = HD / kPanelCols;
-  static constexpr int kRowBytes = 2 * kPanelCols;  // the swizzle width, 64 or 128 bytes
-  static constexpr int kGroupBytes = 8 * kRowBytes;  // one 8-row swizzle group
-  static constexpr uint64_t kLayout = HD == 32 ? hopper::kLayoutSw64 : hopper::kLayoutSw128;
-  static constexpr int kPanelBytes = 64 * kRowBytes;
-  static constexpr int kTileBytes = kPanels * kPanelBytes;  // 128 HD
+struct WgGeom : WgTile<HD> {
+  using WgTile<HD>::kTileBytes;
   static constexpr int kStages = HD == 128 ? 3 : 4;         // streamed tile pairs in flight
   // Resident: 2 tensors x CWG tiles; streamed: kStages x 2 tiles; then
   // kernel 4's per-stage lse / delta rows, the barriers, and 1024 B of slack
@@ -551,70 +546,6 @@ struct WgGeom {
            + (2 * kStages + 1) * sizeof(uint64_t) + 1024;
   }
 };
-
-__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
-  return p + ((1024 - (hopper::smem_u32(p) & 1023)) & 1023);
-}
-
-// TMA loads of rows [row, row + 64) of one (batch, head) slice of a tensor
-// into a tile (one box per panel; rows past N arrive as zeros).
-template <int HD>
-__device__ __forceinline__ void wg_load_tile(unsigned char* dst, const CUtensorMap* map, int pos,
-                                             uint64_t* bar, int h, int row, int b) {
-  using G = WgGeom<HD>;
-  int c1, c2, c3;
-  hopper::bnhd_coords(pos, h, row, b, c1, c2, c3);
-#pragma unroll
-  for (int p = 0; p < G::kPanels; ++p)
-    hopper::tma_load_4d(dst + p * G::kPanelBytes, map, bar, p * G::kPanelCols, c1, c2, c3);
-}
-
-// d (64 x 64 f32) = A B^T, contracting over the head dim: A and B are
-// 64-row tiles, both read K-major (SS wgmma).
-template <int HD>
-__device__ __forceinline__ void wg_abt(float (&d)[32], const unsigned char* a,
-                                       const unsigned char* b) {
-  using G = WgGeom<HD>;
-  const uint64_t da = hopper::smem_desc(a, 16, G::kGroupBytes, G::kLayout);
-  const uint64_t db = hopper::smem_desc(b, 16, G::kGroupBytes, G::kLayout);
-#pragma unroll
-  for (int p = 0; p < G::kPanels; ++p)
-#pragma unroll
-    for (int ks = 0; ks < G::kPanelCols / 16; ++ks) {
-      const uint32_t off = (p * G::kPanelBytes + ks * 32) >> 4;
-      hopper::wgmma_m64n64k16_ss(d, da + off, db + off, p + ks > 0);
-    }
-}
-
-// acc (64 x HD f32, one array per panel) += A B: A (64 x 64 bf16) in
-// registers as four k16 fragments, B a 64-row tile read MN-major (the
-// product contracts over its rows; RS wgmma, transposed B).
-template <int HD>
-__device__ __forceinline__ void wg_ab(float (&acc)[WgGeom<HD>::kPanels][WgGeom<HD>::kPanelCols / 2],
-                                      const uint32_t (&a)[4][4], const unsigned char* b) {
-  using G = WgGeom<HD>;
-  // Only the 8-row group stride matters for an MN-major operand that spans
-  // one swizzle atom; it goes in both offset fields.
-  const uint64_t db = hopper::smem_desc(b, G::kGroupBytes, G::kGroupBytes, G::kLayout);
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-    for (int p = 0; p < G::kPanels; ++p) {
-      const uint64_t d = db + ((p * G::kPanelBytes + kk * 16 * G::kRowBytes) >> 4);
-      if constexpr (G::kPanelCols == 64)
-        hopper::wgmma_m64n64k16_rs_tb(acc[p], a[kk], d, 1);
-      else
-        hopper::wgmma_m64n32k16_rs_tb(acc[p], a[kk], d, 1);
-    }
-}
-
-template <int HD>
-__device__ __forceinline__ void zero_panels(float (&acc)[WgGeom<HD>::kPanels][WgGeom<HD>::kPanelCols / 2]) {
-#pragma unroll
-  for (int p = 0; p < WgGeom<HD>::kPanels; ++p)
-#pragma unroll
-    for (int i = 0; i < WgGeom<HD>::kPanelCols / 2; ++i) acc[p][i] = 0.f;
-}
 
 // Kernel 3's tile, in place: dp becomes dS = P (dP - delta) in f32, with
 // P = exp2(S scale log2(e) - lse2) of this thread's rows g and g + 8 (keys
@@ -660,32 +591,6 @@ __device__ __forceinline__ void pack_frags(uint32_t (&a)[4][4], const float (&x)
   for (int kk = 0; kk < 4; ++kk)
 #pragma unroll
     for (int r = 0; r < 4; ++r) a[kk][r] = pack_bf16(x[8 * kk + 2 * r], x[8 * kk + 2 * r + 1]);
-}
-
-// Write a warpgroup's 64 x HD accumulator, times `mul`, as bf16 rows
-// [row0, row0 + 64) of one (batch, head) slice: rows >= n_rows are skipped,
-// rows >= n_zero written as 0, columns >= D skipped.
-template <int HD>
-__device__ __forceinline__ void wg_store(const float (&acc)[WgGeom<HD>::kPanels][WgGeom<HD>::kPanelCols / 2],
-                                         __nv_bfloat16* base, long long row_stride, int row0,
-                                         int n_rows, int n_zero, int D, float mul, int warp,
-                                         int g, int t4) {
-  using G = WgGeom<HD>;
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = row0 + warp * 16 + g + 8 * r;
-    if (row >= n_rows) continue;
-    const float m = row < n_zero ? mul : 0.f;
-#pragma unroll
-    for (int p = 0; p < G::kPanels; ++p)
-#pragma unroll
-      for (int j = 0; j < G::kPanelCols / 8; ++j) {
-        const int col = p * G::kPanelCols + 8 * j + 2 * t4;
-        if (col < D)
-          *reinterpret_cast<__nv_bfloat162*>(base + row * row_stride + col) =
-              __floats2bfloat162_rn(acc[p][4 * j + 2 * r] * m, acc[p][4 * j + 2 * r + 1] * m);
-      }
-  }
 }
 
 // Shared-memory layout of both kernels (after the 1024-byte alignment):

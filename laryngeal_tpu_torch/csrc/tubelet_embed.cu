@@ -34,6 +34,14 @@
 //   * f32: the FMA units (tensor cores offer f32 only as TF32, which loses
 //     the 1e-5 agreement): 64 x 64 tiles, 256 threads of 4 x 4 outputs,
 //     double-buffered cp.async tiles.
+// Those two are built for the run lengths kw*C in {16, 32, 48, 64} with
+// W*C and D multiples of 8 (16-byte runs; ViViT-B's stem is 48). Every
+// other shape -- the TPU kernel takes any, padding M -- runs the general
+// path in either dtype: the f32 kernel's tiling on the FMA units with
+// scalar loads (a run need not be 16-byte aligned) and the run walked in
+// chunks of 32 values, f32 accumulation, the output rounded once. No model
+// reaches it; it is correct, not fast. tubelet_embed_last_design reports
+// which design the last call ran.
 // Not yet done (later work): wgmma/TMA and a persistent schedule.
 
 #include "flash_attention_common.cuh"
@@ -43,6 +51,17 @@ namespace {
 using namespace flash;
 
 constexpr int kThreads = 256;
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+template <typename T>
+__device__ __forceinline__ T from_f32(float x);
+template <>
+__device__ __forceinline__ float from_f32<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
+  return __float2bfloat16_rn(x);
+}
 
 // Where each video run and W row lives: a token m = (b, t', h', w') starts
 // at b*sb + t'*kt*st + h'*kh*sh + w'*L; K-step s = (dt, dh) adds dt*st +
@@ -278,6 +297,100 @@ tubelet_f32_kernel(const float* __restrict__ video, const float* __restrict__ w,
   }
 }
 
+// ---------------------------------------------------------------------------
+// The general path (any shape): FMA units, scalar loads
+// ---------------------------------------------------------------------------
+
+constexpr int kGenBM = 64, kGenBN = 64, kGenBK = 32;
+
+// Any run length L = kw*C, any W*C and D, float or bf16 (products of bf16
+// values are exact in f32, so this is the tensor-core path's arithmetic up
+// to the summation order). A block owns a 64 x 64 output tile, 256 threads
+// of 4 x 4 outputs; each K-step (dt, dh) walks its run in chunks of 32
+// values, each staged in shared memory as f32 with scalar loads (a run
+// need not be 16-byte aligned), single-buffered.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+tubelet_general_kernel(const T* __restrict__ video, const T* __restrict__ w,
+                       const T* __restrict__ bias, T* __restrict__ out, Geometry g, int L) {
+  __shared__ float a_s[kGenBM][kGenBK + 1];
+  __shared__ __align__(16) float b_s[kGenBK][kGenBN];
+  const int n0 = blockIdx.x * kGenBN, m0 = blockIdx.y * kGenBM;
+  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+  const int per_clip = g.n_t * g.n_h * g.n_w;
+
+  float acc[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+
+  for (int s = 0; s < g.kt * g.kh; ++s) {
+    const long long off = (long long)(s / g.kh) * g.st + (long long)(s % g.kh) * g.sh;
+    for (int c0 = 0; c0 < L; c0 += kGenBK) {
+      __syncthreads();  // every thread is done with the last chunk
+      for (int i = tid; i < kGenBM * kGenBK; i += kThreads) {
+        const int r = i / kGenBK, c = i % kGenBK, m = m0 + r;
+        float x = 0.f;
+        if (m < g.M && c0 + c < L) {
+          const int b = m / per_clip, rr = m % per_clip;
+          const int t = rr / (g.n_h * g.n_w), hw = rr % (g.n_h * g.n_w);
+          const long long base = b * g.sb + (long long)t * g.kt * g.st +
+                                 (long long)(hw / g.n_w) * g.kh * g.sh +
+                                 (long long)(hw % g.n_w) * L;
+          x = to_f32(video[base + off + c0 + c]);
+        }
+        a_s[r][c] = x;
+      }
+      for (int i = tid; i < kGenBK * kGenBN; i += kThreads) {
+        const int kr = i / kGenBN, col = i % kGenBN;
+        const bool ok = c0 + kr < L && n0 + col < g.D;
+        b_s[kr][col] = ok ? to_f32(w[(long long)(s * L + c0 + kr) * g.D + n0 + col]) : 0.f;
+      }
+      __syncthreads();
+#pragma unroll 8
+      for (int kk = 0; kk < kGenBK; ++kk) {
+        const float4 bv = *reinterpret_cast<const float4*>(&b_s[kk][tx * 4]);
+        const float bj[4] = {bv.x, bv.y, bv.z, bv.w};
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float ai = a_s[ty * 4 + i][kk];
+#pragma unroll
+          for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(ai, bj[j], acc[i][j]);
+        }
+      }
+    }
+  }
+
+  // + bias in f32, one rounding to T.
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int col = n0 + tx * 4 + j;
+    if (col >= g.D) continue;
+    const float bj = to_f32(bias[col]);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int row = m0 + ty * 4 + i;
+      if (row < g.M) out[(long long)row * g.D + col] = from_f32<T>(acc[i][j] + bj);
+    }
+  }
+}
+
+template <typename T>
+cudaError_t launch_general(const void* video, const void* w, const void* bias, void* out,
+                           const Geometry& g, int L, cudaStream_t stream) {
+  dim3 grid((g.D + kGenBN - 1) / kGenBN, (g.M + kGenBM - 1) / kGenBM);
+  tubelet_general_kernel<T><<<grid, kThreads, 0, stream>>>(
+      static_cast<const T*>(video), static_cast<const T*>(w), static_cast<const T*>(bias),
+      static_cast<T*>(out), g, L);
+  return cudaGetLastError();
+}
+
+// The design of the last launch: 0 = FMA (f32, a run-length instance),
+// 1 = mma.sync (bf16, a run-length instance), 2 = general; -1 before the
+// first. Read through tubelet_embed_last_design.
+int g_last_design = -1;
+
 template <int L>
 cudaError_t launch_l(const void* video, const void* w, const void* bias, void* out, int dtype,
                      const Geometry& g, cudaStream_t stream) {
@@ -308,16 +421,17 @@ cudaError_t launch_l(const void* video, const void* w, const void* bias, void* o
 }  // namespace
 
 // video (B, T, H, W, C), w (kt*kh*kw*C, D), bias (D,) and out (B*N, D), all
-// contiguous, of one dtype (0 = float32, 1 = bfloat16), 16-byte aligned.
-// kw*C must be 16, 32, 48 or 64, W*C and D multiples of 8, T, H, W
-// multiples of kt, kh, kw (the Python wrapper checks all of it). Returns the
+// contiguous, of one dtype (0 = float32, 1 = bfloat16), 16-byte aligned,
+// T, H, W multiples of kt, kh, kw (the Python wrapper checks all of it).
+// kw*C in {16, 32, 48, 64} with W*C and D multiples of 8 runs its
+// run-length instance; every other shape the general path. Returns the
 // cudaError_t of the launch (0 = success).
 extern "C" int tubelet_embed(const void* video, const void* w, const void* bias, void* out,
                              int dtype, int B, int T, int H, int W, int C, int kt, int kh,
                              int kw, int D, void* stream) {
   const int L = kw * C;
-  if ((dtype != 0 && dtype != 1) || D <= 0 || D % 8 != 0 || (W * C) % 8 != 0 || kt < 1 ||
-      kh < 1 || T % kt || H % kh || W % kw)
+  if ((dtype != 0 && dtype != 1) || D <= 0 || C < 1 || kt < 1 || kh < 1 || kw < 1 ||
+      T % kt || H % kh || W % kw)
     return (int)cudaErrorInvalidValue;
   Geometry g;
   g.n_t = T / kt;
@@ -332,11 +446,21 @@ extern "C" int tubelet_embed(const void* video, const void* w, const void* bias,
   g.sb = g.st * T;
   if (g.M <= 0 || (g.M + kF32BM - 1) / kF32BM > 65535) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool run = (L == 16 || L == 32 || L == 48 || L == 64) && (W * C) % 8 == 0 && D % 8 == 0;
+  if (!run) {
+    g_last_design = 2;
+    return (int)(dtype == 1 ? launch_general<__nv_bfloat16>(video, w, bias, out, g, L, s)
+                            : launch_general<float>(video, w, bias, out, g, L, s));
+  }
+  g_last_design = dtype == 1 ? 1 : 0;
   switch (L) {
     case 16: return (int)launch_l<16>(video, w, bias, out, dtype, g, s);
     case 32: return (int)launch_l<32>(video, w, bias, out, dtype, g, s);
     case 48: return (int)launch_l<48>(video, w, bias, out, dtype, g, s);
-    case 64: return (int)launch_l<64>(video, w, bias, out, dtype, g, s);
-    default: return (int)cudaErrorInvalidValue;
+    default: return (int)launch_l<64>(video, w, bias, out, dtype, g, s);
   }
 }
+
+// The design (0 = FMA, 1 = mma.sync, 2 = general) of the last launch; -1
+// before the first.
+extern "C" int tubelet_embed_last_design() { return g_last_design; }

@@ -58,8 +58,21 @@
 //     32-wide slice of the head dim, the bias read per element; the
 //     backward's dQ launch accumulates its rows of dbias in shared memory
 //     over its window group.
+// Those designs hold N <= 448 (kMaxN: the held bias rows, the fixed
+// region-id and statistics arrays) and D <= 128. The JAX package runs its
+// Pallas kernel at every N % 8 == 0 and D <= 256, so every other shape runs
+// the wide path, in f32 or bf16: the f32 kernels' structure on the FMA
+// units (1-8 threads per row, a 32-wide head-dim slice each, up to D = 256)
+// with the bias, the region ids and the row statistics read from device
+// memory (L2) instead of fixed shared arrays, bf16 inputs widened to f32 as
+// they land in shared memory, and P and ds rounded to bf16 where kernels
+// 8-9 round them (P before P V and dV, ds before dQ and dK; dbias sums the
+// unrounded ds, in the dQ launch's shared rows: 64, or fewer at a large N).
+// Deterministic, as the held designs. No in-tree model reaches it; it is
+// correct, not fast. window_attention_last_design reports which design the
+// last call of each kernel ran.
 // Not yet done (later work): wgmma/TMA, a persistent schedule, S kept in
-// registers across the passes.
+// registers across the passes, the wide path on the tensor cores.
 
 #include <algorithm>
 #include <cstring>
@@ -832,10 +845,22 @@ __global__ void dbias_reduce_kernel(const float* __restrict__ partial, float* __
 }
 
 // ---------------------------------------------------------------------------
-// f32 (FMA units)
+// FMA units: f32 at every shape the held designs take, and the wide path
 // ---------------------------------------------------------------------------
+//
+// One template serves two designs. T = float with kWide = false is the f32
+// path at N <= kMaxN, D <= 128 (region ids and, in dK/dV, the statistics
+// copied to fixed shared arrays). kWide = true is the wide path, in float or
+// bf16, at every N and D <= 256 (HD 256): the region ids and statistics are
+// read from device memory (L1 / L2) instead, the bias per element as
+// everywhere on the FMA units, and bf16 inputs are widened to f32 as they
+// land in shared memory; P and ds are rounded to bf16 where kernels 8-9
+// round them (P before P V, ds before the dQ / dK products, P before dV),
+// and dbias sums the unrounded ds.
 
-constexpr int kF32Tile = 32;  // rows of a streamed tile
+constexpr int kF32Tile = 32;  // rows of a streamed tile (16 at HD = 256)
+template <int HD>
+__host__ __device__ constexpr int fma_tile() { return HD == 256 ? 16 : kF32Tile; }
 
 template <int kTpr>
 __device__ __forceinline__ float group_sum(float part) {
@@ -844,65 +869,107 @@ __device__ __forceinline__ float group_sum(float part) {
   return part;
 }
 
-// Copy rows [row0, row0 + kF32Tile) of one or two (window, head) slices into
-// shared tiles with `threads` threads; rows >= N and columns >= D are zero.
-template <int HD>
-__device__ __forceinline__ void load_f32_tiles(float (*a)[HD], const float* a_base, long long a_rs,
-                                               float (*b)[HD], const float* b_base, long long b_rs,
-                                               int row0, int N, int D, int threads) {
-  for (int i = threadIdx.x; i < kF32Tile * HD / 4; i += threads) {
-    const int r = i / (HD / 4), col = (i % (HD / 4)) * 4;
-    const int row = row0 + r;
-    float4 av = make_float4(0.f, 0.f, 0.f, 0.f), bv = av;
-    if (row < N && col < D) {
-      av = *reinterpret_cast<const float4*>(a_base + row * a_rs + col);
-      if (b) bv = *reinterpret_cast<const float4*>(b_base + row * b_rs + col);
-    }
-    *reinterpret_cast<float4*>(&a[r][col]) = av;
-    if (b) *reinterpret_cast<float4*>(&b[r][col]) = bv;
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(bf16 x) { return __bfloat162float(x); }
+template <typename T>
+__device__ __forceinline__ T from_f32(float x);
+template <>
+__device__ __forceinline__ float from_f32<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ bf16 from_f32<bf16>(float x) { return __float2bfloat16_rn(x); }
+// x as the product's operand: rounded to bf16 in the bf16 path.
+template <typename T>
+__device__ __forceinline__ float operand(float x) { return to_f32(from_f32<T>(x)); }
+
+// 16 bytes of T at p (4 floats or 8 bf16) into `out` as floats.
+__device__ __forceinline__ void load16(const float* p, float* out) {
+  const float4 v = *reinterpret_cast<const float4*>(p);
+  out[0] = v.x; out[1] = v.y; out[2] = v.z; out[3] = v.w;
+}
+__device__ __forceinline__ void load16(const bf16* p, float* out) {
+  const uint4 v = *reinterpret_cast<const uint4*>(p);
+  const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    out[2 * i] = __uint_as_float(w[i] << 16);
+    out[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
   }
 }
 
+// Copy rows [row0, row0 + fma_tile<HD>()) of one or two (window, head)
+// slices into shared f32 tiles with `threads` threads; rows >= N and
+// columns >= D are zero.
+template <typename T, int HD>
+__device__ __forceinline__ void load_f32_tiles(float (*a)[HD], const T* a_base, long long a_rs,
+                                               float (*b)[HD], const T* b_base, long long b_rs,
+                                               int row0, int N, int D, int threads) {
+  constexpr int V = 16 / sizeof(T);
+  for (int i = threadIdx.x; i < fma_tile<HD>() * HD / V; i += threads) {
+    const int r = i / (HD / V), col = (i % (HD / V)) * V;
+    const int row = row0 + r;
+    if (row < N && col < D) {
+      load16(a_base + row * a_rs + col, &a[r][col]);
+      if (b) load16(b_base + row * b_rs + col, &b[r][col]);
+    } else {
+#pragma unroll
+      for (int j = 0; j < V; ++j) {
+        a[r][col + j] = 0.f;
+        if (b) b[r][col + j] = 0.f;
+      }
+    }
+  }
+}
+
+// The region ids of window w: a copy in shared memory (`ids_s`, the held
+// path) or row w % nW of rid itself (the wide path); null without rid.
+template <bool kWide>
+__device__ __forceinline__ const int* window_ids(int* ids_s, const int* rid, int w, int nW,
+                                                 int N, int tid, int threads) {
+  if (kWide) return rid ? rid + (long long)(w % nW) * N : nullptr;
+  return load_ids(ids_s, rid, w, nW, N, tid, threads);
+}
+
 // Forward (kernel 8): one query row per HD / 32 threads.
-template <int HD>
+template <typename T, int HD, bool kWide>
 __global__ void __launch_bounds__(kF32Threads)
-window_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                      const float* __restrict__ v, float* __restrict__ o,
-                      const float* __restrict__ bias, const int* __restrict__ rid, int H, int N,
-                      int D, int nW, FwdStrides st, float scale) {
+window_fwd_fma_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                      T* __restrict__ o, const float* __restrict__ bias,
+                      const int* __restrict__ rid, int H, int N, int D, int nW, FwdStrides st,
+                      float scale) {
   constexpr int kTpr = HD / 32;
   constexpr int kRows = kF32Threads / kTpr;
-  __shared__ __align__(16) float k_s[kF32Tile][HD];
-  __shared__ __align__(16) float v_s[kF32Tile][HD];
-  __shared__ int ids_s[kMaxN];
+  constexpr int kTile = fma_tile<HD>();
+  __shared__ __align__(16) float k_s[kTile][HD];
+  __shared__ __align__(16) float v_s[kTile][HD];
+  __shared__ int ids_s[kWide ? 1 : kMaxN];
 
   const int w = blockIdx.x / H, h = blockIdx.x % H;
   const int row = blockIdx.y * kRows + threadIdx.x / kTpr;
   const int c0 = (threadIdx.x % kTpr) * 32;
   const bool row_ok = row < N;
-  const float* kb = k + w * st.kb + h * st.kh;
-  const float* vb = v + w * st.vb + h * st.vh;
-  const float* qr_p = q + w * st.qb + h * st.qh + row * st.qn;
+  const T* kb = k + w * st.kb + h * st.kh;
+  const T* vb = v + w * st.vb + h * st.vh;
+  const T* qr_p = q + w * st.qb + h * st.qh + row * st.qn;
   const float* brow = bias + ((long long)h * N + (row_ok ? row : 0)) * N;
-  const int* ids = load_ids(ids_s, rid, w, nW, N, threadIdx.x, blockDim.x);
+  const int* ids = window_ids<kWide>(ids_s, rid, w, nW, N, threadIdx.x, blockDim.x);
   __syncthreads();
   const int my_id = (ids && row_ok) ? ids[row] : 0;
 
   float qr[32], acc[32];
 #pragma unroll
   for (int c = 0; c < 32; ++c) {
-    qr[c] = (row_ok && c0 + c < D) ? qr_p[c0 + c] : 0.f;
+    qr[c] = (row_ok && c0 + c < D) ? to_f32(qr_p[c0 + c]) : 0.f;
     acc[c] = 0.f;
   }
   float m = kMaskValue, l = 0.f;
-  for (int key0 = 0; key0 < N; key0 += kF32Tile) {
+  for (int key0 = 0; key0 < N; key0 += kTile) {
     __syncthreads();
-    load_f32_tiles<HD>(k_s, kb, st.kn, nullptr, nullptr, 0, key0, N, D, kF32Threads);
+    load_f32_tiles<T, HD>(k_s, kb, st.kn, nullptr, nullptr, 0, key0, N, D, kF32Threads);
     __syncthreads();
-    float s[kF32Tile];
+    float s[kTile];
     float mx = m;
 #pragma unroll
-    for (int j = 0; j < kF32Tile; ++j) {
+    for (int j = 0; j < kTile; ++j) {
       float part = 0.f;
 #pragma unroll
       for (int c = 0; c < 32; ++c) part = fmaf(qr[c], k_s[j][c0 + c], part);
@@ -915,15 +982,15 @@ window_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     l *= expf(m - mx);
     m = mx;
 #pragma unroll
-    for (int j = 0; j < kF32Tile; ++j) l += expf(s[j] - m);
+    for (int j = 0; j < kTile; ++j) l += expf(s[j] - m);
   }
   const float inv_l = 1.f / l;
-  for (int key0 = 0; key0 < N; key0 += kF32Tile) {
+  for (int key0 = 0; key0 < N; key0 += kTile) {
     __syncthreads();
-    load_f32_tiles<HD>(k_s, kb, st.kn, v_s, vb, st.vn, key0, N, D, kF32Threads);
+    load_f32_tiles<T, HD>(k_s, kb, st.kn, v_s, vb, st.vn, key0, N, D, kF32Threads);
     __syncthreads();
 #pragma unroll 4
-    for (int j = 0; j < kF32Tile; ++j) {
+    for (int j = 0; j < kTile; ++j) {
       float part = 0.f;
 #pragma unroll
       for (int c = 0; c < 32; ++c) part = fmaf(qr[c], k_s[j][c0 + c], part);
@@ -932,45 +999,49 @@ window_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
       const float p = key < N ? expf(logit(part, scale, row_ok ? brow[key] : 0.f,
                                            ids && ids[key] != my_id) - m) * inv_l
                               : 0.f;
+      const float pv = operand<T>(p);
 #pragma unroll
-      for (int c = 0; c < 32; ++c) acc[c] = fmaf(p, v_s[j][c0 + c], acc[c]);
+      for (int c = 0; c < 32; ++c) acc[c] = fmaf(pv, v_s[j][c0 + c], acc[c]);
     }
   }
   if (!row_ok) return;
-  float* out = o + w * st.ob + h * st.oh + row * st.on;
+  T* out = o + w * st.ob + h * st.oh + row * st.on;
 #pragma unroll
   for (int c = 0; c < 32; ++c)
-    if (c0 + c < D) out[c0 + c] = acc[c];
+    if (c0 + c < D) out[c0 + c] = from_f32<T>(acc[c]);
 }
 
-// Backward (a): dQ, statistics and dbias rows; one block per (head, 64-row
-// block, window group), one query row per HD / 32 threads.
+// Backward (a): dQ, statistics and dbias rows; one block per (head, block of
+// blockDim.x / (HD / 32) query rows, window group), one query row per
+// HD / 32 threads. The block's dbias rows (rows x N f32) sit in shared
+// memory across its windows.
 template <int HD>
 __host__ __device__ constexpr int dq_f32_threads() { return kBM * (HD / 32); }
 
-template <int HD>
+template <typename T, int HD>
 __global__ void __launch_bounds__(dq_f32_threads<HD>())
-window_bwd_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                         const float* __restrict__ v, const float* __restrict__ gr,
+window_bwd_dq_fma_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                         const T* __restrict__ v, const T* __restrict__ gr,
                          const float* __restrict__ bias, const int* __restrict__ rid,
-                         float* __restrict__ dq, float* __restrict__ stats,
+                         T* __restrict__ dq, float* __restrict__ stats,
                          float* __restrict__ dbias_out, int BW, int H, int N, int D, int nW,
                          int per_group, BwdStrides st, float scale) {
   constexpr int kTpr = HD / 32;
-  constexpr int kThreads = dq_f32_threads<HD>();
+  constexpr int kTile = fma_tile<HD>();
+  const int threads = blockDim.x, rows = threads / kTpr;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* db_s = reinterpret_cast<float*>(smem_raw);                     // 64 x N
-  float (*a_s)[HD] = reinterpret_cast<float (*)[HD]>(db_s + kBM * N);   // K tiles
-  float (*b_s)[HD] = a_s + kF32Tile;                                    // V tiles
-  int* ids_s = reinterpret_cast<int*>(b_s + kF32Tile);
+  float* db_s = reinterpret_cast<float*>(smem_raw);                     // rows x N
+  float (*a_s)[HD] = reinterpret_cast<float (*)[HD]>(db_s + rows * N);  // K tiles
+  float (*b_s)[HD] = a_s + kTile;                                       // V tiles
+  int* ids_s = reinterpret_cast<int*>(b_s + kTile);
 
   const int h = blockIdx.x, grp = blockIdx.z;
   const int local = threadIdx.x / kTpr;
-  const int row = blockIdx.y * kBM + local;
+  const int row = blockIdx.y * rows + local;
   const int c0 = (threadIdx.x % kTpr) * 32;
   const bool row_ok = row < N;
   const float* brow = bias + ((long long)h * N + (row_ok ? row : 0)) * N;
-  for (int i = threadIdx.x; i < kBM * N; i += kThreads) db_s[i] = 0.f;
+  for (int i = threadIdx.x; i < rows * N; i += threads) db_s[i] = 0.f;
   const int w_end = min(BW, (grp + 1) * per_group);
 
   for (int w = grp * per_group; w < w_end; ++w) {
@@ -978,27 +1049,27 @@ window_bwd_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ 
     const int* ids = load_ids(ids_s, rid, w, nW, N, threadIdx.x, blockDim.x);
     __syncthreads();
     const int my_id = (ids && row_ok) ? ids[row] : 0;
-    const float* kb = k + w * st.kb + h * st.kh;
-    const float* vb = v + w * st.vb + h * st.vh;
-    const float* qrow = q + w * st.qb + h * st.qh + row * st.qn;
-    const float* grow = gr + w * st.gb + h * st.gh + row * st.gn;
+    const T* kb = k + w * st.kb + h * st.kh;
+    const T* vb = v + w * st.vb + h * st.vh;
+    const T* qrow = q + w * st.qb + h * st.qh + row * st.qn;
+    const T* grow = gr + w * st.gb + h * st.gh + row * st.gn;
     float qr[32], gv[32], acc[32];
 #pragma unroll
     for (int c = 0; c < 32; ++c) {
       const bool ok = row_ok && c0 + c < D;
-      qr[c] = ok ? qrow[c0 + c] : 0.f;
-      gv[c] = ok ? grow[c0 + c] : 0.f;
+      qr[c] = ok ? to_f32(qrow[c0 + c]) : 0.f;
+      gv[c] = ok ? to_f32(grow[c0 + c]) : 0.f;
       acc[c] = 0.f;
     }
     float m = kMaskValue, l = 0.f, dd = 0.f;
-    for (int key0 = 0; key0 < N; key0 += kF32Tile) {
+    for (int key0 = 0; key0 < N; key0 += kTile) {
       __syncthreads();
-      load_f32_tiles<HD>(a_s, kb, st.kn, b_s, vb, st.vn, key0, N, D, kThreads);
+      load_f32_tiles<T, HD>(a_s, kb, st.kn, b_s, vb, st.vn, key0, N, D, threads);
       __syncthreads();
-      float s[kF32Tile], dp[kF32Tile];
+      float s[kTile], dp[kTile];
       float mx = m;
 #pragma unroll
-      for (int j = 0; j < kF32Tile; ++j) {
+      for (int j = 0; j < kTile; ++j) {
         float ps = 0.f, pd = 0.f;
 #pragma unroll
         for (int c = 0; c < 32; ++c) {
@@ -1017,7 +1088,7 @@ window_bwd_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ 
       dd *= alpha;
       m = mx;
 #pragma unroll
-      for (int j = 0; j < kF32Tile; ++j) {
+      for (int j = 0; j < kTile; ++j) {
         const float e = expf(s[j] - m);
         l += e;
         dd += e * dp[j];
@@ -1030,12 +1101,12 @@ window_bwd_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ 
       stw[N + row] = il;
       stw[2 * N + row] = dl;
     }
-    for (int key0 = 0; key0 < N; key0 += kF32Tile) {
+    for (int key0 = 0; key0 < N; key0 += kTile) {
       __syncthreads();
-      load_f32_tiles<HD>(a_s, kb, st.kn, b_s, vb, st.vn, key0, N, D, kThreads);
+      load_f32_tiles<T, HD>(a_s, kb, st.kn, b_s, vb, st.vn, key0, N, D, threads);
       __syncthreads();
 #pragma unroll 4
-      for (int j = 0; j < kF32Tile; ++j) {
+      for (int j = 0; j < kTile; ++j) {
         float ps = 0.f, pd = 0.f;
 #pragma unroll
         for (int c = 0; c < 32; ++c) {
@@ -1052,73 +1123,84 @@ window_bwd_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ 
           ds = p * (pd - dl);
           if (row_ok && c0 == 0) db_s[local * N + key] += ds;
         }
+        const float dsr = operand<T>(ds);
 #pragma unroll
-        for (int c = 0; c < 32; ++c) acc[c] = fmaf(ds, a_s[j][c0 + c], acc[c]);
+        for (int c = 0; c < 32; ++c) acc[c] = fmaf(dsr, a_s[j][c0 + c], acc[c]);
       }
     }
     if (row_ok) {
-      float* out = dq + w * st.dqb + h * st.dqh + row * st.dqn;
+      T* out = dq + w * st.dqb + h * st.dqh + row * st.dqn;
 #pragma unroll
       for (int c = 0; c < 32; ++c)
-        if (c0 + c < D) out[c0 + c] = acc[c] * scale;
+        if (c0 + c < D) out[c0 + c] = from_f32<T>(acc[c] * scale);
     }
   }
   __syncthreads();
-  const int row0 = blockIdx.y * kBM;
-  const int n_rows = min(kBM, N - row0);
+  const int row0 = blockIdx.y * rows;
+  const int n_rows = min(rows, N - row0);
   float* out = dbias_out + (((long long)grp * H + h) * N + row0) * N;
-  for (int i = threadIdx.x; i < n_rows * N; i += kThreads) out[i] = db_s[i];
+  for (int i = threadIdx.x; i < n_rows * N; i += threads) out[i] = db_s[i];
 }
 
 // Backward (b): dK and dV; one key row per HD / 32 threads.
-template <int HD>
+template <typename T, int HD, bool kWide>
 __global__ void __launch_bounds__(kF32Threads)
-window_bwd_dkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                          const float* __restrict__ v, const float* __restrict__ gr,
+window_bwd_dkv_fma_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                          const T* __restrict__ v, const T* __restrict__ gr,
                           const float* __restrict__ bias, const int* __restrict__ rid,
-                          float* __restrict__ dk, float* __restrict__ dv,
+                          T* __restrict__ dk, T* __restrict__ dv,
                           const float* __restrict__ stats, int H, int N, int D, int nW,
                           BwdStrides st, float scale) {
   constexpr int kTpr = HD / 32;
   constexpr int kRows = kF32Threads / kTpr;
-  __shared__ __align__(16) float a_s[kF32Tile][HD];  // Q tiles
-  __shared__ __align__(16) float b_s[kF32Tile][HD];  // G tiles
-  __shared__ float m_s[kMaxN], il_s[kMaxN], dl_s[kMaxN];
-  __shared__ int ids_s[kMaxN];
+  constexpr int kTile = fma_tile<HD>();
+  constexpr int kHeld = kWide ? 1 : kMaxN;
+  __shared__ __align__(16) float a_s[kTile][HD];  // Q tiles
+  __shared__ __align__(16) float b_s[kTile][HD];  // G tiles
+  __shared__ float m_held[kHeld], il_held[kHeld], dl_held[kHeld];
+  __shared__ int ids_s[kHeld];
 
   const int w = blockIdx.x / H, h = blockIdx.x % H;
   const int key = blockIdx.y * kRows + threadIdx.x / kTpr;
   const int c0 = (threadIdx.x % kTpr) * 32;
   const bool key_ok = key < N;
-  const float* qb = q + w * st.qb + h * st.qh;
-  const float* gb = gr + w * st.gb + h * st.gh;
+  const T* qb = q + w * st.qb + h * st.qh;
+  const T* gb = gr + w * st.gb + h * st.gh;
   const float* bias_h = bias + (long long)h * N * N;
   const float* stw = stats + ((long long)w * H + h) * 3 * N;
-  for (int i = threadIdx.x; i < N; i += kF32Threads) {
-    m_s[i] = stw[i];
-    il_s[i] = stw[N + i];
-    dl_s[i] = stw[2 * N + i];
+  // The query rows' statistics: copied to shared memory (held), or read in
+  // place (wide).
+  const float *m_s = stw, *il_s = stw + N, *dl_s = stw + 2 * N;
+  if (!kWide) {
+    for (int i = threadIdx.x; i < N; i += kF32Threads) {
+      m_held[i] = stw[i];
+      il_held[i] = stw[N + i];
+      dl_held[i] = stw[2 * N + i];
+    }
+    m_s = m_held;
+    il_s = il_held;
+    dl_s = dl_held;
   }
-  const int* ids = load_ids(ids_s, rid, w, nW, N, threadIdx.x, blockDim.x);
+  const int* ids = window_ids<kWide>(ids_s, rid, w, nW, N, threadIdx.x, blockDim.x);
   __syncthreads();
   const int key_id = (ids && key_ok) ? ids[key] : 0;
-  const float* krow = k + w * st.kb + h * st.kh + key * st.kn;
-  const float* vrow = v + w * st.vb + h * st.vh + key * st.vn;
+  const T* krow = k + w * st.kb + h * st.kh + key * st.kn;
+  const T* vrow = v + w * st.vb + h * st.vh + key * st.vn;
   float kr[32], vr[32], adk[32], adv[32];
 #pragma unroll
   for (int c = 0; c < 32; ++c) {
     const bool ok = key_ok && c0 + c < D;
-    kr[c] = ok ? krow[c0 + c] : 0.f;
-    vr[c] = ok ? vrow[c0 + c] : 0.f;
+    kr[c] = ok ? to_f32(krow[c0 + c]) : 0.f;
+    vr[c] = ok ? to_f32(vrow[c0 + c]) : 0.f;
     adk[c] = 0.f;
     adv[c] = 0.f;
   }
-  for (int row0 = 0; row0 < N; row0 += kF32Tile) {
+  for (int row0 = 0; row0 < N; row0 += kTile) {
     __syncthreads();
-    load_f32_tiles<HD>(a_s, qb, st.qn, b_s, gb, st.gn, row0, N, D, kF32Threads);
+    load_f32_tiles<T, HD>(a_s, qb, st.qn, b_s, gb, st.gn, row0, N, D, kF32Threads);
     __syncthreads();
 #pragma unroll 4
-    for (int i = 0; i < kF32Tile; ++i) {
+    for (int i = 0; i < kTile; ++i) {
       float ps = 0.f, pd = 0.f;
 #pragma unroll
       for (int c = 0; c < 32; ++c) {
@@ -1135,21 +1217,22 @@ window_bwd_dkv_f32_kernel(const float* __restrict__ q, const float* __restrict__
         p = expf(s - m_s[qi]) * il_s[qi];
         ds = p * (pd - dl_s[qi]);
       }
+      const float pr = operand<T>(p), dsr = operand<T>(ds);
 #pragma unroll
       for (int c = 0; c < 32; ++c) {
-        adv[c] = fmaf(p, b_s[i][c0 + c], adv[c]);
-        adk[c] = fmaf(ds, a_s[i][c0 + c], adk[c]);
+        adv[c] = fmaf(pr, b_s[i][c0 + c], adv[c]);
+        adk[c] = fmaf(dsr, a_s[i][c0 + c], adk[c]);
       }
     }
   }
   if (!key_ok) return;
-  float* ok_ = dk + w * st.dkb + h * st.dkh + key * st.dkn;
-  float* ov = dv + w * st.dvb + h * st.dvh + key * st.dvn;
+  T* ok_ = dk + w * st.dkb + h * st.dkh + key * st.dkn;
+  T* ov = dv + w * st.dvb + h * st.dvh + key * st.dvn;
 #pragma unroll
   for (int c = 0; c < 32; ++c)
     if (c0 + c < D) {
-      ok_[c0 + c] = adk[c] * scale;
-      ov[c0 + c] = adv[c];
+      ok_[c0 + c] = from_f32<T>(adk[c] * scale);
+      ov[c0 + c] = from_f32<T>(adv[c]);
     }
 }
 
@@ -1222,15 +1305,17 @@ cudaError_t launch_fwd_variant(const void* q, const void* k, const void* v, void
   return launch_fwd_bf16<HD, 0>(q, k, v, o, bias, rid, BW, H, N, D, nW, st, scale, s);
 }
 
-template <int HD>
-cudaError_t launch_fwd_f32(const void* q, const void* k, const void* v, void* o,
+// The FMA forward: f32 at the held designs' shapes (kWide false), or the
+// wide path in either dtype.
+template <typename T, int HD, bool kWide>
+cudaError_t launch_fwd_fma(const void* q, const void* k, const void* v, void* o,
                            const float* bias, const int* rid, int BW, int H, int N, int D,
                            int nW, const FwdStrides& st, float scale, cudaStream_t s) {
   constexpr int kRows = kF32Threads / (HD / 32);
   dim3 grid(BW * H, (N + kRows - 1) / kRows);
-  window_fwd_f32_kernel<HD><<<grid, kF32Threads, 0, s>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<float*>(o), bias, rid, H, N, D, nW, st, scale);
+  window_fwd_fma_kernel<T, HD, kWide><<<grid, kF32Threads, 0, s>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<T*>(o), bias, rid, H, N, D, nW, st, scale);
   return cudaGetLastError();
 }
 
@@ -1291,33 +1376,60 @@ cudaError_t launch_bwd_bf16(const BwdArgs& a, cudaStream_t s) {
   return cudaGetLastError();
 }
 
-template <int HD>
-cudaError_t launch_bwd_f32(const BwdArgs& a, cudaStream_t s) {
+// The FMA backward's (a) and (b): f32 at the held designs' shapes (kWide
+// false), or the wide path in either dtype. (a)'s blocks hold 64 query rows'
+// dbias (64 x N f32) in shared memory, or as many rows as fit at a larger N.
+template <typename T, int HD, bool kWide>
+cudaError_t launch_bwd_fma(const BwdArgs& a, cudaStream_t s) {
   float* dbias_out = a.groups > 1 ? a.partial : a.dbias;
-  const size_t smem_dq = (size_t)kBM * a.N * sizeof(float)
-                         + 2 * kF32Tile * HD * sizeof(float) + (size_t)a.N * sizeof(int);
-  cudaError_t err = set_smem(window_bwd_dq_f32_kernel<HD>, smem_dq);
+  const size_t fixed = 2 * fma_tile<HD>() * HD * sizeof(float) + (size_t)a.N * sizeof(int);
+  if (fixed + (size_t)a.N * sizeof(float) > (size_t)kMaxSmem) return cudaErrorInvalidValue;
+  const int rows = (int)std::min<size_t>(kBM, ((size_t)kMaxSmem - fixed) / (a.N * sizeof(float)));
+  const size_t smem_dq = (size_t)rows * a.N * sizeof(float) + fixed;
+  cudaError_t err = set_smem(window_bwd_dq_fma_kernel<T, HD>, smem_dq);
   if (err != cudaSuccess) return err;
-  dim3 grid_dq(a.H, (a.N + kBM - 1) / kBM, a.groups);
-  window_bwd_dq_f32_kernel<HD><<<grid_dq, dq_f32_threads<HD>(), smem_dq, s>>>(
-      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
-      static_cast<const float*>(a.v), static_cast<const float*>(a.g), a.bias, a.rid,
-      static_cast<float*>(a.dq), a.stats, dbias_out, a.BW, a.H, a.N, a.D, a.nW, a.per_group,
-      a.st, a.scale);
+  dim3 grid_dq(a.H, (a.N + rows - 1) / rows, a.groups);
+  window_bwd_dq_fma_kernel<T, HD><<<grid_dq, rows * (HD / 32), smem_dq, s>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
+      static_cast<const T*>(a.g), a.bias, a.rid, static_cast<T*>(a.dq), a.stats, dbias_out,
+      a.BW, a.H, a.N, a.D, a.nW, a.per_group, a.st, a.scale);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   constexpr int kRows = kF32Threads / (HD / 32);
   dim3 grid_dkv(a.BW * a.H, (a.N + kRows - 1) / kRows);
-  window_bwd_dkv_f32_kernel<HD><<<grid_dkv, kF32Threads, 0, s>>>(
-      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
-      static_cast<const float*>(a.v), static_cast<const float*>(a.g), a.bias, a.rid,
-      static_cast<float*>(a.dk), static_cast<float*>(a.dv), a.stats, a.H, a.N, a.D, a.nW,
-      a.st, a.scale);
+  window_bwd_dkv_fma_kernel<T, HD, kWide><<<grid_dkv, kF32Threads, 0, s>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
+      static_cast<const T*>(a.g), a.bias, a.rid, static_cast<T*>(a.dk), static_cast<T*>(a.dv),
+      a.stats, a.H, a.N, a.D, a.nW, a.st, a.scale);
   return cudaGetLastError();
 }
 
+// The wide path in the call's dtype at head dim HD.
+template <int HD>
+cudaError_t launch_fwd_wide(int dtype, const void* q, const void* k, const void* v, void* o,
+                            const float* bias, const int* rid, int BW, int H, int N, int D,
+                            int nW, const FwdStrides& st, float scale, cudaStream_t s) {
+  if (dtype == 1)
+    return launch_fwd_fma<bf16, HD, true>(q, k, v, o, bias, rid, BW, H, N, D, nW, st, scale, s);
+  return launch_fwd_fma<float, HD, true>(q, k, v, o, bias, rid, BW, H, N, D, nW, st, scale, s);
+}
+template <int HD>
+cudaError_t launch_bwd_wide(int dtype, const BwdArgs& a, cudaStream_t s) {
+  return dtype == 1 ? launch_bwd_fma<bf16, HD, true>(a, s) : launch_bwd_fma<float, HD, true>(a, s);
+}
+
+// The design of the last launch of kernel 8 ([0]) and kernel 9 ([1]): 0 =
+// FMA (f32, held arrays), 1 = mma.sync (bf16, held bias rows), 2 = wide;
+// -1 before the first launch. Read through window_attention_last_design.
+enum Design { kDesignFma = 0, kDesignMmaSync = 1, kDesignWide = 2 };
+int g_last_design[2] = {-1, -1};
+
+// The held designs (bf16 mma.sync, f32 FMA with fixed shared arrays) take
+// N <= kMaxN and D <= 128; the wide path every other shape.
+bool held_takes(int N, int D) { return N <= kMaxN && D <= 128; }
+
 bool bad_args(int dtype, int BW, int H, int N, int D, int nW) {
-  return (dtype != 0 && dtype != 1) || BW < 1 || H < 1 || N < 1 || N > kMaxN || D <= 0
-         || D > 128 || D % 8 != 0 || nW < 1 || BW % nW != 0 || H > 65535
+  return (dtype != 0 && dtype != 1) || BW < 1 || H < 1 || N < 1 || D <= 0 || D > 256
+         || D % 8 != 0 || nW < 1 || BW % nW != 0 || H > 65535
          || (long long)BW * H > 0x7fffffffLL;
 }
 
@@ -1326,12 +1438,14 @@ bool bad_args(int dtype, int BW, int H, int N, int D, int nW) {
 // dtype: 0 = float32, 1 = bfloat16. q, k, v, o are (BW, N, H, D), bias
 // (H, N, N) f32 contiguous, rid (nW, N) int32 contiguous or null (no mask);
 // `st` holds 12 strides in elements (window, position, head of q, k, v, o).
-// The head-dim stride must be 1, D a multiple of 8 (<= 128), every stride a
+// The head-dim stride must be 1, D a multiple of 8 (<= 256), every stride a
 // multiple of 8 and every pointer 16-byte aligned (the Python wrapper
-// guarantees all of it). mode: 0 exp (kernel 8), 1 bf16 (S - max), 2 exp2
+// guarantees all of it). N <= 448 and D <= 128 run the held designs
+// (mma.sync in bf16, the FMA kernel with held arrays in f32), every other
+// shape the wide path. mode: 0 exp (kernel 8), 1 bf16 (S - max), 2 exp2
 // (kernel 11); hb: 0 for kernels 8 and 11 (held bias rows), or 1-3 heads a
-// block for kernel 12 (H % hb == 0, mode 0). The variants take bfloat16 and
-// D <= 64. Returns the cudaError_t of the launch (0 = success).
+// block for kernel 12 (H % hb == 0, mode 0). The variants take bfloat16,
+// N <= 448 and D <= 64. Returns the cudaError_t of the launch (0 = success).
 extern "C" int window_attention_fwd(const void* q, const void* k, const void* v, void* o,
                                     const float* bias, const int* rid, int dtype, int BW, int N,
                                     int H, int D, int nW, int mode, int hb, const long long* st,
@@ -1340,18 +1454,27 @@ extern "C" int window_attention_fwd(const void* q, const void* k, const void* v,
       || (hb > 0 && (H % hb != 0 || mode != 0)))
     return (int)cudaErrorInvalidValue;
   const bool variant = mode != 0 || hb != 0;
-  if (variant && (dtype != 1 || D > 64)) return (int)cudaErrorInvalidValue;
+  if (variant && (dtype != 1 || D > 64 || N > kMaxN)) return (int)cudaErrorInvalidValue;
   FwdStrides s;
   std::memcpy(&s, st, sizeof(s));
   cudaStream_t cs = static_cast<cudaStream_t>(stream);
+  if (!held_takes(N, D)) {
+    g_last_design[0] = kDesignWide;
+    if (D <= 32) return (int)launch_fwd_wide<32>(dtype, q, k, v, o, bias, rid, BW, H, N, D, nW, s, scale, cs);
+    if (D <= 64) return (int)launch_fwd_wide<64>(dtype, q, k, v, o, bias, rid, BW, H, N, D, nW, s, scale, cs);
+    if (D <= 128) return (int)launch_fwd_wide<128>(dtype, q, k, v, o, bias, rid, BW, H, N, D, nW, s, scale, cs);
+    return (int)launch_fwd_wide<256>(dtype, q, k, v, o, bias, rid, BW, H, N, D, nW, s, scale, cs);
+  }
   if (dtype == 1) {
+    g_last_design[0] = kDesignMmaSync;
     if (D <= 32) return (int)launch_fwd_variant<32>(q, k, v, o, bias, rid, BW, H, N, D, nW, mode, hb, s, scale, cs);
     if (D <= 64) return (int)launch_fwd_variant<64>(q, k, v, o, bias, rid, BW, H, N, D, nW, mode, hb, s, scale, cs);
     return (int)launch_fwd_bf16<128, 0>(q, k, v, o, bias, rid, BW, H, N, D, nW, s, scale, cs);
   }
-  if (D <= 32) return (int)launch_fwd_f32<32>(q, k, v, o, bias, rid, BW, H, N, D, nW, s, scale, cs);
-  if (D <= 64) return (int)launch_fwd_f32<64>(q, k, v, o, bias, rid, BW, H, N, D, nW, s, scale, cs);
-  return (int)launch_fwd_f32<128>(q, k, v, o, bias, rid, BW, H, N, D, nW, s, scale, cs);
+  g_last_design[0] = kDesignFma;
+  if (D <= 32) return (int)launch_fwd_fma<float, 32, false>(q, k, v, o, bias, rid, BW, H, N, D, nW, s, scale, cs);
+  if (D <= 64) return (int)launch_fwd_fma<float, 64, false>(q, k, v, o, bias, rid, BW, H, N, D, nW, s, scale, cs);
+  return (int)launch_fwd_fma<float, 128, false>(q, k, v, o, bias, rid, BW, H, N, D, nW, s, scale, cs);
 }
 
 // The gradient: g (the output's gradient, in the input dtype) in; dq, dk,
@@ -1359,6 +1482,7 @@ extern "C" int window_attention_fwd(const void* q, const void* k, const void* v,
 // scratch; partial: (groups, H, N, N) f32 scratch when groups > 1 (ignored
 // otherwise); windows [i * per_group, (i + 1) * per_group) form group i.
 // `st` holds 21 strides: q, k, v, g, dq, dk, dv (window, position, head).
+// Designs by shape as in window_attention_fwd.
 extern "C" int window_attention_bwd(const void* q, const void* k, const void* v, const void* g,
                                     const float* bias, const int* rid, void* dq, void* dk,
                                     void* dv, float* dbias, float* stats, float* partial,
@@ -1373,15 +1497,32 @@ extern "C" int window_attention_bwd(const void* q, const void* k, const void* v,
   std::memcpy(&a.st, st, sizeof(a.st));
   cudaStream_t cs = static_cast<cudaStream_t>(stream);
   cudaError_t err;
-  if (dtype == 1)
+  if (!held_takes(N, D)) {
+    g_last_design[1] = kDesignWide;
+    err = D <= 32    ? launch_bwd_wide<32>(dtype, a, cs)
+          : D <= 64  ? launch_bwd_wide<64>(dtype, a, cs)
+          : D <= 128 ? launch_bwd_wide<128>(dtype, a, cs)
+                     : launch_bwd_wide<256>(dtype, a, cs);
+  } else if (dtype == 1) {
+    g_last_design[1] = kDesignMmaSync;
     err = D <= 32 ? launch_bwd_bf16<32>(a, cs) : D <= 64 ? launch_bwd_bf16<64>(a, cs)
                                                          : launch_bwd_bf16<128>(a, cs);
-  else
-    err = D <= 32 ? launch_bwd_f32<32>(a, cs) : D <= 64 ? launch_bwd_f32<64>(a, cs)
-                                                        : launch_bwd_f32<128>(a, cs);
+  } else {
+    g_last_design[1] = kDesignFma;
+    err = D <= 32    ? launch_bwd_fma<float, 32, false>(a, cs)
+          : D <= 64  ? launch_bwd_fma<float, 64, false>(a, cs)
+                     : launch_bwd_fma<float, 128, false>(a, cs);
+  }
   if (err != cudaSuccess || groups == 1) return (int)err;
   const long long count = (long long)H * N * N;
   const int blocks = (int)std::min<long long>((count + 255) / 256, 4096);
   dbias_reduce_kernel<<<blocks, 256, 0, cs>>>(partial, dbias, count, groups);
   return (int)cudaGetLastError();
+}
+
+// The design (0 = FMA, 1 = mma.sync, 2 = wide) of the last launch of kernel
+// 8 (which = 0; the variants of kernels 11-12 included) or kernel 9
+// (which = 1); -1 before the first.
+extern "C" int window_attention_last_design(int which) {
+  return which == 0 || which == 1 ? g_last_design[which] : -1;
 }

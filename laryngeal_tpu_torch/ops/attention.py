@@ -27,9 +27,9 @@ Implementations, chosen per call or globally with ``set_attention_impl``:
 ``window_attention`` is Swin3D's entry (the JAX ``window_attention``,
 ``laryngeal_tpu/ops/attention.py:124-166``): ``kernel`` takes kernels 8-9
 (ops/window_attention.py, ``WindowAttentionFn`` under autograd) where they
-take the shape (N <= 448, D <= 128), JAX's XLA route in plain PyTorch where
-the JAX package takes XLA, and raises on CUDA where only JAX's Pallas kernel
-takes the shape; ``plain`` the same function in plain PyTorch,
+take the shape (every shape of JAX's Pallas kernel, N % 8 == 0 and
+D <= 256, and N <= 448 at D <= 128 besides), and JAX's XLA route in plain
+PyTorch elsewhere; ``plain`` the same function in plain PyTorch,
 differentiable by autograd.
 
 A head_dim above 128 has no kernel: the ``kernel`` impl routes such a call
@@ -108,28 +108,25 @@ def window_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bias: to
     uses row ``w % nW``), or None for an unshifted block.
 
     ``kernel`` (the default on CUDA) runs kernel 8, and kernel 9 under
-    autograd (``WindowAttentionFn``), at every N <= 448 (Swin3D's windows,
-    clamped or not, are at most 392) and D <= 128; the -100 region mask is
-    rebuilt in the kernel from ``region_id`` and the bias stays (H, N, N)
-    f32 at every such N, so the (B·nW, H, N, N) broadcast never exists.
-    Where neither kernels 8-9 nor the JAX package's Pallas kernel takes the
-    shape (N % 8 != 0 or D > 256), JAX takes XLA, and so does this route on
-    CUDA and CPU tensors alike: ``window_attention_xla``, which rounds the
-    bias to the compute dtype (``laryngeal_tpu/ops/attention.py:155-166``),
-    no kernel launched. Where JAX's Pallas kernel takes a shape kernels 8-9
-    do not (N > 448 or 128 < D <= 256, N % 8 == 0), a CUDA call raises
-    ``ValueError`` (``window_attention._check_kernel``) until the kernels
-    are widened; a CPU call computes ``window_attention_plain``, the f32-bias
-    function of JAX's Pallas kernel. With ``plain``, and on CPU tensors with
-    ``kernel``, ``window_attention_plain`` runs (autograd differentiates it).
+    autograd (``WindowAttentionFn``), at every shape they take
+    (``window_attention.kernel_takes``): every N % 8 == 0 at D <= 256, where
+    the JAX package runs its Pallas kernel, and every N <= 448 at D <= 128
+    (Swin3D's windows, clamped or not, are at most 392). The -100 region mask
+    is rebuilt in the kernel from ``region_id`` and the bias stays (H, N, N)
+    f32, so the (B·nW, H, N, N) broadcast never exists. Elsewhere (N % 8 != 0
+    beyond 448, or D > 256) JAX takes XLA, and so does this route on CUDA and
+    CPU tensors alike: ``window_attention_xla``, which rounds the bias to the
+    compute dtype (``laryngeal_tpu/ops/attention.py:155-166``), no kernel
+    launched. With ``plain``, and on CPU tensors with ``kernel``, the plain
+    twin ``window_attention_plain`` runs (autograd differentiates it).
     """
     impl = impl or get_attention_impl(q.device)
     if impl not in IMPLS:
         raise ValueError(f"Unknown attention impl {impl!r}; expected one of {IMPLS}")
     if impl == "kernel":
         n, d = q.shape[1], q.shape[-1]
-        if not kernel_takes(n, d) and not jax_takes_pallas(n, d):
-            return window_attention_xla(q, k, v, bias, region_id)
-        if q.is_cuda or kernel_takes(n, d):
+        if kernel_takes(n, d):
             return window_attention_kernel(q, k, v, bias, region_id)
+        if not jax_takes_pallas(n, d):
+            return window_attention_xla(q, k, v, bias, region_id)
     return window_attention_plain(q, k, v, bias, region_id)

@@ -17,14 +17,19 @@ TPU kernels have CUDA counterparts here:
                                                   (``csrc/flash_attention_bias.cu``)
 ====  =========================================  ==============================
 
-Kernels 3 and 4 have two bf16 designs behind their entries, ``wgmma`` (a
+Kernels 1-4 have two bf16 designs behind their entries, ``wgmma`` (a
 block's query rows, or key rows, resident in shared memory through TMA,
-the other side streamed past them) and ``mma.sync``; the C side picks one
-per call (``launch_dq`` and ``launch_dkv`` in ``csrc/flash_attention_bwd.cu``
-say where each runs) and ``last_backward_designs`` reports which ran.
+the other side streamed past them through an mbarrier ring) and
+``mma.sync``; the C side picks one per call (``launch_fwd`` in
+``csrc/flash_attention_fwd.cu``, ``launch_dq`` and ``launch_dkv`` in
+``csrc/flash_attention_bwd.cu`` say where each runs) and
+``last_forward_designs`` / ``last_backward_designs`` report which ran.
+``flash_attention_mma_cuda``, ``flash_attention_lse_mma_cuda`` (C entries
+``flash_attention_fwd_mma``, ``flash_attention_fwd_lse_mma``),
 ``flash_attention_dq_mma_cuda`` and ``flash_attention_dkv_mma_cuda`` run
 the ``mma.sync`` design at every shape, so that ``chip_smoke.py`` and the
 card tests can hold the two against each other; they count no launch.
+Kernel 5 keeps the ``mma.sync`` design (``csrc/flash_attention_fwd.cuh``).
 
 ``flash_attention`` takes (B, Nq, H, D) x (B, Nk, H, D), non-causal,
 D <= 128, Nq != Nk allowed, float32 or bfloat16; ``kv_valid`` masks keys at
@@ -95,9 +100,9 @@ def _kernel(name: str):
     if name not in _fns:
         ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         strides = ctypes.POINTER(i64)
-        if name == "flash_attention_fwd":
+        if name in ("flash_attention_fwd", "flash_attention_fwd_mma"):
             source, args = SOURCE, [ptr] * 4 + [i32] * 7 + [i64] * 12
-        elif name == "flash_attention_fwd_lse":
+        elif name in ("flash_attention_fwd_lse", "flash_attention_fwd_lse_mma"):
             source, args = SOURCE, [ptr] * 5 + [i32] * 7 + [i64] * 12
         elif name == "flash_attention_fwd_bias":
             source, args = BIAS_SOURCE, [ptr] * 5 + [i32] * 8 + [i64] * 15 + [i32]
@@ -377,6 +382,21 @@ def flash_attention_lse_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out
 
 
+def flash_attention_mma_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                             kv_valid: Optional[int] = None) -> torch.Tensor:
+    """Kernel 1's earlier ``mma.sync`` design for bfloat16 at every shape (f32
+    takes the FMA kernel, as in kernel 1), on CUDA tensors: the yardstick of
+    the ``wgmma`` design. Counts no launch; raises if it cannot launch."""
+    return _forward_cuda("flash_attention_fwd_mma", q, k, v, kv_valid, with_lse=False)
+
+
+def flash_attention_lse_mma_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                                 kv_valid: Optional[int] = None
+                                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Kernel 2's earlier ``mma.sync`` design, as ``flash_attention_mma_cuda``."""
+    return _forward_cuda("flash_attention_fwd_lse_mma", q, k, v, kv_valid, with_lse=True)
+
+
 def flash_attention_bias_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                               bias: torch.Tensor, kv_valid: Optional[int] = None
                               ) -> torch.Tensor:
@@ -470,18 +490,32 @@ def flash_attention_dkv_mma_cuda(q, k, v, do, lse, delta, kv_valid=None
     return _dkv("flash_attention_bwd_dkv_mma", q, k, v, do, lse, delta, kv_valid)[0]
 
 
-# Designs of kernels 3-4, by the code ``flash_attention_bwd_last_design``
-# returns.
-BWD_DESIGNS = ("fma", "mma.sync", "wgmma")
+# Designs of kernels 1-4, by the code ``flash_attention_fwd_last_design`` and
+# ``flash_attention_bwd_last_design`` return.
+DESIGNS = ("fma", "mma.sync", "wgmma")
+
+
+def _last_designs(source: str, entry: str, designs=DESIGNS
+                  ) -> Tuple[Optional[str], Optional[str]]:
+    """The names (``designs``, by code) of the designs the C entry ``entry``
+    reports for its two kernels' last launches; None before the first."""
+    fn = getattr(_build.load(source), entry)
+    fn.restype, fn.argtypes = ctypes.c_int, [ctypes.c_int]
+    return tuple(designs[c] if c >= 0 else None for c in (fn(0), fn(1)))
+
+
+def last_forward_designs() -> Tuple[Optional[str], Optional[str]]:
+    """The designs (``DESIGNS``) of the last launches of kernel 1 and of
+    kernel 2 in this process, through any of their entries (the ``_mma``
+    ones included), as the C side chose them; None before the first."""
+    return _last_designs(SOURCE, "flash_attention_fwd_last_design")
 
 
 def last_backward_designs() -> Tuple[Optional[str], Optional[str]]:
-    """The designs (``BWD_DESIGNS``) of the last launches of kernel 3 and of
+    """The designs (``DESIGNS``) of the last launches of kernel 3 and of
     kernel 4 in this process, as the C side chose them; None before the
     first."""
-    fn = _build.load(BWD_SOURCE).flash_attention_bwd_last_design
-    fn.restype, fn.argtypes = ctypes.c_int, [ctypes.c_int]
-    return tuple(BWD_DESIGNS[c] if c >= 0 else None for c in (fn(0), fn(1)))
+    return _last_designs(BWD_SOURCE, "flash_attention_bwd_last_design")
 
 
 def _on_cpu(q) -> bool:

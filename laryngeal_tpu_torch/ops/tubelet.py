@@ -17,11 +17,12 @@ product. Three routes, picked by ``tubelet_embed(impl=...)`` or
   runs its plain twin ``tubelet_embed_plain``, which rounds where the TPU
   kernel rounds: the weight and the bias are cast to the video's dtype, the
   product is accumulated in f32, the bias added in f32 and the output
-  rounded once. On a CUDA tensor of a shape kernel 10 does not take
-  (``kernel_takes``: kw·C in ``RUN_LENGTHS``, W·C and D multiples of 8) it
-  raises ``ValueError`` until the kernel is widened: the TPU kernel takes
-  any shape. The TPU kernel has no VJP, so this route raises
-  ``RuntimeError`` when autograd would need a gradient, on both devices.
+  rounded once. Kernel 10 takes every shape, as the TPU kernel does: kw·C
+  in ``RUN_LENGTHS`` with W·C and D multiples of 8 (ViViT-B's stem) runs
+  its run-length instance (``mma.sync`` in bf16), every other shape its
+  general path (the FMA units, scalar loads); ``last_design`` reports which
+  ran. The TPU kernel has no VJP, so this route raises ``RuntimeError``
+  when autograd would need a gradient, on both devices.
 
 All take channels-last video (B, T, H, W, C) and the Flax kernel layout
 (kt, kh, kw, C, D) with a (D,) bias; ``kernel_from_conv3d`` turns a
@@ -42,8 +43,11 @@ import torch.nn.functional as F
 from . import _build
 
 SOURCE = "tubelet_embed.cu"
-# Patch-row lengths kw·C the kernel is built for (its K-step).
+# Patch-row lengths kw·C of the run-length instances (their K-step); every
+# other shape takes the general path.
 RUN_LENGTHS = (16, 32, 48, 64)
+# Designs of kernel 10, by the code ``tubelet_embed_last_design`` returns.
+DESIGNS = ("fma", "mma.sync", "general")
 # Kernel launches since the count was last set to 0 (plain CPU calls do not
 # count); ``chip_smoke.py`` reads it to prove the path used the kernel.
 launches = 0
@@ -116,18 +120,26 @@ def error_limit(video, kernel, ref, tubelet=(2, 16, 16)) -> torch.Tensor:
     return 1e-5 * a + out_rel * ref.float().abs() + 1e-6
 
 
-def _check(video, kernel, bias, tubelet):
-    if video.ndim != 5 or kernel.ndim != 5 or bias.ndim != 1:
-        raise ValueError("tubelet_embed expects video (B, T, H, W, C), kernel "
-                         "(kt, kh, kw, C, D) and bias (D,)")
+def _shape_problem(video, kernel, tubelet) -> Optional[str]:
+    """Why video and kernel do not fit the tubelet, or None if they do."""
+    if video.ndim != 5 or kernel.ndim != 5:
+        return "tubelet_embed expects video (B, T, H, W, C) and kernel (kt, kh, kw, C, D)"
     _, t, h, w, c = video.shape
     kt, kh, kw = tubelet
-    if tuple(kernel.shape[:4]) != (kt, kh, kw, c) or bias.shape[0] != kernel.shape[4]:
-        raise ValueError(f"kernel {tuple(kernel.shape)} / bias {tuple(bias.shape)} do not "
-                         f"match tubelet {tuple(tubelet)} and {c} channels")
+    if tuple(kernel.shape[:4]) != (kt, kh, kw, c):
+        return (f"kernel {tuple(kernel.shape)} does not match tubelet {tuple(tubelet)} and "
+                f"{c} channels")
     if t % kt or h % kh or w % kw:
-        raise ValueError(f"video {tuple(video.shape)} is not a whole number of "
-                         f"{tuple(tubelet)} tubelets")
+        return f"video {tuple(video.shape)} is not a whole number of {tuple(tubelet)} tubelets"
+    return None
+
+
+def _check(video, kernel, bias, tubelet):
+    problem = _shape_problem(video, kernel, tubelet)
+    if problem is None and (bias.ndim != 1 or bias.shape[0] != kernel.shape[4]):
+        problem = f"bias {tuple(bias.shape)} is not (D,) = ({kernel.shape[4]},)"
+    if problem:
+        raise ValueError(problem)
 
 
 def _aligned(x: torch.Tensor) -> torch.Tensor:
@@ -135,17 +147,31 @@ def _aligned(x: torch.Tensor) -> torch.Tensor:
     return x if x.data_ptr() % 16 == 0 else x.clone()
 
 
-def kernel_takes(video, kernel, tubelet=(2, 16, 16)) -> bool:
-    """Whether kernel 10 takes this shape: kw·C in ``RUN_LENGTHS``, W·C and D
-    multiples of 8."""
+def run_length_takes(video, kernel, tubelet=(2, 16, 16)) -> bool:
+    """Whether a run-length instance of kernel 10 takes this shape: kw·C in
+    ``RUN_LENGTHS``, W·C and D multiples of 8 (else its general path runs)."""
     c, w, d = video.shape[-1], video.shape[-2], kernel.shape[-1]
     return tubelet[2] * c in RUN_LENGTHS and (w * c) % 8 == 0 and d % 8 == 0
 
 
+def kernel_takes(video, kernel, tubelet=(2, 16, 16)) -> bool:
+    """Whether kernel 10 takes this shape: every shape that fits the tubelet,
+    as the TPU kernel takes any (it pads M)."""
+    return _shape_problem(video, kernel, tubelet) is None
+
+
+def last_design() -> Optional[str]:
+    """The design (``DESIGNS``) of kernel 10's last launch in this process,
+    as the C side chose it; None before the first."""
+    fn = _build.load(SOURCE).tubelet_embed_last_design
+    fn.restype, fn.argtypes = ctypes.c_int, []
+    code = fn()
+    return DESIGNS[code] if code >= 0 else None
+
+
 def tubelet_embed_cuda(video, kernel, bias, tubelet=(2, 16, 16)) -> torch.Tensor:
-    """Kernel 10 on CUDA tensors: (B, N, D) in the video's dtype; raises if
-    it cannot launch. It takes kw·C in ``RUN_LENGTHS``, W·C and D multiples
-    of 8, float32 or bfloat16."""
+    """Kernel 10 on CUDA tensors: (B, N, D) in the video's dtype, float32 or
+    bfloat16, at every shape; raises if it cannot launch."""
     global launches, _fn
     _check(video, kernel, bias, tubelet)
     if not (video.is_cuda and kernel.is_cuda and bias.is_cuda):
@@ -155,9 +181,6 @@ def tubelet_embed_cuda(video, kernel, bias, tubelet=(2, 16, 16)) -> torch.Tensor
     b, t, h, w, c = video.shape
     kt, kh, kw = tubelet
     d = kernel.shape[4]
-    if not kernel_takes(video, kernel, tubelet):
-        raise ValueError(f"tubelet_embed_cuda needs kw*C in {RUN_LENGTHS} (got {kw * c}), "
-                         f"W*C (got {w * c}) and D (got {d}) multiples of 8")
     x = _aligned(video)
     wk = _aligned(flatten_kernel(kernel).to(video.dtype))
     bk = _aligned(bias.to(video.dtype))

@@ -34,17 +34,23 @@ backward; otherwise kernel 8. On a CPU tensor each kernel is replaced by its
 plain twin (``window_attention_plain``, ``window_attention_plain_bwd``); on a
 CUDA tensor each wrapper launches its kernel or raises.
 
-The kernels take every N <= ``MAX_SEQ`` (448 = 7 key tiles of 64; Swin3D's
-full (8, 7, 7) window is 392) and D <= 128 (padded to a multiple of 8 inside
-the wrapper), N a multiple of 8 or not, and keep the bias in f32 at every
-such N. The JAX package takes its Pallas kernel at N % 8 == 0 and D <= 256
-and XLA's attention elsewhere, with the bias rounded to the compute dtype
-(``laryngeal_tpu/ops/attention.py:124-166``). Where JAX takes XLA and the
-kernels do not take the shape, the router (``ops.attention.window_attention``)
-runs ``window_attention_xla`` (the rounded bias) on either device,
-differentiated by autograd and counting no launch. Where JAX's Pallas kernel
-takes a shape the kernels do not (N > 448 or 128 < D <= 256, N % 8 == 0),
-a CUDA call raises until the kernels are widened.
+The kernels take every shape where the JAX package runs its Pallas kernel
+(N % 8 == 0 and D <= 256, ``supports_shape``,
+``laryngeal_tpu/ops/window_attention.py:247-250``), and every N <=
+``HELD_MAX_SEQ`` besides (448 = 7 key tiles of 64; Swin3D's full (8, 7, 7)
+window is 392), D padded to a multiple of 8 inside the wrapper. Two
+designs: the held ones (bias rows held in shared memory, ``mma.sync`` in
+bf16, the FMA kernel with fixed shared arrays in f32) at N <=
+``HELD_MAX_SEQ`` and D <= ``HELD_MAX_HEAD_DIM`` (128), and the wide path at
+every other shape (the FMA units, the bias, region ids and row statistics
+read from device memory, up to D = 256). The C side picks one per call and
+``last_designs`` reports which ran. The bias stays f32 at every shape the
+kernels take. Where JAX takes XLA and the kernels do not take the shape (N
+% 8 != 0 with N > 448, or D > 256), the router
+(``ops.attention.window_attention``) runs ``window_attention_xla`` (the
+bias rounded to the compute dtype, ``laryngeal_tpu/ops/attention.py:
+124-166``) on either device, differentiated by autograd and counting no
+launch.
 """
 
 from __future__ import annotations
@@ -56,15 +62,19 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from . import _build
-from .flash_attention import F32_REL, _DTYPE_CODE, _check_cuda, _head_dims, _on_cpu, _prepare, \
-    _stream
+from .flash_attention import F32_REL, _DTYPE_CODE, _check_cuda, _head_dims, _last_designs, \
+    _on_cpu, _prepare, _stream
 
 SOURCE = "window_attention.cu"
-MAX_HEAD_DIM = 128
-MAX_SEQ = 448
+# The held designs' domain; the wide path takes the rest of ``kernel_takes``.
+HELD_MAX_SEQ = 448
+HELD_MAX_HEAD_DIM = 128
 # The JAX package's gate for its Pallas window kernel (``supports_shape``,
 # ``laryngeal_tpu/ops/window_attention.py:247-250``): N % 8 == 0 and D <= this.
 JAX_PALLAS_MAX_HEAD_DIM = 256
+MAX_HEAD_DIM = JAX_PALLAS_MAX_HEAD_DIM
+# Designs of kernels 8-9, by the code ``window_attention_last_design`` returns.
+DESIGNS = ("fma", "mma.sync", "wide")
 MASK_VALUE = -100.0  # torchvision's Swin adds -100 across shifted-region boundaries
 # Softmax modes of the forward kernel: 0 = exp (kernel 8), 1 = (s - m) rounded
 # to bf16 before exp, 2 = exp2 of (s - m)·log2(e) (kernel 11's two softmaxes).
@@ -128,24 +138,37 @@ def _check(q, k, v, bias, region_id):
 
 
 def _check_kernel(q, k, v, bias, region_id):
-    """The kernels' contract: ``_check`` plus 1 <= N <= MAX_SEQ and
-    head_dim <= MAX_HEAD_DIM."""
+    """The kernels' contract: ``_check`` plus ``kernel_takes`` (N, D)."""
     _check(q, k, v, bias, region_id)
-    if not 1 <= q.shape[1] <= MAX_SEQ:
-        raise ValueError(f"window length {q.shape[1]} is outside 1..{MAX_SEQ}")
-    if q.shape[-1] > MAX_HEAD_DIM:
-        raise ValueError(f"head dim {q.shape[-1]} > {MAX_HEAD_DIM} is not supported")
+    n, d = q.shape[1], q.shape[-1]
+    if not kernel_takes(n, d):
+        raise ValueError(f"kernels 8-9 take N <= {HELD_MAX_SEQ} at D <= {HELD_MAX_HEAD_DIM}, or "
+                         f"N % 8 == 0 at D <= {MAX_HEAD_DIM}; got N = {n}, D = {d}")
+
+
+def held_takes(n: int, d: int) -> bool:
+    """Whether the held designs take windows of ``n`` positions at head dim
+    ``d`` (elsewhere in ``kernel_takes`` the wide path runs)."""
+    return 1 <= n <= HELD_MAX_SEQ and d <= HELD_MAX_HEAD_DIM
 
 
 def kernel_takes(n: int, d: int) -> bool:
-    """Whether kernels 8-9 take windows of ``n`` positions at head dim ``d``."""
-    return 1 <= n <= MAX_SEQ and d <= MAX_HEAD_DIM
+    """Whether kernels 8-9 take windows of ``n`` positions at head dim ``d``:
+    the held designs' domain and every shape of the JAX Pallas kernel's."""
+    return held_takes(n, d) or (n >= 1 and jax_takes_pallas(n, d))
 
 
 def jax_takes_pallas(n: int, d: int) -> bool:
     """Whether the JAX package takes its Pallas kernel (f32 bias) at (n, d);
     elsewhere it takes XLA with the bias rounded to the compute dtype."""
     return n % 8 == 0 and d <= JAX_PALLAS_MAX_HEAD_DIM
+
+
+def last_designs() -> Tuple[Optional[str], Optional[str]]:
+    """The designs (``DESIGNS``) of the last launches of kernel 8 (the
+    kernel-11/12 variants included) and of kernel 9 in this process, as the
+    C side chose them; None before the first."""
+    return _last_designs(SOURCE, "window_attention_last_design", DESIGNS)
 
 
 def region_mask(region_id: torch.Tensor) -> torch.Tensor:
@@ -358,17 +381,24 @@ def heads_per_block(h: int) -> int:
     return 2 if h % 2 == 0 else (3 if h % 3 == 0 else 1)
 
 
+def _check_variant(q, k, v, bias, region_id, kind: str):
+    """The variants' contract: a known ``kind``, ``_check_kernel``, and the
+    held designs' N <= HELD_MAX_SEQ at D <= VARIANT_MAX_HEAD_DIM."""
+    if kind not in VARIANTS:
+        raise ValueError(f"unknown variant {kind!r}; expected one of {VARIANTS}")
+    _check_kernel(q, k, v, bias, region_id)
+    if q.shape[-1] > VARIANT_MAX_HEAD_DIM or q.shape[1] > HELD_MAX_SEQ:
+        raise ValueError(f"the kernel-11/12 variants take head dim <= {VARIANT_MAX_HEAD_DIM} "
+                         f"and N <= {HELD_MAX_SEQ}, got {q.shape[-1]} and {q.shape[1]}")
+
+
 def window_attention_variant_cuda(q, k, v, bias, region_id, kind: str) -> torch.Tensor:
     """Kernel 11 (``kind`` 'bf16sm' or 'exp2') or kernel 12 ('h2') on CUDA
     bfloat16 tensors; raises if it cannot launch."""
-    if kind not in VARIANTS:
-        raise ValueError(f"unknown variant {kind!r}; expected one of {VARIANTS}")
+    _check_variant(q, k, v, bias, region_id, kind)
     if q.dtype != torch.bfloat16:
         raise ValueError(f"the kernel-11/12 variants take bfloat16 (the ablation's dtype), "
                          f"got {q.dtype}")
-    if q.shape[-1] > VARIANT_MAX_HEAD_DIM:
-        raise ValueError(f"the kernel-11/12 variants take head dim <= {VARIANT_MAX_HEAD_DIM}, "
-                         f"got {q.shape[-1]}")
     if kind == "h2":
         out = _launch_fwd(q, k, v, bias, region_id, MODES["exp"], heads_per_block(q.shape[2]))
     else:
@@ -380,23 +410,24 @@ def window_attention_variant_cuda(q, k, v, bias, region_id, kind: str) -> torch.
 def window_attention_variant(q, k, v, bias, region_id, kind: str) -> torch.Tensor:
     """A kernel-11/12 ablation variant of kernel 8 (forward only): kernel on
     CUDA, ``window_attention_plain(..., kind)`` on the CPU."""
-    _check_kernel(q, k, v, bias, region_id)
+    _check_variant(q, k, v, bias, region_id, kind)
     if _on_cpu(q):
         return window_attention_plain(q, k, v, bias, region_id, kind)
     return window_attention_variant_cuda(q, k, v, bias, region_id, kind)
 
 
-def dbias_groups(bw: int, n: int, h: int, sm_count: int, dtype: torch.dtype) -> Tuple[int, int]:
+def dbias_groups(bw: int, n: int, h: int, sm_count: int, dtype: torch.dtype,
+                 wide: bool = False) -> Tuple[int, int]:
     """(windows a group, groups) of kernel 9's dbias partial sums. Each
     group's (H, N, N) partial goes to a scratch buffer that a last launch
-    sums in group order. bf16: one block per (head, 64-query tile, 64-key
-    tile, window group) keeps its tile of the sum in registers over the
-    group's windows, 4 blocks an SM; f32: one block per (head, 64-query
-    tile, window group) keeps its 64 rows in shared memory, 2 blocks an SM.
-    The group count minimises (waves of blocks) x (windows a block walks +
-    1, its partial's write)."""
+    sums in group order. bf16, held design: one block per (head, 64-query
+    tile, 64-key tile, window group) keeps its tile of the sum in registers
+    over the group's windows, 4 blocks an SM; f32 and the wide path
+    (``wide``): one block per (head, 64-query tile, window group) keeps its
+    64 rows in shared memory, 2 blocks an SM. The group count minimises
+    (waves of blocks) x (windows a block walks + 1, its partial's write)."""
     n_t = -(-n // 64)
-    if dtype == torch.bfloat16:
+    if dtype == torch.bfloat16 and not wide:
         tiles, resident = h * n_t * n_t, 4 * sm_count
     else:
         tiles, resident = h * n_t, 2 * sm_count
@@ -429,7 +460,8 @@ def window_attention_bwd_cuda(q, k, v, bias, region_id, do):
     dbias = torch.empty((h, n, n), dtype=torch.float32, device=q.device)
     stats = torch.empty((bw, h, 3, n), dtype=torch.float32, device=q.device)
     per_group, groups = dbias_groups(
-        bw, n, h, torch.cuda.get_device_properties(q.device).multi_processor_count, q.dtype)
+        bw, n, h, torch.cuda.get_device_properties(q.device).multi_processor_count, q.dtype,
+        wide=not held_takes(n, d_pad))
     partial = (torch.empty((groups, h, n, n), dtype=torch.float32, device=q.device)
                if groups > 1 else dbias)
     rid_ptr, nw, rid = _rid_arg(region_id, q.device)
@@ -489,7 +521,7 @@ class WindowAttentionFn(torch.autograd.Function):
 def window_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                             bias: torch.Tensor,
                             region_id: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Window attention over (B·nW, N, H, D), N <= MAX_SEQ, D <= 128.
+    """Window attention over (B·nW, N, H, D) at a shape ``kernel_takes``.
 
     Under autograd (grad enabled and q, k, v or bias requiring grad) it runs
     ``WindowAttentionFn`` (kernels 8 and 9); otherwise kernel 8. CPU tensors

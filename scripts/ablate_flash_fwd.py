@@ -1,0 +1,192 @@
+"""What the wgmma design of kernels 1-2 (the flash-attention forward, without
+and with lse) spends its time on, on one CUDA card.
+
+    python3 scripts/ablate_flash_fwd.py
+
+Builds ``laryngeal_tpu_torch/csrc/flash_attention_fwd.cu`` as it is and with
+one part of the wgmma kernel's work taken out or changed at a time (text
+edits of a copy in a temporary directory; the variants that take work out
+compute a wrong result by design, the others compute the right one and time
+a choice of the design), then times kernel 1 and then kernel 2 of each at
+the ViViT-B shape (8, 3137, 12, 64) bf16: 20 launches back to back between
+CUDA events, the median of 3 rounds, the variants in turns (in order, then
+reversed). Variants:
+
+- ``as_is``: the kernels;
+- ``loads_only``: the consumers wait for each K and V tile and release it
+  (the TMA loads and the stage ring alone);
+- ``products_only``: no softmax: the score accumulators, rounded to bf16, go
+  to P V as they are (no max, exp2, sums or rescale);
+- ``no_exp``: exp2 of the probabilities replaced by its argument (the
+  special-function unit's share);
+- ``no_pack``: the f32 -> bf16 pack of P replaced by a byte permute (the
+  conversion's share);
+- ``schedule_next_s``: each consumer warpgroup issues the next 64-key
+  step's S = Q K^T, runs this step's softmax while it runs, then issues
+  P V, instead of running the softmax first and issuing P V with the next
+  S as one batch;
+- ``turns``, ``turns_next_s``: the consumer warpgroups take turns issuing
+  their products (a ring of named barriers), in the kernel's schedule and
+  in ``schedule_next_s``'s;
+- ``q_in_smem``: S = Q K^T with Q read from shared memory by each product
+  (SS wgmma) instead of held in registers (RS);
+- ``two_warpgroups``: two consumer warpgroups (128 query rows a block)
+  instead of three at D <= 64;
+- ``keys_128``: steps of 128 keys (two K and two V tiles a ring stage)
+  instead of 64 at D <= 64;
+- ``not_persistent``: one block a work item (64 query rows a consumer
+  warpgroup, one (b, h)) instead of one block an SM walking the items;
+- ``stages_3``, ``stages_6``: a ring of 3 or 6 K/V tile pairs instead of 4.
+
+Prints the card's name and power limit, one line per variant, and the
+variants as one JSON object last. Needs nvcc and a card.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import json
+import subprocess
+import sys
+import tempfile
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
+
+import numpy as np
+import torch
+
+sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+from laryngeal_tpu_torch.ops import _build  # noqa: E402
+from laryngeal_tpu_torch.ops import flash_attention as fa  # noqa: E402
+
+SHAPE = (8, 3137, 12, 64)
+SOURCE = "flash_attention_fwd.cu"
+PERM = ("#include \"wgmma_tiles.cuh\"\n#define PERM(a, b) "
+        "__byte_perm(__float_as_uint(a), __float_as_uint(b), 0x7632)\n")
+CONSUMER = ("    for (int item = blockIdx.x, it = 0; item < n_items; item += gridDim.x, ++it) {\n"
+            "      [[maybe_unused]] const bool last_item")
+LOADS_ONLY = ("    for (int item = blockIdx.x, it = 0; item < n_items; item += gridDim.x, ++it) {\n"
+              "      hopper::mbar_wait(q_full, it & 1);  // ablation: loads only\n"
+              "      arrive(q_empty);\n"
+              "      for (int t = 0; t < n_steps; ++t) {\n"
+              "        wait_k(t);\n"
+              "        wait_v(t);\n"
+              "        release(t);\n"
+              "      }\n"
+              "      step0 += n_steps;\n"
+              "    }\n"
+              "    if (n_items > 0) return;\n")
+SOFTMAX = "  const float neg_inf = __int_as_float(0xff800000);\n"
+PRODUCTS_ONLY = ("  alpha[0] = alpha[1] = 1.f;  // ablation: products only\n"
+                 "#pragma unroll\n"
+                 "  for (int j = 0; j < KT; ++j)\n"
+                 "#pragma unroll\n"
+                 "    for (int kk = 0; kk < 4; ++kk)\n"
+                 "#pragma unroll\n"
+                 "      for (int r = 0; r < 4; ++r)\n"
+                 "        pa[j][kk][r] =\n"
+                 "            pack_bf16(s[j][8 * kk + 2 * r], s[j][8 * kk + 2 * r + 1]);\n"
+                 "  if (n_valid > -1) return;\n")
+EXP = "hopper::exp2_approx(fmaf(s[j][i], sl2, -m[r]))"
+PACK = "pack_bf16(s[j][8 * kk + 2 * r], s[j][8 * kk + 2 * r + 1]);\n}"
+SCHEDULE = "constexpr Schedule kSchedule = kBatch;"
+TURNS = "constexpr bool kTurns = false;"
+QREGS = "constexpr bool kQRegs = true;"
+WARPGROUPS = "constexpr int kFwdWarpgroups = HD <= 64 ? 3 : 2;"
+KEY_TILES = "constexpr int kKeyTiles = 1;"
+STAGES = "static constexpr int kStages = 4;"
+PERSISTENT = "constexpr bool kPersistent = true;"
+VARIANTS = {
+    "as_is": [],
+    "loads_only": [[CONSUMER, LOADS_ONLY + CONSUMER]],
+    "products_only": [[SOFTMAX, PRODUCTS_ONLY + SOFTMAX]],
+    "no_exp": [[EXP, "fmaf(s[j][i], sl2, -m[r])"]],
+    "no_pack": [["#include \"wgmma_tiles.cuh\"\n", PERM],
+                [PACK, PACK.replace("pack_bf16", "PERM")]],
+    "schedule_next_s": [[SCHEDULE, SCHEDULE.replace("kBatch", "kNextSOverlap")]],
+    "turns": [[TURNS, TURNS.replace("false", "true")]],
+    "turns_next_s": [[SCHEDULE, SCHEDULE.replace("kBatch", "kNextSOverlap")],
+                     [TURNS, TURNS.replace("false", "true")]],
+    "q_in_smem": [[QREGS, QREGS.replace("true", "false")]],
+    "two_warpgroups": [[WARPGROUPS, "constexpr int kFwdWarpgroups = 2;"]],
+    "keys_128": [[KEY_TILES, "constexpr int kKeyTiles = HD <= 64 ? 2 : 1;"]],
+    "not_persistent": [[PERSISTENT, PERSISTENT.replace("true", "false")]],
+    "stages_3": [[STAGES, STAGES.replace("4", "3")]],
+    "stages_6": [[STAGES, STAGES.replace("4", "6")]],
+}
+ENTRIES = ("flash_attention_fwd", "flash_attention_fwd_lse")  # kernel 1, then kernel 2
+
+
+def build(name: str, workdir: Path) -> dict:
+    """The variant's two C entries, by name, from a library built in ``workdir``."""
+    text = (_build.CSRC_DIR / SOURCE).read_text()
+    for old, new in VARIANTS[name]:
+        if old not in text:
+            raise RuntimeError(f"variant {name}: the source no longer holds {old[:60]!r}")
+        text = text.replace(old, new)
+    src, lib = workdir / f"{name}.cu", workdir / f"{name}.so"
+    src.write_text(text)
+    proc = subprocess.run([_build.find_nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC_DIR),
+                           "-o", str(lib), str(src)], capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {name}:\n{proc.stdout}{proc.stderr}")
+    advisories = [line.strip() for line in (proc.stdout + proc.stderr).splitlines()
+                  if "(C75" in line and "fwd_wgmma_kernel" in line]
+    if advisories:
+        print(f"{name}: {len(advisories)} ptxas advisories, e.g. {advisories[0][:160]}",
+              flush=True)
+    dll = ctypes.CDLL(str(lib))
+    fns = {}
+    for entry in ENTRIES:
+        fn = getattr(dll, entry)
+        fn.restype = ctypes.c_int
+        fn.argtypes = fa._kernel(entry).argtypes
+        fns[entry] = fn
+    return fns
+
+
+def queued_ms(fn, reps: int = 20) -> float:
+    fn()
+    times = []
+    for _ in range(3):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / reps)
+    return float(np.median(times))
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("ablate_flash_fwd: no CUDA device is available", file=sys.stderr)
+        return 2
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip(), flush=True)
+    b, n, h, d = SHAPE
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    q, k, v = (torch.randn((b, n, h, d), generator=gen, device="cuda").to(torch.bfloat16)
+               for _ in range(3))
+    calls = {"flash_attention_fwd": lambda: fa.flash_attention_cuda(q, k, v),
+             "flash_attention_fwd_lse": lambda: fa.flash_attention_lse_cuda(q, k, v)}
+    with tempfile.TemporaryDirectory() as tmp, ThreadPoolExecutor(len(VARIANTS)) as pool:
+        libs = dict(zip(VARIANTS, pool.map(lambda name: build(name, Path(tmp)), VARIANTS)))
+        times = {entry: {name: [] for name in libs} for entry in ENTRIES}
+        for entry in ENTRIES:
+            for order in (list(libs), list(libs)[::-1]):
+                for name in order:
+                    fa._fns[entry] = libs[name][entry]  # the wrapper launches the variant
+                    times[entry][name].append(queued_ms(calls[entry]))
+        fa._fns.clear()
+    ms = {entry: {name: sum(t) / len(t) for name, t in by.items()} for entry, by in times.items()}
+    for entry, by in ms.items():
+        for name, t in by.items():
+            print(f"{entry} {name}: {t:.4f} ms ({t / by['as_is']:.3f} of as_is)", flush=True)
+    print(json.dumps({"shape": list(SHAPE), "queued_ms": ms}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

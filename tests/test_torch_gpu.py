@@ -168,6 +168,117 @@ def test_lse_kernel_matches_plain(cuda, shape, dtype):
     assert (lse - ref_lse).abs().max().item() <= fa.LSE_TOL
 
 
+# Kernels 1-2's phase-2 cases at small batch: (B, Nq, Nk, H, D, kv_valid,
+# layout): the ViViT-B sequence (N = 3137, a one-key last tile), N = 300 with
+# kv_valid, Nq != Nk both ways, D = 32, 40 (padded to 48) and 128, views of
+# a fused (B, N, 3, H, D) projection and (B, H, N, D) tensors transposed.
+FWD_CASES = [
+    (1, 3137, 3137, 2, 64, None, "contiguous"),
+    (2, 300, 300, 3, 64, 250, "contiguous"),
+    (2, 257, 1100, 3, 64, None, "contiguous"),
+    (2, 1100, 257, 3, 64, 200, "contiguous"),
+    (2, 1000, 1000, 2, 32, 900, "contiguous"),
+    (2, 700, 700, 2, 40, None, "contiguous"),
+    (1, 600, 600, 2, 128, 555, "contiguous"),
+    (1, 3137, 3137, 2, 64, None, "fused"),
+    (2, 1000, 777, 2, 64, 700, "bhnd"),
+]
+
+
+def _fwd_inputs(case, device, seed=0):
+    """q, k, v of a FWD_CASES case in its layout, bfloat16 on ``device``."""
+    b, nq, nk, h, d, _, layout = case
+    rng = np.random.default_rng(seed)
+    mk = lambda *shape: torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(
+        device=device, dtype=torch.bfloat16)
+    if layout == "fused":
+        return mk(b, nq, 3, h, d).unbind(2)
+    if layout == "bhnd":
+        return mk(b, h, nq, d).transpose(1, 2), *(mk(b, h, nk, d).transpose(1, 2)
+                                                  for _ in range(2))
+    return mk(b, nq, h, d), mk(b, nk, h, d), mk(b, nk, h, d)
+
+
+@pytest.mark.parametrize("case", FWD_CASES, ids=str)
+def test_forward_designs_both_match_plain(cuda, case):
+    """bf16: kernels 1 and 2 in the entries' design (wgmma) and in the
+    earlier mma.sync design (the _mma entries) are all within error_limit,
+    lse within LSE_TOL, and kernel 1 gives kernel 2's bits."""
+    kv_valid = case[5]
+    q, k, v = _fwd_inputs(case, cuda)
+    ref, ref_lse = fa.attention_plain_lse(q, k, v, kv_valid)
+    for design, (one, two) in (
+            ("wgmma", (fa.flash_attention_cuda, fa.flash_attention_lse_cuda)),
+            ("mma.sync", (fa.flash_attention_mma_cuda, fa.flash_attention_lse_mma_cuda))):
+        out = one(q, k, v, kv_valid)
+        out2, lse = two(q, k, v, kv_valid)
+        torch.cuda.synchronize()
+        assert fa.last_forward_designs() == (design, design)
+        assert out.shape == ref.shape and out.dtype == torch.bfloat16
+        assert _within_limit(q, k, v, kv_valid, out, ref) <= 1.0, design
+        assert torch.equal(out, out2), design
+        assert (lse - ref_lse).abs().max().item() <= fa.LSE_TOL, design
+
+
+@pytest.mark.parametrize("case", [FWD_CASES[0], FWD_CASES[3], FWD_CASES[6]], ids=str)
+def test_forward_kernels_are_deterministic(cuda, case):
+    """Two calls of the wgmma design give bitwise the same o and lse."""
+    q, k, v = _fwd_inputs(case, cuda, seed=1)
+    (o1, l1), (o2, l2) = (fa.flash_attention_lse_cuda(q, k, v, case[5]) for _ in range(2))
+    torch.cuda.synchronize()
+    assert torch.equal(o1, o2) and torch.equal(l1, l2)
+
+
+@pytest.mark.parametrize("case", [c for c in FWD_CASES if c[6] != "contiguous"] + [
+    (2, 333, 200, 3, 32, None, "fused"), (2, 333, 200, 3, 128, 150, "bhnd")], ids=str)
+def test_forward_kernels_read_fused_and_transposed_views(cuda, case):
+    """Views of a fused projection or of transposed (B, H, N, D) tensors:
+    kernels 1-2 read them through their strides (the wgmma design, TMA) and
+    give bitwise the o and lse of contiguous copies."""
+    q, k, v = _fwd_inputs(case, cuda, seed=2)
+    views = fa.flash_attention_lse_cuda(q, k, v, case[5])
+    assert fa.last_forward_designs()[1] == "wgmma"
+    copies = fa.flash_attention_lse_cuda(*(x.contiguous() for x in (q, k, v)), case[5])
+    torch.cuda.synchronize()
+    assert torch.equal(views[0], copies[0]) and torch.equal(views[1], copies[1])
+
+
+def test_forward_kernels_report_the_design_they_ran(cuda):
+    """The C side reports the design of its last launch: bf16 takes wgmma at
+    every head dim when every stride is positive, mma.sync for a stride of 0
+    (a broadcast key, which TMA cannot describe) and through the _mma
+    entries; f32 the FMA kernel."""
+    q, k, v = _qkv((1, 200, 2, 64), (1, 150, 2, 64), torch.bfloat16, cuda)
+    for d in (32, 64, 128):
+        qd, kd, vd = (torch.nn.functional.pad(x, (0, d - 64)) if d > 64 else x[..., :d]
+                      for x in (q, k, v))
+        fa.flash_attention_cuda(qd, kd, vd)
+        fa.flash_attention_lse_cuda(qd, kd, vd)
+        assert fa.last_forward_designs() == ("wgmma", "wgmma"), d
+    kb, vb = (x[:, :1].expand(-1, 150, -1, -1) for x in (k, v))  # sequence stride 0
+    out = fa.flash_attention_cuda(q, kb, vb)
+    assert fa.last_forward_designs()[0] == "mma.sync"
+    assert _within_limit(q, kb, vb, None, out, fa.attention_plain(q, kb, vb)) <= 1.0
+    fa.flash_attention_mma_cuda(q, k, v)
+    fa.flash_attention_lse_mma_cuda(q, k, v)
+    assert fa.last_forward_designs() == ("mma.sync", "mma.sync")
+    fa.flash_attention_cuda(q.float(), k.float(), v.float())
+    fa.flash_attention_lse_cuda(q.float(), k.float(), v.float())
+    assert fa.last_forward_designs() == ("fma", "fma")
+
+
+def test_forward_kernels_count_one_launch_per_call(cuda):
+    """Kernel 1's wrapper counts one launch of kernel 1, kernel 2's one of
+    kernel 2; the mma.sync design's wrappers count none."""
+    q, k, v = _qkv((1, 300, 2, 64), (1, 300, 2, 64), torch.bfloat16, cuda)
+    for fn, want in ((fa.flash_attention_cuda, (1, 0)), (fa.flash_attention_lse_cuda, (0, 1)),
+                     (fa.flash_attention_mma_cuda, (0, 0)),
+                     (fa.flash_attention_lse_mma_cuda, (0, 0))):
+        before = (fa.launches, fa.lse_launches)
+        fn(q, k, v)
+        assert (fa.launches - before[0], fa.lse_launches - before[1]) == want, fn.__name__
+
+
 # Kernels 3-4: SHAPES, then the ViViT-B sequence (N = 3137 = 49 x 64 + 1, a
 # one-row last tile) at D = 64 and at D = 128 with kv_valid, and Nq != Nk both
 # ways at D = 32 (kv_valid) and 40 (padded to 48).
@@ -752,9 +863,9 @@ def test_window_router_and_bad_input(cuda):
     """The router's kernel impl launches kernel 8 on CUDA at every N up to
     448. Beyond it at N % 8 != 0 (449) the JAX package takes XLA and so does
     the router (the rounded bias, no launch); at D = 136, N = 8, JAX runs
-    its Pallas kernel, which kernels 8-9 do not match yet, and the router
-    raises. The kernels refuse float16 and D > 128, and the variants refuse
-    f32 and D > 64."""
+    its Pallas kernel and so does the router (kernel 8's wide path). The
+    kernels refuse float16 and D > 256, and the variants refuse f32, D > 64
+    and N > 448."""
     from laryngeal_tpu_torch.ops import attention as att
 
     q, k, v, bias, rid, _ = _window_inputs((2, 7, 2, 32, 1), torch.bfloat16, cuda)
@@ -773,39 +884,110 @@ def test_window_router_and_bad_input(cuda):
     with pytest.raises(ValueError):
         wa.window_attention_forward(q, k, v, bias, rid)
     q, k, v, bias, rid, _ = _window_inputs((1, 8, 1, 136, None), torch.bfloat16, cuda)
+    before = wa.fwd_launches
+    out = att.window_attention(q, k, v, bias, rid)
+    torch.cuda.synchronize()
+    assert wa.fwd_launches == before + 1 and wa.last_designs()[0] == "wide"
+    ref = wa.window_attention_plain(q, k, v, bias, rid)
+    assert ((out.float() - ref.float()).abs() / wa.error_limit(q, k, v, bias, rid, ref)).max() <= 1
+    q, k, v, bias, rid, _ = _window_inputs((1, 8, 1, 264, None), torch.bfloat16, cuda)
     with pytest.raises(ValueError):
-        att.window_attention(q, k, v, bias, rid)
+        wa.window_attention_forward(q, k, v, bias, rid)
     q, k, v, bias, rid, _ = _window_inputs((1, 8, 2, 32, None), torch.float32, cuda)
     with pytest.raises(ValueError):
         wa.window_attention_variant(q, k, v, bias, rid, "h2")
     q, k, v, bias, rid, _ = _window_inputs((1, 8, 2, 128, None), torch.bfloat16, cuda)
     with pytest.raises(ValueError):
         wa.window_attention_variant(q, k, v, bias, rid, "exp2")
+    q, k, v, bias, rid, _ = _window_inputs((1, 456, 1, 32, None), torch.bfloat16, cuda)
+    with pytest.raises(ValueError):
+        wa.window_attention_variant(q, k, v, bias, rid, "bf16sm")
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", [(2, 456, 1, 32, 2), (2, 453, 1, 32, 1), (4, 64, 2, 160, 2)],
                          ids=str)
 def test_window_router_outside_the_kernels_domain_follows_jax(cuda, shape, dtype):
-    """Outside N <= 448, D <= 128, where the JAX package takes XLA
-    (N % 8 != 0: 453) the router computes window_attention_xla (the bias
-    rounded to q's dtype) on the card; where JAX runs its Pallas kernel
-    (N % 8 == 0, D <= 256: 456, and 64 at D = 160) it raises until kernels
-    8-9 take the shape. No kernel launches either way."""
+    """Outside the held designs' domain (N <= 448, D <= 128), where the JAX
+    package takes XLA (N % 8 != 0: 453) the router computes
+    window_attention_xla (the bias rounded to q's dtype) on the card with no
+    launch; where JAX runs its Pallas kernel (N % 8 == 0, D <= 256: 456, and
+    64 at D = 160) the router launches kernel 8 (its wide path), held
+    against its plain twin."""
     from laryngeal_tpu_torch.ops import attention as att
 
     q, k, v, bias, rid, _ = _window_inputs(shape, dtype, cuda)
     _, n, _, d, _ = shape
     before = wa.launch_counts()
+    out = att.window_attention(q, k, v, bias, rid)
+    torch.cuda.synchronize()
+    assert out.dtype == dtype and out.shape == q.shape
+    after = wa.launch_counts()
     if wa.jax_takes_pallas(n, d):
-        with pytest.raises(ValueError):
-            att.window_attention(q, k, v, bias, rid)
+        assert after["window_attention_fwd"] == before["window_attention_fwd"] + 1
+        assert wa.last_designs()[0] == "wide"
+        ref = wa.window_attention_plain(q, k, v, bias, rid)
+        limit = wa.error_limit(q, k, v, bias, rid, ref)
+        assert ((out.float() - ref.float()).abs() / limit).max().item() <= 1.0
     else:
-        out = att.window_attention(q, k, v, bias, rid)
-        torch.cuda.synchronize()
-        assert out.dtype == dtype and torch.equal(out, wa.window_attention_xla(q, k, v, bias,
-                                                                               rid))
-    assert wa.launch_counts() == before
+        assert after == before
+        assert torch.equal(out, wa.window_attention_xla(q, k, v, bias, rid))
+
+
+# The wide path of kernels 8-9 (B·nW, N, H, D, nW): N % 8 == 0 beyond 448,
+# and 128 < D <= 256 (150 padded to 152 inside the wrapper), with and without
+# region ids.
+WIDE_WINDOW_SHAPES = [
+    (4, 512, 3, 32, 2),
+    (2, 784, 2, 32, None),
+    (2, 392, 2, 192, 2),
+    (2, 392, 1, 256, None),
+    (3, 520, 2, 64, 3),
+    (2, 96, 3, 150, 1),
+    (1, 1024, 1, 128, None),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", WIDE_WINDOW_SHAPES, ids=str)
+def test_window_wide_path_matches_plain(cuda, shape, dtype):
+    """Kernels 8 and 9 at shapes only JAX's Pallas kernel took before: the
+    wide path runs (the C side says so), one launch each, forward and every
+    gradient (dbias summed over the windows) within their limits."""
+    q, k, v, bias, rid, g = _window_inputs(shape, dtype, cuda, seed=5)
+    before = wa.launch_counts()
+    out = wa.window_attention_forward(q, k, v, bias, rid)
+    grads = wa.window_attention_backward(q, k, v, bias, rid, g)
+    torch.cuda.synchronize()
+    after = wa.launch_counts()
+    assert after["window_attention_fwd"] == before["window_attention_fwd"] + 1
+    assert after["window_attention_bwd"] == before["window_attention_bwd"] + 1
+    assert wa.last_designs() == ("wide", "wide")
+    ref = wa.window_attention_plain(q, k, v, bias, rid)
+    assert ((out.float() - ref.float()).abs()
+            / wa.error_limit(q, k, v, bias, rid, ref)).max().item() <= 1.0
+    refs = wa.window_attention_plain_bwd(q, k, v, bias, rid, g)
+    limits = wa.backward_error_limit(q, k, v, bias, rid, g, refs)
+    for name, got, ref_g, lim in zip(("dq", "dk", "dv", "dbias"), grads, refs, limits):
+        assert got.dtype == ref_g.dtype and got.shape == ref_g.shape, name
+        assert ((got.float() - ref_g.float()).abs() / lim).max().item() <= 1.0, name
+
+
+def test_window_wide_path_is_deterministic_and_reads_views(cuda):
+    """The wide path gives bitwise the same results over two calls, and on
+    views of a fused (B·nW, N, 3, H, D) qkv the bits of contiguous copies."""
+    rng = np.random.default_rng(6)
+    qkv = torch.from_numpy(rng.standard_normal((4, 512, 3, 2, 32), dtype=np.float32))
+    q, k, v = qkv.to(cuda, torch.bfloat16).unbind(2)
+    g = torch.from_numpy(rng.standard_normal(q.shape, dtype=np.float32)).to(cuda, torch.bfloat16)
+    bias = torch.from_numpy(rng.standard_normal((2, 512, 512), dtype=np.float32)).to(cuda)
+    rid = torch.from_numpy(rng.integers(0, 3, (2, 512)).astype(np.int32)).to(cuda)
+    runs = [(wa.window_attention_forward(*xs, bias, rid),
+             *wa.window_attention_backward(*xs, bias, rid, g))
+            for xs in ((q, k, v), (q, k, v), tuple(x.contiguous() for x in (q, k, v)))]
+    torch.cuda.synchronize()
+    for i, name in enumerate(("o", "dq", "dk", "dv", "dbias")):
+        assert torch.equal(runs[0][i], runs[1][i]) and torch.equal(runs[0][i], runs[2][i]), name
 
 
 def _tiny_swin(dtype, stochastic_depth=0.0):
@@ -1061,26 +1243,70 @@ def test_tubelet_kernel_reads_a_strided_video_and_refuses_bad_input(cuda):
     wide = torch.cat([video, video], dim=-1)[..., :3]  # a strided view
     out = tt.tubelet_embed(wide, kernel, bias, impl="kernel")
     assert torch.equal(out, tt.tubelet_embed(video, kernel, bias, impl="kernel"))
-    with pytest.raises(ValueError):  # kw * C = 16 * 5 is not a run length it takes
-        tt.tubelet_embed_cuda(torch.zeros((1, 2, 16, 16, 5), device=cuda),
-                              torch.zeros((2, 16, 16, 5, 8), device=cuda),
-                              torch.zeros(8, device=cuda))
-    with pytest.raises(ValueError):  # D = 44 is not a multiple of 8
-        tt.tubelet_embed_cuda(video, kernel[..., :44], bias[:44])
+    with pytest.raises(ValueError):  # float16
+        tt.tubelet_embed_cuda(video.half(), kernel, bias)
+    with pytest.raises(ValueError):  # a kernel of another tubelet
+        tt.tubelet_embed_cuda(video, kernel[:, :8], bias)
+    with pytest.raises(ValueError):  # a bias of another width
+        tt.tubelet_embed_cuda(video, kernel, bias[:44])
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("tubelet,d", [((2, 8, 8), 48), ((2, 16, 16), 20)], ids=str)
 def test_tubelet_kernel_route_outside_its_shapes_raises(cuda, tubelet, d, dtype):
-    """kw·C = 24 and D = 20, shapes kernel 10 does not take (the JAX Pallas
-    kernel takes any): the kernel route raises on the card, launching
-    nothing, until the kernel is widened."""
+    """kw·C = 24 and D = 20, shapes no run-length instance of kernel 10 takes
+    (the JAX Pallas kernel takes any): the kernel route launches kernel 10's
+    general path once, held against its plain twin (this test raised before
+    the kernel took every shape; it keeps its name)."""
     video, kernel, bias = _tubelet_inputs((2, 4, 32, 48, 3), tubelet, d, dtype, cuda)
-    assert not tt.kernel_takes(video, kernel, tubelet)
+    assert tt.kernel_takes(video, kernel, tubelet)
+    assert not tt.run_length_takes(video, kernel, tubelet)
     before = tt.launches
-    with pytest.raises(ValueError):
-        tt.tubelet_embed(video, kernel, bias, tubelet, impl="kernel")
-    assert tt.launches == before
+    out = tt.tubelet_embed(video, kernel, bias, tubelet, impl="kernel")
+    torch.cuda.synchronize()
+    assert tt.launches == before + 1 and tt.last_design() == "general"
+    ref = tt.tubelet_embed_plain(video, kernel, bias, tubelet)
+    assert out.dtype == dtype and out.shape == ref.shape
+    assert ((out.float() - ref.float()).abs()
+            / tt.error_limit(video, kernel, ref, tubelet)).max().item() <= 1.0
+
+
+# The general path at other shapes: (video (B, T, H, W, C), tubelet, D): an
+# odd W·C (147) with kw·C = 21, kw·C = 42, kw·C = 80 (C = 5), D = 100 at the
+# ViViT tubelet, one channel, and kw·C = 96 beyond the largest run length.
+GENERAL_TUBELET_SHAPES = [
+    ((2, 4, 21, 49, 3), (2, 7, 7), 64),
+    ((2, 4, 56, 56, 3), (2, 14, 14), 96),
+    ((1, 2, 16, 16, 5), (2, 16, 16), 8),
+    ((2, 4, 32, 48, 3), (2, 16, 16), 100),
+    ((1, 4, 32, 32, 1), (2, 16, 16), 44),
+    ((1, 2, 32, 64, 3), (2, 16, 32), 72),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,tubelet,d", GENERAL_TUBELET_SHAPES, ids=str)
+def test_tubelet_general_path_matches_plain(cuda, shape, tubelet, d, dtype):
+    video, kernel, bias = _tubelet_inputs(shape, tubelet, d, dtype, cuda, seed=3)
+    before = tt.launches
+    out = tt.tubelet_embed_cuda(video, kernel, bias, tubelet)
+    torch.cuda.synchronize()
+    assert tt.launches == before + 1 and tt.last_design() == "general"
+    ref = tt.tubelet_embed_plain(video, kernel, bias, tubelet)
+    assert out.dtype == dtype and out.shape == ref.shape
+    assert ((out.float() - ref.float()).abs()
+            / tt.error_limit(video, kernel, ref, tubelet)).max().item() <= 1.0
+
+
+def test_tubelet_kernel_reports_the_design_it_ran(cuda):
+    """The ViViT-B stem's run length (kw·C = 48) runs the mma.sync instance
+    in bf16 and the FMA one in f32; kw·C = 24 the general path."""
+    for tubelet, dtype, want in (((2, 16, 16), torch.bfloat16, "mma.sync"),
+                                 ((2, 16, 16), torch.float32, "fma"),
+                                 ((2, 8, 8), torch.bfloat16, "general")):
+        video, kernel, bias = _tubelet_inputs((1, 2, 32, 32, 3), tubelet, 48, dtype, cuda)
+        tt.tubelet_embed_cuda(video, kernel, bias, tubelet)
+        assert tt.last_design() == want, (tubelet, dtype)
 
 
 def test_tubelet_kernel_refuses_autograd(cuda):

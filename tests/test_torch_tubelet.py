@@ -139,18 +139,69 @@ def test_dispatch(data, monkeypatch):
 
 @pytest.mark.parametrize("tubelet,d", [((2, 8, 8), 48), ((2, 16, 16), 20)], ids=str)
 def test_kernel_route_outside_the_kernels_shapes_matches_jax(data, tubelet, d):
-    """kw·C = 24 and D = 20 are shapes kernel 10 does not take (the JAX
-    Pallas kernel takes any): on a CPU tensor the kernel route computes the
-    twin, JAX's Pallas function, at the f32 tolerance."""
+    """kw·C = 24 and D = 20 are shapes no run-length instance of kernel 10
+    takes; its general path does, as the JAX Pallas kernel takes any: on a
+    CPU tensor the kernel route computes the twin, JAX's Pallas function, at
+    the f32 tolerance."""
     video, _, _ = data
     rng = np.random.default_rng(1)
     kernel = 0.05 * rng.standard_normal((*tubelet, 3, d), dtype=np.float32)
     bias = rng.standard_normal(d, dtype=np.float32)
-    assert not tt.kernel_takes(torch.from_numpy(video), torch.from_numpy(kernel), tubelet)
+    tv, tk = torch.from_numpy(video), torch.from_numpy(kernel)
+    assert tt.kernel_takes(tv, tk, tubelet) and not tt.run_length_takes(tv, tk, tubelet)
     want = np.asarray(jt.tubelet_embed_pallas(jnp.asarray(video), jnp.asarray(kernel),
                                               jnp.asarray(bias), tubelet, block_n=5))
     got = tt.tubelet_embed(*_torch(video, kernel, bias), tubelet, impl="kernel")
     np.testing.assert_allclose(got.numpy(), want, atol=TOL, rtol=TOL)
+
+
+# (video (B, T, H, W, C), tubelet, D, a run-length instance takes it)
+TAKES_SHAPES = [((1, 4, 32, 48, 3), (2, 16, 16), 48, True),
+                ((1, 4, 32, 48, 3), (2, 16, 16), 20, False),     # D % 8 != 0
+                ((1, 4, 16, 16, 3), (2, 8, 8), 16, False),       # kw·C = 24
+                ((1, 2, 21, 49, 3), (2, 7, 7), 16, False),       # W·C = 147, kw·C = 21
+                ((1, 2, 16, 32, 4), (2, 16, 16), 8, True),       # kw·C = 64
+                ((1, 2, 16, 32, 5), (2, 16, 16), 8, False),      # kw·C = 80
+                ((1, 2, 8, 8, 1), (2, 8, 8), 8, False)]          # kw·C = 8
+
+
+@pytest.mark.parametrize("shape,tubelet,d,run", TAKES_SHAPES, ids=str)
+def test_kernel_takes_every_shape_that_fits_the_tubelet(shape, tubelet, d, run):
+    """Kernel 10 takes every shape that fits the tubelet, as the JAX Pallas
+    kernel (which pads M) does; the run-length instances take kw·C in
+    RUN_LENGTHS with W·C and D multiples of 8, the general path the rest. A
+    video that is not a whole number of tubelets, or a kernel of another
+    tubelet, fits none."""
+    video, kernel = torch.zeros(shape), torch.zeros((*tubelet, shape[-1], d))
+    assert tt.kernel_takes(video, kernel, tubelet)
+    assert tt.run_length_takes(video, kernel, tubelet) == run
+    assert not tt.kernel_takes(video[:, :1], kernel, tubelet)
+    assert not tt.kernel_takes(video, kernel[:, :1], tubelet)
+
+
+@pytest.mark.parametrize("shape,tubelet,d", [((2, 2, 21, 49, 3), (2, 7, 7), 12),
+                                             ((1, 4, 16, 32, 5), (2, 16, 16), 24)], ids=str)
+def test_general_path_shapes_match_jax(shape, tubelet, d):
+    """An odd W·C and kw·C = 80: the kernel route on CPU tensors (the twin
+    the general path computes) matches JAX's ``tubelet_embed_pallas`` at the
+    f32 tolerance, and in bf16 within ``tubelet.error_limit`` of JAX's bf16
+    result."""
+    rng = np.random.default_rng(2)
+    video = rng.standard_normal(shape, dtype=np.float32)
+    kernel = 0.05 * rng.standard_normal((*tubelet, shape[-1], d), dtype=np.float32)
+    bias = rng.standard_normal(d, dtype=np.float32)
+    want = np.asarray(jt.tubelet_embed_pallas(jnp.asarray(video), jnp.asarray(kernel),
+                                              jnp.asarray(bias), tubelet, block_n=16))
+    got = tt.tubelet_embed(*_torch(video, kernel, bias), tubelet, impl="kernel")
+    np.testing.assert_allclose(got.numpy(), want, atol=TOL, rtol=TOL)
+    v16 = torch.from_numpy(video).to(torch.bfloat16)
+    got16 = tt.tubelet_embed(v16, torch.from_numpy(kernel), torch.from_numpy(bias), tubelet,
+                             impl="kernel")
+    want16 = np.asarray(jt.tubelet_embed_pallas(jnp.asarray(video, jnp.bfloat16),
+                                                jnp.asarray(kernel), jnp.asarray(bias), tubelet,
+                                                block_n=16), np.float32)
+    limit = tt.error_limit(v16, torch.from_numpy(kernel), got16, tubelet)
+    assert ((got16.float() - torch.from_numpy(want16)).abs() / limit).max() <= 1.0
 
 
 def test_kernel_route_refuses_autograd_and_counts_no_cpu_launch(data):

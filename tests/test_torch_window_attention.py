@@ -144,21 +144,25 @@ def test_bias_is_not_rounded_at_unaligned_n():
     assert torch.equal(out16, ref)
 
 
-# (B·nW, N, H, D, nW) outside kernels 8-9's domain (N <= 448, D <= 128): the
-# JAX router takes its Pallas kernel at N % 8 == 0 and D <= 256 (456, and 64
-# at D = 160) and XLA elsewhere (453).
-OUTSIDE_SHAPES = [(2, 456, 1, 32, 2), (2, 453, 1, 32, 1), (4, 64, 2, 160, 2)]
+# (B·nW, N, H, D, nW) outside the held designs' domain (N <= 448, D <= 128):
+# the JAX router takes its Pallas kernel at N % 8 == 0 and D <= 256 (456, 64
+# at D = 160, 512 and 392 at D = 256), and so do kernels 8-9 (their wide
+# path); XLA elsewhere (453), where the kernels take nothing.
+OUTSIDE_SHAPES = [(2, 456, 1, 32, 2), (2, 453, 1, 32, 1), (4, 64, 2, 160, 2),
+                  (1, 512, 1, 16, 1), (2, 40, 1, 256, 2)]
 
 
 @pytest.mark.parametrize("shape", OUTSIDE_SHAPES, ids=str)
 def test_kernel_impl_outside_the_kernels_domain_matches_jax(shape):
-    """A window the kernels do not take: on CPU tensors the port's kernel
-    impl computes what the JAX package's ``window_attention(impl="pallas")``
+    """A window outside the held designs' domain: the kernels take it exactly
+    where JAX's Pallas kernel does, and on CPU tensors the port's kernel impl
+    computes what the JAX package's ``window_attention(impl="pallas")``
     computes there (its Pallas kernel in interpret mode, or its XLA route),
     forward and every gradient, at the f32 tolerances."""
     q, k, v, bias, rid, g = _inputs(shape, seed=13)
     _, n, _, d, _ = shape
-    assert not wa.kernel_takes(n, d)
+    assert not wa.held_takes(n, d)
+    assert wa.kernel_takes(n, d) == WA.supports_shape(n, d)
     jfn = functools.partial(jax_att.window_attention, impl="pallas")
     ref = np.asarray(jfn(*(_jax(x) for x in (q, k, v, bias)), jnp.asarray(rid)))
     leaves = [_torch(x).requires_grad_() for x in (q, k, v, bias)]
@@ -190,6 +194,48 @@ def test_xla_route_rounds_the_bias_as_jax_does():
     assert ((out.float() - ref).abs() / limit).max() <= 1.0
     f32_bias = wa.window_attention_plain(tq, tk, tv, tb, tr)
     assert ((f32_bias.float() - ref).abs() / limit).max() > 1.0
+
+
+@pytest.mark.parametrize("d", [8, 16, 32, 40, 64, 96, 128, 136, 160, 200, 256, 264, 512])
+def test_kernel_takes_every_shape_jax_runs_its_pallas_kernel_at(d):
+    """``kernel_takes`` equals the JAX package's Pallas gate
+    (``supports_shape``) wherever JAX takes its Pallas kernel, and wherever
+    the held designs do not take the shape; within the held domain the
+    kernels also take N % 8 != 0 (JAX's XLA route there rounds the bias, the
+    kernels keep it f32: ``test_bias_is_not_rounded_at_unaligned_n``)."""
+    for n in list(range(1, 1100)) + [1568, 2048, 3136, 4096, 6272]:
+        jax_pallas = WA.supports_shape(n, d)
+        assert wa.jax_takes_pallas(n, d) == jax_pallas, (n, d)
+        if jax_pallas:
+            assert wa.kernel_takes(n, d), (n, d)
+        if not wa.held_takes(n, d):
+            assert wa.kernel_takes(n, d) == jax_pallas, (n, d)
+        else:
+            assert wa.kernel_takes(n, d) and n <= wa.HELD_MAX_SEQ and d <= wa.HELD_MAX_HEAD_DIM
+
+
+@pytest.mark.parametrize("shape", [(2, 464, 1, 16, 2), (2, 48, 2, 192, 1)], ids=str)
+def test_bf16_twin_at_the_wide_shapes_matches_jax(shape):
+    """bf16 at shapes the wide path newly takes: the port's kernel impl on
+    CPU tensors (the twins the wide path computes) within the twins'
+    elementwise limits of JAX's ``window_attention_pallas`` run in bf16
+    (interpret mode), forward and gradients."""
+    q, k, v, bias, rid, g = _inputs(shape, seed=15)
+    _, n, _, d, _ = shape
+    assert wa.kernel_takes(n, d) and not wa.held_takes(n, d)
+    tq, tk, tv, tg = (_torch(x, torch.bfloat16) for x in (q, k, v, g))
+    tb, tr = _torch(bias), _rid_t(rid)
+    out = att.window_attention(tq, tk, tv, tb, tr, impl="kernel")
+    ref = np.asarray(WA.window_attention_pallas(*(_jax(x, jnp.bfloat16) for x in (q, k, v)),
+                                                jnp.asarray(bias), jnp.asarray(rid)), np.float32)
+    limit = wa.error_limit(tq, tk, tv, tb, tr, out).numpy()
+    assert (np.abs(out.float().numpy() - ref) / limit).max() <= 1.0
+    grads = wa.window_attention_plain_bwd(tq, tk, tv, tb, tr, tg)
+    limits = wa.backward_error_limit(tq, tk, tv, tb, tr, tg, grads)
+    refs = _jax_grads(q, k, v, bias, rid, g, WA.window_attention_pallas, jnp.bfloat16)
+    for name, got, want, lim in zip(("dq", "dk", "dv", "dbias"), grads, refs, limits):
+        use = (np.abs(got.float().numpy() - np.asarray(want, np.float32)) / lim.numpy()).max()
+        assert use <= 1.0, (name, use)
 
 
 def test_region_mask_matches_jax():
@@ -317,8 +363,8 @@ def test_checks_reject_bad_input(bad):
     if bad == "long":
         q = k = v = torch.zeros((1, 449, 1, 8))
         bias, rid = torch.zeros((1, 449, 449)), None
-    if bad == "head_dim":
-        q = k = v = torch.zeros((4, 8, 2, 136))
+    if bad == "head_dim":  # above the JAX Pallas kernel's 256 as well
+        q = k = v = torch.zeros((4, 8, 2, 264))
     if bad == "dtype":
         v = v.double()
     if bad == "kind":
