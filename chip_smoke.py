@@ -55,14 +55,18 @@ Phases, in order; any failure ends the run with a non-zero exit:
    (``short_attention_plain``, ``short_attention_plain_bwd``) at the two
    TimeSformer-B shapes (temporal (1568, 32, 12, 64), spatial
    (256, 197, 12, 64), views of a fused qkv) in bf16 and f32, and at N from
-   1 to 511 with D from 16 to 128 and odd B*H, each under its elementwise
-   limit; kernel 6's earlier mma.sync design (``short_attention_fwd_mma``)
-   under the same limit at every case. The ptxas report of kernel 6's wgmma
-   instances is printed. Timed beside the plain twins, their bounds and
-   ``F.scaled_dot_product_attention``'s forward and autograd backward;
-   kernel 6 also beside its earlier design in turns (old, new, new, old),
-   single calls and queued (20 calls back to back: the card's time without
-   the wrapper's host-side launch).
+   1 to 511 with D from 16 to 128 and odd B*H (kernel 7's wgmma edges, N =
+   65, 128, 129, 192, 256 at D = 64 and N = 197 at D = 32, on fused-qkv
+   views and on transposed (B, H, N, D) ones), each under its elementwise
+   limit; the earlier mma.sync designs (``short_attention_fwd_mma``,
+   ``short_attention_bwd_mma``) under the same limits at every case, and
+   the design each entry ran (``short_attention.last_designs``) printed. The
+   ptxas report of kernels 6-7's wgmma instances is printed. Timed beside
+   the plain twins, their bounds and ``F.scaled_dot_product_attention``'s
+   forward and autograd backward (single calls and queued); each kernel
+   also beside its earlier design in turns (old, new, new, old), single
+   calls and queued (20 calls back to back: the card's time without the
+   wrapper's host-side launch).
 7b. The routing decision's data: kernel 1, and the flash training pair
    (kernel 2; delta and kernels 3-4), timed at the same two shapes.
 8. TimeSformer-B serving at full width: a 32-frame 224^2 Predictor in bf16,
@@ -71,8 +75,9 @@ Phases, in order; any failure ends the run with a non-zero exit:
    per forward, logits against the same model on the plain attention in
    bf16 and (two clips) f32; an InferenceServer round trip.
 9. TimeSformer-B training at full width, B=8, bf16 compute: 24 launches
-   each of kernels 6 and 7 and none of kernels 1-4 per step, 24 of kernel 6
-   per eval step; loss finite; step time, clips/s, stages, peak memory. Then
+   each of kernels 6 and 7 and none of kernels 1-4 per step (of kernel 7,
+   the 12 spatial calls on its wgmma design and the 12 temporal ones on
+   mma.sync), 24 of kernel 6 per eval step; loss finite; step time, clips/s, stages, peak memory. Then
    every parameter's gradient at B=2, kernels against plain attention.
 10. ``cli.main --model timesformer --bf16``: 1 epoch, ``--resume auto`` for
    a second, ``Predictor.from_checkpoint("timesformer", best_model)``.
@@ -140,6 +145,7 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import shutil
 import subprocess
 import sys
@@ -971,6 +977,15 @@ def fused_qkv(shape, dtype, seed):
     return (*fused.unbind(2), g)
 
 
+def bhnd_qkv(shape, dtype, seed):
+    """q, k, v and g as (B, H, N, D) tensors transposed to (B, N, H, D)
+    views (the sequence stride below the head stride), on the card."""
+    b, n, h, d = shape
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return tuple(torch.randn((b, h, n, d), generator=gen, device="cuda").to(dtype).transpose(1, 2)
+                 for _ in range(4))
+
+
 def short_bound_ms(shape, dtype, backward: bool):
     """Kernel 6: two (N x N x D) products per head, q/k/v read and o written
     once (4 tensors). Kernel 7: five products, q/k/v/g read and dq/dk/dv
@@ -981,17 +996,16 @@ def short_bound_ms(shape, dtype, backward: bool):
     return kernel_bound_ms(b, n, n, h, d, dtype, 2, 2, 2, 0)
 
 
-# Kernel 6's bf16 designs: wgmma at 64 < N <= 256, mma.sync elsewhere (and
-# always through short_attention_fwd_mma, the earlier design kept to time).
+# Kernels 6-7's bf16 designs; which design a call runs is the C side's choice
+# (``launch_fwd`` / ``launch_bwd``), read back with ``short_attention.last_designs``.
 SHORT_FWD_DESIGN = ("wgmma + TMA, a persistent block per SM, a (sequence, head) pair's q/k/v "
                     "resident in shared memory, one-pass whole-row softmax (64 < N <= 256); "
                     "mma.sync two-pass over streamed key tiles elsewhere")
-
-
-def short_fwd_design(n: int, dtype) -> str:
-    if dtype != torch.bfloat16:
-        return "fma"
-    return "wgmma" if 64 < n <= 256 else "mma.sync"
+SHORT_BWD_DESIGN = ("wgmma + TMA (64 < N <= 256, D <= 64), a persistent block per SM, a "
+                    "(sequence, head) pair's q/k/v/dO resident in shared memory (K/V a pair "
+                    "ahead, Q/dO 64 rows at a time): query tiles as rows (whole-row S, delta, "
+                    "dQ), then key tiles as rows (dK, dV), the last chunk 16 wide; mma.sync "
+                    "elsewhere")
 
 
 def ptxas_lines(source: str, kernel: str) -> list:
@@ -1002,70 +1016,94 @@ def ptxas_lines(source: str, kernel: str) -> list:
     report."""
     from laryngeal_tpu_torch.ops import _build
 
+    def instance(line):  # kernel<template arguments> from a mangled name
+        m = re.search(re.escape(kernel) + r"I((?:Li\d+E)+)E", line)
+        return f"{kernel}<{', '.join(re.findall(r'Li(\d+)E', m.group(1)))}>" if m else None
+
     out, keep = [], False
     for line in (_build.build_log(source) or "").splitlines():
         if "Compiling entry function" in line:
             keep = kernel in line
             if keep:
-                out.append(line.split("'")[1][-60:])
+                out.append(instance(line) or line.split("'")[1][-60:])
         elif "(C75" in line and kernel in line:
-            out.append("  " + line[line.index("(C75"):].strip()[:160])
+            out.append("  " + line[line.index("(C75"):].strip()[:100]
+                       + (f" in {instance(line)}" if instance(line) else ""))
         elif keep and ("Used" in line or "spill" in line):
             out.append("  " + line.strip()[:200])
     return out
 
 
+def max_use(got, refs, limits):
+    """(largest |err| / limit, largest |err|) of each tensor of ``got``."""
+    uses, errs = [], []
+    for x, ref, lim in zip(got, refs, limits):
+        diff = (x.float() - ref.float()).abs()
+        uses.append((diff / lim).max().item())
+        errs.append(diff.max().item())
+    return uses, errs
+
+
 def check_short_kernels():
-    """Phases 7 and 7b: kernels 6-7 vs their plain twins on the card, across
-    the router's domain (kernel 6's earlier mma.sync design too); timings at
-    the TimeSformer-B shapes beside the twins, the bounds, sdpa, kernel 6's
-    earlier design, and kernel 1 and the flash training pair (the routing
-    decision's data). Returns {entry name: numbers}."""
+    """Phases 7 and 7b: kernels 6-7 in both bf16 designs (the entries' and
+    the kept mma.sync ones) vs their plain twins on the card, across the
+    router's domain, each case printing the design the C side ran; timings
+    at the TimeSformer-B shapes beside the twins, the bounds, sdpa (single
+    and queued), the earlier designs in turns, and kernel 1 and the flash
+    training pair (the routing decision's data). Returns {entry name:
+    numbers}."""
     import torch.nn.functional as F
 
     from laryngeal_tpu_torch.ops import flash_attention as fa
     from laryngeal_tpu_torch.ops import short_attention as sa
 
-    for line in ptxas_lines("short_attention.cu", "short_fwd_wgmma_kernel"):
-        log(f"ptxas {line}")
+    for kernel in ("short_fwd_wgmma_kernel", "short_bwd_wgmma_kernel"):
+        for line in ptxas_lines("short_attention.cu", kernel):
+            log(f"ptxas {line}")
     entries = {"short_attention_fwd": {}, "short_attention_bwd": {}}
     worst = {"short_attention_fwd": [0.0, 0.0], "short_attention_bwd": [0.0, 0.0]}
-    # (name, (B, N, H, D)): the TimeSformer-B shapes, then N in 1..511 and D
-    # in 16..128 (40 is padded to 48 inside the wrapper), odd B*H; the wgmma
-    # design's edges (N = 65, 256, D = 32, 128).
-    cases = list(TS_SHAPES.items()) + [
-        ("n1_d64", (3, 1, 5, 64)), ("n5_d16", (5, 5, 3, 16)), ("n33_d40", (3, 33, 5, 40)),
-        ("n300_d128", (1, 300, 3, 128)), ("n511_d64", (1, 511, 3, 64)),
-        ("n511_d128", (3, 511, 1, 128)), ("n100_d16", (7, 100, 3, 16)),
-        ("n65_d32", (3, 65, 5, 32)), ("n256_d128", (3, 256, 1, 128))]
+    # (name, (B, N, H, D), layout): the TimeSformer-B shapes, then N in
+    # 1..511 and D in 16..128 (40 is padded to 48 inside the wrapper), odd
+    # B*H; the wgmma designs' edges (N = 65, 256, D = 32, 128), kernel 7's at
+    # D = 64 and D = 32, on fused-qkv views and on transposed (B, H, N, D).
+    cases = [(name, shape, "fused") for name, shape in TS_SHAPES.items()] + [
+        ("n1_d64", (3, 1, 5, 64), "fused"), ("n5_d16", (5, 5, 3, 16), "fused"),
+        ("n33_d40", (3, 33, 5, 40), "fused"), ("n300_d128", (1, 300, 3, 128), "fused"),
+        ("n511_d64", (1, 511, 3, 64), "fused"), ("n511_d128", (3, 511, 1, 128), "fused"),
+        ("n100_d16", (7, 100, 3, 16), "fused"), ("n65_d32", (3, 65, 5, 32), "fused"),
+        ("n256_d128", (3, 256, 1, 128), "fused")] + [
+        (f"{name}_{layout}", shape, layout)
+        for name, shape in (("n65_d64", (3, 65, 5, 64)), ("n128_d64", (3, 128, 5, 64)),
+                            ("n129_d64", (3, 129, 5, 64)), ("n192_d64", (3, 192, 5, 64)),
+                            ("n256_d64", (1, 256, 5, 64)), ("n197_d32", (3, 197, 5, 32)))
+        for layout in ("fused", "bhnd")]
     for dtype in (torch.bfloat16, torch.float32):
         tag = str(dtype)[6:]
-        for seed, (name, shape) in enumerate(cases):
-            q, k, v, g = fused_qkv(shape, dtype, 30 + seed)
+        for seed, (name, shape, layout) in enumerate(cases):
+            q, k, v, g = (fused_qkv if layout == "fused" else bhnd_qkv)(shape, dtype, 30 + seed)
             ref = sa.short_attention_plain(q, k, v)
             limit = sa.error_limit(q, k, v, ref, F32_TOL)
             diff = (sa.short_attention_fwd_cuda(q, k, v).float() - ref.float()).abs()
             use_f = (diff / limit).max().item()
             err_f = diff.max().item()
+            design_f = sa.last_designs()[0]
             # The earlier mma.sync design under the same limit.
             use_old = ((sa.short_attention_fwd_mma_cuda(q, k, v).float() - ref.float()).abs()
                        / limit).max().item()
             del diff, ref, limit
-            grads = sa.short_attention_bwd_cuda(q, k, v, g)
             refs = sa.short_attention_plain_bwd(q, k, v, g)
-            uses, errs = [], []
-            for got, ref_g, lim in zip(grads, refs, sa.backward_error_limit(q, k, v, g, refs)):
-                diff = (got.float() - ref_g.float()).abs()
-                uses.append((diff / lim).max().item())
-                errs.append(diff.max().item())
-            del grads, refs, diff
-            ok = (max([use_f, use_old] + uses) <= 1.0
+            limits = sa.backward_error_limit(q, k, v, g, refs)
+            uses, errs = max_use(sa.short_attention_bwd_cuda(q, k, v, g), refs, limits)
+            design_b = sa.last_designs()[1]
+            uses_old, _ = max_use(sa.short_attention_bwd_mma_cuda(q, k, v, g), refs, limits)
+            del refs, limits
+            ok = (max([use_f, use_old] + uses + uses_old) <= 1.0
                   and all(math.isfinite(x) for x in [err_f] + errs))
-            log(f"short attention {name} {shape} {tag}: fwd ({short_fwd_design(shape[1], dtype)}) "
-                f"max_abs_err {err_f:.3e} (|err|/limit {use_f:.3f}; mma.sync design "
-                f"{use_old:.3f}); dq/dk/dv max_abs_err {errs[0]:.3e}/{errs[1]:.3e}/"
-                f"{errs[2]:.3e}, |err|/limit {uses[0]:.3f}/{uses[1]:.3f}/{uses[2]:.3f} "
-                f"{'ok' if ok else 'FAIL'}")
+            log(f"short attention {name} {shape} {tag}: fwd ({design_f}) max_abs_err "
+                f"{err_f:.3e} (|err|/limit {use_f:.3f}; mma.sync design {use_old:.3f}); bwd "
+                f"({design_b}) dq/dk/dv max_abs_err {errs[0]:.3e}/{errs[1]:.3e}/{errs[2]:.3e}, "
+                f"|err|/limit {uses[0]:.3f}/{uses[1]:.3f}/{uses[2]:.3f} (mma.sync design "
+                f"{max(uses_old):.3f}) {'ok' if ok else 'FAIL'}")
             if not ok:
                 raise AssertionError(f"kernels 6-7 disagree with their plain twins: {name} {tag}")
             if dtype == torch.bfloat16:
@@ -1075,17 +1113,16 @@ def check_short_kernels():
             if name not in TS_SHAPES:
                 del q, k, v, g
                 continue
-            # Kernel 6 and its earlier design in turns (old, new, new, old),
-            # single calls and queued (the card's time; see cuda_time_ms).
-            fwd_new = lambda: sa.short_attention_fwd_cuda(q, k, v)
-            fwd_old = lambda: sa.short_attention_fwd_mma_cuda(q, k, v)
-            turns = {"old": [], "new": [], "old_q": [], "new_q": []}
-            for which, fn in (("old", fwd_old), ("new", fwd_new), ("new", fwd_new),
-                              ("old", fwd_old)):
-                turns[which].append(cuda_time_ms(fn))
-                turns[which + "_q"].append(cuda_time_ms(fn, reps=20, queued=True))
-            ms6, old6, ms6_q, old6_q = (sum(turns[x]) / 2 for x in ("new", "old", "new_q", "old_q"))
-            ms7 = cuda_time_ms(lambda: sa.short_attention_bwd_cuda(q, k, v, g))
+            # Each kernel and its earlier design in turns (old, new, new,
+            # old), single calls and queued (the card's time; see
+            # cuda_time_ms), each time beside sdpa.
+            t6 = turns_ms({"old": lambda: sa.short_attention_fwd_mma_cuda(q, k, v),
+                           "new": lambda: sa.short_attention_fwd_cuda(q, k, v)})
+            t7 = turns_ms({"old": lambda: sa.short_attention_bwd_mma_cuda(q, k, v, g),
+                           "new": lambda: sa.short_attention_bwd_cuda(q, k, v, g)})
+            sa.short_attention_fwd_cuda(q, k, v)
+            sa.short_attention_bwd_cuda(q, k, v, g)
+            design6, design7 = sa.last_designs()
             plain6 = cuda_time_ms(lambda: sa.short_attention_plain(q, k, v), reps=3, warmup=1)
             plain7 = cuda_time_ms(lambda: sa.short_attention_plain_bwd(q, k, v, g), reps=3,
                                   warmup=1)
@@ -1095,39 +1132,40 @@ def check_short_kernels():
             lib6_q = cuda_time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt), reps=20,
                                   queued=True)
             lib_out = F.scaled_dot_product_attention(qt, kt, vt)
-            lib7 = cuda_time_ms(
-                lambda: torch.autograd.grad(lib_out, (qt, kt, vt), gt, retain_graph=True))
-            del lib_out, qt, kt, vt, gt
+            lib7_fn = lambda: torch.autograd.grad(lib_out, (qt, kt, vt), gt, retain_graph=True)
+            lib7 = cuda_time_ms(lib7_fn)
+            lib7_q = cuda_time_ms(lib7_fn, reps=20, queued=True)
+            del lib_out, lib7_fn, qt, kt, vt, gt
             # 7b: what the flash kernels cost at the same shape.
             ms1 = cuda_time_ms(lambda: fa.flash_attention_cuda(q, k, v))
             ms2 = cuda_time_ms(lambda: fa.flash_attention_lse_cuda(q, k, v))
             o, lse = fa.flash_attention_lse_cuda(q, k, v)
             ms34 = cuda_time_ms(lambda: fa.flash_attention_bwd(q, k, v, o, lse, g))
             del o, lse
-            log(f"routing data {name} {shape} {tag}: forward kernel 6 {ms6:.4f} ms vs kernel 1 "
-                f"{ms1:.4f} ms; training forward kernel 6 {ms6:.4f} vs kernel 2 {ms2:.4f} ms; "
-                f"backward kernel 7 {ms7:.4f} vs delta + kernels 3-4 {ms34:.4f} ms")
-            for e, ms, plain_ms, lib_ms, backward in (
-                    ("short_attention_fwd", ms6, plain6, lib6, False),
-                    ("short_attention_bwd", ms7, plain7, lib7, True)):
+            log(f"routing data {name} {shape} {tag}: forward kernel 6 {t6['new']:.4f} ms vs "
+                f"kernel 1 {ms1:.4f} ms; training forward kernel 6 {t6['new']:.4f} vs kernel 2 "
+                f"{ms2:.4f} ms; backward kernel 7 {t7['new']:.4f} vs delta + kernels 3-4 "
+                f"{ms34:.4f} ms")
+            for e, t, plain_ms, lib_ms, lib_q, design, backward in (
+                    ("short_attention_fwd", t6, plain6, lib6, lib6_q, design6, False),
+                    ("short_attention_bwd", t7, plain7, lib7, lib7_q, design7, True)):
                 bound_ms, bound_by = short_bound_ms(shape, dtype, backward)
+                ms = t["new"]
                 numbers = dict(shape=list(shape), ms=ms, kernel_ms=ms, plain_ms=plain_ms,
-                               bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms)
+                               bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms,
+                               queued_ms=t["new_q"], old_ms=t["old"], old_queued_ms=t["old_q"],
+                               library_queued_ms=lib_q, design=design)
                 if backward:
                     numbers["flash_bwd_ms"] = ms34
                 else:
-                    numbers.update(flash_fwd_ms=ms1, flash_fwd_lse_ms=ms2, old_ms=old6,
-                                   queued_ms=ms6_q, old_queued_ms=old6_q,
-                                   library_queued_ms=lib6_q,
-                                   design=short_fwd_design(shape[1], dtype))
+                    numbers.update(flash_fwd_ms=ms1, flash_fwd_lse_ms=ms2)
                 log(f"{e} {name} {tag}: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, sdpa "
                     f"{lib_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
-                    f"{bound_ms / ms:.3f} of the bound"
-                    + ("" if backward else
-                       f"; design {short_fwd_design(shape[1], dtype)}, the earlier mma.sync "
-                       f"design {old6:.4f} ms ({old6 / ms:.2f}x); queued: kernel {ms6_q:.4f}, "
-                       f"earlier design {old6_q:.4f} ({old6_q / ms6_q:.2f}x), sdpa "
-                       f"{lib6_q:.4f} ms, {bound_ms / ms6_q:.3f} of the bound"))
+                    f"{bound_ms / ms:.3f} of the bound; design {design}, the earlier mma.sync "
+                    f"design {t['old']:.4f} ms ({t['old'] / ms:.2f}x); queued: kernel "
+                    f"{t['new_q']:.4f}, earlier design {t['old_q']:.4f} "
+                    f"({t['old_q'] / t['new_q']:.2f}x), sdpa {lib_q:.4f} ms, "
+                    f"{bound_ms / t['new_q']:.3f} of the bound")
                 key = name if dtype == torch.bfloat16 else f"{name}_f32"
                 entries[e][key] = numbers
             del q, k, v, g
@@ -1137,10 +1175,12 @@ def check_short_kernels():
     for e, nums in entries.items():
         # The line's headline numbers: the spatial call in bf16, the larger of
         # the two; the temporal call and f32 stay under their own keys.
-        nums.update({k: v for k, v in nums["spatial"].items() if k not in ("shape", "design")})
+        nums.update({k: v for k, v in nums["spatial"].items() if k != "shape"})
         nums.update(max_abs_err=worst[e][0], err_over_limit=worst[e][1], tol=tol,
                     headline="spatial (256, 197, 12, 64) bf16")
-    entries["short_attention_fwd"]["design"] = SHORT_FWD_DESIGN
+    for e, text in (("short_attention_fwd", SHORT_FWD_DESIGN),
+                    ("short_attention_bwd", SHORT_BWD_DESIGN)):
+        entries[e]["design"] = f"{entries[e]['design']} at spatial; {text}"
     return entries
 
 
@@ -1299,17 +1339,27 @@ def timesformer_training(kernel_ms: dict) -> None:
     mask = torch.ones(b, dtype=torch.bool, device="cuda")
     pixel_u8 = torch.from_numpy(clips).cuda()
 
-    # -- phase 9: launches per step, loss, timing --
+    # -- phase 9: launches per step (kernel 7's by design: the spatial calls
+    # on wgmma, the temporal ones on mma.sync), loss, timing --
+    from laryngeal_tpu_torch.ops import short_attention as sa
+
+    designs_before = dict(sa.bwd_design_launches)
     (state, m), per_step = launched(lambda: step(state, pixel_u8, labels, mask))
     want = {k: 0 for k in per_step}
     want.update(short_attention_fwd=n_calls, short_attention_bwd=n_calls)
     if per_step != want:
         raise AssertionError(f"launches per TimeSformer train step {per_step}, want {want}")
+    per_design = {d: sa.bwd_design_launches[d] - designs_before[d] for d in sa.DESIGNS}
+    want_design = {"fma": 0, "mma.sync": n_calls // 2, "wgmma": n_calls // 2}
+    if per_design != want_design:
+        raise AssertionError(f"kernel 7's launches by design per TimeSformer train step "
+                             f"{per_design}, want {want_design}")
     em, per_eval = launched(lambda: eval_step(state, pixel_u8, labels, mask))
     want_eval = {k: (n_calls if k == "short_attention_fwd" else 0) for k in want}
     if per_eval != want_eval:
         raise AssertionError(f"launches per TimeSformer eval step {per_eval}, want {want_eval}")
-    log(f"timesformer launches per train step {per_step}; per eval step {per_eval}")
+    log(f"timesformer launches per train step {per_step} (kernel 7 by design {per_design}); "
+        f"per eval step {per_eval}")
     for _ in range(2):
         step(state, pixel_u8, labels, mask)
     torch.cuda.synchronize()

@@ -190,6 +190,38 @@ __device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t a, u
       : "l"(a), "l"(b), "r"(accumulate));
 }
 
+// The same at n = 16 and n = 8: d[0 .. n / 2) (a longer array's tail is not
+// touched).
+template <int N>
+__device__ __forceinline__ void wgmma_m64n16k16_ss(float (&d)[N], uint64_t a, uint64_t b,
+                                                   int accumulate) {
+  static_assert(N >= 8, "m64n16 writes 8 accumulators a thread");
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+template <int N>
+__device__ __forceinline__ void wgmma_m64n8k16_ss(float (&d)[N], uint64_t a, uint64_t b,
+                                                  int accumulate) {
+  static_assert(N >= 4, "m64n8 writes 4 accumulators a thread");
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %6, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3}, %4, %5, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
 // d (64 x 64 f32) = (accumulate ? d : 0) + A (64 x 16 bf16, registers) B
 // (16 x 64 bf16, shared memory, K-major: the 16 k values of an n row are
 // contiguous).

@@ -52,26 +52,55 @@
 //     tile): the first for each row's max and sum, the second forms the
 //     normalised P, rounds it and accumulates P V. This design also stays
 //     callable at every N as short_attention_fwd_mma, to time against.
-//   * bf16 backward: one block owns a whole (sequence, head) pair, so the
-//     reduction over queries of dK and dV stays inside the block (no atomics,
-//     deterministic). Phase 1 walks the query tiles: one pass over the key
-//     tiles for the row max, sum and delta (an online sum of exp(S - m) dP,
-//     divided by the row sum at the end), kept in shared memory for all N
-//     rows, and a second pass for dS and dQ = dS K. Phase 2 walks the key
-//     tiles with the keys as rows: S^T = K Q^T and dP^T = V G^T come out of
-//     the accumulators in the A-fragment layout of P^T G and dS^T Q (as in
-//     flash_attention_bwd.cu), with P rebuilt from the stored statistics.
-//     S and dP are computed three times in all (the TPU kernel computes them
-//     once): a product costs little next to the bytes here.
+//   * bf16 backward at 64 < N <= 256 and D <= 64 (TimeSformer's spatial
+//     shape): one (sequence, head) pair is the unit of work, so the
+//     reductions over queries (dK, dV) and over keys (dQ, delta) stay inside
+//     one block (no atomics, deterministic). A persistent block per SM walks
+//     over the pairs; its producer thread loads a pair's K and V whole with
+//     TMA a pair ahead (two stages) and its Q and G 64 rows at a time into
+//     one slot, each 64-row chunk as soon as every consumer warp has spent
+//     the previous pair's (mbarriers per chunk), so the loads hide behind
+//     the products; two consumer warpgroups (setmaxnreg) take the pair's
+//     tiles in turn. Phase A, query tiles as rows: S = Q K^T over every key
+//     at once (wgmma, f32 in registers), the exact softmax from the
+//     accumulators, P normalised in place; dP = G V^T two 64-key chunks a
+//     batch for delta = sum_k P dP; then dS = P (dP - delta) scale rounded
+//     to bf16 as the register A operand of dQ += dS K (K read MN-major), the
+//     last two chunks' dP kept from the delta pass and the others recomputed;
+//     each row's base-2 max, 1 / l and delta go to shared memory (two pairs'
+//     worth, so one warpgroup can start the next pair while the other
+//     finishes). A named barrier, then phase B, key tiles as rows: per
+//     64-query chunk S^T = K Q^T and dP^T = V G^T, P^T and dS^T from the
+//     statistics, rounded to bf16 as the A operands of dV += P^T G and
+//     dK += dS^T Q (as flash_attention_bwd.cu's dK/dV). S is computed twice
+//     and dP two to three times (the TPU kernel: once each); the last
+//     64-key (and 64-query) chunk is computed 16 wide when its valid rows
+//     fit (N = 197: keys 192-207), which trims the products of the ragged
+//     tail. On the H100 the design is bound by its products and the
+//     softmax between them (see scripts/ablate_short_bwd.py).
+//   * other bf16 backward calls (N <= 64, TimeSformer's temporal N = 32;
+//     256 < N < 512; D = 128; a stride of 0): mma.sync, one block a whole
+//     (sequence, head) pair. Phase 1 walks the query tiles: one pass over
+//     the key tiles for the row max, sum and delta (an online sum of
+//     exp(S - m) dP, divided by the row sum at the end), kept in shared
+//     memory for all N rows, and a second pass for dS and dQ = dS K. Phase 2
+//     walks the key tiles with the keys as rows: S^T = K Q^T and dP^T = V G^T
+//     come out of the accumulators in the A-fragment layout of P^T G and
+//     dS^T Q, with P rebuilt from the stored statistics. S and dP are
+//     computed three times in all. This design also stays callable at every
+//     shape as short_attention_bwd_mma, to time against.
 //   * f32: the FMA units, TF32 off (as the flash kernels): 1-4 threads per
 //     row, each owning a 32-wide slice of the head dim; the same passes.
-// Not yet done (later work): the backward and the f32 paths on wgmma/TMA,
-// several short sequences per block for N <= 16.
+// short_attention_last_design reports the design of the last launch of each
+// kernel. Not yet done (later work): the f32 paths on the tensor cores,
+// several short sequences per block for N <= 16, the backward at D = 128 on
+// wgmma (a pair's four tensors take 256 KB there).
 
 #include <cstring>
 
 #include "flash_attention_common.cuh"
 #include "hopper.cuh"
+#include "wgmma_tiles.cuh"
 
 namespace {
 
@@ -706,6 +735,436 @@ short_bwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
+// bf16 backward on wgmma and TMA (kernel 7 at 64 < N <= 256, D <= 64)
+// ---------------------------------------------------------------------------
+
+// Consumer warpgroups; with two, the producer's warpgroup keeps 24 registers
+// a thread and each consumer claims 240 (24 + 2 x 240 <= 512, the register
+// file over 128 threads).
+constexpr int kBwdConsumers = 2;
+constexpr int kBwdThreads = 128 * (1 + kBwdConsumers);
+constexpr int kBwdKvStages = 2;    // K and V of this pair and of the next
+// The last 64-key chunk is computed kBwdTailKeys (16 or 8) wide when its
+// valid keys fit (N = 197: keys 192-207 instead of 192-255); 0 keeps every
+// chunk 64 wide. scripts/ablate_short_bwd.py times 0 and 8 against 16.
+constexpr int kBwdTailKeys = 16;
+
+// Shared memory at head dim HD <= 64 (one swizzled panel a row): K and V of
+// kBwdKvStages pairs, then Q and dO, each tensor 256 rows; then the row
+// statistics of two pairs (base-2 row max, 1 / row sum, delta: 256 floats
+// each); then the barriers.
+template <int HD>
+struct BwdGeom {
+  static_assert(HD <= 64, "the wgmma backward holds a pair's four tensors at D <= 64");
+  using G = wgtile::WgTile<HD>;
+  static constexpr int kTileBytes = G::kTileBytes;      // 64 rows
+  static constexpr int kTensorBytes = 4 * kTileBytes;   // 256 rows
+  static constexpr int kStats = 3 * kWgMaxN;
+  static constexpr size_t kKvBytes = (size_t)kBwdKvStages * 2 * kTensorBytes;
+  static constexpr size_t kStatOffset = kKvBytes + 2 * kTensorBytes;
+  static constexpr size_t kBarOffset = kStatOffset + 2 * kStats * sizeof(float);
+  static constexpr size_t kSmemBytes = kBarOffset + (2 * kBwdKvStages + 8) * sizeof(uint64_t)
+                                       + 1024;
+};
+
+// d = A B^T over the head dim for a 64-row tile A and the first W (64, 16 or
+// 8) rows of tile B: accumulator elements [0, W / 2) of d.
+template <int HD, int W>
+__device__ __forceinline__ void bwd_abt(float (&d)[32], const unsigned char* a,
+                                        const unsigned char* b) {
+  static_assert(W == 64 || W == 16 || W == 8, "a chunk is 64, 16 or 8 keys (queries) wide");
+  if constexpr (W == 64) {
+    wgtile::wg_abt<HD>(d, a, b);
+  } else {
+    using G = wgtile::WgTile<HD>;
+    const uint64_t da = hopper::smem_desc(a, 16, G::kGroupBytes, G::kLayout);
+    const uint64_t db = hopper::smem_desc(b, 16, G::kGroupBytes, G::kLayout);
+#pragma unroll
+    for (int ks = 0; ks < HD / 16; ++ks) {
+      if constexpr (W == 16)
+        hopper::wgmma_m64n16k16_ss(d, da + (ks * 2), db + (ks * 2), ks > 0);
+      else
+        hopper::wgmma_m64n8k16_ss(d, da + (ks * 2), db + (ks * 2), ks > 0);
+    }
+  }
+}
+
+// The A fragments of a 64 x 64 f32 accumulator rounded to bf16, k16 steps
+// [0, KK): fragment register r of step kk holds elements 8 kk + 2 r and + 1.
+template <int KK>
+__device__ __forceinline__ void bwd_pack(uint32_t (&a)[4][4], const float (&x)[32]) {
+#pragma unroll
+  for (int kk = 0; kk < KK; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) a[kk][r] = pack_bf16(x[8 * kk + 2 * r], x[8 * kk + 2 * r + 1]);
+}
+
+// dS = P (dP - delta) scale of rows g and g + 8, rounded to bf16 as the A
+// fragments of k16 steps [0, KK).
+template <int KK>
+__device__ __forceinline__ void bwd_dscores(uint32_t (&a)[4][4], const float (&p)[32],
+                                            const float (&dp)[32], const float (&delta)[2],
+                                            float scale) {
+#pragma unroll
+  for (int kk = 0; kk < KK; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int i = 8 * kk + 2 * r;
+      const float dl = delta[r & 1];
+      a[kk][r] = pack_bf16(p[i] * (dp[i] - dl) * scale, p[i + 1] * (dp[i + 1] - dl) * scale);
+    }
+}
+
+// Phase A of one 64-row query tile qt, by one warpgroup, over NB key chunks
+// (the last TW keys wide): S = Q K^T for every key of the row at once (f32,
+// in registers), the exact softmax from the accumulators, P normalised in
+// place; dP = dO V^T R chunks a batch for delta = sum_k P dP (the last
+// batch's chunks stay in registers), then dS = P (dP - delta) scale rounded
+// to bf16 and dQ += dS K, the other chunks' dP recomputed. The rows' base-2
+// max, 1 / l and delta go to `stats` (max +inf, 1 / l and delta 0 past N,
+// so that phase B gives those queries P = 0); dQ is stored, rows past N not
+// written. Every register index is static.
+template <int HD, int NB, int TW>
+__device__ __forceinline__ void bwd_rows(const unsigned char* q_s, const unsigned char* do_s,
+                                         const unsigned char* k_s, const unsigned char* v_s,
+                                         float* stats, bf16* dq, long long dqn, int qt, int N,
+                                         int D, float sl2, float scale, int warp, int g,
+                                         int t4) {
+  constexpr int kT = BwdGeom<HD>::kTileBytes;
+  constexpr int kTailSteps = (TW + 15) / 16;  // k16 steps of the last chunk
+  const unsigned char* q_t = q_s + qt * kT;
+  const unsigned char* do_t = do_s + qt * kT;
+
+  float s[NB][32];
+  hopper::wgmma_fence();
+#pragma unroll
+  for (int c = 0; c < NB - 1; ++c) bwd_abt<HD, 64>(s[c], q_t, k_s + c * kT);
+  bwd_abt<HD, TW>(s[NB - 1], q_t, k_s + (NB - 1) * kT);
+  hopper::wgmma_commit();
+  hopper::wgmma_wait<0>();
+#pragma unroll
+  for (int c = 0; c < NB; ++c) hopper::fence_regs(s[c]);
+
+  // Keys >= N masked; the row max of rows g and g + 8 of this warp's 16 in
+  // four partial maxima per row; exp2, the row sum, P = exp2(..) / l.
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int key = (NB - 1) * 64 + j * 8 + 2 * t4 + (e & 1);
+      s[NB - 1][4 * j + e] = j < TW / 8 && key < N ? s[NB - 1][4 * j + e] : kMaskValue;
+    }
+  // The last chunk's elements past TW / 2 are statically masked (and then
+  // 0): every loop below skips them, so that they take no registers.
+  auto live = [](int c, int i) { return c < NB - 1 || i < TW / 2; };
+  float mx[2][4];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) mx[i & 1][i >> 1] = kMaskValue;
+#pragma unroll
+  for (int c = 0; c < NB; ++c)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      float& m = mx[(i >> 1) & 1][(i >> 2) & 3];
+      if (live(c, i)) m = fmaxf(m, s[c][i]);
+    }
+  float sum[2][4], mb[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mb[r] = quad_max(fmaxf(fmaxf(mx[r][0], mx[r][1]), fmaxf(mx[r][2], mx[r][3]))) * sl2;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) sum[r][i] = 0.f;
+  }
+#pragma unroll
+  for (int c = 0; c < NB; ++c)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      if (c < NB - 1 || (j < TW / 8 && c * 64 + j * 8 < N)) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float x = hopper::exp2_approx(fmaf(s[c][4 * j + e], sl2, -mb[e >> 1]));
+          s[c][4 * j + e] = x;
+          sum[e >> 1][j & 3] += x;
+        }
+      } else {  // no key of this 8-column block is valid (static past TW)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[c][4 * j + e] = 0.f;
+      }
+    }
+  float inv[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r)
+    inv[r] = 1.f / quad_sum((sum[r][0] + sum[r][1]) + (sum[r][2] + sum[r][3]));
+#pragma unroll
+  for (int c = 0; c < NB; ++c)
+#pragma unroll
+    for (int i = 0; i < 32; ++i)
+      if (live(c, i)) s[c][i] *= inv[(i >> 1) & 1];
+
+  // delta = sum_k P dP: dP R chunks a batch (chunk c in dp[c - c0]), the
+  // last batch holding chunks NB - R .. NB - 1. Two a batch leave a 64-key
+  // chunk's dP fewer to recompute; at NB = 4 with a full last chunk the
+  // second buffer does not fit beside the S row (ptxas spills).
+  constexpr int R = NB == 4 && TW == 64 ? 1 : 2;
+  float dp[R][32];
+  float dd[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
+#pragma unroll
+  for (int c0 = NB - R * ((NB + R - 1) / R); c0 < NB; c0 += R) {
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int h = 0; h < R; ++h) {
+      const int c = c0 + h;
+      if (c >= 0 && c < NB - 1) bwd_abt<HD, 64>(dp[h], do_t, v_s + c * kT);
+      if (c == NB - 1) bwd_abt<HD, TW>(dp[h], do_t, v_s + c * kT);
+    }
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+#pragma unroll
+    for (int h = 0; h < R; ++h) hopper::fence_regs(dp[h]);
+    if (c0 + R - 1 == NB - 1 && TW < 64) {
+#pragma unroll
+      for (int i = TW / 2; i < 32; ++i) dp[R - 1][i] = 0.f;  // not written by the narrow product
+    }
+#pragma unroll
+    for (int h = 0; h < R; ++h)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int c = c0 + h < 0 ? 0 : c0 + h;
+        if (c0 + h >= 0 && live(c, i))
+          dd[(i >> 1) & 1][i & 1] = fmaf(s[c][i], dp[h][i], dd[(i >> 1) & 1][i & 1]);
+      }
+  }
+  float delta[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) delta[r] = quad_sum(dd[r][0] + dd[r][1]);
+  if (t4 == 0) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = qt * 64 + warp * 16 + g + 8 * r;
+      const bool ok = row < N;
+      stats[row] = ok ? mb[r] : __int_as_float(0x7f800000);
+      stats[kWgMaxN + row] = ok ? inv[r] : 0.f;
+      stats[2 * kWgMaxN + row] = ok ? delta[r] : 0.f;
+    }
+  }
+
+  // dS = P (dP - delta) scale in bf16, dQ += dS K: the last batch's chunks
+  // from registers, then the others from the last down, each batch also
+  // recomputing the next chunk's dP into dp[0].
+  wgtile::Acc<HD> acc;
+  wgtile::zero_panels<HD>(acc);
+  {
+    uint32_t a_last[4][4], a_prev[4][4];
+    bwd_dscores<kTailSteps>(a_last, s[NB - 1], dp[R - 1], delta, scale);
+    if constexpr (R == 2) bwd_dscores<4>(a_prev, s[NB - 2], dp[0], delta, scale);
+    hopper::wgmma_fence();
+    wgtile::wg_ab<HD, kTailSteps>(acc, a_last, k_s + (NB - 1) * kT);
+    if constexpr (R == 2) wgtile::wg_ab<HD>(acc, a_prev, k_s + (NB - 2) * kT);
+    if constexpr (NB - 1 - R >= 0) bwd_abt<HD, 64>(dp[0], do_t, v_s + (NB - 1 - R) * kT);
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    wgtile::fence_panels<HD>(acc);
+    hopper::fence_regs(dp[0]);
+  }
+#pragma unroll
+  for (int c = NB - 1 - R; c >= 0; --c) {
+    uint32_t a[4][4];
+    bwd_dscores<4>(a, s[c], dp[0], delta, scale);
+    hopper::wgmma_fence();
+    wgtile::wg_ab<HD>(acc, a, k_s + c * kT);
+    if (c > 0) bwd_abt<HD, 64>(dp[0], do_t, v_s + (c - 1) * kT);
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    wgtile::fence_panels<HD>(acc);
+    hopper::fence_regs(dp[0]);
+  }
+  wgtile::wg_store<HD>(acc, dq, dqn, qt * 64, N, N, D, 1.f, warp, g, t4);
+}
+
+// Phase B of one 64-row key tile kt, by one warpgroup, with the keys as
+// rows, over NB 64-query chunks (the last TW queries wide): S^T = K Q_j^T
+// and dP^T = V dO_j^T, P^T and dS^T from phase A's statistics of the chunk's
+// queries, then dV += P^T dO_j and dK += dS^T Q_j with P^T and dS^T, rounded
+// to bf16, as the register A operands; each batch also runs the next chunk's
+// S^T and dP^T. When `qd_empty` is given (this warpgroup's last key tile),
+// each warp releases chunk j of Q and dO once its products are done. dK and
+// dV are stored, rows past N not written.
+template <int HD, int NB, int TW>
+__device__ __forceinline__ void bwd_keys(const unsigned char* q_s, const unsigned char* do_s,
+                                         const unsigned char* k_s, const unsigned char* v_s,
+                                         const float* stats, bf16* dk, long long dkn, bf16* dv,
+                                         long long dvn, int kt, int N, int D, float sl2,
+                                         float scale, uint64_t* qd_empty, int warp, int lane,
+                                         int g, int t4) {
+  constexpr int kT = BwdGeom<HD>::kTileBytes;
+  constexpr int kTailSteps = (TW + 15) / 16;
+  const unsigned char* k_t = k_s + kt * kT;
+  const unsigned char* v_t = v_s + kt * kT;
+  wgtile::Acc<HD> acc_dk, acc_dv;
+  wgtile::zero_panels<HD>(acc_dk);
+  wgtile::zero_panels<HD>(acc_dv);
+  float st[32], dpt[32];
+  uint32_t pp[4][4], pd[4][4];
+  hopper::wgmma_fence();
+  bwd_abt<HD, 64>(st, k_t, q_s);
+  bwd_abt<HD, 64>(dpt, v_t, do_s);
+  hopper::wgmma_commit();
+  hopper::wgmma_wait<0>();
+  hopper::fence_regs(st);
+  hopper::fence_regs(dpt);
+#pragma unroll
+  for (int j = 0; j < NB; ++j) {
+    const float* mb_s = stats + j * 64;
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj) {
+      if (j < NB - 1 || (jj < TW / 8 && j * 64 + jj * 8 < N)) {
+        const float2 m = *reinterpret_cast<const float2*>(mb_s + 8 * jj + 2 * t4);
+        const float2 il = *reinterpret_cast<const float2*>(mb_s + kWgMaxN + 8 * jj + 2 * t4);
+        const float2 dl = *reinterpret_cast<const float2*>(mb_s + 2 * kWgMaxN + 8 * jj + 2 * t4);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float p = hopper::exp2_approx(fmaf(st[4 * jj + e], sl2, -((e & 1) ? m.y : m.x)))
+                          * ((e & 1) ? il.y : il.x);
+          st[4 * jj + e] = p;
+          dpt[4 * jj + e] = p * (dpt[4 * jj + e] - ((e & 1) ? dl.y : dl.x)) * scale;
+        }
+      } else {  // no query of this 8-column block is valid
+#pragma unroll
+        for (int e = 0; e < 4; ++e) st[4 * jj + e] = dpt[4 * jj + e] = 0.f;
+      }
+    }
+    const unsigned char* q_j = q_s + j * kT;
+    const unsigned char* do_j = do_s + j * kT;
+    if (j == NB - 1) {
+      bwd_pack<kTailSteps>(pp, st);
+      bwd_pack<kTailSteps>(pd, dpt);
+      hopper::wgmma_fence();
+      wgtile::wg_ab<HD, kTailSteps>(acc_dv, pp, do_j);
+      wgtile::wg_ab<HD, kTailSteps>(acc_dk, pd, q_j);
+    } else {
+      bwd_pack<4>(pp, st);
+      bwd_pack<4>(pd, dpt);
+      hopper::wgmma_fence();
+      wgtile::wg_ab<HD>(acc_dv, pp, do_j);
+      wgtile::wg_ab<HD>(acc_dk, pd, q_j);
+      if (j + 1 < NB - 1) {
+        bwd_abt<HD, 64>(st, k_t, q_j + kT);
+        bwd_abt<HD, 64>(dpt, v_t, do_j + kT);
+      } else {
+        bwd_abt<HD, TW>(st, k_t, q_j + kT);
+        bwd_abt<HD, TW>(dpt, v_t, do_j + kT);
+      }
+    }
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(st);
+    hopper::fence_regs(dpt);
+    if (qd_empty != nullptr) {  // chunk j of Q and dO is spent for this warp
+      __syncwarp();
+      if (lane == 0) hopper::mbar_arrive(&qd_empty[j]);
+    }
+  }
+  wgtile::fence_panels<HD>(acc_dk);
+  wgtile::fence_panels<HD>(acc_dv);
+  wgtile::wg_store<HD>(acc_dk, dk, dkn, kt * 64, N, N, D, 1.f, warp, g, t4);
+  wgtile::wg_store<HD>(acc_dv, dv, dvn, kt * 64, N, N, D, 1.f, warp, g, t4);
+}
+
+// A persistent block per SM walks over the (batch, head) pairs. Warpgroup 0
+// (one thread) loads each pair's K and V whole into one of kBwdKvStages
+// stages with TMA, a pair ahead of the consumers, and its Q and dO 64 rows at
+// a time into one slot, each 64-row chunk as soon as the previous pair has
+// spent it. The consumer warpgroups take the pair's query tiles in turn
+// (phase A, tiles wg, wg + kBwdConsumers, ...), meet at a named barrier once
+// every row's statistics are in shared memory, then take its key tiles in
+// turn (phase B), and release the K/V stage when done.
+template <int HD, int NB, int TW>
+__global__ void __launch_bounds__(kBwdThreads, 1)
+short_bwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                       const __grid_constant__ CUtensorMap tk,
+                       const __grid_constant__ CUtensorMap tv,
+                       const __grid_constant__ CUtensorMap tdo, bf16* __restrict__ dq,
+                       bf16* __restrict__ dk, bf16* __restrict__ dv, int BH, int H, int N, int D,
+                       BwdStrides st, float scale, int pos_q, int pos_k, int pos_v, int pos_do) {
+  using Gm = BwdGeom<HD>;
+  constexpr int S = kBwdKvStages;
+  constexpr int kT = Gm::kTileBytes;
+  constexpr int kConsumerWarps = 4 * kBwdConsumers;
+  extern __shared__ __align__(1024) unsigned char wg_smem_raw[];
+  unsigned char* smem = wgtile::align1024(wg_smem_raw);
+  unsigned char* q_s = smem + Gm::kKvBytes;
+  unsigned char* do_s = q_s + Gm::kTensorBytes;
+  float* stats = reinterpret_cast<float*>(smem + Gm::kStatOffset);
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(smem + Gm::kBarOffset);
+  uint64_t* kv_empty = kv_full + S;
+  uint64_t* qd_full = kv_empty + S;
+  uint64_t* qd_empty = qd_full + 4;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < S; ++s) {
+      hopper::mbar_init(&kv_full[s], 1);
+      hopper::mbar_init(&kv_empty[s], kConsumerWarps);
+    }
+    for (int j = 0; j < 4; ++j) {
+      hopper::mbar_init(&qd_full[j], 1);
+      hopper::mbar_init(&qd_empty[j], kConsumerWarps);
+    }
+    hopper::mbar_init_fence();
+  }
+  __syncthreads();
+
+  const int role = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+  if (role == 0) {
+    if constexpr (kBwdConsumers > 1) hopper::regs_release<24>();
+    if (threadIdx.x == 0) {
+      for (int u = blockIdx.x, i = 0; u < BH; u += gridDim.x, ++i) {
+        const int b = u / H, h = u % H;
+        const int s = i % S;
+        unsigned char* k_s = smem + s * 2 * Gm::kTensorBytes;
+        hopper::mbar_wait(&kv_empty[s], ((i / S) & 1) ^ 1);
+        hopper::mbar_arrive_expect_tx(&kv_full[s], 2u * NB * kT);
+        for (int c = 0; c < NB; ++c) {
+          wgtile::wg_load_tile<HD>(k_s + c * kT, &tk, pos_k, &kv_full[s], h, 64 * c, b);
+          wgtile::wg_load_tile<HD>(k_s + Gm::kTensorBytes + c * kT, &tv, pos_v, &kv_full[s], h,
+                                   64 * c, b);
+        }
+        for (int j = 0; j < NB; ++j) {
+          hopper::mbar_wait(&qd_empty[j], (i & 1) ^ 1);
+          hopper::mbar_arrive_expect_tx(&qd_full[j], 2u * kT);
+          wgtile::wg_load_tile<HD>(q_s + j * kT, &tq, pos_q, &qd_full[j], h, 64 * j, b);
+          wgtile::wg_load_tile<HD>(do_s + j * kT, &tdo, pos_do, &qd_full[j], h, 64 * j, b);
+        }
+      }
+    }
+  } else {
+    if constexpr (kBwdConsumers > 1) hopper::regs_claim<240>();
+    const int tid = threadIdx.x - 128;
+    const int wg = tid / 128, warp = (tid / 32) % 4, lane = tid % 32;
+    const int g = lane / 4, t4 = lane % 4;
+    const float sl2 = scale * kLog2e;
+    for (int u = blockIdx.x, i = 0; u < BH; u += gridDim.x, ++i) {
+      const int b = u / H, h = u % H;
+      const int s = i % S;
+      const unsigned char* k_s = smem + s * 2 * Gm::kTensorBytes;
+      const unsigned char* v_s = k_s + Gm::kTensorBytes;
+      float* pair_stats = stats + (i & 1) * Gm::kStats;
+      hopper::mbar_wait(&kv_full[s], (i / S) & 1);
+      for (int qt = wg; qt < NB; qt += kBwdConsumers) {
+        hopper::mbar_wait(&qd_full[qt], i & 1);
+        bwd_rows<HD, NB, TW>(q_s, do_s, k_s, v_s, pair_stats, dq + b * st.dqb + h * st.dqh,
+                             st.dqn, qt, N, D, sl2, scale, warp, g, t4);
+      }
+      hopper::named_sync(1, 128 * kBwdConsumers);  // every row's statistics are written
+      for (int j = 0; j < NB; ++j) hopper::mbar_wait(&qd_full[j], i & 1);
+      for (int kt = wg; kt < NB; kt += kBwdConsumers)
+        bwd_keys<HD, NB, TW>(q_s, do_s, k_s, v_s, pair_stats, dk + b * st.dkb + h * st.dkh,
+                             st.dkn, dv + b * st.dvb + h * st.dvh, st.dvn, kt, N, D, sl2, scale,
+                             kt + kBwdConsumers >= NB ? qd_empty : nullptr, warp, lane, g, t4);
+      __syncwarp();
+      if (lane == 0) hopper::mbar_arrive(&kv_empty[s]);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // f32 (FMA units)
 // ---------------------------------------------------------------------------
 
@@ -1024,25 +1483,93 @@ cudaError_t launch_fwd_wgmma(const void* q, const void* k, const void* v, void* 
   return cudaGetLastError();
 }
 
-// The wgmma design takes 64 < N <= 256 when TMA can read q, k and v and
-// write o (every batch, sequence and head stride positive; a broadcast
-// stride of 0 cannot be described to it).
-bool wgmma_takes(int N, const FwdStrides& st) {
-  const long long s[12] = {st.qb, st.qn, st.qh, st.kb, st.kn, st.kh,
-                           st.vb, st.vn, st.vh, st.ob, st.on, st.oh};
-  for (long long x : s)
-    if (x <= 0) return false;
-  return N > 64 && N <= kWgMaxN;
+template <int HD, int NB, int TW>
+cudaError_t launch_bwd_wgmma_nb(const CUtensorMap (&m)[4], const int (&pos)[4], void* dq,
+                                void* dk, void* dv, int grid, int BH, int H, int N, int D,
+                                const BwdStrides& st, float scale, cudaStream_t s) {
+  using Gm = BwdGeom<HD>;
+  cudaError_t err = cudaFuncSetAttribute(short_bwd_wgmma_kernel<HD, NB, TW>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)Gm::kSmemBytes);
+  if (err != cudaSuccess) return err;
+  short_bwd_wgmma_kernel<HD, NB, TW><<<grid, kBwdThreads, Gm::kSmemBytes, s>>>(
+      m[0], m[1], m[2], m[3], static_cast<bf16*>(dq), static_cast<bf16*>(dk),
+      static_cast<bf16*>(dv), BH, H, N, D, st, scale, pos[0], pos[1], pos[2], pos[3]);
+  return cudaGetLastError();
 }
+
+// Kernel 7's wgmma design at HD <= 64: the four tensor maps (q, k, v, g in
+// 64-row boxes), then the instance of the pair's key chunks, the last one
+// kBwdTailKeys wide when its valid keys fit.
+template <int HD>
+cudaError_t launch_bwd_wgmma(const void* q, const void* k, const void* v, const void* g,
+                             void* dq, void* dk, void* dv, int B, int H, int N, int D,
+                             const BwdStrides& st, float scale, cudaStream_t s) {
+  const CUtensorMapSwizzle sw = HD == 32 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_128B;
+  CUtensorMap m[4];
+  int pos[4];
+  const void* ptrs[4] = {q, k, v, g};
+  const long long strides[4][3] = {{st.qb, st.qn, st.qh}, {st.kb, st.kn, st.kh},
+                                   {st.vb, st.vn, st.vh}, {st.gb, st.gn, st.gh}};
+  for (int i = 0; i < 4; ++i)
+    if (!hopper::encode_bnhd_map(&m[i], ptrs[i], B, N, H, D, strides[i][0], strides[i][1],
+                                 strides[i][2], wgtile::WgTile<HD>::kPanelCols, 64, sw, &pos[i]))
+      return cudaErrorInvalidValue;
+  int dev = 0, sms = 0;
+  cudaError_t err;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return err;
+  const int BH = B * H, grid = BH < sms ? BH : sms;
+  const int nb = (N + 63) / 64;
+  const bool narrow = kBwdTailKeys > 0 && N - 64 * (nb - 1) <= kBwdTailKeys;
+  constexpr int TW = kBwdTailKeys > 0 ? kBwdTailKeys : 64;
+#define SHORT_BWD_NB(NB)                                                                       \
+  return narrow ? launch_bwd_wgmma_nb<HD, NB, TW>(m, pos, dq, dk, dv, grid, BH, H, N, D, st,   \
+                                                  scale, s)                                    \
+                : launch_bwd_wgmma_nb<HD, NB, 64>(m, pos, dq, dk, dv, grid, BH, H, N, D, st,   \
+                                                  scale, s)
+  if (nb == 4) SHORT_BWD_NB(4);
+  if (nb == 3) SHORT_BWD_NB(3);
+  SHORT_BWD_NB(2);
+#undef SHORT_BWD_NB
+}
+
+// The wgmma designs take 64 < N <= 256 when TMA can read every input (every
+// batch, sequence and head stride positive; a broadcast stride of 0 cannot
+// be described to it); the backward also needs D <= 64 (a pair's q, k, v
+// and g in shared memory) and takes the outputs' strides into the rule.
+bool strides_positive(const long long* st, int n) {
+  for (int i = 0; i < n; ++i)
+    if (st[i] <= 0) return false;
+  return true;
+}
+
+bool wgmma_takes(int N, const FwdStrides& st) {
+  return N > 64 && N <= kWgMaxN && strides_positive(&st.qb, 12);
+}
+
+bool bwd_wgmma_takes(int N, int D, const BwdStrides& st) {
+  return N > 64 && N <= kWgMaxN && D <= 64 && strides_positive(&st.qb, 21);
+}
+
+// The design of the last launch of kernel 6 ([0]) and kernel 7 ([1]) through
+// any entry: 0 = FMA (f32), 1 = mma.sync, 2 = wgmma; -1 before the first.
+// Read through short_attention_last_design.
+enum Design { kFma = 0, kMmaSync = 1, kWgmma = 2 };
+int g_last_design[2] = {-1, -1};
 
 template <int HD>
 cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* o, int dtype, int B,
                        int H, int N, int D, const FwdStrides& st, float scale, bool mma_only,
                        cudaStream_t s) {
   const int BH = B * H;
+  g_last_design[0] = dtype == 1 ? kMmaSync : kFma;
   if (dtype == 1) {
-    if (!mma_only && wgmma_takes(N, st))
+    if (!mma_only && wgmma_takes(N, st)) {
+      g_last_design[0] = kWgmma;
       return launch_fwd_wgmma<HD>(q, k, v, o, B, H, N, D, st, scale, s);
+    }
     const int w = warps_for(N);
     if (w == 1) return launch_fwd_bf16<HD, 1>(q, k, v, o, BH, H, N, D, st, scale, s);
     if (w == 2) return launch_fwd_bf16<HD, 2>(q, k, v, o, BH, H, N, D, st, scale, s);
@@ -1058,9 +1585,16 @@ cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* o, int
 
 template <int HD>
 cudaError_t launch_bwd(const void* q, const void* k, const void* v, const void* g, void* dq,
-                       void* dk, void* dv, int dtype, int BH, int H, int N, int D,
-                       const BwdStrides& st, float scale, cudaStream_t s) {
+                       void* dk, void* dv, int dtype, int B, int H, int N, int D,
+                       const BwdStrides& st, float scale, bool mma_only, cudaStream_t s) {
+  const int BH = B * H;
+  g_last_design[1] = dtype == 1 ? kMmaSync : kFma;
   if (dtype == 1) {
+    if constexpr (HD <= 64)
+      if (!mma_only && bwd_wgmma_takes(N, D, st)) {
+        g_last_design[1] = kWgmma;
+        return launch_bwd_wgmma<HD>(q, k, v, g, dq, dk, dv, B, H, N, D, st, scale, s);
+      }
     const int w = warps_for(N);
     if (w == 1) return launch_bwd_bf16<HD, 1>(q, k, v, g, dq, dk, dv, BH, H, N, D, st, scale, s);
     if (w == 2) return launch_bwd_bf16<HD, 2>(q, k, v, g, dq, dk, dv, BH, H, N, D, st, scale, s);
@@ -1112,18 +1646,43 @@ extern "C" int short_attention_fwd_mma(const void* q, const void* k, const void*
   return fwd(q, k, v, o, dtype, B, N, H, D, st, scale, true, stream);
 }
 
-// As short_attention_fwd, for the gradient: g (the output's gradient, in the
-// input dtype) in, dq, dk, dv out, all (B, N, H, D); `st` holds 21 strides:
-// q, k, v, g, dq, dk, dv (batch, sequence, head each).
-extern "C" int short_attention_bwd(const void* q, const void* k, const void* v, const void* g,
-                                   void* dq, void* dk, void* dv, int dtype, int B, int N, int H,
-                                   int D, const long long* st, float scale, void* stream) {
+int bwd(const void* q, const void* k, const void* v, const void* g, void* dq, void* dk, void* dv,
+        int dtype, int B, int N, int H, int D, const long long* st, float scale, bool mma_only,
+        void* stream) {
   if (bad_args(dtype, B, H, N, D)) return (int)cudaErrorInvalidValue;
   BwdStrides s;
   std::memcpy(&s, st, sizeof(s));
   cudaStream_t cs = static_cast<cudaStream_t>(stream);
-  const int BH = B * H;
-  if (D <= 32) return (int)launch_bwd<32>(q, k, v, g, dq, dk, dv, dtype, BH, H, N, D, s, scale, cs);
-  if (D <= 64) return (int)launch_bwd<64>(q, k, v, g, dq, dk, dv, dtype, BH, H, N, D, s, scale, cs);
-  return (int)launch_bwd<128>(q, k, v, g, dq, dk, dv, dtype, BH, H, N, D, s, scale, cs);
+  if (D <= 32)
+    return (int)launch_bwd<32>(q, k, v, g, dq, dk, dv, dtype, B, H, N, D, s, scale, mma_only, cs);
+  if (D <= 64)
+    return (int)launch_bwd<64>(q, k, v, g, dq, dk, dv, dtype, B, H, N, D, s, scale, mma_only, cs);
+  return (int)launch_bwd<128>(q, k, v, g, dq, dk, dv, dtype, B, H, N, D, s, scale, mma_only, cs);
+}
+
+// As short_attention_fwd, for the gradient: g (the output's gradient, in the
+// input dtype) in, dq, dk, dv out, all (B, N, H, D); `st` holds 21 strides:
+// q, k, v, g, dq, dk, dv (batch, sequence, head each). bf16 at 64 < N <= 256
+// and D <= 64 with every stride positive runs the wgmma design, other bf16
+// calls the mma.sync one, f32 the FMA kernel.
+extern "C" int short_attention_bwd(const void* q, const void* k, const void* v, const void* g,
+                                   void* dq, void* dk, void* dv, int dtype, int B, int N, int H,
+                                   int D, const long long* st, float scale, void* stream) {
+  return bwd(q, k, v, g, dq, dk, dv, dtype, B, N, H, D, st, scale, false, stream);
+}
+
+// As short_attention_bwd, with the mma.sync design for bf16 at every shape
+// (the earlier kernel, kept to time the wgmma one against it).
+extern "C" int short_attention_bwd_mma(const void* q, const void* k, const void* v,
+                                       const void* g, void* dq, void* dk, void* dv, int dtype,
+                                       int B, int N, int H, int D, const long long* st,
+                                       float scale, void* stream) {
+  return bwd(q, k, v, g, dq, dk, dv, dtype, B, N, H, D, st, scale, true, stream);
+}
+
+// The design (0 = FMA, 1 = mma.sync, 2 = wgmma) of the last launch of kernel
+// 6 (which = 0) or kernel 7 (which = 1) through any entry above; -1 before
+// the first.
+extern "C" int short_attention_last_design(int which) {
+  return which == 0 || which == 1 ? g_last_design[which] : -1;
 }

@@ -1,6 +1,7 @@
 // 64-row attention tiles on wgmma and TMA, shared by the flash-attention
 // forward (flash_attention_fwd.cu, kernels 1-2) and backward
-// (flash_attention_bwd.cu, kernels 3-4): the tile geometry in shared memory,
+// (flash_attention_bwd.cu, kernels 3-4) and the short-sequence backward
+// (short_attention.cu, kernel 7): the tile geometry in shared memory,
 // TMA loads of one (batch, head) slice's rows, the two products a warpgroup
 // runs on a 64-row tile (A B^T with both operands in shared memory, and
 // A B with A in registers), and the bf16 store of a warpgroup's accumulator.
@@ -107,8 +108,9 @@ __device__ __forceinline__ void wg_abt_rs(float (&d)[32], const uint32_t (&a)[HD
 
 // acc (64 x HD f32, one array per panel) += A B: A (64 x 64 bf16) in
 // registers as four k16 fragments, B a 64-row tile read MN-major (the
-// product contracts over its rows; RS wgmma, transposed B).
-template <int HD>
+// product contracts over its rows; RS wgmma, transposed B). With KK < 4 only
+// the first 16 KK rows of B (and k16 fragments of A) take part.
+template <int HD, int KK = 4>
 __device__ __forceinline__ void wg_ab(Acc<HD>& acc, const uint32_t (&a)[4][4],
                                       const unsigned char* b) {
   using G = WgTile<HD>;
@@ -116,7 +118,7 @@ __device__ __forceinline__ void wg_ab(Acc<HD>& acc, const uint32_t (&a)[4][4],
   // one swizzle atom; it goes in both offset fields.
   const uint64_t db = hopper::smem_desc(b, G::kGroupBytes, G::kGroupBytes, G::kLayout);
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk)
+  for (int kk = 0; kk < KK; ++kk)
 #pragma unroll
     for (int p = 0; p < G::kPanels; ++p) {
       const uint64_t d = db + ((p * G::kPanelBytes + kk * 16 * G::kRowBytes) >> 4);

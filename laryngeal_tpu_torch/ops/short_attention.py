@@ -14,9 +14,15 @@ kernels there have CUDA counterparts here (``csrc/short_attention.cu``):
 Kernel 6 has two bf16 designs behind its one entry: ``wgmma`` (a whole
 (sequence, head) pair in shared memory through TMA, S and P·V on wgmma) at
 64 < N <= 256, and ``mma.sync`` (two passes over streamed key tiles) at
-every other N. ``short_attention_fwd_mma_cuda`` runs the ``mma.sync`` design
-at any N; only ``chip_smoke.py`` and the card tests call it, to time and
-hold the two against each other, and it counts no launch.
+every other N. Kernel 7 likewise: ``wgmma`` (a pair's Q, K, V and dO
+resident through TMA; the query tiles as rows for the row statistics and dQ,
+then the key tiles as rows for dK and dV) at 64 < N <= 256 and D <= 64 with
+every stride positive (``bwd_wgmma_takes``), ``mma.sync`` elsewhere.
+``short_attention_fwd_mma_cuda`` and ``short_attention_bwd_mma_cuda`` run the
+``mma.sync`` designs at any shape; only ``chip_smoke.py`` and the card tests
+call them, to time and hold the designs against each other, and they count
+no launch. ``last_designs`` reports the design the C side ran last, and
+``bwd_design_launches`` counts kernel 7's launches by design.
 
 ``short_attention`` takes (B, N, H, D) self-attention (Nq == Nk), no bias
 and no mask, N < 512, D <= 128, float32 or bfloat16: the calls the router
@@ -38,13 +44,13 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from . import _build
-from .flash_attention import (F32_REL, _DTYPE_CODE, _check_cuda, _head_dims, _on_cpu, _prepare,
-                              _stream)
+from .flash_attention import (F32_REL, _DTYPE_CODE, _check_cuda, _head_dims, _last_designs,
+                              _on_cpu, _prepare, _stream)
 
 SOURCE = "short_attention.cu"
 MAX_HEAD_DIM = 128
@@ -53,6 +59,11 @@ MAX_SEQ = 511  # the JAX router's N < 512
 # count); ``chip_smoke.py`` reads them to prove the main path used the kernels.
 fwd_launches = 0   # kernel 6, short_attention_fwd
 bwd_launches = 0   # kernel 7, short_attention_bwd
+# Designs of kernels 6-7, by the code ``short_attention_last_design`` returns.
+DESIGNS = ("fma", "mma.sync", "wgmma")
+# Kernel 7's launches by the design the C side ran (they add up to
+# ``bwd_launches``).
+bwd_design_launches: Dict[str, int] = {d: 0 for d in DESIGNS}
 
 _fns: Dict[str, object] = {}
 
@@ -60,6 +71,26 @@ _fns: Dict[str, object] = {}
 def reset_launches() -> None:
     global fwd_launches, bwd_launches
     fwd_launches = bwd_launches = 0
+    for d in DESIGNS:
+        bwd_design_launches[d] = 0
+
+
+def last_designs() -> Tuple[Optional[str], Optional[str]]:
+    """The designs (``DESIGNS``) of the last launches of kernel 6 and of
+    kernel 7 in this process, through any of their entries (the ``_mma``
+    ones included), as the C side chose them; None before the first."""
+    return _last_designs(SOURCE, "short_attention_last_design", DESIGNS)
+
+
+def bwd_wgmma_takes(shape, strides, dtype) -> bool:
+    """Whether kernel 7's C entry runs its wgmma design: bf16, 64 < N <= 256,
+    D (padded to a multiple of 8) <= 64, and every batch, sequence and head
+    stride of the launch positive (TMA cannot describe a broadcast stride of
+    0). ``shape`` is q's (B, N, H, D); ``strides`` the launch's strides as
+    ``_launch`` passes them (3 a tensor; only their signs matter)."""
+    n, d_pad = shape[1], -(-shape[3] // 8) * 8
+    return (dtype == torch.bfloat16 and 64 < n <= 256 and d_pad <= 64
+            and all(s > 0 for s in strides))
 
 
 def launch_counts() -> Dict[str, int]:
@@ -70,7 +101,7 @@ def launch_counts() -> Dict[str, int]:
 def _kernel(name: str):
     if name not in _fns:
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        n_ptrs = 7 if name == "short_attention_bwd" else 4
+        n_ptrs = 7 if name.startswith("short_attention_bwd") else 4
         fn = getattr(_build.load(SOURCE), name)
         fn.restype = ctypes.c_int
         fn.argtypes = ([ptr] * n_ptrs + [i32] * 5
@@ -225,25 +256,43 @@ def short_attention_fwd_mma_cuda(q: torch.Tensor, k: torch.Tensor,
     return _fwd_cuda("short_attention_fwd_mma", q, k, v)[0]
 
 
-def short_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                             do: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Kernel 7 on CUDA tensors: (dq, dk, dv) shaped like q; ``do`` is cast
-    to q's dtype first, as the JAX backward casts it. Raises if it cannot
-    launch."""
-    global bwd_launches
+def _bwd_cuda(name: str, q, k, v, do) -> Tuple[Tuple[torch.Tensor, ...], bool]:
+    """((dq, dk, dv), launched) of kernel 7's C entry ``name`` on CUDA
+    tensors; raises if it cannot launch."""
     _check_kernel(q, k, v)
     if do.shape != q.shape:
         raise ValueError(f"the output gradient {tuple(do.shape)} must be shaped like q "
                          f"{tuple(q.shape)}")
-    _check_cuda("short_attention_bwd", q, k, v, do)
+    _check_cuda(name, q, k, v, do)
     d, d_pad = _head_dims(q)
     grads = [torch.empty((*q.shape[:3], d_pad), dtype=q.dtype, device=q.device)
              for _ in range(3)]
-    if q.shape[0] * q.shape[2] > 0:
-        _launch("short_attention_bwd",
-                [_prepare(x, d_pad) for x in (q, k, v, do.to(q.dtype))], grads, d)
+    launched = q.shape[0] * q.shape[2] > 0
+    if launched:
+        _launch(name, [_prepare(x, d_pad) for x in (q, k, v, do.to(q.dtype))], grads, d)
+    return tuple(x if d_pad == d else x[..., :d] for x in grads), launched
+
+
+def short_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                             do: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Kernel 7 on CUDA tensors: (dq, dk, dv) shaped like q; ``do`` is cast
+    to q's dtype first, as the JAX backward casts it. Raises if it cannot
+    launch (the wgmma design's failures included: there is no fallback)."""
+    global bwd_launches
+    grads, launched = _bwd_cuda("short_attention_bwd", q, k, v, do)
+    if launched:
         bwd_launches += 1
-    return tuple(x if d_pad == d else x[..., :d] for x in grads)
+        bwd_design_launches[last_designs()[1]] += 1
+    return grads
+
+
+def short_attention_bwd_mma_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                                 do: torch.Tensor
+                                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Kernel 7's earlier ``mma.sync`` design at any shape, on CUDA tensors
+    (the yardstick of the ``wgmma`` one); counts no launch, raises if it
+    cannot launch."""
+    return _bwd_cuda("short_attention_bwd_mma", q, k, v, do)[0]
 
 
 def short_attention_forward(q, k, v) -> torch.Tensor:

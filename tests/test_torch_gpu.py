@@ -668,6 +668,155 @@ def test_short_kernel_rejects_bad_input(cuda):
         sa.short_attention(q, k, v)
 
 
+def _short_bwd_uses(grads, q, k, v, g):
+    """Largest |err| / backward_error_limit of (dq, dk, dv) against the twin."""
+    refs = sa.short_attention_plain_bwd(q, k, v, g)
+    return [((x.float() - r.float()).abs() / lim).max().item()
+            for x, r, lim in zip(grads, refs, sa.backward_error_limit(q, k, v, g, refs))]
+
+
+@pytest.mark.parametrize("d", [32, 64])
+@pytest.mark.parametrize("n", [65, 128, 197, 256])
+def test_short_backward_designs_both_match_plain(cuda, n, d):
+    """bf16 at the edges of kernel 7's wgmma domain: the entry (which
+    reports ``wgmma``) and the kept mma.sync design
+    (``short_attention_bwd_mma``, which reports ``mma.sync``) each stay
+    within ``backward_error_limit`` of the twin."""
+    q, k, v, g = _short_inputs((3, n, 5, d), torch.bfloat16, cuda, seed=n + d)
+    for fn, design in ((sa.short_attention_bwd_cuda, "wgmma"),
+                       (sa.short_attention_bwd_mma_cuda, "mma.sync")):
+        grads = fn(q, k, v, g)
+        torch.cuda.synchronize()
+        assert sa.last_designs()[1] == design, fn.__name__
+        assert all(x.dtype == torch.bfloat16 and x.shape == q.shape for x in grads)
+        uses = _short_bwd_uses(grads, q, k, v, g)
+        assert max(uses) <= 1.0, (fn.__name__, uses)
+
+
+@pytest.mark.parametrize("case", ["d128", "n32", "n257", "expand", "f32"])
+def test_short_backward_outside_the_wgmma_domain_runs_mma_sync(cuda, case):
+    """Kernel 7 takes mma.sync at D = 128, N = 32 (the temporal shape),
+    N = 257 and on a stride-0 (``expand``) view, the FMA kernel in f32; the
+    Python mirror of the C gate agrees, and the result holds its limit."""
+    shape = {"d128": (2, 197, 3, 128), "n32": (4, 32, 3, 64),
+             "n257": (2, 257, 3, 64)}.get(case, (2, 197, 3, 64))
+    dtype = torch.float32 if case == "f32" else torch.bfloat16
+    q, k, v, g = _short_inputs(shape, dtype, cuda, seed=11)
+    if case == "expand":  # one sequence broadcast over the batch: batch stride 0
+        q, k, v = (x[:1].expand(shape) for x in (q, k, v))
+    grads = sa.short_attention_bwd_cuda(q, k, v, g)
+    torch.cuda.synchronize()
+    want = "fma" if case == "f32" else "mma.sync"
+    assert sa.last_designs()[1] == want
+    strides = [s for x in (q, k, v, g, *grads) for s in sa._prepare(x, shape[3]).stride()[:3]]
+    assert sa.bwd_wgmma_takes(q.shape, strides, dtype) is False
+    assert max(_short_bwd_uses(grads, q, k, v, g)) <= 1.0
+
+
+def test_short_forward_reports_the_design_it_ran(cuda):
+    """``last_designs()[0]`` is kernel 6's design as the C side chose it:
+    wgmma at N = 197 (bf16), mma.sync at N = 32 and through the _mma entry,
+    the FMA kernel in f32."""
+    for shape, dtype, fn, want in (
+            ((2, 197, 3, 64), torch.bfloat16, sa.short_attention_fwd_cuda, "wgmma"),
+            ((2, 32, 3, 64), torch.bfloat16, sa.short_attention_fwd_cuda, "mma.sync"),
+            ((2, 197, 3, 64), torch.bfloat16, sa.short_attention_fwd_mma_cuda, "mma.sync"),
+            ((2, 197, 3, 64), torch.float32, sa.short_attention_fwd_cuda, "fma")):
+        q, k, v, _ = _short_inputs(shape, dtype, cuda, seed=16)
+        fn(q, k, v)
+        assert sa.last_designs()[0] == want, (shape, dtype, fn.__name__)
+
+
+def test_short_backward_gate_mirror_agrees_with_the_c_side(cuda):
+    """``bwd_wgmma_takes`` names the design the C entry reports, across the
+    domain's edges and outside it."""
+    for shape in ((2, 64, 3, 64), (2, 65, 3, 64), (1, 256, 3, 64), (1, 257, 3, 64),
+                  (2, 197, 3, 32), (2, 197, 3, 72), (2, 197, 3, 40), (2, 100, 3, 16)):
+        q, k, v, g = _short_inputs(shape, torch.bfloat16, cuda, seed=12)
+        grads = sa.short_attention_bwd_cuda(q, k, v, g)
+        d_pad = -(-shape[3] // 8) * 8
+        strides = [s for x in (q, k, v, g, *grads) for s in sa._prepare(x, d_pad).stride()[:3]]
+        want = "wgmma" if sa.bwd_wgmma_takes(shape, strides, torch.bfloat16) else "mma.sync"
+        assert sa.last_designs()[1] == want, shape
+
+
+@pytest.mark.parametrize("shape", [(8, 197, 12, 64), (3, 65, 5, 32), (2, 256, 3, 64)])
+def test_short_backward_wgmma_is_deterministic(cuda, shape):
+    """Two calls of the wgmma design give bitwise the same dq, dk and dv:
+    a block owns each (sequence, head) pair and no sum uses atomics."""
+    q, k, v, g = _short_inputs(shape, torch.bfloat16, cuda, seed=13)
+    first = sa.short_attention_bwd_cuda(q, k, v, g)
+    second = sa.short_attention_bwd_cuda(q, k, v, g)
+    torch.cuda.synchronize()
+    assert sa.last_designs()[1] == "wgmma"
+    for name, a, b in zip(("dq", "dk", "dv"), first, second):
+        assert torch.equal(a, b), name
+
+
+@pytest.mark.parametrize("d", [32, 64])
+@pytest.mark.parametrize("layout", ["fused", "bhnd"])
+def test_short_backward_wgmma_reads_views_through_autograd(cuda, d, layout):
+    """q, k, v as views of a fused (B, N, 3, H, D) qkv or as (B, H, N, D)
+    tensors transposed to (B, N, H, D), through autograd
+    (``ShortAttentionFn``): kernel 7 runs its wgmma design once and the
+    gradients hold ``backward_error_limit``."""
+    rng = np.random.default_rng(14 + d)
+    b, n, h = 3, 197, 4
+    if layout == "fused":
+        base = torch.from_numpy(rng.standard_normal((b, n, 3, h, d), dtype=np.float32))
+        base = base.to(cuda, torch.bfloat16).requires_grad_()
+        leaves = base.unbind(2)
+    else:
+        base = torch.from_numpy(rng.standard_normal((3, b, h, n, d), dtype=np.float32))
+        base = base.to(cuda, torch.bfloat16).requires_grad_()
+        leaves = [x.transpose(1, 2) for x in base.unbind(0)]
+    g = torch.from_numpy(rng.standard_normal((b, n, h, d), dtype=np.float32)).to(
+        cuda, torch.bfloat16)
+    before = dict(sa.bwd_design_launches)
+    out = sa.short_attention(*leaves)
+    (out.float() * g.float()).sum().backward()
+    torch.cuda.synchronize()
+    assert sa.bwd_design_launches["wgmma"] - before["wgmma"] == 1
+    q, k, v = (x.detach() for x in leaves)
+    grads = base.grad.unbind(2) if layout == "fused" else [x.transpose(1, 2)
+                                                            for x in base.grad.unbind(0)]
+    assert max(_short_bwd_uses(grads, q, k, v, g)) <= 1.0
+
+
+def test_short_backward_counts_one_launch_per_call_by_design(cuda):
+    """Each call of kernel 7's entry adds one to ``bwd_launches`` and one to
+    the count of the design it ran; the mma.sync wrapper counts none;
+    ``reset_launches`` sets the per-design counts to 0."""
+    for shape, design in (((2, 197, 3, 64), "wgmma"), ((4, 32, 3, 64), "mma.sync")):
+        q, k, v, g = _short_inputs(shape, torch.bfloat16, cuda, seed=15)
+        before, by_design = sa.bwd_launches, dict(sa.bwd_design_launches)
+        sa.short_attention_bwd_cuda(q, k, v, g)
+        assert sa.bwd_launches == before + 1
+        assert {x: sa.bwd_design_launches[x] - by_design[x] for x in sa.DESIGNS} == {
+            x: int(x == design) for x in sa.DESIGNS}, shape
+        sa.short_attention_bwd_mma_cuda(q, k, v, g)
+        assert sa.bwd_launches == before + 1 and sa.bwd_design_launches[design] == \
+            by_design[design] + 1
+    sa.reset_launches()
+    assert sa.bwd_launches == 0 and set(sa.bwd_design_launches.values()) == {0}
+
+
+def test_short_backward_wgmma_launch_error_raises(cuda, monkeypatch):
+    """No fallback: when the wgmma design cannot launch (here a sequence
+    stride of 68 elements, which TMA refuses, reaching the C entry because
+    the layout step is bypassed) the wrapper raises with the CUDA error and
+    counts no launch; it does not run the mma.sync design instead."""
+    b, n, h, d = 2, 197, 1, 64
+    base = torch.zeros((4, b, n, h, 68), dtype=torch.bfloat16, device=cuda)
+    q, k, v, g = (x[..., :d] for x in base.unbind(0))
+    monkeypatch.setattr(sa, "_prepare", lambda x, d_pad: x)
+    before, by_design = sa.bwd_launches, dict(sa.bwd_design_launches)
+    with pytest.raises(RuntimeError, match="short_attention_bwd launch failed: cudaError"):
+        sa.short_attention_bwd_cuda(q, k, v, g)
+    assert sa.last_designs()[1] == "wgmma"
+    assert sa.bwd_launches == before and sa.bwd_design_launches == by_design
+
+
 def _tiny_timesformer(dtype):
     from laryngeal_tpu_torch.models.timesformer import create_timesformer
 

@@ -67,7 +67,9 @@ def test_gradients_match_jax_kernel(shape):
                                    err_msg=f"d{name}")
 
 
-@pytest.mark.parametrize("shape", [(3, 5, 1, 16), (3, 32, 5, 64), (1, 197, 3, 64)], ids=str)
+# The last three are the edges of kernel 7's wgmma design (64 < N <= 256).
+@pytest.mark.parametrize("shape", [(3, 5, 1, 16), (3, 32, 5, 64), (1, 197, 3, 64),
+                                   (1, 65, 3, 64), (1, 128, 3, 64), (1, 256, 3, 64)], ids=str)
 def test_bf16_forward_and_gradients_match_jax_kernel(shape):
     q, k, v, g = _inputs(shape, seed=2)
     tq, tk, tv, tg = (torch.from_numpy(x).to(torch.bfloat16) for x in (q, k, v, g))
@@ -227,3 +229,36 @@ def test_head_dim_above_128_takes_plain_attention_as_jax_takes_xla(bias):
     out = att.dot_product_attention(*(torch.from_numpy(x) for x in (q, k, v)),
                                     bias=torch.from_numpy(b) if bias else None, impl="kernel")
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=ATOL, rtol=RTOL)
+
+
+def _strides(*tensors):
+    return [s for x in tensors for s in x.stride()[:3]]
+
+
+@pytest.mark.parametrize("shape,dtype,layout,want", [
+    ((256, 197, 12, 64), torch.bfloat16, "contiguous", True),   # TimeSformer-B spatial
+    ((1568, 32, 12, 64), torch.bfloat16, "contiguous", False),  # temporal: N <= 64
+    ((2, 64, 3, 64), torch.bfloat16, "contiguous", False),
+    ((2, 65, 3, 64), torch.bfloat16, "contiguous", True),
+    ((1, 256, 3, 64), torch.bfloat16, "contiguous", True),
+    ((1, 257, 3, 64), torch.bfloat16, "contiguous", False),
+    ((2, 197, 3, 32), torch.bfloat16, "fused", True),
+    ((2, 197, 3, 40), torch.bfloat16, "contiguous", True),       # padded to 40
+    ((2, 197, 3, 66), torch.bfloat16, "contiguous", False),      # padded to 72
+    ((2, 197, 3, 128), torch.bfloat16, "contiguous", False),
+    ((2, 197, 3, 64), torch.bfloat16, "expand", False),          # batch stride 0
+    ((2, 197, 3, 64), torch.float32, "contiguous", False),
+])
+def test_bwd_wgmma_gate_table(shape, dtype, layout, want):
+    """``bwd_wgmma_takes``, the Python mirror of kernel 7's C gate: bf16,
+    64 < N <= 256, D padded to a multiple of 8 <= 64, every stride positive
+    (the card test holds it against the design the C entry reports)."""
+    b, n, h, d = shape
+    if layout == "fused":
+        q, k, v = torch.empty((b, n, 3, h, d), dtype=dtype).unbind(2)
+    elif layout == "expand":
+        q = k = v = torch.empty((1, n, h, d), dtype=dtype).expand(shape)
+    else:
+        q = k = v = torch.empty(shape, dtype=dtype)
+    outs = [torch.empty(shape, dtype=dtype) for _ in range(4)]
+    assert sa.bwd_wgmma_takes(q.shape, _strides(q, k, v, *outs), dtype) is want
