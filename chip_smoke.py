@@ -4,8 +4,9 @@
 
 Phases, in order; any failure ends the run with a non-zero exit:
 
-1. Print the card's name and power limit; build every kernel in
-   ``laryngeal_tpu_torch/csrc/`` (one nvcc per source, all at once).
+1. Print the card's name and power limit; build every kernel library in
+   ``laryngeal_tpu_torch/csrc/`` (one nvcc per source, all at once; the window
+   library links two).
 2. Hold the flash-attention forward, kernels 1 and 2, in both bf16 designs
    (wgmma, and the earlier mma.sync one, ``flash_attention_mma_cuda`` /
    ``flash_attention_lse_mma_cuda``) against the plain PyTorch version over
@@ -83,16 +84,22 @@ Phases, in order; any failure ends the run with a non-zero exit:
    a second, ``Predictor.from_checkpoint("timesformer", best_model)``.
 11. (run after 7) Kernels 8-9, Swin3D's shifted-window attention: the
    forward and the backward (dq, dk, dv and the cross-window dbias) against
-   their plain twins at the four Swin3D-T 32f 224^2 B=8 stage shapes
-   (N = 392, D = 32; 1024/256/64/16 windows, 3/6/12/24 heads), shifted (the
-   model's own region ids) and unshifted, at six other shapes (N % 8 !=
-   0, a single-window region id, N from 1 to 448, D 16 to 128), and at four
+   their plain twins, in both bf16 designs (the entries' wgmma one, and the
+   kept mma.sync one, ``window_attention_*_mma_cuda``), at the four Swin3D-T
+   32f 224^2 B=8 stage shapes (N = 392, D = 32; 1024/256/64/16 windows,
+   3/6/12/24 heads), shifted (the model's own region ids) and unshifted, at
+   the wgmma design's edges (N = 8, 56, 200, 392 with one id row, 448 at
+   D = 32, N = 392 at D = 64; on fused-qkv and on transposed (B·nW, H, N, D)
+   views), at other held shapes (N % 8 != 0, D 64 and 128) and at four
    shapes of the wide path (N = 512 and 784 at D = 32, N = 392 at D = 192
-   and 256, with and without region ids), bf16 and f32, each under its
-   elementwise limit and in the design the C side reports; timed at each stage beside the
-   bound, the twins and ``F.scaled_dot_product_attention`` with the
-   materialised (B·nW, H, N, N) bias (forward, and backward with the mask's
-   gradient).
+   and 256), bf16 and f32, each under its elementwise limit, bitwise the
+   same on a second call, and in the design ``design_takes`` names (wgmma at
+   every stage shape). The ptxas report of the wgmma instances is printed.
+   Timed at each stage beside the bound, the exponential floor, the twins and
+   ``F.scaled_dot_product_attention`` with the materialised (B·nW, H, N, N)
+   bias (forward, and backward with the mask's gradient), single calls and
+   queued; in bf16 both designs in turns; the wgmma backward's per-launch
+   split.
 11b. Kernels 11-12, the ablation variants of kernel 8 (the counterpart of
    ``scripts/bench_window_kernel.py``): bf16 and exp2 softmaxes, 2-3 heads
    a block, at the four stage shapes; the launch counts are set to 0 around
@@ -100,12 +107,14 @@ Phases, in order; any failure ends the run with a non-zero exit:
    kernel 8.
 12. Swin3D-T serving at full width and depth: a 32-frame 224^2 Predictor in
    bf16, seeded weights, a (8, 32, 224, 224, 3) uint8 batch: probabilities
-   finite and summing to 1, exactly 12 launches of kernel 8 and none of any
-   other kernel per forward, logits against the same model on the plain
-   attention in bf16 and (two clips) f32; an InferenceServer round trip.
+   finite and summing to 1, exactly 12 launches of kernel 8, all on its
+   wgmma design, and none of any other kernel per forward, logits against
+   the same model on the plain attention in bf16 and (two clips) f32; an
+   InferenceServer round trip.
 13. Swin3D-T training, B=8, bf16 compute, the pytorchvideo augmentation and
-   stochastic depth 0.1 on: 12 launches each of kernels 8 and 9 per step and
-   none of any other kernel, 12 of kernel 8 per eval step; loss finite; step
+   stochastic depth 0.1 on: 12 launches each of kernels 8 and 9 per step, all
+   on their wgmma design, and none of any other kernel, 12 of kernel 8 per
+   eval step; loss finite; step
    time, clips/s, stages, peak memory. Then every parameter's gradient at
    B=2 (every relative-position table included), kernels against plain
    attention.
@@ -191,14 +200,16 @@ def card_line() -> str:
 
 
 def launch_counts() -> dict:
-    """Every kernel's launches since the counts were last set to 0."""
+    """Every kernel's launches since the counts were last set to 0; kernels
+    8 and 9's launches on their wgmma design also under ``<entry>@wgmma``."""
     from laryngeal_tpu_torch.ops import flash_attention as fa
     from laryngeal_tpu_torch.ops import short_attention as sa
     from laryngeal_tpu_torch.ops import tubelet as tt
     from laryngeal_tpu_torch.ops import window_attention as wa
 
     return {**fa.launch_counts(), **sa.launch_counts(), **wa.launch_counts(),
-            **tt.launch_counts()}
+            **tt.launch_counts(),
+            **{f"{e}@wgmma": c["wgmma"] for e, c in wa.design_launches.items()}}
 
 
 def reset_launches() -> None:
@@ -216,7 +227,7 @@ def reset_launches() -> None:
 def build_kernels():
     from laryngeal_tpu_torch.ops import _build
 
-    sources = sorted(p.name for p in _build.CSRC_DIR.glob("*.cu"))
+    sources = _build.library_sources()
     t0 = time.perf_counter()
     with ThreadPoolExecutor(max_workers=len(sources)) as pool:
         list(pool.map(_build.build, sources))
@@ -1191,13 +1202,14 @@ def timesformer_b(dtype, seed=0):
                               seed=seed)
 
 
-def serving_phase(name: str, label: str, make_model, launch_key: str, calls, flops, seed: int
-                  ) -> dict:
+def serving_phase(name: str, label: str, make_model, launch_key: str, calls, flops, seed: int,
+                  design_key: str = "") -> dict:
     """A model's serving path on the card at full width (TimeSformer-B, phase 8;
     Swin3D-T, phase 12): a 32-frame 224^2 Predictor in bf16 with seeded
     weights on a (8, 32, 224, 224, 3) uint8 batch: probabilities finite and
-    summing to 1, exactly ``calls(model)`` launches of ``launch_key`` and none
-    of any other kernel per forward, logits against the same model on the
+    summing to 1, exactly ``calls(model)`` launches of ``launch_key`` (in bf16
+    all of them counted under ``design_key`` too, when given) and none of any
+    other kernel per forward, logits against the same model on the
     plain attention in bf16 and (two clips) f32, the forward's device time by
     kernel, an InferenceServer round trip. Returns each kernel's launches
     since the counts were set to 0."""
@@ -1211,8 +1223,9 @@ def serving_phase(name: str, label: str, make_model, launch_key: str, calls, flo
     regime = spec.preprocess_regime
     model = make_model(torch.bfloat16)
     predictor = Predictor(model, spec, num_frames=32, crop_size=224, device="cuda")
-    want = {k: 0 for k in launch_counts()}
-    want[launch_key] = calls(model)
+    want_f32 = {k: 0 for k in launch_counts()}
+    want_f32[launch_key] = calls(model)
+    want = dict(want_f32, **({design_key: calls(model)} if design_key else {}))
     clips = np.random.default_rng(seed).integers(0, 256, (8, 32, 224, 224, 3), dtype=np.uint8)
 
     probs, per_forward = launched(lambda: predictor.predict_clip(clips))
@@ -1257,7 +1270,7 @@ def serving_phase(name: str, label: str, make_model, launch_key: str, calls, flo
     model_f32 = make_model(torch.float32)
     pred_f32 = Predictor(model_f32, spec, num_frames=32, crop_size=224, device="cuda")
     probs_f32, per_f32 = launched(lambda: pred_f32.predict_clip(clips[:2]))
-    if per_f32 != want or not np.isfinite(probs_f32).all() \
+    if per_f32 != want_f32 or not np.isfinite(probs_f32).all() \
             or not np.allclose(probs_f32.sum(-1), 1.0, atol=1e-5):
         raise AssertionError(f"f32 {label} predictor: {probs_f32}, launches {per_f32}")
     with torch.inference_mode():
@@ -1472,9 +1485,10 @@ def launch_breakdown(fn, reps: int = 3) -> dict:
     return out
 
 
-def window_inputs(shape, dtype, seed):
-    """q, k, v (views of a fused qkv), g, and a unit-normal f32 bias."""
-    q, k, v, g = fused_qkv(shape, dtype, seed)
+def window_inputs(shape, dtype, seed, layout="fused"):
+    """q, k, v (views of a fused qkv, or of (B·nW, H, N, D) tensors
+    transposed: ``layout`` "bhnd"), g, and a unit-normal f32 bias."""
+    q, k, v, g = (fused_qkv if layout == "fused" else bhnd_qkv)(shape, dtype, seed)
     gen = torch.Generator(device="cuda").manual_seed(seed + 1000)
     bias = torch.randn((shape[2], shape[1], shape[1]), generator=gen, device="cuda")
     return q, k, v, g, bias
@@ -1494,71 +1508,143 @@ def sdpa_bias(bias, rid, bw, dtype):
     return full.to(dtype).contiguous()
 
 
+# Kernels 8-9's wgmma design (window_attention_wgmma.cu); which design a call
+# runs is the C side's choice, read back with ``window_attention.last_designs``.
+WINDOW_FWD_DESIGN = ("wgmma + TMA (bf16, N <= 400, D <= 32): a block an SM per (head, 64-query "
+                     "tile, window group) holding the tile's f32 bias rows, K/V whole a window "
+                     "two stages deep, two consumer warpgroups splitting the keys (200 + 200), "
+                     "one pass of S with the row max and sum exchanged; mma.sync elsewhere")
+WINDOW_BWD_DESIGN = ("wgmma + TMA (bf16, N <= 400, D <= 32), two passes of S: a dQ launch "
+                     "(bias rows held, keys split, row statistics written) and a dK/dV launch "
+                     "(a (head, 64-key tile)'s bias columns held, queries split, Q/dO chunks "
+                     "through a ring, dbias summed in registers over the window group), then "
+                     "the groups' dbias sum; mma.sync elsewhere")
+
+
+def sm_clock_hz() -> float:
+    """The card's maximum SM clock, as ``nvidia-smi`` reads it in this run."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"], capture_output=True, text=True,
+                         check=True, timeout=60)
+    return float(out.stdout.strip().splitlines()[0]) * 1e6
+
+
+def window_exp_estimate_ms(shape, clock_hz: float) -> float:
+    """An estimate, not a bound: one pass over S, B·nW·H·N² exponentials,
+    on the special-function units alone (16 a clock an SM, every SM at
+    ``clock_hz``). Exponentials can also run on the FMA units, so a design
+    may go below it."""
+    b, n, h, _ = shape
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return b * h * n * n / (16 * sms * clock_hz) * 1e3
+
+
+def window_rid(grid, n, seed):
+    """The region ids of a case: None, a shifted stage's own (``grid`` a
+    patch grid), or random ones ("randK": K windows of N ids in 0..3)."""
+    if grid is None:
+        return None
+    if isinstance(grid, str):
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        return torch.randint(0, 4, (int(grid[4:]), n), generator=gen, device="cuda",
+                             dtype=torch.int32)
+    return stage_region_ids(grid)
+
+
 def check_window_kernels():
-    """Phase 11: kernels 8-9 vs their plain twins at the four Swin3D-T stage
-    shapes, shifted and unshifted, and at other shapes (N % 8 != 0, a
-    single-window region id, D 64 and 128), f32 and bf16; dq, dk, dv and
-    dbias elementwise. Timings at each stage shape (shifted) beside the
-    bound, the twins and sdpa with the materialised bias (forward, and the
-    autograd backward with the mask's gradient). Returns {entry: numbers}."""
+    """Phase 11: kernels 8-9 in both bf16 designs (the entries' and the kept
+    mma.sync one, ``window_attention_*_mma_cuda``) vs their plain twins at the
+    four Swin3D-T stage shapes, shifted and unshifted, at the wgmma design's
+    edges (N = 8, 56, 144, 145, 200, 272, 392 with one window id row, 400,
+    448 at D = 32, N = 273 at D = 24, N = 392 at D = 64; fused-qkv and
+    transposed views), at other held shapes (N % 8
+    != 0, D 64 and 128) and at the wide path's, f32 and bf16; dq, dk, dv and
+    dbias elementwise; each case in the design the C side should pick
+    (``window_attention.design_takes``), and bitwise the same on a second
+    call. Timings at each stage shape (shifted) in bf16: both designs in
+    turns, single calls and queued, beside the bound (and, in the log, an
+    estimate of one pass of exponentials), the twins and sdpa with the materialised bias (forward, and the autograd
+    backward with the mask's gradient), and the new backward's per-launch
+    split. Returns {entry: numbers}."""
     import torch.nn.functional as F
 
     from laryngeal_tpu_torch.ops import window_attention as wa
 
+    for kernel in ("window_fwd_wgmma_kernel", "window_bwd_dq_wgmma_kernel",
+                   "window_bwd_dkv_wgmma_kernel"):
+        for line in ptxas_lines("window_attention.cu", kernel):
+            log(f"ptxas {line}")
     entries = {"window_attention_fwd": {}, "window_attention_bwd": {}}
     worst = {e: [0.0, 0.0] for e in entries}
+    clock_hz = sm_clock_hz()
     cases = []
     for stage, (shape, grid, _) in SWIN_STAGES.items():
-        cases.append((f"stage{stage}", shape, grid))
-        cases.append((f"stage{stage}_unshifted", shape, None))
-    cases += [("n245_nw4", (64, 245, 4, 32), "rand4"), ("n392_nw1", (8, 392, 3, 32), "rand1"),
-              ("n100_d64", (32, 100, 6, 64), "rand4"), ("n27_d128", (12, 27, 2, 128), "rand3"),
-              ("n1_d16", (4, 1, 3, 16), None), ("n448_d40", (2, 448, 2, 40), "rand1"),
+        cases.append((f"stage{stage}", shape, grid, "fused"))
+        cases.append((f"stage{stage}_unshifted", shape, None, "fused"))
+    cases += [(f"edge_{name}_{layout}", shape, grid, layout)
+              for name, shape, grid in (("n8", (6, 8, 3, 32), "rand2"),
+                                        ("n56", (6, 56, 3, 32), "rand3"),
+                                        ("n144", (6, 144, 3, 32), "rand3"),
+                                        ("n145", (6, 145, 3, 32), "rand3"),
+                                        ("n200", (6, 200, 3, 32), None),
+                                        ("n272", (4, 272, 3, 32), "rand2"),
+                                        ("n273_d24", (4, 273, 3, 24), "rand1"),
+                                        ("n392_nw1", (4, 392, 3, 32), "rand1"),
+                                        ("n400", (4, 400, 3, 32), "rand2"),
+                                        ("n448", (4, 448, 3, 32), "rand2"),
+                                        ("n392_d64", (4, 392, 3, 64), "rand2"))
+              for layout in ("fused", "bhnd")]
+    cases += [("n245_nw4", (64, 245, 4, 32), "rand4", "fused"),
+              ("n100_d64", (32, 100, 6, 64), "rand4", "fused"),
+              ("n27_d128", (12, 27, 2, 128), "rand3", "fused"),
+              ("n1_d16", (4, 1, 3, 16), None, "fused"),
+              ("n448_d40", (2, 448, 2, 40), "rand1", "fused"),
               # the wide path: shapes JAX's Pallas kernel takes beyond N <= 448, D <= 128
-              ("wide_n512_d32", (8, 512, 3, 32), "rand2"),
-              ("wide_n784_d32", (4, 784, 3, 32), None),
-              ("wide_n392_d192", (4, 392, 2, 192), "rand2"),
-              ("wide_n392_d256", (2, 392, 2, 256), None)]
+              ("wide_n512_d32", (8, 512, 3, 32), "rand2", "fused"),
+              ("wide_n784_d32", (4, 784, 3, 32), None, "fused"),
+              ("wide_n392_d192", (4, 392, 2, 192), "rand2", "fused"),
+              ("wide_n392_d256", (2, 392, 2, 256), None, "fused")]
     for dtype in (torch.bfloat16, torch.float32):
         tag = str(dtype)[6:]
-        for seed, (name, shape, grid) in enumerate(cases):
-            q, k, v, g, bias = window_inputs(shape, dtype, 40 + seed)
-            if grid is None:
-                rid = None
-            elif isinstance(grid, str):
-                gen = torch.Generator(device="cuda").manual_seed(seed)
-                rid = torch.randint(0, 4, (int(grid[4:]), shape[1]), generator=gen,
-                                    device="cuda", dtype=torch.int32)
-            else:
-                rid = stage_region_ids(grid)
-            out = wa.window_attention_fwd_cuda(q, k, v, bias, rid)
+        for seed, (name, shape, grid, layout) in enumerate(cases):
+            q, k, v, g, bias = window_inputs(shape, dtype, 40 + seed, layout)
+            rid = window_rid(grid, shape[1], seed)
+            want = wa.design_takes(shape[1], shape[3], dtype)
             ref = wa.window_attention_plain(q, k, v, bias, rid)
+            limit = wa.error_limit(q, k, v, bias, rid, ref, f32_tol=F32_TOL)
+            out = wa.window_attention_fwd_cuda(q, k, v, bias, rid)
+            design_f = wa.last_designs()[0]
+            same_f = torch.equal(out, wa.window_attention_fwd_cuda(q, k, v, bias, rid))
             diff = (out.float() - ref.float()).abs()
-            use_f = (diff / wa.error_limit(q, k, v, bias, rid, ref, f32_tol=F32_TOL)).max().item()
-            err_f = diff.max().item()
-            del diff, out, ref
-            grads = wa.window_attention_bwd_cuda(q, k, v, bias, rid, g)
-            designs = wa.last_designs()
-            want = ("wide" if not wa.held_takes(shape[1], shape[3]) else
-                    "mma.sync" if dtype == torch.bfloat16 else "fma")
+            use_f, err_f = (diff / limit).max().item(), diff.max().item()
+            # The kept mma.sync design under the same limit.
+            use_f_old = ((wa.window_attention_fwd_mma_cuda(q, k, v, bias, rid).float()
+                          - ref.float()).abs() / limit).max().item()
+            del diff, out, ref, limit
             refs = wa.window_attention_plain_bwd(q, k, v, bias, rid, g)
-            uses, errs = [], []
-            for got, ref_g, lim in zip(grads, refs,
-                                       wa.backward_error_limit(q, k, v, bias, rid, g, refs)):
-                diff = (got.float() - ref_g.float()).abs()
-                uses.append((diff / lim).max().item())
-                errs.append(diff.max().item())
-            del grads, refs, diff
+            limits = wa.backward_error_limit(q, k, v, bias, rid, g, refs)
+            grads = wa.window_attention_bwd_cuda(q, k, v, bias, rid, g)
+            design_b = wa.last_designs()[1]
+            same_b = all(torch.equal(a, b) for a, b in
+                         zip(grads, wa.window_attention_bwd_cuda(q, k, v, bias, rid, g)))
+            uses, errs = max_use(grads, refs, limits)
+            uses_old, _ = max_use(wa.window_attention_bwd_mma_cuda(q, k, v, bias, rid, g), refs,
+                                  limits)
+            del grads, refs, limits
             torch.cuda.empty_cache()
-            ok = (max([use_f] + uses) <= 1.0 and all(math.isfinite(x) for x in [err_f] + errs)
-                  and designs == (want, want))
+            ok = (max([use_f, use_f_old] + uses + uses_old) <= 1.0
+                  and all(math.isfinite(x) for x in [err_f] + errs)
+                  and (design_f, design_b) == (want, want) and same_f and same_b)
             log(f"window attention {name} {shape} nW={None if rid is None else rid.shape[0]} "
-                f"{tag} ({'/'.join(designs)}): fwd max_abs_err {err_f:.3e} (|err|/limit "
-                f"{use_f:.3f}); dq/dk/dv/dbias "
+                f"{tag} ({design_f}/{design_b}, want {want}): fwd max_abs_err {err_f:.3e} "
+                f"(|err|/limit {use_f:.3f}; the _mma entry {use_f_old:.3f}); dq/dk/dv/dbias "
                 f"max_abs_err {'/'.join(f'{e:.3e}' for e in errs)}, |err|/limit "
-                f"{'/'.join(f'{u:.3f}' for u in uses)} {'ok' if ok else 'FAIL'}")
+                f"{'/'.join(f'{u:.3f}' for u in uses)} (the _mma entry "
+                f"{max(uses_old):.3f}); bitwise repeatable {same_f and same_b} "
+                f"{'ok' if ok else 'FAIL'}")
             if not ok:
-                raise AssertionError(f"kernels 8-9 disagree with their plain twins: {name} {tag}")
+                raise AssertionError(f"kernels 8-9 disagree with their plain twins or ran "
+                                     f"another design: {name} {tag}")
             if dtype == torch.bfloat16:
                 for e, (err, use) in (("window_attention_fwd", (err_f, use_f)),
                                       ("window_attention_bwd", (max(errs), max(uses)))):
@@ -1566,11 +1652,25 @@ def check_window_kernels():
             if not (name.startswith("stage") and not name.endswith("unshifted")):
                 del q, k, v, g, bias, rid
                 continue
-            ms8 = cuda_time_ms(lambda: wa.window_attention_fwd_cuda(q, k, v, bias, rid))
-            ms9 = cuda_time_ms(lambda: wa.window_attention_bwd_cuda(q, k, v, bias, rid, g))
+            # bf16: both designs in turns (old, new, new, old), single calls
+            # and queued (the card's time; see cuda_time_ms), beside sdpa; f32
+            # (one design, FMA) single calls.
+            f8 = lambda: wa.window_attention_fwd_cuda(q, k, v, bias, rid)
+            f9 = lambda: wa.window_attention_bwd_cuda(q, k, v, bias, rid, g)
+            if dtype == torch.bfloat16:
+                t8 = turns_ms({"old": lambda: wa.window_attention_fwd_mma_cuda(q, k, v, bias, rid),
+                               "new": f8})
+                t9 = turns_ms({"old": lambda: wa.window_attention_bwd_mma_cuda(q, k, v, bias, rid,
+                                                                               g),
+                               "new": f9})
+            else:
+                t8, t9 = ({"new": cuda_time_ms(f)} for f in (f8, f9))
             parts = launch_breakdown(lambda: wa.window_attention_bwd_cuda(q, k, v, bias, rid, g))
             log(f"window_attention_bwd {name} {tag} launches (torch.profiler device ms a call): "
                 + ", ".join(f"{k_} {v_:.4f}" for k_, v_ in parts.items()))
+            wa.window_attention_fwd_cuda(q, k, v, bias, rid)
+            wa.window_attention_bwd_cuda(q, k, v, bias, rid, g)
+            design8, design9 = wa.last_designs()
             plain8 = cuda_time_ms(lambda: wa.window_attention_plain(q, k, v, bias, rid), reps=3,
                                   warmup=1)
             plain9 = cuda_time_ms(lambda: wa.window_attention_plain_bwd(q, k, v, bias, rid, g),
@@ -1579,31 +1679,49 @@ def check_window_kernels():
             qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
             mask = sdpa_bias(bias, rid, shape[0], dtype).requires_grad_()
             gt = g.transpose(1, 2)
-            lib8 = cuda_time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask))
+            lib8_fn = lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
             lib_out = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
-            lib9 = cuda_time_ms(lambda: torch.autograd.grad(lib_out, (qt, kt, vt, mask), gt,
-                                                            retain_graph=True))
-            del lib_out, qt, kt, vt, gt, mask
-            for e, ms, plain_ms, lib_ms, backward in (
-                    ("window_attention_fwd", ms8, plain8, lib8, False),
-                    ("window_attention_bwd", ms9, plain9, lib9, True)):
+            lib9_fn = lambda: torch.autograd.grad(lib_out, (qt, kt, vt, mask), gt,
+                                                  retain_graph=True)
+            lib = {fn: (cuda_time_ms(fn), cuda_time_ms(fn, reps=20, queued=True)
+                        if dtype == torch.bfloat16 else None) for fn in (lib8_fn, lib9_fn)}
+            (lib8, lib8_q), (lib9, lib9_q) = lib[lib8_fn], lib[lib9_fn]
+            del lib_out, lib9_fn, lib8_fn, lib, qt, kt, vt, gt, mask
+            for e, t, plain_ms, lib_ms, lib_q, design, backward in (
+                    ("window_attention_fwd", t8, plain8, lib8, lib8_q, design8, False),
+                    ("window_attention_bwd", t9, plain9, lib9, lib9_q, design9, True)):
                 bound_ms, bound_by = window_bound_ms(shape, dtype, backward, rid)
+                ms = t["new"]
                 numbers = dict(shape=list(shape), ms=ms, kernel_ms=ms, plain_ms=plain_ms,
-                               bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms)
+                               bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms,
+                               design=design)
                 if backward:
                     numbers["launches_ms"] = parts
-                log(f"{e} {name} {tag}: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, sdpa "
-                    f"{lib_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
-                    f"{bound_ms / ms:.3f} of the bound")
+                line = (f"{e} {name} {tag}: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, sdpa "
+                        f"{lib_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
+                        f"{bound_ms / ms:.3f} of the bound; design {design}; estimate of one "
+                        f"pass of exponentials on the special-function units at "
+                        f"{clock_hz / 1e9:.3f} GHz (nvidia-smi clocks.max.sm) "
+                        f"{window_exp_estimate_ms(shape, clock_hz):.4f} ms")
+                if dtype == torch.bfloat16:
+                    numbers.update(queued_ms=t["new_q"], old_ms=t["old"],
+                                   old_queued_ms=t["old_q"], library_queued_ms=lib_q)
+                    line += (f", the mma.sync design {t['old']:.4f} ms ({t['old'] / ms:.2f}x); "
+                             f"queued: kernel {t['new_q']:.4f}, mma.sync {t['old_q']:.4f} "
+                             f"({t['old_q'] / t['new_q']:.2f}x), sdpa {lib_q:.4f} ms")
+                log(line)
                 entries[e][name if dtype == torch.bfloat16 else f"{name}_f32"] = numbers
             del q, k, v, g, bias, rid
             torch.cuda.empty_cache()
     tol = ("bf16: window_attention.error_limit / backward_error_limit (one-ulp bf16 rounding "
            f"flips, elementwise; dbias F32_REL*A); f32: {F32_TOL:g} (o), F32_REL*A (grads)")
-    for e, nums in entries.items():
+    for e, text in (("window_attention_fwd", WINDOW_FWD_DESIGN),
+                    ("window_attention_bwd", WINDOW_BWD_DESIGN)):
+        nums = entries[e]
         nums.update({k: v for k, v in nums["stage1"].items() if k != "shape"})
         nums.update(max_abs_err=worst[e][0], err_over_limit=worst[e][1], tol=tol,
                     headline="stage 1 (1024, 392, 3, 32) shifted bf16")
+        nums["design"] = f"{nums['design']} at every stage; {text}"
     return entries
 
 
@@ -1690,10 +1808,10 @@ def swin_forward_flops(batch: int) -> float:
 
 def swin_serving() -> dict:
     """Phase 12: the Swin3D-T serving path (12 launches of kernel 8 a
-    forward)."""
+    forward, all on its wgmma design)."""
     return serving_phase("swin3d", "swin3d-t", swin3d_t, "window_attention_fwd",
                          lambda m: sum(m.config.depths), lambda m: swin_forward_flops(8),
-                         seed=5)
+                         seed=5, design_key="window_attention_fwd@wgmma")
 
 
 def swin_key_free(name, grad):
@@ -1728,11 +1846,13 @@ def swin_training(kernel_ms: dict) -> None:
     # -- phase 13: launches per step, loss, timing --
     (state, m), per_step = launched(lambda: step(state, pixel_u8, labels, mask))
     want = {k: 0 for k in per_step}
-    want.update(window_attention_fwd=n_calls, window_attention_bwd=n_calls)
+    want.update({"window_attention_fwd": n_calls, "window_attention_bwd": n_calls,
+                 "window_attention_fwd@wgmma": n_calls, "window_attention_bwd@wgmma": n_calls})
     if per_step != want:
         raise AssertionError(f"launches per Swin3D train step {per_step}, want {want}")
     em, per_eval = launched(lambda: eval_step(state, pixel_u8, labels, mask))
-    want_eval = {k: (n_calls if k == "window_attention_fwd" else 0) for k in want}
+    want_eval = {k: (n_calls if k in ("window_attention_fwd", "window_attention_fwd@wgmma")
+                     else 0) for k in want}
     if per_eval != want_eval:
         raise AssertionError(f"launches per Swin3D eval step {per_eval}, want {want_eval}")
     log(f"swin3d launches per train step {per_step}; per eval step {per_eval}")
@@ -2266,7 +2386,9 @@ def main() -> int:
     window_src = "laryngeal_tpu_torch/csrc/window_attention.cu"
     for name, line, counts in (("window_attention_fwd", 55, swin_serve_counts),
                                ("window_attention_bwd", 95, swin_train_counts)):
-        kernels.append(dict(name=name, route="cuda", source=window_src,
+        # The main path runs kernels 8-9's wgmma design (its own source).
+        kernels.append(dict(name=name, route="cuda",
+                            source="laryngeal_tpu_torch/csrc/window_attention_wgmma.cu",
                             replaces=f"laryngeal_tpu/ops/window_attention.py:{line}",
                             launches=counts[name], **window_entries[name]))
     for name, line in (("window_attention_fwd_bf16sm", 76), ("window_attention_fwd_exp2", 76),

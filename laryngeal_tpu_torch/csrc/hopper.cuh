@@ -190,8 +190,25 @@ __device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t a, u
       : "l"(a), "l"(b), "r"(accumulate));
 }
 
-// The same at n = 16 and n = 8: d[0 .. n / 2) (a longer array's tail is not
+// The same at n = 32, 16 and 8: d[0 .. n / 2) (a longer array's tail is not
 // touched).
+template <int N>
+__device__ __forceinline__ void wgmma_m64n32k16_ss(float (&d)[N], uint64_t a, uint64_t b,
+                                                   int accumulate) {
+  static_assert(N >= 16, "m64n32 writes 16 accumulators a thread");
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, %16, %17, p, 1, "
+      "1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
 template <int N>
 __device__ __forceinline__ void wgmma_m64n16k16_ss(float (&d)[N], uint64_t a, uint64_t b,
                                                    int accumulate) {

@@ -69,15 +69,27 @@
 // 8-9 round them (P before P V and dV, ds before dQ and dK; dbias sums the
 // unrounded ds, in the dQ launch's shared rows: 64, or fewer at a large N).
 // Deterministic, as the held designs. No in-tree model reaches it; it is
-// correct, not fast. window_attention_last_design reports which design the
-// last call of each kernel ran.
-// Not yet done (later work): wgmma/TMA, a persistent schedule, S kept in
-// registers across the passes, the wide path on the tensor cores.
+// correct, not fast.
+//
+// Designs by call (window_attention_last_design reports which ran):
+//   * bf16, mode 0, one head a block, N <= 400, D <= 32 (after padding), every
+//     stride positive: the wgmma/TMA design of window_attention_wgmma.cu
+//     (Swin3D's N = 392, D = 32), built into the same library;
+//   * other bf16 at N <= 448, D <= 128 (and kernels 11-12): the held
+//     mma.sync design above; window_attention_fwd_mma / _bwd_mma run it at
+//     every shape it takes, to time the wgmma design against;
+//   * f32 at N <= 448, D <= 128: the FMA kernels with held arrays;
+//   * every other shape: the wide path.
+// A refused build, launch or shared-memory size of the design a call takes
+// returns its error; no call slips to another design.
+// Not yet done (later work): the wide path on the tensor cores, the f32
+// paths on the tensor cores, the wgmma design at D = 64 and 400 < N <= 448.
 
 #include <algorithm>
 #include <cstring>
 
 #include "flash_attention_common.cuh"
+#include "window_attention_wgmma.cuh"
 
 namespace {
 
@@ -1418,14 +1430,26 @@ cudaError_t launch_bwd_wide(int dtype, const BwdArgs& a, cudaStream_t s) {
 }
 
 // The design of the last launch of kernel 8 ([0]) and kernel 9 ([1]): 0 =
-// FMA (f32, held arrays), 1 = mma.sync (bf16, held bias rows), 2 = wide;
-// -1 before the first launch. Read through window_attention_last_design.
-enum Design { kDesignFma = 0, kDesignMmaSync = 1, kDesignWide = 2 };
+// FMA (f32, held arrays), 1 = mma.sync (bf16, held bias rows), 2 = wide,
+// 3 = wgmma (window_attention_wgmma.cu); -1 before the first launch. Read
+// through window_attention_last_design.
+enum Design { kDesignFma = 0, kDesignMmaSync = 1, kDesignWide = 2, kDesignWgmma = 3 };
 int g_last_design[2] = {-1, -1};
 
 // The held designs (bf16 mma.sync, f32 FMA with fixed shared arrays) take
 // N <= kMaxN and D <= 128; the wide path every other shape.
 bool held_takes(int N, int D) { return N <= kMaxN && D <= 128; }
+
+// The design kernel 8 (which = 0; mode 0, one head a block) or kernel 9
+// (which = 1) runs for a call: the wide path beyond the held designs' domain,
+// FMA in f32, and in bf16 the wgmma design where it takes the call (its 12 or
+// 21 strides `st`) unless `mma_only`, else mma.sync.
+int design_of(int which, int dtype, int N, int D, const long long* st, bool mma_only) {
+  if (!held_takes(N, D)) return kDesignWide;
+  if (dtype != 1) return kDesignFma;
+  return !mma_only && winwg::takes(dtype, N, D, st, which == 0 ? 12 : 21) ? kDesignWgmma
+                                                                          : kDesignMmaSync;
+}
 
 bool bad_args(int dtype, int BW, int H, int N, int D, int nW) {
   return (dtype != 0 && dtype != 1) || BW < 1 || H < 1 || N < 1 || D <= 0 || D > 256
@@ -1433,23 +1457,9 @@ bool bad_args(int dtype, int BW, int H, int N, int D, int nW) {
          || (long long)BW * H > 0x7fffffffLL;
 }
 
-}  // namespace
-
-// dtype: 0 = float32, 1 = bfloat16. q, k, v, o are (BW, N, H, D), bias
-// (H, N, N) f32 contiguous, rid (nW, N) int32 contiguous or null (no mask);
-// `st` holds 12 strides in elements (window, position, head of q, k, v, o).
-// The head-dim stride must be 1, D a multiple of 8 (<= 256), every stride a
-// multiple of 8 and every pointer 16-byte aligned (the Python wrapper
-// guarantees all of it). N <= 448 and D <= 128 run the held designs
-// (mma.sync in bf16, the FMA kernel with held arrays in f32), every other
-// shape the wide path. mode: 0 exp (kernel 8), 1 bf16 (S - max), 2 exp2
-// (kernel 11); hb: 0 for kernels 8 and 11 (held bias rows), or 1-3 heads a
-// block for kernel 12 (H % hb == 0, mode 0). The variants take bfloat16,
-// N <= 448 and D <= 64. Returns the cudaError_t of the launch (0 = success).
-extern "C" int window_attention_fwd(const void* q, const void* k, const void* v, void* o,
-                                    const float* bias, const int* rid, int dtype, int BW, int N,
-                                    int H, int D, int nW, int mode, int hb, const long long* st,
-                                    float scale, void* stream) {
+int fwd_entry(const void* q, const void* k, const void* v, void* o, const float* bias,
+              const int* rid, int dtype, int BW, int N, int H, int D, int nW, int mode, int hb,
+              const long long* st, float scale, bool mma_only, void* stream) {
   if (bad_args(dtype, BW, H, N, D, nW) || mode < 0 || mode > 2 || hb < 0 || hb > 3
       || (hb > 0 && (H % hb != 0 || mode != 0)))
     return (int)cudaErrorInvalidValue;
@@ -1458,37 +1468,30 @@ extern "C" int window_attention_fwd(const void* q, const void* k, const void* v,
   FwdStrides s;
   std::memcpy(&s, st, sizeof(s));
   cudaStream_t cs = static_cast<cudaStream_t>(stream);
-  if (!held_takes(N, D)) {
-    g_last_design[0] = kDesignWide;
+  const int design = design_of(0, dtype, N, D, st, mma_only || variant);
+  g_last_design[0] = design;
+  if (design == kDesignWide) {
     if (D <= 32) return (int)launch_fwd_wide<32>(dtype, q, k, v, o, bias, rid, BW, H, N, D, nW, s, scale, cs);
     if (D <= 64) return (int)launch_fwd_wide<64>(dtype, q, k, v, o, bias, rid, BW, H, N, D, nW, s, scale, cs);
     if (D <= 128) return (int)launch_fwd_wide<128>(dtype, q, k, v, o, bias, rid, BW, H, N, D, nW, s, scale, cs);
     return (int)launch_fwd_wide<256>(dtype, q, k, v, o, bias, rid, BW, H, N, D, nW, s, scale, cs);
   }
-  if (dtype == 1) {
-    g_last_design[0] = kDesignMmaSync;
+  if (design == kDesignWgmma)
+    return (int)winwg::fwd(q, k, v, o, bias, rid, BW, H, N, D, nW, st, scale, cs);
+  if (design == kDesignMmaSync) {
     if (D <= 32) return (int)launch_fwd_variant<32>(q, k, v, o, bias, rid, BW, H, N, D, nW, mode, hb, s, scale, cs);
     if (D <= 64) return (int)launch_fwd_variant<64>(q, k, v, o, bias, rid, BW, H, N, D, nW, mode, hb, s, scale, cs);
     return (int)launch_fwd_bf16<128, 0>(q, k, v, o, bias, rid, BW, H, N, D, nW, s, scale, cs);
   }
-  g_last_design[0] = kDesignFma;
   if (D <= 32) return (int)launch_fwd_fma<float, 32, false>(q, k, v, o, bias, rid, BW, H, N, D, nW, s, scale, cs);
   if (D <= 64) return (int)launch_fwd_fma<float, 64, false>(q, k, v, o, bias, rid, BW, H, N, D, nW, s, scale, cs);
   return (int)launch_fwd_fma<float, 128, false>(q, k, v, o, bias, rid, BW, H, N, D, nW, s, scale, cs);
 }
 
-// The gradient: g (the output's gradient, in the input dtype) in; dq, dk,
-// dv (BW, N, H, D) and dbias (H, N, N) f32 out. stats: (BW, H, 3, N) f32
-// scratch; partial: (groups, H, N, N) f32 scratch when groups > 1 (ignored
-// otherwise); windows [i * per_group, (i + 1) * per_group) form group i.
-// `st` holds 21 strides: q, k, v, g, dq, dk, dv (window, position, head).
-// Designs by shape as in window_attention_fwd.
-extern "C" int window_attention_bwd(const void* q, const void* k, const void* v, const void* g,
-                                    const float* bias, const int* rid, void* dq, void* dk,
-                                    void* dv, float* dbias, float* stats, float* partial,
-                                    int dtype, int BW, int N, int H, int D, int nW,
-                                    int per_group, int groups, const long long* st, float scale,
-                                    void* stream) {
+int bwd_entry(const void* q, const void* k, const void* v, const void* g, const float* bias,
+              const int* rid, void* dq, void* dk, void* dv, float* dbias, float* stats,
+              float* partial, int dtype, int BW, int N, int H, int D, int nW, int per_group,
+              int groups, const long long* st, float scale, bool mma_only, void* stream) {
   if (bad_args(dtype, BW, H, N, D, nW) || per_group < 1 || groups < 1 || groups > 65535
       || (long long)per_group * groups < BW || (long long)per_group * (groups - 1) >= BW)
     return (int)cudaErrorInvalidValue;
@@ -1497,18 +1500,20 @@ extern "C" int window_attention_bwd(const void* q, const void* k, const void* v,
   std::memcpy(&a.st, st, sizeof(a.st));
   cudaStream_t cs = static_cast<cudaStream_t>(stream);
   cudaError_t err;
-  if (!held_takes(N, D)) {
-    g_last_design[1] = kDesignWide;
+  const int design = design_of(1, dtype, N, D, st, mma_only);
+  g_last_design[1] = design;
+  if (design == kDesignWide) {
     err = D <= 32    ? launch_bwd_wide<32>(dtype, a, cs)
           : D <= 64  ? launch_bwd_wide<64>(dtype, a, cs)
           : D <= 128 ? launch_bwd_wide<128>(dtype, a, cs)
                      : launch_bwd_wide<256>(dtype, a, cs);
-  } else if (dtype == 1) {
-    g_last_design[1] = kDesignMmaSync;
+  } else if (design == kDesignWgmma) {
+    err = winwg::bwd(q, k, v, g, bias, rid, dq, dk, dv, dbias, stats, partial, BW, H, N, D, nW,
+                     per_group, groups, st, scale, cs);
+  } else if (design == kDesignMmaSync) {
     err = D <= 32 ? launch_bwd_bf16<32>(a, cs) : D <= 64 ? launch_bwd_bf16<64>(a, cs)
                                                          : launch_bwd_bf16<128>(a, cs);
   } else {
-    g_last_design[1] = kDesignFma;
     err = D <= 32    ? launch_bwd_fma<float, 32, false>(a, cs)
           : D <= 64  ? launch_bwd_fma<float, 64, false>(a, cs)
                      : launch_bwd_fma<float, 128, false>(a, cs);
@@ -1520,9 +1525,85 @@ extern "C" int window_attention_bwd(const void* q, const void* k, const void* v,
   return (int)cudaGetLastError();
 }
 
-// The design (0 = FMA, 1 = mma.sync, 2 = wide) of the last launch of kernel
-// 8 (which = 0; the variants of kernels 11-12 included) or kernel 9
-// (which = 1); -1 before the first.
+}  // namespace
+
+// dtype: 0 = float32, 1 = bfloat16. q, k, v, o are (BW, N, H, D), bias
+// (H, N, N) f32 contiguous, rid (nW, N) int32 contiguous or null (no mask);
+// `st` holds 12 strides in elements (window, position, head of q, k, v, o).
+// The head-dim stride must be 1, D a multiple of 8 (<= 256), every stride a
+// multiple of 8 and every pointer 16-byte aligned (the Python wrapper
+// guarantees all of it). Designs by shape as the header says: bf16 mode 0
+// at N <= 400, D <= 32 with every stride positive the wgmma design, other
+// bf16 and f32 at N <= 448, D <= 128 the held designs (mma.sync, FMA), every
+// other shape the wide path. mode: 0 exp (kernel 8), 1 bf16 (S - max), 2
+// exp2 (kernel 11); hb: 0 for kernels 8 and 11 (held bias rows), or 1-3
+// heads a block for kernel 12 (H % hb == 0, mode 0). The variants take
+// bfloat16, N <= 448 and D <= 64 and run the mma.sync template. Returns the
+// cudaError_t of the launch (0 = success).
+extern "C" int window_attention_fwd(const void* q, const void* k, const void* v, void* o,
+                                    const float* bias, const int* rid, int dtype, int BW, int N,
+                                    int H, int D, int nW, int mode, int hb, const long long* st,
+                                    float scale, void* stream) {
+  return fwd_entry(q, k, v, o, bias, rid, dtype, BW, N, H, D, nW, mode, hb, st, scale, false,
+                   stream);
+}
+
+// As window_attention_fwd, with the held mma.sync design for bf16 wherever
+// the wgmma design would run (the earlier kernel, kept to time the new one
+// against).
+extern "C" int window_attention_fwd_mma(const void* q, const void* k, const void* v, void* o,
+                                        const float* bias, const int* rid, int dtype, int BW,
+                                        int N, int H, int D, int nW, int mode, int hb,
+                                        const long long* st, float scale, void* stream) {
+  return fwd_entry(q, k, v, o, bias, rid, dtype, BW, N, H, D, nW, mode, hb, st, scale, true,
+                   stream);
+}
+
+// The gradient: g (the output's gradient, in the input dtype) in; dq, dk,
+// dv (BW, N, H, D) and dbias (H, N, N) f32 out. stats: (BW, H, 3, N) f32
+// scratch; partial: (groups, H, N, N) f32 scratch when groups > 1 (ignored
+// otherwise); windows [i * per_group, (i + 1) * per_group) form group i (the
+// dbias launch's blocks; the wgmma design's dK/dV launch). `st` holds 21
+// strides: q, k, v, g, dq, dk, dv (window, position, head). Designs by shape
+// as in window_attention_fwd.
+extern "C" int window_attention_bwd(const void* q, const void* k, const void* v, const void* g,
+                                    const float* bias, const int* rid, void* dq, void* dk,
+                                    void* dv, float* dbias, float* stats, float* partial,
+                                    int dtype, int BW, int N, int H, int D, int nW,
+                                    int per_group, int groups, const long long* st, float scale,
+                                    void* stream) {
+  return bwd_entry(q, k, v, g, bias, rid, dq, dk, dv, dbias, stats, partial, dtype, BW, N, H, D,
+                   nW, per_group, groups, st, scale, false, stream);
+}
+
+// As window_attention_bwd, with the held mma.sync design for bf16 wherever
+// the wgmma design would run.
+extern "C" int window_attention_bwd_mma(const void* q, const void* k, const void* v,
+                                        const void* g, const float* bias, const int* rid,
+                                        void* dq, void* dk, void* dv, float* dbias, float* stats,
+                                        float* partial, int dtype, int BW, int N, int H, int D,
+                                        int nW, int per_group, int groups, const long long* st,
+                                        float scale, void* stream) {
+  return bwd_entry(q, k, v, g, bias, rid, dq, dk, dv, dbias, stats, partial, dtype, BW, N, H, D,
+                   nW, per_group, groups, st, scale, true, stream);
+}
+
+// The design (0 = FMA, 1 = mma.sync, 2 = wide, 3 = wgmma) of the last launch
+// of kernel 8 (which = 0; the variants of kernels 11-12 included) or kernel 9
+// (which = 1) through any entry; -1 before the first.
 extern "C" int window_attention_last_design(int which) {
   return which == 0 || which == 1 ? g_last_design[which] : -1;
+}
+
+// The design (numbered as above) that window_attention_fwd (which = 0, mode 0
+// with one head a block) or window_attention_bwd (which = 1) runs for a call
+// of this dtype, N, D and strides `st` (12 or 21, as the entry takes them),
+// or their _mma entries with mma_only = 1; -1 for arguments they refuse. The
+// Python wrapper sizes kernel 9's dbias groups by it.
+extern "C" int window_attention_design(int which, int dtype, int N, int D, const long long* st,
+                                       int mma_only) {
+  if ((which != 0 && which != 1) || (dtype != 0 && dtype != 1) || N < 1 || D <= 0 || D > 256
+      || D % 8 != 0)
+    return -1;
+  return design_of(which, dtype, N, D, st, mma_only != 0);
 }

@@ -1,0 +1,37 @@
+// The wgmma/TMA design of kernels 8 and 9 (window_attention_wgmma.cu), as
+// window_attention.cu's C entries reach it: both sources build into one
+// library (ops/_build.py), so the entries call these launchers directly.
+
+#pragma once
+
+#include <cuda_runtime.h>
+
+namespace winwg {
+
+// The largest window the design takes: two consumer warpgroups each hold 200
+// keys (queries) of a 64-row tile.
+constexpr int kMaxN = 400;
+
+// Whether the design takes a call: bfloat16 (dtype 1), 1 <= N <= kMaxN, D
+// (already padded to a multiple of 8) <= 32, and every one of the `n`
+// (window, position, head) strides positive (TMA cannot describe a stride of
+// 0).
+bool takes(int dtype, int N, int D, const long long* st, int n);
+
+// Kernel 8: q, k, v, o (BW, N, H, D) bf16 through the 12 strides `st`
+// (window, position, head of q, k, v, o); bias (H, N, N) f32; rid (nW, N)
+// int32 or null. Returns the launch's error.
+cudaError_t fwd(const void* q, const void* k, const void* v, void* o, const float* bias,
+                const int* rid, int BW, int H, int N, int D, int nW, const long long* st,
+                float scale, cudaStream_t s);
+
+// Kernel 9: dq, dk, dv out through the 21 strides `st` (q, k, v, g, dq, dk,
+// dv), the row statistics in `stats` ((BW, H, 3, N) f32 scratch), dbias's
+// partial over each group of `per_group` windows in partial[group] (straight
+// into dbias when groups == 1; the caller sums the groups).
+cudaError_t bwd(const void* q, const void* k, const void* v, const void* g, const float* bias,
+                const int* rid, void* dq, void* dk, void* dv, float* dbias, float* stats,
+                float* partial, int BW, int H, int N, int D, int nW, int per_group, int groups,
+                const long long* st, float scale, cudaStream_t s);
+
+}  // namespace winwg

@@ -1,12 +1,17 @@
 """Build and load the package's CUDA kernels.
 
-Each kernel source in ``laryngeal_tpu_torch/csrc/`` has a plain C interface.
-It is compiled on first use with ``nvcc`` for ``sm_90a`` into a shared
-library under ``laryngeal_tpu_torch/_build/`` and loaded with ``ctypes``.
-The library's name carries a hash of its source and of the shared headers
+Each kernel library has a plain C interface. It is compiled on first use
+with ``nvcc`` for ``sm_90a`` into a shared library under
+``laryngeal_tpu_torch/_build/`` and loaded with ``ctypes``. A library is
+named by its first source in ``laryngeal_tpu_torch/csrc/``; most have one
+source, and those in ``MEMBERS`` have several, compiled to objects in
+parallel and linked together (the window kernels: the held and wide designs
+of ``window_attention.cu`` beside the wgmma design of
+``window_attention_wgmma.cu``, whose launchers the former's C entries call).
+The library's name carries a hash of its sources and of the shared headers
 (``csrc/*.cuh``), so an edited source is rebuilt and a stale library is
-never loaded. A file lock serialises
-concurrent builds (several processes, or several sources at once).
+never loaded. A file lock serialises concurrent builds (several processes,
+or several libraries at once).
 """
 
 from __future__ import annotations
@@ -19,14 +24,18 @@ import shutil
 import subprocess
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import Dict, Optional
+from typing import Dict, List, Optional, Tuple
 
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo")
+# Libraries of more than one source, by library name (its first source).
+MEMBERS: Dict[str, Tuple[str, ...]] = {
+    "window_attention.cu": ("window_attention.cu", "window_attention_wgmma.cu")}
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
@@ -53,13 +62,49 @@ def find_nvcc() -> str:
         "the CUDA toolkit is needed to build the package's kernels")
 
 
+def members(source: str) -> Tuple[str, ...]:
+    """The sources of library ``source``."""
+    return MEMBERS.get(source, (source,))
+
+
+def library_sources() -> List[str]:
+    """Every library's name: the sources in ``csrc/`` that are not a later
+    member of another library."""
+    later = {m for ms in MEMBERS.values() for m in ms[1:]}
+    return sorted(p.name for p in CSRC_DIR.glob("*.cu") if p.name not in later)
+
+
 def library_path(source: str) -> Path:
-    """The library's path; its name hashes the source, every shared header
+    """The library's path; its name hashes its sources, every shared header
     (``csrc/*.cuh``) and the flags."""
-    src = CSRC_DIR / source
-    content = src.read_bytes() + b"".join(h.read_bytes() for h in sorted(CSRC_DIR.glob("*.cuh")))
+    content = b"".join((CSRC_DIR / m).read_bytes() for m in members(source))
+    content += b"".join(h.read_bytes() for h in sorted(CSRC_DIR.glob("*.cuh")))
     digest = hashlib.sha1(content + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return BUILD_DIR / f"{src.stem}-{digest}.so"
+    return BUILD_DIR / f"{Path(source).stem}-{digest}.so"
+
+
+def _nvcc(args: List[str]) -> Tuple[str, subprocess.CompletedProcess]:
+    cmd = [find_nvcc(), *args]
+    return " ".join(cmd), subprocess.run(cmd, capture_output=True, text=True)
+
+
+def _compile(source: str, out: Path) -> List[Tuple[str, subprocess.CompletedProcess]]:
+    """nvcc runs of library ``source`` into ``out``: one for a single
+    source; for several, each compiled to an object at once, then a link."""
+    srcs = members(source)
+    if len(srcs) == 1:
+        return [_nvcc([*NVCC_FLAGS, "-o", str(out), str(CSRC_DIR / source)])]
+    flags = [f for f in NVCC_FLAGS if f != "-shared"]
+    objs = [out.with_name(f"{out.name}.{Path(m).stem}.o") for m in srcs]
+    with ThreadPoolExecutor(max_workers=len(srcs)) as pool:
+        runs = list(pool.map(lambda mo: _nvcc([*flags, "-c", "-o", str(mo[1]),
+                                               str(CSRC_DIR / mo[0])]), zip(srcs, objs)))
+    if all(r.returncode == 0 for _, r in runs):
+        runs.append(_nvcc(["-gencode", "arch=compute_90a,code=sm_90a", "-shared", "-o",
+                           str(out), *map(str, objs)]))
+    for o in objs:
+        o.unlink(missing_ok=True)
+    return runs
 
 
 def build(source: str) -> Path:
@@ -75,15 +120,14 @@ def build(source: str) -> Path:
                 return lib
             t0 = time.perf_counter()
             tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-            cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / source)]
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            log = lib.with_suffix(".log")
-            log.write_text(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-            if proc.returncode != 0:
+            runs = _compile(source, tmp)
+            text = "".join(f"{cmd}\n{proc.stdout}{proc.stderr}" for cmd, proc in runs)
+            lib.with_suffix(".log").write_text(text)
+            failed = [proc for _, proc in runs if proc.returncode != 0]
+            if failed:
                 tmp.unlink(missing_ok=True)
                 raise RuntimeError(
-                    f"nvcc failed for {source} (exit {proc.returncode}):\n"
-                    f"{proc.stdout}{proc.stderr}")
+                    f"nvcc failed for {source} (exit {failed[0].returncode}):\n{text}")
             os.replace(tmp, lib)
             build_seconds[source] = time.perf_counter() - t0
             return lib

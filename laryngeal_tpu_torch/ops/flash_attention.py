@@ -495,12 +495,19 @@ def flash_attention_dkv_mma_cuda(q, k, v, do, lse, delta, kv_valid=None
 DESIGNS = ("fma", "mma.sync", "wgmma")
 
 
+# The C design queries, bound once each, by (source, entry).
+_design_queries: Dict[Tuple[str, str], object] = {}
+
+
 def _last_designs(source: str, entry: str, designs=DESIGNS
                   ) -> Tuple[Optional[str], Optional[str]]:
     """The names (``designs``, by code) of the designs the C entry ``entry``
     reports for its two kernels' last launches; None before the first."""
-    fn = getattr(_build.load(source), entry)
-    fn.restype, fn.argtypes = ctypes.c_int, [ctypes.c_int]
+    fn = _design_queries.get((source, entry))
+    if fn is None:
+        fn = getattr(_build.load(source), entry)
+        fn.restype, fn.argtypes = ctypes.c_int, [ctypes.c_int]
+        _design_queries[(source, entry)] = fn
     return tuple(designs[c] if c >= 0 else None for c in (fn(0), fn(1)))
 
 

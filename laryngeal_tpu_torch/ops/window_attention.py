@@ -38,19 +38,38 @@ The kernels take every shape where the JAX package runs its Pallas kernel
 (N % 8 == 0 and D <= 256, ``supports_shape``,
 ``laryngeal_tpu/ops/window_attention.py:247-250``), and every N <=
 ``HELD_MAX_SEQ`` besides (448 = 7 key tiles of 64; Swin3D's full (8, 7, 7)
-window is 392), D padded to a multiple of 8 inside the wrapper. Two
-designs: the held ones (bias rows held in shared memory, ``mma.sync`` in
-bf16, the FMA kernel with fixed shared arrays in f32) at N <=
-``HELD_MAX_SEQ`` and D <= ``HELD_MAX_HEAD_DIM`` (128), and the wide path at
-every other shape (the FMA units, the bias, region ids and row statistics
-read from device memory, up to D = 256). The C side picks one per call and
-``last_designs`` reports which ran. The bias stays f32 at every shape the
-kernels take. Where JAX takes XLA and the kernels do not take the shape (N
-% 8 != 0 with N > 448, or D > 256), the router
-(``ops.attention.window_attention``) runs ``window_attention_xla`` (the
-bias rounded to the compute dtype, ``laryngeal_tpu/ops/attention.py:
-124-166``) on either device, differentiated by autograd and counting no
-launch.
+window is 392), D padded to a multiple of 8 inside the wrapper. The C side
+picks one design per call (``window_attention_design``, which
+``c_design`` asks; ``design_takes`` mirrors it) and ``last_designs``
+reports which ran:
+
+* ``wgmma`` (``csrc/window_attention_wgmma.cu``): bf16 at N <=
+  ``WGMMA_MAX_SEQ`` (400) and D <= ``WGMMA_MAX_HEAD_DIM`` (32) with every
+  window, position and head stride positive (``design_takes``), Swin3D's N =
+  392, D = 32 at every stage. Warpgroup MMA and TMA; a block holds one
+  (head, 64-row tile)'s f32 bias rows (or, for dK/dV, columns) and walks a
+  group of windows. The forward computes S once, the backward twice (a dQ
+  launch that writes the row statistics, and a dK/dV launch that also sums
+  dbias in registers).
+* ``mma.sync``: the held design (a block holds its query tile's bias rows in
+  shared memory, slots of 4 warps stream 64-key tiles) at every other bf16
+  shape with N <= ``HELD_MAX_SEQ`` and D <= ``HELD_MAX_HEAD_DIM`` (128), and
+  kernels 11-12. ``window_attention_fwd_mma_cuda`` and
+  ``window_attention_bwd_mma_cuda`` run it wherever the wgmma design would;
+  only ``chip_smoke.py``, ``scripts/ablate_window.py`` and the card tests
+  call them, to time and hold the designs against each other, and they
+  count no launch.
+* ``fma``: f32 at the held designs' shapes, on the FMA units.
+* ``wide``: every other shape, in either dtype, on the FMA units, the bias,
+  region ids and row statistics read from device memory, up to D = 256.
+
+``design_launches`` counts each kernel's launches by the design that ran.
+The bias stays f32 at every shape the kernels take. Where JAX takes XLA and
+the kernels do not take the shape (N % 8 != 0 with N > 448, or D > 256),
+the router (``ops.attention.window_attention``) runs
+``window_attention_xla`` (the bias rounded to the compute dtype,
+``laryngeal_tpu/ops/attention.py:124-166``) on either device,
+differentiated by autograd and counting no launch.
 """
 
 from __future__ import annotations
@@ -73,8 +92,11 @@ HELD_MAX_HEAD_DIM = 128
 # ``laryngeal_tpu/ops/window_attention.py:247-250``): N % 8 == 0 and D <= this.
 JAX_PALLAS_MAX_HEAD_DIM = 256
 MAX_HEAD_DIM = JAX_PALLAS_MAX_HEAD_DIM
+# The wgmma design's domain (bf16, every stride positive besides).
+WGMMA_MAX_SEQ = 400
+WGMMA_MAX_HEAD_DIM = 32
 # Designs of kernels 8-9, by the code ``window_attention_last_design`` returns.
-DESIGNS = ("fma", "mma.sync", "wide")
+DESIGNS = ("fma", "mma.sync", "wide", "wgmma")
 MASK_VALUE = -100.0  # torchvision's Swin adds -100 across shifted-region boundaries
 # Softmax modes of the forward kernel: 0 = exp (kernel 8), 1 = (s - m) rounded
 # to bf16 before exp, 2 = exp2 of (s - m)·log2(e) (kernel 11's two softmaxes).
@@ -86,6 +108,10 @@ VARIANT_MAX_HEAD_DIM = 64  # the variants are built for D <= 64 (Swin3D's is 32)
 fwd_launches = 0   # kernel 8, window_attention_fwd
 bwd_launches = 0   # kernel 9, window_attention_bwd
 variant_launches = {kind: 0 for kind in VARIANTS}  # kernels 11 (bf16sm, exp2), 12 (h2)
+# Kernels 8 and 9's launches by the design the C side ran (they add up to
+# ``fwd_launches`` and ``bwd_launches``).
+design_launches: Dict[str, Dict[str, int]] = {
+    e: {d: 0 for d in DESIGNS} for e in ("window_attention_fwd", "window_attention_bwd")}
 
 _fns: Dict[str, object] = {}
 
@@ -95,6 +121,9 @@ def reset_launches() -> None:
     fwd_launches = bwd_launches = 0
     for kind in VARIANTS:
         variant_launches[kind] = 0
+    for counts in design_launches.values():
+        for d in counts:
+            counts[d] = 0
 
 
 def launch_counts() -> Dict[str, int]:
@@ -108,7 +137,7 @@ def _kernel(name: str):
     if name not in _fns:
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         st = ctypes.POINTER(ctypes.c_longlong)
-        if name == "window_attention_fwd":
+        if name.startswith("window_attention_fwd"):
             args = [ptr] * 6 + [i32] * 8 + [st, ctypes.c_float, ptr]
         else:
             args = [ptr] * 12 + [i32] * 8 + [st, ctypes.c_float, ptr]
@@ -162,6 +191,46 @@ def jax_takes_pallas(n: int, d: int) -> bool:
     """Whether the JAX package takes its Pallas kernel (f32 bias) at (n, d);
     elsewhere it takes XLA with the bias rounded to the compute dtype."""
     return n % 8 == 0 and d <= JAX_PALLAS_MAX_HEAD_DIM
+
+
+def design_takes(n: int, d: int, dtype: torch.dtype, strides=None) -> str:
+    """The design (``DESIGNS``) kernels 8-9 run for windows of ``n``
+    positions at head dim ``d`` (padded to a multiple of 8 inside) in
+    ``dtype``: a mirror of the C entries' choice (``window_attention_design``,
+    which the wrappers ask; kernels 11-12 always run mma.sync) for the CPU
+    tests and the checks that name the design a shape should run. ``wgmma``
+    in bf16 at N <= ``WGMMA_MAX_SEQ`` and D <= ``WGMMA_MAX_HEAD_DIM`` when
+    every (window, position, head) stride of the launch is positive (TMA
+    cannot describe a stride of 0; ``strides`` as the wrapper passes them,
+    None for tensors laid out by ``_prepare`` from positive strides)."""
+    d_pad = -(-d // 8) * 8
+    if not held_takes(n, d_pad):
+        return "wide"
+    if dtype == torch.float32:
+        return "fma"
+    if (n <= WGMMA_MAX_SEQ and d_pad <= WGMMA_MAX_HEAD_DIM
+            and (strides is None or all(s > 0 for s in strides))):
+        return "wgmma"
+    return "mma.sync"
+
+
+def c_design(which: int, dtype: torch.dtype, n: int, d_pad: int, strides,
+             mma_only: bool = False) -> str:
+    """The design (``DESIGNS``) the C entry of kernel 8 (``which`` 0) or 9
+    (1) runs for a call in ``dtype`` at (n, d_pad) with the launch's 12 or 21
+    (window, position, head) ``strides``; ``mma_only`` for the ``_mma``
+    entries. Needs the built library."""
+    if "window_attention_design" not in _fns:
+        fn = getattr(_build.load(SOURCE), "window_attention_design")
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_int]
+        _fns["window_attention_design"] = fn
+    st = (ctypes.c_longlong * len(strides))(*strides)
+    code = _fns["window_attention_design"](which, _DTYPE_CODE[dtype], n, d_pad, st,
+                                           int(mma_only))
+    if code < 0:
+        raise ValueError(f"window_attention_design refuses {dtype} at N = {n}, D = {d_pad}")
+    return DESIGNS[code]
 
 
 def last_designs() -> Tuple[Optional[str], Optional[str]]:
@@ -342,10 +411,12 @@ def _rid_arg(region_id, device):
     return rid.data_ptr(), rid.shape[0], rid
 
 
-def _launch_fwd(q, k, v, bias, region_id, mode: int, heads_per_block: int) -> torch.Tensor:
-    """One forward launch: ``heads_per_block`` 0 runs kernels 8 and 11 (a
-    block holds its query tile's bias rows and walks several windows), 1-3
-    kernel 12 (a block takes that many heads of one window)."""
+def _launch_fwd(q, k, v, bias, region_id, mode: int, heads_per_block: int,
+                entry: str = "window_attention_fwd") -> torch.Tensor:
+    """One forward launch of C entry ``entry``: ``heads_per_block`` 0 runs
+    kernels 8 and 11 (a block holds its query tile's bias rows and walks
+    several windows), 1-3 kernel 12 (a block takes that many heads of one
+    window)."""
     _check_kernel(q, k, v, bias, region_id)
     _check_cuda("window_attention_fwd", q, k, v, bias)
     bw, n, h, _ = q.shape
@@ -357,22 +428,32 @@ def _launch_fwd(q, k, v, bias, region_id, mode: int, heads_per_block: int) -> to
     strides = [s for x in (qp, kp, vp, out) for s in x.stride()[:3]]
     st = (ctypes.c_longlong * len(strides))(*strides)
     with torch.cuda.device(q.device):
-        err = _kernel("window_attention_fwd")(
+        err = _kernel(entry)(
             qp.data_ptr(), kp.data_ptr(), vp.data_ptr(), out.data_ptr(), bias_f.data_ptr(),
             rid_ptr, _DTYPE_CODE[q.dtype], bw, n, h, d_pad, nw, mode, heads_per_block, st,
             1.0 / math.sqrt(d), _stream(q))
     if err != 0:
-        raise RuntimeError(f"window_attention_fwd launch failed: cudaError {err}")
+        raise RuntimeError(f"{entry} launch failed: cudaError {err}")
     del rid
     return out if d_pad == d else out[..., :d]
 
 
 def window_attention_fwd_cuda(q, k, v, bias, region_id=None) -> torch.Tensor:
-    """Kernel 8 on CUDA tensors; raises if it cannot launch."""
+    """Kernel 8 on CUDA tensors, in the design the C side picks; raises if
+    it cannot launch (the wgmma design's failures included: there is no
+    fallback)."""
     global fwd_launches
     out = _launch_fwd(q, k, v, bias, region_id, MODES["exp"], 0)
     fwd_launches += 1
+    design_launches["window_attention_fwd"][last_designs()[0]] += 1
     return out
+
+
+def window_attention_fwd_mma_cuda(q, k, v, bias, region_id=None) -> torch.Tensor:
+    """Kernel 8 with the held mma.sync design wherever the wgmma design
+    would run (the yardstick of the new one), on CUDA tensors; counts no
+    launch, raises if it cannot launch."""
+    return _launch_fwd(q, k, v, bias, region_id, MODES["exp"], 0, "window_attention_fwd_mma")
 
 
 def heads_per_block(h: int) -> int:
@@ -416,69 +497,95 @@ def window_attention_variant(q, k, v, bias, region_id, kind: str) -> torch.Tenso
     return window_attention_variant_cuda(q, k, v, bias, region_id, kind)
 
 
-def dbias_groups(bw: int, n: int, h: int, sm_count: int, dtype: torch.dtype,
-                 wide: bool = False) -> Tuple[int, int]:
-    """(windows a group, groups) of kernel 9's dbias partial sums. Each
-    group's (H, N, N) partial goes to a scratch buffer that a last launch
-    sums in group order. bf16, held design: one block per (head, 64-query
-    tile, 64-key tile, window group) keeps its tile of the sum in registers
-    over the group's windows, 4 blocks an SM; f32 and the wide path
-    (``wide``): one block per (head, 64-query tile, window group) keeps its
-    64 rows in shared memory, 2 blocks an SM. The group count minimises
-    (waves of blocks) x (windows a block walks + 1, its partial's write)."""
+def dbias_groups(bw: int, n: int, h: int, sm_count: int, design: str) -> Tuple[int, int]:
+    """(windows a group, groups) of kernel 9's dbias partial sums in
+    ``design`` (``DESIGNS``). Each group's (H, N, N) partial goes to a
+    scratch buffer that a last launch sums in group order. mma.sync: one
+    block per (head, 64-query tile, 64-key tile, window group) keeps its
+    tile of the sum in registers over the group's windows, 4 blocks an SM;
+    wgmma: its dK/dV launch, one block per (head, 64-key tile, window group),
+    keeps its keys' columns in registers, 1 block an SM; fma and wide: one
+    block per (head, 64-query tile, window group) keeps its 64 rows in
+    shared memory, 2 blocks an SM. The group count minimises (waves of
+    blocks) x (windows a block walks + 1, its partial's write; + 3 for
+    wgmma, whose blocks also copy 100 KB of bias and fill a pipeline)."""
+    if design not in DESIGNS:
+        raise ValueError(f"unknown design {design!r}; expected one of {DESIGNS}")
     n_t = -(-n // 64)
-    if dtype == torch.bfloat16 and not wide:
+    extra = 1
+    if design == "mma.sync":
         tiles, resident = h * n_t * n_t, 4 * sm_count
+    elif design == "wgmma":
+        tiles, resident, extra = h * n_t, sm_count, 3
     else:
         tiles, resident = h * n_t, 2 * sm_count
     best = None
     for groups in range(1, min(bw, 64) + 1):
         per_group = -(-bw // groups)
         blocks = tiles * -(-bw // per_group)
-        cost = -(-blocks // resident) * (per_group + 1)
+        cost = -(-blocks // resident) * (per_group + extra)
         if best is None or cost < best[0]:
             best = (cost, per_group, -(-bw // per_group))
     return best[1], best[2]
 
 
-def window_attention_bwd_cuda(q, k, v, bias, region_id, do):
-    """Kernel 9 on CUDA tensors: (dq, dk, dv, dbias), dq/dk/dv shaped like
-    q, dbias like ``bias`` in its dtype; ``do`` is cast to q's dtype first.
-    Scratch (row statistics and the per-group dbias partials) is allocated
-    here. Raises if it cannot launch."""
-    global bwd_launches
+def _bwd_cuda(q, k, v, bias, region_id, do, mma_only: bool = False):
+    """(dq, dk, dv, dbias) of kernel 9's C entry (``window_attention_bwd``,
+    or ``window_attention_bwd_mma`` with ``mma_only``) on CUDA tensors;
+    scratch (row statistics, the per-group dbias partials, sized for the
+    design the C side names) is allocated here. Raises if it cannot
+    launch."""
+    entry = "window_attention_bwd_mma" if mma_only else "window_attention_bwd"
     _check_kernel(q, k, v, bias, region_id)
     if do.shape != q.shape:
         raise ValueError(f"the output gradient {tuple(do.shape)} must be shaped like q "
                          f"{tuple(q.shape)}")
-    _check_cuda("window_attention_bwd", q, k, v, bias, do)
+    _check_cuda(entry, q, k, v, bias, do)
     bw, n, h, _ = q.shape
     d, d_pad = _head_dims(q)
     qp, kp, vp, gp = (_prepare(x, d_pad) for x in (q, k, v, do.to(q.dtype)))
     grads = [torch.empty((bw, n, h, d_pad), dtype=q.dtype, device=q.device) for _ in range(3)]
+    strides = [s for x in (qp, kp, vp, gp, *grads) for s in x.stride()[:3]]
+    design = c_design(1, q.dtype, n, d_pad, strides, mma_only)
     bias_f = bias.to(device=q.device, dtype=torch.float32).contiguous()
     dbias = torch.empty((h, n, n), dtype=torch.float32, device=q.device)
     stats = torch.empty((bw, h, 3, n), dtype=torch.float32, device=q.device)
     per_group, groups = dbias_groups(
-        bw, n, h, torch.cuda.get_device_properties(q.device).multi_processor_count, q.dtype,
-        wide=not held_takes(n, d_pad))
+        bw, n, h, torch.cuda.get_device_properties(q.device).multi_processor_count, design)
     partial = (torch.empty((groups, h, n, n), dtype=torch.float32, device=q.device)
                if groups > 1 else dbias)
     rid_ptr, nw, rid = _rid_arg(region_id, q.device)
-    strides = [s for x in (qp, kp, vp, gp, *grads) for s in x.stride()[:3]]
     st = (ctypes.c_longlong * len(strides))(*strides)
     with torch.cuda.device(q.device):
-        err = _kernel("window_attention_bwd")(
+        err = _kernel(entry)(
             qp.data_ptr(), kp.data_ptr(), vp.data_ptr(), gp.data_ptr(), bias_f.data_ptr(),
             rid_ptr, *(x.data_ptr() for x in grads), dbias.data_ptr(), stats.data_ptr(),
             partial.data_ptr(), _DTYPE_CODE[q.dtype], bw, n, h, d_pad, nw, per_group, groups,
             st, 1.0 / math.sqrt(d), _stream(q))
     if err != 0:
-        raise RuntimeError(f"window_attention_bwd launch failed: cudaError {err}")
-    bwd_launches += 1
+        raise RuntimeError(f"{entry} launch failed: cudaError {err}")
     del rid, stats, partial
     dq, dk, dv = (x if d_pad == d else x[..., :d] for x in grads)
     return dq, dk, dv, dbias.to(bias.dtype)
+
+
+def window_attention_bwd_cuda(q, k, v, bias, region_id, do):
+    """Kernel 9 on CUDA tensors, in the design the C side picks: (dq, dk,
+    dv, dbias), dq/dk/dv shaped like q, dbias like ``bias`` in its dtype;
+    ``do`` is cast to q's dtype first. Raises if it cannot launch (the wgmma
+    design's failures included: there is no fallback)."""
+    global bwd_launches
+    grads = _bwd_cuda(q, k, v, bias, region_id, do)
+    bwd_launches += 1
+    design_launches["window_attention_bwd"][last_designs()[1]] += 1
+    return grads
+
+
+def window_attention_bwd_mma_cuda(q, k, v, bias, region_id, do):
+    """Kernel 9 with the held mma.sync design wherever the wgmma design
+    would run (the yardstick of the new one), on CUDA tensors; counts no
+    launch, raises if it cannot launch."""
+    return _bwd_cuda(q, k, v, bias, region_id, do, mma_only=True)
 
 
 def window_attention_forward(q, k, v, bias, region_id=None) -> torch.Tensor:

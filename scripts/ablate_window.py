@@ -1,0 +1,268 @@
+"""What kernels 8-9's wgmma design spends its time on, on one CUDA card.
+
+    python3 scripts/ablate_window.py
+
+Builds ``laryngeal_tpu_torch/csrc/window_attention_wgmma.cu`` as it is and
+with one part of its work taken out or one of its choices changed at a time
+(text edits of a copy in a temporary directory, each built by its own
+``nvcc`` with a plain C entry appended; every variant but ``as_is`` and
+``bias_streamed`` computes a wrong result by design), then times kernel 9
+(both of its launches, without the groups' dbias sum) and kernel 8 at
+Swin3D-T's stage 1 (1024, 392, 3, 32) and stage 4 (16, 392, 24, 32), bf16,
+on views of a fused qkv with the shifted stage's region ids: 20 launches
+back to back between CUDA events, the median of 3 rounds, the variants in
+turns (in order, then reversed). Variants:
+
+- ``as_is``: the design;
+- ``loads_only``: the consumers wait for each window's tiles and release
+  them (the TMA and cp.async loads and the barriers alone);
+- ``products_only``: no logits, softmax or ds arithmetic: the score
+  accumulators go to the next products as they are (and dbias sums dP);
+- ``no_exp``: exp2 replaced by its argument (the special-function units'
+  share);
+- ``no_mask``: the region ids ignored in the arithmetic (the mask's share;
+  the ids still load);
+- ``bias_streamed``: each logit reads its bias from device memory (L1 / L2)
+  instead of the block's copy in shared memory;
+- ``no_dbias``: the dK/dV launch does not sum dbias (the fused sum's
+  registers and adds);
+- ``dq_only`` / ``dkv_only``: kernel 9's dQ launch, or its dK/dV launch,
+  alone (the other is not launched; ``dkv_only`` reads statistics left by
+  an earlier ``as_is`` call).
+
+The two consumer warpgroups split each row's keys (a row of 392 does not fit
+one warpgroup's registers), so no one-warpgroup variant exists. Prints the
+card's name and power limit, one line per variant and shape, and the times
+as one JSON object last. Needs nvcc and a card.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import json
+import math
+import subprocess
+import sys
+import tempfile
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
+
+import numpy as np
+import torch
+
+sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+from laryngeal_tpu_torch.ops import _build  # noqa: E402
+from laryngeal_tpu_torch.ops import window_attention as wa  # noqa: E402
+
+SOURCE = "window_attention_wgmma.cu"
+# stage: ((B·nW, N, H, D), the shifted block's patch grid)
+STAGES = {1: ((1024, 392, 3, 32), (16, 56, 56)), 4: ((16, 392, 24, 32), (16, 7, 7))}
+ENTRIES = '''
+extern "C" int ablate_fwd(const void* q, const void* k, const void* v, void* o, const float* bias,
+                          const int* rid, int BW, int H, int N, int D, int nW,
+                          const long long* st, float scale, void* s) {
+  return (int)winwg::fwd(q, k, v, o, bias, rid, BW, H, N, D, nW, st, scale,
+                         static_cast<cudaStream_t>(s));
+}
+extern "C" int ablate_bwd(const void* q, const void* k, const void* v, const void* g,
+                          const float* bias, const int* rid, void* dq, void* dk, void* dv,
+                          float* dbias, float* stats, float* partial, int BW, int H, int N, int D,
+                          int nW, int per_group, int groups, const long long* st, float scale,
+                          void* s) {
+  return (int)winwg::bwd(q, k, v, g, bias, rid, dq, dk, dv, dbias, stats, partial, BW, H, N, D,
+                         nW, per_group, groups, st, scale, static_cast<cudaStream_t>(s));
+}
+'''
+# Anchors in the source (build() refuses a variant whose edit no longer applies).
+LOGITS = "template <int NC>\n__device__ __forceinline__ void row_logits("
+SOFTMAX = "template <int NC>\n__device__ __forceinline__ void softmax("
+STEP_MATH = ("  if (!r.dead) {\n#pragma unroll\n    for (int j = 0; j < W / 8; ++j) {",
+             "  uint32_t pp[4][4], pd[4][4];")
+NO_STEP_MATH = ("#pragma unroll\n  for (int i = 0; i < L; ++i) db[i] += dpt[i];"
+                "  // ablation: no arithmetic\n")
+
+
+def _cut(text: str, start: str, end: str, insert: str) -> str:
+    """``text`` with [start, end) replaced by ``insert``."""
+    i = text.index(start)
+    j = text.index(end, i)
+    return text[:i] + insert + text[j:]
+
+
+def _stub(text: str, head: str, body: str) -> str:
+    """The function that starts at ``head`` with its body replaced."""
+    i = text.index(head)
+    j = text.index("{\n", i) + 2
+    k = text.index("\n}\n", j)
+    return text[:j] + body + text[k:]
+
+
+def _loads_only(text: str) -> str:
+    # forward and dQ: no work between a window's full barrier and its release
+    for start in ("    float sc[NC][32];\n    scores<NC>(sc, st, k_i);",):
+        i = text.index(start)
+        j = text.index("    __syncwarp();\n    if (lane == 0) hopper::mbar_arrive(&empty[s]);", i)
+        text = text[:i] + text[j:]
+        i = text.index(start)
+        j = text.index("    __syncwarp();\n    if (lane == 0) hopper::mbar_arrive(&empty[s]);", i)
+        text = text[:i] + text[j:]
+    # dK/dV: chunks waited for and released, no steps, no exchange
+    text = text.replace(
+        "      if (c < NC - 1) {\n#pragma unroll\n        for (int hh = 0; hh < 2; ++hh)",
+        "      if (false) {\n#pragma unroll\n        for (int hh = 0; hh < 2; ++hh)")
+    text = text.replace(
+        "      } else {\n        dkv_step<8>(db[kSteps - 1]",
+        "      } else if (false) {\n        dkv_step<8>(db[kSteps - 1]")
+    return text
+
+
+VARIANTS = {
+    "as_is": lambda t: t,
+    "loads_only": _loads_only,
+    "products_only": lambda t: _cut(
+        _stub(_stub(t, LOGITS, "  (void)s;\n"), SOFTMAX,
+              "  m2[0] = m2[1] = 0.f;\n  il[0] = il[1] = 1.f;\n  (void)s;\n"),
+        *STEP_MATH, NO_STEP_MATH),
+    "no_exp": lambda t: t.replace("hopper::exp2_approx(", "("),
+    "no_mask": lambda t: t.replace("return differ ? __fadd_rn(x, kRegion) : x;", "return x;"),
+    "bias_streamed": lambda t: t.replace(
+        "  const float* b0 = bias_s + lr0 * BS + wg * KW;",
+        "  const float* b0 = bias + ((long long)h * N + min(q0 + lr0, N - 1)) * N + wg * KW;"
+    ).replace(
+        "  const float* b1 = b0 + 8 * BS;\n\n  for (int w = w0, n = 0; w < w_end; ++w, ++n) {\n"
+        "    const int s = n & 1;\n    hopper::mbar_wait(&full[s]",
+        "  const float* b1 = bias + ((long long)h * N + min(q0 + lr0 + 8, N - 1)) * N + wg * KW;"
+        "\n\n  for (int w = w0, n = 0; w < w_end; ++w, ++n) {\n"
+        "    const int s = n & 1;\n    hopper::mbar_wait(&full[s]"),
+    "no_dbias": lambda t: t.replace("        db[4 * j + u] += ds;\n", ""),
+    "dq_only": lambda t: t.replace(
+        "  window_bwd_dkv_wgmma_kernel<KW><<<", "  if (false) window_bwd_dkv_wgmma_kernel<KW><<<"),
+    "dkv_only": lambda t: t.replace(
+        "  window_bwd_dq_wgmma_kernel<KW><<<", "  if (false) window_bwd_dq_wgmma_kernel<KW><<<"),
+}
+RIGHT = ("as_is", "bias_streamed")
+
+
+def build(name: str, workdir: Path):
+    text = VARIANTS[name]((_build.CSRC_DIR / SOURCE).read_text())
+    if name != "as_is" and text == (_build.CSRC_DIR / SOURCE).read_text():
+        raise RuntimeError(f"variant {name}: no edit applied (the source has moved on)")
+    src, lib = workdir / f"{name}.cu", workdir / f"{name}.so"
+    src.write_text(text + ENTRIES)
+    proc = subprocess.run([_build.find_nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC_DIR),
+                           "-o", str(lib), str(src)], capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {name}:\n{proc.stdout}{proc.stderr}")
+    dll = ctypes.CDLL(str(lib))
+    ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    st = ctypes.POINTER(ctypes.c_longlong)
+    fwd, bwd = dll.ablate_fwd, dll.ablate_bwd
+    fwd.restype = bwd.restype = ctypes.c_int
+    fwd.argtypes = [ptr] * 6 + [i32] * 5 + [st, f32, ptr]
+    bwd.argtypes = [ptr] * 12 + [i32] * 7 + [st, f32, ptr]
+    spills = [line.strip() for line in (proc.stdout + proc.stderr).splitlines()
+              if "spill" in line and " 0 bytes spill stores" not in line]
+    return (fwd, bwd), spills
+
+
+def queued_ms(fn, reps: int = 20) -> float:
+    fn()
+    times = []
+    for _ in range(3):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / reps)
+    return float(np.median(times))
+
+
+def stage_inputs(shape, grid):
+    from laryngeal_tpu_torch.models.swin3d import adjust_window, shift_region_ids
+
+    bw, n, h, d = shape
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    q, k, v = torch.randn((bw, n, 3, h, d), generator=gen, device="cuda").to(
+        torch.bfloat16).unbind(2)
+    g = torch.randn((bw, n, h, d), generator=gen, device="cuda").to(torch.bfloat16)
+    bias = torch.randn((h, n, n), generator=gen, device="cuda")
+    window, shift = adjust_window(grid, (8, 7, 7), (4, 3, 3))
+    rid = torch.from_numpy(shift_region_ids(grid, window, shift)).to("cuda", torch.int32)
+    return q, k, v, g, bias, rid.contiguous()
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("ablate_window: no CUDA device is available", file=sys.stderr)
+        return 2
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip(), flush=True)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    stream = torch.cuda.current_stream().cuda_stream
+    results = {}
+    with tempfile.TemporaryDirectory() as tmp, ThreadPoolExecutor(len(VARIANTS)) as pool:
+        built = dict(zip(VARIANTS, pool.map(lambda name: build(name, Path(tmp)), VARIANTS)))
+        for name, (_, spills) in built.items():
+            for line in spills:
+                print(f"{name}: ptxas {line}", flush=True)
+        for stage, (shape, grid) in STAGES.items():
+            bw, n, h, d = shape
+            q, k, v, g, bias, rid = stage_inputs(shape, grid)
+            nw = rid.shape[0]
+            o, dq, dk, dv = (torch.empty((bw, n, h, d), dtype=torch.bfloat16, device="cuda")
+                             for _ in range(4))
+            per_group, groups = wa.dbias_groups(bw, n, h, sms, "wgmma")
+            dbias = torch.empty((h, n, n), device="cuda")
+            stats = torch.empty((bw, h, 3, n), device="cuda")
+            partial = torch.empty((groups, h, n, n), device="cuda")
+            st_f = (ctypes.c_longlong * 12)(*(s for x in (q, k, v, o) for s in x.stride()[:3]))
+            st_b = (ctypes.c_longlong * 21)(*(s for x in (q, k, v, g, dq, dk, dv)
+                                              for s in x.stride()[:3]))
+            scale = 1.0 / math.sqrt(d)
+
+            def fwd(name):
+                err = built[name][0][0](q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                                        bias.data_ptr(), rid.data_ptr(), bw, h, n, d, nw, st_f,
+                                        scale, stream)
+                if err != 0:
+                    raise RuntimeError(f"{name}: forward launch failed: cudaError {err}")
+
+            def bwd(name):
+                err = built[name][0][1](*(x.data_ptr() for x in (q, k, v, g, bias, rid, dq, dk,
+                                                                   dv, dbias, stats, partial)),
+                                        bw, h, n, d, nw, per_group, groups, st_b, scale, stream)
+                if err != 0:
+                    raise RuntimeError(f"{name}: backward launch failed: cudaError {err}")
+
+            fwd("as_is")
+            bwd("as_is")
+            want = [x.clone() for x in (o, dq, dk, dv, partial)]
+            for name in RIGHT[1:]:
+                fwd(name)
+                bwd(name)
+                torch.cuda.synchronize()
+                same = all(torch.equal(x, y) for x, y in zip((o, dq, dk, dv, partial), want))
+                print(f"stage {stage} {name}: bitwise as_is {same}", flush=True)
+            fns = {f"{kind} {name}": (lambda f=f, name=name: f(name))
+                   for name in VARIANTS for kind, f in (("kernel 9", bwd), ("kernel 8", fwd))
+                   if not (kind == "kernel 8" and name in ("no_dbias", "dq_only", "dkv_only"))}
+            times = {key: [] for key in fns}
+            for order in (list(fns), list(fns)[::-1]):
+                for key in order:
+                    times[key].append(queued_ms(fns[key]))
+            ms = {key: sum(t) / len(t) for key, t in times.items()}
+            for key, t in ms.items():
+                base = ms[key.split(" ")[0] + " " + key.split(" ")[1] + " as_is"]
+                print(f"stage {stage} {shape} {key}: {t:.4f} ms ({t / base:.3f} of as_is)",
+                      flush=True)
+            results[f"stage{stage}"] = {"shape": list(shape), "queued_ms": ms}
+            del q, k, v, g, bias, rid, o, dq, dk, dv, dbias, stats, partial, want
+            torch.cuda.empty_cache()
+    print(json.dumps(results), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1470,3 +1470,166 @@ def test_tubelet_kernel_refuses_autograd(cuda):
     out.sum().backward()
     assert kernel.grad is not None
 
+
+
+# -- kernels 8-9's wgmma design (bf16, N <= 400, D <= 32, positive strides) --
+# (B·nW, N, H, D, nW): the four Swin3D-T 32f 224^2 B=8 stage shapes (shifted),
+# then the design's edges: N = 8, 56, 200, 392 with one id row, 448 (past the
+# design: mma.sync) at D = 32, and N = 392 at D = 64 (mma.sync); then the
+# points where its key width KW switches (N = 144/145, 272/273, the last at
+# D = 24, padded to 32) and its largest window, N = 400 (the dQ launch's
+# shared memory nearest the card's limit).
+WINDOW_STAGES = [(1024, 392, 3, 32, 128), (256, 392, 6, 32, 32), (64, 392, 12, 32, 8),
+                 (16, 392, 24, 32, 2)]
+WINDOW_WGMMA_EDGES = [(6, 144, 3, 32, 3), (6, 145, 3, 32, 3), (4, 272, 3, 32, 2),
+                      (4, 273, 3, 24, 1), (4, 400, 3, 32, 2)]
+WINDOW_EDGES = [(6, 8, 3, 32, 2), (6, 56, 3, 32, 3), (6, 200, 3, 32, None), (4, 392, 3, 32, 1),
+                (4, 448, 3, 32, 2), (4, 392, 3, 64, 2)] + WINDOW_WGMMA_EDGES
+
+
+def _window_uses(q, k, v, bias, rid, g, out, grads):
+    """Largest |err| / limit of the forward and of (dq, dk, dv, dbias)."""
+    ref = wa.window_attention_plain(q, k, v, bias, rid)
+    use_f = ((out.float() - ref.float()).abs() / wa.error_limit(q, k, v, bias, rid, ref)).max()
+    refs = wa.window_attention_plain_bwd(q, k, v, bias, rid, g)
+    limits = wa.backward_error_limit(q, k, v, bias, rid, g, refs)
+    return [use_f.item()] + [((x.float() - r.float()).abs() / lim).max().item()
+                             for x, r, lim in zip(grads, refs, limits)]
+
+
+@pytest.mark.parametrize("shape", WINDOW_STAGES + WINDOW_EDGES, ids=str)
+def test_window_designs_both_match_plain(cuda, shape):
+    """bf16 at the Swin3D-T stages and the wgmma design's edges: the entries
+    (in the design ``design_takes`` names) and the kept mma.sync design
+    (``window_attention_*_mma_cuda``, which report ``mma.sync``) each stay
+    within ``error_limit`` / ``backward_error_limit`` of the twins."""
+    q, k, v, bias, rid, g = _window_inputs(shape, torch.bfloat16, cuda, seed=20)
+    want = wa.design_takes(shape[1], shape[3], torch.bfloat16)
+    assert want == ("wgmma" if shape[1] <= 400 and shape[3] <= 32 else "mma.sync")
+    for fwd, bwd, design in ((wa.window_attention_fwd_cuda, wa.window_attention_bwd_cuda, want),
+                             (wa.window_attention_fwd_mma_cuda, wa.window_attention_bwd_mma_cuda,
+                              "mma.sync")):
+        out = fwd(q, k, v, bias, rid)
+        grads = bwd(q, k, v, bias, rid, g)
+        torch.cuda.synchronize()
+        assert wa.last_designs() == (design, design), fwd.__name__
+        uses = _window_uses(q, k, v, bias, rid, g, out, grads)
+        assert max(uses) <= 1.0, (fwd.__name__, uses)
+
+
+@pytest.mark.parametrize("shape", [(64, 392, 12, 32, 8), (6, 56, 3, 32, 3), (5, 137, 2, 16, 1)],
+                         ids=str)
+def test_window_wgmma_is_deterministic(cuda, shape):
+    """Two calls of the wgmma design give bitwise the same o, dq, dk, dv and
+    dbias: no sum uses atomics, the dbias groups are summed in order."""
+    q, k, v, bias, rid, g = _window_inputs(shape, torch.bfloat16, cuda, seed=21)
+    runs = [(wa.window_attention_fwd_cuda(q, k, v, bias, rid),
+             *wa.window_attention_bwd_cuda(q, k, v, bias, rid, g)) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert wa.last_designs() == ("wgmma", "wgmma")
+    for name, a, b in zip(("o", "dq", "dk", "dv", "dbias"), *runs):
+        assert torch.equal(a, b), name
+
+
+def _window_views(shape, layout, device, seed):
+    """bf16 q, k, v, dO as views of a fused (B·nW, N, 3, H, D) qkv (dO
+    contiguous) or of (B·nW, H, N, D) tensors transposed, an f32 bias and
+    region ids in 0..2."""
+    bw, n, h, d, nw = shape
+    rng = np.random.default_rng(seed)
+    if layout == "fused":
+        qkv = torch.from_numpy(rng.standard_normal((bw, n, 3, h, d), dtype=np.float32))
+        q, k, v = qkv.to(device, torch.bfloat16).unbind(2)
+        g = torch.from_numpy(rng.standard_normal((bw, n, h, d), dtype=np.float32)).to(
+            device, torch.bfloat16)
+    else:
+        q, k, v, g = (torch.from_numpy(rng.standard_normal((bw, h, n, d), dtype=np.float32))
+                      .to(device, torch.bfloat16).transpose(1, 2) for _ in range(4))
+    bias = torch.from_numpy(rng.standard_normal((h, n, n), dtype=np.float32)).to(device)
+    rid = torch.from_numpy(rng.integers(0, 3, (nw, n)).astype(np.int32)).to(device)
+    return q, k, v, g, bias, rid
+
+
+@pytest.mark.parametrize("layout", ["fused", "bhnd"])
+@pytest.mark.parametrize("shape", [(16, 392, 6, 32, 4)] + WINDOW_WGMMA_EDGES, ids=str)
+def test_window_wgmma_reads_views_as_contiguous_copies(cuda, shape, layout):
+    """q, k, v (and dO) as views of a fused (B·nW, N, 3, H, D) qkv or of
+    (B·nW, H, N, D) tensors transposed, at a stage-3-like shape and at the
+    wgmma design's edges: the design runs, reads the views through their
+    strides and gives bitwise the results of contiguous copies, and both
+    designs stay within the unchanged limits."""
+    q, k, v, g, bias, rid = _window_views(shape, layout, cuda, seed=22)
+    runs = [(wa.window_attention_fwd_cuda(*xs[:3], bias, rid),
+             *wa.window_attention_bwd_cuda(*xs[:3], bias, rid, xs[3]))
+            for xs in ((q, k, v, g), tuple(x.contiguous() for x in (q, k, v, g)))]
+    torch.cuda.synchronize()
+    assert wa.last_designs() == ("wgmma", "wgmma")
+    for name, a, b in zip(("o", "dq", "dk", "dv", "dbias"), *runs):
+        assert torch.equal(a, b), name
+    uses = _window_uses(q, k, v, bias, rid, g, runs[0][0], runs[0][1:])
+    assert max(uses) <= 1.0, uses
+    old = (wa.window_attention_fwd_mma_cuda(q, k, v, bias, rid),
+           wa.window_attention_bwd_mma_cuda(q, k, v, bias, rid, g))
+    torch.cuda.synchronize()
+    assert wa.last_designs() == ("mma.sync", "mma.sync")
+    uses_old = _window_uses(q, k, v, bias, rid, g, *old)
+    assert max(uses_old) <= 1.0, uses_old
+
+
+@pytest.mark.parametrize("which", [0, 1])
+def test_window_design_mirror_matches_the_c_choice(cuda, which):
+    """``design_takes``, the Python mirror the CPU tests and the checks use,
+    names the design the C entries choose (``window_attention_design``) for
+    kernel 8 (``which`` 0) and 9 (1): at the wgmma design's edges and past
+    them, in both dtypes, with every stride positive and with a stride of 0;
+    the ``_mma`` entries' choice is mma.sync wherever the wgmma design would
+    run."""
+    n_st = 12 if which == 0 else 21
+    for n in (1, 8, 56, 144, 145, 272, 273, 392, 400, 401, 448, 449, 512):
+        for d in (8, 16, 24, 32, 40, 64, 128, 136, 256):
+            for dtype in (torch.float32, torch.bfloat16):
+                for strides in ([96] * n_st, [96] * (n_st - 1) + [0]):
+                    want = wa.design_takes(n, d, dtype, strides)
+                    assert wa.c_design(which, dtype, n, d, strides) == want, (n, d, dtype)
+                    assert wa.c_design(which, dtype, n, d, strides, mma_only=True) == (
+                        "mma.sync" if want == "wgmma" else want), (n, d, dtype)
+
+
+def test_window_wgmma_counts_one_launch_a_call_by_design(cuda):
+    """Each entry call counts one launch, under the design the C side ran
+    (``design_launches``); the kept mma.sync entries count none."""
+    q, k, v, bias, rid, g = _window_inputs((8, 392, 3, 32, 2), torch.bfloat16, cuda, seed=23)
+    before = wa.launch_counts()
+    designs = {e: dict(c) for e, c in wa.design_launches.items()}
+    wa.window_attention_fwd_cuda(q, k, v, bias, rid)
+    wa.window_attention_bwd_cuda(q, k, v, bias, rid, g)
+    wa.window_attention_fwd_mma_cuda(q, k, v, bias, rid)
+    wa.window_attention_bwd_mma_cuda(q, k, v, bias, rid, g)
+    torch.cuda.synchronize()
+    after = wa.launch_counts()
+    assert {e: after[e] - before[e] for e in after} == {
+        "window_attention_fwd": 1, "window_attention_bwd": 1, "window_attention_fwd_bf16sm": 0,
+        "window_attention_fwd_exp2": 0, "window_attention_fwd_h2": 0}
+    for e in designs:
+        assert {d: wa.design_launches[e][d] - designs[e][d] for d in wa.DESIGNS} == {
+            "fma": 0, "mma.sync": 0, "wide": 0, "wgmma": 1}, e
+
+
+def test_window_wgmma_failure_raises_and_runs_no_other_design(cuda, monkeypatch):
+    """A refused dtype or shape raises ValueError before any launch, and a
+    launch the C side refuses raises RuntimeError: the wrapper counts no
+    launch and runs no other design in its place."""
+    q, k, v, bias, rid, g = _window_inputs((4, 392, 3, 32, 2), torch.float16, cuda, seed=24)
+    with pytest.raises(ValueError):
+        wa.window_attention_fwd_cuda(q, k, v, bias, rid)
+    q, k, v, bias, rid, g = _window_inputs((4, 392, 3, 32, 2), torch.bfloat16, cuda, seed=24)
+    with pytest.raises(ValueError):
+        wa.window_attention_bwd_cuda(q, k, v, bias[:, :8], rid, g)
+    before = wa.launch_counts()
+    monkeypatch.setitem(wa._fns, "window_attention_fwd", lambda *a: 1)
+    monkeypatch.setitem(wa._fns, "window_attention_bwd", lambda *a: 1)
+    with pytest.raises(RuntimeError):
+        wa.window_attention_fwd_cuda(q, k, v, bias, rid)
+    with pytest.raises(RuntimeError):
+        wa.window_attention_bwd_cuda(q, k, v, bias, rid, g)
+    assert wa.launch_counts() == before

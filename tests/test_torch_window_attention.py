@@ -435,12 +435,62 @@ def test_router_entry_matches_jax_dispatch(monkeypatch):
         att.window_attention(q, q, q, torch.zeros((1, 1, 1)), None, impl="xla")
 
 
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("design", wa.DESIGNS)
 @pytest.mark.parametrize("bw,n,h", [(1024, 392, 3), (256, 392, 6), (64, 392, 12), (16, 392, 24),
                                     (1, 1, 1), (7, 100, 5), (3, 448, 2)])
-def test_dbias_groups_cover_every_window_once(bw, n, h, dtype):
+def test_dbias_groups_cover_every_window_once(bw, n, h, design):
     """Kernel 9's window groups partition the B·nW windows: groups of
-    ``per_group`` consecutive windows, the last one not empty."""
-    per_group, groups = wa.dbias_groups(bw, n, h, 132, dtype)
+    ``per_group`` consecutive windows, the last one not empty, so that every
+    (head, 64-row tile, window) of the dbias launch (the wgmma design's
+    dK/dV launch: its key tiles) is walked by exactly one block."""
+    per_group, groups = wa.dbias_groups(bw, n, h, 132, design)
     assert 1 <= groups <= 64 and per_group >= 1
     assert per_group * (groups - 1) < bw <= per_group * groups
+    n_t = -(-n // 64)
+    walked = np.zeros((h, n_t, bw), dtype=np.int64)
+    for head in range(h):
+        for tile in range(n_t):
+            for grp in range(groups):
+                walked[head, tile, grp * per_group:min(bw, (grp + 1) * per_group)] += 1
+    assert (walked == 1).all()
+
+
+def test_dbias_groups_fill_the_card_at_the_swin3d_stages():
+    """The wgmma design's dK/dV launch (one block an SM) fills the card
+    about once at stages 1-2 and never leaves more than one group's
+    partial per 22 windows; an unknown design is refused."""
+    assert wa.dbias_groups(1024, 392, 3, 132, "wgmma") == (171, 6)
+    assert wa.dbias_groups(256, 392, 6, 132, "wgmma") == (86, 3)
+    assert wa.dbias_groups(16, 392, 24, 132, "wgmma") == (8, 2)
+    with pytest.raises(ValueError):
+        wa.dbias_groups(16, 392, 24, 132, "tensor")
+
+
+# (N, D, dtype, strides) -> the design the C entries run: the wgmma design at
+# bf16, N <= 400, D <= 32 (padded) with positive strides; mma.sync elsewhere
+# at N <= 448, D <= 128; fma in f32 there; the wide path beyond.
+DESIGN_CASES = [
+    ((392, 32, torch.bfloat16, None), "wgmma"),          # every Swin3D-T stage
+    ((8, 32, torch.bfloat16, None), "wgmma"),
+    ((56, 32, torch.bfloat16, None), "wgmma"),
+    ((200, 32, torch.bfloat16, None), "wgmma"),
+    ((400, 32, torch.bfloat16, None), "wgmma"),
+    ((1, 8, torch.bfloat16, None), "wgmma"),
+    ((245, 20, torch.bfloat16, None), "wgmma"),          # D padded to 24
+    ((401, 32, torch.bfloat16, None), "mma.sync"),
+    ((448, 32, torch.bfloat16, None), "mma.sync"),
+    ((392, 64, torch.bfloat16, None), "mma.sync"),
+    ((392, 40, torch.bfloat16, None), "mma.sync"),       # padded to 48
+    ((392, 32, torch.bfloat16, (1, 8, 8, 0, 8, 8)), "mma.sync"),  # a broadcast stride
+    ((392, 32, torch.float32, None), "fma"),
+    ((512, 32, torch.bfloat16, None), "wide"),
+    ((392, 192, torch.bfloat16, None), "wide"),
+    ((512, 32, torch.float32, None), "wide"),
+]
+
+
+@pytest.mark.parametrize("case,want", DESIGN_CASES, ids=str)
+def test_design_takes_mirrors_the_c_choice(case, want):
+    n, d, dtype, strides = case
+    assert wa.design_takes(n, d, dtype, strides) == want
+    assert wa.kernel_takes(n, d)
