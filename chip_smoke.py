@@ -7,16 +7,23 @@ Phases, in order; any failure ends the run with a non-zero exit:
 1. Print the card's name and power limit; build every kernel library in
    ``laryngeal_tpu_torch/csrc/`` (one nvcc per source, all at once; the window
    library links two).
-2. Hold the flash-attention forward, kernels 1 and 2, in both bf16 designs
-   (wgmma, and the earlier mma.sync one, ``flash_attention_mma_cuda`` /
+2. Hold the flash-attention forward, kernels 1 and 2, in both designs of
+   each dtype (bf16: wgmma, and the earlier mma.sync one; f32: wgmma.tf32x3,
+   the tensor cores on TF32 operands split in two parts, and the FMA kernel;
+   the earlier ones through ``flash_attention_mma_cuda`` /
    ``flash_attention_lse_mma_cuda``) against the plain PyTorch version over
    phase 2b's cases (the ViViT-B shape B=8, N=3137, H=12, D=64; N=300 with
    kv_valid; Nq != Nk both ways; D = 32, 40, 128; fused-qkv and (B, H, N, D)
-   views), lse within ``LSE_TOL``, and in f32 at three of them; print the
-   design each case ran and the ptxas report of the wgmma instances; time
-   at the ViViT-B shape the wgmma design, the mma.sync one and
-   ``F.scaled_dot_product_attention`` (a yardstick the port never calls) in
-   turns, single calls and queued, beside the plain version.
+   views), lse within ``LSE_TOL``, in both dtypes, each bitwise the same
+   on a second call and on the design the C side must choose (f32:
+   wgmma.tf32x3 at D <= 64, FMA at 128); print the design each case ran and
+   the ptxas report of the wgmma instances; time at the ViViT-B shape, in
+   bf16 and f32, the entries' design and the earlier one in turns and
+   ``F.scaled_dot_product_attention`` (a yardstick the port never calls),
+   single calls and queued, beside the plain version and the bound (f32:
+   3xTF32 at the TF32 peak; the FMA design's bound and that of a bf16x3
+   split, which no kernel runs, logged beside it), and name sdpa's kernels
+   (torch.profiler).
 3. The main path at full width: a ViViT-B/16x2 32-frame 224^2 Predictor on
    the card in bf16, weights from a seeded torch.Generator, fed a
    (8, 32, 224, 224, 3) uint8 batch. Probabilities are finite and sum to 1,
@@ -24,7 +31,8 @@ Phases, in order; any failure ends the run with a non-zero exit:
    model with the plain attention (f32 logits). The same weights in f32, the
    compute dtype a checkpoint gets when its metadata names none, go through
    a Predictor once more on two clips and are held to the plain attention
-   too.
+   too; then the f32 forward at B=8 is timed (kernel 1 on wgmma.tf32x3, its
+   share of the forward).
 4. Serving: an InferenceServer on port 0 around that predictor answers
    /healthz and /stats and resolves clips submitted from threads.
 2b. (run after 2) Kernels 2-4, the training path's: the lse forward and the
@@ -43,8 +51,10 @@ Phases, in order; any failure ends the run with a non-zero exit:
    weights, through ``make_train_step`` on a uint8 batch: 12 launches each
    of kernels 2-4 and none of kernel 1 per step, 12 of kernel 1 and none of
    2-4 per eval step; loss finite; step time, clips/s, peak memory and the
-   time of each stage. Then every parameter's gradient at B=2, with the
-   kernels against the same model on the plain attention, f32 and bf16.
+   time of each stage. The f32 train step at B=8 (kernel 2 on wgmma.tf32x3,
+   kernels 3-4 on FMA): the median of 3 after a warm-up and kernels 2-4's
+   shares. Then every parameter's gradient at B=2, with the kernels against
+   the same model on the plain attention, f32 and bf16.
 6. The training CLI at full width: ``cli.main --model vivit --bf16`` on a
    small synthetic dataset in a temporary directory, 1 epoch, then
    ``--resume auto`` for a second; best_model/, latest/,
@@ -168,8 +178,10 @@ from pathlib import Path
 import numpy as np
 import torch
 
-# H100 SXM dense peaks (NVIDIA data sheet) at the 700 W power limit.
+# H100 SXM dense peaks (NVIDIA data sheet) at the 700 W power limit: bf16
+# tensor cores, f32 on the FMA units; TF32 tensor cores (PEAK_TF32).
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+PEAK_TF32 = 495e12
 PEAK_BYTES_PER_S = 3.35e12
 VIVIT_B = dict(B=8, N=3137, H=12, D=64)
 # TimeSformer-B 32f 224^2 at B=8: the temporal (B*196 sequences of T=32) and
@@ -286,41 +298,61 @@ def turns_ms(fns: dict, order=("old", "new", "new", "old")) -> dict:
     return {x: sum(v) / len(v) for x, v in t.items()}
 
 
-# Kernels 1-2's wgmma design; which design a call runs is the C side's choice
-# (``launch_fwd``), read back with ``last_forward_designs``.
+# Kernels 1-2's wgmma designs; which design a call runs is the C side's
+# choice (``launch_fwd``), read back with ``last_forward_designs``.
 FLASH_FWD_DESIGN = ("wgmma + TMA: a persistent block an SM walking work items of 192 query "
                     "rows (3 consumer warpgroups; 128 at D = 128), Q the register A operand of "
                     "S = Q K^T, 64-key K/V tiles streamed through a 4-stage mbarrier ring (K and "
                     "V on barriers of their own), per step the online softmax, then P V and the "
                     "next step's S as one batch, the warpgroups' softmaxes overlapping each "
                     "other's products")
+FLASH_FWD_F32_DESIGN = ("wgmma.tf32x3 (D <= 64): the bf16 design's schedule on TF32 operands "
+                        "split into big + small parts, three products a product; 2 consumer "
+                        "warpgroups (128 query rows an item), Q's big part in registers and its "
+                        "small part in shared memory, each step's P V in an accumulator of its "
+                        "own added to O on the FMA units, TMA streaming f32 K and V tiles "
+                        "through rings of their own, 3 transform warps splitting each K tile "
+                        "and writing V^T's parts; FMA above D = 64 and for strides of 0")
+
+
+def sdpa_kernel_names(fn) -> str:
+    """The CUDA kernels one call of ``fn`` runs, by name with their device
+    ms (torch.profiler), largest first."""
+    by_name = launch_breakdown(fn, reps=1)
+    return ", ".join(f"{n} {t:.3f} ms" for n, t in sorted(by_name.items(), key=lambda x: -x[1]))
 
 
 def check_attention():
-    """Phase 2: kernel 1 in both bf16 designs (the wgmma design the entries
-    run, and the mma.sync one, ``flash_attention_mma_cuda``) vs plain on the
-    card over phase 2b's cases, with kernel 2's lse of both designs within
-    ``LSE_TOL``; f32 at three cases. Timings at the ViViT-B shape: the two
-    designs and sdpa's forward in turns, single calls and queued."""
+    """Phase 2: kernel 1 in both designs of each dtype (the design the entries
+    run, and the earlier one through ``flash_attention_mma_cuda``: mma.sync in
+    bf16, FMA in f32) vs plain on the card over phase 2b's cases in both
+    dtypes, with kernel 2's lse of both within ``LSE_TOL``, and the design the
+    entries ran as the C side must choose it. Timings at the ViViT-B shape: the two designs in turns and sdpa's forward, single calls
+    and queued; sdpa's kernels by name."""
     import torch.nn.functional as F
 
     from laryngeal_tpu_torch.ops import flash_attention as fa
 
-    for line in ptxas_lines("flash_attention_fwd.cu", "fwd_wgmma_kernel"):
-        log(f"ptxas {line}")
+    for kernel in ("fwd_wgmma_kernel", "fwd_tf32_kernel"):
+        for line in ptxas_lines("flash_attention_fwd.cu", kernel):
+            log(f"ptxas {line}")
     entry, worst = {}, [0.0, 0.0]
-    f32_cases = {"vivit_b", "n300_kv_valid", "nq_ne_nk"}
     for dtype in (torch.bfloat16, torch.float32):
         tag = str(dtype)[6:]
+        earlier = "mma.sync" if dtype == torch.bfloat16 else "FMA"
         for seed, (name, b, nq, nk, h, d, kv_valid, layout) in enumerate(TRAIN_CASES):
-            if dtype == torch.float32 and name not in f32_cases:
-                continue
+            # every case's strides are positive: bf16 runs wgmma, f32
+            # wgmma.tf32x3 at D <= 64 and FMA above
+            want = "wgmma" if dtype == torch.bfloat16 else "wgmma.tf32x3" if d <= 64 else "fma"
             q, k, v, _ = train_inputs(b, nq, nk, h, d, dtype, layout, seed)
             ref, lse_ref = fa.attention_plain_lse(q, k, v, kv_valid)
             limit = fa.error_limit(q, k, v, kv_valid, ref, F32_TOL)
             runs = {"new": (fa.flash_attention(q, k, v, kv_valid),
                             *fa.flash_attention_lse_cuda(q, k, v, kv_valid))}
             design = "/".join(fa.last_forward_designs())
+            again = fa.flash_attention_lse_cuda(q, k, v, kv_valid)
+            same = torch.equal(again[0], runs["new"][1]) and torch.equal(again[1], runs["new"][2])
+            del again
             runs["old"] = (fa.flash_attention_mma_cuda(q, k, v, kv_valid),
                            *fa.flash_attention_lse_mma_cuda(q, k, v, kv_valid))
             errs, uses, lse_errs = {}, {}, {}
@@ -330,16 +362,19 @@ def check_attention():
                 uses[which] = max((diff / limit).max().item(),
                                   ((o2.float() - ref.float()).abs() / limit).max().item())
                 lse_errs[which] = (lse - lse_ref).abs().max().item()
-            ok = (max(uses.values()) <= 1.0 and max(lse_errs.values()) <= fa.LSE_TOL
+            ok = (max(uses.values()) <= 1.0 and max(lse_errs.values()) <= fa.LSE_TOL and same
+                  and design == f"{want}/{want}"
                   and all(math.isfinite(x) for x in [*errs.values(), *lse_errs.values()]))
             log(f"attention {name} (B={b}, Nq={nq}, Nk={nk}, H={h}, D={d}, kv_valid={kv_valid}, "
                 f"{layout}) {tag}: kernels 1/2 ({design}) max_abs_err {errs['new']:.3e}, largest "
-                f"|err| / limit {uses['new']:.3f}, lse max_abs_err {lse_errs['new']:.2e}; "
-                f"mma.sync design {uses['old']:.3f}, lse {lse_errs['old']:.2e} "
+                f"|err| / limit {uses['new']:.3f}, lse max_abs_err {lse_errs['new']:.2e}, "
+                f"bitwise the same on a second call: {same}; {earlier} design max_abs_err "
+                f"{errs['old']:.3e}, |err| / limit {uses['old']:.3f}, lse {lse_errs['old']:.2e} "
                 f"{'ok' if ok else 'FAIL'}")
             del runs, limit
             if not ok:
-                raise AssertionError(f"kernel disagrees with plain version: {name} {dtype}")
+                raise AssertionError(f"kernel disagrees with plain version or ran {design}, "
+                                     f"want {want}: {name} {dtype}")
             if dtype == torch.bfloat16:
                 worst = [max(worst[0], errs["new"]), max(worst[1], uses["new"])]
             if name != "vivit_b":
@@ -347,55 +382,88 @@ def check_attention():
                 torch.cuda.empty_cache()
                 continue
             t = turns_ms({"new": lambda: fa.flash_attention_cuda(q, k, v),
-                          "old": lambda: fa.flash_attention_mma_cuda(q, k, v)},
-                         ("old", "new", "new", "old") if dtype == torch.bfloat16 else ("new",))
+                          "old": lambda: fa.flash_attention_mma_cuda(q, k, v)})
             ms = t["new"]
             plain_ms = cuda_time_ms(lambda: fa.attention_plain(q, k, v), reps=3, warmup=1)
             qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
             sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt)
             library_ms = cuda_time_ms(sdpa)
             library_q = cuda_time_ms(sdpa, reps=20, queued=True)
-            bound_ms, bound_by = attention_bound_ms(b, nq, nk, h, d, dtype)
+            sdpa_kernels = sdpa_kernel_names(sdpa)
+            if dtype == torch.bfloat16:
+                bound_ms, bound_by = attention_bound_ms(b, nq, nk, h, d, dtype)
+            else:
+                bound_ms, bound_by, fma_bound, bf16x3 = f32_forward_bounds(b, nq, nk, h, d, 0)
             numbers = dict(max_abs_err=errs["new"], err_over_limit=uses["new"], ms=ms,
                            kernel_ms=ms, queued_ms=t["new_q"], plain_ms=plain_ms,
                            bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
-                           library_queued_ms=library_q)
+                           library_queued_ms=library_q, old_ms=t["old"],
+                           old_queued_ms=t["old_q"], design=design,
+                           library_kernels=sdpa_kernels)
             line = (f"flash_attention_fwd vivit_b {tag}: kernel {ms:.4f} ms ({design}), queued "
                     f"{t['new_q']:.4f} ms, plain {plain_ms:.3f} ms, sdpa {library_ms:.4f} / "
-                    f"queued {library_q:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
-                    f"{bound_ms / ms:.3f} / {bound_ms / t['new_q']:.3f} of the bound")
+                    f"queued {library_q:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}"
+                    f"{'' if dtype == torch.bfloat16 else ', ' + TF32X3_BOUND}), "
+                    f"{bound_ms / ms:.3f} / {bound_ms / t['new_q']:.3f} of the bound; the "
+                    f"{earlier} design {t['old']:.4f} ms ({t['old'] / ms:.2f}x), queued "
+                    f"{t['old_q']:.4f} ms ({t['old_q'] / t['new_q']:.2f}x); against sdpa "
+                    f"{ms / library_ms:.3f}x / {t['new_q'] / library_q:.3f}x")
             if dtype == torch.bfloat16:
-                numbers.update(old_ms=t["old"], old_queued_ms=t["old_q"], design=design)
-                line += (f"; the mma.sync design {t['old']:.4f} ms ({t['old'] / ms:.2f}x), queued "
-                         f"{t['old_q']:.4f} ms ({t['old_q'] / t['new_q']:.2f}x); against sdpa "
-                         f"{ms / library_ms:.3f}x / {t['new_q'] / library_q:.3f}x")
                 entry.update(numbers)
             else:
+                line += (f"; the FMA design's bound {fma_bound:.4f} ms (67 TFLOP/s), "
+                         f"{fma_bound / t['old']:.3f} of it; {BF16X3_BOUND} {bf16x3:.4f} ms, "
+                         f"{bf16x3 / ms:.3f} / {bf16x3 / t['new_q']:.3f} of it")
                 entry["f32"] = numbers
             log(line)
+            log(f"sdpa {tag} at vivit_b runs: {sdpa_kernels}")
             del q, k, v, qt, kt, vt, ref, lse_ref
             torch.cuda.empty_cache()
     entry.update(max_abs_err=worst[0], err_over_limit=worst[1],
                  tol=(f"bf16: error_limit (2^-8*plain(|v|)+2^-7*|ref|+1e-5), lse "
                       f"{fa.LSE_TOL:g}; f32: {F32_TOL:g}"),
                  headline="vivit_b (8, 3137, 12, 64) bf16; max_abs_err and err_over_limit over "
-                          "every phase-2 case, of the design the entries ran (the mma.sync "
+                          "every phase-2 case, of the design the entries ran (the earlier "
                           "design's |err|/limit is logged per case)")
     entry["design"] = f"{entry['design']} at vivit_b; {FLASH_FWD_DESIGN}"
+    entry["f32"]["design"] = f"{entry['f32']['design']} at vivit_b; {FLASH_FWD_F32_DESIGN}"
     return entry
 
 
-def kernel_bound_ms(b, nq, nk, h, d, dtype, matmuls, q_tensors, k_tensors, f32_rows):
+def kernel_bound_ms(b, nq, nk, h, d, dtype, matmuls, q_tensors, k_tensors, f32_rows,
+                    peak=None):
     """Least time for ``matmuls`` (Nq x Nk x D) products per head at the
-    tensor-core (bf16) or FMA (f32) peak, against the bytes moved once:
-    ``q_tensors`` (B, Nq, H, D) and ``k_tensors`` (B, Nk, H, D) tensors of
-    the input dtype read or written, and ``f32_rows`` f32 (B, H, Nq) rows
-    (lse, delta). Returns (ms, 'operations' | 'bytes')."""
+    tensor-core (bf16) or FMA (f32) peak, or at ``peak`` FLOP/s, against the
+    bytes moved once: ``q_tensors`` (B, Nq, H, D) and ``k_tensors``
+    (B, Nk, H, D) tensors of the input dtype read or written, and
+    ``f32_rows`` f32 (B, H, Nq) rows (lse, delta). Returns (ms,
+    'operations' | 'bytes')."""
     flops = 2.0 * matmuls * b * h * nq * nk * d
     size = torch.tensor([], dtype=dtype).element_size()
     nbytes = (q_tensors * nq + k_tensors * nk) * b * h * d * size + f32_rows * b * h * nq * 4
-    t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES_PER_S
+    t_ops, t_bytes = flops / (peak or PEAK_FLOPS[dtype]), nbytes / PEAK_BYTES_PER_S
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+# The f32 bound of kernels 1-2's wgmma.tf32x3 design: each product is three
+# TF32 products (3xTF32) on the tensor cores.
+TF32X3_BOUND = "3xTF32: three TF32 products a product at 495 TFLOP/s"
+# A split no kernel here runs, whose CPU emulation also holds the 1e-4 limit
+# (tests/test_torch_flash_attention.py): the bound of the same work on it.
+BF16X3_BOUND = "bf16x3 (hi + lo bf16, three products a product at 989 TFLOP/s, not built)"
+
+
+def f32_forward_bounds(b, nq, nk, h, d, f32_rows):
+    """Kernels 1-2 in f32 (``f32_rows``: 1 with kernel 2's lse): (bound ms,
+    bound_by) of the design the entries run, 3xTF32 at D <= 64 and the FMA
+    units above; the FMA design's bound ms; and the bound ms of bf16x3."""
+    fma = kernel_bound_ms(b, nq, nk, h, d, torch.float32, 2, 2, 2, f32_rows)
+    bf16x3 = kernel_bound_ms(b, nq, nk, h, d, torch.float32, 3 * 2, 2, 2, f32_rows,
+                             peak=PEAK_FLOPS[torch.bfloat16])[0]
+    if d > 64:
+        return (*fma, fma[0], bf16x3)
+    return (*kernel_bound_ms(b, nq, nk, h, d, torch.float32, 3 * 2, 2, 2, f32_rows,
+                             peak=PEAK_TF32), fma[0], bf16x3)
 
 
 # Kernels 3-4's wgmma design; which design a call runs is the C side's choice
@@ -523,8 +591,9 @@ def check_training_kernels():
                                                                         delta)}}
             for e, fns in calls.items():
                 t = {"old": [], "new": [], "old_q": [], "new_q": []}
-                for which in (("old", "new", "new", "old") if dtype == torch.bfloat16
-                              else ("new",)):
+                # f32: kernel 2 against its FMA design; kernels 3-4 have one
+                for which in (("old", "new", "new", "old")
+                              if dtype == torch.bfloat16 or "lse" in e else ("new",)):
                     t[which].append(cuda_time_ms(fns[which]))
                     t[which + "_q"].append(cuda_time_ms(fns[which], reps=20, queued=True))
                     if which == "new":
@@ -553,15 +622,19 @@ def check_training_kernels():
                      lib_bwd, 3, 3, 2, 2),
                     ("flash_attention_bwd_dkv", turns["flash_attention_bwd_dkv"]["new"],
                      plain_bwd, lib_bwd, 4, 2, 4, 2)):
-                bound_ms, bound_by = kernel_bound_ms(b, nq, nk, h, d, dtype, mm, nq_t, nk_t,
-                                                     rows)
+                fwd = entry == "flash_attention_fwd_lse"
+                if fwd and dtype == torch.float32:
+                    bound_ms, bound_by, fma_bound, bf16x3 = f32_forward_bounds(b, nq, nk, h, d,
+                                                                               rows)
+                else:
+                    bound_ms, bound_by = kernel_bound_ms(b, nq, nk, h, d, dtype, mm, nq_t,
+                                                         nk_t, rows)
                 numbers = dict(ms=ms, kernel_ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                                bound_by=bound_by, library_ms=lib_ms)
                 line = (f"{entry} vivit_b {tag}: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, "
                         f"sdpa {lib_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
                         f"{bound_ms / ms:.3f} of the bound")
                 tt = turns[entry]
-                fwd = entry == "flash_attention_fwd_lse"
                 lib_q = lib_fwd_q if fwd else lib_bwd_q
                 numbers.update(queued_ms=tt["new_q"], library_queued_ms=lib_q,
                                design=designs[entry])
@@ -569,11 +642,15 @@ def check_training_kernels():
                          f"({bound_ms / tt['new_q']:.3f} of the bound), sdpa "
                          f"{'forward' if fwd else 'backward'} queued {lib_q:.4f} ms "
                          f"({tt['new_q'] / lib_q:.3f}x)")
-                if dtype == torch.bfloat16:
+                if dtype == torch.bfloat16 or fwd:
                     numbers.update(old_ms=tt["old"], old_queued_ms=tt["old_q"])
-                    line += (f"; the mma.sync design {tt['old']:.4f} ms "
-                             f"({tt['old'] / ms:.2f}x), queued {tt['old_q']:.4f} ms "
-                             f"({tt['old_q'] / tt['new_q']:.2f}x)")
+                    line += (f"; the {'mma.sync' if dtype == torch.bfloat16 else 'FMA'} design "
+                             f"{tt['old']:.4f} ms ({tt['old'] / ms:.2f}x), queued "
+                             f"{tt['old_q']:.4f} ms ({tt['old_q'] / tt['new_q']:.2f}x)")
+                if fwd and dtype == torch.float32:
+                    line += (f"; bound {TF32X3_BOUND}; the FMA design's bound {fma_bound:.4f} "
+                             f"ms (67 TFLOP/s); {BF16X3_BOUND} {bf16x3:.4f} ms, "
+                             f"{bf16x3 / ms:.3f} / {bf16x3 / tt['new_q']:.3f} of it")
                 log(line)
                 if dtype == torch.bfloat16:
                     entries[entry].update(numbers)
@@ -598,6 +675,8 @@ def check_training_kernels():
         entries[e]["design"] = f"{entries[e]['design']} at vivit_b; {FLASH_BWD_DESIGN}"
     e = "flash_attention_fwd_lse"
     entries[e]["design"] = f"{entries[e]['design']} at vivit_b; {FLASH_FWD_DESIGN}"
+    entries[e]["f32"]["design"] = (f"{entries[e]['f32']['design']} at vivit_b; "
+                                   f"{FLASH_FWD_F32_DESIGN}")
     return entries
 
 
@@ -611,8 +690,9 @@ def check_logits(label, logits, logits_plain, tol, model="vivit-b"):
                              "plain attention")
 
 
-def main_path() -> dict:
-    """Phases 3 and 4: the ViViT-B serving path on the card. Returns each
+def main_path(kernel1_f32_ms: float) -> dict:
+    """Phases 3 and 4: the ViViT-B serving path on the card (kernel 1's f32
+    time from phase 2 gives its share of the f32 forward). Returns each
     kernel's launches since the counts were set to 0."""
     from laryngeal_tpu_torch.infer.predictor import Predictor
     from laryngeal_tpu_torch.models.registry import get_model_spec
@@ -692,6 +772,19 @@ def main_path() -> dict:
         finally:
             att.set_attention_impl(None)
     check_logits("f32", logits_f32, logits_f32_plain, LOGIT_TOL[torch.float32])
+    with torch.inference_mode():  # the f32 forward at B=8, kernel 1's share
+        before = fa.launches
+        model_f32(pixel)
+        f32_launches, f32_design = fa.launches - before, fa.last_forward_designs()[0]
+        f32_forward_ms = cuda_time_ms(lambda: model_f32(pixel), reps=5, warmup=1)
+    if f32_launches != n_layers or f32_design != "wgmma.tf32x3":
+        raise AssertionError(f"the f32 ViViT-B forward ran kernel 1 {f32_launches} times as "
+                             f"{f32_design}, want {n_layers} on wgmma.tf32x3")
+    k1_ms = n_layers * kernel1_f32_ms
+    log(f"vivit-b 32f 224 f32 B=8 forward: {f32_forward_ms:.2f} ms (model only, CUDA events, "
+        f"median of 5), {f32_launches} launches of kernel 1 ({f32_design}); kernel 1 "
+        f"{n_layers} x {kernel1_f32_ms:.4f} = {k1_ms:.2f} ms = {k1_ms / f32_forward_ms:.3f} of "
+        f"the forward")
     # What the kernel's bf16 P costs the bf16 model, against the f32 model on
     # the plain attention (a reading, held to no limit).
     err_kernel = (logits[:2] - logits_f32_plain).abs().max().item()
@@ -818,8 +911,10 @@ def grad_check(make_model, pixel, labels, dtype, key_free=vivit_key_free, label=
     torch.cuda.empty_cache()
 
 
-def training_path(kernel_ms: dict) -> None:
-    """Phases 5 and 6: the ViViT-B training path on the card, and the CLI."""
+def training_path(kernel_ms: dict, f32_kernel_ms: dict) -> None:
+    """Phases 5 and 6: the ViViT-B training path on the card, and the CLI.
+    ``kernel_ms`` / ``f32_kernel_ms``: kernels 2-4's times from phase 2b in
+    bf16 / f32, for their share of the step."""
     from laryngeal_tpu_torch.models.vivit import create_vivit
     from laryngeal_tpu_torch.ops import flash_attention as fa
     from laryngeal_tpu_torch.preprocess.transforms import batch_preprocess
@@ -905,6 +1000,36 @@ def training_path(kernel_ms: dict) -> None:
         f"({' + '.join(f'{v:.3f}' for v in kernel_ms.values())}) = {attn_ms:.2f} ms = "
         f"{attn_ms / (step_s * 1e3):.3f} of the step")
     del state, step, eval_step, model, m, em, loss, pixel
+    torch.cuda.empty_cache()
+
+    # The f32 train step at B=8 (the training CLI's default compute dtype):
+    # launches and designs on a warm-up step, then the median of 3 steps.
+    model = create_vivit(num_classes=2, num_frames=32, image_size=224, seed=0).cuda()
+    state = create_train_state(model, "adamw", 1e-4, 0.01)
+    step = make_train_step(model, "vivit", "ce", crop=224)
+    (state, m), per_step = launched(lambda: step(state, pixel_u8, labels, mask))
+    designs = (fa.last_forward_designs()[1], *fa.last_backward_designs())
+    if per_step != want or designs != ("wgmma.tf32x3", "fma", "fma"):
+        raise AssertionError(f"f32 train step: launches {per_step}, designs {designs}")
+    times, losses = [], [m["loss"].item()]
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, pixel_u8, labels, mask)
+        losses.append(m["loss"].item())
+        times.append((time.perf_counter() - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated()
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"non-finite f32 loss {losses}")
+    f32_step_ms = float(np.median(times))
+    shares = {e: n_layers * ms / f32_step_ms for e, ms in f32_kernel_ms.items()}
+    log(f"vivit-b 32f 224 f32 B=8 train step: {f32_step_ms:.2f} ms (median of 3 after a "
+        f"warm-up, host clock) -> {b / f32_step_ms * 1e3:.2f} clips/s, peak memory "
+        f"{peak / 2**30:.2f} GiB; designs {designs}; kernels 2-4 {n_layers} x "
+        f"({' + '.join(f'{v:.3f}' for v in f32_kernel_ms.values())}) ms, shares of the step "
+        f"{', '.join(f'{e} {x:.3f}' for e, x in shares.items())}; losses {losses}")
+    del state, step, model, m
     torch.cuda.empty_cache()
 
     pixel2 = batch_preprocess(pixel_u8[:2], "vivit", crop=224)
@@ -1028,8 +1153,8 @@ def ptxas_lines(source: str, kernel: str) -> list:
     from laryngeal_tpu_torch.ops import _build
 
     def instance(line):  # kernel<template arguments> from a mangled name
-        m = re.search(re.escape(kernel) + r"I((?:Li\d+E)+)E", line)
-        return f"{kernel}<{', '.join(re.findall(r'Li(\d+)E', m.group(1)))}>" if m else None
+        m = re.search(re.escape(kernel) + r"I((?:L[ib]\d+E)+)E", line)
+        return f"{kernel}<{', '.join(re.findall(r'L[ib](\d+)E', m.group(1)))}>" if m else None
 
     out, keep = [], False
     for line in (_build.build_log(source) or "").splitlines():
@@ -2329,10 +2454,11 @@ def main() -> int:
     phase_done("16 kernel 5")
 
     reset_launches()
-    serve_counts = main_path()
+    serve_counts = main_path(entry["f32"]["ms"])
     phase_done("3-4 vivit serving")
     reset_launches()
-    training_path({k: v["ms"] for k, v in train_entries.items()})
+    training_path({k: v["ms"] for k, v in train_entries.items()},
+                  {k: v["f32"]["ms"] for k, v in train_entries.items()})
     train_counts = launch_counts()
     phase_done("5-6 vivit training")
     reset_launches()

@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks for the kernels that run on the Tensor
 // Memory Accelerator and warpgroup MMA: mbarriers, 4-D TMA tile loads, the
-// wgmma shared-memory descriptor and the bf16 wgmma shapes the kernels use,
+// wgmma shared-memory descriptor and the bf16 and tf32 wgmma shapes the
+// kernels use, TF32 rounding,
 // register hand-over between warpgroups, and the host-side tensor-map
 // encoding (cuTensorMapEncodeTiled through the runtime's driver entry point,
 // so the library needs no -lcuda).
@@ -301,6 +302,78 @@ __device__ __forceinline__ void wgmma_m64n32k16_rs_tb(float (&d)[16], const uint
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
 }
 
+// ---- tf32 (3xTF32 f32 products: flash_attention_fwd.cu) ----
+
+// x rounded to TF32 (10 mantissa bits; the low 13 bits of the result are
+// zero) to nearest, ties away from zero.
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  uint32_t y;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(y) : "f"(x));
+  return y;
+}
+
+// d (64 x 64 f32) = (accumulate ? d : 0) + A (64 x 8 tf32, registers) B
+// (8 x 64 tf32, shared memory). TF32 takes no transpose: B is K-major (the 8
+// k values of an n row are contiguous). A fragment: a[0] (g, t), a[1]
+// (g + 8, t), a[2] (g, t + 4), a[3] (g + 8, t + 4) of the warp's 16 rows.
+__device__ __forceinline__ void wgmma_m64n64k8_tf32_rs(float (&d)[32], const uint32_t (&a)[4],
+                                                       uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+}
+
+// The same with A (64 x 8 tf32, K-major) from shared memory.
+__device__ __forceinline__ void wgmma_m64n64k8_tf32_ss(float (&d)[32], uint64_t a, uint64_t b,
+                                                       int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// The RS product at n = 32.
+__device__ __forceinline__ void wgmma_m64n32k8_tf32_rs(float (&d)[16], const uint32_t (&a)[4],
+                                                       uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+}
+
 // ---- host: tensor maps ----
 
 typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
@@ -326,7 +399,8 @@ inline EncodeTiledFn encode_tiled_fn() {
   return fn;
 }
 
-// A 4-D bf16 tensor map over a (B, N, H, D) tensor with unit D stride and
+// A 4-D tensor map of element type `dtype` (bf16 unless given; float32 for
+// the f32 kernels) over a (B, N, H, D) tensor with unit D stride and
 // element strides sb, sn, sh (positive, multiples of 8), read in boxes of
 // `box_cols` head-dim values x `box_rows` sequence rows of one (batch, head),
 // with the given swizzle. TMA dimension 0 is D; dimensions 1-3 are the batch,
@@ -336,9 +410,11 @@ inline EncodeTiledFn encode_tiled_fn() {
 // refuses the map.
 inline bool encode_bnhd_map(CUtensorMap* map, const void* base, int B, int N, int H, int D,
                             long long sb, long long sn, long long sh, int box_cols, int box_rows,
-                            CUtensorMapSwizzle swizzle, int* pos) {
+                            CUtensorMapSwizzle swizzle, int* pos,
+                            CUtensorMapDataType dtype = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16) {
   EncodeTiledFn encode = encode_tiled_fn();
   if (encode == nullptr) return false;
+  const int elem_bytes = dtype == CU_TENSOR_MAP_DATA_TYPE_FLOAT32 ? 4 : 2;
   struct Axis { long long size, stride; int which; };  // which: 0 head, 1 sequence, 2 batch
   Axis ax[3] = {{H, sh, 0}, {N, sn, 1}, {B, sb, 2}};
   long long span = (long long)D;
@@ -356,11 +432,11 @@ inline bool encode_bnhd_map(CUtensorMap* map, const void* base, int B, int N, in
   *pos = 0;
   for (int i = 0; i < 3; ++i) {
     dims[i + 1] = (cuuint64_t)ax[i].size;
-    strides[i] = (cuuint64_t)ax[i].stride * 2;  // bytes
+    strides[i] = (cuuint64_t)ax[i].stride * elem_bytes;  // bytes
     if (ax[i].which == 1) box[i + 1] = (cuuint32_t)box_rows;
     *pos |= (i + 1) << (2 * ax[i].which);
   }
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims,
+  return encode(map, dtype, 4, const_cast<void*>(base), dims,
                 strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE)
          == CUDA_SUCCESS;

@@ -20,15 +20,19 @@ TPU kernels have CUDA counterparts here:
 Kernels 1-4 have two bf16 designs behind their entries, ``wgmma`` (a
 block's query rows, or key rows, resident in shared memory through TMA,
 the other side streamed past them through an mbarrier ring) and
-``mma.sync``; the C side picks one per call (``launch_fwd`` in
-``csrc/flash_attention_fwd.cu``, ``launch_dq`` and ``launch_dkv`` in
-``csrc/flash_attention_bwd.cu`` say where each runs) and
+``mma.sync``. In f32 kernels 1-2 run ``wgmma.tf32x3`` at D <= 64 (the
+wgmma design on TF32 operands split into two parts, three products per
+product, which keeps f32's 1e-4 agreement) and the FMA kernel elsewhere;
+kernels 3-4 run the FMA kernels. The C side picks one per call
+(``launch_fwd`` in ``csrc/flash_attention_fwd.cu``, ``launch_dq`` and
+``launch_dkv`` in ``csrc/flash_attention_bwd.cu`` say where each runs) and
 ``last_forward_designs`` / ``last_backward_designs`` report which ran.
 ``flash_attention_mma_cuda``, ``flash_attention_lse_mma_cuda`` (C entries
 ``flash_attention_fwd_mma``, ``flash_attention_fwd_lse_mma``),
 ``flash_attention_dq_mma_cuda`` and ``flash_attention_dkv_mma_cuda`` run
-the ``mma.sync`` design at every shape, so that ``chip_smoke.py`` and the
-card tests can hold the two against each other; they count no launch.
+the ``mma.sync`` design (f32: the FMA kernel) at every shape, so that
+``chip_smoke.py`` and the card tests can hold the designs against each
+other; they count no launch.
 Kernel 5 keeps the ``mma.sync`` design (``csrc/flash_attention_fwd.cuh``).
 
 ``flash_attention`` takes (B, Nq, H, D) x (B, Nk, H, D), non-causal,
@@ -384,16 +388,17 @@ def flash_attention_lse_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def flash_attention_mma_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                              kv_valid: Optional[int] = None) -> torch.Tensor:
-    """Kernel 1's earlier ``mma.sync`` design for bfloat16 at every shape (f32
-    takes the FMA kernel, as in kernel 1), on CUDA tensors: the yardstick of
-    the ``wgmma`` design. Counts no launch; raises if it cannot launch."""
+    """Kernel 1's earlier designs at every shape, on CUDA tensors: ``mma.sync``
+    for bfloat16, the FMA kernel for float32; the yardsticks of the ``wgmma``
+    and ``wgmma.tf32x3`` designs. Counts no launch; raises if it cannot
+    launch."""
     return _forward_cuda("flash_attention_fwd_mma", q, k, v, kv_valid, with_lse=False)
 
 
 def flash_attention_lse_mma_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                  kv_valid: Optional[int] = None
                                  ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Kernel 2's earlier ``mma.sync`` design, as ``flash_attention_mma_cuda``."""
+    """Kernel 2's earlier designs, as ``flash_attention_mma_cuda``."""
     return _forward_cuda("flash_attention_fwd_lse_mma", q, k, v, kv_valid, with_lse=True)
 
 
@@ -491,8 +496,9 @@ def flash_attention_dkv_mma_cuda(q, k, v, do, lse, delta, kv_valid=None
 
 
 # Designs of kernels 1-4, by the code ``flash_attention_fwd_last_design`` and
-# ``flash_attention_bwd_last_design`` return.
-DESIGNS = ("fma", "mma.sync", "wgmma")
+# ``flash_attention_bwd_last_design`` return ("wgmma.tf32x3": kernels 1-2 in
+# f32 on the tensor cores, each product as three TF32 products).
+DESIGNS = ("fma", "mma.sync", "wgmma", "wgmma.tf32x3")
 
 
 # The C design queries, bound once each, by (source, entry).

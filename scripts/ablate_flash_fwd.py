@@ -1,7 +1,8 @@
-"""What the wgmma design of kernels 1-2 (the flash-attention forward, without
-and with lse) spends its time on, on one CUDA card.
+"""What the wgmma designs of kernels 1-2 (the flash-attention forward, without
+and with lse) spend their time on, on one CUDA card.
 
-    python3 scripts/ablate_flash_fwd.py
+    python3 scripts/ablate_flash_fwd.py          # bf16, the wgmma design
+    python3 scripts/ablate_flash_fwd.py --f32    # f32, the wgmma.tf32x3 design
 
 Builds ``laryngeal_tpu_torch/csrc/flash_attention_fwd.cu`` as it is and with
 one part of the wgmma kernel's work taken out or changed at a time (text
@@ -38,8 +39,32 @@ reversed). Variants:
   warpgroup, one (b, h)) instead of one block an SM walking the items;
 - ``stages_3``, ``stages_6``: a ring of 3 or 6 K/V tile pairs instead of 4.
 
+With ``--f32`` the same is done at the ViViT-B shape in f32 for the
+wgmma.tf32x3 kernel, with its own variants:
+
+- ``as_is``: the kernels;
+- ``loads_only``: the consumers wait for each transformed K and V tile and
+  release it (TMA, the transform warps and the rings alone);
+- ``no_transform``: the transform warps release each tile untouched (no
+  TF32 split of K, no V^T); ``tma_only``: that and ``loads_only``;
+- ``products_only``: no softmax: the scores, split as they are, go to P V;
+- ``no_exp``: exp2 of the probabilities replaced by its argument;
+- ``one_term``: one TF32 product per product (big.big) instead of three;
+- ``rna_big``: the big part by ``cvt.rna.tf32.f32`` instead of masking its
+  low 13 bits;
+- ``int_round``: both parts rounded to nearest by integer add and mask;
+- ``int_small``: the small part rounded by integer add and mask instead of
+  ``cvt.rna`` (the big part still masked);
+- ``regs_24_240``: the producer's warpgroup keeps 24 registers a thread and
+  the consumers take 240 (instead of 40 and 232);
+- ``o_in_tensor_cores``: O accumulated by the P V products themselves
+  across all keys instead of each step's P V in an accumulator of its own
+  added to O on the FMA units (less accurate: see the source);
+- ``regs_56_224``: 56 / 224 registers.
+
 Prints the card's name and power limit, one line per variant, and the
-variants as one JSON object last. Needs nvcc and a card.
+variants as one JSON object last. Needs nvcc and a card. Exits 1 if a
+variant does not build (the others are still timed, unless it is ``as_is``).
 """
 
 from __future__ import annotations
@@ -114,6 +139,81 @@ VARIANTS = {
     "stages_3": [[STAGES, STAGES.replace("4", "3")]],
     "stages_6": [[STAGES, STAGES.replace("4", "6")]],
 }
+# The f32 design's variants (fwd_tf32_kernel).
+TF32_SOFTMAX = ("  const float neg_inf = __int_as_float(0xff800000);\n  float mx[2] = {neg_inf, neg_inf};\n"
+                "#pragma unroll\n  for (int i = 0; i < 32; ++i) {\n    if (TAIL && 8 * (i >> 2)")
+TF32_PRODUCTS_ONLY = ("  alpha[0] = alpha[1] = 1.f;  // ablation: products only\n"
+                      "#pragma unroll\n"
+                      "  for (int kk = 0; kk < 8; ++kk)\n"
+                      "#pragma unroll\n"
+                      "    for (int r = 0; r < 4; ++r)\n"
+                      "      tf32_split(s[4 * kk + r], pb[kk][r], ps[kk][r]);\n"
+                      "  if (n_valid > -1) return;\n")
+TF32_CONSUMER = ("    for (int item = blockIdx.x, it = 0; item < n_items; item += gridDim.x, ++it) {\n"
+                 "#pragma unroll\n      for (int i = 0; i < HD / 2; ++i) acc[i] = 0.f;")
+TF32_LOADS_ONLY = ("    for (int item = blockIdx.x, it = 0; item < n_items; item += gridDim.x, ++it) {\n"
+                   "      hopper::mbar_wait(q_full, it & 1);  // ablation: loads only\n"
+                   "      arrive(q_empty);\n"
+                   "      for (int t = 0; t < n_steps; ++t) {\n"
+                   "        wait_k(t);\n"
+                   "        arrive(&k_empty[(step0 + t) % KS]);\n"
+                   "        wait_v(t);\n"
+                   "        arrive(&v_empty[(step0 + t) % VS]);\n"
+                   "      }\n"
+                   "      step0 += n_steps;\n"
+                   "    }\n"
+                   "    if (n_items > 0) return;\n")
+TF32_SCORES = ("    hopper::wgmma_m64n64k8_tf32_ss(d, dq + off, db + off, k > 0);\n"
+               "    hopper::wgmma_m64n64k8_tf32_rs(d, qb[k], ds + off, 1);\n"
+               "    hopper::wgmma_m64n64k8_tf32_rs(d, qb[k], db + off, 1);\n")
+TF32_PV = ("    tf32_pv_one<HD>(acc, ps[kk], db + off, kk > 0);\n"
+           "    tf32_pv_one<HD>(acc, pb[kk], ds + off, 1);\n"
+           "    tf32_pv_one<HD>(acc, pb[kk], db + off, 1);\n")
+ONE_TERM = "  // ablation: one term\n"
+# tf32_split's two lines: the big part masked, the small part by cvt.rna.
+BIG = "  big = __float_as_uint(x) & 0xffffe000u;\n"
+SMALL = "  small = hopper::tf32_rna(x - __uint_as_float(big));\n"
+INT_ROUND = [BIG + SMALL, "  // ablation: rounding by integer add and mask\n"
+             "  big = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;\n"
+             "  small = (__float_as_uint(x - __uint_as_float(big)) + 0x1000u) & 0xffffe000u;\n"]
+INT_SMALL = [SMALL, "  small = (__float_as_uint(x - __uint_as_float(big)) + 0x1000u) & 0xffffe000u;\n"]
+RNA_BIG = [BIG, "  big = hopper::tf32_rna(x);\n"]
+# O the P V products' own accumulator: O rescaled before the step's P V,
+# which adds to it, in place of the step's accumulator added on the FMA units.
+STEP_PV = "        hopper::wgmma_fence();\n        tf32_pv<HD>(pv, pb, ps, vt + T, vt + 2 * T);\n"
+STEP_ADD = ("        hopper::fence_regs(pv);\n#pragma unroll\n"
+            "        for (int i = 0; i < HD / 2; ++i) acc[i] = fmaf(acc[i], alpha[(i >> 1) & 1], pv[i]);\n")
+TC_ACC = [[STEP_PV, "#pragma unroll\n        for (int i = 0; i < HD / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];\n"
+                    + STEP_PV.replace("(pv,", "(acc,")],
+          ["tf32_pv_one<HD>(acc, ps[kk], db + off, kk > 0);",
+           "tf32_pv_one<HD>(acc, ps[kk], db + off, 1);"],
+          [STEP_ADD, "        hopper::fence_regs(acc);\n"]]
+REGS = "constexpr int kTf32ProducerRegs = 40, kTf32ConsumerRegs = 232;"
+NO_TRANSFORM = [["tf32_split_k<HD>(kst, kst + T, threadIdx.x - 32);", ""],
+                ["tf32_transpose_v<HD>(vst, vst + T, vst + 2 * T, tw, lane);", ""]]
+F32_VARIANTS = {
+    "as_is": [],
+    "loads_only": [[TF32_CONSUMER, TF32_LOADS_ONLY + TF32_CONSUMER]],
+    "no_transform": NO_TRANSFORM,
+    "tma_only": [[TF32_CONSUMER, TF32_LOADS_ONLY + TF32_CONSUMER], *NO_TRANSFORM],
+    "products_only": [[TF32_SOFTMAX, TF32_PRODUCTS_ONLY + TF32_SOFTMAX]],
+    "no_exp": [["hopper::exp2_approx(fmaf(s[i], sl2, -m[r]))", "fmaf(s[i], sl2, -m[r])"]],
+    "one_term": [[TF32_SCORES, "    hopper::wgmma_m64n64k8_tf32_rs(d, qb[k], db + off, k > 0);"
+                               + ONE_TERM],
+                 [TF32_PV, "    tf32_pv_one<HD>(acc, pb[kk], db + off, kk > 0);"
+                           + ONE_TERM]],
+    "int_round": [INT_ROUND],
+    "rna_big": [RNA_BIG],
+    "int_small": [INT_SMALL],
+    "regs_24_240": [[REGS, REGS.replace("40", "24").replace("232", "240")]],
+    "o_in_tensor_cores": TC_ACC,
+    "regs_56_224": [[REGS, REGS.replace("40", "56").replace("232", "224")]],
+}
+F32 = "--f32" in sys.argv[1:]
+if F32:
+    VARIANTS = F32_VARIANTS
+KERNEL = "fwd_tf32_kernel" if F32 else "fwd_wgmma_kernel"
+DTYPE = torch.float32 if F32 else torch.bfloat16
 ENTRIES = ("flash_attention_fwd", "flash_attention_fwd_lse")  # kernel 1, then kernel 2
 
 
@@ -131,7 +231,7 @@ def build(name: str, workdir: Path) -> dict:
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for {name}:\n{proc.stdout}{proc.stderr}")
     advisories = [line.strip() for line in (proc.stdout + proc.stderr).splitlines()
-                  if "(C75" in line and "fwd_wgmma_kernel" in line]
+                  if "(C75" in line and KERNEL in line]
     if advisories:
         print(f"{name}: {len(advisories)} ptxas advisories, e.g. {advisories[0][:160]}",
               flush=True)
@@ -167,12 +267,29 @@ def main() -> int:
                          capture_output=True, text=True, check=True).stdout.strip(), flush=True)
     b, n, h, d = SHAPE
     gen = torch.Generator(device="cuda").manual_seed(0)
-    q, k, v = (torch.randn((b, n, h, d), generator=gen, device="cuda").to(torch.bfloat16)
+    q, k, v = (torch.randn((b, n, h, d), generator=gen, device="cuda").to(DTYPE)
                for _ in range(3))
     calls = {"flash_attention_fwd": lambda: fa.flash_attention_cuda(q, k, v),
              "flash_attention_fwd_lse": lambda: fa.flash_attention_lse_cuda(q, k, v)}
+    def try_build(name, tmp):
+        try:
+            return build(name, Path(tmp))
+        except RuntimeError as err:  # a variant that does not build is reported, not timed
+            print(f"{name}: not built: {str(err)[:2000]}", flush=True)
+            return None
+
     with tempfile.TemporaryDirectory() as tmp, ThreadPoolExecutor(len(VARIANTS)) as pool:
-        libs = dict(zip(VARIANTS, pool.map(lambda name: build(name, Path(tmp)), VARIANTS)))
+        built = dict(zip(VARIANTS, pool.map(lambda name: try_build(name, tmp), VARIANTS)))
+        libs = {name: fns for name, fns in built.items() if fns is not None}
+        not_built = [name for name in VARIANTS if name not in libs]
+        if "as_is" in not_built:
+            return 1
+        ref = fa.attention_plain(q, k, v).float()
+        for name, fns in libs.items():  # variants that take work out are wrong by design
+            fa._fns["flash_attention_fwd"] = fns["flash_attention_fwd"]
+            err = (calls["flash_attention_fwd"]().float() - ref).abs().max().item()
+            print(f"{name}: kernel 1 max |err| against attention_plain {err:.3e}", flush=True)
+        del ref
         times = {entry: {name: [] for name in libs} for entry in ENTRIES}
         for entry in ENTRIES:
             for order in (list(libs), list(libs)[::-1]):
@@ -184,8 +301,9 @@ def main() -> int:
     for entry, by in ms.items():
         for name, t in by.items():
             print(f"{entry} {name}: {t:.4f} ms ({t / by['as_is']:.3f} of as_is)", flush=True)
-    print(json.dumps({"shape": list(SHAPE), "queued_ms": ms}), flush=True)
-    return 0
+    print(json.dumps({"shape": list(SHAPE), "dtype": str(DTYPE)[6:], "queued_ms": ms,
+                      "not_built": not_built}), flush=True)
+    return 1 if not_built else 0
 
 
 if __name__ == "__main__":

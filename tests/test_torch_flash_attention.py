@@ -172,6 +172,97 @@ def _emulate_kernel_bf16(q, k, v, drop=None):
     return (o / p.sum(-1).transpose(1, 2)[..., None]).to(torch.bfloat16)
 
 
+def _tf32(x):
+    """x rounded to TF32 (10 mantissa bits) to nearest, ties away from zero,
+    by integer ops on the f32 bits: ``cvt.rna.tf32.f32``."""
+    bits = x.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _split_tf32(x):
+    """The kernel's split (``tf32_split``): big = x with its low 13 bits
+    masked, small = tf32(x - big); x - big is exact in f32."""
+    big = (x.float().contiguous().view(torch.int32) & ~0x1FFF).view(torch.float32)
+    return big, _tf32(x.float() - big)
+
+
+def _split_bf16(x):
+    """hi = bf16(x), lo = bf16(x - hi), both rounded to nearest even: bf16x3."""
+    hi = x.float().to(torch.bfloat16).float()
+    return hi, (x.float() - hi).to(torch.bfloat16).float()
+
+
+def _emulate_kernel_f32(q, k, v, kv_valid=None, split="tf32x3"):
+    """The f32 wgmma design's arithmetic on the CPU: per 64-key tile, S = Q K^T
+    and O += P V on split operands, each product as the three terms
+    small.big + big.small + big.big: two TF32 parts (``"tf32x3"``, the
+    kernel's split) or two bf16 parts (``"bf16x3"``, a split no kernel
+    runs); or one TF32 product of the operands rounded to nearest
+    (``"tf32"``). The online softmax in f32, base 2, keys >= ``kv_valid``
+    dropped, the row sum floored at 1e-30."""
+    b, nq, h, d = q.shape
+    n_act = k.shape[1] if kv_valid is None else min(kv_valid, k.shape[1])
+    sl2 = 1.4426950408889634 / d ** 0.5
+    parts = {"tf32x3": _split_tf32, "bf16x3": _split_bf16,
+             "tf32": lambda x: (_tf32(x), x)}[split]  # "tf32": small unused
+    (qb, qs), (kb, ks), (vb, vs) = (parts(x) for x in (q, k, v))
+
+    def prod(eq, a, c, a_small, c_small):
+        out = torch.einsum(eq, a, c)
+        if split != "tf32":
+            out = torch.einsum(eq, a_small, c) + torch.einsum(eq, a, c_small) + out
+        return out
+
+    m = torch.full((b, h, nq, 1), -1e30)
+    l = torch.zeros((b, h, nq, 1))
+    o = torch.zeros((b, h, nq, d))
+    for k0 in range(0, n_act, 64):
+        t = slice(k0, min(k0 + 64, n_act))
+        s = prod("bqhd,bkhd->bhqk", qb, kb[:, t], qs, ks[:, t])
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True) * sl2)
+        alpha = torch.exp2(m - m_new)
+        p = torch.exp2(s * sl2 - m_new)
+        l, m = l * alpha + p.sum(-1, keepdim=True), m_new
+        pb, ps = parts(p)
+        o = o * alpha + prod("bhqk,bkhd->bhqd", pb, vb[:, t], ps, vs[:, t])
+    return (o / l.clamp_min(1e-30)).transpose(1, 2)
+
+
+@pytest.mark.parametrize("b,n,h,kv_valid", [(2, 300, 2, 250), (1, 700, 2, 650),
+                                            (2, 200, 3, 150)])
+def test_f32_split_tf32_emulation_holds_1e4_where_one_term_does_not(b, n, h, kv_valid):
+    """Kernels 1-2's f32 wgmma design splits each operand into two TF32
+    parts and sums three products per product (3xTF32). Emulated on the CPU
+    at D = 64 with kv_valid, it stays within the kernels' 1e-4 f32 limit of
+    the JAX package's f32 flash attention (interpret mode); one-term TF32 on
+    the same inputs does not, which is why the split exists."""
+    q, k, v = _qkv(b=b, nq=n, h=h, d=64, seed=21)
+    ref = np.asarray(jax_flash_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), None,
+                                         128, 128, kv_valid))
+    split = _emulate_kernel_f32(*_torch(q, k, v), kv_valid).numpy()
+    one_term = _emulate_kernel_f32(*_torch(q, k, v), kv_valid, split="tf32").numpy()
+    assert np.abs(split - ref).max() <= 1e-4
+    assert np.abs(one_term - ref).max() > 1e-4
+
+
+@pytest.mark.parametrize("b,n,h,kv_valid", [(2, 300, 2, 250), (1, 700, 2, 650),
+                                            (2, 200, 3, 150)])
+def test_f32_split_bf16x3_emulation_holds_1e4_above_tf32x3(b, n, h, kv_valid):
+    """The other split: hi and lo bf16 parts, three products a product at
+    the bf16 rate (twice TF32's). Emulated as the kernel's split, on the same
+    inputs, it too stays within the 1e-4 f32 limit of the JAX package's f32
+    flash attention, but further from it than 3xTF32: its parts keep 16
+    mantissa bits to TF32x3's 22."""
+    q, k, v = _qkv(b=b, nq=n, h=h, d=64, seed=21)
+    ref = np.asarray(jax_flash_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), None,
+                                         128, 128, kv_valid))
+    bf16x3 = np.abs(_emulate_kernel_f32(*_torch(q, k, v), kv_valid, split="bf16x3").numpy()
+                    - ref).max()
+    tf32x3 = np.abs(_emulate_kernel_f32(*_torch(q, k, v), kv_valid).numpy() - ref).max()
+    assert bf16x3 <= 1e-4
+    assert bf16x3 > tf32x3
+
+
 @pytest.mark.parametrize("n,h,d", [(1200, 2, 64), (300, 3, 32), (64, 3, 32), (5, 1, 8)])
 def test_error_limit_takes_kernel_rounding_and_refuses_a_dropped_tile(n, h, d):
     q, k, v = (x.to(torch.bfloat16) for x in _torch(*_qkv(b=1, nq=n, h=h, d=d, seed=12)))

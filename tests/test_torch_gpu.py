@@ -185,12 +185,12 @@ FWD_CASES = [
 ]
 
 
-def _fwd_inputs(case, device, seed=0):
-    """q, k, v of a FWD_CASES case in its layout, bfloat16 on ``device``."""
+def _fwd_inputs(case, device, seed=0, dtype=torch.bfloat16):
+    """q, k, v of a FWD_CASES case in its layout, ``dtype`` on ``device``."""
     b, nq, nk, h, d, _, layout = case
     rng = np.random.default_rng(seed)
     mk = lambda *shape: torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(
-        device=device, dtype=torch.bfloat16)
+        device=device, dtype=dtype)
     if layout == "fused":
         return mk(b, nq, 3, h, d).unbind(2)
     if layout == "bhnd":
@@ -199,45 +199,61 @@ def _fwd_inputs(case, device, seed=0):
     return mk(b, nq, h, d), mk(b, nk, h, d), mk(b, nk, h, d)
 
 
+def _entry_design(dtype, d):
+    """The design kernels 1-2's entries run at head dim ``d`` with positive
+    strides: wgmma in bf16; wgmma.tf32x3 in f32 at D <= 64, FMA above."""
+    if dtype == torch.bfloat16:
+        return "wgmma"
+    return "wgmma.tf32x3" if d <= 64 else "fma"
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=str)
 @pytest.mark.parametrize("case", FWD_CASES, ids=str)
-def test_forward_designs_both_match_plain(cuda, case):
-    """bf16: kernels 1 and 2 in the entries' design (wgmma) and in the
-    earlier mma.sync design (the _mma entries) are all within error_limit,
+def test_forward_designs_both_match_plain(cuda, case, dtype):
+    """Kernels 1 and 2 in the entries' design (bf16: wgmma; f32: wgmma.tf32x3
+    at D <= 64, FMA at 128) and in the earlier design (the _mma entries:
+    mma.sync in bf16, FMA in f32) are all within error_limit (f32: 1e-4),
     lse within LSE_TOL, and kernel 1 gives kernel 2's bits."""
     kv_valid = case[5]
-    q, k, v = _fwd_inputs(case, cuda)
+    q, k, v = _fwd_inputs(case, cuda, dtype=dtype)
     ref, ref_lse = fa.attention_plain_lse(q, k, v, kv_valid)
+    earlier = "mma.sync" if dtype == torch.bfloat16 else "fma"
     for design, (one, two) in (
-            ("wgmma", (fa.flash_attention_cuda, fa.flash_attention_lse_cuda)),
-            ("mma.sync", (fa.flash_attention_mma_cuda, fa.flash_attention_lse_mma_cuda))):
+            (_entry_design(dtype, case[4]), (fa.flash_attention_cuda, fa.flash_attention_lse_cuda)),
+            (earlier, (fa.flash_attention_mma_cuda, fa.flash_attention_lse_mma_cuda))):
         out = one(q, k, v, kv_valid)
         out2, lse = two(q, k, v, kv_valid)
         torch.cuda.synchronize()
         assert fa.last_forward_designs() == (design, design)
-        assert out.shape == ref.shape and out.dtype == torch.bfloat16
+        assert out.shape == ref.shape and out.dtype == dtype
         assert _within_limit(q, k, v, kv_valid, out, ref) <= 1.0, design
         assert torch.equal(out, out2), design
         assert (lse - ref_lse).abs().max().item() <= fa.LSE_TOL, design
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=str)
 @pytest.mark.parametrize("case", [FWD_CASES[0], FWD_CASES[3], FWD_CASES[6]], ids=str)
-def test_forward_kernels_are_deterministic(cuda, case):
-    """Two calls of the wgmma design give bitwise the same o and lse."""
-    q, k, v = _fwd_inputs(case, cuda, seed=1)
+def test_forward_kernels_are_deterministic(cuda, case, dtype):
+    """Two calls of the entries' design (bf16: wgmma; f32: wgmma.tf32x3, FMA
+    at D = 128) give bitwise the same o and lse."""
+    q, k, v = _fwd_inputs(case, cuda, seed=1, dtype=dtype)
     (o1, l1), (o2, l2) = (fa.flash_attention_lse_cuda(q, k, v, case[5]) for _ in range(2))
     torch.cuda.synchronize()
+    assert fa.last_forward_designs()[1] == _entry_design(dtype, case[4])
     assert torch.equal(o1, o2) and torch.equal(l1, l2)
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=str)
 @pytest.mark.parametrize("case", [c for c in FWD_CASES if c[6] != "contiguous"] + [
     (2, 333, 200, 3, 32, None, "fused"), (2, 333, 200, 3, 128, 150, "bhnd")], ids=str)
-def test_forward_kernels_read_fused_and_transposed_views(cuda, case):
+def test_forward_kernels_read_fused_and_transposed_views(cuda, case, dtype):
     """Views of a fused projection or of transposed (B, H, N, D) tensors:
-    kernels 1-2 read them through their strides (the wgmma design, TMA) and
-    give bitwise the o and lse of contiguous copies."""
-    q, k, v = _fwd_inputs(case, cuda, seed=2)
+    kernels 1-2 read them through their strides (the wgmma designs, TMA; f32
+    at D = 128 the FMA kernel) and give bitwise the o and lse of contiguous
+    copies."""
+    q, k, v = _fwd_inputs(case, cuda, seed=2, dtype=dtype)
     views = fa.flash_attention_lse_cuda(q, k, v, case[5])
-    assert fa.last_forward_designs()[1] == "wgmma"
+    assert fa.last_forward_designs()[1] == _entry_design(dtype, case[4])
     copies = fa.flash_attention_lse_cuda(*(x.contiguous() for x in (q, k, v)), case[5])
     torch.cuda.synchronize()
     assert torch.equal(views[0], copies[0]) and torch.equal(views[1], copies[1])
@@ -247,7 +263,9 @@ def test_forward_kernels_report_the_design_they_ran(cuda):
     """The C side reports the design of its last launch: bf16 takes wgmma at
     every head dim when every stride is positive, mma.sync for a stride of 0
     (a broadcast key, which TMA cannot describe) and through the _mma
-    entries; f32 the FMA kernel."""
+    entries; f32 takes wgmma.tf32x3 at D <= 64 when every stride is
+    positive, and the FMA kernel at D = 128, for a stride of 0 and through
+    the _mma entries."""
     q, k, v = _qkv((1, 200, 2, 64), (1, 150, 2, 64), torch.bfloat16, cuda)
     for d in (32, 64, 128):
         qd, kd, vd = (torch.nn.functional.pad(x, (0, d - 64)) if d > 64 else x[..., :d]
@@ -262,9 +280,39 @@ def test_forward_kernels_report_the_design_they_ran(cuda):
     fa.flash_attention_mma_cuda(q, k, v)
     fa.flash_attention_lse_mma_cuda(q, k, v)
     assert fa.last_forward_designs() == ("mma.sync", "mma.sync")
-    fa.flash_attention_cuda(q.float(), k.float(), v.float())
-    fa.flash_attention_lse_cuda(q.float(), k.float(), v.float())
+    qf, kf, vf = q.float(), k.float(), v.float()
+    for d in (32, 64, 128):
+        qd, kd, vd = (torch.nn.functional.pad(x, (0, d - 64)) if d > 64 else x[..., :d]
+                      for x in (qf, kf, vf))
+        fa.flash_attention_cuda(qd, kd, vd)
+        fa.flash_attention_lse_cuda(qd, kd, vd)
+        assert fa.last_forward_designs() == (_entry_design(torch.float32, d),) * 2, d
+    kb, vb = (x[:, :1].expand(-1, 150, -1, -1) for x in (kf, vf))  # sequence stride 0
+    out = fa.flash_attention_cuda(qf, kb, vb)
+    assert fa.last_forward_designs()[0] == "fma"
+    assert _within_limit(qf, kb, vb, None, out, fa.attention_plain(qf, kb, vb)) <= 1.0
+    fa.flash_attention_mma_cuda(qf, kf, vf)
+    fa.flash_attention_lse_mma_cuda(qf, kf, vf)
     assert fa.last_forward_designs() == ("fma", "fma")
+
+
+def test_forward_f32_launch_error_raises(cuda, monkeypatch):
+    """No fallback: when the f32 wgmma.tf32x3 design cannot launch (here a
+    sequence stride of 66 elements, 264 bytes, which TMA refuses, reaching
+    the C entry because the layout step is bypassed) kernels 1 and 2 raise
+    with the CUDA error and count no launch; they do not run the FMA kernel
+    instead."""
+    b, n, h, d = 2, 300, 1, 64
+    base = torch.zeros((3, b, n, h, 66), dtype=torch.float32, device=cuda)
+    q, k, v = (x[..., :d] for x in base.unbind(0))
+    monkeypatch.setattr(fa, "_prepare", lambda x, d_pad: x)
+    before = (fa.launches, fa.lse_launches)
+    with pytest.raises(RuntimeError, match="flash_attention_fwd launch failed: cudaError"):
+        fa.flash_attention_cuda(q, k, v)
+    with pytest.raises(RuntimeError, match="flash_attention_fwd_lse launch failed: cudaError"):
+        fa.flash_attention_lse_cuda(q, k, v)
+    assert fa.last_forward_designs() == ("wgmma.tf32x3", "wgmma.tf32x3")
+    assert (fa.launches, fa.lse_launches) == before
 
 
 def test_forward_kernels_count_one_launch_per_call(cuda):
