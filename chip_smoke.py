@@ -94,8 +94,9 @@ Phases, in order; any failure ends the run with a non-zero exit:
    a second, ``Predictor.from_checkpoint("timesformer", best_model)``.
 11. (run after 7) Kernels 8-9, Swin3D's shifted-window attention: the
    forward and the backward (dq, dk, dv and the cross-window dbias) against
-   their plain twins, in both bf16 designs (the entries' wgmma one, and the
-   kept mma.sync one, ``window_attention_*_mma_cuda``), at the four Swin3D-T
+   their plain twins, in both designs of each dtype (the entries' wgmma one
+   in bf16 and wgmma.tf32x3 in f32, and the kept mma.sync / FMA ones,
+   ``window_attention_*_mma_cuda``), at the four Swin3D-T
    32f 224^2 B=8 stage shapes (N = 392, D = 32; 1024/256/64/16 windows,
    3/6/12/24 heads), shifted (the model's own region ids) and unshifted, at
    the wgmma design's edges (N = 8, 56, 200, 392 with one id row, 448 at
@@ -103,13 +104,14 @@ Phases, in order; any failure ends the run with a non-zero exit:
    views), at other held shapes (N % 8 != 0, D 64 and 128) and at four
    shapes of the wide path (N = 512 and 784 at D = 32, N = 392 at D = 192
    and 256), bf16 and f32, each under its elementwise limit, bitwise the
-   same on a second call, and in the design ``design_takes`` names (wgmma at
-   every stage shape). The ptxas report of the wgmma instances is printed.
-   Timed at each stage beside the bound, the exponential floor, the twins and
+   same on a second call, and in the design ``design_takes`` names (wgmma,
+   and wgmma.tf32x3 in f32, at every stage shape). The ptxas report of the
+   wgmma and tf32 instances is printed. Timed at each stage in both dtypes
+   beside the bound (f32: 3xTF32 at the TF32 peak; the FMA design's bound
+   and a bf16x3 split's in the log), the exponential floor, the twins and
    ``F.scaled_dot_product_attention`` with the materialised (B·nW, H, N, N)
    bias (forward, and backward with the mask's gradient), single calls and
-   queued; in bf16 both designs in turns; the wgmma backward's per-launch
-   split.
+   queued, both designs in turns; the backward's per-launch split.
 11b. Kernels 11-12, the ablation variants of kernel 8 (the counterpart of
    ``scripts/bench_window_kernel.py``): bf16 and exp2 softmaxes, 2-3 heads
    a block, at the four stage shapes; the launch counts are set to 0 around
@@ -125,9 +127,12 @@ Phases, in order; any failure ends the run with a non-zero exit:
    stochastic depth 0.1 on: 12 launches each of kernels 8 and 9 per step, all
    on their wgmma design, and none of any other kernel, 12 of kernel 8 per
    eval step; loss finite; step
-   time, clips/s, stages, peak memory. Then every parameter's gradient at
+   time, clips/s, stages, peak memory. Then in f32 (the CLI's default
+   compute dtype) the forward at B=8 (median of 5) and the train step at
+   B=8 (median of 3 after a warm-up), kernels 8-9 all on wgmma.tf32x3, with
+   their share from phase 11's f32 times. Then every parameter's gradient at
    B=2 (every relative-position table included), kernels against plain
-   attention.
+   attention, f32 and bf16.
 14. ``cli.main --model swin3d --model_size tiny --bf16``: 1 epoch (no early
    stopping), ``--resume auto`` for a second, and
    ``Predictor.from_checkpoint("swin3d", best_model)`` in f32.
@@ -1573,21 +1578,33 @@ def stage_region_ids(grid):
     return torch.from_numpy(shift_region_ids(grid, window, shift)).cuda()
 
 
-def window_bound_ms(shape, dtype, backward: bool, rid):
+def window_bound_ms(shape, dtype, backward: bool, rid, products: int = 1, peak=None):
     """Kernel 8 (and 11, 12): two (N x N x D) products per (window, head);
     q, k, v read and o written once, the f32 (H, N, N) bias read once.
     Kernel 9: five products; q, k, v, g read and dq, dk, dv written once,
     the bias read and dbias written once (f32). A shifted block's (nW, N)
     int32 region ids are read once; an unshifted block (``rid`` None) reads
-    none."""
+    none. Each product counts as ``products`` products at ``peak`` FLOP/s
+    (the tensor cores in bf16, the FMA units in f32, unless given)."""
     b, n, h, d = shape
     rid_bytes = 0 if rid is None else rid.numel() * rid.element_size()
     bias_bytes = h * n * n * 4 * (2 if backward else 1) + rid_bytes
-    flops = 2.0 * (5 if backward else 2) * b * h * n * n * d
+    flops = 2.0 * products * (5 if backward else 2) * b * h * n * n * d
     size = torch.tensor([], dtype=dtype).element_size()
     nbytes = (7 if backward else 4) * b * n * h * d * size + bias_bytes
-    t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES_PER_S
+    t_ops, t_bytes = flops / (peak or PEAK_FLOPS[dtype]), nbytes / PEAK_BYTES_PER_S
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def window_f32_bounds(shape, backward: bool, rid):
+    """Kernels 8-9 in f32: (bound ms, bound_by) of 3xTF32 (three TF32
+    products a product at the TF32 peak: the wgmma.tf32x3 design's work);
+    the FMA design's bound ms; the bound ms of bf16x3, a split no kernel
+    runs."""
+    f32 = torch.float32
+    return (*window_bound_ms(shape, f32, backward, rid, 3, PEAK_TF32),
+            window_bound_ms(shape, f32, backward, rid)[0],
+            window_bound_ms(shape, f32, backward, rid, 3, PEAK_FLOPS[torch.bfloat16])[0])
 
 
 def launch_breakdown(fn, reps: int = 3) -> dict:
@@ -1644,6 +1661,11 @@ WINDOW_BWD_DESIGN = ("wgmma + TMA (bf16, N <= 400, D <= 32), two passes of S: a 
                      "(a (head, 64-key tile)'s bias columns held, queries split, Q/dO chunks "
                      "through a ring, dbias summed in registers over the window group), then "
                      "the groups' dbias sum; mma.sync elsewhere")
+WINDOW_F32_DESIGN = ("f32 at the same shapes wgmma.tf32x3: a pre-pass splits q, k, v (dO) into "
+                     "big + small TF32 parts once a call, K^T, V^T, Q^T, dO^T written "
+                     "transposed; the bf16 design's blocks with K/V (Q/dO) streamed in 64-key "
+                     "(32-query) chunks through a ring, three TF32 products a product, each "
+                     "chunk's P V (ds K) added to O (dQ) on the FMA units; FMA elsewhere")
 
 
 def sm_clock_hz() -> float:
@@ -1696,7 +1718,9 @@ def check_window_kernels():
     from laryngeal_tpu_torch.ops import window_attention as wa
 
     for kernel in ("window_fwd_wgmma_kernel", "window_bwd_dq_wgmma_kernel",
-                   "window_bwd_dkv_wgmma_kernel"):
+                   "window_bwd_dkv_wgmma_kernel", "window_fwd_tf32_kernel",
+                   "window_bwd_dq_tf32_kernel", "window_bwd_dkv_tf32_kernel",
+                   "tf32_split_kernel"):
         for line in ptxas_lines("window_attention.cu", kernel):
             log(f"ptxas {line}")
     entries = {"window_attention_fwd": {}, "window_attention_bwd": {}}
@@ -1777,19 +1801,15 @@ def check_window_kernels():
             if not (name.startswith("stage") and not name.endswith("unshifted")):
                 del q, k, v, g, bias, rid
                 continue
-            # bf16: both designs in turns (old, new, new, old), single calls
-            # and queued (the card's time; see cuda_time_ms), beside sdpa; f32
-            # (one design, FMA) single calls.
+            # Both designs in turns (old, new, new, old), single calls and
+            # queued (the card's time; see cuda_time_ms), beside sdpa: the
+            # _mma entries run mma.sync in bf16 and the FMA kernels in f32.
             f8 = lambda: wa.window_attention_fwd_cuda(q, k, v, bias, rid)
             f9 = lambda: wa.window_attention_bwd_cuda(q, k, v, bias, rid, g)
-            if dtype == torch.bfloat16:
-                t8 = turns_ms({"old": lambda: wa.window_attention_fwd_mma_cuda(q, k, v, bias, rid),
-                               "new": f8})
-                t9 = turns_ms({"old": lambda: wa.window_attention_bwd_mma_cuda(q, k, v, bias, rid,
-                                                                               g),
-                               "new": f9})
-            else:
-                t8, t9 = ({"new": cuda_time_ms(f)} for f in (f8, f9))
+            t8 = turns_ms({"old": lambda: wa.window_attention_fwd_mma_cuda(q, k, v, bias, rid),
+                           "new": f8})
+            t9 = turns_ms({"old": lambda: wa.window_attention_bwd_mma_cuda(q, k, v, bias, rid, g),
+                           "new": f9})
             parts = launch_breakdown(lambda: wa.window_attention_bwd_cuda(q, k, v, bias, rid, g))
             log(f"window_attention_bwd {name} {tag} launches (torch.profiler device ms a call): "
                 + ", ".join(f"{k_} {v_:.4f}" for k_, v_ in parts.items()))
@@ -1808,40 +1828,46 @@ def check_window_kernels():
             lib_out = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
             lib9_fn = lambda: torch.autograd.grad(lib_out, (qt, kt, vt, mask), gt,
                                                   retain_graph=True)
-            lib = {fn: (cuda_time_ms(fn), cuda_time_ms(fn, reps=20, queued=True)
-                        if dtype == torch.bfloat16 else None) for fn in (lib8_fn, lib9_fn)}
+            lib = {fn: (cuda_time_ms(fn), cuda_time_ms(fn, reps=20, queued=True))
+                   for fn in (lib8_fn, lib9_fn)}
             (lib8, lib8_q), (lib9, lib9_q) = lib[lib8_fn], lib[lib9_fn]
             del lib_out, lib9_fn, lib8_fn, lib, qt, kt, vt, gt, mask
             for e, t, plain_ms, lib_ms, lib_q, design, backward in (
                     ("window_attention_fwd", t8, plain8, lib8, lib8_q, design8, False),
                     ("window_attention_bwd", t9, plain9, lib9, lib9_q, design9, True)):
-                bound_ms, bound_by = window_bound_ms(shape, dtype, backward, rid)
+                if dtype == torch.bfloat16:
+                    bound_ms, bound_by = window_bound_ms(shape, dtype, backward, rid)
+                    old, extra = "mma.sync", ""
+                else:
+                    bound_ms, bound_by, fma_bound, bf16x3 = window_f32_bounds(shape, backward,
+                                                                              rid)
+                    old = "FMA"
+                    extra = (f"; bound of the FMA design {fma_bound:.4f} ms, of {BF16X3_BOUND} "
+                             f"{bf16x3:.4f} ms")
                 ms = t["new"]
                 numbers = dict(shape=list(shape), ms=ms, kernel_ms=ms, plain_ms=plain_ms,
                                bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms,
-                               design=design)
+                               design=design, queued_ms=t["new_q"], old_ms=t["old"],
+                               old_queued_ms=t["old_q"], library_queued_ms=lib_q)
                 if backward:
                     numbers["launches_ms"] = parts
-                line = (f"{e} {name} {tag}: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, sdpa "
-                        f"{lib_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
-                        f"{bound_ms / ms:.3f} of the bound; design {design}; estimate of one "
-                        f"pass of exponentials on the special-function units at "
-                        f"{clock_hz / 1e9:.3f} GHz (nvidia-smi clocks.max.sm) "
-                        f"{window_exp_estimate_ms(shape, clock_hz):.4f} ms")
-                if dtype == torch.bfloat16:
-                    numbers.update(queued_ms=t["new_q"], old_ms=t["old"],
-                                   old_queued_ms=t["old_q"], library_queued_ms=lib_q)
-                    line += (f", the mma.sync design {t['old']:.4f} ms ({t['old'] / ms:.2f}x); "
-                             f"queued: kernel {t['new_q']:.4f}, mma.sync {t['old_q']:.4f} "
-                             f"({t['old_q'] / t['new_q']:.2f}x), sdpa {lib_q:.4f} ms")
-                log(line)
+                log(f"{e} {name} {tag}: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, sdpa "
+                    f"{lib_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}"
+                    f"{', ' + TF32X3_BOUND if dtype == torch.float32 else ''}), "
+                    f"{bound_ms / ms:.3f} of the bound{extra}; design {design}; estimate of one "
+                    f"pass of exponentials on the special-function units at "
+                    f"{clock_hz / 1e9:.3f} GHz (nvidia-smi clocks.max.sm) "
+                    f"{window_exp_estimate_ms(shape, clock_hz):.4f} ms, the {old} design "
+                    f"{t['old']:.4f} ms ({t['old'] / ms:.2f}x); queued: kernel {t['new_q']:.4f}, "
+                    f"{old} {t['old_q']:.4f} ({t['old_q'] / t['new_q']:.2f}x), sdpa "
+                    f"{lib_q:.4f} ms")
                 entries[e][name if dtype == torch.bfloat16 else f"{name}_f32"] = numbers
             del q, k, v, g, bias, rid
             torch.cuda.empty_cache()
     tol = ("bf16: window_attention.error_limit / backward_error_limit (one-ulp bf16 rounding "
            f"flips, elementwise; dbias F32_REL*A); f32: {F32_TOL:g} (o), F32_REL*A (grads)")
-    for e, text in (("window_attention_fwd", WINDOW_FWD_DESIGN),
-                    ("window_attention_bwd", WINDOW_BWD_DESIGN)):
+    for e, text in (("window_attention_fwd", f"{WINDOW_FWD_DESIGN}; {WINDOW_F32_DESIGN}"),
+                    ("window_attention_bwd", f"{WINDOW_BWD_DESIGN}; {WINDOW_F32_DESIGN}")):
         nums = entries[e]
         nums.update({k: v for k, v in nums["stage1"].items() if k != "shape"})
         nums.update(max_abs_err=worst[e][0], err_over_limit=worst[e][1], tol=tol,
@@ -1948,9 +1974,81 @@ def swin_key_free(name, grad):
     return grad
 
 
-def swin_training(kernel_ms: dict) -> None:
+def design_deltas(fn):
+    """Run ``fn``, synchronise; returns (its result, kernels 8-9's launches
+    during it by design, the designs that ran none left out)."""
+    from laryngeal_tpu_torch.ops import window_attention as wa
+
+    before = {e: dict(c) for e, c in wa.design_launches.items()}
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {e: {d: n - before[e][d] for d, n in c.items() if n != before[e][d]}
+                 for e, c in wa.design_launches.items()}
+
+
+def swin_f32_path(pixel_u8, labels, mask, f32_kernel_ms: dict, n_calls: int) -> None:
+    """Phase 13's f32 part: Swin3D-T at B=8 in f32, the compute dtype of the
+    training CLI without ``--bf16``: the forward (model only, CUDA events,
+    median of 5) and the train step (host clock around a synchronised step,
+    median of 3 after a warm-up), each with kernels 8-9's launches by design
+    (all on wgmma.tf32x3) and their share from phase 11's f32 times
+    (``f32_kernel_ms``: {stage: (kernel 8 ms, kernel 9 ms)})."""
+    from laryngeal_tpu_torch.preprocess.transforms import batch_preprocess
+    from laryngeal_tpu_torch.train.state import create_train_state
+    from laryngeal_tpu_torch.train.steps import make_train_step
+
+    b = pixel_u8.shape[0]
+    model = swin3d_t(torch.float32).cuda().eval()
+    pixel = batch_preprocess(pixel_u8, "pytorchvideo", crop=224)
+    with torch.no_grad():  # not inference_mode: the model trains next, on its cached indices
+        _, fwd_designs = design_deltas(lambda: model(pixel))
+        fwd_ms = cuda_time_ms(lambda: model(pixel), reps=5, warmup=1)
+    want_fwd = {"window_attention_fwd": {"wgmma.tf32x3": n_calls}, "window_attention_bwd": {}}
+    if fwd_designs != want_fwd:
+        raise AssertionError(f"f32 Swin3D-T forward: kernels 8-9 by design {fwd_designs}, "
+                             f"want {want_fwd}")
+    depth = {stage: d for stage, (_, _, d) in SWIN_STAGES.items()}
+    k8 = sum(depth[st] * ms[0] for st, ms in f32_kernel_ms.items())
+    k9 = sum(depth[st] * ms[1] for st, ms in f32_kernel_ms.items())
+    log(f"swin3d-t 32f 224 f32 B=8 forward: {fwd_ms:.2f} ms (model only, CUDA events, median of "
+        f"5); kernel 8 by design {fwd_designs['window_attention_fwd']}, {k8:.2f} ms over the "
+        f"{n_calls} blocks = {k8 / fwd_ms:.3f} of the forward")
+    del pixel
+    model.train()
+    state = create_train_state(model, "adamw", 1e-4, 0.05)
+    step = make_train_step(model, "pytorchvideo", "ce", crop=224, seed=0)
+    ((state, m), per_step), designs = design_deltas(
+        lambda: launched(lambda: step(state, pixel_u8, labels, mask)))
+    want = {k: 0 for k in per_step}
+    want.update({"window_attention_fwd": n_calls, "window_attention_bwd": n_calls})
+    want_designs = {e: {"wgmma.tf32x3": n_calls} for e in designs}
+    if per_step != want or designs != want_designs:
+        raise AssertionError(f"f32 Swin3D-T train step: launches {per_step}, by design "
+                             f"{designs}; want {want}, {want_designs}")
+    times, losses = [], [m["loss"].item()]
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, pixel_u8, labels, mask)
+        losses.append(m["loss"].item())
+        times.append((time.perf_counter() - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated()
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"non-finite f32 loss {losses}")
+    step_ms = float(np.median(times))
+    log(f"swin3d-t 32f 224 f32 B=8 train step: {step_ms:.2f} ms (median of 3 after a warm-up, "
+        f"host clock) -> {b / step_ms * 1e3:.2f} clips/s, peak memory {peak / 2**30:.2f} GiB; "
+        f"kernels 8-9 by design {designs}; kernel 8 {k8:.2f} ms + kernel 9 {k9:.2f} ms a step = "
+        f"{k8 / step_ms:.3f} + {k9 / step_ms:.3f} of the step; losses {losses}")
+    del state, step, model, m
+    torch.cuda.empty_cache()
+
+
+def swin_training(kernel_ms: dict, f32_kernel_ms: dict) -> None:
     """Phases 13 and 14: the Swin3D-T training path on the card (with the
-    pytorchvideo augmentation and stochastic depth 0.1 on), and the CLI."""
+    pytorchvideo augmentation and stochastic depth 0.1 on), then its f32
+    forward and train step (``swin_f32_path``), and the CLI."""
     from laryngeal_tpu_torch.preprocess.transforms import batch_preprocess
     from laryngeal_tpu_torch.train.losses import cross_entropy
     from laryngeal_tpu_torch.train.state import create_train_state
@@ -2035,6 +2133,7 @@ def swin_training(kernel_ms: dict) -> None:
         + ", ".join(f"{k} {v:.2f}" for k, v in top))
     del state, step, eval_step, model, m, em, loss, pixel
     torch.cuda.empty_cache()
+    swin_f32_path(pixel_u8, labels, mask, f32_kernel_ms, n_calls)
 
     pixel2 = batch_preprocess(pixel_u8[:2], "pytorchvideo", crop=224)
     for dtype in (torch.float32, torch.bfloat16):
@@ -2475,6 +2574,9 @@ def main() -> int:
     reset_launches()
     swin_training({stage: window_entries["window_attention_fwd"][f"stage{stage}"]["ms"]
                    + window_entries["window_attention_bwd"][f"stage{stage}"]["ms"]
+                   for stage in SWIN_STAGES},
+                  {stage: tuple(window_entries[e][f"stage{stage}_f32"]["ms"]
+                                for e in ("window_attention_fwd", "window_attention_bwd"))
                    for stage in SWIN_STAGES})
     swin_train_counts = launch_counts()
     phase_done("13-14 swin3d training")

@@ -80,6 +80,17 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, u
       : "memory");
 }
 
+// The same for a 3-D tensor map.
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5}], [%2];\n"
+      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)),
+         "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
 // One box of shared memory into a 4-D tensor map (elements outside the
 // tensor are not written), in the calling thread's bulk group.
 __device__ __forceinline__ void tma_store_4d(const CUtensorMap* map, const void* src, int c0,
@@ -357,6 +368,40 @@ __device__ __forceinline__ void wgmma_m64n64k8_tf32_ss(float (&d)[32], uint64_t 
       : "l"(a), "l"(b), "r"(accumulate));
 }
 
+// The SS product at n = 32 and 8: d[0 .. n / 2) (a longer array's tail is
+// not touched).
+template <int N>
+__device__ __forceinline__ void wgmma_m64n32k8_tf32_ss(float (&d)[N], uint64_t a, uint64_t b,
+                                                       int accumulate) {
+  static_assert(N >= 16, "m64n32 writes 16 accumulators a thread");
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, %16, %17, p, 1, "
+      "1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+template <int N>
+__device__ __forceinline__ void wgmma_m64n8k8_tf32_ss(float (&d)[N], uint64_t a, uint64_t b,
+                                                      int accumulate) {
+  static_assert(N >= 4, "m64n8 writes 4 accumulators a thread");
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %6, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3}, %4, %5, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
 // The RS product at n = 32.
 __device__ __forceinline__ void wgmma_m64n32k8_tf32_rs(float (&d)[16], const uint32_t (&a)[4],
                                                        uint64_t b, int accumulate) {
@@ -438,6 +483,25 @@ inline bool encode_bnhd_map(CUtensorMap* map, const void* base, int B, int N, in
   }
   return encode(map, dtype, 4, const_cast<void*>(base), dims,
                 strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE)
+         == CUDA_SUCCESS;
+}
+
+// A 3-D tensor map over `planes` planes of `rows` x `cols` f32 (rows `pitch`
+// floats apart, planes `plane_floats` apart; both multiples of 4), read in
+// boxes of `box_cols` x `box_rows` of one plane with the 128-byte swizzle
+// (box_cols = 32: one 128-byte row). Returns false if the driver refuses it.
+inline bool encode_planes_f32(CUtensorMap* map, const float* base, long long cols, long long rows,
+                              long long planes, long long pitch, long long plane_floats,
+                              int box_cols, int box_rows) {
+  EncodeTiledFn encode = encode_tiled_fn();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[3] = {(cuuint64_t)cols, (cuuint64_t)rows, (cuuint64_t)planes};
+  const cuuint64_t strides[2] = {(cuuint64_t)pitch * 4, (cuuint64_t)plane_floats * 4};
+  const cuuint32_t box[3] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows, 1};
+  const cuuint32_t elem_strides[3] = {1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, const_cast<float*>(base), dims, strides,
+                box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE)
          == CUDA_SUCCESS;
 }

@@ -78,12 +78,17 @@
 //   * other bf16 at N <= 448, D <= 128 (and kernels 11-12): the held
 //     mma.sync design above; window_attention_fwd_mma / _bwd_mma run it at
 //     every shape it takes, to time the wgmma design against;
-//   * f32 at N <= 448, D <= 128: the FMA kernels with held arrays;
+//   * f32 at N <= 400, D <= 32 (after padding), every stride positive: the
+//     3xTF32 tensor-core design of window_attention_wgmma.cu ("wgmma.tf32x3":
+//     the bf16 design's blocks on operands split into two TF32 parts by a
+//     pre-pass into the caller's scratch, three products a product);
+//     window_attention_fwd_mma / _bwd_mma run the FMA kernels there;
+//   * other f32 at N <= 448, D <= 128: the FMA kernels with held arrays;
 //   * every other shape: the wide path.
 // A refused build, launch or shared-memory size of the design a call takes
 // returns its error; no call slips to another design.
-// Not yet done (later work): the wide path on the tensor cores, the f32
-// paths on the tensor cores, the wgmma design at D = 64 and 400 < N <= 448.
+// Not yet done (later work): the wide path on the tensor cores, the wgmma
+// designs at D = 64 and 400 < N <= 448.
 
 #include <algorithm>
 #include <cstring>
@@ -1431,9 +1436,11 @@ cudaError_t launch_bwd_wide(int dtype, const BwdArgs& a, cudaStream_t s) {
 
 // The design of the last launch of kernel 8 ([0]) and kernel 9 ([1]): 0 =
 // FMA (f32, held arrays), 1 = mma.sync (bf16, held bias rows), 2 = wide,
-// 3 = wgmma (window_attention_wgmma.cu); -1 before the first launch. Read
-// through window_attention_last_design.
-enum Design { kDesignFma = 0, kDesignMmaSync = 1, kDesignWide = 2, kDesignWgmma = 3 };
+// 3 = wgmma (bf16), 4 = wgmma.tf32x3 (f32; both window_attention_wgmma.cu);
+// -1 before the first launch. Read through window_attention_last_design.
+enum Design {
+  kDesignFma = 0, kDesignMmaSync = 1, kDesignWide = 2, kDesignWgmma = 3, kDesignTf32 = 4
+};
 int g_last_design[2] = {-1, -1};
 
 // The held designs (bf16 mma.sync, f32 FMA with fixed shared arrays) take
@@ -1441,14 +1448,15 @@ int g_last_design[2] = {-1, -1};
 bool held_takes(int N, int D) { return N <= kMaxN && D <= 128; }
 
 // The design kernel 8 (which = 0; mode 0, one head a block) or kernel 9
-// (which = 1) runs for a call: the wide path beyond the held designs' domain,
-// FMA in f32, and in bf16 the wgmma design where it takes the call (its 12 or
-// 21 strides `st`) unless `mma_only`, else mma.sync.
+// (which = 1) runs for a call: the wide path beyond the held designs' domain;
+// unless `mma_only`, the wgmma design of the call's dtype where it takes the
+// call (its 12 or 21 strides `st`); else FMA in f32 and mma.sync in bf16.
 int design_of(int which, int dtype, int N, int D, const long long* st, bool mma_only) {
   if (!held_takes(N, D)) return kDesignWide;
-  if (dtype != 1) return kDesignFma;
-  return !mma_only && winwg::takes(dtype, N, D, st, which == 0 ? 12 : 21) ? kDesignWgmma
-                                                                          : kDesignMmaSync;
+  const int n = which == 0 ? 12 : 21;
+  if (dtype != 1)
+    return !mma_only && winwg::takes_tf32(dtype, N, D, st, n) ? kDesignTf32 : kDesignFma;
+  return !mma_only && winwg::takes(dtype, N, D, st, n) ? kDesignWgmma : kDesignMmaSync;
 }
 
 bool bad_args(int dtype, int BW, int H, int N, int D, int nW) {
@@ -1458,8 +1466,8 @@ bool bad_args(int dtype, int BW, int H, int N, int D, int nW) {
 }
 
 int fwd_entry(const void* q, const void* k, const void* v, void* o, const float* bias,
-              const int* rid, int dtype, int BW, int N, int H, int D, int nW, int mode, int hb,
-              const long long* st, float scale, bool mma_only, void* stream) {
+              const int* rid, float* split, int dtype, int BW, int N, int H, int D, int nW,
+              int mode, int hb, const long long* st, float scale, bool mma_only, void* stream) {
   if (bad_args(dtype, BW, H, N, D, nW) || mode < 0 || mode > 2 || hb < 0 || hb > 3
       || (hb > 0 && (H % hb != 0 || mode != 0)))
     return (int)cudaErrorInvalidValue;
@@ -1478,6 +1486,10 @@ int fwd_entry(const void* q, const void* k, const void* v, void* o, const float*
   }
   if (design == kDesignWgmma)
     return (int)winwg::fwd(q, k, v, o, bias, rid, BW, H, N, D, nW, st, scale, cs);
+  if (design == kDesignTf32) {
+    if (split == nullptr) return (int)cudaErrorInvalidValue;
+    return (int)winwg::fwd_tf32(q, k, v, o, bias, rid, split, BW, H, N, D, nW, st, scale, cs);
+  }
   if (design == kDesignMmaSync) {
     if (D <= 32) return (int)launch_fwd_variant<32>(q, k, v, o, bias, rid, BW, H, N, D, nW, mode, hb, s, scale, cs);
     if (D <= 64) return (int)launch_fwd_variant<64>(q, k, v, o, bias, rid, BW, H, N, D, nW, mode, hb, s, scale, cs);
@@ -1490,8 +1502,9 @@ int fwd_entry(const void* q, const void* k, const void* v, void* o, const float*
 
 int bwd_entry(const void* q, const void* k, const void* v, const void* g, const float* bias,
               const int* rid, void* dq, void* dk, void* dv, float* dbias, float* stats,
-              float* partial, int dtype, int BW, int N, int H, int D, int nW, int per_group,
-              int groups, const long long* st, float scale, bool mma_only, void* stream) {
+              float* partial, float* split, int dtype, int BW, int N, int H, int D, int nW,
+              int per_group, int groups, const long long* st, float scale, bool mma_only,
+              void* stream) {
   if (bad_args(dtype, BW, H, N, D, nW) || per_group < 1 || groups < 1 || groups > 65535
       || (long long)per_group * groups < BW || (long long)per_group * (groups - 1) >= BW)
     return (int)cudaErrorInvalidValue;
@@ -1510,6 +1523,11 @@ int bwd_entry(const void* q, const void* k, const void* v, const void* g, const 
   } else if (design == kDesignWgmma) {
     err = winwg::bwd(q, k, v, g, bias, rid, dq, dk, dv, dbias, stats, partial, BW, H, N, D, nW,
                      per_group, groups, st, scale, cs);
+  } else if (design == kDesignTf32) {
+    err = split == nullptr
+              ? cudaErrorInvalidValue
+              : winwg::bwd_tf32(q, k, v, g, bias, rid, dq, dk, dv, dbias, stats, partial, split,
+                                BW, H, N, D, nW, per_group, groups, st, scale, cs);
   } else if (design == kDesignMmaSync) {
     err = D <= 32 ? launch_bwd_bf16<32>(a, cs) : D <= 64 ? launch_bwd_bf16<64>(a, cs)
                                                          : launch_bwd_bf16<128>(a, cs);
@@ -1535,28 +1553,31 @@ int bwd_entry(const void* q, const void* k, const void* v, const void* g, const 
 // guarantees all of it). Designs by shape as the header says: bf16 mode 0
 // at N <= 400, D <= 32 with every stride positive the wgmma design, other
 // bf16 and f32 at N <= 448, D <= 128 the held designs (mma.sync, FMA), every
-// other shape the wide path. mode: 0 exp (kernel 8), 1 bf16 (S - max), 2
-// exp2 (kernel 11); hb: 0 for kernels 8 and 11 (held bias rows), or 1-3
-// heads a block for kernel 12 (H % hb == 0, mode 0). The variants take
-// bfloat16, N <= 448 and D <= 64 and run the mma.sync template. Returns the
-// cudaError_t of the launch (0 = success).
+// other shape the wide path; f32 at the bf16 wgmma design's shapes the
+// wgmma.tf32x3 design, which needs `split`: f32 scratch of
+// window_attention_split_floats(0, ...) floats, 16-byte aligned (null
+// elsewhere). mode: 0 exp (kernel 8), 1 bf16 (S - max), 2 exp2 (kernel 11);
+// hb: 0 for kernels 8 and 11 (held bias rows), or 1-3 heads a block for
+// kernel 12 (H % hb == 0, mode 0). The variants take bfloat16, N <= 448 and
+// D <= 64 and run the mma.sync template. Returns the cudaError_t of the
+// launch (0 = success).
 extern "C" int window_attention_fwd(const void* q, const void* k, const void* v, void* o,
-                                    const float* bias, const int* rid, int dtype, int BW, int N,
-                                    int H, int D, int nW, int mode, int hb, const long long* st,
-                                    float scale, void* stream) {
-  return fwd_entry(q, k, v, o, bias, rid, dtype, BW, N, H, D, nW, mode, hb, st, scale, false,
-                   stream);
+                                    const float* bias, const int* rid, float* split, int dtype,
+                                    int BW, int N, int H, int D, int nW, int mode, int hb,
+                                    const long long* st, float scale, void* stream) {
+  return fwd_entry(q, k, v, o, bias, rid, split, dtype, BW, N, H, D, nW, mode, hb, st, scale,
+                   false, stream);
 }
 
-// As window_attention_fwd, with the held mma.sync design for bf16 wherever
-// the wgmma design would run (the earlier kernel, kept to time the new one
-// against).
+// As window_attention_fwd, with the held mma.sync design for bf16 and the
+// FMA kernel for f32 wherever the wgmma designs would run (the earlier
+// kernels, kept to time the new ones against); `split` is not read.
 extern "C" int window_attention_fwd_mma(const void* q, const void* k, const void* v, void* o,
-                                        const float* bias, const int* rid, int dtype, int BW,
-                                        int N, int H, int D, int nW, int mode, int hb,
-                                        const long long* st, float scale, void* stream) {
-  return fwd_entry(q, k, v, o, bias, rid, dtype, BW, N, H, D, nW, mode, hb, st, scale, true,
-                   stream);
+                                        const float* bias, const int* rid, float* split,
+                                        int dtype, int BW, int N, int H, int D, int nW, int mode,
+                                        int hb, const long long* st, float scale, void* stream) {
+  return fwd_entry(q, k, v, o, bias, rid, split, dtype, BW, N, H, D, nW, mode, hb, st, scale,
+                   true, stream);
 }
 
 // The gradient: g (the output's gradient, in the input dtype) in; dq, dk,
@@ -1565,32 +1586,33 @@ extern "C" int window_attention_fwd_mma(const void* q, const void* k, const void
 // otherwise); windows [i * per_group, (i + 1) * per_group) form group i (the
 // dbias launch's blocks; the wgmma design's dK/dV launch). `st` holds 21
 // strides: q, k, v, g, dq, dk, dv (window, position, head). Designs by shape
-// as in window_attention_fwd.
+// as in window_attention_fwd; `split` (window_attention_split_floats(1, ...)
+// floats) for the wgmma.tf32x3 design.
 extern "C" int window_attention_bwd(const void* q, const void* k, const void* v, const void* g,
                                     const float* bias, const int* rid, void* dq, void* dk,
                                     void* dv, float* dbias, float* stats, float* partial,
-                                    int dtype, int BW, int N, int H, int D, int nW,
+                                    float* split, int dtype, int BW, int N, int H, int D, int nW,
                                     int per_group, int groups, const long long* st, float scale,
                                     void* stream) {
-  return bwd_entry(q, k, v, g, bias, rid, dq, dk, dv, dbias, stats, partial, dtype, BW, N, H, D,
-                   nW, per_group, groups, st, scale, false, stream);
+  return bwd_entry(q, k, v, g, bias, rid, dq, dk, dv, dbias, stats, partial, split, dtype, BW, N,
+                   H, D, nW, per_group, groups, st, scale, false, stream);
 }
 
-// As window_attention_bwd, with the held mma.sync design for bf16 wherever
-// the wgmma design would run.
+// As window_attention_bwd, with the held mma.sync design for bf16 and the
+// FMA kernels for f32 wherever the wgmma designs would run.
 extern "C" int window_attention_bwd_mma(const void* q, const void* k, const void* v,
                                         const void* g, const float* bias, const int* rid,
                                         void* dq, void* dk, void* dv, float* dbias, float* stats,
-                                        float* partial, int dtype, int BW, int N, int H, int D,
-                                        int nW, int per_group, int groups, const long long* st,
-                                        float scale, void* stream) {
-  return bwd_entry(q, k, v, g, bias, rid, dq, dk, dv, dbias, stats, partial, dtype, BW, N, H, D,
-                   nW, per_group, groups, st, scale, true, stream);
+                                        float* partial, float* split, int dtype, int BW, int N,
+                                        int H, int D, int nW, int per_group, int groups,
+                                        const long long* st, float scale, void* stream) {
+  return bwd_entry(q, k, v, g, bias, rid, dq, dk, dv, dbias, stats, partial, split, dtype, BW, N,
+                   H, D, nW, per_group, groups, st, scale, true, stream);
 }
 
-// The design (0 = FMA, 1 = mma.sync, 2 = wide, 3 = wgmma) of the last launch
-// of kernel 8 (which = 0; the variants of kernels 11-12 included) or kernel 9
-// (which = 1) through any entry; -1 before the first.
+// The design (0 = FMA, 1 = mma.sync, 2 = wide, 3 = wgmma, 4 = wgmma.tf32x3)
+// of the last launch of kernel 8 (which = 0; the variants of kernels 11-12
+// included) or kernel 9 (which = 1) through any entry; -1 before the first.
 extern "C" int window_attention_last_design(int which) {
   return which == 0 || which == 1 ? g_last_design[which] : -1;
 }
@@ -1606,4 +1628,12 @@ extern "C" int window_attention_design(int which, int dtype, int N, int D, const
       || D % 8 != 0)
     return -1;
   return design_of(which, dtype, N, D, st, mma_only != 0);
+}
+
+// Floats of f32 scratch the wgmma.tf32x3 design's kernel 8 (which = 0) or 9
+// (which = 1) needs for a call over BW windows, H heads and N positions: 3
+// or 7 forms of split operands; -1 for arguments it refuses.
+extern "C" long long window_attention_split_floats(int which, int BW, int H, int N) {
+  if ((which != 0 && which != 1) || BW < 1 || H < 1 || N < 1) return -1;
+  return (long long)(which == 0 ? 3 : 7) * (long long)winwg::split_form_floats(BW, H, N);
 }

@@ -1,10 +1,11 @@
 // Swin3D shifted-window attention, kernels 8 (forward) and 9 (backward), on
-// warpgroup MMA and the Tensor Memory Accelerator for Hopper (sm_90a). It is
-// the bfloat16 design that window_attention.cu's C entries
+// warpgroup MMA and the Tensor Memory Accelerator for Hopper (sm_90a). It
+// holds the bfloat16 design that window_attention.cu's C entries
 // (window_attention_fwd / window_attention_bwd) run wherever it takes the
 // call (winwg::takes): N <= 400, D <= 32 after padding to a multiple of 8,
-// every (window, position, head) stride positive. Both sources build into
-// one library (ops/_build.py), compiled in parallel.
+// every (window, position, head) stride positive; and, below ("f32 on the
+// tensor cores"), the float32 design at the same shapes (winwg::takes_tf32).
+// Both sources build into one library (ops/_build.py), compiled in parallel.
 //
 // It replaces the Pallas TPU kernels laryngeal_tpu/ops/window_attention.py
 // :55 _fwd_kernel and :95 _bwd_kernel and computes what window_attention.cu's
@@ -344,20 +345,41 @@ __device__ __forceinline__ void hand_over(wgtile::Acc<32>& acc, unsigned char* k
   hopper::fence_async_smem();
 }
 
-// The consumers copy the 64 x N f32 bias rows of query tile q0 of head h
-// into bias_s (row stride BS; rows past N zero), then zero the last 8 K and V
-// rows of both stages (`kv` is stage 0's K, V kRows after it, the stages
-// `stage` bytes apart), then meet.
-template <int KW>
-__device__ __forceinline__ void consumers_setup(float* bias_s, const float* bias, int h, int q0,
-                                                int N, int BS, unsigned char* kv, int stage,
-                                                int tid) {
+// The consumers start copying the 64 x N f32 bias rows of query tile q0 of
+// head h into bias_s (row stride BS; rows past N zero): one cp.async group.
+__device__ __forceinline__ void copy_bias_rows(float* bias_s, const float* bias, int h, int q0,
+                                               int N, int BS, int tid) {
   for (int lr = 0; lr < 64; ++lr) {
     const int row = q0 + lr;
     const float* src = bias + ((long long)h * N + (row < N ? row : 0)) * N;
     for (int k = tid; k < N; k += kConsumers) cp_async4(bias_s + lr * BS + k, src + k, row < N);
   }
   cp_async_commit();
+}
+
+// The consumers copy the N x 64 f32 bias columns of key tile k0 of head h,
+// transposed, into bias_t (bias_t[kl][q] = bias[h][q][k0 + kl], row stride
+// BS): a warp copies 8 keys x 4 queries at a time (32-byte global segments,
+// 2-way bank conflicts); then they meet.
+__device__ __forceinline__ void copy_bias_cols(float* bias_t, const float* bias, int h, int k0,
+                                               int N, int BS, int tid) {
+  const int lane = tid % 32, kl = 8 * (tid / 32) + lane % 8;
+  const bool ok = k0 + kl < N;
+  const float* src = bias + (long long)h * N * N + (ok ? k0 + kl : 0);
+  for (int q = lane / 8; q < N; q += 4) cp_async4(bias_t + kl * BS + q, src + (long long)q * N, ok);
+  cp_async_commit();
+  cp_async_wait<0>();
+  hopper::named_sync(kBar, kConsumers);
+}
+
+// The consumers copy the bias rows (copy_bias_rows), zero the last 8 K and V
+// rows of both stages (`kv` is stage 0's K, V kRows after it, the stages
+// `stage` bytes apart), then meet.
+template <int KW>
+__device__ __forceinline__ void consumers_setup(float* bias_s, const float* bias, int h, int q0,
+                                                int N, int BS, unsigned char* kv, int stage,
+                                                int tid) {
+  copy_bias_rows(bias_s, bias, h, q0, N, BS, tid);
   for (int i = tid; i < 2 * 2 * 128; i += kConsumers) {
     unsigned char* t = kv + (i / 256) * stage + ((i / 128) % 2) * Geo<KW>::kRows;
     reinterpret_cast<uint32_t*>(t + 2 * KW * 64)[i % 128] = 0u;
@@ -705,11 +727,53 @@ struct DkvRows {
   bool dead;  // the warp's 16 keys all past N: no arithmetic (their rows are never stored)
 };
 
+// A dK/dV step's per-score arithmetic on W (32 or 8) queries from `col0`,
+// keys as rows, in place: st from S^T to P^T = exp2(S^T log2e - lse) (the
+// logits as row_logits forms them), dpt from dP^T to ds^T = P^T (dP^T -
+// delta), db += ds^T (f32). Every block alike (reads past query N - 1 stay
+// inside shared memory); the block holding query N - 1 (or past it) zeroes
+// its P and ds there. A `dead` warp does nothing.
+template <int W>
+__device__ __forceinline__ void dkv_scores(float (&st)[16], float (&dpt)[16], float (&db)[16],
+                                           const DkvRows& r, int col0, float scale, int t4) {
+  if (r.dead) return;
+#pragma unroll
+  for (int j = 0; j < W / 8; ++j) {
+    const int col = col0 + 8 * j + 2 * t4;
+    float* e = &st[4 * j];
+    float* f = &dpt[4 * j];
+    const float2 x0 = *reinterpret_cast<const float2*>(r.b0 + col);
+    const float2 x1 = *reinterpret_cast<const float2*>(r.b1 + col);
+    const float2 mm = *reinterpret_cast<const float2*>(r.sm + col);
+    const float2 dl = *reinterpret_cast<const float2*>(r.sm + 2 * r.sq + col);
+    bool d00 = false, d01 = false, d10 = false, d11 = false;
+    if (r.qid != nullptr) {
+      const int2 qi = *reinterpret_cast<const int2*>(r.qid + col);
+      d00 = qi.x != r.kid0;
+      d01 = qi.y != r.kid0;
+      d10 = qi.x != r.kid1;
+      d11 = qi.y != r.kid1;
+    }
+    const float x[4] = {logit(e[0], scale, x0.x, d00), logit(e[1], scale, x0.y, d01),
+                        logit(e[2], scale, x1.x, d10), logit(e[3], scale, x1.y, d11)};
+    const bool tail = col0 + 8 * j + 8 > r.q_lim;
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const float m = (u & 1) ? mm.y : mm.x, d = (u & 1) ? dl.y : dl.x;
+      float p = hopper::exp2_approx(fmaf(x[u], kLog2e, -m));
+      float ds = p * (f[u] - d);
+      if (tail && col + (u & 1) >= r.q_lim) p = ds = 0.f;
+      db[4 * j + u] += ds;
+      e[u] = p;
+      f[u] = ds;
+    }
+  }
+}
+
 // One step of W (32, or 8 at the end) queries from `col0` of a warpgroup's
-// range, keys as rows: S^T = K Q^T and dP^T = V dO^T on wgmma, P^T =
-// exp2(S^T log2e - lse) from the queries' statistics (normalised by the
-// log-sum-exp), ds^T = P^T (dP^T - delta); db += ds^T (f32), then
-// dV += bf16(P^T) dO and dK += bf16(ds^T) Q (the A operands in registers).
+// range, keys as rows: S^T = K Q^T and dP^T = V dO^T on wgmma, then
+// dkv_scores, then dV += bf16(P^T) dO and dK += bf16(ds^T) Q (the A operands
+// in registers).
 template <int W>
 __device__ __forceinline__ void dkv_step(float (&db)[16], wgtile::Acc<32>& adk,
                                          wgtile::Acc<32>& adv, const unsigned char* k_t,
@@ -725,41 +789,7 @@ __device__ __forceinline__ void dkv_step(float (&db)[16], wgtile::Acc<32>& adk,
   hopper::wgmma_wait<0>();
   fence_first<L>(st);
   fence_first<L>(dpt);
-  if (!r.dead) {
-#pragma unroll
-    for (int j = 0; j < W / 8; ++j) {
-      const int col = col0 + 8 * j + 2 * t4;
-      float* e = &st[4 * j];
-      float* f = &dpt[4 * j];
-      // Every block alike (reads past query N - 1 stay inside shared memory);
-      // the block holding query N - 1 (or past it) zeroes its P and ds there.
-      const float2 x0 = *reinterpret_cast<const float2*>(r.b0 + col);
-      const float2 x1 = *reinterpret_cast<const float2*>(r.b1 + col);
-      const float2 mm = *reinterpret_cast<const float2*>(r.sm + col);
-      const float2 dl = *reinterpret_cast<const float2*>(r.sm + 2 * r.sq + col);
-      bool d00 = false, d01 = false, d10 = false, d11 = false;
-      if (r.qid != nullptr) {
-        const int2 qi = *reinterpret_cast<const int2*>(r.qid + col);
-        d00 = qi.x != r.kid0;
-        d01 = qi.y != r.kid0;
-        d10 = qi.x != r.kid1;
-        d11 = qi.y != r.kid1;
-      }
-      const float x[4] = {logit(e[0], scale, x0.x, d00), logit(e[1], scale, x0.y, d01),
-                          logit(e[2], scale, x1.x, d10), logit(e[3], scale, x1.y, d11)};
-      const bool tail = col0 + 8 * j + 8 > r.q_lim;
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        const float m = (u & 1) ? mm.y : mm.x, d = (u & 1) ? dl.y : dl.x;
-        float p = hopper::exp2_approx(fmaf(x[u], kLog2e, -m));
-        float ds = p * (f[u] - d);
-        if (tail && col + (u & 1) >= r.q_lim) p = ds = 0.f;
-        db[4 * j + u] += ds;
-        e[u] = p;
-        f[u] = ds;
-      }
-    }
-  }
+  dkv_scores<W>(st, dpt, db, r, col0, scale, t4);
   uint32_t pp[4][4], pd[4][4];
   pack<KK, L>(pp, st);
   pack<KK, L>(pd, dpt);
@@ -871,17 +901,7 @@ window_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   hopper::regs_claim<kConsumerRegs>();
   const int tid = threadIdx.x - 128, wg = tid / 128, t128 = tid % 128;
   const int warp = t128 / 32, lane = tid % 32, g = lane / 4, t4 = lane % 4;
-  {
-    // bias_t[kl][q] = bias[h][q][k0 + kl]: a warp copies 8 keys x 4 queries
-    // at a time (32-byte global segments, 2-way bank conflicts).
-    const int kl = 8 * (tid / 32) + lane % 8;
-    const bool ok = k0 + kl < N;
-    const float* src = bias + (long long)h * N * N + (ok ? k0 + kl : 0);
-    for (int q = lane / 8; q < N; q += 4) cp_async4(bias_t + kl * BS + q, src + (long long)q * N, ok);
-    cp_async_commit();
-    cp_async_wait<0>();
-    hopper::named_sync(kBar, kConsumers);
-  }
+  copy_bias_cols(bias_t, bias, h, k0, N, BS, tid);
   const int kl0 = 16 * warp + g;
   const int q_base = wg * KW;
   const float* b0 = bias_t + kl0 * BS + q_base;
@@ -953,6 +973,887 @@ window_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     }
     __syncwarp();
     if (lane == 0) hopper::mbar_arrive(&kv_empty[s]);
+  }
+
+  // This block's dbias partial: ds summed over its windows, (query, key).
+  float* out = dbias_out + ((long long)blockIdx.z * H + h) * N * N;
+#pragma unroll
+  for (int u = 0; u < kSteps; ++u)
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      if (u == kSteps - 1 && i >= 4) continue;
+      const int key = k0 + kl0 + 8 * ((i >> 1) & 1);
+      const int q = q_base + 32 * u + 8 * (i >> 2) + 2 * t4 + (i & 1);
+      if (key < N && q < N) out[(long long)q * N + key] = db[u][i];
+    }
+}
+
+// ===========================================================================
+// f32 on the tensor cores: 3xTF32 (design "wgmma.tf32x3")
+// ===========================================================================
+//
+// The same blocks, warpgroups and passes over S as the bf16 design above, on
+// f32 operands: each product A B is three TF32 products, A_small B_big +
+// A_big B_small + A_big B_big, where x = big + small, big is x with its low
+// 13 bits masked and small is x - big rounded to TF32 (exact to ~2^-21 |x|;
+// one TF32 product alone misses the f32 limits). Logits, softmax, delta, ds,
+// the scale and dbias stay f32 on the FMA units, as in the bf16 design; P
+// and ds are split, not rounded.
+//
+// TF32 wgmma reads both operands K-major only, so the product over keys
+// (queries) needs V^T and K^T (dO^T and Q^T) with the keys (queries)
+// contiguous. A pre-pass (tf32_split_kernel) splits each input once a call,
+// for every (window, head), into its two parts in the forms the products
+// read: "rows" (N x 32 floats, D padded to 32 with zeros) and "cols" (32 x NP
+// floats, NP = N rounded up to 8: the transpose, positions permuted within
+// each 8 as the A fragments want them, see tf_frags). The forward takes q
+// and k as rows and v as cols; the backward q, k and dO in both forms and v
+// as rows. Each form is BW H 2 planes of NP x 32 floats (the caller's
+// scratch). The blocks then read every operand by TMA: 3-D maps over the
+// planes, 128-byte swizzle (an f32 row of 32 is 128 bytes), rows past N zero.
+//
+// Shared memory holds the 64-row tile's f32 bias rows (columns) as in bf16,
+// so K and V (Q and dO) cannot be held whole a window: they stream in 64-key
+// chunks (a warpgroup's last chunk 8 wide) through a ring the two consumer
+// warpgroups share, filled in the order they consume it. The forward's ring
+// has 6 slots of 16 KB (a chunk's big part, then its small part), the dQ
+// launch's 4 (S = Q K^T, then dP = dO V^T for delta, then dP again with
+// dQ += ds K^T, chunk by chunk); the dK/dV launch streams 32-query steps
+// through 8 slots of 8 KB (Q, dO, Q^T, dO^T a step) and keeps K and V, one
+// window at a time. Every slot belongs to one warpgroup: the fills alternate
+// between the warpgroups (or come in runs of half the ring) and the slot
+// count is even. A warpgroup then never waits on a slot's full barrier two
+// phases ahead of it, where the parity wait would take the earlier phase of
+// the same parity for the one it wants (a 5-slot ring whose slots changed
+// hands raced that way: stalls and faults under back-to-back calls). Each chunk's P V (ds K^T) goes to an accumulator of its
+// own, added to O (dQ) on the FMA units; dK and dV accumulate in the tensor
+// cores over a warpgroup's 200 queries.
+
+constexpr int kTfSlotBytes = 16384;  // forward / dQ ring slot: a chunk's big part, its small part
+constexpr int kTfPart = 8192;        // offset of the small part (a 64-row tile of 32 f32)
+constexpr int kTfPanel = 4096;       // 32 rows of 32 f32; the dK/dV ring's part offset
+constexpr int kTfFwdSlots = 6, kTfDqSlots = 4, kTfDkvSlots = 8;
+static_assert(kTfFwdSlots % 2 == 0 && kTfDqSlots % 2 == 0 && kTfDkvSlots % 8 == 0,
+              "a slot belongs to one warpgroup");
+constexpr int kTfDkvSlotBytes = 8192;
+
+// x = big + small: big is x with its low 13 bits masked, small is x - big
+// (exact) rounded to TF32.
+__device__ __forceinline__ void tf32_split(float x, uint32_t& big, uint32_t& small) {
+  big = __float_as_uint(x) & 0xffffe000u;
+  small = hopper::tf32_rna(x - __uint_as_float(big));
+}
+
+__host__ __device__ __forceinline__ int tf32_np(int N) { return (N + 7) / 8 * 8; }
+
+// The pre-pass: 32 positions [32 blockIdx.x, + 32) of one (window
+// blockIdx.z, head blockIdx.y) slice of an f32 (BW, N, H, D) tensor x
+// (strides sb, sn, sh; unit head-dim stride), split into TF32 parts. rows
+// (unless null): plane 2 (w H + h) + part, row n, 32 floats (zeros past D).
+// cols (unless null): the same plane of the cols form, row d, NP floats,
+// position 8 j + p holding element 8 j + 2 p (p < 4) or 8 j + 2 p - 7, zeros
+// past N.
+__global__ void __launch_bounds__(256)
+tf32_split_kernel(const float* __restrict__ x, float* __restrict__ rows, float* __restrict__ cols,
+                  int H, int N, int NP, int D, long long sb, long long sn, long long sh) {
+  __shared__ float tile[2][32][33];
+  const int h = blockIdx.y, n0 = blockIdx.x * 32;
+  const int lx = threadIdx.x % 32, wy = threadIdx.x / 32;
+  const long long plane = ((long long)blockIdx.z * H + h) * 2;
+  const size_t pf = (size_t)NP * 32;
+  const float* src = x + blockIdx.z * sb + h * sh;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = wy + 8 * i, n = n0 + r;
+    uint32_t big, small;
+    tf32_split(n < N && lx < D ? src[n * sn + lx] : 0.f, big, small);
+    tile[0][r][lx] = __uint_as_float(big);
+    tile[1][r][lx] = __uint_as_float(small);
+    if (rows != nullptr && n < N) {
+      rows[plane * pf + (size_t)n * 32 + lx] = __uint_as_float(big);
+      rows[(plane + 1) * pf + (size_t)n * 32 + lx] = __uint_as_float(small);
+    }
+  }
+  if (cols == nullptr) return;
+  __syncthreads();
+  const int m = n0 + lx;
+  if (m >= NP) return;
+  const int p = m & 7, r = (m & ~7) + (p < 4 ? 2 * p : 2 * p - 7) - n0;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int d = wy + 8 * i;
+    cols[plane * pf + (size_t)d * NP + m] = tile[0][r][d];
+    cols[(plane + 1) * pf + (size_t)d * NP + m] = tile[1][r][d];
+  }
+}
+
+__device__ __forceinline__ uint64_t tf_desc(const void* p) {
+  return hopper::smem_desc(p, 16, 1024, hopper::kLayoutSw128);
+}
+
+template <int W, int N>
+__device__ __forceinline__ void tf_ss(float (&d)[N], uint64_t a, uint64_t b, int accumulate) {
+  if constexpr (W == 64)
+    hopper::wgmma_m64n64k8_tf32_ss(d, a, b, accumulate);
+  else if constexpr (W == 32)
+    hopper::wgmma_m64n32k8_tf32_ss(d, a, b, accumulate);
+  else
+    hopper::wgmma_m64n8k8_tf32_ss(d, a, b, accumulate);
+}
+
+// d (64 x W) = A B^T over the 32-wide head dim, 3xTF32: A a 64-row tile and
+// B W rows (64, 32 or 8), both K-major in shared memory (rows form), each
+// with its small part `a_part` / `b_part` bytes after its big part.
+template <int W, int N>
+__device__ __forceinline__ void tf_abt(float (&d)[N], const unsigned char* a, int a_part,
+                                       const unsigned char* b, int b_part) {
+  const uint64_t ab = tf_desc(a), as = tf_desc(a + a_part);
+  const uint64_t bb = tf_desc(b), bs = tf_desc(b + b_part);
+#pragma unroll
+  for (int ks = 0; ks < 4; ++ks) {
+    tf_ss<W>(d, as + 2 * ks, bb + 2 * ks, ks > 0);
+    tf_ss<W>(d, ab + 2 * ks, bs + 2 * ks, 1);
+    tf_ss<W>(d, ab + 2 * ks, bb + 2 * ks, 1);
+  }
+}
+
+// d (64 x 32) (+)= A B over KK k8 steps, 3xTF32: A's parts in registers
+// (tf_frags), B (cols form: 32 rows, the k values contiguous, 4 KB panels of
+// 32) with its small part `b_part` bytes after its big part. Unless
+// `accumulate`, d is overwritten.
+template <int KK>
+__device__ __forceinline__ void tf_ab(float (&d)[16], const uint32_t (&ab)[8][4],
+                                      const uint32_t (&as)[8][4], const unsigned char* b,
+                                      int b_part, bool accumulate) {
+  const uint64_t bb = tf_desc(b), bs = tf_desc(b + b_part);
+#pragma unroll
+  for (int kk = 0; kk < KK; ++kk) {
+    const uint32_t off = (kk / 4 * kTfPanel + kk % 4 * 32) >> 4;
+    hopper::wgmma_m64n32k8_tf32_rs(d, as[kk], bb + off, accumulate || kk > 0);
+    hopper::wgmma_m64n32k8_tf32_rs(d, ab[kk], bs + off, 1);
+    hopper::wgmma_m64n32k8_tf32_rs(d, ab[kk], bb + off, 1);
+  }
+}
+
+// The TF32 parts of an accumulator's columns [0, 8 KK) as A fragments: k8
+// step kk takes columns 8 kk + 2 t4 and + 1 (accumulator elements 4 kk + 0,
+// 1 of row g, + 2, 3 of row g + 8) at positions t4 and t4 + 4, which is the
+// cols form's order: fragment register r takes element 0, 2, 1, 3.
+template <int KK, int N>
+__device__ __forceinline__ void tf_frags(uint32_t (&b)[8][4], uint32_t (&s)[8][4],
+                                         const float (&x)[N]) {
+#pragma unroll
+  for (int kk = 0; kk < KK; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) tf32_split(x[4 * kk + ((r & 1) << 1 | r >> 1)], b[kk][r], s[kk][r]);
+}
+
+// The same for ds = P (dP - delta) of rows g and g + 8.
+template <int KK, int N>
+__device__ __forceinline__ void tf_ds_frags(uint32_t (&b)[8][4], uint32_t (&s)[8][4],
+                                            const float (&p)[32], const float (&dp)[N],
+                                            const float (&dl)[2]) {
+#pragma unroll
+  for (int kk = 0; kk < KK; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int i = 4 * kk + ((r & 1) << 1 | r >> 1);
+      tf32_split(p[i] * (dp[i] - dl[(i >> 1) & 1]), b[kk][r], s[kk][r]);
+    }
+}
+
+// A ring of SLOTS slots of BYTES in shared memory, filled by the producer
+// and consumed by the consumer warpgroups in one global order (fill idx goes
+// to slot idx % SLOTS); full barriers take the producer's transaction count,
+// empty ones the owning warpgroup's 4 warps.
+template <int SLOTS, int BYTES>
+struct TfRing {
+  unsigned char* base;
+  uint64_t* full;
+  uint64_t* empty;
+  __device__ __forceinline__ const unsigned char* wait(int idx) const {
+    hopper::mbar_wait(&full[idx % SLOTS], (idx / SLOTS) & 1);
+    return base + idx % SLOTS * BYTES;
+  }
+  __device__ __forceinline__ void release(int idx, int lane) const {
+    __syncwarp();
+    if (lane == 0) hopper::mbar_arrive(&empty[idx % SLOTS]);
+  }
+  // The producer: waits until fill idx's slot is free, expects `bytes`.
+  __device__ __forceinline__ unsigned char* acquire(int idx, uint32_t bytes) const {
+    hopper::mbar_wait(&empty[idx % SLOTS], ((idx / SLOTS) & 1) ^ 1);
+    hopper::mbar_arrive_expect_tx(&full[idx % SLOTS], bytes);
+    return base + idx % SLOTS * BYTES;
+  }
+  __device__ __forceinline__ uint64_t* bar(int idx) const { return &full[idx % SLOTS]; }
+};
+
+// Rows [row, row + box) of plane pair `plane` of a rows-form map: the big
+// part to dst, the small part to dst + part.
+__device__ __forceinline__ void tf_load_rows(unsigned char* dst, int part, const CUtensorMap* m,
+                                             uint64_t* bar, int row, int plane) {
+  hopper::tma_load_3d(dst, m, bar, 0, row, plane);
+  hopper::tma_load_3d(dst + part, m, bar, 0, row, plane + 1);
+}
+
+// Positions [pos, pos + 32 panels) of plane pair `plane` of a cols-form map:
+// panel i of the big part to dst + i kTfPanel, of the small part to
+// dst + part + i kTfPanel.
+__device__ __forceinline__ void tf_load_cols(unsigned char* dst, int part, int panels,
+                                             const CUtensorMap* m, uint64_t* bar, int pos,
+                                             int plane) {
+  for (int i = 0; i < panels; ++i) {
+    hopper::tma_load_3d(dst + i * kTfPanel, m, bar, pos + 32 * i, 0, plane);
+    hopper::tma_load_3d(dst + part + i * kTfPanel, m, bar, pos + 32 * i, 0, plane + 1);
+  }
+}
+
+// A warpgroup's 64 x 32 f32 accumulator as f32 rows [row0, row0 + 64) of one
+// (window, head) slice, times `mul`; rows >= N and columns >= D skipped.
+__device__ __forceinline__ void tf_store(const float (&acc)[16], float* base, long long row_stride,
+                                         int row0, int N, int D, float mul, int warp, int g,
+                                         int t4) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + 16 * warp + g + 8 * r;
+    if (row >= N) continue;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int col = 8 * j + 2 * t4;
+      if (col < D)
+        *reinterpret_cast<float2*>(base + row * row_stride + col) =
+            make_float2(acc[4 * j + 2 * r] * mul, acc[4 * j + 2 * r + 1] * mul);
+    }
+  }
+}
+
+// Warpgroup 1 hands its 64 x 32 accumulator to warpgroup 0 through `xch`
+// (16 x 128 floats) and goes on (barrier kXchBar; it writes `xch` again only
+// after the next window's first exchange, which needs warpgroup 0 past its
+// read); warpgroup 0 waits and adds it to its own.
+__device__ __forceinline__ void tf_hand_over(float (&acc)[16], float* xch, int wg, int t128) {
+  if (wg == 1) {
+#pragma unroll
+    for (int i = 0; i < 16; ++i) xch[i * 128 + t128] = acc[i];
+    hopper::named_arrive(kXchBar, kConsumers);
+    return;
+  }
+  hopper::named_sync(kXchBar, kConsumers);
+#pragma unroll
+  for (int i = 0; i < 16; ++i) acc[i] += xch[i * 128 + t128];
+}
+
+// Shared memory of the forward (one stage of Q) and the dQ launch (one of Q,
+// one of dO): the ring, the stages (16 KB each), the bias rows, the exchange
+// rows, warpgroup 1's hand-over, one window's region ids, the barriers.
+template <int SLOTS, int STAGES>
+struct TfRowsGeo {
+  static constexpr int kStageOff = SLOTS * kTfSlotBytes;
+  static constexpr int kBiasOff = kStageOff + STAGES * kTfSlotBytes;
+  __host__ __device__ static size_t bytes(int N) {
+    return 1024 + kBiasOff + 4 * ((size_t)64 * bias_stride(N) + 3 * 128 + 16 * 128 + kIds)
+           + 8 * (2 * STAGES + 2 * SLOTS);
+  }
+};
+
+// ---------------------------------------------------------------------------
+// Kernel 8 in f32: one block per (head, 64-query tile, window group)
+// ---------------------------------------------------------------------------
+
+template <int KW>
+__global__ void __launch_bounds__(kThreads, 1)
+window_fwd_tf32_kernel(const __grid_constant__ CUtensorMap tq,
+                       const __grid_constant__ CUtensorMap tk,
+                       const __grid_constant__ CUtensorMap tk8,
+                       const __grid_constant__ CUtensorMap tvt, float* __restrict__ o,
+                       const float* __restrict__ bias, const int* __restrict__ rid, int BW, int H,
+                       int N, int D, int nW, int per_group, long long ob, long long on,
+                       long long oh, float scale) {
+  constexpr int NC = Geo<KW>::kChunks;
+  constexpr int S = kTfFwdSlots;
+  using Gt = TfRowsGeo<S, 1>;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* smem = wgtile::align1024(smem_raw);
+  unsigned char* q_s = smem + Gt::kStageOff;  // Q big, Q small
+  const int BS = bias_stride(N);
+  float* bias_s = reinterpret_cast<float*>(smem + Gt::kBiasOff);
+  float* red = bias_s + 64 * BS;  // [2][2][64]: max, sum
+  float* xch = red + 3 * 128;
+  int* ids_s = reinterpret_cast<int*>(xch + 16 * 128);
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(ids_s + kIds);
+  uint64_t* q_empty = q_full + 1;
+  const TfRing<S, kTfSlotBytes> ring{smem, q_empty + 1, q_empty + 1 + S};
+  const int h = blockIdx.x, q0 = blockIdx.y * 64;
+  const int w0 = blockIdx.z * per_group, w_end = min(BW, w0 + per_group);
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(q_full, rid != nullptr ? 33 : 1);
+    hopper::mbar_init(q_empty, kConsumerWarps);
+    for (int s = 0; s < S; ++s) {
+      hopper::mbar_init(&ring.full[s], 1);
+      hopper::mbar_init(&ring.empty[s], 4);
+    }
+    hopper::mbar_init_fence();
+  }
+  __syncthreads();
+
+  const int role = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+  if (role == 0) {
+    hopper::regs_release<kProducerRegs>();
+    if (threadIdx.x >= 32) return;
+    const int lane = threadIdx.x;
+    int idx = 0;  // ring fills so far (lane 0)
+    for (int w = w0, n = 0; w < w_end; ++w, ++n) {
+      const int plane = 2 * (w * H + h);
+      hopper::mbar_wait(q_empty, (n & 1) ^ 1);
+      if (lane == 0) {
+        hopper::mbar_arrive_expect_tx(q_full, 2 * kTfPart);
+        tf_load_rows(q_s, kTfPart, &tq, q_full, q0, plane);
+      }
+      if (rid != nullptr) produce_ids(ids_s, rid, w, nW, N, q_full, lane);
+      if (lane == 0) {
+        // Each warpgroup's K chunks, then its V^T chunks, the two interleaved.
+        for (int c = 0; c < NC; ++c)
+          for (int i = 0; i < 2; ++i, ++idx) {
+            const bool last = c == NC - 1;
+            unsigned char* d = ring.acquire(idx, last ? 2 * 8 * 128 : 2 * kTfPart);
+            tf_load_rows(d, kTfPart, last ? &tk8 : &tk, ring.bar(idx), i * KW + 64 * c, plane);
+          }
+        for (int c = 0; c < NC; ++c)
+          for (int i = 0; i < 2; ++i, ++idx) {
+            const bool last = c == NC - 1;
+            unsigned char* d = ring.acquire(idx, (last ? 2 : 4) * kTfPanel);
+            tf_load_cols(d, kTfPart, last ? 1 : 2, &tvt, ring.bar(idx), i * KW + 64 * c, plane);
+          }
+      }
+      __syncwarp();
+    }
+    return;
+  }
+  hopper::regs_claim<kConsumerRegs>();
+  const int tid = threadIdx.x - 128, wg = tid / 128, t128 = tid % 128;
+  const int warp = t128 / 32, lane = tid % 32, g = lane / 4, t4 = lane % 4;
+  const int lr0 = 16 * warp + g;
+  const bool dead = q0 + 16 * warp >= N;  // this warp's rows all past N (never stored)
+  copy_bias_rows(bias_s, bias, h, q0, N, BS, tid);
+  cp_async_wait<0>();
+  hopper::named_sync(kBar, kConsumers);
+  const float* b0 = bias_s + lr0 * BS + wg * KW;
+  const float* b1 = b0 + 8 * BS;
+
+  for (int w = w0, n = 0; w < w_end; ++w, ++n) {
+    const int fill0 = n * 4 * NC;
+    hopper::mbar_wait(q_full, n & 1);
+    const int* ids = rid != nullptr && ids_s[kIds - 1] ? ids_s : nullptr;
+    const int id0 = ids != nullptr ? ids[min(q0 + lr0, N - 1)] : 0;
+    const int id1 = ids != nullptr ? ids[min(q0 + lr0 + 8, N - 1)] : 0;
+
+    // S = Q K^T over this warpgroup's keys, a chunk at a time.
+    float sc[NC][32];
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      const int idx = fill0 + 2 * c + wg;
+      const unsigned char* kc = ring.wait(idx);
+      hopper::wgmma_fence();
+      if (c < NC - 1)
+        tf_abt<64>(sc[c], q_s, kTfPart, kc, kTfPart);
+      else
+        tf_abt<8>(sc[c], q_s, kTfPart, kc, kTfPart);
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      if (c < NC - 1)
+        hopper::fence_regs(sc[c]);
+      else
+        fence_first<4>(sc[c]);
+      ring.release(idx, lane);
+    }
+    if (!dead)
+      row_logits<NC>(sc, b0, b1, ids != nullptr ? ids + wg * KW : nullptr, id0, id1, wg * KW, N,
+                     scale, t4);
+    __syncwarp();
+    if (lane == 0) hopper::mbar_arrive(q_empty);  // Q and the ids are spent
+    float m2[2], il[2];
+    softmax<NC>(sc, red, wg, lr0, t4, dead, m2, il);
+
+    // O = P V, each chunk's product in its own accumulator added to O.
+    float acc[16];
+#pragma unroll
+    for (int i = 0; i < 16; ++i) acc[i] = 0.f;
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      const int idx = fill0 + 2 * NC + 2 * c + wg;
+      const unsigned char* vc = ring.wait(idx);
+      uint32_t pb[8][4], ps[8][4];
+      if (!dead) {
+        if (c < NC - 1)
+          tf_frags<8>(pb, ps, sc[c]);
+        else
+          tf_frags<1>(pb, ps, sc[c]);
+      }
+      float pv[16];
+      hopper::wgmma_fence();
+      if (c < NC - 1)
+        tf_ab<8>(pv, pb, ps, vc, kTfPart, false);
+      else
+        tf_ab<1>(pv, pb, ps, vc, kTfPart, false);
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(pv);
+      ring.release(idx, lane);
+#pragma unroll
+      for (int i = 0; i < 16; ++i) acc[i] += pv[i];
+    }
+    tf_hand_over(acc, xch, wg, t128);
+    if (wg == 0) tf_store(acc, o + w * ob + h * oh, on, q0, N, D, 1.f, warp, g, t4);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Kernel 9 in f32, launch 1: row statistics and dQ, one block per (head,
+// 64-query tile, window group)
+// ---------------------------------------------------------------------------
+
+template <int KW>
+__global__ void __launch_bounds__(kThreads, 1)
+window_bwd_dq_tf32_kernel(const __grid_constant__ CUtensorMap tq,
+                          const __grid_constant__ CUtensorMap tg,
+                          const __grid_constant__ CUtensorMap tk,
+                          const __grid_constant__ CUtensorMap tk8,
+                          const __grid_constant__ CUtensorMap tv,
+                          const __grid_constant__ CUtensorMap tv8,
+                          const __grid_constant__ CUtensorMap tkt, float* __restrict__ dq,
+                          const float* __restrict__ bias, const int* __restrict__ rid,
+                          float* __restrict__ stats, int BW, int H, int N, int D, int nW,
+                          int per_group, long long dqb, long long dqn, long long dqh,
+                          float scale) {
+  constexpr int NC = Geo<KW>::kChunks;
+  constexpr int S = kTfDqSlots;
+  using Gt = TfRowsGeo<S, 2>;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* smem = wgtile::align1024(smem_raw);
+  unsigned char* q_s = smem + Gt::kStageOff;  // Q big, Q small
+  unsigned char* g_s = q_s + kTfSlotBytes;    // dO big, dO small
+  const int BS = bias_stride(N);
+  float* bias_s = reinterpret_cast<float*>(smem + Gt::kBiasOff);
+  float* red = bias_s + 64 * BS;  // [3][2][64]: max, sum, delta
+  float* xch = red + 3 * 128;
+  int* ids_s = reinterpret_cast<int*>(xch + 16 * 128);
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(ids_s + kIds);
+  uint64_t* q_empty = q_full + 1;
+  uint64_t* g_full = q_empty + 1;
+  uint64_t* g_empty = g_full + 1;
+  const TfRing<S, kTfSlotBytes> ring{smem, g_empty + 1, g_empty + 1 + S};
+  const int h = blockIdx.x, q0 = blockIdx.y * 64;
+  const int w0 = blockIdx.z * per_group, w_end = min(BW, w0 + per_group);
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(q_full, rid != nullptr ? 33 : 1);
+    hopper::mbar_init(q_empty, kConsumerWarps);
+    hopper::mbar_init(g_full, 1);
+    hopper::mbar_init(g_empty, kConsumerWarps);
+    for (int s = 0; s < S; ++s) {
+      hopper::mbar_init(&ring.full[s], 1);
+      hopper::mbar_init(&ring.empty[s], 4);
+    }
+    hopper::mbar_init_fence();
+  }
+  __syncthreads();
+
+  const int role = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+  if (role == 0) {
+    hopper::regs_release<kProducerRegs>();
+    if (threadIdx.x >= 32) return;
+    const int lane = threadIdx.x;
+    int idx = 0;  // ring fills so far (lane 0)
+    for (int w = w0, n = 0; w < w_end; ++w, ++n) {
+      const int plane = 2 * (w * H + h);
+      hopper::mbar_wait(q_empty, (n & 1) ^ 1);
+      if (lane == 0) {
+        hopper::mbar_arrive_expect_tx(q_full, 2 * kTfPart);
+        tf_load_rows(q_s, kTfPart, &tq, q_full, q0, plane);
+      }
+      if (rid != nullptr) produce_ids(ids_s, rid, w, nW, N, q_full, lane);
+      if (lane == 0) {
+        // In the consumers' order, the warpgroups alternating: K chunks (S),
+        // dO, V chunks (delta), then each chunk's V and its K^T (ds, dQ).
+        for (int c = 0; c < NC; ++c)
+          for (int i = 0; i < 2; ++i, ++idx) {
+            const bool last = c == NC - 1;
+            unsigned char* d = ring.acquire(idx, last ? 2 * 8 * 128 : 2 * kTfPart);
+            tf_load_rows(d, kTfPart, last ? &tk8 : &tk, ring.bar(idx), i * KW + 64 * c, plane);
+          }
+        hopper::mbar_wait(g_empty, (n & 1) ^ 1);
+        hopper::mbar_arrive_expect_tx(g_full, 2 * kTfPart);
+        tf_load_rows(g_s, kTfPart, &tg, g_full, q0, plane);
+        for (int c = 0; c < NC; ++c)
+          for (int i = 0; i < 2; ++i, ++idx) {
+            const bool last = c == NC - 1;
+            unsigned char* d = ring.acquire(idx, last ? 2 * 8 * 128 : 2 * kTfPart);
+            tf_load_rows(d, kTfPart, last ? &tv8 : &tv, ring.bar(idx), i * KW + 64 * c, plane);
+          }
+        for (int c = 0; c < NC; ++c) {
+          const bool last = c == NC - 1;
+          for (int i = 0; i < 2; ++i, ++idx) {
+            unsigned char* d = ring.acquire(idx, last ? 2 * 8 * 128 : 2 * kTfPart);
+            tf_load_rows(d, kTfPart, last ? &tv8 : &tv, ring.bar(idx), i * KW + 64 * c, plane);
+          }
+          for (int i = 0; i < 2; ++i, ++idx) {
+            unsigned char* d = ring.acquire(idx, (last ? 2 : 4) * kTfPanel);
+            tf_load_cols(d, kTfPart, last ? 1 : 2, &tkt, ring.bar(idx), i * KW + 64 * c, plane);
+          }
+        }
+      }
+      __syncwarp();
+    }
+    return;
+  }
+  hopper::regs_claim<kConsumerRegs>();
+  const int tid = threadIdx.x - 128, wg = tid / 128, t128 = tid % 128;
+  const int warp = t128 / 32, lane = tid % 32, g = lane / 4, t4 = lane % 4;
+  const int lr0 = 16 * warp + g;
+  const bool dead = q0 + 16 * warp >= N;  // this warp's rows all past N (never stored)
+  copy_bias_rows(bias_s, bias, h, q0, N, BS, tid);
+  cp_async_wait<0>();
+  hopper::named_sync(kBar, kConsumers);
+  const float* b0 = bias_s + lr0 * BS + wg * KW;
+  const float* b1 = b0 + 8 * BS;
+
+  for (int w = w0, n = 0; w < w_end; ++w, ++n) {
+    const int fill0 = n * 8 * NC;
+    hopper::mbar_wait(q_full, n & 1);
+    const int* ids = rid != nullptr && ids_s[kIds - 1] ? ids_s : nullptr;
+    const int id0 = ids != nullptr ? ids[min(q0 + lr0, N - 1)] : 0;
+    const int id1 = ids != nullptr ? ids[min(q0 + lr0 + 8, N - 1)] : 0;
+
+    float sc[NC][32];
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      const int idx = fill0 + 2 * c + wg;
+      const unsigned char* kc = ring.wait(idx);
+      hopper::wgmma_fence();
+      if (c < NC - 1)
+        tf_abt<64>(sc[c], q_s, kTfPart, kc, kTfPart);
+      else
+        tf_abt<8>(sc[c], q_s, kTfPart, kc, kTfPart);
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      if (c < NC - 1)
+        hopper::fence_regs(sc[c]);
+      else
+        fence_first<4>(sc[c]);
+      ring.release(idx, lane);
+    }
+    if (!dead)
+      row_logits<NC>(sc, b0, b1, ids != nullptr ? ids + wg * KW : nullptr, id0, id1, wg * KW, N,
+                     scale, t4);
+    __syncwarp();
+    if (lane == 0) hopper::mbar_arrive(q_empty);  // Q and the ids are spent
+    float m2[2], il[2];
+    softmax<NC>(sc, red, wg, lr0, t4, dead, m2, il);
+
+    // delta = sum_k P dP over both warpgroups, dP = dO V^T a chunk at a time.
+    hopper::mbar_wait(g_full, n & 1);
+    float dd[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      const int idx = fill0 + 2 * NC + 2 * c + wg;
+      const unsigned char* vc = ring.wait(idx);
+      float dp[32];
+      hopper::wgmma_fence();
+      if (c < NC - 1)
+        tf_abt<64>(dp, g_s, kTfPart, vc, kTfPart);
+      else
+        tf_abt<8>(dp, g_s, kTfPart, vc, kTfPart);
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      if (c < NC - 1)
+        hopper::fence_regs(dp);
+      else
+        fence_first<4>(dp);
+      ring.release(idx, lane);
+      if (!dead) {
+#pragma unroll
+        for (int i = 0; i < 32; ++i)
+          if (live<NC>(c, i))
+            dd[(i >> 1) & 1][i & 1] = fmaf(sc[c][i], dp[i], dd[(i >> 1) & 1][i & 1]);
+      }
+    }
+    float part[2], a[2], b[2], delta[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) part[r] = quad_sum(dd[r][0] + dd[r][1]);
+    exchange(red, 2, wg, lr0, t4, part, a, b);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) delta[r] = a[r] + b[r];
+    if (wg == 0 && t4 == 0) {
+      float* stw = stats + ((long long)w * H + h) * 3 * N;
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = q0 + lr0 + 8 * r;
+        if (row < N) {
+          stw[row] = m2[r] - log2f(il[r]);  // the base-2 log-sum-exp
+          stw[2 * N + row] = delta[r];
+        }
+      }
+    }
+
+    // dQ = ds K: per chunk dP again, ds = P (dP - delta) split as the A
+    // operand, the chunk's product in its own accumulator added to dQ.
+    float acc[16];
+#pragma unroll
+    for (int i = 0; i < 16; ++i) acc[i] = 0.f;
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      const int idx = fill0 + 4 * NC + 4 * c + wg;  // the chunk's V; its K^T at idx + 2
+      const unsigned char* vc = ring.wait(idx);
+      float dp[32];
+      hopper::wgmma_fence();
+      if (c < NC - 1)
+        tf_abt<64>(dp, g_s, kTfPart, vc, kTfPart);
+      else
+        tf_abt<8>(dp, g_s, kTfPart, vc, kTfPart);
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      if (c < NC - 1)
+        hopper::fence_regs(dp);
+      else
+        fence_first<4>(dp);
+      ring.release(idx, lane);
+      uint32_t fb[8][4], fs[8][4];
+      if (!dead) {
+        if (c < NC - 1)
+          tf_ds_frags<8>(fb, fs, sc[c], dp, delta);
+        else
+          tf_ds_frags<1>(fb, fs, sc[c], dp, delta);
+      }
+      const unsigned char* kt = ring.wait(idx + 2);
+      float dqc[16];
+      hopper::wgmma_fence();
+      if (c < NC - 1)
+        tf_ab<8>(dqc, fb, fs, kt, kTfPart, false);
+      else
+        tf_ab<1>(dqc, fb, fs, kt, kTfPart, false);
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(dqc);
+      ring.release(idx + 2, lane);
+#pragma unroll
+      for (int i = 0; i < 16; ++i) acc[i] += dqc[i];
+    }
+    __syncwarp();
+    if (lane == 0) hopper::mbar_arrive(g_empty);  // dO is spent
+    tf_hand_over(acc, xch, wg, t128);
+    if (wg == 0) tf_store(acc, dq + w * dqb + h * dqh, dqn, q0, N, D, scale, warp, g, t4);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Kernel 9 in f32, launch 2: dK, dV and dbias, one block per (head, 64-key
+// tile, window group)
+// ---------------------------------------------------------------------------
+
+// One step of W (32, or 8 at the end) queries from `col0` of a warpgroup's
+// range, keys as rows, its four operands fills f .. f + 3 of the ring (Q,
+// dO rows; Q^T, dO^T cols): S^T = K Q^T and dP^T = V dO^T, dkv_scores, then
+// dV += P^T dO and dK += ds^T Q with P^T and ds^T split as register A
+// operands.
+template <int W, typename Ring>
+__device__ __forceinline__ void tf_dkv_step(float (&db)[16], float (&adk)[16], float (&adv)[16],
+                                            const unsigned char* kv, const Ring& ring, int f,
+                                            const DkvRows& r, int col0, float scale, int t4,
+                                            int lane) {
+  constexpr int L = W / 2, KK = W / 8;
+  float st[16], dpt[16];
+  const unsigned char* qr = ring.wait(f);
+  const unsigned char* gr = ring.wait(f + 1);
+  hopper::wgmma_fence();
+  tf_abt<W>(st, kv, kTfPart, qr, kTfPanel);
+  tf_abt<W>(dpt, kv + 2 * kTfPart, kTfPart, gr, kTfPanel);
+  hopper::wgmma_commit();
+  hopper::wgmma_wait<0>();
+  fence_first<L>(st);
+  fence_first<L>(dpt);
+  ring.release(f, lane);
+  ring.release(f + 1, lane);
+  dkv_scores<W>(st, dpt, db, r, col0, scale, t4);
+  uint32_t pb[8][4], ps[8][4], fb[8][4], fs[8][4];
+  tf_frags<KK>(pb, ps, st);
+  tf_frags<KK>(fb, fs, dpt);
+  const unsigned char* qt = ring.wait(f + 2);
+  const unsigned char* gt = ring.wait(f + 3);
+  hopper::wgmma_fence();
+  tf_ab<KK>(adv, pb, ps, gt, kTfPanel, true);
+  tf_ab<KK>(adk, fb, fs, qt, kTfPanel, true);
+  hopper::wgmma_commit();
+  hopper::wgmma_wait<0>();
+  hopper::fence_regs(adv);
+  hopper::fence_regs(adk);
+  ring.release(f + 2, lane);
+  ring.release(f + 3, lane);
+}
+
+// Shared memory of the dK/dV launch: the ring; one window's K and V (big,
+// small); the hand-over buffer (32 f32 a thread); the bias columns (64 keys x
+// BS); one window's statistics (3 x 2 KW) and region ids; the barriers.
+template <int KW>
+struct TfDkvGeo {
+  static constexpr int kSQ = 2 * KW;
+  static constexpr int kKvOff = kTfDkvSlots * kTfDkvSlotBytes;
+  static constexpr int kXchOff = kKvOff + 4 * kTfPart;
+  static constexpr int kBiasOff = kXchOff + 32 * 128 * 4;
+  __host__ __device__ static size_t bytes(int N) {
+    return 1024 + kBiasOff + 4 * ((size_t)64 * bias_stride(N) + 3 * kSQ + kIds)
+           + 8 * (2 + 2 * kTfDkvSlots);
+  }
+};
+
+template <int KW>
+__global__ void __launch_bounds__(kThreads, 1)
+window_bwd_dkv_tf32_kernel(const __grid_constant__ CUtensorMap tk,
+                           const __grid_constant__ CUtensorMap tv,
+                           const __grid_constant__ CUtensorMap tq,
+                           const __grid_constant__ CUtensorMap tq8,
+                           const __grid_constant__ CUtensorMap tg,
+                           const __grid_constant__ CUtensorMap tg8,
+                           const __grid_constant__ CUtensorMap tqt,
+                           const __grid_constant__ CUtensorMap tgt, float* __restrict__ dk,
+                           float* __restrict__ dv, const float* __restrict__ bias,
+                           const int* __restrict__ rid, const float* __restrict__ stats,
+                           float* __restrict__ dbias_out, int BW, int H, int N, int D, int nW,
+                           int per_group, long long dkb, long long dkn, long long dkh,
+                           long long dvb, long long dvn, long long dvh, float scale) {
+  using Dg = TfDkvGeo<KW>;
+  constexpr int NC = Geo<KW>::kChunks;
+  constexpr int kSQ = Dg::kSQ;
+  constexpr int kSteps = 2 * (NC - 1) + 1;  // 32-query steps, the last 8 wide
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* smem = wgtile::align1024(smem_raw);
+  unsigned char* kv_s = smem + Dg::kKvOff;  // K big, K small, V big, V small
+  float* xch = reinterpret_cast<float*>(smem + Dg::kXchOff);
+  const int BS = bias_stride(N);
+  float* bias_t = reinterpret_cast<float*>(smem + Dg::kBiasOff);  // [key][query]
+  float* stats_s = bias_t + 64 * BS;                                // [3][kSQ]
+  int* ids_s = reinterpret_cast<int*>(stats_s + 3 * kSQ);
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(ids_s + kIds);
+  uint64_t* kv_empty = kv_full + 1;
+  const TfRing<kTfDkvSlots, kTfDkvSlotBytes> ring{smem, kv_empty + 1,
+                                                  kv_empty + 1 + kTfDkvSlots};
+  const int h = blockIdx.x, k0 = blockIdx.y * 64;
+  const int w0 = blockIdx.z * per_group, w_end = min(BW, w0 + per_group);
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(kv_full, rid != nullptr ? 65 : 33);
+    hopper::mbar_init(kv_empty, kConsumerWarps);
+    for (int s = 0; s < kTfDkvSlots; ++s) {
+      hopper::mbar_init(&ring.full[s], 1);
+      hopper::mbar_init(&ring.empty[s], 4);
+    }
+    hopper::mbar_init_fence();
+  }
+  __syncthreads();
+
+  const int role = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+  if (role == 0) {
+    hopper::regs_release<kProducerRegs>();
+    if (threadIdx.x >= 32) return;
+    const int lane = threadIdx.x;
+    int idx = 0;  // ring fills so far (lane 0)
+    for (int w = w0, n = 0; w < w_end; ++w, ++n) {
+      const int plane = 2 * (w * H + h);
+      hopper::mbar_wait(kv_empty, (n & 1) ^ 1);
+      if (lane == 0) {
+        hopper::mbar_arrive_expect_tx(kv_full, 4 * kTfPart);
+        tf_load_rows(kv_s, kTfPart, &tk, kv_full, k0, plane);
+        tf_load_rows(kv_s + 2 * kTfPart, kTfPart, &tv, kv_full, k0, plane);
+      }
+      const float* src = stats + ((long long)w * H + h) * 3 * N;
+      for (int a = 0; a < 3; a += 2)  // the log-sum-exp and delta
+        for (int i = lane; i < N; i += 32) cp_async4(stats_s + a * kSQ + i, src + a * N + i, true);
+      cp_async_arrive(kv_full);
+      if (rid != nullptr) produce_ids(ids_s, rid, w, nW, N, kv_full, lane);
+      if (lane == 0) {
+        for (int u = 0; u < kSteps; ++u)
+          for (int i = 0; i < 2; ++i) {
+            const bool last = u == kSteps - 1;
+            const int q = i * KW + 32 * u;
+            const uint32_t rows_bytes = last ? 2 * 8 * 128 : 2 * kTfPanel;
+            unsigned char* d = ring.acquire(idx, rows_bytes);
+            tf_load_rows(d, kTfPanel, last ? &tq8 : &tq, ring.bar(idx), q, plane);
+            ++idx;
+            d = ring.acquire(idx, rows_bytes);
+            tf_load_rows(d, kTfPanel, last ? &tg8 : &tg, ring.bar(idx), q, plane);
+            ++idx;
+            d = ring.acquire(idx, 2 * kTfPanel);
+            tf_load_cols(d, kTfPanel, 1, &tqt, ring.bar(idx), q, plane);
+            ++idx;
+            d = ring.acquire(idx, 2 * kTfPanel);
+            tf_load_cols(d, kTfPanel, 1, &tgt, ring.bar(idx), q, plane);
+            ++idx;
+          }
+      }
+      __syncwarp();
+    }
+    return;
+  }
+  hopper::regs_claim<kConsumerRegs>();
+  const int tid = threadIdx.x - 128, wg = tid / 128, t128 = tid % 128;
+  const int warp = t128 / 32, lane = tid % 32, g = lane / 4, t4 = lane % 4;
+  copy_bias_cols(bias_t, bias, h, k0, N, BS, tid);
+  const int kl0 = 16 * warp + g;
+  const int q_base = wg * KW;
+  const float* b0 = bias_t + kl0 * BS + q_base;
+  const float* b1 = b0 + 8 * BS;
+  // dbias^T of this warpgroup's queries, summed over the windows: one
+  // 16-accumulator array per 32-query step (the last step 8 wide, 4 live).
+  float db[kSteps][16];
+#pragma unroll
+  for (int u = 0; u < kSteps; ++u)
+#pragma unroll
+    for (int i = 0; i < 16; ++i)
+      if (u < kSteps - 1 || i < 4) db[u][i] = 0.f;
+
+  for (int w = w0, n = 0; w < w_end; ++w, ++n) {
+    hopper::mbar_wait(kv_full, n & 1);
+    DkvRows rows{b0, b1, stats_s + q_base, nullptr, 0, 0, N - q_base, kSQ,
+                 k0 + 16 * warp >= N};
+    if (rid != nullptr && ids_s[kIds - 1]) {
+      rows.qid = ids_s + q_base;
+      rows.kid0 = ids_s[min(k0 + kl0, N - 1)];
+      rows.kid1 = ids_s[min(k0 + kl0 + 8, N - 1)];
+    }
+    float adk[16], adv[16];
+#pragma unroll
+    for (int i = 0; i < 16; ++i) adk[i] = adv[i] = 0.f;
+    const int fill0 = n * kSteps * 8 + 4 * wg;
+#pragma unroll
+    for (int u = 0; u < kSteps; ++u) {
+      if (u < kSteps - 1)
+        tf_dkv_step<32>(db[u], adk, adv, kv_s, ring, fill0 + 8 * u, rows, 32 * u, scale, t4,
+                        lane);
+      else
+        tf_dkv_step<8>(db[u], adk, adv, kv_s, ring, fill0 + 8 * u, rows, 32 * u, scale, t4,
+                       lane);
+    }
+
+    // Warpgroup 1's partial dK, dV to warpgroup 0, once warpgroup 0 has
+    // read the previous window's (barrier kXchBar).
+    if (wg == 1) {
+      if (n > 0) hopper::named_sync(kXchBar, kConsumers);
+#pragma unroll
+      for (int i = 0; i < 16; ++i) {
+        xch[i * 128 + t128] = adk[i];
+        xch[(16 + i) * 128 + t128] = adv[i];
+      }
+    }
+    hopper::named_sync(kBar, kConsumers);
+    if (wg == 0) {
+#pragma unroll
+      for (int i = 0; i < 16; ++i) {
+        adk[i] += xch[i * 128 + t128];
+        adv[i] += xch[(16 + i) * 128 + t128];
+      }
+      if (w + 1 < w_end) hopper::named_arrive(kXchBar, kConsumers);
+      tf_store(adk, dk + w * dkb + h * dkh, dkn, k0, N, D, scale, warp, g, t4);
+      tf_store(adv, dv + w * dvb + h * dvh, dvn, k0, N, D, 1.f, warp, g, t4);
+    }
+    __syncwarp();
+    if (lane == 0) hopper::mbar_arrive(kv_empty);
   }
 
   // This block's dbias partial: ds summed over its windows, (query, key).
@@ -1074,7 +1975,128 @@ cudaError_t launch_bwd(const void* q, const void* k, const void* v, const void* 
   return cudaGetLastError();
 }
 
+// The f32 design's pre-pass: x (strides st[0..2]) into its rows and / or
+// cols forms.
+cudaError_t tf_split(const void* x, const long long* st, float* rows, float* cols, int BW, int H,
+                     int N, int D, cudaStream_t s) {
+  tf32_split_kernel<<<dim3((tf32_np(N) + 31) / 32, H, BW), 256, 0, s>>>(
+      static_cast<const float*>(x), rows, cols, H, N, tf32_np(N), D, st[0], st[1], st[2]);
+  return cudaGetLastError();
+}
+
+// Maps over a rows form (boxes of `box` rows) and a cols form (boxes of 32
+// positions x 32 rows).
+bool tf_rows_map(CUtensorMap* m, const float* form, int BW, int H, int N, int box) {
+  return hopper::encode_planes_f32(m, form, 32, N, 2LL * BW * H, 32, 32LL * tf32_np(N), 32, box);
+}
+bool tf_cols_map(CUtensorMap* m, const float* form, int BW, int H, int N) {
+  const int np = tf32_np(N);
+  return hopper::encode_planes_f32(m, form, np, 32, 2LL * BW * H, np, 32LL * np, 32, 32);
+}
+
+template <int KW>
+cudaError_t launch_fwd_tf32(const void* q, const void* k, const void* v, void* o,
+                            const float* bias, const int* rid, float* split, int BW, int H, int N,
+                            int D, int nW, const long long* st, float scale, cudaStream_t s) {
+  const size_t F = split_form_floats(BW, H, N);
+  float *fq = split, *fk = split + F, *fv = split + 2 * F;
+  cudaError_t err;
+  if ((err = tf_split(q, st, fq, nullptr, BW, H, N, D, s)) != cudaSuccess
+      || (err = tf_split(k, st + 3, fk, nullptr, BW, H, N, D, s)) != cudaSuccess
+      || (err = tf_split(v, st + 6, nullptr, fv, BW, H, N, D, s)) != cudaSuccess)
+    return err;
+  CUtensorMap tq, tk, tk8, tvt;
+  if (!tf_rows_map(&tq, fq, BW, H, N, 64) || !tf_rows_map(&tk, fk, BW, H, N, 64)
+      || !tf_rows_map(&tk8, fk, BW, H, N, 8) || !tf_cols_map(&tvt, fv, BW, H, N))
+    return cudaErrorInvalidValue;
+  const size_t smem = TfRowsGeo<kTfFwdSlots, 1>::bytes(N);
+  if ((err = set_smem(window_fwd_tf32_kernel<KW>, smem)) != cudaSuccess) return err;
+  const int n_qt = (N + 63) / 64;
+  const int per = windows_a_block(BW, H * n_qt, sm_count());
+  window_fwd_tf32_kernel<KW><<<dim3(H, n_qt, (BW + per - 1) / per), kThreads, smem, s>>>(
+      tq, tk, tk8, tvt, static_cast<float*>(o), bias, rid, BW, H, N, D, nW, per, st[9], st[10],
+      st[11], scale);
+  return cudaGetLastError();
+}
+
+template <int KW>
+cudaError_t launch_bwd_tf32(const void* q, const void* k, const void* v, const void* g,
+                            const float* bias, const int* rid, void* dq, void* dk, void* dv,
+                            float* dbias, float* stats, float* partial, float* split, int BW,
+                            int H, int N, int D, int nW, int per_group, int groups,
+                            const long long* st, float scale, cudaStream_t s) {
+  // Forms: q rows, q cols, k rows, k cols, v rows, dO rows, dO cols.
+  const size_t F = split_form_floats(BW, H, N);
+  float* f[7];
+  for (int i = 0; i < 7; ++i) f[i] = split + i * F;
+  cudaError_t err;
+  if ((err = tf_split(q, st, f[0], f[1], BW, H, N, D, s)) != cudaSuccess
+      || (err = tf_split(k, st + 3, f[2], f[3], BW, H, N, D, s)) != cudaSuccess
+      || (err = tf_split(v, st + 6, f[4], nullptr, BW, H, N, D, s)) != cudaSuccess
+      || (err = tf_split(g, st + 9, f[5], f[6], BW, H, N, D, s)) != cudaSuccess)
+    return err;
+  CUtensorMap tq, tq32, tq8, tqt, tk, tk8, tkt, tv, tv8, tg, tg32, tg8, tgt;
+  if (!tf_rows_map(&tq, f[0], BW, H, N, 64) || !tf_rows_map(&tq32, f[0], BW, H, N, 32)
+      || !tf_rows_map(&tq8, f[0], BW, H, N, 8) || !tf_cols_map(&tqt, f[1], BW, H, N)
+      || !tf_rows_map(&tk, f[2], BW, H, N, 64) || !tf_rows_map(&tk8, f[2], BW, H, N, 8)
+      || !tf_cols_map(&tkt, f[3], BW, H, N) || !tf_rows_map(&tv, f[4], BW, H, N, 64)
+      || !tf_rows_map(&tv8, f[4], BW, H, N, 8) || !tf_rows_map(&tg, f[5], BW, H, N, 64)
+      || !tf_rows_map(&tg32, f[5], BW, H, N, 32) || !tf_rows_map(&tg8, f[5], BW, H, N, 8)
+      || !tf_cols_map(&tgt, f[6], BW, H, N))
+    return cudaErrorInvalidValue;
+  const int n_t = (N + 63) / 64;
+  const size_t smem_dq = TfRowsGeo<kTfDqSlots, 2>::bytes(N);
+  if ((err = set_smem(window_bwd_dq_tf32_kernel<KW>, smem_dq)) != cudaSuccess) return err;
+  const int per = windows_a_block(BW, H * n_t, sm_count());
+  window_bwd_dq_tf32_kernel<KW><<<dim3(H, n_t, (BW + per - 1) / per), kThreads, smem_dq, s>>>(
+      tq, tg, tk, tk8, tv, tv8, tkt, static_cast<float*>(dq), bias, rid, stats, BW, H, N, D, nW,
+      per, st[12], st[13], st[14], scale);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  const size_t smem_dkv = TfDkvGeo<KW>::bytes(N);
+  if ((err = set_smem(window_bwd_dkv_tf32_kernel<KW>, smem_dkv)) != cudaSuccess) return err;
+  window_bwd_dkv_tf32_kernel<KW><<<dim3(H, n_t, groups), kThreads, smem_dkv, s>>>(
+      tk, tv, tq32, tq8, tg32, tg8, tqt, tgt, static_cast<float*>(dk), static_cast<float*>(dv),
+      bias, rid, stats, groups > 1 ? partial : dbias, BW, H, N, D, nW, per_group, st[15], st[16],
+      st[17], st[18], st[19], st[20], scale);
+  return cudaGetLastError();
+}
+
 }  // namespace
+
+size_t split_form_floats(int BW, int H, int N) { return 2ULL * BW * H * tf32_np(N) * 32; }
+
+bool takes_tf32(int dtype, int N, int D, const long long* st, int n) {
+  if (dtype != 0 || N < 1 || N > kMaxN || D > 32) return false;
+  for (int i = 0; i < n; ++i)
+    if (st[i] <= 0) return false;
+  return true;
+}
+
+// KW by N, as the bf16 design.
+cudaError_t fwd_tf32(const void* q, const void* k, const void* v, void* o, const float* bias,
+                     const int* rid, float* split, int BW, int H, int N, int D, int nW,
+                     const long long* st, float scale, cudaStream_t s) {
+#define WINTF_FWD(KW) \
+  return launch_fwd_tf32<KW>(q, k, v, o, bias, rid, split, BW, H, N, D, nW, st, scale, s)
+  if (N <= 144) WINTF_FWD(72);
+  if (N <= 272) WINTF_FWD(136);
+  WINTF_FWD(200);
+#undef WINTF_FWD
+}
+
+cudaError_t bwd_tf32(const void* q, const void* k, const void* v, const void* g,
+                     const float* bias, const int* rid, void* dq, void* dk, void* dv,
+                     float* dbias, float* stats, float* partial, float* split, int BW, int H,
+                     int N, int D, int nW, int per_group, int groups, const long long* st,
+                     float scale, cudaStream_t s) {
+#define WINTF_BWD(KW)                                                                          \
+  return launch_bwd_tf32<KW>(q, k, v, g, bias, rid, dq, dk, dv, dbias, stats, partial, split, \
+                             BW, H, N, D, nW, per_group, groups, st, scale, s)
+  if (N <= 144) WINTF_BWD(72);
+  if (N <= 272) WINTF_BWD(136);
+  WINTF_BWD(200);
+#undef WINTF_BWD
+}
 
 bool takes(int dtype, int N, int D, const long long* st, int n) {
   if (dtype != 1 || N < 1 || N > kMaxN || D > 32) return false;

@@ -1,10 +1,12 @@
-// The wgmma/TMA design of kernels 8 and 9 (window_attention_wgmma.cu), as
-// window_attention.cu's C entries reach it: both sources build into one
-// library (ops/_build.py), so the entries call these launchers directly.
+// The wgmma/TMA designs of kernels 8 and 9 (window_attention_wgmma.cu): bf16,
+// and f32 on 3xTF32 ("wgmma.tf32x3"), as window_attention.cu's C entries
+// reach them: both sources build into one library (ops/_build.py), so the
+// entries call these launchers directly.
 
 #pragma once
 
 #include <cuda_runtime.h>
+#include <stddef.h>
 
 namespace winwg {
 
@@ -33,5 +35,25 @@ cudaError_t bwd(const void* q, const void* k, const void* v, const void* g, cons
                 const int* rid, void* dq, void* dk, void* dv, float* dbias, float* stats,
                 float* partial, int BW, int H, int N, int D, int nW, int per_group, int groups,
                 const long long* st, float scale, cudaStream_t s);
+
+// Whether the f32 design takes a call: float32 (dtype 0) and the bf16
+// design's N, D and strides.
+bool takes_tf32(int dtype, int N, int D, const long long* st, int n);
+
+// Floats of one form of the f32 design's split operands: BW H 2 planes (the
+// big and small TF32 parts) of NP x 32, NP = N rounded up to 8. The forward
+// takes 3 forms of scratch, the backward 7.
+size_t split_form_floats(int BW, int H, int N);
+
+// Kernels 8 and 9 in f32, as fwd and bwd, with `split` the scratch of the
+// split operands (3 or 7 forms).
+cudaError_t fwd_tf32(const void* q, const void* k, const void* v, void* o, const float* bias,
+                     const int* rid, float* split, int BW, int H, int N, int D, int nW,
+                     const long long* st, float scale, cudaStream_t s);
+cudaError_t bwd_tf32(const void* q, const void* k, const void* v, const void* g,
+                     const float* bias, const int* rid, void* dq, void* dk, void* dv,
+                     float* dbias, float* stats, float* partial, float* split, int BW, int H,
+                     int N, int D, int nW, int per_group, int groups, const long long* st,
+                     float scale, cudaStream_t s);
 
 }  // namespace winwg

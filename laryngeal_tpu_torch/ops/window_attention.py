@@ -51,6 +51,15 @@ reports which ran:
   group of windows. The forward computes S once, the backward twice (a dQ
   launch that writes the row statistics, and a dK/dV launch that also sums
   dbias in registers).
+* ``wgmma.tf32x3`` (the same source): f32 at the ``wgmma`` design's shapes
+  and strides, on the tensor cores. Each product is three TF32 products
+  (3xTF32: x = big + small, big x with its low 13 bits masked, small the
+  rest rounded to TF32), P and ds split the same way; logits, softmax,
+  delta, ds and dbias stay f32. A pre-pass splits q, k, v (and dO) once a
+  call into scratch the wrapper allocates (``split_floats``), K^T, V^T, Q^T
+  and dO^T written transposed, since TF32 wgmma reads both operands K-major;
+  the blocks are the bf16 design's, with K/V (Q/dO) streamed in 64-key
+  (32-query) chunks through a ring instead of held whole a window.
 * ``mma.sync``: the held design (a block holds its query tile's bias rows in
   shared memory, slots of 4 warps stream 64-key tiles) at every other bf16
   shape with N <= ``HELD_MAX_SEQ`` and D <= ``HELD_MAX_HEAD_DIM`` (128), and
@@ -59,7 +68,9 @@ reports which ran:
   only ``chip_smoke.py``, ``scripts/ablate_window.py`` and the card tests
   call them, to time and hold the designs against each other, and they
   count no launch.
-* ``fma``: f32 at the held designs' shapes, on the FMA units.
+* ``fma``: f32 at the held designs' other shapes (D 40 to 128, 400 < N <=
+  448, a stride of 0), on the FMA units; ``window_attention_*_mma_cuda``
+  run it wherever ``wgmma.tf32x3`` would.
 * ``wide``: every other shape, in either dtype, on the FMA units, the bias,
   region ids and row statistics read from device memory, up to D = 256.
 
@@ -96,7 +107,7 @@ MAX_HEAD_DIM = JAX_PALLAS_MAX_HEAD_DIM
 WGMMA_MAX_SEQ = 400
 WGMMA_MAX_HEAD_DIM = 32
 # Designs of kernels 8-9, by the code ``window_attention_last_design`` returns.
-DESIGNS = ("fma", "mma.sync", "wide", "wgmma")
+DESIGNS = ("fma", "mma.sync", "wide", "wgmma", "wgmma.tf32x3")
 MASK_VALUE = -100.0  # torchvision's Swin adds -100 across shifted-region boundaries
 # Softmax modes of the forward kernel: 0 = exp (kernel 8), 1 = (s - m) rounded
 # to bf16 before exp, 2 = exp2 of (s - m)·log2(e) (kernel 11's two softmaxes).
@@ -138,9 +149,9 @@ def _kernel(name: str):
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         st = ctypes.POINTER(ctypes.c_longlong)
         if name.startswith("window_attention_fwd"):
-            args = [ptr] * 6 + [i32] * 8 + [st, ctypes.c_float, ptr]
+            args = [ptr] * 7 + [i32] * 8 + [st, ctypes.c_float, ptr]
         else:
-            args = [ptr] * 12 + [i32] * 8 + [st, ctypes.c_float, ptr]
+            args = [ptr] * 13 + [i32] * 8 + [st, ctypes.c_float, ptr]
         fn = getattr(_build.load(SOURCE), name)
         fn.restype = ctypes.c_int
         fn.argtypes = args
@@ -199,19 +210,19 @@ def design_takes(n: int, d: int, dtype: torch.dtype, strides=None) -> str:
     ``dtype``: a mirror of the C entries' choice (``window_attention_design``,
     which the wrappers ask; kernels 11-12 always run mma.sync) for the CPU
     tests and the checks that name the design a shape should run. ``wgmma``
-    in bf16 at N <= ``WGMMA_MAX_SEQ`` and D <= ``WGMMA_MAX_HEAD_DIM`` when
-    every (window, position, head) stride of the launch is positive (TMA
-    cannot describe a stride of 0; ``strides`` as the wrapper passes them,
-    None for tensors laid out by ``_prepare`` from positive strides)."""
+    in bf16 and ``wgmma.tf32x3`` in f32 at N <= ``WGMMA_MAX_SEQ`` and D <=
+    ``WGMMA_MAX_HEAD_DIM`` when every (window, position, head) stride of the
+    launch is positive (TMA cannot describe a stride of 0; ``strides`` as the
+    wrapper passes them, None for tensors laid out by ``_prepare`` from
+    positive strides); else ``fma`` in f32 and ``mma.sync`` in bf16."""
     d_pad = -(-d // 8) * 8
     if not held_takes(n, d_pad):
         return "wide"
-    if dtype == torch.float32:
-        return "fma"
+    f32 = dtype == torch.float32
     if (n <= WGMMA_MAX_SEQ and d_pad <= WGMMA_MAX_HEAD_DIM
             and (strides is None or all(s > 0 for s in strides))):
-        return "wgmma"
-    return "mma.sync"
+        return "wgmma.tf32x3" if f32 else "wgmma"
+    return "fma" if f32 else "mma.sync"
 
 
 def c_design(which: int, dtype: torch.dtype, n: int, d_pad: int, strides,
@@ -231,6 +242,31 @@ def c_design(which: int, dtype: torch.dtype, n: int, d_pad: int, strides,
     if code < 0:
         raise ValueError(f"window_attention_design refuses {dtype} at N = {n}, D = {d_pad}")
     return DESIGNS[code]
+
+
+def split_floats(which: int, bw: int, h: int, n: int) -> int:
+    """Floats of f32 scratch the ``wgmma.tf32x3`` design of kernel 8
+    (``which`` 0) or 9 (1) takes for the split operands of a call, as the C
+    side sizes them (``window_attention_split_floats``). Needs the built
+    library."""
+    if "window_attention_split_floats" not in _fns:
+        fn = getattr(_build.load(SOURCE), "window_attention_split_floats")
+        fn.restype = ctypes.c_longlong
+        fn.argtypes = [ctypes.c_int] * 4
+        _fns["window_attention_split_floats"] = fn
+    floats = _fns["window_attention_split_floats"](which, bw, h, n)
+    if floats < 0:
+        raise ValueError(f"window_attention_split_floats refuses {(which, bw, h, n)}")
+    return floats
+
+
+def _split_scratch(which, design, bw, h, n, device):
+    """(pointer, keep-alive tensor) of the split-operand scratch of a call
+    in ``design``: null unless it is ``wgmma.tf32x3``."""
+    if design != "wgmma.tf32x3":
+        return None, None
+    buf = torch.empty(split_floats(which, bw, h, n), dtype=torch.float32, device=device)
+    return buf.data_ptr(), buf
 
 
 def last_designs() -> Tuple[Optional[str], Optional[str]]:
@@ -426,15 +462,19 @@ def _launch_fwd(q, k, v, bias, region_id, mode: int, heads_per_block: int,
     bias_f = bias.to(device=q.device, dtype=torch.float32).contiguous()
     rid_ptr, nw, rid = _rid_arg(region_id, q.device)
     strides = [s for x in (qp, kp, vp, out) for s in x.stride()[:3]]
+    split_ptr, split = None, None
+    if q.dtype == torch.float32 and mode == 0 and heads_per_block == 0:
+        design = c_design(0, q.dtype, n, d_pad, strides, entry != "window_attention_fwd")
+        split_ptr, split = _split_scratch(0, design, bw, h, n, q.device)
     st = (ctypes.c_longlong * len(strides))(*strides)
     with torch.cuda.device(q.device):
         err = _kernel(entry)(
             qp.data_ptr(), kp.data_ptr(), vp.data_ptr(), out.data_ptr(), bias_f.data_ptr(),
-            rid_ptr, _DTYPE_CODE[q.dtype], bw, n, h, d_pad, nw, mode, heads_per_block, st,
-            1.0 / math.sqrt(d), _stream(q))
+            rid_ptr, split_ptr, _DTYPE_CODE[q.dtype], bw, n, h, d_pad, nw, mode,
+            heads_per_block, st, 1.0 / math.sqrt(d), _stream(q))
     if err != 0:
         raise RuntimeError(f"{entry} launch failed: cudaError {err}")
-    del rid
+    del rid, split
     return out if d_pad == d else out[..., :d]
 
 
@@ -450,9 +490,9 @@ def window_attention_fwd_cuda(q, k, v, bias, region_id=None) -> torch.Tensor:
 
 
 def window_attention_fwd_mma_cuda(q, k, v, bias, region_id=None) -> torch.Tensor:
-    """Kernel 8 with the held mma.sync design wherever the wgmma design
-    would run (the yardstick of the new one), on CUDA tensors; counts no
-    launch, raises if it cannot launch."""
+    """Kernel 8 with the held mma.sync design (bf16) or the FMA kernel (f32)
+    wherever the wgmma designs would run (the yardsticks of the new ones), on
+    CUDA tensors; counts no launch, raises if it cannot launch."""
     return _launch_fwd(q, k, v, bias, region_id, MODES["exp"], 0, "window_attention_fwd_mma")
 
 
@@ -503,19 +543,20 @@ def dbias_groups(bw: int, n: int, h: int, sm_count: int, design: str) -> Tuple[i
     scratch buffer that a last launch sums in group order. mma.sync: one
     block per (head, 64-query tile, 64-key tile, window group) keeps its
     tile of the sum in registers over the group's windows, 4 blocks an SM;
-    wgmma: its dK/dV launch, one block per (head, 64-key tile, window group),
-    keeps its keys' columns in registers, 1 block an SM; fma and wide: one
-    block per (head, 64-query tile, window group) keeps its 64 rows in
-    shared memory, 2 blocks an SM. The group count minimises (waves of
+    wgmma and wgmma.tf32x3: the dK/dV launch, one block per (head, 64-key
+    tile, window group), keeps its keys' columns in registers, 1 block an SM;
+    fma and wide: one block per (head, 64-query tile, window group) keeps its
+    64 rows in shared memory, 2 blocks an SM. The group count minimises (waves of
     blocks) x (windows a block walks + 1, its partial's write; + 3 for
-    wgmma, whose blocks also copy 100 KB of bias and fill a pipeline)."""
+    the wgmma designs, whose blocks also copy 100 KB of bias and fill a
+    pipeline)."""
     if design not in DESIGNS:
         raise ValueError(f"unknown design {design!r}; expected one of {DESIGNS}")
     n_t = -(-n // 64)
     extra = 1
     if design == "mma.sync":
         tiles, resident = h * n_t * n_t, 4 * sm_count
-    elif design == "wgmma":
+    elif design in ("wgmma", "wgmma.tf32x3"):
         tiles, resident, extra = h * n_t, sm_count, 3
     else:
         tiles, resident = h * n_t, 2 * sm_count
@@ -555,16 +596,17 @@ def _bwd_cuda(q, k, v, bias, region_id, do, mma_only: bool = False):
     partial = (torch.empty((groups, h, n, n), dtype=torch.float32, device=q.device)
                if groups > 1 else dbias)
     rid_ptr, nw, rid = _rid_arg(region_id, q.device)
+    split_ptr, split = _split_scratch(1, design, bw, h, n, q.device)
     st = (ctypes.c_longlong * len(strides))(*strides)
     with torch.cuda.device(q.device):
         err = _kernel(entry)(
             qp.data_ptr(), kp.data_ptr(), vp.data_ptr(), gp.data_ptr(), bias_f.data_ptr(),
             rid_ptr, *(x.data_ptr() for x in grads), dbias.data_ptr(), stats.data_ptr(),
-            partial.data_ptr(), _DTYPE_CODE[q.dtype], bw, n, h, d_pad, nw, per_group, groups,
-            st, 1.0 / math.sqrt(d), _stream(q))
+            partial.data_ptr(), split_ptr, _DTYPE_CODE[q.dtype], bw, n, h, d_pad, nw,
+            per_group, groups, st, 1.0 / math.sqrt(d), _stream(q))
     if err != 0:
         raise RuntimeError(f"{entry} launch failed: cudaError {err}")
-    del rid, stats, partial
+    del rid, stats, partial, split
     dq, dk, dv = (x if d_pad == d else x[..., :d] for x in grads)
     return dq, dk, dv, dbias.to(bias.dtype)
 
@@ -582,9 +624,9 @@ def window_attention_bwd_cuda(q, k, v, bias, region_id, do):
 
 
 def window_attention_bwd_mma_cuda(q, k, v, bias, region_id, do):
-    """Kernel 9 with the held mma.sync design wherever the wgmma design
-    would run (the yardstick of the new one), on CUDA tensors; counts no
-    launch, raises if it cannot launch."""
+    """Kernel 9 with the held mma.sync design (bf16) or the FMA kernels
+    (f32) wherever the wgmma designs would run (the yardsticks of the new
+    ones), on CUDA tensors; counts no launch, raises if it cannot launch."""
     return _bwd_cuda(q, k, v, bias, region_id, do, mma_only=True)
 
 

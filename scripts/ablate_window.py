@@ -1,6 +1,7 @@
-"""What kernels 8-9's wgmma design spends its time on, on one CUDA card.
+"""What kernels 8-9's wgmma designs spend their time on, on one CUDA card.
 
-    python3 scripts/ablate_window.py
+    python3 scripts/ablate_window.py          # the bf16 design
+    python3 scripts/ablate_window.py --f32    # the f32 design, wgmma.tf32x3
 
 Builds ``laryngeal_tpu_torch/csrc/window_attention_wgmma.cu`` as it is and
 with one part of its work taken out or one of its choices changed at a time
@@ -31,9 +32,34 @@ turns (in order, then reversed). Variants:
   an earlier ``as_is`` call).
 
 The two consumer warpgroups split each row's keys (a row of 392 does not fit
-one warpgroup's registers), so no one-warpgroup variant exists. Prints the
-card's name and power limit, one line per variant and shape, and the times
-as one JSON object last. Needs nvcc and a card.
+one warpgroup's registers), so no one-warpgroup variant exists.
+
+With ``--f32`` the same is done for the f32 design (``wgmma.tf32x3``, the
+``tf32`` functions of the same source, through its ``fwd_tf32`` /
+``bwd_tf32`` launchers), on f32 inputs. Variants:
+
+- ``as_is``: the design (the pre-pass that splits the operands, then the
+  kernels);
+- ``prepass_only``: the pre-pass alone (``tf32_split_kernel``: the inputs
+  read, their big and small TF32 parts written, the transposed forms too);
+- ``kernels_only``: the kernels alone, reading the split operands an
+  ``as_is`` call left;
+- ``one_term``: one TF32 product a product instead of three (the tensor
+  cores' share of the 3xTF32 split);
+- ``no_products``: no wgmma at all (the chunk loads, barriers and the
+  arithmetic on whatever the accumulators hold);
+- ``loads_only``: ``no_products`` without the logits, softmax and ds
+  arithmetic (the TMA traffic through the rings and the barriers alone);
+- ``no_exp``: exp2 replaced by its argument;
+- ``pipelined_s``: S = Q K^T's chunks one batch deep (the next chunk's
+  products issued before the last ones are waited for) instead of each
+  chunk waited for in turn, in the forward and the dQ launch;
+- ``dq_only`` / ``dkv_only``: kernel 9's dQ launch or its dK/dV launch
+  alone, after the pre-pass.
+
+Prints the card's name and power limit, each variant's ptxas spills, one
+line per variant and shape, and the times as one JSON object last; exits
+non-zero if a variant does not build or launch. Needs nvcc and a card.
 """
 
 from __future__ import annotations
@@ -73,20 +99,29 @@ extern "C" int ablate_bwd(const void* q, const void* k, const void* v, const voi
                          nW, per_group, groups, st, scale, static_cast<cudaStream_t>(s));
 }
 '''
+F32_ENTRIES = '''
+extern "C" int ablate_fwd(const void* q, const void* k, const void* v, void* o, const float* bias,
+                          const int* rid, float* split, int BW, int H, int N, int D, int nW,
+                          const long long* st, float scale, void* s) {
+  return (int)winwg::fwd_tf32(q, k, v, o, bias, rid, split, BW, H, N, D, nW, st, scale,
+                              static_cast<cudaStream_t>(s));
+}
+extern "C" int ablate_bwd(const void* q, const void* k, const void* v, const void* g,
+                          const float* bias, const int* rid, void* dq, void* dk, void* dv,
+                          float* dbias, float* stats, float* partial, float* split, int BW, int H,
+                          int N, int D, int nW, int per_group, int groups, const long long* st,
+                          float scale, void* s) {
+  return (int)winwg::bwd_tf32(q, k, v, g, bias, rid, dq, dk, dv, dbias, stats, partial, split,
+                              BW, H, N, D, nW, per_group, groups, st, scale,
+                              static_cast<cudaStream_t>(s));
+}
+'''
 # Anchors in the source (build() refuses a variant whose edit no longer applies).
 LOGITS = "template <int NC>\n__device__ __forceinline__ void row_logits("
 SOFTMAX = "template <int NC>\n__device__ __forceinline__ void softmax("
-STEP_MATH = ("  if (!r.dead) {\n#pragma unroll\n    for (int j = 0; j < W / 8; ++j) {",
-             "  uint32_t pp[4][4], pd[4][4];")
-NO_STEP_MATH = ("#pragma unroll\n  for (int i = 0; i < L; ++i) db[i] += dpt[i];"
-                "  // ablation: no arithmetic\n")
-
-
-def _cut(text: str, start: str, end: str, insert: str) -> str:
-    """``text`` with [start, end) replaced by ``insert``."""
-    i = text.index(start)
-    j = text.index(end, i)
-    return text[:i] + insert + text[j:]
+SCORES = "template <int W>\n__device__ __forceinline__ void dkv_scores("
+NO_SCORES = ("#pragma unroll\n  for (int i = 0; i < W / 2; ++i) db[i] += dpt[i];"
+             "  // ablation: no arithmetic\n  (void)st;\n  (void)r;\n")
 
 
 def _stub(text: str, head: str, body: str) -> str:
@@ -119,10 +154,10 @@ def _loads_only(text: str) -> str:
 VARIANTS = {
     "as_is": lambda t: t,
     "loads_only": _loads_only,
-    "products_only": lambda t: _cut(
+    "products_only": lambda t: _stub(
         _stub(_stub(t, LOGITS, "  (void)s;\n"), SOFTMAX,
               "  m2[0] = m2[1] = 0.f;\n  il[0] = il[1] = 1.f;\n  (void)s;\n"),
-        *STEP_MATH, NO_STEP_MATH),
+        SCORES, NO_SCORES),
     "no_exp": lambda t: t.replace("hopper::exp2_approx(", "("),
     "no_mask": lambda t: t.replace("return differ ? __fadd_rn(x, kRegion) : x;", "return x;"),
     "bias_streamed": lambda t: t.replace(
@@ -134,7 +169,7 @@ VARIANTS = {
         "  const float* b1 = bias + ((long long)h * N + min(q0 + lr0 + 8, N - 1)) * N + wg * KW;"
         "\n\n  for (int w = w0, n = 0; w < w_end; ++w, ++n) {\n"
         "    const int s = n & 1;\n    hopper::mbar_wait(&full[s]"),
-    "no_dbias": lambda t: t.replace("        db[4 * j + u] += ds;\n", ""),
+    "no_dbias": lambda t: t.replace("      db[4 * j + u] += ds;\n", ""),
     "dq_only": lambda t: t.replace(
         "  window_bwd_dkv_wgmma_kernel<KW><<<", "  if (false) window_bwd_dkv_wgmma_kernel<KW><<<"),
     "dkv_only": lambda t: t.replace(
@@ -142,24 +177,93 @@ VARIANTS = {
 }
 RIGHT = ("as_is", "bias_streamed")
 
+# The f32 design's anchors.
+TF_ABT = "template <int W, int N>\n__device__ __forceinline__ void tf_abt("
+TF_AB = "template <int KK>\n__device__ __forceinline__ void tf_ab("
+TF_SPLIT_LAUNCH = "  tf32_split_kernel<<<"
+TF_AFTER_SPLITS = ("    return err;\n  CUtensorMap tq, tk, tk8, tvt;",
+                   "    return err;\n  CUtensorMap tq, tq32, tq8, tqt,")
 
-def build(name: str, workdir: Path):
-    text = VARIANTS[name]((_build.CSRC_DIR / SOURCE).read_text())
+
+def _tf_no_math(text: str) -> str:
+    """No logits, softmax or ds arithmetic in the f32 kernels (nor in the
+    bf16 ones, which share them and are not timed here)."""
+    return VARIANTS["products_only"](text)
+
+
+def _tf_no_products(text: str) -> str:
+    return _stub(_stub(text, TF_ABT, "  (void)d;\n"), TF_AB, "  (void)d;\n")
+
+
+def _tf_one_term(text: str) -> str:
+    for small in ("    tf_ss<W>(d, as + 2 * ks, bb + 2 * ks, ks > 0);\n",
+                  "    tf_ss<W>(d, ab + 2 * ks, bs + 2 * ks, 1);\n",
+                  "    hopper::wgmma_m64n32k8_tf32_rs(d, as[kk], bb + off, accumulate || kk > 0);\n",
+                  "    hopper::wgmma_m64n32k8_tf32_rs(d, ab[kk], bs + off, 1);\n"):
+        if text.count(small) != 1:
+            raise RuntimeError(f"one_term: anchor {small!r} not found once")
+        text = text.replace(small, "")
+    return text.replace("    tf_ss<W>(d, ab + 2 * ks, bb + 2 * ks, 1);",
+                        "    tf_ss<W>(d, ab + 2 * ks, bb + 2 * ks, ks > 0);").replace(
+        "    hopper::wgmma_m64n32k8_tf32_rs(d, ab[kk], bb + off, 1);",
+        "    hopper::wgmma_m64n32k8_tf32_rs(d, ab[kk], bb + off, accumulate || kk > 0);")
+
+
+TF_S_LOOP = (
+    "      hopper::wgmma_commit();\n      hopper::wgmma_wait<0>();\n      if (c < NC - 1)\n"
+    "        hopper::fence_regs(sc[c]);\n      else\n        fence_first<4>(sc[c]);\n"
+    "      ring.release(idx, lane);\n    }\n")
+TF_S_PIPELINED = (
+    "      hopper::wgmma_commit();\n      if (c > 0) {\n        hopper::wgmma_wait<1>();\n"
+    "        hopper::fence_regs(sc[c > 0 ? c - 1 : 0]);\n        ring.release(idx - 2, lane);\n"
+    "      }\n    }\n    hopper::wgmma_wait<0>();\n    fence_first<4>(sc[NC - 1]);\n"
+    "    ring.release(fill0 + 2 * (NC - 1) + wg, lane);\n")
+
+
+def _tf_pipelined_s(text: str) -> str:
+    if text.count(TF_S_LOOP) != 2:
+        raise RuntimeError("pipelined_s: the S loops moved")
+    return text.replace(TF_S_LOOP, TF_S_PIPELINED)
+
+
+F32_VARIANTS = {
+    "as_is": lambda t: t,
+    "prepass_only": lambda t: t.replace(TF_AFTER_SPLITS[0], TF_AFTER_SPLITS[0].replace(
+        "return err;\n", "return err;\n  if (true) return cudaSuccess;\n")).replace(
+        TF_AFTER_SPLITS[1], TF_AFTER_SPLITS[1].replace(
+            "return err;\n", "return err;\n  if (true) return cudaSuccess;\n")),
+    "kernels_only": lambda t: t.replace(TF_SPLIT_LAUNCH, "  if (false) tf32_split_kernel<<<"),
+    "one_term": _tf_one_term,
+    "no_products": _tf_no_products,
+    "loads_only": lambda t: _tf_no_math(_tf_no_products(t)),
+    "no_exp": lambda t: t.replace("hopper::exp2_approx(", "("),
+    "pipelined_s": _tf_pipelined_s,
+    "dq_only": lambda t: t.replace(
+        "  window_bwd_dkv_tf32_kernel<KW><<<", "  if (false) window_bwd_dkv_tf32_kernel<KW><<<"),
+    "dkv_only": lambda t: t.replace(
+        "  window_bwd_dq_tf32_kernel<KW><<<", "  if (false) window_bwd_dq_tf32_kernel<KW><<<"),
+}
+F32_RIGHT = ("as_is", "kernels_only", "pipelined_s")
+
+
+def build(name: str, workdir: Path, f32: bool = False):
+    variants, entries = (F32_VARIANTS, F32_ENTRIES) if f32 else (VARIANTS, ENTRIES)
+    text = variants[name]((_build.CSRC_DIR / SOURCE).read_text())
     if name != "as_is" and text == (_build.CSRC_DIR / SOURCE).read_text():
         raise RuntimeError(f"variant {name}: no edit applied (the source has moved on)")
     src, lib = workdir / f"{name}.cu", workdir / f"{name}.so"
-    src.write_text(text + ENTRIES)
+    src.write_text(text + entries)
     proc = subprocess.run([_build.find_nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC_DIR),
                            "-o", str(lib), str(src)], capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for {name}:\n{proc.stdout}{proc.stderr}")
     dll = ctypes.CDLL(str(lib))
-    ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
     st = ctypes.POINTER(ctypes.c_longlong)
     fwd, bwd = dll.ablate_fwd, dll.ablate_bwd
     fwd.restype = bwd.restype = ctypes.c_int
-    fwd.argtypes = [ptr] * 6 + [i32] * 5 + [st, f32, ptr]
-    bwd.argtypes = [ptr] * 12 + [i32] * 7 + [st, f32, ptr]
+    fwd.argtypes = [ptr] * (7 if f32 else 6) + [i32] * 5 + [st, ctypes.c_float, ptr]
+    bwd.argtypes = [ptr] * (13 if f32 else 12) + [i32] * 7 + [st, ctypes.c_float, ptr]
     spills = [line.strip() for line in (proc.stdout + proc.stderr).splitlines()
               if "spill" in line and " 0 bytes spill stores" not in line]
     return (fwd, bwd), spills
@@ -179,14 +283,13 @@ def queued_ms(fn, reps: int = 20) -> float:
     return float(np.median(times))
 
 
-def stage_inputs(shape, grid):
+def stage_inputs(shape, grid, dtype=torch.bfloat16):
     from laryngeal_tpu_torch.models.swin3d import adjust_window, shift_region_ids
 
     bw, n, h, d = shape
     gen = torch.Generator(device="cuda").manual_seed(0)
-    q, k, v = torch.randn((bw, n, 3, h, d), generator=gen, device="cuda").to(
-        torch.bfloat16).unbind(2)
-    g = torch.randn((bw, n, h, d), generator=gen, device="cuda").to(torch.bfloat16)
+    q, k, v = torch.randn((bw, n, 3, h, d), generator=gen, device="cuda").to(dtype).unbind(2)
+    g = torch.randn((bw, n, h, d), generator=gen, device="cuda").to(dtype)
     bias = torch.randn((h, n, n), generator=gen, device="cuda")
     window, shift = adjust_window(grid, (8, 7, 7), (4, 3, 3))
     rid = torch.from_numpy(shift_region_ids(grid, window, shift)).to("cuda", torch.int32)
@@ -199,21 +302,34 @@ def main() -> int:
         return 2
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip(), flush=True)
+    f32 = sys.argv[1:] == ["--f32"]
+    if sys.argv[1:] not in ([], ["--f32"]):
+        print("usage: ablate_window.py [--f32]", file=sys.stderr)
+        return 2
+    variants, right = (F32_VARIANTS, F32_RIGHT) if f32 else (VARIANTS, RIGHT)
+    dtype = torch.float32 if f32 else torch.bfloat16
+    design = "wgmma.tf32x3" if f32 else "wgmma"
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     stream = torch.cuda.current_stream().cuda_stream
     results = {}
-    with tempfile.TemporaryDirectory() as tmp, ThreadPoolExecutor(len(VARIANTS)) as pool:
-        built = dict(zip(VARIANTS, pool.map(lambda name: build(name, Path(tmp)), VARIANTS)))
+    with tempfile.TemporaryDirectory() as tmp, ThreadPoolExecutor(len(variants)) as pool:
+        built = dict(zip(variants, pool.map(lambda name: build(name, Path(tmp), f32),
+                                            variants)))
         for name, (_, spills) in built.items():
             for line in spills:
                 print(f"{name}: ptxas {line}", flush=True)
         for stage, (shape, grid) in STAGES.items():
             bw, n, h, d = shape
-            q, k, v, g, bias, rid = stage_inputs(shape, grid)
+            q, k, v, g, bias, rid = stage_inputs(shape, grid, dtype)
             nw = rid.shape[0]
-            o, dq, dk, dv = (torch.empty((bw, n, h, d), dtype=torch.bfloat16, device="cuda")
+            o, dq, dk, dv = (torch.empty((bw, n, h, d), dtype=dtype, device="cuda")
                              for _ in range(4))
-            per_group, groups = wa.dbias_groups(bw, n, h, sms, "wgmma")
+            per_group, groups = wa.dbias_groups(bw, n, h, sms, design)
+            # The f32 design's split operands, the forward's and the
+            # backward's, each shared by the variants.
+            splits = [torch.empty(wa.split_floats(i, bw, h, n), device="cuda") for i in (0, 1)
+                      ] if f32 else []
+            split_f, split_b = ((x.data_ptr(),) for x in splits) if f32 else ((), ())
             dbias = torch.empty((h, n, n), device="cuda")
             stats = torch.empty((bw, h, 3, n), device="cuda")
             partial = torch.empty((groups, h, n, n), device="cuda")
@@ -224,29 +340,30 @@ def main() -> int:
 
             def fwd(name):
                 err = built[name][0][0](q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                                        bias.data_ptr(), rid.data_ptr(), bw, h, n, d, nw, st_f,
-                                        scale, stream)
+                                        bias.data_ptr(), rid.data_ptr(), *split_f, bw, h, n, d,
+                                        nw, st_f, scale, stream)
                 if err != 0:
                     raise RuntimeError(f"{name}: forward launch failed: cudaError {err}")
 
             def bwd(name):
                 err = built[name][0][1](*(x.data_ptr() for x in (q, k, v, g, bias, rid, dq, dk,
                                                                    dv, dbias, stats, partial)),
-                                        bw, h, n, d, nw, per_group, groups, st_b, scale, stream)
+                                        *split_b, bw, h, n, d, nw, per_group, groups, st_b,
+                                        scale, stream)
                 if err != 0:
                     raise RuntimeError(f"{name}: backward launch failed: cudaError {err}")
 
             fwd("as_is")
             bwd("as_is")
             want = [x.clone() for x in (o, dq, dk, dv, partial)]
-            for name in RIGHT[1:]:
+            for name in right[1:]:
                 fwd(name)
                 bwd(name)
                 torch.cuda.synchronize()
                 same = all(torch.equal(x, y) for x, y in zip((o, dq, dk, dv, partial), want))
                 print(f"stage {stage} {name}: bitwise as_is {same}", flush=True)
             fns = {f"{kind} {name}": (lambda f=f, name=name: f(name))
-                   for name in VARIANTS for kind, f in (("kernel 9", bwd), ("kernel 8", fwd))
+                   for name in variants for kind, f in (("kernel 9", bwd), ("kernel 8", fwd))
                    if not (kind == "kernel 8" and name in ("no_dbias", "dq_only", "dkv_only"))}
             times = {key: [] for key in fns}
             for order in (list(fns), list(fns)[::-1]):
@@ -257,8 +374,9 @@ def main() -> int:
                 base = ms[key.split(" ")[0] + " " + key.split(" ")[1] + " as_is"]
                 print(f"stage {stage} {shape} {key}: {t:.4f} ms ({t / base:.3f} of as_is)",
                       flush=True)
-            results[f"stage{stage}"] = {"shape": list(shape), "queued_ms": ms}
-            del q, k, v, g, bias, rid, o, dq, dk, dv, dbias, stats, partial, want
+            results[f"stage{stage}"] = {"shape": list(shape), "dtype": str(dtype)[6:],
+                                        "queued_ms": ms}
+            del q, k, v, g, bias, rid, o, dq, dk, dv, dbias, stats, partial, want, splits
             torch.cuda.empty_cache()
     print(json.dumps(results), flush=True)
     return 0

@@ -1579,20 +1579,20 @@ def test_window_wgmma_is_deterministic(cuda, shape):
         assert torch.equal(a, b), name
 
 
-def _window_views(shape, layout, device, seed):
-    """bf16 q, k, v, dO as views of a fused (B·nW, N, 3, H, D) qkv (dO
-    contiguous) or of (B·nW, H, N, D) tensors transposed, an f32 bias and
-    region ids in 0..2."""
+def _window_views(shape, layout, device, seed, dtype=torch.bfloat16):
+    """q, k, v, dO (bf16 unless ``dtype``) as views of a fused (B·nW, N, 3,
+    H, D) qkv (dO contiguous) or of (B·nW, H, N, D) tensors transposed, an
+    f32 bias and region ids in 0..2."""
     bw, n, h, d, nw = shape
     rng = np.random.default_rng(seed)
     if layout == "fused":
         qkv = torch.from_numpy(rng.standard_normal((bw, n, 3, h, d), dtype=np.float32))
-        q, k, v = qkv.to(device, torch.bfloat16).unbind(2)
+        q, k, v = qkv.to(device, dtype).unbind(2)
         g = torch.from_numpy(rng.standard_normal((bw, n, h, d), dtype=np.float32)).to(
-            device, torch.bfloat16)
+            device, dtype)
     else:
         q, k, v, g = (torch.from_numpy(rng.standard_normal((bw, h, n, d), dtype=np.float32))
-                      .to(device, torch.bfloat16).transpose(1, 2) for _ in range(4))
+                      .to(device, dtype).transpose(1, 2) for _ in range(4))
     bias = torch.from_numpy(rng.standard_normal((h, n, n), dtype=np.float32)).to(device)
     rid = torch.from_numpy(rng.integers(0, 3, (nw, n)).astype(np.int32)).to(device)
     return q, k, v, g, bias, rid
@@ -1630,8 +1630,8 @@ def test_window_design_mirror_matches_the_c_choice(cuda, which):
     names the design the C entries choose (``window_attention_design``) for
     kernel 8 (``which`` 0) and 9 (1): at the wgmma design's edges and past
     them, in both dtypes, with every stride positive and with a stride of 0;
-    the ``_mma`` entries' choice is mma.sync wherever the wgmma design would
-    run."""
+    the ``_mma`` entries' choice is mma.sync (bf16) or FMA (f32) wherever a
+    wgmma design would run."""
     n_st = 12 if which == 0 else 21
     for n in (1, 8, 56, 144, 145, 272, 273, 392, 400, 401, 448, 449, 512):
         for d in (8, 16, 24, 32, 40, 64, 128, 136, 256):
@@ -1639,8 +1639,9 @@ def test_window_design_mirror_matches_the_c_choice(cuda, which):
                 for strides in ([96] * n_st, [96] * (n_st - 1) + [0]):
                     want = wa.design_takes(n, d, dtype, strides)
                     assert wa.c_design(which, dtype, n, d, strides) == want, (n, d, dtype)
-                    assert wa.c_design(which, dtype, n, d, strides, mma_only=True) == (
-                        "mma.sync" if want == "wgmma" else want), (n, d, dtype)
+                    assert wa.c_design(which, dtype, n, d, strides, mma_only=True) == {
+                        "wgmma": "mma.sync", "wgmma.tf32x3": "fma"}.get(want, want), (
+                            n, d, dtype)
 
 
 def test_window_wgmma_counts_one_launch_a_call_by_design(cuda):
@@ -1660,7 +1661,7 @@ def test_window_wgmma_counts_one_launch_a_call_by_design(cuda):
         "window_attention_fwd_exp2": 0, "window_attention_fwd_h2": 0}
     for e in designs:
         assert {d: wa.design_launches[e][d] - designs[e][d] for d in wa.DESIGNS} == {
-            "fma": 0, "mma.sync": 0, "wide": 0, "wgmma": 1}, e
+            "fma": 0, "mma.sync": 0, "wide": 0, "wgmma": 1, "wgmma.tf32x3": 0}, e
 
 
 def test_window_wgmma_failure_raises_and_runs_no_other_design(cuda, monkeypatch):
@@ -1681,3 +1682,69 @@ def test_window_wgmma_failure_raises_and_runs_no_other_design(cuda, monkeypatch)
     with pytest.raises(RuntimeError):
         wa.window_attention_bwd_cuda(q, k, v, bias, rid, g)
     assert wa.launch_counts() == before
+
+# -- kernels 8-9's f32 design (wgmma.tf32x3: 3xTF32, N <= 400, D <= 32) -----
+# (B·nW, N, H, D, nW): its smallest window, the points past which its key
+# width KW switches (N = 145, and 273 at D = 24, padded to 32), Swin3D's
+# N = 392 and its largest window, N = 400.
+WINDOW_TF32_EDGES = [(6, 8, 3, 32, 2), (6, 145, 3, 32, 3), (4, 273, 3, 24, 1),
+                     (4, 392, 3, 32, 2), (4, 400, 3, 32, 2)]
+
+
+@pytest.mark.parametrize("layout", ["fused", "bhnd"])
+@pytest.mark.parametrize("shape", WINDOW_TF32_EDGES, ids=str)
+def test_window_tf32_edges_match_plain_and_repeat(cuda, shape, layout):
+    """f32 q, k, v, dO as views of a fused qkv or of (B·nW, H, N, D) tensors
+    transposed, at the f32 design's edges: the entries run wgmma.tf32x3
+    (``design_takes`` names it), give bitwise the same o, dq, dk, dv and
+    dbias on a second call and stay within the f32 limits (1e-4 on o,
+    F32_REL·A + 1e-6 on the gradients); the ``_mma`` entries run the FMA
+    kernels, within the same limits."""
+    q, k, v, g, bias, rid = _window_views(shape, layout, cuda, seed=30, dtype=torch.float32)
+    assert wa.design_takes(shape[1], shape[3], torch.float32) == "wgmma.tf32x3"
+    runs = [(wa.window_attention_fwd_cuda(q, k, v, bias, rid),
+             *wa.window_attention_bwd_cuda(q, k, v, bias, rid, g)) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert wa.last_designs() == ("wgmma.tf32x3", "wgmma.tf32x3")
+    for name, a, b in zip(("o", "dq", "dk", "dv", "dbias"), *runs):
+        assert torch.equal(a, b), name
+    uses = _window_uses(q, k, v, bias, rid, g, runs[0][0], runs[0][1:])
+    assert max(uses) <= 1.0, uses
+    old = (wa.window_attention_fwd_mma_cuda(q, k, v, bias, rid),
+           wa.window_attention_bwd_mma_cuda(q, k, v, bias, rid, g))
+    torch.cuda.synchronize()
+    assert wa.last_designs() == ("fma", "fma")
+    uses_old = _window_uses(q, k, v, bias, rid, g, *old)
+    assert max(uses_old) <= 1.0, uses_old
+
+
+def test_window_tf32_gradients_through_autograd_match_plain(cuda):
+    """f32 q/k/v as views of one fused qkv under autograd at Swin3D's window:
+    the router runs kernel 8 and kernel 9 once each, both on wgmma.tf32x3,
+    and the fused tensor and the bias get the plain twin's gradients within
+    the f32 limits."""
+    from laryngeal_tpu_torch.ops import attention as att
+
+    rng = np.random.default_rng(31)
+    qkv = torch.from_numpy(rng.standard_normal((8, 392, 3, 3, 32), dtype=np.float32))
+    qkv = qkv.to(cuda).requires_grad_()
+    bias = torch.from_numpy(rng.standard_normal((3, 392, 392), dtype=np.float32)).to(cuda)
+    bias.requires_grad_()
+    rid = torch.from_numpy(rng.integers(0, 3, (4, 392)).astype(np.int32)).to(cuda)
+    g = torch.from_numpy(rng.standard_normal((8, 392, 3, 32), dtype=np.float32)).to(cuda)
+    before = {e: dict(c) for e, c in wa.design_launches.items()}
+    out = att.window_attention(*qkv.unbind(2), bias, rid)
+    (out * g).sum().backward()
+    torch.cuda.synchronize()
+    for e, counts in wa.design_launches.items():
+        assert {d: n - before[e][d] for d, n in counts.items()} == {
+            "fma": 0, "mma.sync": 0, "wide": 0, "wgmma": 0, "wgmma.tf32x3": 1}, e
+    q, k, v = (x.detach() for x in qkv.unbind(2))
+    b = bias.detach()
+    ref = wa.window_attention_plain(q, k, v, b, rid)
+    assert (out.detach() - ref).abs().max().item() <= 1e-4
+    refs = wa.window_attention_plain_bwd(q, k, v, b, rid, g)
+    limits = wa.backward_error_limit(q, k, v, b, rid, g, refs)
+    for name, got, ref_g, lim in zip(("dq", "dk", "dv", "dbias"),
+                                     (*qkv.grad.unbind(2), bias.grad), refs, limits):
+        assert ((got - ref_g).abs() / lim).max().item() <= 1.0, name

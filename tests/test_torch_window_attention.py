@@ -462,13 +462,18 @@ def test_dbias_groups_fill_the_card_at_the_swin3d_stages():
     assert wa.dbias_groups(1024, 392, 3, 132, "wgmma") == (171, 6)
     assert wa.dbias_groups(256, 392, 6, 132, "wgmma") == (86, 3)
     assert wa.dbias_groups(16, 392, 24, 132, "wgmma") == (8, 2)
+    # The f32 design's dK/dV launch has the same blocks: the same groups.
+    for bw, h in ((1024, 3), (256, 6), (64, 12), (16, 24)):
+        assert (wa.dbias_groups(bw, 392, h, 132, "wgmma.tf32x3")
+                == wa.dbias_groups(bw, 392, h, 132, "wgmma"))
     with pytest.raises(ValueError):
         wa.dbias_groups(16, 392, 24, 132, "tensor")
 
 
 # (N, D, dtype, strides) -> the design the C entries run: the wgmma design at
-# bf16, N <= 400, D <= 32 (padded) with positive strides; mma.sync elsewhere
-# at N <= 448, D <= 128; fma in f32 there; the wide path beyond.
+# bf16, N <= 400, D <= 32 (padded) with positive strides, wgmma.tf32x3 in f32
+# there; mma.sync (bf16) and fma (f32) elsewhere at N <= 448, D <= 128; the
+# wide path beyond.
 DESIGN_CASES = [
     ((392, 32, torch.bfloat16, None), "wgmma"),          # every Swin3D-T stage
     ((8, 32, torch.bfloat16, None), "wgmma"),
@@ -482,7 +487,13 @@ DESIGN_CASES = [
     ((392, 64, torch.bfloat16, None), "mma.sync"),
     ((392, 40, torch.bfloat16, None), "mma.sync"),       # padded to 48
     ((392, 32, torch.bfloat16, (1, 8, 8, 0, 8, 8)), "mma.sync"),  # a broadcast stride
-    ((392, 32, torch.float32, None), "fma"),
+    ((392, 32, torch.float32, None), "wgmma.tf32x3"),   # every Swin3D-T stage in f32
+    ((8, 32, torch.float32, None), "wgmma.tf32x3"),
+    ((400, 32, torch.float32, None), "wgmma.tf32x3"),
+    ((245, 20, torch.float32, None), "wgmma.tf32x3"),    # D padded to 24
+    ((401, 32, torch.float32, None), "fma"),
+    ((392, 64, torch.float32, None), "fma"),
+    ((392, 32, torch.float32, (1, 8, 8, 0, 8, 8)), "fma"),  # a broadcast stride
     ((512, 32, torch.bfloat16, None), "wide"),
     ((392, 192, torch.bfloat16, None), "wide"),
     ((512, 32, torch.float32, None), "wide"),
@@ -494,3 +505,100 @@ def test_design_takes_mirrors_the_c_choice(case, want):
     n, d, dtype, strides = case
     assert wa.design_takes(n, d, dtype, strides) == want
     assert wa.kernel_takes(n, d)
+
+
+# -- kernels 8-9's f32 design (wgmma.tf32x3), emulated on the CPU ----------
+
+
+def _tf32(x):
+    """x rounded to TF32 (10 mantissa bits) to nearest, ties away from zero,
+    by integer ops on the f32 bits: ``cvt.rna.tf32.f32``."""
+    bits = x.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _split_tf32(x):
+    """The kernels' split (``tf32_split``): big = x with its low 13 bits
+    masked, small = tf32(x - big); x - big is exact in f32."""
+    big = (x.float().contiguous().view(torch.int32) & ~0x1FFF).view(torch.float32)
+    return big, _tf32(x.float() - big)
+
+
+def _split_bf16(x):
+    """hi = bf16(x), lo = bf16(x - hi), both rounded to nearest even: bf16x3."""
+    hi = x.float().to(torch.bfloat16).float()
+    return hi, (x.float() - hi).to(torch.bfloat16).float()
+
+
+def _emulate_f32_design(q, k, v, bias, rid, g, split="tf32x3"):
+    """The f32 tensor-core design's arithmetic on the CPU, forward and
+    backward: each of the five products (S = Q K^T, O = P V, dP = dO V^T,
+    dV = P^T dO, dQ = ds K and dK = ds^T Q) as small.big + big.small +
+    big.big over two TF32 parts (``"tf32x3"``, the kernels' split) or two
+    bf16 parts (``"bf16x3"``, a split no kernel runs), or one TF32 product of
+    the operands rounded to nearest (``"tf32"``); the logits, the exact
+    softmax, delta, ds, the scale and dbias in f32. Returns (o, (dq, dk, dv,
+    dbias))."""
+    parts = {"tf32x3": _split_tf32, "bf16x3": _split_bf16,
+             "tf32": lambda x: (_tf32(x), None)}[split]
+
+    def prod(eq, a, b):
+        (ab, a_small), (bb, b_small) = parts(a), parts(b)
+        out = torch.einsum(eq, ab, bb)
+        if a_small is not None:
+            out = torch.einsum(eq, a_small, bb) + torch.einsum(eq, ab, b_small) + out
+        return out
+
+    bw, n, h, d = q.shape
+    scale = 1.0 / d ** 0.5
+    s = prod("bqhd,bkhd->bhqk", q, k) * scale + bias
+    if rid is not None:
+        mask = wa.region_mask(rid)
+        nw = mask.shape[0]
+        s = s.view(bw // nw, nw, h, n, n)
+        s = torch.where(mask[None, :, None], s + wa.MASK_VALUE, s).view(bw, h, n, n)
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    p = p / p.sum(-1, keepdim=True)
+    o = prod("bhqk,bkhd->bqhd", p, v)
+    dp = prod("bqhd,bkhd->bhqk", g, v)
+    ds = p * (dp - (p * dp).sum(-1, keepdim=True))
+    dv = prod("bhqk,bqhd->bkhd", p, g)
+    dq = prod("bhqk,bkhd->bqhd", ds, k) * scale
+    dk = prod("bhqk,bqhd->bkhd", ds, q) * scale
+    return o, (dq, dk, dv, ds.sum(0))
+
+
+def _f32_design_uses(shape, seed):
+    """|err| / limit of each split's emulation against the JAX package's f32
+    ``window_attention_pallas`` (interpret mode) and ``jax.grad`` through it:
+    {split: [o / 1e-4, dq, dk, dv, dbias under backward_error_limit]}."""
+    q, k, v, bias, rid, g = _inputs(shape, seed=seed)
+    rid_j = jnp.asarray(rid)
+    ref = np.asarray(WA.window_attention_pallas(*(_jax(x) for x in (q, k, v, bias)), rid_j))
+    refs = [torch.from_numpy(np.array(x))
+            for x in _jax_grads(q, k, v, bias, rid, g, WA.window_attention_pallas)]
+    args = [_torch(x) for x in (q, k, v, bias)] + [_rid_t(rid), _torch(g)]
+    limits = wa.backward_error_limit(*args, refs)
+    out = {}
+    for split in ("tf32x3", "tf32", "bf16x3"):
+        o, grads = _emulate_f32_design(*args, split=split)
+        out[split] = [np.abs(o.numpy() - ref).max() / 1e-4] + [
+            ((x - r).abs() / lim).max().item() for x, r, lim in zip(grads, refs, limits)]
+    return out
+
+
+@pytest.mark.parametrize("shape", [(2, 392, 2, 32, 2), (3, 200, 2, 32, 1)], ids=str)
+def test_f32_split_tf32_emulation_holds_the_limits_where_one_term_does_not(shape):
+    """Kernels 8-9's f32 design splits every operand into two TF32 parts
+    and sums three products per product (3xTF32). Emulated on the CPU at
+    Swin3D's N = 392, D = 32 with region ids, forward and backward, it
+    stays within 1e-4 of the JAX package's f32 window kernel on O and within
+    ``backward_error_limit`` (F32_REL·A + 1e-6) on dq, dk, dv and dbias;
+    one-term TF32 on the same inputs does not, which is why the split exists.
+    bf16x3 (hi and lo bf16 parts, a split no kernel runs) holds them too,
+    but nearer the limits than 3xTF32 on every output."""
+    uses = _f32_design_uses(shape, seed=30)
+    assert max(uses["tf32x3"]) <= 0.25, uses["tf32x3"]
+    assert uses["tf32"][0] > 1.0 and max(uses["tf32"][1:]) > 1.0, uses["tf32"]
+    assert max(uses["bf16x3"]) <= 1.0, uses["bf16x3"]
+    assert all(b > t for b, t in zip(uses["bf16x3"], uses["tf32x3"])), uses
