@@ -69,11 +69,15 @@ Phases, in order; any failure ends the run with a non-zero exit:
    1 to 511 with D from 16 to 128 and odd B*H (kernel 7's wgmma edges, N =
    65, 128, 129, 192, 256 at D = 64 and N = 197 at D = 32, on fused-qkv
    views and on transposed (B, H, N, D) ones), each under its elementwise
-   limit; the earlier mma.sync designs (``short_attention_fwd_mma``,
-   ``short_attention_bwd_mma``) under the same limits at every case, and
-   the design each entry ran (``short_attention.last_designs``) printed. The
-   ptxas report of kernels 6-7's wgmma instances is printed. Timed beside
-   the plain twins, their bounds and ``F.scaled_dot_product_attention``'s
+   limit; in f32 also the edges of the f32 design wgmma.tf32x3 (N = 65, 128,
+   129, 192, 197, 200, 256 at D = 32, 40, 64, fused and transposed); the
+   earlier designs (``short_attention_fwd_mma``, ``short_attention_bwd_mma``:
+   mma.sync in bf16, FMA in f32) under the same limits at every case, and
+   the design each entry ran (``short_attention.last_designs``) printed and
+   held to ``short_attention.design_takes``. The ptxas report of kernels
+   6-7's wgmma and tf32 instances is printed. Timed beside the plain twins,
+   their bounds (f32 on wgmma.tf32x3: 3xTF32 at the TF32 peak; the FMA and
+   bf16x3 bounds in the log) and ``F.scaled_dot_product_attention``'s
    forward and autograd backward (single calls and queued); each kernel
    also beside its earlier design in turns (old, new, new, old), single
    calls and queued (20 calls back to back: the card's time without the
@@ -89,7 +93,13 @@ Phases, in order; any failure ends the run with a non-zero exit:
    each of kernels 6 and 7 and none of kernels 1-4 per step (of kernel 7,
    the 12 spatial calls on its wgmma design and the 12 temporal ones on
    mma.sync), 24 of kernel 6 per eval step; loss finite; step time, clips/s, stages, peak memory. Then
-   every parameter's gradient at B=2, kernels against plain attention.
+   in f32 (the CLI's default compute dtype) at B=8: the forward (median of
+   5) with its logits against the same model on the plain attention, and
+   the train step (median of 3 after a warm-up), each with kernels 6-7's
+   launches by design (the 12 spatial calls on wgmma.tf32x3, the 12
+   temporal ones on FMA) and their share from phase 7's f32 times, peak
+   memory. Then every parameter's gradient at B=2, kernels against plain
+   attention, f32 and bf16.
 10. ``cli.main --model timesformer --bf16``: 1 epoch, ``--resume auto`` for
    a second, ``Predictor.from_checkpoint("timesformer", best_model)``.
 11. (run after 7) Kernels 8-9, Swin3D's shifted-window attention: the
@@ -1127,14 +1137,30 @@ def bhnd_qkv(shape, dtype, seed):
                  for _ in range(4))
 
 
-def short_bound_ms(shape, dtype, backward: bool):
+def short_bound_ms(shape, dtype, backward: bool, products: int = 1, peak=None):
     """Kernel 6: two (N x N x D) products per head, q/k/v read and o written
     once (4 tensors). Kernel 7: five products, q/k/v/g read and dq/dk/dv
-    written once (7 tensors)."""
+    written once (7 tensors). Each product counts as ``products`` products
+    at ``peak`` FLOP/s (the tensor cores in bf16, the FMA units in f32,
+    unless given)."""
     b, n, h, d = shape
     if backward:
-        return kernel_bound_ms(b, n, n, h, d, dtype, 5, 3, 4, 0)
-    return kernel_bound_ms(b, n, n, h, d, dtype, 2, 2, 2, 0)
+        return kernel_bound_ms(b, n, n, h, d, dtype, 5 * products, 3, 4, 0, peak=peak)
+    return kernel_bound_ms(b, n, n, h, d, dtype, 2 * products, 2, 2, 0, peak=peak)
+
+
+def short_f32_bounds(shape, backward: bool, design: str):
+    """Kernels 6-7 in f32: (bound ms, bound_by) of the design that ran,
+    3xTF32 (three TF32 products a product at the TF32 peak) for
+    wgmma.tf32x3 and the FMA units for fma; the other design's bound ms;
+    the bound ms of bf16x3, a split no kernel runs."""
+    f32 = torch.float32
+    tf32x3 = short_bound_ms(shape, f32, backward, 3, PEAK_TF32)
+    fma = short_bound_ms(shape, f32, backward)
+    bf16x3 = short_bound_ms(shape, f32, backward, 3, PEAK_FLOPS[torch.bfloat16])[0]
+    if design == "wgmma.tf32x3":
+        return (*tf32x3, fma[0], bf16x3)
+    return (*fma, tf32x3[0], bf16x3)
 
 
 # Kernels 6-7's bf16 designs; which design a call runs is the C side's choice
@@ -1147,6 +1173,16 @@ SHORT_BWD_DESIGN = ("wgmma + TMA (64 < N <= 256, D <= 64), a persistent block pe
                     "ahead, Q/dO 64 rows at a time): query tiles as rows (whole-row S, delta, "
                     "dQ), then key tiles as rows (dK, dV), the last chunk 16 wide; mma.sync "
                     "elsewhere")
+SHORT_F32_DESIGN = ("f32 at 64 < N <= 256, D <= 64, positive strides: wgmma.tf32x3 "
+                    "(short_attention_tf32.cu): persistent blocks over items of two 64-row "
+                    "tiles of a (sequence, head) pair, raw f32 rows brought in 32 at a time by "
+                    "TMA through a ring and split by 3 transform warps (rows form in place, T "
+                    "form transposed), Q/K/V split into registers, whole-row S in registers, "
+                    "three TF32 products a product; kernel 7 in two launches (row statistics "
+                    "and dQ; dK and dV); FMA elsewhere")
+# TF32 wgmma design edges (f32 only): N across 64 < N <= 256, D 32, 40, 64.
+SHORT_TF32_EDGES = [(f"n{n}_d{d}", (3, n, 5, d)) for n in (65, 128, 129, 192, 197, 200, 256)
+                    for d in (32, 40, 64)]
 
 
 def ptxas_lines(source: str, kernel: str) -> list:
@@ -1186,19 +1222,22 @@ def max_use(got, refs, limits):
 
 
 def check_short_kernels():
-    """Phases 7 and 7b: kernels 6-7 in both bf16 designs (the entries' and
-    the kept mma.sync ones) vs their plain twins on the card, across the
-    router's domain, each case printing the design the C side ran; timings
-    at the TimeSformer-B shapes beside the twins, the bounds, sdpa (single
-    and queued), the earlier designs in turns, and kernel 1 and the flash
-    training pair (the routing decision's data). Returns {entry name:
+    """Phases 7 and 7b: kernels 6-7 in both dtypes, the entries' designs and
+    the kept earlier ones (the _mma entries: mma.sync in bf16, FMA in f32),
+    vs their plain twins on the card, across the router's domain and (f32)
+    the wgmma.tf32x3 design's edges, each case printing the design the C
+    side ran and holding it to ``design_takes``; timings at the TimeSformer-B
+    shapes beside the twins, the bounds (3xTF32 where wgmma.tf32x3 ran), sdpa
+    (single and queued), the earlier designs in turns, and kernel 1 and the
+    flash training pair (the routing decision's data). Returns {entry name:
     numbers}."""
     import torch.nn.functional as F
 
     from laryngeal_tpu_torch.ops import flash_attention as fa
     from laryngeal_tpu_torch.ops import short_attention as sa
 
-    for kernel in ("short_fwd_wgmma_kernel", "short_bwd_wgmma_kernel"):
+    for kernel in ("short_fwd_wgmma_kernel", "short_bwd_wgmma_kernel", "short_fwd_tf32_kernel",
+                   "short_bwd_dq_tf32_kernel", "short_bwd_dkv_tf32_kernel"):
         for line in ptxas_lines("short_attention.cu", kernel):
             log(f"ptxas {line}")
     entries = {"short_attention_fwd": {}, "short_attention_bwd": {}}
@@ -1218,9 +1257,13 @@ def check_short_kernels():
                             ("n129_d64", (3, 129, 5, 64)), ("n192_d64", (3, 192, 5, 64)),
                             ("n256_d64", (1, 256, 5, 64)), ("n197_d32", (3, 197, 5, 32)))
         for layout in ("fused", "bhnd")]
+    f32_edges = [(f"{name}_{layout}", shape, layout) for name, shape in SHORT_TF32_EDGES
+                 for layout in ("fused", "bhnd")]
     for dtype in (torch.bfloat16, torch.float32):
         tag = str(dtype)[6:]
-        for seed, (name, shape, layout) in enumerate(cases):
+        earlier = "mma.sync" if dtype == torch.bfloat16 else "FMA"
+        for seed, (name, shape, layout) in enumerate(
+                cases + (f32_edges if dtype == torch.float32 else [])):
             q, k, v, g = (fused_qkv if layout == "fused" else bhnd_qkv)(shape, dtype, 30 + seed)
             ref = sa.short_attention_plain(q, k, v)
             limit = sa.error_limit(q, k, v, ref, F32_TOL)
@@ -1228,7 +1271,8 @@ def check_short_kernels():
             use_f = (diff / limit).max().item()
             err_f = diff.max().item()
             design_f = sa.last_designs()[0]
-            # The earlier mma.sync design under the same limit.
+            # The earlier design (the _mma entry: mma.sync in bf16, FMA in f32)
+            # under the same limit.
             use_old = ((sa.short_attention_fwd_mma_cuda(q, k, v).float() - ref.float()).abs()
                        / limit).max().item()
             del diff, ref, limit
@@ -1238,15 +1282,20 @@ def check_short_kernels():
             design_b = sa.last_designs()[1]
             uses_old, _ = max_use(sa.short_attention_bwd_mma_cuda(q, k, v, g), refs, limits)
             del refs, limits
+            # The design each entry ran is the one the C side's rule names
+            # (every layout here has positive strides).
+            want = tuple(sa.design_takes(w, shape[1], shape[3], dtype) for w in (0, 1))
             ok = (max([use_f, use_old] + uses + uses_old) <= 1.0
-                  and all(math.isfinite(x) for x in [err_f] + errs))
+                  and all(math.isfinite(x) for x in [err_f] + errs)
+                  and (design_f, design_b) == want)
             log(f"short attention {name} {shape} {tag}: fwd ({design_f}) max_abs_err "
-                f"{err_f:.3e} (|err|/limit {use_f:.3f}; mma.sync design {use_old:.3f}); bwd "
+                f"{err_f:.3e} (|err|/limit {use_f:.3f}; {earlier} design {use_old:.3f}); bwd "
                 f"({design_b}) dq/dk/dv max_abs_err {errs[0]:.3e}/{errs[1]:.3e}/{errs[2]:.3e}, "
-                f"|err|/limit {uses[0]:.3f}/{uses[1]:.3f}/{uses[2]:.3f} (mma.sync design "
+                f"|err|/limit {uses[0]:.3f}/{uses[1]:.3f}/{uses[2]:.3f} ({earlier} design "
                 f"{max(uses_old):.3f}) {'ok' if ok else 'FAIL'}")
             if not ok:
-                raise AssertionError(f"kernels 6-7 disagree with their plain twins: {name} {tag}")
+                raise AssertionError(f"kernels 6-7 disagree with their plain twins or ran "
+                                     f"another design than {want}: {name} {tag}")
             if dtype == torch.bfloat16:
                 for e, (err, use) in (("short_attention_fwd", (err_f, use_f)),
                                       ("short_attention_bwd", (max(errs), max(uses)))):
@@ -1290,7 +1339,14 @@ def check_short_kernels():
             for e, t, plain_ms, lib_ms, lib_q, design, backward in (
                     ("short_attention_fwd", t6, plain6, lib6, lib6_q, design6, False),
                     ("short_attention_bwd", t7, plain7, lib7, lib7_q, design7, True)):
-                bound_ms, bound_by = short_bound_ms(shape, dtype, backward)
+                extra = ""
+                if dtype == torch.bfloat16:
+                    bound_ms, bound_by = short_bound_ms(shape, dtype, backward)
+                else:
+                    bound_ms, bound_by, other, bf16x3 = short_f32_bounds(shape, backward, design)
+                    extra = (f" ({TF32X3_BOUND if design == 'wgmma.tf32x3' else 'FMA, 67 TFLOP/s'}"
+                             f"; the {'FMA' if design == 'wgmma.tf32x3' else '3xTF32'} bound "
+                             f"{other:.4f} ms, {BF16X3_BOUND} {bf16x3:.4f} ms)")
                 ms = t["new"]
                 numbers = dict(shape=list(shape), ms=ms, kernel_ms=ms, plain_ms=plain_ms,
                                bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms,
@@ -1301,8 +1357,8 @@ def check_short_kernels():
                 else:
                     numbers.update(flash_fwd_ms=ms1, flash_fwd_lse_ms=ms2)
                 log(f"{e} {name} {tag}: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, sdpa "
-                    f"{lib_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
-                    f"{bound_ms / ms:.3f} of the bound; design {design}, the earlier mma.sync "
+                    f"{lib_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}){extra}, "
+                    f"{bound_ms / ms:.3f} of the bound; design {design}, the earlier {earlier} "
                     f"design {t['old']:.4f} ms ({t['old'] / ms:.2f}x); queued: kernel "
                     f"{t['new_q']:.4f}, earlier design {t['old_q']:.4f} "
                     f"({t['old_q'] / t['new_q']:.2f}x), sdpa {lib_q:.4f} ms, "
@@ -1321,7 +1377,7 @@ def check_short_kernels():
                     headline="spatial (256, 197, 12, 64) bf16")
     for e, text in (("short_attention_fwd", SHORT_FWD_DESIGN),
                     ("short_attention_bwd", SHORT_BWD_DESIGN)):
-        entries[e]["design"] = f"{entries[e]['design']} at spatial; {text}"
+        entries[e]["design"] = f"{entries[e]['design']} at spatial; {text}; {SHORT_F32_DESIGN}"
     return entries
 
 
@@ -1462,9 +1518,83 @@ def timesformer_forward_flops(cfg, batch: int) -> float:
     return batch * (embed + cfg.num_layers * (dense + attn))
 
 
-def timesformer_training(kernel_ms: dict) -> None:
-    """Phases 9 and 10: the TimeSformer-B training path on the card, and
-    the training CLI."""
+def timesformer_f32_path(pixel_u8, labels, mask, f32_kernel_ms: dict, n_calls: int) -> None:
+    """Phase 9's f32 part: TimeSformer-B at B=8 in f32, the compute dtype of
+    the training CLI without ``--bf16``: the forward (model only, CUDA
+    events, median of 5) and its logits against the same model on the
+    plain attention, then the train step (host clock around a synchronised
+    step, median of 3 after a warm-up), each with kernels 6-7's launches by
+    design (the spatial calls on wgmma.tf32x3, the temporal ones on FMA) and
+    their share from phase 7's f32 times (``f32_kernel_ms``: {shape:
+    (kernel 6 ms, kernel 7 ms)})."""
+    from laryngeal_tpu_torch.ops import attention as att
+    from laryngeal_tpu_torch.ops import short_attention as sa
+    from laryngeal_tpu_torch.preprocess.transforms import batch_preprocess
+    from laryngeal_tpu_torch.train.state import create_train_state
+    from laryngeal_tpu_torch.train.steps import make_train_step
+
+    b, half = pixel_u8.shape[0], n_calls // 2
+    by_design = {"short_attention_fwd": sa.fwd_design_launches,
+                 "short_attention_bwd": sa.bwd_design_launches}
+    split = {"wgmma.tf32x3": half, "fma": half}
+    model = timesformer_b(torch.float32).cuda().eval()
+    pixel = batch_preprocess(pixel_u8, "timesformer", crop=224)
+    with torch.no_grad():
+        logits, fwd_designs = design_deltas(lambda: model(pixel), by_design)
+        fwd_ms = cuda_time_ms(lambda: model(pixel), reps=5, warmup=1)
+        att.set_attention_impl("plain")
+        try:
+            logits_plain = model(pixel)
+        finally:
+            att.set_attention_impl(None)
+    check_logits("f32 B=8", logits, logits_plain, LOGIT_TOL[torch.float32], "timesformer-b")
+    want_fwd = {"short_attention_fwd": split, "short_attention_bwd": {}}
+    if fwd_designs != want_fwd:
+        raise AssertionError(f"f32 TimeSformer-B forward: kernels 6-7 by design {fwd_designs}, "
+                             f"want {want_fwd}")
+    k6 = half * sum(ms[0] for ms in f32_kernel_ms.values())
+    k7 = half * sum(ms[1] for ms in f32_kernel_ms.values())
+    k6_spatial = half * f32_kernel_ms["spatial"][0]
+    log(f"timesformer-b 32f 224 f32 B={b} forward: {fwd_ms:.2f} ms (model only, CUDA events, "
+        f"median of 5); kernel 6 by design {fwd_designs['short_attention_fwd']}, {k6:.2f} ms "
+        f"over the {n_calls} calls = {k6 / fwd_ms:.3f} of the forward (spatial on "
+        f"wgmma.tf32x3 {k6_spatial:.2f} ms)")
+    del pixel, logits, logits_plain
+    model.train()
+    state = create_train_state(model, "adamw", 1e-4, 0.01)
+    step = make_train_step(model, "timesformer", "ce", crop=224)
+    ((state, m), per_step), designs = design_deltas(
+        lambda: launched(lambda: step(state, pixel_u8, labels, mask)), by_design)
+    want = {k: 0 for k in per_step}
+    want.update(short_attention_fwd=n_calls, short_attention_bwd=n_calls)
+    want_designs = {e: split for e in by_design}
+    if per_step != want or designs != want_designs:
+        raise AssertionError(f"f32 TimeSformer-B train step: launches {per_step}, by design "
+                             f"{designs}; want {want}, {want_designs}")
+    times, losses = [], [m["loss"].item()]
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, pixel_u8, labels, mask)
+        losses.append(m["loss"].item())
+        times.append((time.perf_counter() - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated()
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"non-finite f32 loss {losses}")
+    step_ms = float(np.median(times))
+    log(f"timesformer-b 32f 224 f32 B={b} train step: {step_ms:.2f} ms (median of 3 after a "
+        f"warm-up, host clock) -> {b / step_ms * 1e3:.2f} clips/s, peak memory "
+        f"{peak / 2**30:.2f} GiB; kernels 6-7 by design {designs}; kernel 6 {k6:.2f} ms + "
+        f"kernel 7 {k7:.2f} ms a step = {k6 / step_ms:.3f} + {k7 / step_ms:.3f} of the step; "
+        f"losses {losses}")
+    del state, step, model, m
+    torch.cuda.empty_cache()
+
+
+def timesformer_training(kernel_ms: dict, f32_kernel_ms: dict) -> None:
+    """Phases 9 and 10: the TimeSformer-B training path on the card (bf16,
+    then f32: ``timesformer_f32_path``), and the training CLI."""
     from laryngeal_tpu_torch.preprocess.transforms import batch_preprocess
     from laryngeal_tpu_torch.train.losses import cross_entropy
     from laryngeal_tpu_torch.train.state import create_train_state
@@ -1493,7 +1623,7 @@ def timesformer_training(kernel_ms: dict) -> None:
     if per_step != want:
         raise AssertionError(f"launches per TimeSformer train step {per_step}, want {want}")
     per_design = {d: sa.bwd_design_launches[d] - designs_before[d] for d in sa.DESIGNS}
-    want_design = {"fma": 0, "mma.sync": n_calls // 2, "wgmma": n_calls // 2}
+    want_design = {"fma": 0, "mma.sync": n_calls // 2, "wgmma": n_calls // 2, "wgmma.tf32x3": 0}
     if per_design != want_design:
         raise AssertionError(f"kernel 7's launches by design per TimeSformer train step "
                              f"{per_design}, want {want_design}")
@@ -1547,6 +1677,7 @@ def timesformer_training(kernel_ms: dict) -> None:
         f"{attn_ms / (step_s * 1e3):.3f} of the step")
     del state, step, eval_step, model, m, em, loss, pixel
     torch.cuda.empty_cache()
+    timesformer_f32_path(pixel_u8, labels, mask, f32_kernel_ms, n_calls)
 
     pixel2 = batch_preprocess(pixel_u8[:2], "timesformer", crop=224)
     for dtype in (torch.float32, torch.bfloat16):
@@ -1974,16 +2105,19 @@ def swin_key_free(name, grad):
     return grad
 
 
-def design_deltas(fn):
-    """Run ``fn``, synchronise; returns (its result, kernels 8-9's launches
-    during it by design, the designs that ran none left out)."""
+def design_deltas(fn, launches=None):
+    """Run ``fn``, synchronise; returns (its result, the kernels' launches
+    during it by design, the designs that ran none left out). ``launches``:
+    {entry: {design: count}}, kernels 8-9's (``design_launches``) unless
+    given."""
     from laryngeal_tpu_torch.ops import window_attention as wa
 
-    before = {e: dict(c) for e, c in wa.design_launches.items()}
+    launches = wa.design_launches if launches is None else launches
+    before = {e: dict(c) for e, c in launches.items()}
     out = fn()
     torch.cuda.synchronize()
     return out, {e: {d: n - before[e][d] for d, n in c.items() if n != before[e][d]}
-                 for e, c in wa.design_launches.items()}
+                 for e, c in launches.items()}
 
 
 def swin_f32_path(pixel_u8, labels, mask, f32_kernel_ms: dict, n_calls: int) -> None:
@@ -2565,7 +2699,10 @@ def main() -> int:
     phase_done("8 timesformer serving")
     reset_launches()
     timesformer_training({f"{e} {shape}": short_entries[e][shape]["ms"]
-                          for e in short_entries for shape in TS_SHAPES})
+                          for e in short_entries for shape in TS_SHAPES},
+                         {shape: tuple(short_entries[e][f"{shape}_f32"]["ms"]
+                                       for e in ("short_attention_fwd", "short_attention_bwd"))
+                          for shape in TS_SHAPES})
     ts_train_counts = launch_counts()
     phase_done("9-10 timesformer training")
     reset_launches()

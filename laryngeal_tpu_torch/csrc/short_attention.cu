@@ -89,17 +89,25 @@
 //     dS^T Q, with P rebuilt from the stored statistics. S and dP are
 //     computed three times in all. This design also stays callable at every
 //     shape as short_attention_bwd_mma, to time against.
-//   * f32: the FMA units, TF32 off (as the flash kernels): 1-4 threads per
-//     row, each owning a 32-wide slice of the head dim; the same passes.
+//   * f32 at 64 < N <= 256 and D <= 64 with every stride positive
+//     (TimeSformer's spatial shape): the tensor cores in 3xTF32, design
+//     "wgmma.tf32x3" (short_attention_tf32.cu, built into this library).
+//   * other f32 calls (N <= 64, TimeSformer's temporal N = 32; 256 < N <
+//     512; D > 64; a stride of 0): the FMA units, TF32 off (as the flash
+//     kernels): 1-4 threads per row, each owning a 32-wide slice of the head
+//     dim; the same passes as the mma.sync designs. The _mma entries keep
+//     this design at every f32 shape, to time the wgmma.tf32x3 one against.
 // short_attention_last_design reports the design of the last launch of each
-// kernel. Not yet done (later work): the f32 paths on the tensor cores,
-// several short sequences per block for N <= 16, the backward at D = 128 on
-// wgmma (a pair's four tensors take 256 KB there).
+// kernel, short_attention_design the one a call would run. Not yet done
+// (later work): f32 at the temporal shape on full-width loads, several
+// short sequences per block for N <= 16, the backward at D = 128 on wgmma (a
+// pair's four tensors take 256 KB there).
 
 #include <cstring>
 
 #include "flash_attention_common.cuh"
 #include "hopper.cuh"
+#include "short_attention_tf32.cuh"
 #include "wgmma_tiles.cuh"
 
 namespace {
@@ -1535,41 +1543,41 @@ cudaError_t launch_bwd_wgmma(const void* q, const void* k, const void* v, const 
 #undef SHORT_BWD_NB
 }
 
-// The wgmma designs take 64 < N <= 256 when TMA can read every input (every
-// batch, sequence and head stride positive; a broadcast stride of 0 cannot
-// be described to it); the backward also needs D <= 64 (a pair's q, k, v
-// and g in shared memory) and takes the outputs' strides into the rule.
+// The design of a call (the Design codes). bf16: the wgmma designs take
+// 64 < N <= 256 when TMA can read every input (every batch, sequence and
+// head stride positive; a broadcast stride of 0 cannot be described to it);
+// the backward also needs D <= 64 (a pair's q, k, v and g in shared memory)
+// and takes the outputs' strides into the rule; mma.sync elsewhere. f32:
+// wgmma.tf32x3 where shorttf::takes it (64 < N <= 256, D <= 64, every
+// stride positive), FMA elsewhere. `mma_only` (the _mma entries) keeps the
+// earlier designs, mma.sync and FMA, at every shape.
+enum Design { kFma = 0, kMmaSync = 1, kWgmma = 2, kWgmmaTf32 = 3 };
+
 bool strides_positive(const long long* st, int n) {
   for (int i = 0; i < n; ++i)
     if (st[i] <= 0) return false;
   return true;
 }
 
-bool wgmma_takes(int N, const FwdStrides& st) {
-  return N > 64 && N <= kWgMaxN && strides_positive(&st.qb, 12);
-}
-
-bool bwd_wgmma_takes(int N, int D, const BwdStrides& st) {
-  return N > 64 && N <= kWgMaxN && D <= 64 && strides_positive(&st.qb, 21);
+int design_of(int which, int dtype, int N, int D, const long long* st, bool mma_only) {
+  const int n = which == 0 ? 12 : 21;
+  if (dtype == 1) {
+    const bool wg = N > 64 && N <= kWgMaxN && (which == 0 || D <= 64) && strides_positive(st, n);
+    return !mma_only && wg ? kWgmma : kMmaSync;
+  }
+  return !mma_only && shorttf::takes(dtype, N, D, st, n) ? kWgmmaTf32 : kFma;
 }
 
 // The design of the last launch of kernel 6 ([0]) and kernel 7 ([1]) through
-// any entry: 0 = FMA (f32), 1 = mma.sync, 2 = wgmma; -1 before the first.
-// Read through short_attention_last_design.
-enum Design { kFma = 0, kMmaSync = 1, kWgmma = 2 };
+// any entry; -1 before the first. Read through short_attention_last_design.
 int g_last_design[2] = {-1, -1};
 
 template <int HD>
-cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* o, int dtype, int B,
-                       int H, int N, int D, const FwdStrides& st, float scale, bool mma_only,
-                       cudaStream_t s) {
+cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* o, int design, int B,
+                       int H, int N, int D, const FwdStrides& st, float scale, cudaStream_t s) {
   const int BH = B * H;
-  g_last_design[0] = dtype == 1 ? kMmaSync : kFma;
-  if (dtype == 1) {
-    if (!mma_only && wgmma_takes(N, st)) {
-      g_last_design[0] = kWgmma;
-      return launch_fwd_wgmma<HD>(q, k, v, o, B, H, N, D, st, scale, s);
-    }
+  if (design == kWgmma) return launch_fwd_wgmma<HD>(q, k, v, o, B, H, N, D, st, scale, s);
+  if (design == kMmaSync) {
     const int w = warps_for(N);
     if (w == 1) return launch_fwd_bf16<HD, 1>(q, k, v, o, BH, H, N, D, st, scale, s);
     if (w == 2) return launch_fwd_bf16<HD, 2>(q, k, v, o, BH, H, N, D, st, scale, s);
@@ -1585,16 +1593,13 @@ cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* o, int
 
 template <int HD>
 cudaError_t launch_bwd(const void* q, const void* k, const void* v, const void* g, void* dq,
-                       void* dk, void* dv, int dtype, int B, int H, int N, int D,
-                       const BwdStrides& st, float scale, bool mma_only, cudaStream_t s) {
+                       void* dk, void* dv, int design, int B, int H, int N, int D,
+                       const BwdStrides& st, float scale, cudaStream_t s) {
   const int BH = B * H;
-  g_last_design[1] = dtype == 1 ? kMmaSync : kFma;
-  if (dtype == 1) {
-    if constexpr (HD <= 64)
-      if (!mma_only && bwd_wgmma_takes(N, D, st)) {
-        g_last_design[1] = kWgmma;
-        return launch_bwd_wgmma<HD>(q, k, v, g, dq, dk, dv, B, H, N, D, st, scale, s);
-      }
+  if constexpr (HD <= 64)
+    if (design == kWgmma)
+      return launch_bwd_wgmma<HD>(q, k, v, g, dq, dk, dv, B, H, N, D, st, scale, s);
+  if (design == kMmaSync) {
     const int w = warps_for(N);
     if (w == 1) return launch_bwd_bf16<HD, 1>(q, k, v, g, dq, dk, dv, BH, H, N, D, st, scale, s);
     if (w == 2) return launch_bwd_bf16<HD, 2>(q, k, v, g, dq, dk, dv, BH, H, N, D, st, scale, s);
@@ -1618,9 +1623,12 @@ int fwd(const void* q, const void* k, const void* v, void* o, int dtype, int B, 
   FwdStrides s;
   std::memcpy(&s, st, sizeof(s));
   cudaStream_t cs = static_cast<cudaStream_t>(stream);
-  if (D <= 32) return (int)launch_fwd<32>(q, k, v, o, dtype, B, H, N, D, s, scale, mma_only, cs);
-  if (D <= 64) return (int)launch_fwd<64>(q, k, v, o, dtype, B, H, N, D, s, scale, mma_only, cs);
-  return (int)launch_fwd<128>(q, k, v, o, dtype, B, H, N, D, s, scale, mma_only, cs);
+  const int design = design_of(0, dtype, N, D, st, mma_only);
+  g_last_design[0] = design;
+  if (design == kWgmmaTf32) return (int)shorttf::fwd(q, k, v, o, B, H, N, D, st, scale, cs);
+  if (D <= 32) return (int)launch_fwd<32>(q, k, v, o, design, B, H, N, D, s, scale, cs);
+  if (D <= 64) return (int)launch_fwd<64>(q, k, v, o, design, B, H, N, D, s, scale, cs);
+  return (int)launch_fwd<128>(q, k, v, o, design, B, H, N, D, s, scale, cs);
 }
 
 }  // namespace
@@ -1630,59 +1638,93 @@ int fwd(const void* q, const void* k, const void* v, void* o, int dtype, int B, 
 // The head-dim stride must be 1, D a multiple of 8 (<= 128), every stride a
 // multiple of 8 and every pointer 16-byte aligned (the Python wrapper
 // guarantees all of it). bf16 at 64 < N <= 256 runs the wgmma design, other
-// bf16 calls the mma.sync one, f32 the FMA kernel. Returns the cudaError_t
-// of the launch (0 = success).
+// bf16 calls the mma.sync one; f32 at 64 < N <= 256 and D <= 64 with every
+// stride positive the wgmma.tf32x3 one (short_attention_tf32.cu), other f32
+// calls the FMA kernel. Returns the cudaError_t of the launch (0 = success).
 extern "C" int short_attention_fwd(const void* q, const void* k, const void* v, void* o,
                                    int dtype, int B, int N, int H, int D, const long long* st,
                                    float scale, void* stream) {
   return fwd(q, k, v, o, dtype, B, N, H, D, st, scale, false, stream);
 }
 
-// As short_attention_fwd, with the mma.sync design at every N (the earlier
-// bf16 kernel, kept to time the wgmma one against it).
+// As short_attention_fwd, with the earlier designs at every N: mma.sync in
+// bf16, FMA in f32 (kept to time the wgmma designs against).
 extern "C" int short_attention_fwd_mma(const void* q, const void* k, const void* v, void* o,
                                        int dtype, int B, int N, int H, int D,
                                        const long long* st, float scale, void* stream) {
   return fwd(q, k, v, o, dtype, B, N, H, D, st, scale, true, stream);
 }
 
+namespace {
+
 int bwd(const void* q, const void* k, const void* v, const void* g, void* dq, void* dk, void* dv,
-        int dtype, int B, int N, int H, int D, const long long* st, float scale, bool mma_only,
-        void* stream) {
+        float* scratch, int dtype, int B, int N, int H, int D, const long long* st, float scale,
+        bool mma_only, void* stream) {
   if (bad_args(dtype, B, H, N, D)) return (int)cudaErrorInvalidValue;
   BwdStrides s;
   std::memcpy(&s, st, sizeof(s));
   cudaStream_t cs = static_cast<cudaStream_t>(stream);
+  const int design = design_of(1, dtype, N, D, st, mma_only);
+  g_last_design[1] = design;
+  if (design == kWgmmaTf32)
+    return (int)shorttf::bwd(q, k, v, g, dq, dk, dv, scratch, B, H, N, D, st, scale, cs);
   if (D <= 32)
-    return (int)launch_bwd<32>(q, k, v, g, dq, dk, dv, dtype, B, H, N, D, s, scale, mma_only, cs);
+    return (int)launch_bwd<32>(q, k, v, g, dq, dk, dv, design, B, H, N, D, s, scale, cs);
   if (D <= 64)
-    return (int)launch_bwd<64>(q, k, v, g, dq, dk, dv, dtype, B, H, N, D, s, scale, mma_only, cs);
-  return (int)launch_bwd<128>(q, k, v, g, dq, dk, dv, dtype, B, H, N, D, s, scale, mma_only, cs);
+    return (int)launch_bwd<64>(q, k, v, g, dq, dk, dv, design, B, H, N, D, s, scale, cs);
+  return (int)launch_bwd<128>(q, k, v, g, dq, dk, dv, design, B, H, N, D, s, scale, cs);
 }
+
+}  // namespace
 
 // As short_attention_fwd, for the gradient: g (the output's gradient, in the
 // input dtype) in, dq, dk, dv out, all (B, N, H, D); `st` holds 21 strides:
-// q, k, v, g, dq, dk, dv (batch, sequence, head each). bf16 at 64 < N <= 256
-// and D <= 64 with every stride positive runs the wgmma design, other bf16
-// calls the mma.sync one, f32 the FMA kernel.
+// q, k, v, g, dq, dk, dv (batch, sequence, head each). `scratch` holds
+// short_attention_scratch_floats(...) floats (null when that is 0: the
+// wgmma.tf32x3 design's row statistics). bf16 at 64 < N <= 256 and D <= 64
+// with every stride positive runs the wgmma design, other bf16 calls the
+// mma.sync one; f32 the wgmma.tf32x3 design at the same N, D and strides,
+// the FMA kernel elsewhere.
 extern "C" int short_attention_bwd(const void* q, const void* k, const void* v, const void* g,
-                                   void* dq, void* dk, void* dv, int dtype, int B, int N, int H,
-                                   int D, const long long* st, float scale, void* stream) {
-  return bwd(q, k, v, g, dq, dk, dv, dtype, B, N, H, D, st, scale, false, stream);
+                                   void* dq, void* dk, void* dv, float* scratch, int dtype, int B,
+                                   int N, int H, int D, const long long* st, float scale,
+                                   void* stream) {
+  return bwd(q, k, v, g, dq, dk, dv, scratch, dtype, B, N, H, D, st, scale, false, stream);
 }
 
-// As short_attention_bwd, with the mma.sync design for bf16 at every shape
-// (the earlier kernel, kept to time the wgmma one against it).
+// As short_attention_bwd, with the earlier designs at every shape: mma.sync
+// in bf16, FMA in f32 (kept to time the wgmma designs against).
 extern "C" int short_attention_bwd_mma(const void* q, const void* k, const void* v,
-                                       const void* g, void* dq, void* dk, void* dv, int dtype,
-                                       int B, int N, int H, int D, const long long* st,
-                                       float scale, void* stream) {
-  return bwd(q, k, v, g, dq, dk, dv, dtype, B, N, H, D, st, scale, true, stream);
+                                       const void* g, void* dq, void* dk, void* dv,
+                                       float* scratch, int dtype, int B, int N, int H, int D,
+                                       const long long* st, float scale, void* stream) {
+  return bwd(q, k, v, g, dq, dk, dv, scratch, dtype, B, N, H, D, st, scale, true, stream);
 }
 
-// The design (0 = FMA, 1 = mma.sync, 2 = wgmma) of the last launch of kernel
-// 6 (which = 0) or kernel 7 (which = 1) through any entry above; -1 before
-// the first.
+// The design (0 = FMA, 1 = mma.sync, 2 = wgmma, 3 = wgmma.tf32x3) of the
+// last launch of kernel 6 (which = 0) or kernel 7 (which = 1) through any
+// entry above; -1 before the first.
 extern "C" int short_attention_last_design(int which) {
   return which == 0 || which == 1 ? g_last_design[which] : -1;
+}
+
+// The design the entry of kernel 6 (which = 0) or 7 (1) runs for a call in
+// `dtype` at (N, D) (D padded to a multiple of 8) with the launch's 12 or 21
+// strides `st`; `mma_only` for the _mma entries. -1 for a call the entries
+// refuse.
+extern "C" int short_attention_design(int which, int dtype, int N, int D, const long long* st,
+                                      int mma_only) {
+  if ((which != 0 && which != 1) || bad_args(dtype, 1, 1, N, D)) return -1;
+  return design_of(which, dtype, N, D, st, mma_only != 0);
+}
+
+// Floats of scratch a call of kernel 7's entries needs (the wgmma.tf32x3
+// design's row statistics), 0 when its design takes none; -1 for a call
+// they refuse. Arguments as short_attention_bwd's.
+extern "C" long long short_attention_scratch_floats(int dtype, int B, int N, int H, int D,
+                                                    const long long* st, int mma_only) {
+  if (bad_args(dtype, B, H, N, D)) return -1;
+  return design_of(1, dtype, N, D, st, mma_only != 0) == kWgmmaTf32
+             ? (long long)shorttf::bwd_scratch_floats(B, H)
+             : 0;
 }

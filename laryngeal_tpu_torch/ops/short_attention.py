@@ -17,12 +17,21 @@ Kernel 6 has two bf16 designs behind its one entry: ``wgmma`` (a whole
 every other N. Kernel 7 likewise: ``wgmma`` (a pair's Q, K, V and dO
 resident through TMA; the query tiles as rows for the row statistics and dQ,
 then the key tiles as rows for dK and dV) at 64 < N <= 256 and D <= 64 with
-every stride positive (``bwd_wgmma_takes``), ``mma.sync`` elsewhere.
-``short_attention_fwd_mma_cuda`` and ``short_attention_bwd_mma_cuda`` run the
-``mma.sync`` designs at any shape; only ``chip_smoke.py`` and the card tests
+every stride positive, ``mma.sync`` elsewhere.
+In float32 both kernels run ``wgmma.tf32x3`` (``csrc/short_attention_tf32.cu``:
+the tensor cores in 3xTF32, each operand split into two TF32 parts and each
+product the sum of three, raw f32 tiles brought in by TMA and split in the
+block) at the same N, D <= 64 and positive strides, and ``fma`` (the FMA
+units) elsewhere; kernel 7's f32 design takes scratch for its row statistics,
+which the wrapper allocates at the size the C side names
+(``scratch_floats``). ``short_attention_fwd_mma_cuda`` and
+``short_attention_bwd_mma_cuda`` run the earlier designs (``mma.sync`` in
+bf16, ``fma`` in f32) at any shape; only ``chip_smoke.py`` and the card tests
 call them, to time and hold the designs against each other, and they count
-no launch. ``last_designs`` reports the design the C side ran last, and
-``bwd_design_launches`` counts kernel 7's launches by design.
+no launch. The C side picks each call's design; ``design_takes`` mirrors its
+rule for the CPU tests (``c_design`` asks the C side), ``last_designs``
+reports the design it ran last, and ``fwd_design_launches`` /
+``bwd_design_launches`` count kernel 6's and kernel 7's launches by design.
 
 ``short_attention`` takes (B, N, H, D) self-attention (Nq == Nk), no bias
 and no mask, N < 512, D <= 128, float32 or bfloat16: the calls the router
@@ -60,9 +69,13 @@ MAX_SEQ = 511  # the JAX router's N < 512
 fwd_launches = 0   # kernel 6, short_attention_fwd
 bwd_launches = 0   # kernel 7, short_attention_bwd
 # Designs of kernels 6-7, by the code ``short_attention_last_design`` returns.
-DESIGNS = ("fma", "mma.sync", "wgmma")
-# Kernel 7's launches by the design the C side ran (they add up to
-# ``bwd_launches``).
+DESIGNS = ("fma", "mma.sync", "wgmma", "wgmma.tf32x3")
+# The wgmma designs' domain (``design_takes``): the sequence lengths, and the
+# head dim of every one but kernel 6's bf16 design (which takes D <= 128).
+WGMMA_MIN_SEQ, WGMMA_MAX_SEQ, WGMMA_MAX_HEAD_DIM = 65, 256, 64
+# Kernels 6's and 7's launches by the design the C side ran (they add up to
+# ``fwd_launches`` and ``bwd_launches``).
+fwd_design_launches: Dict[str, int] = {d: 0 for d in DESIGNS}
 bwd_design_launches: Dict[str, int] = {d: 0 for d in DESIGNS}
 
 _fns: Dict[str, object] = {}
@@ -72,7 +85,7 @@ def reset_launches() -> None:
     global fwd_launches, bwd_launches
     fwd_launches = bwd_launches = 0
     for d in DESIGNS:
-        bwd_design_launches[d] = 0
+        fwd_design_launches[d] = bwd_design_launches[d] = 0
 
 
 def last_designs() -> Tuple[Optional[str], Optional[str]]:
@@ -82,15 +95,66 @@ def last_designs() -> Tuple[Optional[str], Optional[str]]:
     return _last_designs(SOURCE, "short_attention_last_design", DESIGNS)
 
 
-def bwd_wgmma_takes(shape, strides, dtype) -> bool:
-    """Whether kernel 7's C entry runs its wgmma design: bf16, 64 < N <= 256,
-    D (padded to a multiple of 8) <= 64, and every batch, sequence and head
-    stride of the launch positive (TMA cannot describe a broadcast stride of
-    0). ``shape`` is q's (B, N, H, D); ``strides`` the launch's strides as
-    ``_launch`` passes them (3 a tensor; only their signs matter)."""
-    n, d_pad = shape[1], -(-shape[3] // 8) * 8
-    return (dtype == torch.bfloat16 and 64 < n <= 256 and d_pad <= 64
-            and all(s > 0 for s in strides))
+def design_takes(which: int, n: int, d: int, dtype: torch.dtype, strides=None) -> str:
+    """The design (``DESIGNS``) kernel 6 (``which`` 0) or 7 (1) runs for a
+    call at sequence length ``n`` and head dim ``d`` (padded to a multiple
+    of 8 inside) in ``dtype``: a mirror of the C entries' choice
+    (``short_attention_design``; ``c_design`` asks it) for the CPU tests and
+    the checks that name the design a shape should run. bf16: ``wgmma`` at
+    64 < N <= 256 (kernel 7 also D <= 64) when every batch, sequence and
+    head stride of the launch is positive (TMA cannot describe a broadcast
+    stride of 0), else ``mma.sync``. f32: ``wgmma.tf32x3`` at 64 < N <= 256,
+    D <= 64 and positive strides (both kernels), else ``fma``. ``strides``:
+    the launch's strides as ``_launch`` passes them (3 a tensor; only their
+    signs matter), None for tensors laid out by ``_prepare`` from positive
+    strides."""
+    d_pad = -(-d // 8) * 8
+    bf16 = dtype == torch.bfloat16
+    fits = (WGMMA_MIN_SEQ <= n <= WGMMA_MAX_SEQ
+            and (d_pad <= WGMMA_MAX_HEAD_DIM or (bf16 and which == 0))
+            and (strides is None or all(s > 0 for s in strides)))
+    if bf16:
+        return "wgmma" if fits else "mma.sync"
+    return "wgmma.tf32x3" if fits else "fma"
+
+
+def c_design(which: int, dtype: torch.dtype, n: int, d_pad: int, strides,
+             mma_only: bool = False) -> str:
+    """The design (``DESIGNS``) the C entry of kernel 6 (``which`` 0) or 7
+    (1) runs for a call in ``dtype`` at (n, d_pad) with the launch's 12 or
+    21 ``strides``; ``mma_only`` for the ``_mma`` entries. Needs the built
+    library."""
+    if "short_attention_design" not in _fns:
+        fn = getattr(_build.load(SOURCE), "short_attention_design")
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_int]
+        _fns["short_attention_design"] = fn
+    st = (ctypes.c_longlong * len(strides))(*strides)
+    code = _fns["short_attention_design"](which, _DTYPE_CODE[dtype], n, d_pad, st,
+                                          int(mma_only))
+    if code < 0:
+        raise ValueError(f"short_attention_design refuses {dtype} at N = {n}, D = {d_pad}")
+    return DESIGNS[code]
+
+
+def scratch_floats(dtype: torch.dtype, b: int, n: int, h: int, d_pad: int, strides,
+                   mma_only: bool = False) -> int:
+    """Floats of f32 scratch a call of kernel 7's entry takes (the
+    ``wgmma.tf32x3`` design's row statistics; 0 for the other designs), as
+    the C side sizes it (``short_attention_scratch_floats``). Needs the
+    built library."""
+    if "short_attention_scratch_floats" not in _fns:
+        fn = getattr(_build.load(SOURCE), "short_attention_scratch_floats")
+        fn.restype = ctypes.c_longlong
+        fn.argtypes = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_int]
+        _fns["short_attention_scratch_floats"] = fn
+    st = (ctypes.c_longlong * len(strides))(*strides)
+    floats = _fns["short_attention_scratch_floats"](_DTYPE_CODE[dtype], b, n, h, d_pad, st,
+                                                    int(mma_only))
+    if floats < 0:
+        raise ValueError(f"short_attention_scratch_floats refuses {dtype} at "
+                         f"{(b, n, h, d_pad)}")
+    return floats
 
 
 def launch_counts() -> Dict[str, int]:
@@ -101,7 +165,7 @@ def launch_counts() -> Dict[str, int]:
 def _kernel(name: str):
     if name not in _fns:
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        n_ptrs = 7 if name.startswith("short_attention_bwd") else 4
+        n_ptrs = 8 if name.startswith("short_attention_bwd") else 4  # + the bwd's scratch
         fn = getattr(_build.load(SOURCE), name)
         fn.restype = ctypes.c_int
         fn.argtypes = ([ptr] * n_ptrs + [i32] * 5
@@ -213,16 +277,23 @@ def backward_error_limit(q, k, v, do, refs):
                  for a, r in zip((a_dq, a_dk, a_dv), refs))
 
 
-def _launch(name, inputs, outputs, d):
+def _strides(*tensors):
+    """The launch's strides: batch, sequence and head of each tensor."""
+    return [s for x in tensors for s in x.stride()[:3]]
+
+
+def _launch(name, inputs, outputs, d, scratch=()):
     """Launch ``name`` on (B, N, H, D_pad) inputs and outputs laid out by
-    ``_prepare``, scale 1/sqrt(d); raises on a launch error."""
+    ``_prepare``, scale 1/sqrt(d); ``scratch``: kernel 7's scratch pointer
+    (None for null). Raises on a launch error."""
     q = inputs[0]
     b, n, h, d_pad = q.shape
-    strides = [s for x in (*inputs, *outputs) for s in x.stride()[:3]]
+    strides = _strides(*inputs, *outputs)
     st = (ctypes.c_longlong * len(strides))(*strides)
     with torch.cuda.device(q.device):
-        err = _kernel(name)(*(x.data_ptr() for x in (*inputs, *outputs)), _DTYPE_CODE[q.dtype],
-                            b, n, h, d_pad, st, 1.0 / math.sqrt(d), _stream(q))
+        err = _kernel(name)(*(x.data_ptr() for x in (*inputs, *outputs)), *scratch,
+                            _DTYPE_CODE[q.dtype], b, n, h, d_pad, st, 1.0 / math.sqrt(d),
+                            _stream(q))
     if err != 0:
         raise RuntimeError(f"{name} launch failed: cudaError {err}")
 
@@ -244,15 +315,17 @@ def short_attention_fwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) 
     """Kernel 6 on CUDA tensors; raises if it cannot launch."""
     global fwd_launches
     out, launched = _fwd_cuda("short_attention_fwd", q, k, v)
-    fwd_launches += launched
+    if launched:
+        fwd_launches += 1
+        fwd_design_launches[last_designs()[0]] += 1
     return out
 
 
 def short_attention_fwd_mma_cuda(q: torch.Tensor, k: torch.Tensor,
                                  v: torch.Tensor) -> torch.Tensor:
-    """Kernel 6's earlier ``mma.sync`` design at any N, on CUDA tensors (the
-    yardstick of the ``wgmma`` one); counts no launch, raises if it cannot
-    launch."""
+    """Kernel 6's earlier designs at any N, on CUDA tensors (``mma.sync`` in
+    bf16, ``fma`` in f32: the yardsticks of the ``wgmma`` and
+    ``wgmma.tf32x3`` ones); counts no launch, raises if it cannot launch."""
     return _fwd_cuda("short_attention_fwd_mma", q, k, v)[0]
 
 
@@ -269,7 +342,13 @@ def _bwd_cuda(name: str, q, k, v, do) -> Tuple[Tuple[torch.Tensor, ...], bool]:
              for _ in range(3)]
     launched = q.shape[0] * q.shape[2] > 0
     if launched:
-        _launch(name, [_prepare(x, d_pad) for x in (q, k, v, do.to(q.dtype))], grads, d)
+        inputs = [_prepare(x, d_pad) for x in (q, k, v, do.to(q.dtype))]
+        b, n, h, _ = q.shape
+        floats = scratch_floats(q.dtype, b, n, h, d_pad, _strides(*inputs, *grads),
+                                name.endswith("_mma"))
+        scratch = torch.empty(floats, dtype=torch.float32, device=q.device) if floats else None
+        _launch(name, inputs, grads, d, scratch=(scratch.data_ptr() if floats else None,))
+        del scratch  # queued on the stream, which the allocator orders its reuse after
     return tuple(x if d_pad == d else x[..., :d] for x in grads), launched
 
 
@@ -277,7 +356,7 @@ def short_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                              do: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Kernel 7 on CUDA tensors: (dq, dk, dv) shaped like q; ``do`` is cast
     to q's dtype first, as the JAX backward casts it. Raises if it cannot
-    launch (the wgmma design's failures included: there is no fallback)."""
+    launch (the wgmma designs' failures included: there is no fallback)."""
     global bwd_launches
     grads, launched = _bwd_cuda("short_attention_bwd", q, k, v, do)
     if launched:
@@ -289,9 +368,9 @@ def short_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def short_attention_bwd_mma_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                  do: torch.Tensor
                                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Kernel 7's earlier ``mma.sync`` design at any shape, on CUDA tensors
-    (the yardstick of the ``wgmma`` one); counts no launch, raises if it
-    cannot launch."""
+    """Kernel 7's earlier designs at any shape, on CUDA tensors (``mma.sync``
+    in bf16, ``fma`` in f32: the yardsticks of the ``wgmma`` and
+    ``wgmma.tf32x3`` ones); counts no launch, raises if it cannot launch."""
     return _bwd_cuda("short_attention_bwd_mma", q, k, v, do)[0]
 
 

@@ -1,16 +1,17 @@
-"""What kernel 7's wgmma design spends its time on, on one CUDA card.
+"""What kernel 7's wgmma designs spend their time on, on one CUDA card.
 
-    python3 scripts/ablate_short_bwd.py
+    python3 scripts/ablate_short_bwd.py [--f32]
 
-Builds ``laryngeal_tpu_torch/csrc/short_attention.cu`` as it is and with one
-part of the wgmma backward's work taken out or one of its choices changed at
-a time (text edits of a copy in a temporary directory, each built by its own
-``nvcc`` with only the 4-chunk instances of the wgmma backward; every
-variant but ``as_is`` and the choices below computes a wrong result by
-design), then times each at TimeSformer-B's spatial shape (256, 197, 12, 64)
-bf16 on views of a fused qkv: 20 launches back to back between CUDA events,
-the median of 3 rounds, the variants in turns (in order, then reversed).
-Variants:
+Builds the short-attention library (``laryngeal_tpu_torch/csrc/
+short_attention.cu`` with its f32 member ``short_attention_tf32.cu``) as it
+is and with one part of the backward's work taken out or one of its choices
+changed at a time (text edits of a copy in a temporary directory, each built
+by its own ``nvcc`` with only the 4-chunk instances of the bf16 wgmma
+backward; every variant but ``as_is`` and the choices below computes a wrong
+result by design), then times each at TimeSformer-B's spatial shape (256,
+197, 12, 64) on views of a fused qkv: 20 launches back to back between CUDA
+events, the median of 3 rounds, the variants in turns (in order, then
+reversed). Without ``--f32``, the bf16 wgmma design in bf16:
 
 - ``as_is``: the kernel;
 - ``mma_sync``: the earlier design (``short_attention_bwd_mma`` of the
@@ -33,12 +34,22 @@ Variants:
   16, 208).
 
 The choices (``one_consumer``, ``no_prefetch``, ``tail_256``, ``tail_200``)
-compute the right result; the script checks them against ``as_is``. Prints the card's name and power limit, one line per variant, and
-the variants as one JSON object last. Needs nvcc and a card.
+compute the right result; the script checks them against ``as_is``.
+
+With ``--f32``, the f32 design ``wgmma.tf32x3`` in f32, its 7-step
+instances only: ``ablate_short_fwd.py``'s ``F32_VARIANTS`` (``as_is``,
+``loads_only``, ``no_split``, ``no_products``, ``one_tf32``, ``no_exp``), the
+FMA design (``fma``, the ``_mma`` entry) for scale, and ``dq_only``: the
+first launch alone (row statistics and dQ; the second, dK and dV, is the
+rest of ``as_is``).
+
+Prints the card's name and power limit, one line per variant, and the
+variants as one JSON object last. Needs nvcc and a card.
 """
 
 from __future__ import annotations
 
+import argparse
 import ctypes
 import json
 import math
@@ -53,6 +64,9 @@ import numpy as np
 import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+sys.path.insert(0, str(Path(__file__).resolve().parent))
+from ablate_short_fwd import (F32_VARIANTS, build_library, edited,  # noqa: E402
+                              f32_only_steps)
 from laryngeal_tpu_torch.ops import _build  # noqa: E402
 
 SHAPE = (256, 197, 12, 64)
@@ -112,11 +126,14 @@ VARIANTS = {
     "tail_200": [["constexpr int kBwdTailKeys = 16;", "constexpr int kBwdTailKeys = 8;"]],
 }
 RIGHT = ("as_is", "one_consumer", "no_prefetch", "tail_256", "tail_200")
+BWD_F32_VARIANTS = {**F32_VARIANTS, "dq_only": [
+    ["  if ((err = set_smem(short_bwd_dkv_tf32_kernel, kDkvSmem)) != cudaSuccess) return err;",
+     "  return err;  // ablation: launch 1 alone"]]}
 
 
 def variant_source(name: str) -> str:
     text = (_build.CSRC_DIR / "short_attention.cu").read_text()
-    for edit in [list(DISPATCH)] + VARIANTS[name]:
+    for edit in [list(DISPATCH)] + VARIANTS.get(name, []):
         anchors = edit[1:3] if edit[0] == "cut" else edit[:1]
         for a in anchors:
             if a not in text:
@@ -125,23 +142,27 @@ def variant_source(name: str) -> str:
     return text
 
 
-def build(name: str, workdir: Path):
-    src, lib = workdir / f"{name}.cu", workdir / f"{name}.so"
-    src.write_text(variant_source(name))
-    proc = subprocess.run([_build.find_nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC_DIR),
-                           "-o", str(lib), str(src)], capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {name}:\n{proc.stdout}{proc.stderr}")
-    dll = ctypes.CDLL(str(lib))
+def build(name: str, workdir: Path, f32: bool):
+    if f32:
+        tf32_text = f32_only_steps(edited("short_attention_tf32.cu", BWD_F32_VARIANTS[name],
+                                          name))
+        dll, out = build_library(name, workdir, variant_source("as_is"), tf32_text)
+    else:
+        dll, out = build_library(name, workdir, variant_source(name),
+                                 (_build.CSRC_DIR / "short_attention_tf32.cu").read_text())
     fns = {}
     for entry in ("short_attention_bwd", "short_attention_bwd_mma"):
         fn = getattr(dll, entry)
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [
+        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [
             ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, ctypes.c_void_p]
         fns[entry] = fn
+    scratch = dll.short_attention_scratch_floats
+    scratch.restype = ctypes.c_longlong
+    scratch.argtypes = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_int]
+    fns["scratch_floats"] = scratch
     spills, kernel = [], None  # the wgmma backward's instances that spill
-    for line in (proc.stdout + proc.stderr).splitlines():
+    for line in out.splitlines():
         if "Compiling entry function" in line:
             m = re.search(r"short_bwd_wgmma_kernelI((?:Li\d+E)+)E", line)
             kernel = f"<{', '.join(re.findall(r'Li(\d+)E', m.group(1)))}>" if m else None
@@ -165,40 +186,49 @@ def queued_ms(fn, reps: int = 20) -> float:
 
 
 def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--f32", action="store_true",
+                        help="ablate the f32 design wgmma.tf32x3 in f32")
+    f32 = parser.parse_args().f32
     if not torch.cuda.is_available():
         print("ablate_short_bwd: no CUDA device is available", file=sys.stderr)
         return 2
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip(), flush=True)
+    dtype, variants = (torch.float32, BWD_F32_VARIANTS) if f32 else (torch.bfloat16, VARIANTS)
     b, n, h, d = SHAPE
     gen = torch.Generator(device="cuda").manual_seed(0)
-    q, k, v = torch.randn((b, n, 3, h, d), generator=gen, device="cuda").to(
-        torch.bfloat16).unbind(2)
-    g = torch.randn((b, n, h, d), generator=gen, device="cuda").to(torch.bfloat16)
-    outs = [torch.empty((b, n, h, d), dtype=torch.bfloat16, device="cuda") for _ in range(3)]
+    q, k, v = torch.randn((b, n, 3, h, d), generator=gen, device="cuda").to(dtype).unbind(2)
+    g = torch.randn((b, n, h, d), generator=gen, device="cuda").to(dtype)
+    outs = [torch.empty((b, n, h, d), dtype=dtype, device="cuda") for _ in range(3)]
     strides = (ctypes.c_longlong * 21)(*(s for x in (q, k, v, g, *outs) for s in x.stride()[:3]))
     stream = torch.cuda.current_stream().cuda_stream
-    with tempfile.TemporaryDirectory() as tmp, ThreadPoolExecutor(len(VARIANTS)) as pool:
-        built = dict(zip(VARIANTS, pool.map(lambda name: build(name, Path(tmp)), VARIANTS)))
+    code = 0 if f32 else 1
+    with tempfile.TemporaryDirectory() as tmp, ThreadPoolExecutor(len(variants)) as pool:
+        built = dict(zip(variants, pool.map(lambda name: build(name, Path(tmp), f32),
+                                            variants)))
         for name, (_, spills) in built.items():
             for line in spills:
                 print(f"{name}: ptxas {line}", flush=True)
+        floats = built["as_is"][0]["scratch_floats"](code, b, n, h, d, strides, 0)
+        scratch = torch.empty(max(floats, 1), dtype=torch.float32, device="cuda")
 
         def launch(name, entry="short_attention_bwd"):
-            err = built[name][0][entry](*(x.data_ptr() for x in (q, k, v, g, *outs)), 1, b, n, h,
-                                        d, strides, 1.0 / math.sqrt(d), stream)
+            err = built[name][0][entry](*(x.data_ptr() for x in (q, k, v, g, *outs)),
+                                        scratch.data_ptr(), code, b, n, h, d, strides,
+                                        1.0 / math.sqrt(d), stream)
             if err != 0:
                 raise RuntimeError(f"{name}: launch failed: cudaError {err}")
 
         launch("as_is")
         want = [x.clone() for x in outs]
-        for name in RIGHT[1:]:
+        for name in ([] if f32 else RIGHT[1:]):
             launch(name)
             torch.cuda.synchronize()
             diff = max((x.float() - y.float()).abs().max().item() for x, y in zip(outs, want))
             print(f"{name}: max |d| against as_is {diff:.3e}", flush=True)
-        fns = {name: (lambda name=name: launch(name)) for name in VARIANTS}
-        fns["mma_sync"] = lambda: launch("as_is", "short_attention_bwd_mma")
+        fns = {name: (lambda name=name: launch(name)) for name in variants}
+        fns["fma" if f32 else "mma_sync"] = lambda: launch("as_is", "short_attention_bwd_mma")
         times = {name: [] for name in fns}
         for order in (list(fns), list(fns)[::-1]):
             for name in order:
@@ -206,7 +236,8 @@ def main() -> int:
     ms = {name: sum(t) / len(t) for name, t in times.items()}
     for name, t in ms.items():
         print(f"{name}: {t:.4f} ms ({t / ms['as_is']:.3f} of as_is)", flush=True)
-    print(json.dumps({"shape": list(SHAPE), "queued_ms": ms}), flush=True)
+    print(json.dumps({"shape": list(SHAPE), "dtype": str(dtype)[6:], "queued_ms": ms}),
+          flush=True)
     return 0
 
 

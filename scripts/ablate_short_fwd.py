@@ -1,13 +1,16 @@
-"""What kernel 6's wgmma design spends its time on, on one CUDA card.
+"""What kernel 6's wgmma designs spend their time on, on one CUDA card.
 
-    python3 scripts/ablate_short_fwd.py
+    python3 scripts/ablate_short_fwd.py [--f32]
 
-Builds ``laryngeal_tpu_torch/csrc/short_attention.cu`` as it is and with one
-part of the wgmma kernel's work taken out at a time (text edits of a copy in
-a temporary directory; every variant but ``as_is`` computes a wrong result
-by design), then times each at TimeSformer-B's spatial shape (256, 197, 12,
-64) bf16 on views of a fused qkv: 20 launches back to back between CUDA
-events, the median of 3 rounds, in turns. Variants:
+Builds the short-attention library (``laryngeal_tpu_torch/csrc/
+short_attention.cu`` with its f32 member ``short_attention_tf32.cu``) as it
+is and with one part of the kernel's work taken out at a time (text edits of
+a copy in a temporary directory, each variant built by its own ``nvcc``;
+every variant but ``as_is`` computes a wrong result by design), then times
+each at TimeSformer-B's spatial shape (256, 197, 12, 64) on views of a fused
+qkv: 20 launches back to back between CUDA events, the median of 3 rounds,
+in turns (in order, then reversed). Without ``--f32``, the bf16 wgmma
+design in bf16:
 
 - ``as_is``: the kernel;
 - ``loads_only``: the consumers take no tile (the TMA loads and the stage
@@ -19,15 +22,31 @@ events, the median of 3 rounds, in turns. Variants:
 - ``no_cvt``: the f32 -> bf16 pack of P replaced by a byte permute (the
   conversion's share).
 
+With ``--f32``, the f32 design ``wgmma.tf32x3`` in f32 (only its 7-step
+instances, N = 193..224, are built; ``F32_VARIANTS``, shared with
+``ablate_short_bwd.py --f32``):
+
+- ``as_is``: the kernel; ``fma``: the FMA design (the ``_mma`` entry), for
+  scale;
+- ``loads_only``: the TMA loads, the transform warps' splits and the ring's
+  barriers; no products, no softmax, nothing stored;
+- ``no_split``: the transform warps release each slot unsplit (the split's
+  share);
+- ``no_products``: no wgmma (the tensor cores' share);
+- ``one_tf32``: one TF32 product (big.big) a product instead of three;
+- ``no_exp``: exp2 replaced by its argument.
+
 Prints the card's name and power limit, one line per variant, and the
 variants as one JSON object last. Needs nvcc and a card.
 """
 
 from __future__ import annotations
 
+import argparse
 import ctypes
 import json
 import math
+import re
 import subprocess
 import sys
 import tempfile
@@ -61,23 +80,92 @@ VARIANTS = {
 }
 
 
-def build(name: str, workdir: Path):
-    text = (_build.CSRC_DIR / "short_attention.cu").read_text()
-    for old, new in VARIANTS[name]:
+# The f32 design's three products a product (short_attention_tf32.cu).
+_RS = ("    hopper::wgmma_m64n32k8_tf32_rs(d, as[k], bb + off, k > 0);\n"
+       "    hopper::wgmma_m64n32k8_tf32_rs(d, ab[k], bs + off, 1);\n"
+       "    hopper::wgmma_m64n32k8_tf32_rs(d, ab[k], bb + off, 1);\n")
+_SS = ("    hopper::wgmma_m64n32k8_tf32_ss(d, das + oa, bb + ob, k > 0);\n"
+       "    hopper::wgmma_m64n32k8_tf32_ss(d, dab + oa, bs + ob, 1);\n"
+       "    hopper::wgmma_m64n32k8_tf32_ss(d, dab + oa, bb + ob, 1);\n")
+_AB = ("    hopper::wgmma_m64n64k8_tf32_rs(acc, as[kk], bb + 2 * kk, accumulate || kk > 0);\n"
+       "    hopper::wgmma_m64n64k8_tf32_rs(acc, ab[kk], bs + 2 * kk, 1);\n"
+       "    hopper::wgmma_m64n64k8_tf32_rs(acc, ab[kk], bb + 2 * kk, 1);\n")
+NO_PRODUCTS = [[_RS, ""], [_SS, ""], [_AB, ""]]
+F32_VARIANTS = {
+    "as_is": [],
+    "loads_only": NO_PRODUCTS + [
+        ["softmax_rows<NS>(s, N, sl2, t4, mb, inv);",
+         "mb[0] = mb[1] = 0.f, inv[0] = inv[1] = 1.f;  // ablation: no softmax"],
+        ["    if (row >= N) continue;\n", "    if (row >= 0) continue;  // ablation: no stores\n"],
+        ["      if (t4 == 0) {\n        float* st = stats",
+         "      if (t4 > 3) {  // ablation: no statistics\n        float* st = stats"]],
+    "no_split": [
+        ["split_rows<kStep>(ring.arrived(idx), tid);", "ring.arrived(idx);  // ablation"],
+        ["          transpose(p, p + kStep, p + kStep + kT, tw, lane);\n", ""],
+        ["        split_rows<2 * kTile>(do_s, tid);\n", ""],
+        ["          transpose(p, p + 2 * kStep, p + 2 * kStep + kT, tw, lane);\n", ""],
+        ["          split_rows<kStep>(p, tid);\n", ""]],
+    "no_products": NO_PRODUCTS,
+    "one_tf32": [
+        [_RS, "    hopper::wgmma_m64n32k8_tf32_rs(d, ab[k], bb + off, k > 0);\n"],
+        [_SS, "    hopper::wgmma_m64n32k8_tf32_ss(d, dab + oa, bb + ob, k > 0);\n"],
+        [_AB, "    hopper::wgmma_m64n64k8_tf32_rs(acc, ab[kk], bb + 2 * kk, "
+              "accumulate || kk > 0);\n"]],
+    "no_exp": [["hopper::exp2_approx(", "("]],
+}
+F32_STEPS = 7  # the spatial shape's 32-key steps: only these instances are built
+
+
+def edited(source: str, edits, name: str) -> str:
+    """``csrc/<source>`` with every occurrence of each edit's first string
+    replaced by its second; raises if one is missing."""
+    text = (_build.CSRC_DIR / source).read_text()
+    for old, new in edits:
         if old not in text:
-            raise RuntimeError(f"variant {name}: the source no longer holds {old[:60]!r}")
+            raise RuntimeError(f"variant {name}: {source} no longer holds {old[:60]!r}")
         text = text.replace(old, new)
-    src, lib = workdir / f"{name}.cu", workdir / f"{name}.so"
-    src.write_text(text)
+    return text
+
+
+def f32_only_steps(text: str, steps: int = F32_STEPS) -> str:
+    """short_attention_tf32.cu with the dispatch of every other step count
+    taken out (the instances it would build)."""
+    return "\n".join(line for line in text.split("\n")
+                     if not re.match(r"\s+case (\d+): (return launch_fwd|err = launch_dq)", line)
+                     or line.strip().startswith(f"case {steps}:"))
+
+
+def build_library(name: str, workdir: Path, bf16_text: str, tf32_text: str):
+    """The two members as one shared library (as ops/_build.py links them);
+    returns (the loaded library, nvcc's output)."""
+    srcs = [workdir / f"{name}.cu", workdir / f"{name}_tf32.cu"]
+    srcs[0].write_text(bf16_text)
+    srcs[1].write_text(tf32_text)
+    lib = workdir / f"{name}.so"
     proc = subprocess.run([_build.find_nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC_DIR),
-                           "-o", str(lib), str(src)], capture_output=True, text=True)
+                           "-o", str(lib), *map(str, srcs)], capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for {name}:\n{proc.stdout}{proc.stderr}")
-    fn = ctypes.CDLL(str(lib)).short_attention_fwd
+    return ctypes.CDLL(str(lib)), proc.stdout + proc.stderr
+
+
+def fwd_entry(dll, entry="short_attention_fwd"):
+    fn = getattr(dll, entry)
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [
         ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, ctypes.c_void_p]
     return fn
+
+
+def build(name: str, workdir: Path, f32: bool):
+    if f32:
+        bf16_text = (_build.CSRC_DIR / "short_attention.cu").read_text()
+        tf32_text = f32_only_steps(edited("short_attention_tf32.cu", F32_VARIANTS[name], name))
+    else:
+        bf16_text = edited("short_attention.cu", VARIANTS[name], name)
+        tf32_text = (_build.CSRC_DIR / "short_attention_tf32.cu").read_text()
+    dll, _ = build_library(name, workdir, bf16_text, tf32_text)
+    return fwd_entry(dll), fwd_entry(dll, "short_attention_fwd_mma")
 
 
 def queued_ms(fn, reps: int = 20) -> float:
@@ -95,24 +183,32 @@ def queued_ms(fn, reps: int = 20) -> float:
 
 
 def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--f32", action="store_true",
+                        help="ablate the f32 design wgmma.tf32x3 in f32")
+    f32 = parser.parse_args().f32
     if not torch.cuda.is_available():
         print("ablate_short_fwd: no CUDA device is available", file=sys.stderr)
         return 2
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip(), flush=True)
+    dtype, variants = (torch.float32, F32_VARIANTS) if f32 else (torch.bfloat16, VARIANTS)
     b, n, h, d = SHAPE
     gen = torch.Generator(device="cuda").manual_seed(0)
-    q, k, v = torch.randn((b, n, 3, h, d), generator=gen, device="cuda").to(
-        torch.bfloat16).unbind(2)
-    out = torch.empty((b, n, h, d), dtype=torch.bfloat16, device="cuda")
+    q, k, v = torch.randn((b, n, 3, h, d), generator=gen, device="cuda").to(dtype).unbind(2)
+    out = torch.empty((b, n, h, d), dtype=dtype, device="cuda")
     strides = (ctypes.c_longlong * 12)(*(s for x in (q, k, v, out) for s in x.stride()[:3]))
     stream = torch.cuda.current_stream().cuda_stream
-    with tempfile.TemporaryDirectory() as tmp, ThreadPoolExecutor(len(VARIANTS)) as pool:
-        fns = dict(zip(VARIANTS, pool.map(lambda name: build(name, Path(tmp)), VARIANTS)))
+    with tempfile.TemporaryDirectory() as tmp, ThreadPoolExecutor(len(variants)) as pool:
+        built = dict(zip(variants, pool.map(lambda name: build(name, Path(tmp), f32),
+                                            variants)))
+        fns = {name: entries[0] for name, entries in built.items()}
+        if f32:
+            fns["fma"] = built["as_is"][1]
 
         def launch(fn):
-            err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), 1, b, n, h, d,
-                     strides, 1.0 / math.sqrt(d), stream)
+            err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                     0 if f32 else 1, b, n, h, d, strides, 1.0 / math.sqrt(d), stream)
             if err != 0:
                 raise RuntimeError(f"launch failed: cudaError {err}")
 
@@ -123,7 +219,8 @@ def main() -> int:
     ms = {name: sum(t) / len(t) for name, t in times.items()}
     for name, t in ms.items():
         print(f"{name}: {t:.4f} ms ({t / ms['as_is']:.3f} of as_is)", flush=True)
-    print(json.dumps({"shape": list(SHAPE), "queued_ms": ms}), flush=True)
+    print(json.dumps({"shape": list(SHAPE), "dtype": str(dtype)[6:], "queued_ms": ms}),
+          flush=True)
     return 0
 
 

@@ -744,10 +744,11 @@ def test_short_backward_designs_both_match_plain(cuda, n, d):
 @pytest.mark.parametrize("case", ["d128", "n32", "n257", "expand", "f32"])
 def test_short_backward_outside_the_wgmma_domain_runs_mma_sync(cuda, case):
     """Kernel 7 takes mma.sync at D = 128, N = 32 (the temporal shape),
-    N = 257 and on a stride-0 (``expand``) view, the FMA kernel in f32; the
-    Python mirror of the C gate agrees, and the result holds its limit."""
-    shape = {"d128": (2, 197, 3, 128), "n32": (4, 32, 3, 64),
-             "n257": (2, 257, 3, 64)}.get(case, (2, 197, 3, 64))
+    N = 257 and on a stride-0 (``expand``) view, the FMA kernel in f32 at
+    the temporal shape (f32 at N = 197 runs wgmma.tf32x3); the Python mirror
+    of the C gate agrees, and the result holds its limit."""
+    shape = {"d128": (2, 197, 3, 128), "n32": (4, 32, 3, 64), "n257": (2, 257, 3, 64),
+             "f32": (4, 32, 3, 64)}.get(case, (2, 197, 3, 64))
     dtype = torch.float32 if case == "f32" else torch.bfloat16
     q, k, v, g = _short_inputs(shape, dtype, cuda, seed=11)
     if case == "expand":  # one sequence broadcast over the batch: batch stride 0
@@ -757,26 +758,29 @@ def test_short_backward_outside_the_wgmma_domain_runs_mma_sync(cuda, case):
     want = "fma" if case == "f32" else "mma.sync"
     assert sa.last_designs()[1] == want
     strides = [s for x in (q, k, v, g, *grads) for s in sa._prepare(x, shape[3]).stride()[:3]]
-    assert sa.bwd_wgmma_takes(q.shape, strides, dtype) is False
+    assert sa.design_takes(1, shape[1], shape[3], dtype, strides) == want
     assert max(_short_bwd_uses(grads, q, k, v, g)) <= 1.0
 
 
 def test_short_forward_reports_the_design_it_ran(cuda):
     """``last_designs()[0]`` is kernel 6's design as the C side chose it:
-    wgmma at N = 197 (bf16), mma.sync at N = 32 and through the _mma entry,
-    the FMA kernel in f32."""
+    wgmma at N = 197 (bf16), mma.sync at N = 32 and through the _mma entry;
+    in f32 wgmma.tf32x3 at N = 197, the FMA kernel at N = 32 and through the
+    _mma entry."""
     for shape, dtype, fn, want in (
             ((2, 197, 3, 64), torch.bfloat16, sa.short_attention_fwd_cuda, "wgmma"),
             ((2, 32, 3, 64), torch.bfloat16, sa.short_attention_fwd_cuda, "mma.sync"),
             ((2, 197, 3, 64), torch.bfloat16, sa.short_attention_fwd_mma_cuda, "mma.sync"),
-            ((2, 197, 3, 64), torch.float32, sa.short_attention_fwd_cuda, "fma")):
+            ((2, 197, 3, 64), torch.float32, sa.short_attention_fwd_cuda, "wgmma.tf32x3"),
+            ((2, 32, 3, 64), torch.float32, sa.short_attention_fwd_cuda, "fma"),
+            ((2, 197, 3, 64), torch.float32, sa.short_attention_fwd_mma_cuda, "fma")):
         q, k, v, _ = _short_inputs(shape, dtype, cuda, seed=16)
         fn(q, k, v)
         assert sa.last_designs()[0] == want, (shape, dtype, fn.__name__)
 
 
 def test_short_backward_gate_mirror_agrees_with_the_c_side(cuda):
-    """``bwd_wgmma_takes`` names the design the C entry reports, across the
+    """``design_takes`` names the design kernel 7's C entry reports, across the
     domain's edges and outside it."""
     for shape in ((2, 64, 3, 64), (2, 65, 3, 64), (1, 256, 3, 64), (1, 257, 3, 64),
                   (2, 197, 3, 32), (2, 197, 3, 72), (2, 197, 3, 40), (2, 100, 3, 16)):
@@ -784,7 +788,7 @@ def test_short_backward_gate_mirror_agrees_with_the_c_side(cuda):
         grads = sa.short_attention_bwd_cuda(q, k, v, g)
         d_pad = -(-shape[3] // 8) * 8
         strides = [s for x in (q, k, v, g, *grads) for s in sa._prepare(x, d_pad).stride()[:3]]
-        want = "wgmma" if sa.bwd_wgmma_takes(shape, strides, torch.bfloat16) else "mma.sync"
+        want = sa.design_takes(1, shape[1], shape[3], torch.bfloat16, strides)
         assert sa.last_designs()[1] == want, shape
 
 
@@ -863,6 +867,148 @@ def test_short_backward_wgmma_launch_error_raises(cuda, monkeypatch):
         sa.short_attention_bwd_cuda(q, k, v, g)
     assert sa.last_designs()[1] == "wgmma"
     assert sa.bwd_launches == before and sa.bwd_design_launches == by_design
+
+
+# -- kernels 6-7's f32 design (wgmma.tf32x3: 3xTF32, 64 < N <= 256, D <= 64) --
+SHORT_TF32_NS = [65, 128, 129, 192, 197, 200, 256]
+
+
+def _short_views(shape, layout, device, seed, dtype=torch.float32):
+    """q, k, v as views of a fused (B, N, 3, H, D) qkv or as (B, H, N, D)
+    tensors transposed to (B, N, H, D), and an output gradient g."""
+    b, n, h, d = shape
+    rng = np.random.default_rng(seed)
+    if layout == "fused":
+        x = torch.from_numpy(rng.standard_normal((b, n, 3, h, d), dtype=np.float32))
+        q, k, v = x.to(device, dtype).unbind(2)
+    else:
+        q, k, v = (torch.from_numpy(rng.standard_normal((b, h, n, d), dtype=np.float32))
+                   .to(device, dtype).transpose(1, 2) for _ in range(3))
+    g = torch.from_numpy(rng.standard_normal((b, n, h, d), dtype=np.float32)).to(device, dtype)
+    return q, k, v, g
+
+
+@pytest.mark.parametrize("layout", ["fused", "bhnd"])
+@pytest.mark.parametrize("d", [32, 40, 64])
+@pytest.mark.parametrize("n", SHORT_TF32_NS)
+def test_short_tf32_edges_match_plain_and_repeat(cuda, n, d, layout):
+    """f32 at the wgmma.tf32x3 design's edges (N = 65 .. 256, D = 32, 40
+    padded to 40, 64), on fused-qkv and transposed views: both entries run
+    it (``design_takes`` names it), give bitwise the same o, dq, dk, dv on a
+    second call and stay within the f32 limits (1e-4 on o, F32_REL·A + 1e-6
+    on the gradients); the ``_mma`` entries run the FMA kernels, within the
+    same limits."""
+    shape = (2, n, 3, d)
+    q, k, v, g = _short_views(shape, layout, cuda, seed=n + d)
+    assert sa.design_takes(0, n, d, torch.float32) == "wgmma.tf32x3"
+    assert sa.design_takes(1, n, d, torch.float32) == "wgmma.tf32x3"
+    runs = [(sa.short_attention_fwd_cuda(q, k, v), *sa.short_attention_bwd_cuda(q, k, v, g))
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    assert sa.last_designs() == ("wgmma.tf32x3", "wgmma.tf32x3")
+    for name, a, b in zip(("o", "dq", "dk", "dv"), *runs):
+        assert torch.equal(a, b), name
+    ref = sa.short_attention_plain(q, k, v)
+    refs = sa.short_attention_plain_bwd(q, k, v, g)
+    limits = sa.backward_error_limit(q, k, v, g, refs)
+    old = (sa.short_attention_fwd_mma_cuda(q, k, v), *sa.short_attention_bwd_mma_cuda(q, k, v, g))
+    torch.cuda.synchronize()
+    assert sa.last_designs() == ("fma", "fma")
+    for got in (runs[0], old):
+        assert (got[0] - ref).abs().max().item() <= 1e-4
+        uses = [((x - r).abs() / lim).max().item() for x, r, lim in zip(got[1:], refs, limits)]
+        assert max(uses) <= 1.0, uses
+
+
+def test_short_tf32_gradients_through_autograd_match_plain(cuda):
+    """f32 q, k, v as views of a fused qkv through autograd
+    (``ShortAttentionFn``) at TimeSformer's spatial N = 197: kernels 6 and 7
+    run once each, both on wgmma.tf32x3 (counted by design), and the
+    gradients of the fused tensor hold ``backward_error_limit``."""
+    rng = np.random.default_rng(31)
+    qkv = torch.from_numpy(rng.standard_normal((4, 197, 3, 4, 64), dtype=np.float32))
+    qkv = qkv.to(cuda).requires_grad_()
+    g = torch.from_numpy(rng.standard_normal((4, 197, 4, 64), dtype=np.float32)).to(cuda)
+    fwd_before, bwd_before = dict(sa.fwd_design_launches), dict(sa.bwd_design_launches)
+    out = sa.short_attention(*qkv.unbind(2))
+    (out * g).sum().backward()
+    torch.cuda.synchronize()
+    for counts, before in ((sa.fwd_design_launches, fwd_before),
+                           (sa.bwd_design_launches, bwd_before)):
+        assert {x: counts[x] - before[x] for x in sa.DESIGNS} == {
+            x: int(x == "wgmma.tf32x3") for x in sa.DESIGNS}
+    q, k, v = (x.detach() for x in qkv.unbind(2))
+    assert (out.detach() - sa.short_attention_plain(q, k, v)).abs().max().item() <= 1e-4
+    refs = sa.short_attention_plain_bwd(q, k, v, g)
+    uses = [((x - r).abs() / lim).max().item() for x, r, lim in
+            zip(qkv.grad.unbind(2), refs, sa.backward_error_limit(q, k, v, g, refs))]
+    assert max(uses) <= 1.0, uses
+
+
+def test_short_tf32_counts_one_launch_per_call_by_design(cuda):
+    """Each call of either entry in f32 adds one launch, counted under the
+    design it ran: wgmma.tf32x3 at N = 197, fma at the temporal N = 32; the
+    _mma entries count none."""
+    for shape, design in (((2, 197, 3, 64), "wgmma.tf32x3"), ((4, 32, 3, 64), "fma")):
+        q, k, v, g = _short_inputs(shape, torch.float32, cuda, seed=32)
+        for _ in range(2):
+            before = (sa.launch_counts(), dict(sa.fwd_design_launches),
+                      dict(sa.bwd_design_launches))
+            sa.short_attention_fwd_cuda(q, k, v)
+            sa.short_attention_bwd_cuda(q, k, v, g)
+            sa.short_attention_fwd_mma_cuda(q, k, v)
+            sa.short_attention_bwd_mma_cuda(q, k, v, g)
+            torch.cuda.synchronize()
+            after = (sa.launch_counts(), sa.fwd_design_launches, sa.bwd_design_launches)
+            assert {x: after[0][x] - before[0][x] for x in after[0]} == {
+                "short_attention_fwd": 1, "short_attention_bwd": 1}, shape
+            for a, b in zip(after[1:], before[1:]):
+                assert {x: a[x] - b[x] for x in sa.DESIGNS} == {
+                    x: int(x == design) for x in sa.DESIGNS}, shape
+
+
+def test_short_design_mirror_matches_the_c_choice(cuda):
+    """``design_takes`` names the design the C side picks
+    (``short_attention_design``) for both kernels in both dtypes, across the
+    wgmma designs' edges, D > 64 and a broadcast stride of 0."""
+    for dtype in (torch.float32, torch.bfloat16):
+        for n, d, layout in ((64, 64, "fused"), (65, 64, "fused"), (197, 64, "bhnd"),
+                             (197, 40, "fused"), (197, 72, "fused"), (197, 128, "fused"),
+                             (256, 32, "bhnd"), (257, 64, "fused"), (32, 64, "fused"),
+                             (197, 64, "expand")):
+            q, k, v, g = _short_views((2, n, 3, d), "bhnd" if layout == "bhnd" else "fused",
+                                      cuda, seed=33, dtype=dtype)
+            if layout == "expand":
+                q, k, v = (x[:1].expand(2, n, 3, d) for x in (q, k, v))
+            d_pad = -(-d // 8) * 8
+            ins = [sa._prepare(x, d_pad) for x in (q, k, v, g)]
+            outs = [torch.empty((2, n, 3, d_pad), dtype=dtype, device=cuda) for _ in range(3)]
+            for which, tensors in ((0, ins[:3] + outs[:1]), (1, ins + outs)):
+                strides = sa._strides(*tensors)
+                assert sa.c_design(which, dtype, n, d_pad, strides) == sa.design_takes(
+                    which, n, d, dtype, strides), (which, dtype, n, d, layout)
+                assert sa.c_design(which, dtype, n, d_pad, strides, mma_only=True) == (
+                    "fma" if dtype == torch.float32 else "mma.sync")
+
+
+def test_short_tf32_launch_error_raises_and_runs_no_other_design(cuda, monkeypatch):
+    """No fallback: when the wgmma.tf32x3 design cannot launch (here a
+    sequence stride of 66 floats, 264 bytes, which TMA refuses, reaching the
+    C entries because the layout step is bypassed) both wrappers raise with
+    the CUDA error and count no launch; they do not run the FMA design
+    instead."""
+    b, n, h, d = 2, 197, 1, 64
+    base = torch.zeros((4, b, n, h, 66), dtype=torch.float32, device=cuda)
+    q, k, v, g = (x[..., :d] for x in base.unbind(0))
+    monkeypatch.setattr(sa, "_prepare", lambda x, d_pad: x)
+    before = (sa.launch_counts(), dict(sa.fwd_design_launches), dict(sa.bwd_design_launches))
+    with pytest.raises(RuntimeError, match="short_attention_fwd launch failed: cudaError"):
+        sa.short_attention_fwd_cuda(q, k, v)
+    assert sa.last_designs()[0] == "wgmma.tf32x3"
+    with pytest.raises(RuntimeError, match="short_attention_bwd launch failed: cudaError"):
+        sa.short_attention_bwd_cuda(q, k, v, g)
+    assert sa.last_designs()[1] == "wgmma.tf32x3"
+    assert (sa.launch_counts(), sa.fwd_design_launches, sa.bwd_design_launches) == before
 
 
 def _tiny_timesformer(dtype):

@@ -250,7 +250,7 @@ def _strides(*tensors):
     ((2, 197, 3, 64), torch.float32, "contiguous", False),
 ])
 def test_bwd_wgmma_gate_table(shape, dtype, layout, want):
-    """``bwd_wgmma_takes``, the Python mirror of kernel 7's C gate: bf16,
+    """``design_takes`` for kernel 7, the Python mirror of its C gate: bf16,
     64 < N <= 256, D padded to a multiple of 8 <= 64, every stride positive
     (the card test holds it against the design the C entry reports)."""
     b, n, h, d = shape
@@ -261,4 +261,107 @@ def test_bwd_wgmma_gate_table(shape, dtype, layout, want):
     else:
         q = k = v = torch.empty(shape, dtype=dtype)
     outs = [torch.empty(shape, dtype=dtype) for _ in range(4)]
-    assert sa.bwd_wgmma_takes(q.shape, _strides(q, k, v, *outs), dtype) is want
+    assert (sa.design_takes(1, n, d, dtype, _strides(q, k, v, *outs)) == "wgmma") is want
+
+
+# ---------- the f32 design (wgmma.tf32x3) ----------
+
+def _tf32(x):
+    """x rounded to TF32 (10 mantissa bits) to nearest, ties away from zero,
+    by integer ops on the f32 bits: ``cvt.rna.tf32.f32``."""
+    bits = x.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _split_tf32(x):
+    """The kernels' split: big = x with its low 13 bits masked, small =
+    tf32(x - big); x - big is exact in f32."""
+    big = (x.float().contiguous().view(torch.int32) & ~0x1FFF).view(torch.float32)
+    return big, _tf32(x.float() - big)
+
+
+def _emulate_short_f32(q, k, v, g, split="tf32x3"):
+    """Kernels 6-7's f32 wgmma design on the CPU: every product on split
+    operands as small.big + big.small + big.big (``"tf32x3"``, the kernels'
+    split) or as one TF32 product of the operands rounded to nearest
+    (``"tf32"``); the whole-row softmax in f32, base 2, P normalised before
+    P V; O summed over 32-key steps, each step's product added in f32;
+    delta = sum_k P dP; dS = P (dP - delta), the scale applied to dQ and dK.
+    Returns (o, (dq, dk, dv))."""
+    parts = _split_tf32 if split == "tf32x3" else (lambda x: (_tf32(x), torch.zeros_like(x)))
+
+    def prod(eq, a, c):
+        (ab, a_small), (cb, c_small) = parts(a), parts(c)
+        return (torch.einsum(eq, a_small, cb) + torch.einsum(eq, ab, c_small)
+                + torch.einsum(eq, ab, cb))
+
+    n, d = q.shape[1], q.shape[-1]
+    scale = 1.0 / d ** 0.5
+    sl2 = 1.4426950408889634 * scale
+    s = prod("bqhd,bkhd->bhqk", q, k)
+    p = torch.exp2(s * sl2 - s.amax(-1, keepdim=True) * sl2)
+    p = p * (1.0 / p.sum(-1, keepdim=True))
+    o = sum(prod("bhqk,bkhd->bqhd", p[..., t:t + 32], v[:, t:t + 32]) for t in range(0, n, 32))
+    dp = prod("bqhd,bkhd->bhqk", g, v)
+    ds = p * (dp - (p * dp).sum(-1, keepdim=True))
+    return o, (prod("bhqk,bkhd->bqhd", ds, k) * scale, prod("bhqk,bqhd->bkhd", ds, q) * scale,
+               prod("bhqk,bqhd->bkhd", p, g))
+
+
+@pytest.mark.parametrize("shape", [(1, 197, 3, 64), (3, 65, 2, 32), (1, 256, 2, 64)], ids=str)
+def test_f32_split_tf32_emulation_holds_the_limits_where_one_term_does_not(shape):
+    """Kernels 6-7's f32 design splits each operand into two TF32 parts and
+    sums three products per product (3xTF32). Emulated on the CPU, its o
+    stays within the f32 limit of 1e-4 of the JAX package's f32
+    short_attention (interpret mode) and its gradients within
+    ``backward_error_limit`` of jax.grad through its custom_vjp; one-term
+    TF32 on the same inputs misses both, which is why the split exists."""
+    q, k, v, g = _inputs(shape, seed=40)
+    ref = np.asarray(jax_short_module.short_attention(*(jnp.asarray(x) for x in (q, k, v))))
+    refs = [np.asarray(r) for r in _jax_grads(q, k, v, g)]
+    tq, tk, tv, tg = (torch.from_numpy(x) for x in (q, k, v, g))
+    limits = [x.numpy() for x in sa.backward_error_limit(
+        tq, tk, tv, tg, [torch.from_numpy(r) for r in refs])]
+    worst = {}
+    for split in ("tf32x3", "tf32"):
+        o, grads = _emulate_short_f32(tq, tk, tv, tg, split)
+        uses = [np.abs(o.numpy() - ref).max() / 1e-4] + [
+            (np.abs(x.numpy() - r) / lim).max() for x, r, lim in zip(grads, refs, limits)]
+        worst[split] = uses
+    assert max(worst["tf32x3"]) <= 1.0, worst
+    assert min(worst["tf32"]) > 1.0, worst
+
+
+@pytest.mark.parametrize("which", [0, 1], ids=["fwd", "bwd"])
+@pytest.mark.parametrize("shape,layout,want", [
+    ((1, 197, 3, 64), "fused", "wgmma.tf32x3"),      # TimeSformer's spatial call
+    ((256, 197, 12, 64), "contiguous", "wgmma.tf32x3"),
+    ((3, 32, 5, 64), "contiguous", "fma"),           # temporal: N <= 64
+    ((2, 64, 3, 64), "contiguous", "fma"),
+    ((2, 65, 3, 32), "bhnd", "wgmma.tf32x3"),
+    ((2, 129, 3, 40), "fused", "wgmma.tf32x3"),      # padded to 40
+    ((1, 256, 3, 64), "contiguous", "wgmma.tf32x3"),
+    ((1, 257, 3, 64), "contiguous", "fma"),
+    ((2, 197, 3, 72), "contiguous", "fma"),          # D > 64
+    ((2, 197, 3, 128), "contiguous", "fma"),
+    ((2, 197, 3, 64), "expand", "fma"),              # batch stride 0
+])
+def test_f32_design_table(which, shape, layout, want):
+    """``design_takes`` in f32, the Python mirror of the C entries' choice
+    (the card test holds it against the C side): ``wgmma.tf32x3`` for both
+    kernels at 64 < N <= 256, D padded to a multiple of 8 <= 64 and every
+    stride positive, ``fma`` elsewhere."""
+    b, n, h, d = shape
+    dtype = torch.float32
+    if layout == "fused":
+        q, k, v = torch.empty((b, n, 3, h, d), dtype=dtype).unbind(2)
+    elif layout == "bhnd":
+        q, k, v = (torch.empty((b, h, n, d), dtype=dtype).transpose(1, 2) for _ in range(3))
+    elif layout == "expand":
+        q = k = v = torch.empty((1, n, h, d), dtype=dtype).expand(shape)
+    else:
+        q = k = v = torch.empty(shape, dtype=dtype)
+    outs = [torch.empty(shape, dtype=dtype) for _ in range(1 if which == 0 else 4)]
+    strides = _strides(q, k, v, *outs)
+    assert len(strides) == (12 if which == 0 else 21)
+    assert sa.design_takes(which, n, d, dtype, strides) == want
