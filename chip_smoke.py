@@ -69,15 +69,18 @@ Phases, in order; any failure ends the run with a non-zero exit:
    1 to 511 with D from 16 to 128 and odd B*H (kernel 7's wgmma edges, N =
    65, 128, 129, 192, 256 at D = 64 and N = 197 at D = 32, on fused-qkv
    views and on transposed (B, H, N, D) ones), each under its elementwise
-   limit; in f32 also the edges of the f32 design wgmma.tf32x3 (N = 65, 128,
-   129, 192, 197, 200, 256 at D = 32, 40, 64, fused and transposed); the
+   limit; in f32 also the edges of the f32 designs, wgmma.tf32x3 (N = 65,
+   128, 129, 192, 197, 200, 256 at D = 32, 40, 64) and mma.tf32x3 (N = 1, 2,
+   7, 8, 16, 31, 32, 33, 63, 64 at D = 16, 32, 40, 64), fused and
+   transposed; the
    earlier designs (``short_attention_fwd_mma``, ``short_attention_bwd_mma``:
    mma.sync in bf16, FMA in f32) under the same limits at every case, and
    the design each entry ran (``short_attention.last_designs``) printed and
    held to ``short_attention.design_takes``. The ptxas report of kernels
    6-7's wgmma and tf32 instances is printed. Timed beside the plain twins,
-   their bounds (f32 on wgmma.tf32x3: 3xTF32 at the TF32 peak; the FMA and
-   bf16x3 bounds in the log) and ``F.scaled_dot_product_attention``'s
+   their bounds (f32 on wgmma.tf32x3 and mma.tf32x3: 3xTF32 at the TF32 peak
+   against the bytes; the FMA and bf16x3 bounds in the log) and
+   ``F.scaled_dot_product_attention``'s
    forward and autograd backward (single calls and queued); each kernel
    also beside its earlier design in turns (old, new, new, old), single
    calls and queued (20 calls back to back: the card's time without the
@@ -97,7 +100,7 @@ Phases, in order; any failure ends the run with a non-zero exit:
    5) with its logits against the same model on the plain attention, and
    the train step (median of 3 after a warm-up), each with kernels 6-7's
    launches by design (the 12 spatial calls on wgmma.tf32x3, the 12
-   temporal ones on FMA) and their share from phase 7's f32 times, peak
+   temporal ones on mma.tf32x3) and their share from phase 7's f32 times, peak
    memory. Then every parameter's gradient at B=2, kernels against plain
    attention, f32 and bf16.
 10. ``cli.main --model timesformer --bf16``: 1 epoch, ``--resume auto`` for
@@ -1152,13 +1155,14 @@ def short_bound_ms(shape, dtype, backward: bool, products: int = 1, peak=None):
 def short_f32_bounds(shape, backward: bool, design: str):
     """Kernels 6-7 in f32: (bound ms, bound_by) of the design that ran,
     3xTF32 (three TF32 products a product at the TF32 peak) for
-    wgmma.tf32x3 and the FMA units for fma; the other design's bound ms;
-    the bound ms of bf16x3, a split no kernel runs."""
+    the tensor-core designs (wgmma.tf32x3, mma.tf32x3) and the FMA units
+    for fma; the other kind's bound ms; the bound ms of bf16x3, a split no
+    kernel runs."""
     f32 = torch.float32
     tf32x3 = short_bound_ms(shape, f32, backward, 3, PEAK_TF32)
     fma = short_bound_ms(shape, f32, backward)
     bf16x3 = short_bound_ms(shape, f32, backward, 3, PEAK_FLOPS[torch.bfloat16])[0]
-    if design == "wgmma.tf32x3":
+    if design in SHORT_TF32_DESIGNS:
         return (*tf32x3, fma[0], bf16x3)
     return (*fma, tf32x3[0], bf16x3)
 
@@ -1173,16 +1177,28 @@ SHORT_BWD_DESIGN = ("wgmma + TMA (64 < N <= 256, D <= 64), a persistent block pe
                     "ahead, Q/dO 64 rows at a time): query tiles as rows (whole-row S, delta, "
                     "dQ), then key tiles as rows (dK, dV), the last chunk 16 wide; mma.sync "
                     "elsewhere")
-SHORT_F32_DESIGN = ("f32 at 64 < N <= 256, D <= 64, positive strides: wgmma.tf32x3 "
+SHORT_F32_DESIGN = ("f32 at D <= 64, positive strides, three TF32 products a product: at "
+                    "1 <= N <= 64 mma.tf32x3 (short_attention_tf32_mma.cu): persistent blocks "
+                    "(a producer warp; a consumer warp a 16-row tile, two in the backward, "
+                    "which split the keys and the head dim), a (sequence, head) "
+                    "pair whole brought in once by TMA through a ring of pair stages (2 in "
+                    "the forward, 1 in the backward), mma.sync fragments split in registers "
+                    "as they are read, the small terms in accumulators of their own, "
+                    "whole-row S in registers, kernel 7 in one launch (S and dP once, P and "
+                    "dS through shared memory for dK and dV); at 64 < N <= 256 wgmma.tf32x3 "
                     "(short_attention_tf32.cu): persistent blocks over items of two 64-row "
-                    "tiles of a (sequence, head) pair, raw f32 rows brought in 32 at a time by "
-                    "TMA through a ring and split by 3 transform warps (rows form in place, T "
-                    "form transposed), Q/K/V split into registers, whole-row S in registers, "
-                    "three TF32 products a product; kernel 7 in two launches (row statistics "
-                    "and dQ; dK and dV); FMA elsewhere")
-# TF32 wgmma design edges (f32 only): N across 64 < N <= 256, D 32, 40, 64.
+                    "tiles of a pair, raw f32 rows brought in 32 at a time by TMA through a "
+                    "ring and split by 3 transform warps (rows form in place, T form "
+                    "transposed), whole-row S in registers; kernel 7 in two launches (row "
+                    "statistics and dQ; dK and dV); FMA elsewhere")
+# Kernels 6-7's f32 tensor-core designs.
+SHORT_TF32_DESIGNS = ("wgmma.tf32x3", "mma.tf32x3")
+# Their edges (f32 only): wgmma.tf32x3 at 64 < N <= 256, D 32, 40, 64;
+# mma.tf32x3 at 1 <= N <= 64 across its 16-row tiles, D 16, 32, 40, 64.
 SHORT_TF32_EDGES = [(f"n{n}_d{d}", (3, n, 5, d)) for n in (65, 128, 129, 192, 197, 200, 256)
-                    for d in (32, 40, 64)]
+                    for d in (32, 40, 64)] + [
+                    (f"n{n}_d{d}", (3, n, 5, d)) for n in (1, 2, 7, 8, 16, 31, 32, 33, 63, 64)
+                    for d in (16, 32, 40, 64)]
 
 
 def ptxas_lines(source: str, kernel: str) -> list:
@@ -1225,9 +1241,10 @@ def check_short_kernels():
     """Phases 7 and 7b: kernels 6-7 in both dtypes, the entries' designs and
     the kept earlier ones (the _mma entries: mma.sync in bf16, FMA in f32),
     vs their plain twins on the card, across the router's domain and (f32)
-    the wgmma.tf32x3 design's edges, each case printing the design the C
+    the f32 tensor-core designs' edges, each case printing the design the C
     side ran and holding it to ``design_takes``; timings at the TimeSformer-B
-    shapes beside the twins, the bounds (3xTF32 where wgmma.tf32x3 ran), sdpa
+    shapes beside the twins, the bounds (3xTF32 where a tensor-core design
+    ran), sdpa
     (single and queued), the earlier designs in turns, and kernel 1 and the
     flash training pair (the routing decision's data). Returns {entry name:
     numbers}."""
@@ -1237,7 +1254,8 @@ def check_short_kernels():
     from laryngeal_tpu_torch.ops import short_attention as sa
 
     for kernel in ("short_fwd_wgmma_kernel", "short_bwd_wgmma_kernel", "short_fwd_tf32_kernel",
-                   "short_bwd_dq_tf32_kernel", "short_bwd_dkv_tf32_kernel"):
+                   "short_bwd_dq_tf32_kernel", "short_bwd_dkv_tf32_kernel",
+                   "short_fwd_mma_tf32_kernel", "short_bwd_mma_tf32_kernel"):
         for line in ptxas_lines("short_attention.cu", kernel):
             log(f"ptxas {line}")
     entries = {"short_attention_fwd": {}, "short_attention_bwd": {}}
@@ -1344,8 +1362,9 @@ def check_short_kernels():
                     bound_ms, bound_by = short_bound_ms(shape, dtype, backward)
                 else:
                     bound_ms, bound_by, other, bf16x3 = short_f32_bounds(shape, backward, design)
-                    extra = (f" ({TF32X3_BOUND if design == 'wgmma.tf32x3' else 'FMA, 67 TFLOP/s'}"
-                             f"; the {'FMA' if design == 'wgmma.tf32x3' else '3xTF32'} bound "
+                    tc = design in SHORT_TF32_DESIGNS
+                    extra = (f" ({TF32X3_BOUND if tc else 'FMA, 67 TFLOP/s'}"
+                             f"; the {'FMA' if tc else '3xTF32'} bound "
                              f"{other:.4f} ms, {BF16X3_BOUND} {bf16x3:.4f} ms)")
                 ms = t["new"]
                 numbers = dict(shape=list(shape), ms=ms, kernel_ms=ms, plain_ms=plain_ms,
@@ -1524,7 +1543,8 @@ def timesformer_f32_path(pixel_u8, labels, mask, f32_kernel_ms: dict, n_calls: i
     events, median of 5) and its logits against the same model on the
     plain attention, then the train step (host clock around a synchronised
     step, median of 3 after a warm-up), each with kernels 6-7's launches by
-    design (the spatial calls on wgmma.tf32x3, the temporal ones on FMA) and
+    design (the spatial calls on wgmma.tf32x3, the temporal ones on
+    mma.tf32x3) and
     their share from phase 7's f32 times (``f32_kernel_ms``: {shape:
     (kernel 6 ms, kernel 7 ms)})."""
     from laryngeal_tpu_torch.ops import attention as att
@@ -1536,7 +1556,7 @@ def timesformer_f32_path(pixel_u8, labels, mask, f32_kernel_ms: dict, n_calls: i
     b, half = pixel_u8.shape[0], n_calls // 2
     by_design = {"short_attention_fwd": sa.fwd_design_launches,
                  "short_attention_bwd": sa.bwd_design_launches}
-    split = {"wgmma.tf32x3": half, "fma": half}
+    split = {"wgmma.tf32x3": half, "mma.tf32x3": half}
     model = timesformer_b(torch.float32).cuda().eval()
     pixel = batch_preprocess(pixel_u8, "timesformer", crop=224)
     with torch.no_grad():
@@ -1554,11 +1574,12 @@ def timesformer_f32_path(pixel_u8, labels, mask, f32_kernel_ms: dict, n_calls: i
                              f"want {want_fwd}")
     k6 = half * sum(ms[0] for ms in f32_kernel_ms.values())
     k7 = half * sum(ms[1] for ms in f32_kernel_ms.values())
-    k6_spatial = half * f32_kernel_ms["spatial"][0]
+    by_shape = {name: tuple(half * x for x in ms) for name, ms in f32_kernel_ms.items()}
     log(f"timesformer-b 32f 224 f32 B={b} forward: {fwd_ms:.2f} ms (model only, CUDA events, "
         f"median of 5); kernel 6 by design {fwd_designs['short_attention_fwd']}, {k6:.2f} ms "
         f"over the {n_calls} calls = {k6 / fwd_ms:.3f} of the forward (spatial on "
-        f"wgmma.tf32x3 {k6_spatial:.2f} ms)")
+        f"wgmma.tf32x3 {by_shape['spatial'][0]:.2f} ms, temporal on mma.tf32x3 "
+        f"{by_shape['temporal'][0]:.2f} ms)")
     del pixel, logits, logits_plain
     model.train()
     state = create_train_state(model, "adamw", 1e-4, 0.01)
@@ -1586,8 +1607,9 @@ def timesformer_f32_path(pixel_u8, labels, mask, f32_kernel_ms: dict, n_calls: i
     log(f"timesformer-b 32f 224 f32 B={b} train step: {step_ms:.2f} ms (median of 3 after a "
         f"warm-up, host clock) -> {b / step_ms * 1e3:.2f} clips/s, peak memory "
         f"{peak / 2**30:.2f} GiB; kernels 6-7 by design {designs}; kernel 6 {k6:.2f} ms + "
-        f"kernel 7 {k7:.2f} ms a step = {k6 / step_ms:.3f} + {k7 / step_ms:.3f} of the step; "
-        f"losses {losses}")
+        f"kernel 7 {k7:.2f} ms a step = {k6 / step_ms:.3f} + {k7 / step_ms:.3f} of the step "
+        f"(kernel 7 spatial {by_shape['spatial'][1]:.2f}, temporal {by_shape['temporal'][1]:.2f}"
+        f" ms); losses {losses}")
     del state, step, model, m
     torch.cuda.empty_cache()
 
@@ -1623,7 +1645,8 @@ def timesformer_training(kernel_ms: dict, f32_kernel_ms: dict) -> None:
     if per_step != want:
         raise AssertionError(f"launches per TimeSformer train step {per_step}, want {want}")
     per_design = {d: sa.bwd_design_launches[d] - designs_before[d] for d in sa.DESIGNS}
-    want_design = {"fma": 0, "mma.sync": n_calls // 2, "wgmma": n_calls // 2, "wgmma.tf32x3": 0}
+    want_design = {d: 0 for d in sa.DESIGNS}
+    want_design.update({"mma.sync": n_calls // 2, "wgmma": n_calls // 2})
     if per_design != want_design:
         raise AssertionError(f"kernel 7's launches by design per TimeSformer train step "
                              f"{per_design}, want {want_design}")

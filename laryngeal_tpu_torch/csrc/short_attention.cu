@@ -92,22 +92,27 @@
 //   * f32 at 64 < N <= 256 and D <= 64 with every stride positive
 //     (TimeSformer's spatial shape): the tensor cores in 3xTF32, design
 //     "wgmma.tf32x3" (short_attention_tf32.cu, built into this library).
-//   * other f32 calls (N <= 64, TimeSformer's temporal N = 32; 256 < N <
-//     512; D > 64; a stride of 0): the FMA units, TF32 off (as the flash
-//     kernels): 1-4 threads per row, each owning a 32-wide slice of the head
-//     dim; the same passes as the mma.sync designs. The _mma entries keep
-//     this design at every f32 shape, to time the wgmma.tf32x3 one against.
+//   * f32 at 1 <= N <= 64 and D <= 64 with every stride positive
+//     (TimeSformer's temporal shape, N = 32): the tensor cores in 3xTF32 on
+//     mma.sync, design "mma.tf32x3" (short_attention_tf32_mma.cu, built into
+//     this library): a (sequence, head) pair whole, brought in once by TMA,
+//     each product's operands split in registers, both kernels one launch.
+//   * other f32 calls (256 < N < 512; D > 64; a stride of 0): the FMA units,
+//     TF32 off (as the flash kernels): 1-4 threads per row, each owning a
+//     32-wide slice of the head dim; the same passes as the mma.sync
+//     designs. The _mma entries keep this design at every f32 shape, to time
+//     the tensor-core ones against.
 // short_attention_last_design reports the design of the last launch of each
 // kernel, short_attention_design the one a call would run. Not yet done
-// (later work): f32 at the temporal shape on full-width loads, several
-// short sequences per block for N <= 16, the backward at D = 128 on wgmma (a
-// pair's four tensors take 256 KB there).
+// (later work): several short sequences per block for N <= 16 in bf16, the
+// backward at D = 128 on wgmma (a pair's four tensors take 256 KB there).
 
 #include <cstring>
 
 #include "flash_attention_common.cuh"
 #include "hopper.cuh"
 #include "short_attention_tf32.cuh"
+#include "short_attention_tf32_mma.cuh"
 #include "wgmma_tiles.cuh"
 
 namespace {
@@ -1548,10 +1553,11 @@ cudaError_t launch_bwd_wgmma(const void* q, const void* k, const void* v, const 
 // head stride positive; a broadcast stride of 0 cannot be described to it);
 // the backward also needs D <= 64 (a pair's q, k, v and g in shared memory)
 // and takes the outputs' strides into the rule; mma.sync elsewhere. f32:
-// wgmma.tf32x3 where shorttf::takes it (64 < N <= 256, D <= 64, every
-// stride positive), FMA elsewhere. `mma_only` (the _mma entries) keeps the
+// mma.tf32x3 where shortmma::takes it (1 <= N <= 64, D <= 64, every stride
+// positive), wgmma.tf32x3 where shorttf::takes it (64 < N <= 256, the same
+// D and strides), FMA elsewhere. `mma_only` (the _mma entries) keeps the
 // earlier designs, mma.sync and FMA, at every shape.
-enum Design { kFma = 0, kMmaSync = 1, kWgmma = 2, kWgmmaTf32 = 3 };
+enum Design { kFma = 0, kMmaSync = 1, kWgmma = 2, kWgmmaTf32 = 3, kMmaTf32 = 4 };
 
 bool strides_positive(const long long* st, int n) {
   for (int i = 0; i < n; ++i)
@@ -1565,7 +1571,9 @@ int design_of(int which, int dtype, int N, int D, const long long* st, bool mma_
     const bool wg = N > 64 && N <= kWgMaxN && (which == 0 || D <= 64) && strides_positive(st, n);
     return !mma_only && wg ? kWgmma : kMmaSync;
   }
-  return !mma_only && shorttf::takes(dtype, N, D, st, n) ? kWgmmaTf32 : kFma;
+  if (mma_only) return kFma;
+  if (shortmma::takes(dtype, N, D, st, n)) return kMmaTf32;
+  return shorttf::takes(dtype, N, D, st, n) ? kWgmmaTf32 : kFma;
 }
 
 // The design of the last launch of kernel 6 ([0]) and kernel 7 ([1]) through
@@ -1626,6 +1634,7 @@ int fwd(const void* q, const void* k, const void* v, void* o, int dtype, int B, 
   const int design = design_of(0, dtype, N, D, st, mma_only);
   g_last_design[0] = design;
   if (design == kWgmmaTf32) return (int)shorttf::fwd(q, k, v, o, B, H, N, D, st, scale, cs);
+  if (design == kMmaTf32) return (int)shortmma::fwd(q, k, v, o, B, H, N, D, st, scale, cs);
   if (D <= 32) return (int)launch_fwd<32>(q, k, v, o, design, B, H, N, D, s, scale, cs);
   if (D <= 64) return (int)launch_fwd<64>(q, k, v, o, design, B, H, N, D, s, scale, cs);
   return (int)launch_fwd<128>(q, k, v, o, design, B, H, N, D, s, scale, cs);
@@ -1638,8 +1647,9 @@ int fwd(const void* q, const void* k, const void* v, void* o, int dtype, int B, 
 // The head-dim stride must be 1, D a multiple of 8 (<= 128), every stride a
 // multiple of 8 and every pointer 16-byte aligned (the Python wrapper
 // guarantees all of it). bf16 at 64 < N <= 256 runs the wgmma design, other
-// bf16 calls the mma.sync one; f32 at 64 < N <= 256 and D <= 64 with every
-// stride positive the wgmma.tf32x3 one (short_attention_tf32.cu), other f32
+// bf16 calls the mma.sync one; f32 with D <= 64 and every stride positive
+// the mma.tf32x3 one at N <= 64 (short_attention_tf32_mma.cu) and the
+// wgmma.tf32x3 one at 64 < N <= 256 (short_attention_tf32.cu), other f32
 // calls the FMA kernel. Returns the cudaError_t of the launch (0 = success).
 extern "C" int short_attention_fwd(const void* q, const void* k, const void* v, void* o,
                                    int dtype, int B, int N, int H, int D, const long long* st,
@@ -1668,6 +1678,8 @@ int bwd(const void* q, const void* k, const void* v, const void* g, void* dq, vo
   g_last_design[1] = design;
   if (design == kWgmmaTf32)
     return (int)shorttf::bwd(q, k, v, g, dq, dk, dv, scratch, B, H, N, D, st, scale, cs);
+  if (design == kMmaTf32)
+    return (int)shortmma::bwd(q, k, v, g, dq, dk, dv, B, H, N, D, st, scale, cs);
   if (D <= 32)
     return (int)launch_bwd<32>(q, k, v, g, dq, dk, dv, design, B, H, N, D, s, scale, cs);
   if (D <= 64)
@@ -1683,8 +1695,9 @@ int bwd(const void* q, const void* k, const void* v, const void* g, void* dq, vo
 // short_attention_scratch_floats(...) floats (null when that is 0: the
 // wgmma.tf32x3 design's row statistics). bf16 at 64 < N <= 256 and D <= 64
 // with every stride positive runs the wgmma design, other bf16 calls the
-// mma.sync one; f32 the wgmma.tf32x3 design at the same N, D and strides,
-// the FMA kernel elsewhere.
+// mma.sync one; f32 the mma.tf32x3 design at N <= 64 and the wgmma.tf32x3
+// one at 64 < N <= 256 (D <= 64, every stride positive), the FMA kernel
+// elsewhere.
 extern "C" int short_attention_bwd(const void* q, const void* k, const void* v, const void* g,
                                    void* dq, void* dk, void* dv, float* scratch, int dtype, int B,
                                    int N, int H, int D, const long long* st, float scale,
@@ -1701,9 +1714,9 @@ extern "C" int short_attention_bwd_mma(const void* q, const void* k, const void*
   return bwd(q, k, v, g, dq, dk, dv, scratch, dtype, B, N, H, D, st, scale, true, stream);
 }
 
-// The design (0 = FMA, 1 = mma.sync, 2 = wgmma, 3 = wgmma.tf32x3) of the
-// last launch of kernel 6 (which = 0) or kernel 7 (which = 1) through any
-// entry above; -1 before the first.
+// The design (0 = FMA, 1 = mma.sync, 2 = wgmma, 3 = wgmma.tf32x3, 4 =
+// mma.tf32x3) of the last launch of kernel 6 (which = 0) or kernel 7
+// (which = 1) through any entry above; -1 before the first.
 extern "C" int short_attention_last_design(int which) {
   return which == 0 || which == 1 ? g_last_design[which] : -1;
 }

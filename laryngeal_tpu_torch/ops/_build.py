@@ -8,8 +8,8 @@ source, and those in ``MEMBERS`` have several, compiled to objects in
 parallel and linked together (the window kernels: the held and wide designs
 of ``window_attention.cu`` beside the wgmma design of
 ``window_attention_wgmma.cu``, whose launchers the former's C entries call;
-the short kernels: ``short_attention.cu`` beside its f32 tensor-core design
-``short_attention_tf32.cu``).
+the short kernels: ``short_attention.cu`` beside its f32 tensor-core
+designs ``short_attention_tf32.cu`` and ``short_attention_tf32_mma.cu``).
 The library's name carries a hash of its sources and of the shared headers
 (``csrc/*.cuh``), so an edited source is rebuilt and a stale library is
 never loaded. A file lock serialises concurrent builds (several processes,
@@ -37,7 +37,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo")
 # Libraries of more than one source, by library name (its first source).
 MEMBERS: Dict[str, Tuple[str, ...]] = {
-    "short_attention.cu": ("short_attention.cu", "short_attention_tf32.cu"),
+    "short_attention.cu": ("short_attention.cu", "short_attention_tf32.cu",
+                           "short_attention_tf32_mma.cu"),
     "window_attention.cu": ("window_attention.cu", "window_attention_wgmma.cu")}
 
 _loaded: Dict[str, ctypes.CDLL] = {}

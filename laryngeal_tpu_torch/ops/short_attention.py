@@ -18,13 +18,16 @@ every other N. Kernel 7 likewise: ``wgmma`` (a pair's Q, K, V and dO
 resident through TMA; the query tiles as rows for the row statistics and dQ,
 then the key tiles as rows for dK and dV) at 64 < N <= 256 and D <= 64 with
 every stride positive, ``mma.sync`` elsewhere.
-In float32 both kernels run ``wgmma.tf32x3`` (``csrc/short_attention_tf32.cu``:
-the tensor cores in 3xTF32, each operand split into two TF32 parts and each
-product the sum of three, raw f32 tiles brought in by TMA and split in the
-block) at the same N, D <= 64 and positive strides, and ``fma`` (the FMA
-units) elsewhere; kernel 7's f32 design takes scratch for its row statistics,
-which the wrapper allocates at the size the C side names
-(``scratch_floats``). ``short_attention_fwd_mma_cuda`` and
+In float32 both kernels run the tensor cores in 3xTF32 (each operand split
+into two TF32 parts and each product the sum of three) at D <= 64 and
+positive strides: ``mma.tf32x3`` (``csrc/short_attention_tf32_mma.cu``: a
+(sequence, head) pair whole, brought in by TMA, its fragments split in
+registers on mma.sync, kernel 7 in one launch) at N <= 64, TimeSformer's
+temporal N = 32; ``wgmma.tf32x3`` (``csrc/short_attention_tf32.cu``: raw f32
+tiles brought in by TMA and split in the block) at 64 < N <= 256; ``fma``
+(the FMA units) elsewhere. Kernel 7's ``wgmma.tf32x3`` design takes scratch
+for its row statistics, which the wrapper allocates at the size the C side
+names (``scratch_floats``). ``short_attention_fwd_mma_cuda`` and
 ``short_attention_bwd_mma_cuda`` run the earlier designs (``mma.sync`` in
 bf16, ``fma`` in f32) at any shape; only ``chip_smoke.py`` and the card tests
 call them, to time and hold the designs against each other, and they count
@@ -69,10 +72,13 @@ MAX_SEQ = 511  # the JAX router's N < 512
 fwd_launches = 0   # kernel 6, short_attention_fwd
 bwd_launches = 0   # kernel 7, short_attention_bwd
 # Designs of kernels 6-7, by the code ``short_attention_last_design`` returns.
-DESIGNS = ("fma", "mma.sync", "wgmma", "wgmma.tf32x3")
+DESIGNS = ("fma", "mma.sync", "wgmma", "wgmma.tf32x3", "mma.tf32x3")
 # The wgmma designs' domain (``design_takes``): the sequence lengths, and the
 # head dim of every one but kernel 6's bf16 design (which takes D <= 128).
 WGMMA_MIN_SEQ, WGMMA_MAX_SEQ, WGMMA_MAX_HEAD_DIM = 65, 256, 64
+# The f32 ``mma.tf32x3`` design's sequence lengths (its head dim: as the
+# wgmma designs', D <= 64).
+MMA_TF32_MAX_SEQ = 64
 # Kernels 6's and 7's launches by the design the C side ran (they add up to
 # ``fwd_launches`` and ``bwd_launches``).
 fwd_design_launches: Dict[str, int] = {d: 0 for d in DESIGNS}
@@ -103,18 +109,21 @@ def design_takes(which: int, n: int, d: int, dtype: torch.dtype, strides=None) -
     the checks that name the design a shape should run. bf16: ``wgmma`` at
     64 < N <= 256 (kernel 7 also D <= 64) when every batch, sequence and
     head stride of the launch is positive (TMA cannot describe a broadcast
-    stride of 0), else ``mma.sync``. f32: ``wgmma.tf32x3`` at 64 < N <= 256,
-    D <= 64 and positive strides (both kernels), else ``fma``. ``strides``:
+    stride of 0), else ``mma.sync``. f32, both kernels, at D <= 64 and
+    positive strides: ``mma.tf32x3`` at 1 <= N <= 64, ``wgmma.tf32x3`` at
+    64 < N <= 256; ``fma`` elsewhere. ``strides``:
     the launch's strides as ``_launch`` passes them (3 a tensor; only their
     signs matter), None for tensors laid out by ``_prepare`` from positive
     strides."""
     d_pad = -(-d // 8) * 8
     bf16 = dtype == torch.bfloat16
+    positive = strides is None or all(s > 0 for s in strides)
     fits = (WGMMA_MIN_SEQ <= n <= WGMMA_MAX_SEQ
-            and (d_pad <= WGMMA_MAX_HEAD_DIM or (bf16 and which == 0))
-            and (strides is None or all(s > 0 for s in strides)))
+            and (d_pad <= WGMMA_MAX_HEAD_DIM or (bf16 and which == 0)) and positive)
     if bf16:
         return "wgmma" if fits else "mma.sync"
+    if 1 <= n <= MMA_TF32_MAX_SEQ and d_pad <= WGMMA_MAX_HEAD_DIM and positive:
+        return "mma.tf32x3"
     return "wgmma.tf32x3" if fits else "fma"
 
 
@@ -324,8 +333,8 @@ def short_attention_fwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) 
 def short_attention_fwd_mma_cuda(q: torch.Tensor, k: torch.Tensor,
                                  v: torch.Tensor) -> torch.Tensor:
     """Kernel 6's earlier designs at any N, on CUDA tensors (``mma.sync`` in
-    bf16, ``fma`` in f32: the yardsticks of the ``wgmma`` and
-    ``wgmma.tf32x3`` ones); counts no launch, raises if it cannot launch."""
+    bf16, ``fma`` in f32: the yardsticks of the ``wgmma``, ``wgmma.tf32x3``
+    and ``mma.tf32x3`` ones); counts no launch, raises if it cannot launch."""
     return _fwd_cuda("short_attention_fwd_mma", q, k, v)[0]
 
 
@@ -356,7 +365,8 @@ def short_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                              do: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Kernel 7 on CUDA tensors: (dq, dk, dv) shaped like q; ``do`` is cast
     to q's dtype first, as the JAX backward casts it. Raises if it cannot
-    launch (the wgmma designs' failures included: there is no fallback)."""
+    launch (the tensor-core designs' failures included: there is no
+    fallback)."""
     global bwd_launches
     grads, launched = _bwd_cuda("short_attention_bwd", q, k, v, do)
     if launched:
@@ -369,8 +379,9 @@ def short_attention_bwd_mma_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tens
                                  do: torch.Tensor
                                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Kernel 7's earlier designs at any shape, on CUDA tensors (``mma.sync``
-    in bf16, ``fma`` in f32: the yardsticks of the ``wgmma`` and
-    ``wgmma.tf32x3`` ones); counts no launch, raises if it cannot launch."""
+    in bf16, ``fma`` in f32: the yardsticks of the ``wgmma``,
+    ``wgmma.tf32x3`` and ``mma.tf32x3`` ones); counts no launch, raises if
+    it cannot launch."""
     return _bwd_cuda("short_attention_bwd_mma", q, k, v, do)[0]
 
 

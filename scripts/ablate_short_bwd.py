@@ -1,10 +1,10 @@
 """What kernel 7's wgmma designs spend their time on, on one CUDA card.
 
-    python3 scripts/ablate_short_bwd.py [--f32]
+    python3 scripts/ablate_short_bwd.py [--f32 [--temporal]]
 
 Builds the short-attention library (``laryngeal_tpu_torch/csrc/
-short_attention.cu`` with its f32 member ``short_attention_tf32.cu``) as it
-is and with one part of the backward's work taken out or one of its choices
+short_attention.cu`` with its f32 members ``short_attention_tf32.cu`` and
+``short_attention_tf32_mma.cu``) as it is and with one part of the backward's work taken out or one of its choices
 changed at a time (text edits of a copy in a temporary directory, each built
 by its own ``nvcc`` with only the 4-chunk instances of the bf16 wgmma
 backward; every variant but ``as_is`` and the choices below computes a wrong
@@ -43,6 +43,13 @@ FMA design (``fma``, the ``_mma`` entry) for scale, and ``dq_only``: the
 first launch alone (row statistics and dQ; the second, dK and dV, is the
 rest of ``as_is``).
 
+With ``--f32 --temporal``, the f32 design ``mma.tf32x3`` at TimeSformer-B's
+temporal shape (1568, 32, 12, 64): ``ablate_short_fwd.py``'s
+``TEMPORAL_VARIANTS`` (``as_is``, ``loads_only``, ``no_products``,
+``one_term_tf32``, ``no_exp``, and the choices ``one_chain``, ``stages_1``,
+``stages_2``, ``stages_3``, the stage counts checked bitwise against
+``as_is``) and ``fma`` for scale.
+
 Prints the card's name and power limit, one line per variant, and the
 variants as one JSON object last. Needs nvcc and a card.
 """
@@ -65,8 +72,8 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 sys.path.insert(0, str(Path(__file__).resolve().parent))
-from ablate_short_fwd import (F32_VARIANTS, build_library, edited,  # noqa: E402
-                              f32_only_steps)
+from ablate_short_fwd import (F32_VARIANTS, TEMPORAL, TEMPORAL_RIGHT,  # noqa: E402
+                              TEMPORAL_VARIANTS, build_library, edited, f32_only_steps)
 from laryngeal_tpu_torch.ops import _build  # noqa: E402
 
 SHAPE = (256, 197, 12, 64)
@@ -142,8 +149,13 @@ def variant_source(name: str) -> str:
     return text
 
 
-def build(name: str, workdir: Path, f32: bool):
-    if f32:
+def build(name: str, workdir: Path, f32: bool, temporal: bool = False):
+    if temporal:
+        dll, out = build_library(
+            name, workdir, variant_source("as_is"),
+            f32_only_steps((_build.CSRC_DIR / "short_attention_tf32.cu").read_text()),
+            edited("short_attention_tf32_mma.cu", TEMPORAL_VARIANTS[name], name))
+    elif f32:
         tf32_text = f32_only_steps(edited("short_attention_tf32.cu", BWD_F32_VARIANTS[name],
                                           name))
         dll, out = build_library(name, workdir, variant_source("as_is"), tf32_text)
@@ -161,13 +173,15 @@ def build(name: str, workdir: Path, f32: bool):
     scratch.restype = ctypes.c_longlong
     scratch.argtypes = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_int]
     fns["scratch_floats"] = scratch
-    spills, kernel = [], None  # the wgmma backward's instances that spill
+    spills, kernel = [], None  # the bf16 wgmma and f32 mma backward's instances that spill
     for line in out.splitlines():
         if "Compiling entry function" in line:
-            m = re.search(r"short_bwd_wgmma_kernelI((?:Li\d+E)+)E", line)
-            kernel = f"<{', '.join(re.findall(r'Li(\d+)E', m.group(1)))}>" if m else None
+            m = re.search(r"(short_bwd_wgmma_kernel|short_bwd_mma_tf32_kernel)I((?:Li\d+E)+)E",
+                          line)
+            kernel = (f"{m.group(1)}<{', '.join(re.findall(r'Li(\d+)E', m.group(2)))}>"
+                      if m else None)
         elif kernel and "spill" in line and " 0 bytes spill stores" not in line:
-            spills.append(f"short_bwd_wgmma_kernel{kernel}: {line.strip()}")
+            spills.append(f"{kernel}: {line.strip()}")
     return fns, spills
 
 
@@ -189,14 +203,22 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--f32", action="store_true",
                         help="ablate the f32 design wgmma.tf32x3 in f32")
-    f32 = parser.parse_args().f32
+    parser.add_argument("--temporal", action="store_true",
+                        help="with --f32: the mma.tf32x3 design at the temporal shape")
+    args = parser.parse_args()
+    if args.temporal and not args.f32:
+        parser.error("--temporal ablates the f32 design: give --f32 too")
+    f32, temporal = args.f32, args.temporal
     if not torch.cuda.is_available():
         print("ablate_short_bwd: no CUDA device is available", file=sys.stderr)
         return 2
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip(), flush=True)
     dtype, variants = (torch.float32, BWD_F32_VARIANTS) if f32 else (torch.bfloat16, VARIANTS)
-    b, n, h, d = SHAPE
+    if temporal:
+        variants = TEMPORAL_VARIANTS
+    shape = TEMPORAL if temporal else SHAPE
+    b, n, h, d = shape
     gen = torch.Generator(device="cuda").manual_seed(0)
     q, k, v = torch.randn((b, n, 3, h, d), generator=gen, device="cuda").to(dtype).unbind(2)
     g = torch.randn((b, n, h, d), generator=gen, device="cuda").to(dtype)
@@ -205,7 +227,7 @@ def main() -> int:
     stream = torch.cuda.current_stream().cuda_stream
     code = 0 if f32 else 1
     with tempfile.TemporaryDirectory() as tmp, ThreadPoolExecutor(len(variants)) as pool:
-        built = dict(zip(variants, pool.map(lambda name: build(name, Path(tmp), f32),
+        built = dict(zip(variants, pool.map(lambda name: build(name, Path(tmp), f32, temporal),
                                             variants)))
         for name, (_, spills) in built.items():
             for line in spills:
@@ -222,11 +244,13 @@ def main() -> int:
 
         launch("as_is")
         want = [x.clone() for x in outs]
-        for name in ([] if f32 else RIGHT[1:]):
+        for name in TEMPORAL_RIGHT if temporal else [] if f32 else RIGHT[1:]:
             launch(name)
             torch.cuda.synchronize()
             diff = max((x.float() - y.float()).abs().max().item() for x, y in zip(outs, want))
             print(f"{name}: max |d| against as_is {diff:.3e}", flush=True)
+            if name.startswith("stages") and diff != 0:
+                raise AssertionError(f"{name} differs from as_is")
         fns = {name: (lambda name=name: launch(name)) for name in variants}
         fns["fma" if f32 else "mma_sync"] = lambda: launch("as_is", "short_attention_bwd_mma")
         times = {name: [] for name in fns}
@@ -236,7 +260,7 @@ def main() -> int:
     ms = {name: sum(t) / len(t) for name, t in times.items()}
     for name, t in ms.items():
         print(f"{name}: {t:.4f} ms ({t / ms['as_is']:.3f} of as_is)", flush=True)
-    print(json.dumps({"shape": list(SHAPE), "dtype": str(dtype)[6:], "queued_ms": ms}),
+    print(json.dumps({"shape": list(shape), "dtype": str(dtype)[6:], "queued_ms": ms}),
           flush=True)
     return 0
 

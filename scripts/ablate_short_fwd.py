@@ -1,10 +1,11 @@
 """What kernel 6's wgmma designs spend their time on, on one CUDA card.
 
-    python3 scripts/ablate_short_fwd.py [--f32]
+    python3 scripts/ablate_short_fwd.py [--f32 [--temporal]]
 
 Builds the short-attention library (``laryngeal_tpu_torch/csrc/
-short_attention.cu`` with its f32 member ``short_attention_tf32.cu``) as it
-is and with one part of the kernel's work taken out at a time (text edits of
+short_attention.cu`` with its f32 members ``short_attention_tf32.cu`` and
+``short_attention_tf32_mma.cu``) as it is and with one part of the kernel's
+work taken out at a time (text edits of
 a copy in a temporary directory, each variant built by its own ``nvcc``;
 every variant but ``as_is`` computes a wrong result by design), then times
 each at TimeSformer-B's spatial shape (256, 197, 12, 64) on views of a fused
@@ -35,6 +36,31 @@ instances, N = 193..224, are built; ``F32_VARIANTS``, shared with
 - ``no_products``: no wgmma (the tensor cores' share);
 - ``one_tf32``: one TF32 product (big.big) a product instead of three;
 - ``no_exp``: exp2 replaced by its argument.
+
+With ``--f32 --temporal``, the f32 design ``mma.tf32x3`` at TimeSformer-B's
+temporal shape (1568, 32, 12, 64) on views of a fused qkv (every instance of
+it built, the wgmma.tf32x3 member only at 7 steps; ``TEMPORAL_VARIANTS``,
+shared with ``ablate_short_bwd.py --f32 --temporal``):
+
+- ``as_is``: the kernel; ``fma``: the FMA design (the ``_mma`` entry), for
+  scale;
+- ``loads_only``: the TMA loads and the ring's barriers alone (the consumer
+  warps release each pair as it arrives: no products, no softmax, nothing
+  stored);
+- ``no_products``: no mma.sync (the tensor cores' share; the fragments are
+  still read and split);
+- ``one_term_tf32``: one TF32 product (big.big) a product instead of three;
+- ``no_exp``: exp2 replaced by its argument;
+- ``one_chain``: each product's three terms summed in one accumulator (a
+  chain of dependent mma three deep a step) instead of the small terms in
+  an accumulator of their own;
+- ``stages_1``, ``stages_2``, ``stages_3``: rings of 1, 2 or 3 pair stages
+  a block in both kernels (``as_is``: 2 in the forward, 1 in the backward;
+  more blocks an SM against more pairs in flight a block).
+
+The choices compute the right result: the stage counts bitwise, one_chain
+with its sums in another order (its largest difference from ``as_is`` is
+printed).
 
 Prints the card's name and power limit, one line per variant, and the
 variants as one JSON object last. Needs nvcc and a card.
@@ -115,6 +141,32 @@ F32_VARIANTS = {
 }
 F32_STEPS = 7  # the spatial shape's 32-key steps: only these instances are built
 
+TEMPORAL = (1568, 32, 12, 64)
+# The mma.tf32x3 design's three products a product (short_attention_tf32_mma.cu).
+_MMA3 = "  mma(c, as, bb);\n  mma(c, ab, bs);\n  mma(d, ab, bb);\n"
+_CONSUMER_WAITS = [f"    hopper::mbar_wait(&full[s], (i / k{k}Stages) & 1);\n"
+                   for k in ("Fwd", "Bwd")]
+_RELEASE = ("    if (N > 0) {  // ablation: no compute, nothing stored\n"
+            "      __syncwarp();\n      if (lane == 0) hopper::mbar_arrive(&empty[s]);\n"
+            "      continue;\n    }\n")
+TEMPORAL_VARIANTS = {
+    "as_is": [],
+    "loads_only": [[w, w + _RELEASE] for w in _CONSUMER_WAITS],
+    "no_products": [[_MMA3, '  asm volatile("" :: "r"(ab[0]), "r"(ab[1]), "r"(ab[2]), '
+                            '"r"(ab[3]), "r"(as[0]), "r"(as[1]), "r"(as[2]), "r"(as[3]), '
+                            '"r"(bb[0]), "r"(bb[1]), "r"(bs[0]), "r"(bs[1]));  // ablation\n']],
+    "one_term_tf32": [[_MMA3, "  mma(d, ab, bb);\n"]],
+    "no_exp": [["hopper::exp2_approx(", "("]],
+    "one_chain": [["mma3(s[j], c[j],", "mma3(s[j], s[j],"],
+                  ["mma3(acc[j], c[j],", "mma3(acc[j], acc[j],"],
+                  ["mma3(adq[j], cq[j],", "mma3(adq[j], adq[j],"]],
+    **{f"stages_{n}": [["constexpr int kFwdStages = 2, kBwdStages = 1;",
+                        f"constexpr int kFwdStages = {n}, kBwdStages = {n};"]] for n in (1, 2, 3)},
+}
+# The choices that compute the right result: one_chain in another order (its
+# largest difference from as_is is printed), the stage counts bitwise.
+TEMPORAL_RIGHT = ("one_chain", "stages_1", "stages_2", "stages_3")
+
 
 def edited(source: str, edits, name: str) -> str:
     """``csrc/<source>`` with every occurrence of each edit's first string
@@ -135,12 +187,16 @@ def f32_only_steps(text: str, steps: int = F32_STEPS) -> str:
                      or line.strip().startswith(f"case {steps}:"))
 
 
-def build_library(name: str, workdir: Path, bf16_text: str, tf32_text: str):
-    """The two members as one shared library (as ops/_build.py links them);
+def build_library(name: str, workdir: Path, bf16_text: str, tf32_text: str,
+                  mma_text: str = None):
+    """The three members as one shared library (as ops/_build.py links
+    them; ``mma_text`` None for short_attention_tf32_mma.cu as it is);
     returns (the loaded library, nvcc's output)."""
-    srcs = [workdir / f"{name}.cu", workdir / f"{name}_tf32.cu"]
-    srcs[0].write_text(bf16_text)
-    srcs[1].write_text(tf32_text)
+    if mma_text is None:
+        mma_text = (_build.CSRC_DIR / "short_attention_tf32_mma.cu").read_text()
+    srcs = [workdir / f"{name}.cu", workdir / f"{name}_tf32.cu", workdir / f"{name}_tf32_mma.cu"]
+    for src, text in zip(srcs, (bf16_text, tf32_text, mma_text)):
+        src.write_text(text)
     lib = workdir / f"{name}.so"
     proc = subprocess.run([_build.find_nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC_DIR),
                            "-o", str(lib), *map(str, srcs)], capture_output=True, text=True)
@@ -157,7 +213,13 @@ def fwd_entry(dll, entry="short_attention_fwd"):
     return fn
 
 
-def build(name: str, workdir: Path, f32: bool):
+def build(name: str, workdir: Path, f32: bool, temporal: bool = False):
+    if temporal:
+        dll, _ = build_library(
+            name, workdir, (_build.CSRC_DIR / "short_attention.cu").read_text(),
+            f32_only_steps((_build.CSRC_DIR / "short_attention_tf32.cu").read_text()),
+            edited("short_attention_tf32_mma.cu", TEMPORAL_VARIANTS[name], name))
+        return fwd_entry(dll), fwd_entry(dll, "short_attention_fwd_mma")
     if f32:
         bf16_text = (_build.CSRC_DIR / "short_attention.cu").read_text()
         tf32_text = f32_only_steps(edited("short_attention_tf32.cu", F32_VARIANTS[name], name))
@@ -186,21 +248,29 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--f32", action="store_true",
                         help="ablate the f32 design wgmma.tf32x3 in f32")
-    f32 = parser.parse_args().f32
+    parser.add_argument("--temporal", action="store_true",
+                        help="with --f32: the mma.tf32x3 design at the temporal shape")
+    args = parser.parse_args()
+    if args.temporal and not args.f32:
+        parser.error("--temporal ablates the f32 design: give --f32 too")
+    f32, temporal = args.f32, args.temporal
     if not torch.cuda.is_available():
         print("ablate_short_fwd: no CUDA device is available", file=sys.stderr)
         return 2
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip(), flush=True)
     dtype, variants = (torch.float32, F32_VARIANTS) if f32 else (torch.bfloat16, VARIANTS)
-    b, n, h, d = SHAPE
+    if temporal:
+        variants = TEMPORAL_VARIANTS
+    shape = TEMPORAL if temporal else SHAPE
+    b, n, h, d = shape
     gen = torch.Generator(device="cuda").manual_seed(0)
     q, k, v = torch.randn((b, n, 3, h, d), generator=gen, device="cuda").to(dtype).unbind(2)
     out = torch.empty((b, n, h, d), dtype=dtype, device="cuda")
     strides = (ctypes.c_longlong * 12)(*(s for x in (q, k, v, out) for s in x.stride()[:3]))
     stream = torch.cuda.current_stream().cuda_stream
     with tempfile.TemporaryDirectory() as tmp, ThreadPoolExecutor(len(variants)) as pool:
-        built = dict(zip(variants, pool.map(lambda name: build(name, Path(tmp), f32),
+        built = dict(zip(variants, pool.map(lambda name: build(name, Path(tmp), f32, temporal),
                                             variants)))
         fns = {name: entries[0] for name, entries in built.items()}
         if f32:
@@ -212,6 +282,15 @@ def main() -> int:
             if err != 0:
                 raise RuntimeError(f"launch failed: cudaError {err}")
 
+        launch(fns["as_is"])
+        want = out.clone()
+        for name in (TEMPORAL_RIGHT if temporal else ()):
+            launch(fns[name])
+            torch.cuda.synchronize()
+            diff = (out - want).abs().max().item()
+            print(f"{name}: max |d| against as_is {diff:.3e}", flush=True)
+            if name.startswith("stages") and diff != 0:
+                raise AssertionError(f"{name} differs from as_is")
         times = {name: [] for name in fns}
         for order in (list(fns), list(fns)[::-1]):
             for name in order:
@@ -219,7 +298,7 @@ def main() -> int:
     ms = {name: sum(t) / len(t) for name, t in times.items()}
     for name, t in ms.items():
         print(f"{name}: {t:.4f} ms ({t / ms['as_is']:.3f} of as_is)", flush=True)
-    print(json.dumps({"shape": list(SHAPE), "dtype": str(dtype)[6:], "queued_ms": ms}),
+    print(json.dumps({"shape": list(shape), "dtype": str(dtype)[6:], "queued_ms": ms}),
           flush=True)
     return 0
 

@@ -745,10 +745,11 @@ def test_short_backward_designs_both_match_plain(cuda, n, d):
 def test_short_backward_outside_the_wgmma_domain_runs_mma_sync(cuda, case):
     """Kernel 7 takes mma.sync at D = 128, N = 32 (the temporal shape),
     N = 257 and on a stride-0 (``expand``) view, the FMA kernel in f32 at
-    the temporal shape (f32 at N = 197 runs wgmma.tf32x3); the Python mirror
-    of the C gate agrees, and the result holds its limit."""
+    the temporal N with D = 72 (f32 at D <= 64 runs mma.tf32x3 there and
+    wgmma.tf32x3 at N = 197); the Python mirror of the C gate agrees, and
+    the result holds its limit."""
     shape = {"d128": (2, 197, 3, 128), "n32": (4, 32, 3, 64), "n257": (2, 257, 3, 64),
-             "f32": (4, 32, 3, 64)}.get(case, (2, 197, 3, 64))
+             "f32": (4, 32, 3, 72)}.get(case, (2, 197, 3, 64))
     dtype = torch.float32 if case == "f32" else torch.bfloat16
     q, k, v, g = _short_inputs(shape, dtype, cuda, seed=11)
     if case == "expand":  # one sequence broadcast over the batch: batch stride 0
@@ -765,14 +766,14 @@ def test_short_backward_outside_the_wgmma_domain_runs_mma_sync(cuda, case):
 def test_short_forward_reports_the_design_it_ran(cuda):
     """``last_designs()[0]`` is kernel 6's design as the C side chose it:
     wgmma at N = 197 (bf16), mma.sync at N = 32 and through the _mma entry;
-    in f32 wgmma.tf32x3 at N = 197, the FMA kernel at N = 32 and through the
-    _mma entry."""
+    in f32 wgmma.tf32x3 at N = 197, mma.tf32x3 at N = 32, the FMA kernel
+    through the _mma entry."""
     for shape, dtype, fn, want in (
             ((2, 197, 3, 64), torch.bfloat16, sa.short_attention_fwd_cuda, "wgmma"),
             ((2, 32, 3, 64), torch.bfloat16, sa.short_attention_fwd_cuda, "mma.sync"),
             ((2, 197, 3, 64), torch.bfloat16, sa.short_attention_fwd_mma_cuda, "mma.sync"),
             ((2, 197, 3, 64), torch.float32, sa.short_attention_fwd_cuda, "wgmma.tf32x3"),
-            ((2, 32, 3, 64), torch.float32, sa.short_attention_fwd_cuda, "fma"),
+            ((2, 32, 3, 64), torch.float32, sa.short_attention_fwd_cuda, "mma.tf32x3"),
             ((2, 197, 3, 64), torch.float32, sa.short_attention_fwd_mma_cuda, "fma")):
         q, k, v, _ = _short_inputs(shape, dtype, cuda, seed=16)
         fn(q, k, v)
@@ -947,9 +948,10 @@ def test_short_tf32_gradients_through_autograd_match_plain(cuda):
 
 def test_short_tf32_counts_one_launch_per_call_by_design(cuda):
     """Each call of either entry in f32 adds one launch, counted under the
-    design it ran: wgmma.tf32x3 at N = 197, fma at the temporal N = 32; the
-    _mma entries count none."""
-    for shape, design in (((2, 197, 3, 64), "wgmma.tf32x3"), ((4, 32, 3, 64), "fma")):
+    design it ran: wgmma.tf32x3 at N = 197, mma.tf32x3 at the temporal
+    N = 32, fma at N = 32 with D = 72; the _mma entries count none."""
+    for shape, design in (((2, 197, 3, 64), "wgmma.tf32x3"), ((4, 32, 3, 64), "mma.tf32x3"),
+                          ((4, 32, 3, 72), "fma")):
         q, k, v, g = _short_inputs(shape, torch.float32, cuda, seed=32)
         for _ in range(2):
             before = (sa.launch_counts(), dict(sa.fwd_design_launches),
@@ -970,12 +972,14 @@ def test_short_tf32_counts_one_launch_per_call_by_design(cuda):
 def test_short_design_mirror_matches_the_c_choice(cuda):
     """``design_takes`` names the design the C side picks
     (``short_attention_design``) for both kernels in both dtypes, across the
-    wgmma designs' edges, D > 64 and a broadcast stride of 0."""
+    tensor-core designs' edges (mma.tf32x3 at N <= 64, the wgmma ones
+    above), D > 64 and a broadcast stride of 0."""
     for dtype in (torch.float32, torch.bfloat16):
         for n, d, layout in ((64, 64, "fused"), (65, 64, "fused"), (197, 64, "bhnd"),
                              (197, 40, "fused"), (197, 72, "fused"), (197, 128, "fused"),
                              (256, 32, "bhnd"), (257, 64, "fused"), (32, 64, "fused"),
-                             (197, 64, "expand")):
+                             (197, 64, "expand"), (1, 16, "fused"), (33, 40, "bhnd"),
+                             (64, 64, "bhnd"), (32, 72, "fused"), (32, 64, "expand")):
             q, k, v, g = _short_views((2, n, 3, d), "bhnd" if layout == "bhnd" else "fused",
                                       cuda, seed=33, dtype=dtype)
             if layout == "expand":
@@ -1008,6 +1012,106 @@ def test_short_tf32_launch_error_raises_and_runs_no_other_design(cuda, monkeypat
     with pytest.raises(RuntimeError, match="short_attention_bwd launch failed: cudaError"):
         sa.short_attention_bwd_cuda(q, k, v, g)
     assert sa.last_designs()[1] == "wgmma.tf32x3"
+    assert (sa.launch_counts(), sa.fwd_design_launches, sa.bwd_design_launches) == before
+
+
+# -- kernels 6-7's f32 design at short sequences (mma.tf32x3: 3xTF32 on mma.sync,
+# N <= 64, D <= 64) --
+SHORT_MMA_TF32_NS = [1, 2, 7, 8, 16, 31, 32, 33, 63, 64]
+
+
+@pytest.mark.parametrize("layout", ["fused", "bhnd"])
+@pytest.mark.parametrize("d", [16, 32, 40, 64])
+@pytest.mark.parametrize("n", SHORT_MMA_TF32_NS)
+def test_short_mma_tf32_edges_match_plain_and_repeat(cuda, n, d, layout):
+    """f32 at the mma.tf32x3 design's edges (N = 1 .. 64 across its 16-row
+    tiles, D = 16, 32, 40 padded to 40, 64), on fused-qkv and transposed
+    views: both entries run it (``design_takes`` names it), give bitwise the
+    same o, dq, dk, dv on a second call and stay within the f32 limits (1e-4
+    on o, ``backward_error_limit`` on the gradients); the ``_mma`` entries
+    run the FMA kernels, within the same limits."""
+    shape = (3, n, 5, d)
+    q, k, v, g = _short_views(shape, layout, cuda, seed=100 + n + d)
+    assert sa.design_takes(0, n, d, torch.float32) == "mma.tf32x3"
+    assert sa.design_takes(1, n, d, torch.float32) == "mma.tf32x3"
+    runs = [(sa.short_attention_fwd_cuda(q, k, v), *sa.short_attention_bwd_cuda(q, k, v, g))
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    assert sa.last_designs() == ("mma.tf32x3", "mma.tf32x3")
+    for name, a, b in zip(("o", "dq", "dk", "dv"), *runs):
+        assert torch.equal(a, b), name
+    ref = sa.short_attention_plain(q, k, v)
+    refs = sa.short_attention_plain_bwd(q, k, v, g)
+    limits = sa.backward_error_limit(q, k, v, g, refs)
+    old = (sa.short_attention_fwd_mma_cuda(q, k, v), *sa.short_attention_bwd_mma_cuda(q, k, v, g))
+    torch.cuda.synchronize()
+    assert sa.last_designs() == ("fma", "fma")
+    for got in (runs[0], old):
+        assert (got[0] - ref).abs().max().item() <= 1e-4
+        uses = [((x - r).abs() / lim).max().item() for x, r, lim in zip(got[1:], refs, limits)]
+        assert max(uses) <= 1.0, uses
+
+
+def test_short_mma_tf32_temporal_shape_matches_plain_and_repeats(cuda):
+    """TimeSformer-B's temporal call at B = 8, (1568, 32, 12, 64) on views of
+    a fused qkv: mma.tf32x3 holds the f32 limits against the plain twins
+    and repeats bitwise (a block owns each pair; no sum uses atomics)."""
+    q, k, v, g = _short_views((1568, 32, 12, 64), "fused", cuda, seed=41)
+    runs = [(sa.short_attention_fwd_cuda(q, k, v), *sa.short_attention_bwd_cuda(q, k, v, g))
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    assert sa.last_designs() == ("mma.tf32x3", "mma.tf32x3")
+    for name, a, b in zip(("o", "dq", "dk", "dv"), *runs):
+        assert torch.equal(a, b), name
+    assert (runs[0][0] - sa.short_attention_plain(q, k, v)).abs().max().item() <= 1e-4
+    refs = sa.short_attention_plain_bwd(q, k, v, g)
+    uses = [((x - r).abs() / lim).max().item() for x, r, lim in
+            zip(runs[0][1:], refs, sa.backward_error_limit(q, k, v, g, refs))]
+    assert max(uses) <= 1.0, uses
+
+
+def test_short_mma_tf32_gradients_through_autograd_match_plain(cuda):
+    """f32 q, k, v as views of a fused qkv through autograd
+    (``ShortAttentionFn``) at TimeSformer's temporal N = 32: kernels 6 and 7
+    run once each, both on mma.tf32x3 (counted by design), and the
+    gradients of the fused tensor hold ``backward_error_limit``."""
+    rng = np.random.default_rng(42)
+    qkv = torch.from_numpy(rng.standard_normal((24, 32, 3, 4, 64), dtype=np.float32))
+    qkv = qkv.to(cuda).requires_grad_()
+    g = torch.from_numpy(rng.standard_normal((24, 32, 4, 64), dtype=np.float32)).to(cuda)
+    fwd_before, bwd_before = dict(sa.fwd_design_launches), dict(sa.bwd_design_launches)
+    out = sa.short_attention(*qkv.unbind(2))
+    (out * g).sum().backward()
+    torch.cuda.synchronize()
+    for counts, before in ((sa.fwd_design_launches, fwd_before),
+                           (sa.bwd_design_launches, bwd_before)):
+        assert {x: counts[x] - before[x] for x in sa.DESIGNS} == {
+            x: int(x == "mma.tf32x3") for x in sa.DESIGNS}
+    q, k, v = (x.detach() for x in qkv.unbind(2))
+    assert (out.detach() - sa.short_attention_plain(q, k, v)).abs().max().item() <= 1e-4
+    refs = sa.short_attention_plain_bwd(q, k, v, g)
+    uses = [((x - r).abs() / lim).max().item() for x, r, lim in
+            zip(qkv.grad.unbind(2), refs, sa.backward_error_limit(q, k, v, g, refs))]
+    assert max(uses) <= 1.0, uses
+
+
+def test_short_mma_tf32_launch_error_raises_and_runs_no_other_design(cuda, monkeypatch):
+    """No fallback: when the mma.tf32x3 design cannot launch (a sequence
+    stride of 66 floats, 264 bytes, which TMA refuses, reaching the C
+    entries because the layout step is bypassed) both wrappers raise with
+    the CUDA error and count no launch; they do not run the FMA design
+    instead."""
+    b, n, h, d = 2, 32, 1, 64
+    base = torch.zeros((4, b, n, h, 66), dtype=torch.float32, device=cuda)
+    q, k, v, g = (x[..., :d] for x in base.unbind(0))
+    monkeypatch.setattr(sa, "_prepare", lambda x, d_pad: x)
+    before = (sa.launch_counts(), dict(sa.fwd_design_launches), dict(sa.bwd_design_launches))
+    with pytest.raises(RuntimeError, match="short_attention_fwd launch failed: cudaError"):
+        sa.short_attention_fwd_cuda(q, k, v)
+    assert sa.last_designs()[0] == "mma.tf32x3"
+    with pytest.raises(RuntimeError, match="short_attention_bwd launch failed: cudaError"):
+        sa.short_attention_bwd_cuda(q, k, v, g)
+    assert sa.last_designs()[1] == "mma.tf32x3"
     assert (sa.launch_counts(), sa.fwd_design_launches, sa.bwd_design_launches) == before
 
 

@@ -281,13 +281,14 @@ def _split_tf32(x):
 
 
 def _emulate_short_f32(q, k, v, g, split="tf32x3"):
-    """Kernels 6-7's f32 wgmma design on the CPU: every product on split
+    """Kernels 6-7's f32 tensor-core designs on the CPU (``wgmma.tf32x3`` at
+    64 < N <= 256, ``mma.tf32x3`` at N <= 64): every product on split
     operands as small.big + big.small + big.big (``"tf32x3"``, the kernels'
     split) or as one TF32 product of the operands rounded to nearest
     (``"tf32"``); the whole-row softmax in f32, base 2, P normalised before
-    P V; O summed over 32-key steps, each step's product added in f32;
-    delta = sum_k P dP; dS = P (dP - delta), the scale applied to dQ and dK.
-    Returns (o, (dq, dk, dv))."""
+    P V; O summed over 32-key steps, each step's product added in f32 (one
+    step at N <= 32); delta = sum_k P dP; dS = P (dP - delta), the scale
+    applied to dQ and dK. Returns (o, (dq, dk, dv))."""
     parts = _split_tf32 if split == "tf32x3" else (lambda x: (_tf32(x), torch.zeros_like(x)))
 
     def prod(eq, a, c):
@@ -308,10 +309,13 @@ def _emulate_short_f32(q, k, v, g, split="tf32x3"):
                prod("bhqk,bqhd->bkhd", p, g))
 
 
-@pytest.mark.parametrize("shape", [(1, 197, 3, 64), (3, 65, 2, 32), (1, 256, 2, 64)], ids=str)
+# The wgmma.tf32x3 design's shapes, then the mma.tf32x3 design's
+# (TimeSformer's temporal N = 32 and a narrow N = 8, D = 16).
+@pytest.mark.parametrize("shape", [(1, 197, 3, 64), (3, 65, 2, 32), (1, 256, 2, 64),
+                                   (3, 32, 5, 64), (2, 8, 3, 16)], ids=str)
 def test_f32_split_tf32_emulation_holds_the_limits_where_one_term_does_not(shape):
-    """Kernels 6-7's f32 design splits each operand into two TF32 parts and
-    sums three products per product (3xTF32). Emulated on the CPU, its o
+    """Kernels 6-7's f32 designs split each operand into two TF32 parts and
+    sum three products per product (3xTF32). Emulated on the CPU, its o
     stays within the f32 limit of 1e-4 of the JAX package's f32
     short_attention (interpret mode) and its gradients within
     ``backward_error_limit`` of jax.grad through its custom_vjp; one-term
@@ -336,8 +340,13 @@ def test_f32_split_tf32_emulation_holds_the_limits_where_one_term_does_not(shape
 @pytest.mark.parametrize("shape,layout,want", [
     ((1, 197, 3, 64), "fused", "wgmma.tf32x3"),      # TimeSformer's spatial call
     ((256, 197, 12, 64), "contiguous", "wgmma.tf32x3"),
-    ((3, 32, 5, 64), "contiguous", "fma"),           # temporal: N <= 64
-    ((2, 64, 3, 64), "contiguous", "fma"),
+    ((3, 32, 5, 64), "contiguous", "mma.tf32x3"),    # temporal: N <= 64
+    ((2, 64, 3, 64), "contiguous", "mma.tf32x3"),
+    ((3, 32, 5, 64), "fused", "mma.tf32x3"),         # TimeSformer's temporal call
+    ((2, 1, 3, 16), "contiguous", "mma.tf32x3"),
+    ((2, 33, 3, 40), "bhnd", "mma.tf32x3"),          # padded to 40
+    ((2, 32, 3, 72), "contiguous", "fma"),           # D > 64
+    ((2, 32, 3, 64), "expand", "fma"),               # batch stride 0
     ((2, 65, 3, 32), "bhnd", "wgmma.tf32x3"),
     ((2, 129, 3, 40), "fused", "wgmma.tf32x3"),      # padded to 40
     ((1, 256, 3, 64), "contiguous", "wgmma.tf32x3"),
@@ -348,9 +357,10 @@ def test_f32_split_tf32_emulation_holds_the_limits_where_one_term_does_not(shape
 ])
 def test_f32_design_table(which, shape, layout, want):
     """``design_takes`` in f32, the Python mirror of the C entries' choice
-    (the card test holds it against the C side): ``wgmma.tf32x3`` for both
-    kernels at 64 < N <= 256, D padded to a multiple of 8 <= 64 and every
-    stride positive, ``fma`` elsewhere."""
+    (the card test holds it against the C side): for both kernels at D
+    padded to a multiple of 8 <= 64 and every stride positive,
+    ``mma.tf32x3`` at 1 <= N <= 64 and ``wgmma.tf32x3`` at 64 < N <= 256;
+    ``fma`` elsewhere."""
     b, n, h, d = shape
     dtype = torch.float32
     if layout == "fused":
