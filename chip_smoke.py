@@ -41,18 +41,21 @@ Phases, in order; any failure ends the run with a non-zero exit:
    with kv_valid (masked keys' dK/dV exactly 0), at Nq < Nk and Nq > Nk, at
    D = 32, 40 (padded to 48) and 128, and on views of a fused qkv and of a
    (B, H, N, D) layout, each under its elementwise limit; kernels 3-4 in
-   both bf16 designs (wgmma, and the earlier mma.sync one,
-   ``flash_attention_*_mma_cuda``). The ptxas report of the wgmma
-   instances is printed. Timed at the ViViT-B shape beside the plain
-   versions, their bounds and ``F.scaled_dot_product_attention``'s forward
-   and autograd backward; kernels 2-4 also beside their mma.sync design in
-   turns, single calls and queued, and sdpa both ways.
+   the design the entries run (bf16: wgmma; f32: wgmma.tf32x3 at D <= 64,
+   FMA at 128), bitwise the same on a second call, and in the earlier one
+   (``flash_attention_*_mma_cuda``: mma.sync in bf16, FMA in f32). The
+   ptxas report of the wgmma and tf32 instances is printed. Timed at the
+   ViViT-B shape beside the plain versions, their bounds (f32 kernels 3-4:
+   3xTF32 at the TF32 peak, the FMA design's bound logged) and
+   ``F.scaled_dot_product_attention``'s forward and autograd backward (its
+   kernels named); kernels 2-4 also beside their earlier design in turns,
+   single calls and queued, and sdpa both ways.
 5. Training at full width: ViViT-B/16x2 32f 224^2, B=8, bf16 compute, seeded
    weights, through ``make_train_step`` on a uint8 batch: 12 launches each
    of kernels 2-4 and none of kernel 1 per step, 12 of kernel 1 and none of
    2-4 per eval step; loss finite; step time, clips/s, peak memory and the
-   time of each stage. The f32 train step at B=8 (kernel 2 on wgmma.tf32x3,
-   kernels 3-4 on FMA): the median of 3 after a warm-up and kernels 2-4's
+   time of each stage. The f32 train step at B=8 (kernels 2-4 on
+   wgmma.tf32x3): the median of 3 after a warm-up and kernels 2-4's
    shares. Then every parameter's gradient at B=2, with the kernels against
    the same model on the plain attention, f32 and bf16.
 6. The training CLI at full width: ``cli.main --model vivit --bf16`` on a
@@ -492,6 +495,26 @@ FLASH_BWD_DESIGN = ("wgmma + TMA: a block's 128 (dK/dV) or 192 (dQ, D <= 64) row
                     "accumulators in registers, no atomics")
 
 
+FLASH_BWD_F32_DESIGN = ("wgmma.tf32x3 (D <= 64): a persistent block an SM walking items of 128 "
+                        "rows (2 consumer warpgroups), 32-row steps streamed by TMA in rows and "
+                        "transposed forms split into big + small TF32 parts, three TF32 products "
+                        "a product, each step's dQ / dK / dV product added on the FMA units; dQ: "
+                        "Q's and dO's big parts in registers, their small parts in shared memory, "
+                        "raw K and V steps split by 3 transform warps, two batches a step; dK/dV: "
+                        "a pre-pass splits q and dO once a call into scratch, K and V resident "
+                        "and split into registers each step, Q and dO forms with their lse and "
+                        "delta streamed; FMA above D = 64 and for strides of 0")
+
+
+def bwd_entry_designs(dtype, d):
+    """The designs kernels 3 and 4's entries run at head dim ``d`` with
+    positive strides, as ``last_backward_designs`` joins them: wgmma in bf16
+    (dK/dV mma.sync at D = 128); wgmma.tf32x3 in f32 at D <= 64, FMA above."""
+    if dtype == torch.bfloat16:
+        return "wgmma/wgmma" if d <= 64 else "wgmma/mma.sync"
+    return "wgmma.tf32x3/wgmma.tf32x3" if d <= 64 else "fma/fma"
+
+
 # Phase 2b's cases: (name, B, Nq, Nk, H, D, kv_valid, layout). "fused": q, k
 # and v are views of one (B, N, 3, H, D) projection; "bhnd": (B, H, N, D)
 # tensors transposed to (B, N, H, D) views.
@@ -522,14 +545,15 @@ def train_inputs(b, nq, nk, h, d, dtype, layout, seed):
 
 def check_training_kernels():
     """Phase 2b: kernels 2-4 vs their plain twins on the card (kernels 3-4 in
-    both bf16 designs); timings at the ViViT-B shape, kernels 3-4 beside their
-    mma.sync design in turns. Returns {entry name: numbers} for the kernels
-    line."""
+    the entries' design and the earlier one, in both dtypes); timings at the
+    ViViT-B shape, kernels 2-4 beside their earlier design in turns. Returns
+    {entry name: numbers} for the kernels line."""
     import torch.nn.functional as F
 
     from laryngeal_tpu_torch.ops import flash_attention as fa
 
-    for kernel in ("dq_wgmma_kernel", "dkv_wgmma_kernel"):
+    for kernel in ("dq_wgmma_kernel", "dkv_wgmma_kernel", "bwd_dq_tf32_kernel",
+                   "bwd_dkv_tf32_kernel", "bwd_forms_tf32_kernel"):
         for line in ptxas_lines("flash_attention_bwd.cu", kernel):
             log(f"ptxas {line}")
     entries = {"flash_attention_fwd_lse": {}, "flash_attention_bwd_dq": {},
@@ -547,12 +571,16 @@ def check_training_kernels():
             lse_err = (lse - lse_ref).abs().max().item()
             o_err = (o.float() - o_ref.float()).abs().max().item()
             # kernels 3 and 4, fed the plain forward's o and lse: the design
-            # the entries choose, then the mma.sync design
+            # the entries choose, then the earlier one (mma.sync; f32 FMA)
             refs = fa.attention_plain_bwd(q, k, v, o_ref, lse_ref, g, kv_valid)
             limits = fa.backward_error_limit(q, k, v, o_ref, lse_ref, g, kv_valid, refs)
             delta = fa.attention_delta(o_ref, g)
             runs = {"new": fa.flash_attention_bwd(q, k, v, o_ref, lse_ref, g, kv_valid)}
             design = "/".join(fa.last_backward_designs())
+            again = fa.flash_attention_bwd(q, k, v, o_ref, lse_ref, g, kv_valid)
+            same = all(torch.equal(x, y) for x, y in zip(runs["new"], again))
+            del again
+            want = bwd_entry_designs(dtype, d)
             runs["old"] = (fa.flash_attention_dq_mma_cuda(q, k, v, g, lse_ref, delta, kv_valid),
                            *fa.flash_attention_dkv_mma_cuda(q, k, v, g, lse_ref, delta,
                                                             kv_valid))
@@ -569,16 +597,19 @@ def check_training_kernels():
             del limits
             every = uses["new"] + uses["old"] + errs["new"] + errs["old"] + [o_err, lse_err]
             ok = (o_use <= 1.0 and lse_err <= fa.LSE_TOL and max(uses["new"] + uses["old"]) <= 1.0
-                  and masked_zero and all(math.isfinite(x) for x in every))
+                  and masked_zero and same and design == want
+                  and all(math.isfinite(x) for x in every))
             log(f"training kernels {name} (B={b}, Nq={nq}, Nk={nk}, H={h}, D={d}, kv_valid="
                 f"{kv_valid}, {layout}) {tag}: lse o max_abs_err {o_err:.3e} (|err|/limit "
                 f"{o_use:.3f}), lse max_abs_err {lse_err:.3e} (tol {fa.LSE_TOL:g}); dq/dk/dv "
                 f"({design}) max_abs_err {'/'.join(f'{x:.3e}' for x in errs['new'])}, largest "
-                f"|err|/limit {'/'.join(f'{x:.3f}' for x in uses['new'])}; mma.sync design "
+                f"|err|/limit {'/'.join(f'{x:.3f}' for x in uses['new'])}, bitwise the same on a "
+                f"second call: {same}; {'mma.sync' if dtype == torch.bfloat16 else 'FMA'} design "
                 f"{'/'.join(f'{x:.3f}' for x in uses['old'])}; masked dk/dv exactly 0: "
                 f"{masked_zero} {'ok' if ok else 'FAIL'}")
             if not ok:
-                raise AssertionError(f"training kernels disagree with plain twins: {name} {tag}")
+                raise AssertionError(f"training kernels disagree with plain twins or ran "
+                                     f"{design}, want {want}: {name} {tag}")
             if dtype == torch.bfloat16:
                 for e, err, use in (
                         ("flash_attention_fwd_lse", max(o_err, lse_err),
@@ -592,9 +623,9 @@ def check_training_kernels():
                 del q, k, v, g, o, lse, o_ref, lse_ref, delta
                 torch.cuda.empty_cache()
                 continue
-            # Kernels 2, 3 and 4 beside their mma.sync design in turns (old,
-            # new, new, old), single calls and queued (the card's time; see
-            # cuda_time_ms); the twins single-call.
+            # Kernels 2, 3 and 4 beside their earlier design (mma.sync; f32
+            # FMA) in turns (old, new, new, old), single calls and queued (the
+            # card's time; see cuda_time_ms); the twins single-call.
             turns, designs = {}, {}
             calls = {"flash_attention_fwd_lse": {
                          "new": lambda: fa.flash_attention_lse_cuda(q, k, v),
@@ -609,9 +640,8 @@ def check_training_kernels():
                                                                         delta)}}
             for e, fns in calls.items():
                 t = {"old": [], "new": [], "old_q": [], "new_q": []}
-                # f32: kernel 2 against its FMA design; kernels 3-4 have one
-                for which in (("old", "new", "new", "old")
-                              if dtype == torch.bfloat16 or "lse" in e else ("new",)):
+                # each entry's design against the earlier one (f32: FMA)
+                for which in ("old", "new", "new", "old"):
                     t[which].append(cuda_time_ms(fns[which]))
                     t[which + "_q"].append(cuda_time_ms(fns[which], reps=20, queued=True))
                     if which == "new":
@@ -630,6 +660,8 @@ def check_training_kernels():
             sdpa_bwd = lambda: torch.autograd.grad(out, (qt, kt, vt), gt, retain_graph=True)
             lib_bwd = cuda_time_ms(sdpa_bwd)
             lib_bwd_q = cuda_time_ms(sdpa_bwd, reps=20, queued=True)
+            bwd_kernels = sdpa_kernel_names(sdpa_bwd)
+            log(f"sdpa {tag} backward at vivit_b runs: {bwd_kernels}")
             del out, qt, kt, vt, gt
             # (entry, kernel ms, plain ms, library ms, products, Nq-long
             # tensors, Nk-long tensors, f32 rows)
@@ -644,6 +676,10 @@ def check_training_kernels():
                 if fwd and dtype == torch.float32:
                     bound_ms, bound_by, fma_bound, bf16x3 = f32_forward_bounds(b, nq, nk, h, d,
                                                                                rows)
+                elif dtype == torch.float32:  # kernels 3-4 on wgmma.tf32x3: 3xTF32
+                    bound_ms, bound_by = kernel_bound_ms(b, nq, nk, h, d, dtype, 3 * mm, nq_t,
+                                                         nk_t, rows, peak=PEAK_TF32)
+                    fma_bound = kernel_bound_ms(b, nq, nk, h, d, dtype, mm, nq_t, nk_t, rows)[0]
                 else:
                     bound_ms, bound_by = kernel_bound_ms(b, nq, nk, h, d, dtype, mm, nq_t,
                                                          nk_t, rows)
@@ -655,31 +691,34 @@ def check_training_kernels():
                 tt = turns[entry]
                 lib_q = lib_fwd_q if fwd else lib_bwd_q
                 numbers.update(queued_ms=tt["new_q"], library_queued_ms=lib_q,
-                               design=designs[entry])
+                               design=designs[entry], old_ms=tt["old"], old_queued_ms=tt["old_q"])
+                if not fwd:
+                    numbers["library_kernels"] = bwd_kernels
                 line += (f"; design {numbers['design']}; queued {tt['new_q']:.4f} ms "
                          f"({bound_ms / tt['new_q']:.3f} of the bound), sdpa "
                          f"{'forward' if fwd else 'backward'} queued {lib_q:.4f} ms "
                          f"({tt['new_q'] / lib_q:.3f}x)")
-                if dtype == torch.bfloat16 or fwd:
-                    numbers.update(old_ms=tt["old"], old_queued_ms=tt["old_q"])
-                    line += (f"; the {'mma.sync' if dtype == torch.bfloat16 else 'FMA'} design "
-                             f"{tt['old']:.4f} ms ({tt['old'] / ms:.2f}x), queued "
-                             f"{tt['old_q']:.4f} ms ({tt['old_q'] / tt['new_q']:.2f}x)")
-                if fwd and dtype == torch.float32:
+                line += (f"; the {'mma.sync' if dtype == torch.bfloat16 else 'FMA'} design "
+                         f"{tt['old']:.4f} ms ({tt['old'] / ms:.2f}x), queued "
+                         f"{tt['old_q']:.4f} ms ({tt['old_q'] / tt['new_q']:.2f}x)")
+                if dtype == torch.float32:
                     line += (f"; bound {TF32X3_BOUND}; the FMA design's bound {fma_bound:.4f} "
-                             f"ms (67 TFLOP/s); {BF16X3_BOUND} {bf16x3:.4f} ms, "
+                             f"ms (67 TFLOP/s), {fma_bound / tt['old']:.3f} of it")
+                if fwd and dtype == torch.float32:
+                    line += (f"; {BF16X3_BOUND} {bf16x3:.4f} ms, "
                              f"{bf16x3 / ms:.3f} / {bf16x3 / tt['new_q']:.3f} of it")
                 log(line)
                 if dtype == torch.bfloat16:
                     entries[entry].update(numbers)
                 else:
                     entries[entry]["f32"] = numbers
-            if dtype == torch.bfloat16:
-                pair, pair_q = (turns["flash_attention_bwd_dq"][x]
-                                + turns["flash_attention_bwd_dkv"][x] for x in ("new", "new_q"))
-                log(f"kernels 3 + 4 vivit_b bf16: {pair:.4f} ms single-call, {pair_q:.4f} ms "
-                    f"queued, against sdpa's backward {lib_bwd:.4f} / {lib_bwd_q:.4f} ms "
-                    f"({pair / lib_bwd:.3f}x / {pair_q / lib_bwd_q:.3f}x)")
+            pair, pair_q, old, old_q = (turns["flash_attention_bwd_dq"][x]
+                                        + turns["flash_attention_bwd_dkv"][x]
+                                        for x in ("new", "new_q", "old", "old_q"))
+            log(f"kernels 3 + 4 vivit_b {tag} ({designs['flash_attention_bwd_dq']}): {pair:.4f} "
+                f"ms single-call, {pair_q:.4f} ms queued, against sdpa's backward {lib_bwd:.4f} / "
+                f"{lib_bwd_q:.4f} ms ({pair / lib_bwd:.3f}x / {pair_q / lib_bwd_q:.3f}x); the "
+                f"earlier design's pair {old:.4f} / {old_q:.4f} ms")
             del q, k, v, g, o, lse, o_ref, lse_ref, delta
             torch.cuda.empty_cache()
     tol = ("bf16: error_limit / backward_error_limit (rounding-derived, elementwise), "
@@ -691,6 +730,9 @@ def check_training_kernels():
                              "mma.sync design's |err|/limit is logged per case)")
     for e in ("flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
         entries[e]["design"] = f"{entries[e]['design']} at vivit_b; {FLASH_BWD_DESIGN}"
+        entries[e]["f32"]["design"] = (f"{entries[e]['f32']['design']} at vivit_b; "
+                                       f"{FLASH_BWD_F32_DESIGN}")
+        entries[e]["f32"]["source"] = "laryngeal_tpu_torch/csrc/flash_attention_bwd_tf32.cu"
     e = "flash_attention_fwd_lse"
     entries[e]["design"] = f"{entries[e]['design']} at vivit_b; {FLASH_FWD_DESIGN}"
     entries[e]["f32"]["design"] = (f"{entries[e]['f32']['design']} at vivit_b; "
@@ -1027,7 +1069,7 @@ def training_path(kernel_ms: dict, f32_kernel_ms: dict) -> None:
     step = make_train_step(model, "vivit", "ce", crop=224)
     (state, m), per_step = launched(lambda: step(state, pixel_u8, labels, mask))
     designs = (fa.last_forward_designs()[1], *fa.last_backward_designs())
-    if per_step != want or designs != ("wgmma.tf32x3", "fma", "fma"):
+    if per_step != want or designs != ("wgmma.tf32x3",) * 3:
         raise AssertionError(f"f32 train step: launches {per_step}, designs {designs}")
     times, losses = [], [m["loss"].item()]
     torch.cuda.reset_peak_memory_stats()

@@ -59,12 +59,20 @@
 //     elements for ldmatrix. At D = 128 the dK/dV kernel streams 32-query
 //     tiles to keep its two accumulators plus S/dP tiles within the
 //     register file.
-//   * f32: on the FMA units, TF32 off (the same reason as the forward): one
-//     query row (dQ) or key row (dK/dV) per 1-4 threads, each owning a
-//     32-wide slice of the head dim, dot products combined by warp shuffles.
-// Not yet done (later work): the f32 paths on the tensor cores (split-bf16
-// operands), dK/dV on wgmma at D = 128.
+//   * f32 at D <= 64 with every stride positive: "wgmma.tf32x3", the
+//     tensor cores on TF32 operands split into two parts, three products a
+//     product, each step's product added on the FMA units
+//     (flash_attention_bwd_tf32.cu, linked into this library; launchers in
+//     flash_attention_bwd_tf32.cuh).
+//   * f32 elsewhere (D = 128, strides of 0; kept callable at every shape as
+//     the _mma entries, to time against): on the FMA units, TF32 off (the
+//     same reason as the forward): one query row (dQ) or key row (dK/dV) per
+//     1-4 threads, each owning a 32-wide slice of the head dim, dot products
+//     combined by warp shuffles.
+// Not yet done (later work): dK/dV on wgmma at D = 128, f32 at D = 128 on
+// the tensor cores.
 
+#include "flash_attention_bwd_tf32.cuh"
 #include "flash_attention_common.cuh"
 #include "hopper.cuh"
 #include "wgmma_tiles.cuh"
@@ -964,16 +972,30 @@ cudaError_t launch_dkv_wgmma(const void* q, const void* k, const void* v, const 
 }
 
 // The design of the last launch of kernel 3 ([0]) and kernel 4 ([1]), as
-// launch_dq and launch_dkv choose it: 0 = FMA (f32), 1 = mma.sync, 2 = wgmma;
-// -1 before the first launch. Read through flash_attention_bwd_last_design.
-enum Design { kFma = 0, kMmaSync = 1, kWgmma = 2 };
+// launch_dq and launch_dkv choose it: 0 = FMA (f32), 1 = mma.sync, 2 = wgmma
+// (bf16), 3 = wgmma.tf32x3 (f32); -1 before the first launch. Read through
+// flash_attention_bwd_last_design.
+enum Design { kFma = 0, kMmaSync = 1, kWgmma = 2, kWgmmaTf32 = 3 };
 int g_last_design[2] = {-1, -1};
+
+// f32 takes the wgmma.tf32x3 design (fabtf32) at D <= 64 when every input
+// stride is positive, unless `mma_only`. If its launch fails, the error is
+// returned and no other design runs.
+template <int HD>
+bool tf32_takes(int dtype, bool mma_only, const long long* st) {
+  return dtype == 0 && !mma_only && HD <= 64 && wgmma_takes(st);
+}
 
 template <int HD>
 cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* dout,
                       const float* lse, const float* delta, void* dq, int dtype, int B,
                       int Nq, int Nk, int H, int D, int n_actual, const long long* st,
                       float scale, bool mma_only, cudaStream_t stream) {
+  if (tf32_takes<HD>(dtype, mma_only, st)) {
+    g_last_design[0] = kWgmmaTf32;
+    return fabtf32::dq(q, k, v, dout, lse, delta, dq, B, Nq, Nk, H, D, n_actual, st, scale,
+                       stream);
+  }
   if (dtype == 1) {
     if (!mma_only && wgmma_takes(st)) {
       g_last_design[0] = kWgmma;
@@ -1009,9 +1031,14 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* d
 
 template <int HD>
 cudaError_t launch_dkv(const void* q, const void* k, const void* v, const void* dout,
-                       const float* lse, const float* delta, void* dk, void* dv, int dtype,
-                       int B, int Nq, int Nk, int H, int D, int n_actual,
+                       const float* lse, const float* delta, void* dk, void* dv, void* scratch,
+                       int dtype, int B, int Nq, int Nk, int H, int D, int n_actual,
                        const long long* st, float scale, bool mma_only, cudaStream_t stream) {
+  if (tf32_takes<HD>(dtype, mma_only, st)) {
+    g_last_design[1] = kWgmmaTf32;
+    return fabtf32::dkv(q, k, v, dout, lse, delta, dk, dv, static_cast<float*>(scratch), B, Nq,
+                        Nk, H, D, n_actual, st, scale, stream);
+  }
   if (dtype == 1) {
     if constexpr (HD <= 64)
       if (!mma_only && wgmma_takes(st)) {
@@ -1067,16 +1094,16 @@ int dq_entry(const void* q, const void* k, const void* v, const void* dout, cons
 }
 
 int dkv_entry(const void* q, const void* k, const void* v, const void* dout, const void* lse,
-              const void* delta, void* dk, void* dv, int dtype, int B, int Nq, int Nk, int H,
-              int D, int n_actual, const long long* st, float scale, bool mma_only,
-              void* stream) {
+              const void* delta, void* dk, void* dv, void* scratch, int dtype, int B, int Nq,
+              int Nk, int H, int D, int n_actual, const long long* st, float scale,
+              bool mma_only, void* stream) {
   if (bad_args(dtype, B, H, D, n_actual)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* l = static_cast<const float*>(lse);
   const float* dl = static_cast<const float*>(delta);
-  if (D <= 32) return (int)launch_dkv<32>(q, k, v, dout, l, dl, dk, dv, dtype, B, Nq, Nk, H, D, n_actual, st, scale, mma_only, s);
-  if (D <= 64) return (int)launch_dkv<64>(q, k, v, dout, l, dl, dk, dv, dtype, B, Nq, Nk, H, D, n_actual, st, scale, mma_only, s);
-  return (int)launch_dkv<128>(q, k, v, dout, l, dl, dk, dv, dtype, B, Nq, Nk, H, D, n_actual, st, scale, mma_only, s);
+  if (D <= 32) return (int)launch_dkv<32>(q, k, v, dout, l, dl, dk, dv, scratch, dtype, B, Nq, Nk, H, D, n_actual, st, scale, mma_only, s);
+  if (D <= 64) return (int)launch_dkv<64>(q, k, v, dout, l, dl, dk, dv, scratch, dtype, B, Nq, Nk, H, D, n_actual, st, scale, mma_only, s);
+  return (int)launch_dkv<128>(q, k, v, dout, l, dl, dk, dv, scratch, dtype, B, Nq, Nk, H, D, n_actual, st, scale, mma_only, s);
 }
 
 }  // namespace
@@ -1085,9 +1112,10 @@ int dkv_entry(const void* q, const void* k, const void* v, const void* dout, con
 // stride must be 1, D a multiple of 8 (<= 128), every stride a multiple of
 // 8 and every pointer 16-byte aligned (the Python wrapper guarantees all of
 // it). lse and delta: float32 (B, H, Nq) contiguous. `st` holds 15 strides:
-// q, k, v, dO, dq (batch, sequence, head each). bf16 runs the wgmma design
-// when every input stride is positive, else the mma.sync one; f32 the FMA
-// kernel. Returns the cudaError_t of the launch (0 = success).
+// q, k, v, dO, dq (batch, sequence, head each). When every input stride is
+// positive bf16 runs the wgmma design and f32 at D <= 64 the wgmma.tf32x3
+// one; else bf16 runs the mma.sync design and f32 the FMA kernel. Returns
+// the cudaError_t of the launch (0 = success).
 extern "C" int flash_attention_bwd_dq(const void* q, const void* k, const void* v,
                                       const void* dout, const void* lse, const void* delta,
                                       void* dq, int dtype, int B, int Nq, int Nk, int H,
@@ -1097,20 +1125,33 @@ extern "C" int flash_attention_bwd_dq(const void* q, const void* k, const void* 
                   false, stream);
 }
 
-// As flash_attention_bwd_dq, with 18 strides: q, k, v, dO, dk, dv. bf16 runs
-// the wgmma design at D <= 64 when every input stride is positive, else the
-// mma.sync one.
+// As flash_attention_bwd_dq, with 18 strides: q, k, v, dO, dk, dv, and
+// `scratch`: flash_attention_bwd_dkv_scratch_floats floats (null when that is
+// 0). bf16 runs the wgmma design at D <= 64 when every input stride is
+// positive, else the mma.sync one; f32 as kernel 3.
 extern "C" int flash_attention_bwd_dkv(const void* q, const void* k, const void* v,
                                        const void* dout, const void* lse, const void* delta,
-                                       void* dk, void* dv, int dtype, int B, int Nq, int Nk,
-                                       int H, int D, int n_actual, const long long* st,
-                                       float scale, void* stream) {
-  return dkv_entry(q, k, v, dout, lse, delta, dk, dv, dtype, B, Nq, Nk, H, D, n_actual, st,
-                   scale, false, stream);
+                                       void* dk, void* dv, void* scratch, int dtype, int B,
+                                       int Nq, int Nk, int H, int D, int n_actual,
+                                       const long long* st, float scale, void* stream) {
+  return dkv_entry(q, k, v, dout, lse, delta, dk, dv, scratch, dtype, B, Nq, Nk, H, D, n_actual,
+                   st, scale, false, stream);
 }
 
-// The two entries above with the mma.sync design for bf16 at every shape
-// (the earlier kernels, kept to time the wgmma ones against).
+// Floats of scratch flash_attention_bwd_dkv (mma_only = 0) or
+// flash_attention_bwd_dkv_mma (1) needs for a call: the wgmma.tf32x3
+// design's pre-pass forms when it takes the call, else 0. Arguments as the
+// entries'.
+extern "C" long long flash_attention_bwd_dkv_scratch_floats(int dtype, int B, int Nq, int H,
+                                                            int D, const long long* st,
+                                                            int mma_only) {
+  if (D < 1 || D > 64 || !tf32_takes<64>(dtype, mma_only != 0, st)) return 0;
+  return (long long)fabtf32::dkv_scratch_floats(B, H, Nq, D);
+}
+
+// The two entries above with the mma.sync design for bf16 and the FMA
+// kernels for f32 at every shape (the earlier kernels, kept to time the
+// wgmma and wgmma.tf32x3 ones against).
 extern "C" int flash_attention_bwd_dq_mma(const void* q, const void* k, const void* v,
                                           const void* dout, const void* lse, const void* delta,
                                           void* dq, int dtype, int B, int Nq, int Nk, int H,
@@ -1122,16 +1163,17 @@ extern "C" int flash_attention_bwd_dq_mma(const void* q, const void* k, const vo
 
 extern "C" int flash_attention_bwd_dkv_mma(const void* q, const void* k, const void* v,
                                            const void* dout, const void* lse,
-                                           const void* delta, void* dk, void* dv, int dtype,
-                                           int B, int Nq, int Nk, int H, int D, int n_actual,
-                                           const long long* st, float scale, void* stream) {
-  return dkv_entry(q, k, v, dout, lse, delta, dk, dv, dtype, B, Nq, Nk, H, D, n_actual, st,
-                   scale, true, stream);
+                                           const void* delta, void* dk, void* dv, void* scratch,
+                                           int dtype, int B, int Nq, int Nk, int H, int D,
+                                           int n_actual, const long long* st, float scale,
+                                           void* stream) {
+  return dkv_entry(q, k, v, dout, lse, delta, dk, dv, scratch, dtype, B, Nq, Nk, H, D, n_actual,
+                   st, scale, true, stream);
 }
 
-// The design (0 = FMA, 1 = mma.sync, 2 = wgmma) of the last launch of kernel
-// 3 (which = 0) or kernel 4 (which = 1) through any entry above; -1 before
-// the first.
+// The design (0 = FMA, 1 = mma.sync, 2 = wgmma, 3 = wgmma.tf32x3) of the
+// last launch of kernel 3 (which = 0) or kernel 4 (which = 1) through any
+// entry above; -1 before the first.
 extern "C" int flash_attention_bwd_last_design(int which) {
   return which == 0 || which == 1 ? g_last_design[which] : -1;
 }

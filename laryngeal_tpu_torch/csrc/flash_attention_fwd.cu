@@ -103,11 +103,13 @@
 
 #include "flash_attention_fwd.cuh"
 #include "hopper.cuh"
+#include "tf32_tiles.cuh"
 #include "wgmma_tiles.cuh"
 
 namespace {
 
 using namespace flash;
+using namespace tf32tile;
 using namespace wgtile;
 
 // ---------------------------------------------------------------------------
@@ -461,16 +463,6 @@ constexpr int kTransformWarps = 3;
 // the 168 a thread the 384-thread block is launched with.
 constexpr int kTf32ProducerRegs = 40, kTf32ConsumerRegs = 232;
 
-// x = big + small + O(2^-21 |x|), both TF32 with their low 13 bits zero, so
-// the tensor cores read them exactly. The big part by truncation (the low 13
-// bits masked: one logic op, and a NaN stays a NaN; cvt.rna there cost ~10%,
-// scripts/ablate_flash_fwd.py's rna_big), the small part, x - big (exact),
-// rounded by cvt.rna.
-__device__ __forceinline__ void tf32_split(float x, uint32_t& big, uint32_t& small) {
-  big = __float_as_uint(x) & 0xffffe000u;
-  small = hopper::tf32_rna(x - __uint_as_float(big));
-}
-
 // Geometry of the f32 design at head dim HD (32: D <= 32; 64: 32 < D <= 64).
 // A 64-row tile of q, k or v is HD / 32 panels of 64 rows x 32 f32 (one
 // 128-byte swizzle span a row), as TMA writes it; a V^T tile (HD rows x 64
@@ -497,43 +489,6 @@ struct Tf32Geom {
   }
 };
 
-// TMA loads of rows [row, row + 64) of one (batch, head) slice of an f32
-// tensor into a tile (one box of 32 columns per panel; rows past N and
-// columns past D arrive as zeros).
-template <int HD>
-__device__ __forceinline__ void tf32_load_tile(unsigned char* dst, const CUtensorMap* map,
-                                               int pos, uint64_t* bar, int h, int row, int b) {
-  int c1, c2, c3;
-  hopper::bnhd_coords(pos, h, row, b, c1, c2, c3);
-#pragma unroll
-  for (int p = 0; p < HD / 32; ++p)
-    hopper::tma_load_4d(dst + p * Tf32Geom<HD>::kPanelBytes, map, bar, 32 * p, c1, c2, c3);
-}
-
-// This thread's Q fragments of a warpgroup's 64-row tile, split into their
-// two TF32 parts: k8 step ks holds rows 16 warp + g (+ 8), columns 8 ks + t4
-// (+ 4), read through the 128-byte swizzle (16-byte chunk c of row r at
-// c ^ (r % 8)). The big part stays in registers; the small part goes to
-// `small_tile` at the element's own offset (the fragments cover the
-// warpgroup's tile once), read by SS wgmma: in registers too (RS), ptxas
-// serialised the products and the registers were needed for the step's P V.
-template <int HD>
-__device__ __forceinline__ void tf32_load_q(uint32_t (&big)[HD / 8][4], const unsigned char* tile,
-                                            unsigned char* small_tile, int warp, int g, int t4) {
-#pragma unroll
-  for (int ks = 0; ks < HD / 8; ++ks)
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int row = 16 * warp + g + 8 * (r & 1);
-      const int col = 8 * ks + t4 + 4 * (r >> 1), c = col % 32;
-      const int off = col / 32 * Tf32Geom<HD>::kPanelBytes + row * 128
-                      + (((c >> 2) ^ (row % 8)) << 4) + (c & 3) * 4;
-      uint32_t small;
-      tf32_split(*reinterpret_cast<const float*>(tile + off), big[ks][r], small);
-      *reinterpret_cast<uint32_t*>(small_tile + off) = small;
-    }
-}
-
 // d (64 x 64) = Q K^T over one 64-key tile: per k8 step the three products
 // Q_small K_big + Q_big K_small + Q_big K_big (3xTF32), Q big from
 // registers, Q small from `qs_tile` and K's parts K-major from shared memory.
@@ -553,15 +508,6 @@ __device__ __forceinline__ void tf32_scores(float (&d)[32], const uint32_t (&qb)
   }
 }
 
-template <int HD>
-__device__ __forceinline__ void tf32_pv_one(float (&acc)[HD / 2], const uint32_t (&a)[4],
-                                            uint64_t b, int accumulate) {
-  if constexpr (HD == 64)
-    hopper::wgmma_m64n64k8_tf32_rs(acc, a, b, accumulate);
-  else
-    hopper::wgmma_m64n32k8_tf32_rs(acc, a, b, accumulate);
-}
-
 // acc (64 x HD) = P V over one 64-key tile, 3xTF32: P's parts from
 // registers, V^T's parts K-major from shared memory.
 template <int HD>
@@ -573,9 +519,9 @@ __device__ __forceinline__ void tf32_pv(float (&acc)[HD / 2], const uint32_t (&p
 #pragma unroll
   for (int kk = 0; kk < 8; ++kk) {
     const uint32_t off = (kk / 4 * Tf32Geom<HD>::kVtPanelBytes + kk % 4 * 32) >> 4;
-    tf32_pv_one<HD>(acc, ps[kk], db + off, kk > 0);
-    tf32_pv_one<HD>(acc, pb[kk], ds + off, 1);
-    tf32_pv_one<HD>(acc, pb[kk], db + off, 1);
+    tf32_mma_hd<HD>(acc, ps[kk], db + off, kk > 0);
+    tf32_mma_hd<HD>(acc, pb[kk], ds + off, 1);
+    tf32_mma_hd<HD>(acc, pb[kk], db + off, 1);
   }
 }
 
@@ -584,7 +530,7 @@ __device__ __forceinline__ void tf32_pv(float (&acc)[HD / 2], const uint32_t (&p
 // P V. Accumulator element 4 kk + e holds key 8 kk + 2 t4 + (e & 1); the k8
 // fragment wants positions t4 and t4 + 4, so P's keys 2 t4 and 2 t4 + 1 of
 // each 8 take positions t4 and t4 + 4, and V^T's columns are permuted
-// alike (tf32_transpose_v): the product sums the same pairs.
+// alike (tf32_transpose): the product sums the same pairs.
 template <bool TAIL>
 __device__ __forceinline__ void tf32_softmax(float (&s)[32], float (&m)[2], float (&l)[2],
                                              float (&alpha)[2], uint32_t (&pb)[8][4],
@@ -617,56 +563,6 @@ __device__ __forceinline__ void tf32_softmax(float (&s)[32], float (&m)[2], floa
 #pragma unroll
     for (int r = 0; r < 4; ++r)
       tf32_split(s[4 * kk + ((r & 1) << 1 | r >> 1)], pb[kk][r], ps[kk][r]);
-}
-
-// The transform warps' work on one V tile (64 keys x HD, as TMA wrote it):
-// V^T's two TF32 parts, HD rows x 64 key positions, position 8 kk + p of
-// row d holding key 8 kk + 2 p (p < 4) or 8 kk + 2 (p - 4) + 1 (tf32_softmax's
-// order), in the 128-byte swizzle. Lane = d % 32 (conflict-free reads);
-// each item is one 16-byte chunk of a row of both parts.
-template <int HD>
-__device__ __forceinline__ void tf32_transpose_v(const unsigned char* v, unsigned char* vtb,
-                                                 unsigned char* vts, int tw, int lane) {
-  using G = Tf32Geom<HD>;
-#pragma unroll 1
-  for (int it = tw; it < HD / 32 * 16; it += kTransformWarps) {
-    const int dp = it / 16, pp = it % 16 / 8, cc = it % 8, d = 32 * dp + lane;
-    float x[4];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int r = 8 * (4 * pp + cc / 2) + 2 * j + (cc & 1);
-      x[j] = *reinterpret_cast<const float*>(v + dp * G::kPanelBytes + r * 128
-                                             + (((lane >> 2) ^ (r % 8)) << 4) + (lane & 3) * 4);
-    }
-    uint4 big, small;
-    tf32_split(x[0], big.x, small.x);
-    tf32_split(x[1], big.y, small.y);
-    tf32_split(x[2], big.z, small.z);
-    tf32_split(x[3], big.w, small.w);
-    const int off = pp * G::kVtPanelBytes + d * 128 + ((cc ^ (d % 8)) << 4);
-    *reinterpret_cast<uint4*>(vtb + off) = big;
-    *reinterpret_cast<uint4*>(vts + off) = small;
-  }
-}
-
-// The transform warps' work on one K tile: each element rounded in place to
-// its big TF32 part, its small part written at the same offset of `ks` (the
-// swizzle moves whole 16-byte chunks, so the layout carries over).
-template <int HD>
-__device__ __forceinline__ void tf32_split_k(unsigned char* k, unsigned char* ks, int tid) {
-  uint4* kb4 = reinterpret_cast<uint4*>(k);
-  uint4* ks4 = reinterpret_cast<uint4*>(ks);
-#pragma unroll 1
-  for (int i = tid; i < Tf32Geom<HD>::kTileBytes / 16; i += 32 * kTransformWarps) {
-    const uint4 x = kb4[i];
-    uint4 big, small;
-    tf32_split(__uint_as_float(x.x), big.x, small.x);
-    tf32_split(__uint_as_float(x.y), big.y, small.y);
-    tf32_split(__uint_as_float(x.z), big.z, small.z);
-    tf32_split(__uint_as_float(x.w), big.w, small.w);
-    kb4[i] = big;
-    ks4[i] = small;
-  }
 }
 
 // Kernels 1-2 in f32. A work item is (128 query rows, batch * head); one
@@ -754,13 +650,13 @@ fwd_tf32_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
           const int sk = step % KS, sv = step % VS;
           unsigned char* kst = k_ring + sk * 2 * T;
           hopper::mbar_wait(&k_full[sk], (step / KS) & 1);
-          tf32_split_k<HD>(kst, kst + T, threadIdx.x - 32);
+          tf32_split_rows<T, 32 * kTransformWarps>(kst, kst + T, threadIdx.x - 32);
           hopper::fence_async_smem();
           __syncwarp();
           if (lane == 0) hopper::mbar_arrive(&k_ready[sk]);
           unsigned char* vst = v_ring + sv * 3 * T;
           hopper::mbar_wait(&v_full[sv], (step / VS) & 1);
-          tf32_transpose_v<HD>(vst, vst + T, vst + 2 * T, tw, lane);
+          tf32_transpose<HD, 64, kTransformWarps>(vst, vst + T, vst + 2 * T, tw, lane);
           hopper::fence_async_smem();
           __syncwarp();
           if (lane == 0) hopper::mbar_arrive(&v_ready[sv]);

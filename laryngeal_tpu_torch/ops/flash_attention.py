@@ -20,10 +20,11 @@ TPU kernels have CUDA counterparts here:
 Kernels 1-4 have two bf16 designs behind their entries, ``wgmma`` (a
 block's query rows, or key rows, resident in shared memory through TMA,
 the other side streamed past them through an mbarrier ring) and
-``mma.sync``. In f32 kernels 1-2 run ``wgmma.tf32x3`` at D <= 64 (the
-wgmma design on TF32 operands split into two parts, three products per
-product, which keeps f32's 1e-4 agreement) and the FMA kernel elsewhere;
-kernels 3-4 run the FMA kernels. The C side picks one per call
+``mma.sync``. In f32 they run ``wgmma.tf32x3`` at D <= 64 (wgmma on TF32
+operands split into two parts, three products per product, which keeps
+the f32 limits; kernels 3-4 in ``csrc/flash_attention_bwd_tf32.cu``,
+kernel 4 after a pre-pass that splits q and dO into scratch this wrapper
+allocates) and the FMA kernels elsewhere. The C side picks one per call
 (``launch_fwd`` in ``csrc/flash_attention_fwd.cu``, ``launch_dq`` and
 ``launch_dkv`` in ``csrc/flash_attention_bwd.cu`` say where each runs) and
 ``last_forward_designs`` / ``last_backward_designs`` report which ran.
@@ -112,8 +113,13 @@ def _kernel(name: str):
             source, args = BIAS_SOURCE, [ptr] * 5 + [i32] * 8 + [i64] * 15 + [i32]
         elif name in ("flash_attention_bwd_dq", "flash_attention_bwd_dq_mma"):
             source, args = BWD_SOURCE, [ptr] * 7 + [i32] * 7 + [strides]
-        else:
-            source, args = BWD_SOURCE, [ptr] * 8 + [i32] * 7 + [strides]
+        elif name == "flash_attention_bwd_dkv_scratch_floats":
+            fn = getattr(_build.load(BWD_SOURCE), name)
+            fn.restype, fn.argtypes = ctypes.c_longlong, [i32] * 5 + [strides, i32]
+            _fns[name] = fn
+            return fn
+        else:  # the dK/dV entries: q, k, v, dO, lse, delta, dk, dv, scratch
+            source, args = BWD_SOURCE, [ptr] * 9 + [i32] * 7 + [strides]
         fn = getattr(_build.load(source), name)
         fn.restype = ctypes.c_int
         fn.argtypes = args + [ctypes.c_float, ptr]
@@ -425,11 +431,17 @@ def _backward_launch(name, q, k, v, do, lse, delta, outs, kv_valid):
     delta = delta.float().contiguous()
     strides = [s for x in (qp, kp, vp, dop, *outs) for s in x.stride()[:3]]
     st = (ctypes.c_longlong * len(strides))(*strides)
+    ptrs = [o.data_ptr() for o in outs]
     with torch.cuda.device(q.device):
+        if "dkv" in name:  # kernel 4's scratch: its f32 design's pre-pass forms
+            n = _kernel("flash_attention_bwd_dkv_scratch_floats")(
+                _DTYPE_CODE[q.dtype], b, n_q, h, d_pad, st, name.endswith("_mma"))
+            scratch = torch.empty(n, dtype=torch.float32, device=q.device) if n else None
+            ptrs.append(scratch.data_ptr() if n else None)
         err = _kernel(name)(qp.data_ptr(), kp.data_ptr(), vp.data_ptr(), dop.data_ptr(),
-                            lse.data_ptr(), delta.data_ptr(), *(o.data_ptr() for o in outs),
-                            _DTYPE_CODE[q.dtype], b, n_q, n_k, h, d_pad,
-                            _n_actual(n_k, kv_valid), st, 1.0 / math.sqrt(d), _stream(q))
+                            lse.data_ptr(), delta.data_ptr(), *ptrs, _DTYPE_CODE[q.dtype], b,
+                            n_q, n_k, h, d_pad, _n_actual(n_k, kv_valid), st,
+                            1.0 / math.sqrt(d), _stream(q))
     if err != 0:
         raise RuntimeError(f"{name} launch failed: cudaError {err}")
 
@@ -483,21 +495,22 @@ def flash_attention_dkv_cuda(q, k, v, do, lse, delta, kv_valid=None
 
 
 def flash_attention_dq_mma_cuda(q, k, v, do, lse, delta, kv_valid=None) -> torch.Tensor:
-    """Kernel 3's earlier ``mma.sync`` design for bfloat16 at every shape (f32
-    takes the FMA kernel, as in kernel 3), on CUDA tensors: the yardstick of
-    the ``wgmma`` design. Counts no launch; raises if it cannot launch."""
+    """Kernel 3's earlier designs at every shape, on CUDA tensors: ``mma.sync``
+    for bfloat16, the FMA kernel for float32; the yardsticks of the ``wgmma``
+    and ``wgmma.tf32x3`` designs. Counts no launch; raises if it cannot
+    launch."""
     return _dq("flash_attention_bwd_dq_mma", q, k, v, do, lse, delta, kv_valid)[0]
 
 
 def flash_attention_dkv_mma_cuda(q, k, v, do, lse, delta, kv_valid=None
                                  ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Kernel 4's earlier ``mma.sync`` design, as ``flash_attention_dq_mma_cuda``."""
+    """Kernel 4's earlier designs, as ``flash_attention_dq_mma_cuda``."""
     return _dkv("flash_attention_bwd_dkv_mma", q, k, v, do, lse, delta, kv_valid)[0]
 
 
 # Designs of kernels 1-4, by the code ``flash_attention_fwd_last_design`` and
-# ``flash_attention_bwd_last_design`` return ("wgmma.tf32x3": kernels 1-2 in
-# f32 on the tensor cores, each product as three TF32 products).
+# ``flash_attention_bwd_last_design`` return ("wgmma.tf32x3": f32 on the
+# tensor cores, each product as three TF32 products).
 DESIGNS = ("fma", "mma.sync", "wgmma", "wgmma.tf32x3")
 
 

@@ -86,6 +86,7 @@ from laryngeal_tpu_torch.ops import flash_attention as fa  # noqa: E402
 
 SHAPE = (8, 3137, 12, 64)
 SOURCE = "flash_attention_fwd.cu"
+HEADER = "tf32_tiles.cuh"
 PERM = ("#include \"wgmma_tiles.cuh\"\n#define PERM(a, b) "
         "__byte_perm(__float_as_uint(a), __float_as_uint(b), 0x7632)\n")
 CONSUMER = ("    for (int item = blockIdx.x, it = 0; item < n_items; item += gridDim.x, ++it) {\n"
@@ -166,11 +167,12 @@ TF32_LOADS_ONLY = ("    for (int item = blockIdx.x, it = 0; item < n_items; item
 TF32_SCORES = ("    hopper::wgmma_m64n64k8_tf32_ss(d, dq + off, db + off, k > 0);\n"
                "    hopper::wgmma_m64n64k8_tf32_rs(d, qb[k], ds + off, 1);\n"
                "    hopper::wgmma_m64n64k8_tf32_rs(d, qb[k], db + off, 1);\n")
-TF32_PV = ("    tf32_pv_one<HD>(acc, ps[kk], db + off, kk > 0);\n"
-           "    tf32_pv_one<HD>(acc, pb[kk], ds + off, 1);\n"
-           "    tf32_pv_one<HD>(acc, pb[kk], db + off, 1);\n")
+TF32_PV = ("    tf32_mma_hd<HD>(acc, ps[kk], db + off, kk > 0);\n"
+           "    tf32_mma_hd<HD>(acc, pb[kk], ds + off, 1);\n"
+           "    tf32_mma_hd<HD>(acc, pb[kk], db + off, 1);\n")
 ONE_TERM = "  // ablation: one term\n"
-# tf32_split's two lines: the big part masked, the small part by cvt.rna.
+# tf32_split's two lines (in the shared header tf32_tiles.cuh): the big part
+# masked, the small part by cvt.rna.
 BIG = "  big = __float_as_uint(x) & 0xffffe000u;\n"
 SMALL = "  small = hopper::tf32_rna(x - __uint_as_float(big));\n"
 INT_ROUND = [BIG + SMALL, "  // ablation: rounding by integer add and mask\n"
@@ -185,12 +187,13 @@ STEP_ADD = ("        hopper::fence_regs(pv);\n#pragma unroll\n"
             "        for (int i = 0; i < HD / 2; ++i) acc[i] = fmaf(acc[i], alpha[(i >> 1) & 1], pv[i]);\n")
 TC_ACC = [[STEP_PV, "#pragma unroll\n        for (int i = 0; i < HD / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];\n"
                     + STEP_PV.replace("(pv,", "(acc,")],
-          ["tf32_pv_one<HD>(acc, ps[kk], db + off, kk > 0);",
-           "tf32_pv_one<HD>(acc, ps[kk], db + off, 1);"],
+          ["tf32_mma_hd<HD>(acc, ps[kk], db + off, kk > 0);",
+           "tf32_mma_hd<HD>(acc, ps[kk], db + off, 1);"],
           [STEP_ADD, "        hopper::fence_regs(acc);\n"]]
 REGS = "constexpr int kTf32ProducerRegs = 40, kTf32ConsumerRegs = 232;"
-NO_TRANSFORM = [["tf32_split_k<HD>(kst, kst + T, threadIdx.x - 32);", ""],
-                ["tf32_transpose_v<HD>(vst, vst + T, vst + 2 * T, tw, lane);", ""]]
+NO_TRANSFORM = [["tf32_split_rows<T, 32 * kTransformWarps>(kst, kst + T, threadIdx.x - 32);", ""],
+                ["tf32_transpose<HD, 64, kTransformWarps>(vst, vst + T, vst + 2 * T, tw, lane);",
+                 ""]]
 F32_VARIANTS = {
     "as_is": [],
     "loads_only": [[TF32_CONSUMER, TF32_LOADS_ONLY + TF32_CONSUMER]],
@@ -200,7 +203,7 @@ F32_VARIANTS = {
     "no_exp": [["hopper::exp2_approx(fmaf(s[i], sl2, -m[r]))", "fmaf(s[i], sl2, -m[r])"]],
     "one_term": [[TF32_SCORES, "    hopper::wgmma_m64n64k8_tf32_rs(d, qb[k], db + off, k > 0);"
                                + ONE_TERM],
-                 [TF32_PV, "    tf32_pv_one<HD>(acc, pb[kk], db + off, kk > 0);"
+                 [TF32_PV, "    tf32_mma_hd<HD>(acc, pb[kk], db + off, kk > 0);"
                            + ONE_TERM]],
     "int_round": [INT_ROUND],
     "rna_big": [RNA_BIG],
@@ -218,14 +221,23 @@ ENTRIES = ("flash_attention_fwd", "flash_attention_fwd_lse")  # kernel 1, then k
 
 
 def build(name: str, workdir: Path) -> dict:
-    """The variant's two C entries, by name, from a library built in ``workdir``."""
-    text = (_build.CSRC_DIR / SOURCE).read_text()
+    """The variant's two C entries, by name, from a library built in
+    ``workdir``. An edit applies to the source, or else to the shared header
+    ``tf32_tiles.cuh``, whose edited copy then sits beside the source (a
+    quoted include finds it there first)."""
+    files = {SOURCE: (_build.CSRC_DIR / SOURCE).read_text(),
+             HEADER: (_build.CSRC_DIR / HEADER).read_text()}
     for old, new in VARIANTS[name]:
-        if old not in text:
-            raise RuntimeError(f"variant {name}: the source no longer holds {old[:60]!r}")
-        text = text.replace(old, new)
-    src, lib = workdir / f"{name}.cu", workdir / f"{name}.so"
-    src.write_text(text)
+        where = next((f for f, text in files.items() if old in text), None)
+        if where is None:
+            raise RuntimeError(f"variant {name}: the sources no longer hold {old[:60]!r}")
+        files[where] = files[where].replace(old, new)
+    vdir = workdir / name
+    vdir.mkdir()
+    src, lib = vdir / SOURCE, workdir / f"{name}.so"
+    src.write_text(files[SOURCE])
+    if files[HEADER] != (_build.CSRC_DIR / HEADER).read_text():
+        (vdir / HEADER).write_text(files[HEADER])
     proc = subprocess.run([_build.find_nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC_DIR),
                            "-o", str(lib), str(src)], capture_output=True, text=True)
     if proc.returncode != 0:

@@ -21,6 +21,7 @@ from laryngeal_tpu.ops.flash_attention import _flash_backward, _flash_forward
 from laryngeal_tpu.ops.flash_attention import flash_attention as jax_flash_attention
 from laryngeal_tpu_torch.ops import attention as att
 from laryngeal_tpu_torch.ops import flash_attention as fa
+from test_torch_flash_attention import _split_tf32, _tf32
 
 # (B, Nq, Nk, H, D, kv_valid)
 SHAPES = [(1, 130, 130, 2, 64, None), (1, 300, 300, 2, 16, 250), (1, 100, 300, 2, 32, None)]
@@ -214,3 +215,68 @@ def test_backward_limit_takes_kernel_rounding_and_refuses_a_dropped_tile():
                           for a, r, lim in zip(got, ref, limits))
     assert use(_emulate_kernel_bwd_bf16(q, k, v, o, lse, g)) <= 0.75
     assert use(_emulate_kernel_bwd_bf16(q, k, v, o, lse, g, drop=slice(64, 128))) > 1.0
+
+
+def _emulate_kernel_bwd_f32(q, k, v, o, lse, do, kv_valid=None, split="tf32x3"):
+    """Kernels 3-4's f32 design (``wgmma.tf32x3``) on the CPU: S = Q Kᵀ,
+    dP = dO Vᵀ and the gradients' products on split operands, each as
+    small·big + big·small + big·big of the kernels' two TF32 parts
+    (``"tf32x3"``), or as one TF32 product of the operands rounded to
+    nearest (``"tf32"``). P = exp2(S·scale·log2e − lse·log2e) with keys >=
+    ``kv_valid`` at 0 and dS = P∘(dP − δ), both split as A operands; dQ
+    summed over 32-key steps, dK and dV over 32-query steps, each step's
+    product added in f32 (the kernels' flush of a step's accumulator)."""
+    nq, nk, d = q.shape[1], k.shape[1], q.shape[-1]
+    n_act = nk if kv_valid is None else min(kv_valid, nk)
+    scale, log2e = d ** -0.5, 1.4426950408889634
+    parts = _split_tf32 if split == "tf32x3" else (lambda x: (_tf32(x), torch.zeros_like(x)))
+
+    def prod(eq, a, c):
+        (ab, as_), (cb, cs) = parts(a), parts(c)
+        return torch.einsum(eq, as_, cb) + torch.einsum(eq, ab, cs) + torch.einsum(eq, ab, cb)
+
+    p = torch.exp2(prod("bqhd,bkhd->bhqk", q, k) * (scale * log2e) - lse[..., None] * log2e)
+    p[..., n_act:] = 0.0
+    ds = p * (prod("bqhd,bkhd->bhqk", do, v) - fa.attention_delta(o, do)[..., None])
+    dq = sum(prod("bhqk,bkhd->bqhd", ds[..., c:c + 32], k[:, c:c + 32])
+             for c in range(0, nk, 32))
+    dk = sum(prod("bhqk,bqhd->bkhd", ds[:, :, c:c + 32], q[:, c:c + 32])
+             for c in range(0, nq, 32))
+    dv = sum(prod("bhqk,bqhd->bkhd", p[:, :, c:c + 32], do[:, c:c + 32])
+             for c in range(0, nq, 32))
+    return dq * scale, dk * scale, dv
+
+
+# (B, Nq, Nk, H, D, kv_valid): kv_valid inside the last 32-key step and at
+# its edge, Nq != Nk both ways, D = 64, 32 and 40.
+F32_SPLIT_SHAPES = [(1, 130, 130, 2, 64, None), (1, 300, 200, 2, 64, 150),
+                    (1, 100, 300, 2, 32, 250), (1, 97, 65, 2, 40, 64)]
+
+
+@pytest.mark.parametrize("shape", F32_SPLIT_SHAPES, ids=str)
+def test_f32_split_tf32_backward_emulation_holds_the_limits_where_one_term_does_not(shape):
+    """Kernels 3-4's f32 design splits every operand, P and dS included,
+    into two TF32 parts and sums three products a product (3xTF32).
+    Emulated on the CPU, its dq, dk and dv stay within the f32 terms of
+    ``backward_error_limit`` (F32_REL·A + 1e-6) of the JAX package's Pallas
+    backward in interpret mode, masked keys' dK and dV exactly 0; one-term
+    TF32 on the same inputs misses that limit, which is why the split
+    exists."""
+    b, nq, nk, h, d, kv_valid = shape
+    q, k, v, g = _inputs(shape, seed=11)
+    jq, jk, jv, jg = (jnp.asarray(x) for x in (q, k, v, g))
+    o, lse_pad = _flash_forward(jq, jk, jv, None, 128, 128, interpret=True, return_lse=True,
+                                kv_valid=kv_valid)
+    refs = [torch.from_numpy(np.array(x)) for x in
+            _flash_backward(jq, jk, jv, o, lse_pad, jg, interpret=True, kv_valid=kv_valid)]
+    qt, kt, vt, gt = (torch.from_numpy(x) for x in (q, k, v, g))
+    ot = torch.from_numpy(np.array(o))
+    lse = torch.from_numpy(np.array(lse_pad)[:, :nq, 0].reshape(b, h, nq))
+    limits = fa.backward_error_limit(qt, kt, vt, ot, lse, gt, kv_valid, refs)
+    use = lambda got: max(((x - r).abs() / lim).max().item()
+                          for x, r, lim in zip(got, refs, limits))
+    split = _emulate_kernel_bwd_f32(qt, kt, vt, ot, lse, gt, kv_valid)
+    assert use(split) <= 1.0
+    if kv_valid is not None and kv_valid < nk:
+        assert all(torch.count_nonzero(x[:, kv_valid:]) == 0 for x in split[1:])
+    assert use(_emulate_kernel_bwd_f32(qt, kt, vt, ot, lse, gt, kv_valid, split="tf32")) > 1.0

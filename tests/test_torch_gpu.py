@@ -488,7 +488,8 @@ def test_backward_kernels_count_one_launch_per_call(cuda):
 def test_backward_kernels_report_the_design_they_ran(cuda):
     """The C side reports the design of its last launch: bf16 at D = 64
     takes wgmma for both kernels, at D = 128 wgmma for dQ and mma.sync for
-    dK/dV; the _mma wrappers run mma.sync and f32 the FMA kernels."""
+    dK/dV; the _mma wrappers run mma.sync; f32 at D = 64 takes wgmma.tf32x3
+    for both kernels."""
     for d, dtype, fns, want in (
             (64, torch.bfloat16, (fa.flash_attention_dq_cuda, fa.flash_attention_dkv_cuda),
              ("wgmma", "wgmma")),
@@ -497,12 +498,179 @@ def test_backward_kernels_report_the_design_they_ran(cuda):
             (64, torch.bfloat16, (fa.flash_attention_dq_mma_cuda,
                                   fa.flash_attention_dkv_mma_cuda), ("mma.sync", "mma.sync")),
             (64, torch.float32, (fa.flash_attention_dq_cuda, fa.flash_attention_dkv_cuda),
-             ("fma", "fma"))):
+             ("wgmma.tf32x3", "wgmma.tf32x3"))):
         q, k, v, g = _grad_inputs((1, 200, 200, 2, d, None), dtype, cuda, seed=10)
         lse, delta, _, _ = _bwd_calls(q, k, v, g, None)
         for fn in fns:
             fn(q, k, v, g, lse, delta)
         assert fa.last_backward_designs() == want, (d, dtype)
+
+
+# Kernels 3-4's f32 design, wgmma.tf32x3 (D <= 64, every stride positive):
+# (Nq, Nk, kv_valid) at its 32-row steps' and 64-row tiles' edges, Nq != Nk.
+TF32_BWD_NS = [(1, 1, None), (31, 33, 32), (32, 32, None), (33, 31, 1), (63, 65, 64),
+               (64, 64, 33), (65, 63, None), (300, 1100, 1000), (1100, 300, 257)]
+
+
+def _tf32_bwd_inputs(nq, nk, d, layout, seed):
+    """f32 q, k, v (contiguous, views of a fused (B, N, 3, H, D) projection
+    with Nk = Nq, or (B, H, N, D) tensors transposed) and a contiguous g."""
+    rng = np.random.default_rng(seed)
+    mk = lambda *shape: torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).cuda()
+    b, h = 2, 3
+    if layout == "fused":
+        q, k, v = mk(b, nq, 3, h, d).unbind(2)
+    elif layout == "bhnd":
+        q = mk(b, h, nq, d).transpose(1, 2)
+        k, v = (mk(b, h, nk, d).transpose(1, 2) for _ in range(2))
+    else:
+        q, k, v = mk(b, nq, h, d), mk(b, nk, h, d), mk(b, nk, h, d)
+    return q, k, v, mk(b, nq, h, d)
+
+
+@pytest.mark.parametrize("layout", ["contiguous", "fused", "bhnd"])
+@pytest.mark.parametrize("d", [32, 40, 64])
+@pytest.mark.parametrize("case", TF32_BWD_NS, ids=str)
+def test_backward_tf32_edges_match_plain_and_repeat(cuda, case, d, layout):
+    """f32 kernels 3-4 on wgmma.tf32x3 at the edges of its steps and tiles
+    (Nq != Nk, kv_valid; fused-qkv views take Nk = Nq): within
+    backward_error_limit of attention_plain_bwd (F32_REL*A + 1e-6), masked
+    keys' dK and dV exactly 0, bitwise the same on a second call."""
+    nq, nk, kv_valid = case
+    if layout == "fused":
+        nk = nq
+        kv_valid = kv_valid if kv_valid is None or kv_valid < nq else None
+    q, k, v, g = _tf32_bwd_inputs(nq, nk, d, layout, seed=nq + nk + d)
+    o, lse = fa.attention_plain_lse(q, k, v, kv_valid)
+    refs = fa.attention_plain_bwd(q, k, v, o, lse, g, kv_valid)
+    limits = fa.backward_error_limit(q, k, v, o, lse, g, kv_valid, refs)
+    first = fa.flash_attention_bwd(q, k, v, o, lse, g, kv_valid)
+    assert fa.last_backward_designs() == ("wgmma.tf32x3", "wgmma.tf32x3")
+    second = fa.flash_attention_bwd(q, k, v, o, lse, g, kv_valid)
+    torch.cuda.synchronize()
+    for name, got, again, ref, lim in zip(("dq", "dk", "dv"), first, second, refs, limits):
+        assert got.shape == ref.shape and got.dtype == torch.float32, name
+        use = ((got - ref).abs() / lim).max().item()
+        assert use <= 1.0, (name, use)
+        assert torch.equal(got, again), name
+    if kv_valid is not None and kv_valid < nk:
+        assert torch.count_nonzero(first[1][:, kv_valid:]) == 0
+        assert torch.count_nonzero(first[2][:, kv_valid:]) == 0
+
+
+def test_backward_tf32_vivit_b_shape_matches_plain_and_repeats(cuda):
+    """The ViViT-B sequence (N = 3137 = 98 x 32 + 1, a one-key last step)
+    at D = 64 on a fused-qkv view: within the limits, bitwise repeatable."""
+    q, k, v, g = _tf32_bwd_inputs(3137, 3137, 64, "fused", seed=3)
+    o, lse = fa.attention_plain_lse(q, k, v)
+    refs = fa.attention_plain_bwd(q, k, v, o, lse, g)
+    limits = fa.backward_error_limit(q, k, v, o, lse, g, None, refs)
+    first, second = (fa.flash_attention_bwd(q, k, v, o, lse, g) for _ in range(2))
+    torch.cuda.synchronize()
+    assert fa.last_backward_designs() == ("wgmma.tf32x3", "wgmma.tf32x3")
+    for name, got, again, ref, lim in zip(("dq", "dk", "dv"), first, second, refs, limits):
+        assert ((got - ref).abs() / lim).max().item() <= 1.0, name
+        assert torch.equal(got, again), name
+
+
+def test_backward_f32_outside_the_tf32_domain_runs_fma(cuda):
+    """f32 kernels 3-4 take the FMA kernels at D = 128, for an expanded
+    (stride-0) key view, which TMA cannot describe, and through the _mma
+    entries; each within the limits."""
+    q, k, v, g = _grad_inputs((1, 200, 150, 2, 128, None), torch.float32, cuda, seed=12)
+    kb, vb = (x[:, :1].expand(-1, 150, -1, -1) for x in (k[..., :64], v[..., :64]))
+    for qq, kk, vv, gg, fns in (
+            (q, k, v, g, (fa.flash_attention_dq_cuda, fa.flash_attention_dkv_cuda)),
+            (q[..., :64], kb, vb, g[..., :64], (fa.flash_attention_dq_cuda,
+                                                 fa.flash_attention_dkv_cuda)),
+            (q[..., :64], k[..., :64], v[..., :64], g[..., :64],
+             (fa.flash_attention_dq_mma_cuda, fa.flash_attention_dkv_mma_cuda))):
+        lse, delta, refs, limits = _bwd_calls(qq, kk, vv, gg, None)
+        got = (fns[0](qq, kk, vv, gg, lse, delta), *fns[1](qq, kk, vv, gg, lse, delta))
+        torch.cuda.synchronize()
+        assert fa.last_backward_designs() == ("fma", "fma"), qq.shape
+        for name, x, ref, lim in zip(("dq", "dk", "dv"), got, refs, limits):
+            assert ((x - ref).abs() / lim).max().item() <= 1.0, name
+
+
+def test_backward_tf32_counts_one_launch_per_call(cuda):
+    """In f32 too, kernel 3's wrapper counts one launch of kernel 3 and
+    kernel 4's one of kernel 4; the _mma wrappers (FMA) count none."""
+    q, k, v, g = _grad_inputs((1, 300, 300, 2, 64, None), torch.float32, cuda, seed=13)
+    lse, delta, _, _ = _bwd_calls(q, k, v, g, None)
+    for fn, want in ((fa.flash_attention_dq_cuda, (1, 0)), (fa.flash_attention_dkv_cuda, (0, 1)),
+                     (fa.flash_attention_dq_mma_cuda, (0, 0)),
+                     (fa.flash_attention_dkv_mma_cuda, (0, 0))):
+        before = (fa.dq_launches, fa.dkv_launches)
+        fn(q, k, v, g, lse, delta)
+        assert (fa.dq_launches - before[0], fa.dkv_launches - before[1]) == want, fn.__name__
+
+
+@pytest.mark.parametrize("layout", ["fused", "bhnd"])
+def test_backward_tf32_gradients_through_autograd_match_plain(cuda, layout):
+    """FlashAttentionFn in f32 at D = 64 (kernel 2 on wgmma.tf32x3, then
+    kernels 3-4 on wgmma.tf32x3) on views: q, k and v gradients within
+    backward_error_limit of the plain attention's autograd."""
+    nq, nk = 700, (700 if layout == "fused" else 500)
+    q, k, v, g = _tf32_bwd_inputs(nq, nk, 64, layout, seed=14)
+    leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+    counts = fa.launch_counts()
+    (fa.flash_attention(*leaves, kv_valid=450) * g).sum().backward()
+    torch.cuda.synchronize()
+    after = fa.launch_counts()
+    assert {n: after[n] - counts[n] for n in after} == {
+        "flash_attention_fwd": 0, "flash_attention_fwd_lse": 1,
+        "flash_attention_bwd_dq": 1, "flash_attention_bwd_dkv": 1,
+        "flash_attention_fwd_bias": 0}
+    assert fa.last_backward_designs() == ("wgmma.tf32x3", "wgmma.tf32x3")
+    plain = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+    (fa.attention_plain(*plain, kv_valid=450) * g).sum().backward()
+    o, lse = fa.attention_plain_lse(q, k, v, 450)
+    refs = fa.attention_plain_bwd(q, k, v, o, lse, g, 450)
+    limits = fa.backward_error_limit(q, k, v, o, lse, g, 450, refs)
+    for x, p, lim in zip(leaves, plain, limits):
+        assert ((x.grad - p.grad).abs() / lim).max().item() <= 1.0
+
+
+def test_backward_dkv_scratch_is_the_f32_designs_prepass_forms(cuda):
+    """Kernel 4's C side asks for scratch only where wgmma.tf32x3 takes the
+    call (its pre-pass's forms of q and dO, 8 B H Npad HD floats, and each
+    query's lse and delta, 2 B H Npad, Npad = Nq rounded up to 32, HD = 32
+    or 64): none in bf16, at D = 128, for a stride of 0 or through the _mma
+    entry."""
+    import ctypes
+
+    query = fa._kernel("flash_attention_bwd_dkv_scratch_floats")
+    st = lambda *xs: (ctypes.c_longlong * 18)(*xs, *([1] * (18 - len(xs))))
+    pos = st(*([8] * 12))
+    b, nq, h = 2, 100, 3
+    assert query(0, b, nq, h, 64, pos, 0) == 8 * b * h * 128 * 64 + 2 * b * h * 128
+    assert query(0, b, nq, h, 24, pos, 0) == 8 * b * h * 128 * 32 + 2 * b * h * 128
+    assert query(1, b, nq, h, 64, pos, 0) == 0
+    assert query(0, b, nq, h, 128, pos, 0) == 0
+    assert query(0, b, nq, h, 64, st(8, 8, 8, 8, 0, 8, *([8] * 6)), 0) == 0
+    assert query(0, b, nq, h, 64, pos, 1) == 0
+
+
+def test_backward_tf32_launch_error_raises(cuda, monkeypatch):
+    """No fallback: when the f32 wgmma.tf32x3 design cannot launch (a
+    sequence stride of 66 elements, 264 bytes, which TMA refuses, reaching
+    the C entries because the layout step is bypassed) kernels 3 and 4
+    raise with the CUDA error and count no launch; they do not run the FMA
+    kernels instead."""
+    b, n, h, d = 2, 300, 1, 64
+    base = torch.zeros((4, b, n, h, 66), dtype=torch.float32, device=cuda)
+    q, k, v, g = (x[..., :d] for x in base.unbind(0))
+    lse = torch.zeros((b, h, n), dtype=torch.float32, device=cuda)
+    delta = torch.zeros_like(lse)
+    monkeypatch.setattr(fa, "_prepare", lambda x, d_pad: x)
+    before = (fa.dq_launches, fa.dkv_launches)
+    with pytest.raises(RuntimeError, match="flash_attention_bwd_dq launch failed: cudaError"):
+        fa.flash_attention_dq_cuda(q, k, v, g, lse, delta)
+    with pytest.raises(RuntimeError, match="flash_attention_bwd_dkv launch failed: cudaError"):
+        fa.flash_attention_dkv_cuda(q, k, v, g, lse, delta)
+    assert fa.last_backward_designs() == ("wgmma.tf32x3", "wgmma.tf32x3")
+    assert (fa.dq_launches, fa.dkv_launches) == before
 
 
 def test_train_step_on_card_launches_kernels_2_to_4(cuda):
