@@ -130,9 +130,12 @@ Phases, in order; any failure ends the run with a non-zero exit:
    queued, both designs in turns; the backward's per-launch split.
 11b. Kernels 11-12, the ablation variants of kernel 8 (the counterpart of
    ``scripts/bench_window_kernel.py``): bf16 and exp2 softmaxes, 2-3 heads
-   a block, at the four stage shapes; the launch counts are set to 0 around
-   the ablation; then each is held against its twin and timed beside
-   kernel 8.
+   a block, at the four stage shapes; the launch counts (and kernel 12's
+   by design) are set to 0 around the ablation; then each is held against
+   its twin and timed beside kernel 8. Kernel 12 runs its wgmma design
+   (the bias streamed by TMA), checked in the design ``design_takes``
+   names, bitwise repeatable, with the held mma.sync design under the same
+   limit and the two timed in turns beside sdpa; its ptxas report.
 12. Swin3D-T serving at full width and depth: a 32-frame 224^2 Predictor in
    bf16, seeded weights, a (8, 32, 224, 224, 3) uint8 batch: probabilities
    finite and summing to 1, exactly 12 launches of kernel 8, all on its
@@ -161,10 +164,15 @@ Phases, in order; any failure ends the run with a non-zero exit:
    preprocessing of a uint8 batch, ``tubelet_embed(impl="kernel")`` with the
    seeded ViViT-B model's own projection weights, held against the model's
    conv3d stem; one launch of kernel 10 and none of any other kernel.
-16. Kernel 5, the biased flash forward: against ``attention_plain_bias`` at
-   the ViViT-B shape with a (1, 12, N, N) per-head and an (8, 1, 1, N)
-   key-padding bias, at N = 300 with kv_valid and at Nq != Nk, bf16 and f32;
-   timed beside the twin and ``F.scaled_dot_product_attention(attn_mask=)``.
+16. Kernel 5, the biased flash forward, in both designs of each dtype
+   (bf16: wgmma, f32: wgmma.tf32x3, each against the mma.sync / FMA
+   template of its _mma entry): against ``attention_plain_bias`` at the
+   ViViT-B shape with a (1, 12, N, N) per-head and an (8, 1, 1, N)
+   key-padding bias, at N = 300 with kv_valid and at Nq != Nk, bf16 and f32,
+   in the design ``forward_design`` names, bitwise repeatable; both designs
+   timed in turns beside the twin and
+   ``F.scaled_dot_product_attention(attn_mask=)``; the ptxas report of the
+   biased instances.
    Then the path: ViViT-B's first TransformerBlock on the model's embeddings
    of the batch with each bias, bf16 and f32, against plain attention (one
    launch of kernel 5 a call, no other kernel); every gradient and dbias at
@@ -2072,15 +2080,32 @@ def check_window_kernels():
     return entries
 
 
+# Kernel 12's wgmma design (window_attention_wgmma.cu, window_fwd_heads_kernel).
+WINDOW_H2_DESIGN = ("wgmma + TMA: a block per (head group, 64-query tile, window group) walking "
+                    "its windows, each window's 2-3 heads in turn, the region ids loaded once a "
+                    "window; each head's K/V chunks and 64 x 64 f32 bias tiles streamed by TMA "
+                    "through a ring of 24 KB slots, each slot kept by one consumer warpgroup (K "
+                    "and bias freed after the logits, V after P V); kernel 8's two warpgroups "
+                    "splitting the keys, S once, the exact softmax; mma.sync with the bias read "
+                    "per element at other shapes and in the _mma entry")
+
+
 def window_variants(kernel8: dict):
     """Phase 11b, the counterpart of ``scripts/bench_window_kernel.py``'s
     ablation: kernels 11 (bf16sm, exp2 softmax) and 12 (heads a block) at
     the four stage shapes (shifted, bf16). The launch counts are set to 0,
-    the ablation runs each variant once per stage, and the counts are read;
-    then each variant is held against its plain twin and timed beside
-    kernel 8. Returns ({entry: numbers}, launches during the ablation)."""
+    the ablation runs each variant once per stage, and the counts (and
+    kernel 12's by design) are read; then each variant is held against its
+    plain twin and timed beside kernel 8. Kernel 12 runs its wgmma design:
+    it is checked in the design ``design_takes`` names, bitwise repeatable,
+    with the held mma.sync design (``window_attention_variant_mma_cuda``)
+    under the same limit, and the two timed in turns (single calls and
+    queued) beside sdpa with the materialised bias. Returns ({entry:
+    numbers}, launches during the ablation)."""
     from laryngeal_tpu_torch.ops import window_attention as wa
 
+    for line in ptxas_lines("window_attention.cu", "window_fwd_heads_kernel"):
+        log(f"ptxas {line}")
     inputs = {}
     for stage, (shape, grid, _) in SWIN_STAGES.items():
         q, k, v, _, bias = window_inputs(shape, torch.bfloat16, 80 + stage)
@@ -2090,31 +2115,59 @@ def window_variants(kernel8: dict):
             for stage in SWIN_STAGES for kind in wa.VARIANTS}
     torch.cuda.synchronize()
     counts = launch_counts()
+    ran = {kind: {d: n for d, n in wa.variant_design_launches[kind].items() if n}
+           for kind in wa.VARIANTS}
+    log(f"window ablation launches by design: {ran}")
     entries = {f"window_attention_fwd_{kind}": {} for kind in wa.VARIANTS}
     worst = {e: [0.0, 0.0] for e in entries}
     for stage, (shape, _, _) in SWIN_STAGES.items():
         q, k, v, bias, rid = inputs[stage]
-        row = [f"stage {stage} {shape}: kernel 8 {kernel8[f'stage{stage}']['ms']:.4f} ms"]
+        k8 = kernel8[f"stage{stage}"]
+        row = [f"stage {stage} {shape}: kernel 8 {k8['ms']:.4f} ms"]
         for kind in wa.VARIANTS:
             e = f"window_attention_fwd_{kind}"
             out = outs[(stage, kind)]
             ref = wa.window_attention_plain(q, k, v, bias, rid, kind)
+            limit = wa.error_limit(q, k, v, bias, rid, ref, kind)
             diff = (out.float() - ref.float()).abs()
-            use = (diff / wa.error_limit(q, k, v, bias, rid, ref, kind)).max().item()
+            use = (diff / limit).max().item()
             err = diff.max().item()
-            del diff, ref
+            del diff
+            new = lambda: wa.window_attention_variant_cuda(q, k, v, bias, rid, kind)
+            extra = {}
+            if kind == "h2":
+                want = wa.design_takes(shape[1], shape[3], torch.bfloat16, kind="h2")
+                same = torch.equal(out, new())
+                design = wa.last_designs()[0]
+                old = lambda: wa.window_attention_variant_mma_cuda(q, k, v, bias, rid, kind)
+                use_old = ((old().float() - ref.float()).abs() / limit).max().item()
+                if not (same and design == want and use_old <= 1.0):
+                    raise AssertionError(f"kernel 12 at stage {stage}: design {design} (want "
+                                         f"{want}), bitwise repeatable {same}, the held "
+                                         f"design's |err|/limit {use_old}")
+                t = turns_ms({"old": old, "new": new})
+                ms = t["new"]
+                extra = dict(design=design, queued_ms=t["new_q"], old_ms=t["old"],
+                             old_queued_ms=t["old_q"], library_queued_ms=k8["library_queued_ms"])
+                log(f"{e} stage {stage} {shape}: {design} {ms:.4f} ms (queued {t['new_q']:.4f}), "
+                    f"the held mma.sync design {t['old']:.4f} ms ({t['old'] / ms:.2f}x; queued "
+                    f"{t['old_q']:.4f}), sdpa with the materialised bias {k8['library_ms']:.4f} "
+                    f"ms (queued {k8['library_queued_ms']:.4f}), kernel 8 {k8['ms']:.4f} ms; "
+                    f"|err|/limit {use:.3f} (held design {use_old:.3f}), bitwise repeatable")
+            else:
+                ms = cuda_time_ms(new)
+            del ref, limit
             if not (math.isfinite(err) and use <= 1.0):
                 raise AssertionError(f"kernel {e} disagrees with its twin at stage {stage}: "
                                      f"|err|/limit {use}")
             worst[e] = [max(worst[e][0], err), max(worst[e][1], use)]
-            ms = cuda_time_ms(lambda: wa.window_attention_variant_cuda(q, k, v, bias, rid, kind))
             plain_ms = cuda_time_ms(lambda: wa.window_attention_plain(q, k, v, bias, rid, kind),
                                     reps=3, warmup=1)
             bound_ms, bound_by = window_bound_ms(shape, torch.bfloat16, False, rid)
             entries[e][f"stage{stage}"] = dict(
                 shape=list(shape), ms=ms, kernel_ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by=bound_by, library_ms=kernel8[f"stage{stage}"]["library_ms"],
-                max_abs_err=err, err_over_limit=use)
+                bound_by=bound_by, library_ms=k8["library_ms"], max_abs_err=err,
+                err_over_limit=use, **extra)
             row.append(f"{kind} {ms:.4f} ms (|err|/limit {use:.3f})")
             torch.cuda.empty_cache()
         log("window ablation " + ", ".join(row))
@@ -2124,6 +2177,8 @@ def window_variants(kernel8: dict):
         nums.update(max_abs_err=worst[e][0], err_over_limit=worst[e][1],
                     tol="window_attention.error_limit (bf16; bf16sm adds its z-rounding term)",
                     headline="stage 1 (1024, 392, 3, 32) shifted bf16")
+    entries["window_attention_fwd_h2"]["design"] = (
+        f"{entries['window_attention_fwd_h2']['design']} at every stage; {WINDOW_H2_DESIGN}")
     del inputs, outs
     torch.cuda.empty_cache()
     return entries, counts
@@ -2513,27 +2568,54 @@ def attention_bias(kind, b, nq, nk, h, seed):
     return bias
 
 
-def bias_bound_ms(b, nq, nk, h, d, dtype, bias):
-    """Least time for kernel 5: kernel 1's two products against q, k, v and o
-    plus the bias in its own shape, each moved once."""
+def bias_bound_ms(b, nq, nk, h, d, dtype, bias, peak=None):
+    """Least time for kernel 5: kernel 1's two products (three TF32 products
+    each for the f32 design at D <= 64, at the TF32 peak; or at ``peak``)
+    against q, k, v and o plus the bias in its own shape, each moved once.
+    Returns (ms, 'operations' | 'bytes')."""
     size = torch.tensor([], dtype=dtype).element_size()
-    t_ops = 4.0 * b * h * nq * nk * d / PEAK_FLOPS[dtype]
+    products = 3 * 2 if dtype == torch.float32 and d <= 64 and peak is None else 2
+    flops = 2.0 * products * b * h * nq * nk * d
+    peak = peak or (PEAK_TF32 if products == 6 else PEAK_FLOPS[dtype])
+    t_ops = flops / peak
     t_bytes = ((2 * nq + 2 * nk) * b * h * d * size
                + bias.numel() * bias.element_size()) / PEAK_BYTES_PER_S
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
+# Kernel 5's designs: kernels 1-2's with the bias as a template parameter.
+FLASH_BIAS_DESIGN = ("kernels 1-2's designs with the bias a template parameter: bf16 on wgmma + "
+                     "TMA, f32 at D <= 64 on wgmma.tf32x3; each consumer thread loads its S "
+                     "fragment's bias values of the next 64-key step (4-byte loads through L1, "
+                     "the bias read through its broadcast view) into the next S's accumulators, "
+                     "divided by the scale, at the top of the step, and S = Q K^T accumulates "
+                     "onto them; the persistent blocks walk the items with the bias's broadcast "
+                     "axes fastest; mma.sync / FMA for strides of 0, f32 at D = 128 and in the "
+                     "_mma entry")
+
+
 def check_bias_kernel():
-    """Phase 16, the kernel: kernel 5 vs ``attention_plain_bias`` under
-    ``error_limit`` (bf16) and 1e-4 (f32) at the ViViT-B shape with a
-    per-head and a key-padding bias, at N = 300 with kv_valid and at
-    Nq != Nk with a bf16 bias; timed at the ViViT-B shape beside the twin
-    and ``F.scaled_dot_product_attention(attn_mask=...)``, a yardstick the
-    port never calls."""
+    """Phase 16, the kernel: kernel 5 in both designs of each dtype (the
+    entry's, wgmma in bf16 and wgmma.tf32x3 in f32, and the earlier mma.sync /
+    FMA template through ``flash_attention_bias_mma_cuda``) vs
+    ``attention_plain_bias`` under ``error_limit`` (bf16) and 1e-4 (f32) at
+    the ViViT-B shape with a per-head and a key-padding bias, at N = 300 with
+    kv_valid and at Nq != Nk with a bf16 bias; each case in the design
+    ``forward_design`` names and bitwise the same on a second call. Timed at
+    the ViViT-B shape: both designs in turns (single calls and queued), beside
+    the twin and ``F.scaled_dot_product_attention(attn_mask=...)``, a
+    yardstick the port never calls."""
     import torch.nn.functional as F
 
     from laryngeal_tpu_torch.ops import flash_attention as fa
 
+    for kernel in ("fwd_wgmma_kernel", "fwd_tf32_kernel"):  # the biased instances
+        biased = False
+        for line in ptxas_lines("flash_attention_fwd.cu", kernel):
+            if not line.startswith(" "):
+                biased = re.search(r", [12]>$", line) is not None
+            if biased or ("(C75" in line and re.search(r", [12]>$", line)):
+                log(f"ptxas {line}")
     entry = {}
     h, d = VIVIT_B["H"], VIVIT_B["D"]
     for dtype in (torch.bfloat16, torch.float32):
@@ -2542,35 +2624,53 @@ def check_bias_kernel():
             q, k, v = qkv(b, nq, nk, h, d, dtype, 60 + seed)
             bias = attention_bias(kind, b, nq, nk, h, 70 + seed)
             out = fa.flash_attention_bias_cuda(q, k, v, bias, kv_valid)
+            design, want = fa.last_bias_design(), fa.forward_design(dtype, d)
+            same = torch.equal(out, fa.flash_attention_bias_cuda(q, k, v, bias, kv_valid))
             ref = fa.attention_plain_bias(q, k, v, bias, kv_valid)
-            diff = (out.float() - ref.float()).abs()
             limit = fa.error_limit(q, k, v, kv_valid, ref, F32_TOL, bias.to(dtype))
+            diff = (out.float() - ref.float()).abs()
             err, use = diff.max().item(), (diff / limit).max().item()
-            ok = math.isfinite(err) and use <= 1.0
+            old = fa.flash_attention_bias_mma_cuda(q, k, v, bias, kv_valid)
+            use_old = ((old.float() - ref.float()).abs() / limit).max().item()
+            ok = math.isfinite(err) and max(use, use_old) <= 1.0 and same and design == want
             log(f"biased attention {name} {kind} bias {tuple(bias.shape)} "
-                f"{str(bias.dtype)[6:]}, {tag}: max_abs_err {err:.3e}, largest |err| / limit "
-                f"{use:.3f} {'ok' if ok else 'FAIL'}")
-            del diff, limit
+                f"{str(bias.dtype)[6:]}, {tag} ({design}, want {want}): max_abs_err {err:.3e}, "
+                f"largest |err| / limit {use:.3f} (the _mma entry {use_old:.3f}); bitwise "
+                f"repeatable {same} {'ok' if ok else 'FAIL'}")
+            del diff, limit, old
             if not ok:
-                raise AssertionError(f"kernel 5 disagrees with its plain twin: {name} {kind} {tag}")
+                raise AssertionError(f"kernel 5 disagrees with its plain twin or ran another "
+                                     f"design: {name} {kind} {tag}")
             if name != "vivit_b":
                 continue
-            ms = cuda_time_ms(lambda: fa.flash_attention_bias_cuda(q, k, v, bias))
+            t = turns_ms({"old": lambda: fa.flash_attention_bias_mma_cuda(q, k, v, bias),
+                          "new": lambda: fa.flash_attention_bias_cuda(q, k, v, bias)})
+            ms = t["new"]
             plain_ms = cuda_time_ms(lambda: fa.attention_plain_bias(q, k, v, bias),
                                     reps=3, warmup=1)
             qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
             mask = bias.to(dtype)
-            library_ms = cuda_time_ms(
-                lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask))
+            lib_fn = lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
+            library_ms = cuda_time_ms(lib_fn)
+            library_q = cuda_time_ms(lib_fn, reps=20, queued=True)
             bound_ms, bound_by = bias_bound_ms(b, nq, nk, h, d, dtype, bias)
+            fma_ms = bias_bound_ms(b, nq, nk, h, d, dtype, bias, peak=PEAK_FLOPS[dtype])[0]
             bias_ms = bias.numel() * bias.element_size() / PEAK_BYTES_PER_S * 1e3
-            log(f"flash_attention_fwd_bias vivit_b {kind} bias {tag}: kernel {ms:.3f} ms, plain "
-                f"{plain_ms:.3f} ms, sdpa with attn_mask {library_ms:.3f} ms, bound "
-                f"{bound_ms:.4f} ms ({bound_by}); the bias alone {bias_ms:.4f} ms")
+            old_name = "mma.sync" if dtype == torch.bfloat16 else "FMA"
+            log(f"flash_attention_fwd_bias vivit_b {kind} bias {tag}: {design} {ms:.3f} ms "
+                f"(queued {t['new_q']:.3f}), the {old_name} design {t['old']:.3f} ms "
+                f"({t['old'] / ms:.2f}x; queued {t['old_q']:.3f}), plain {plain_ms:.3f} ms, "
+                f"sdpa with attn_mask {library_ms:.3f} ms (queued {library_q:.3f}), bound "
+                f"{bound_ms:.4f} ms ({bound_by}"
+                f"{', ' + TF32X3_BOUND if dtype == torch.float32 else ''}), "
+                f"{bound_ms / ms:.3f} of it; the bias alone {bias_ms:.4f} ms"
+                + (f"; the FMA design's bound {fma_ms:.4f} ms" if dtype == torch.float32 else ""))
             tol = F32_TOL if dtype == torch.float32 else "2^-8*plain(|v|)+2^-7*|ref|+1e-5"
             numbers = dict(max_abs_err=err, tol=tol, err_over_limit=use, ms=ms, kernel_ms=ms,
                            plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                           library_ms=library_ms)
+                           library_ms=library_ms, design=design, queued_ms=t["new_q"],
+                           old_ms=t["old"], old_queued_ms=t["old_q"],
+                           library_queued_ms=library_q)
             target = entry if dtype == torch.bfloat16 else entry.setdefault("f32", {})
             if kind == "head":
                 target.update(numbers)
@@ -2578,6 +2678,7 @@ def check_bias_kernel():
                 target["key_padding"] = numbers
             del q, k, v, bias, out, ref, qt, kt, vt, mask
             torch.cuda.empty_cache()
+    entry["design"] = f"{entry['design']} (f32 {entry['f32']['design']}); {FLASH_BIAS_DESIGN}"
     return entry
 
 
@@ -2593,6 +2694,7 @@ def bias_block_path(model, pixel) -> dict:
     its peak memory. Returns the launches."""
     from laryngeal_tpu_torch.models.layers import TransformerBlock, gelu_fast
     from laryngeal_tpu_torch.ops import attention as att
+    from laryngeal_tpu_torch.ops import flash_attention as fa
 
     cfg = model.config
     with torch.inference_mode():
@@ -2709,6 +2811,8 @@ def bias_block_path(model, pixel) -> dict:
         f"{peak / 2**30:.2f} GiB")
     del blocks, block, opt, x, biases, bias, weight
     torch.cuda.empty_cache()
+    log(f"biased block path: kernel 5 launches by design "
+        f"{ {d: n for d, n in fa.bias_design_launches.items() if n} }")
     return launch_counts()
 
 def main() -> int:
@@ -2821,9 +2925,13 @@ def main() -> int:
                             source="laryngeal_tpu_torch/csrc/window_attention_wgmma.cu",
                             replaces=f"laryngeal_tpu/ops/window_attention.py:{line}",
                             launches=counts[name], **window_entries[name]))
-    for name, line in (("window_attention_fwd_bf16sm", 76), ("window_attention_fwd_exp2", 76),
-                       ("window_attention_fwd_h2", 96)):
-        kernels.append(dict(name=name, route="cuda", source=window_src,
+    # Kernel 11 runs the held design (window_attention.cu), kernel 12 its wgmma
+    # design (window_attention_wgmma.cu); kernel 5 runs kernel 1's designs.
+    for name, line, src in (("window_attention_fwd_bf16sm", 76, window_src),
+                            ("window_attention_fwd_exp2", 76, window_src),
+                            ("window_attention_fwd_h2", 96,
+                             "laryngeal_tpu_torch/csrc/window_attention_wgmma.cu")):
+        kernels.append(dict(name=name, route="cuda", source=src,
                             replaces=f"scripts/bench_window_kernel.py:{line}",
                             launches=variant_counts[name], **variant_entries[name]))
     kernels.append(dict(name="flash_attention_fwd_bias", route="cuda",

@@ -1,14 +1,18 @@
 // Flash-attention forward for Hopper (sm_90a), bound through a plain C
 // interface (ctypes; see laryngeal_tpu_torch/ops/flash_attention.py).
 //
-// Replaces two Pallas TPU kernels of laryngeal_tpu/ops/flash_attention.py:
+// Replaces three Pallas TPU kernels of laryngeal_tpu/ops/flash_attention.py:
 //   * _attention_kernel (entry flash_attention_fwd): the forward that every
 //     ViViT attention call takes on inference;
 //   * _attention_kernel_lse (entry flash_attention_fwd_lse): the same
 //     forward plus the per-row log-sum-exp lse = m + log(max(l, 1e-30)) in
 //     f32, stored (B, H, Nq) contiguous -- the residual the backward kernels
 //     (flash_attention_bwd.cu) recompute P from. Every training forward
-//     takes it.
+//     takes it;
+//   * _attention_kernel_bias (:213, launched at :359; entry
+//     flash_attention_fwd_bias): kernel 1 plus an additive logits bias,
+//     rounded to q's dtype (the TPU wrapper's bias.astype(q.dtype), :351)
+//     and added in f32 after the scale (:234). Below, "kernel 5".
 // Both: non-causal online-softmax attention over (B, Nq, H, D) x
 // (B, Nk, H, D), keys at index >= n_actual masked with -1e30 (the
 // trailing-key / kv_valid mask), P rounded to bf16 before P.V, the row sum
@@ -97,6 +101,40 @@
 //   * FMA (the rest, and the _mma entries at every shape): each thread owns
 //     a 32-wide slice of one query row and the row's slices combine by warp
 //     shuffles (flash_attention_fwd.cuh).
+//
+// Kernel 5 runs the designs above with the bias as a template parameter
+// (kBias: 1 f32, 2 bf16; 0 for kernels 1-2, where every bias statement
+// compiles away): bf16 on the wgmma design, f32 at D <= 64 on wgmma.tf32x3,
+// strides of 0 in q, k or v and f32 at D = 128 on flash_attention_fwd.cuh's
+// template, which its _mma entry runs at every shape. The bias is read
+// through a strided view of its broadcast to (B, H, Nq, Nk), stride 0 on the
+// broadcast axes, so the TPU wrapper's (B*H, Nq, Nk) copy is never made. An
+// f32 bias row at Nk = 3137 is 12548 bytes, not a multiple of 16, so
+// neither TMA nor 16-byte cp.async can read it. The design:
+//   * each consumer thread loads its own S fragment's 32 bias values of the
+//     next 64-key step (rows g and g + 8, keys 8 jj + 2 t4 + e) with 4-byte
+//     (bf16: 2-byte) loads through L1 at the top of the current step, so
+//     they are in flight during its softmax and land before the step's
+//     batch issues the next S;
+//   * they land in the next step's S accumulators themselves, divided by the
+//     scale, and S = Q K^T accumulates onto them (the step's first product
+//     with its accumulate flag on): S scale = Q K^T scale + bias. The
+//     prefetched bias takes no registers beside S (an array of its own, 32
+//     more a thread, would push the f32 design's consumers, at 232, into
+//     spilling). The bias enters the f32 sum whole, never split, exact up to
+//     the division's rounding; bf16 rounds it to bf16 first, as the wrapper;
+//   * the items that read the same bias tile run together: the persistent
+//     blocks walk the items in the order item_coords gives for the bias's
+//     broadcast axes (a per-head bias read by every batch entry: (h, q tile,
+//     b), b fastest), so concurrent blocks read each bias tile from L2 and
+//     HBM serves it once;
+//   * a key-padding bias (B, 1, 1, Nk) is the same loads from one row, whose
+//     lines the broadcast rows share in L1. Its -1e9 entries are finite, so
+//     a step whose keys are all padded leaves the running max finite and
+//     alpha = exp2(m - m_new) a number, never NaN.
+// What kernel 5 adds to kernel 1's bound: its bias bytes (a (1, 12, 3137,
+// 3137) f32 bias is 472 MB, 0.141 ms at 3.35 TB/s) and their L2 reads (each
+// batch entry reads the per-head bias: 3.8 GB a call at the ViViT-B shape).
 // Not yet done (later work): a softmax that overlaps its own warpgroup's
 // products without ptxas serialising them, and an exp2 polynomial on the
 // FMA units for a share of the exponentials.
@@ -196,6 +234,33 @@ __device__ __forceinline__ void softmax_tile(float (&s)[KT][32], float (&m)[2], 
         pa[j][kk][r] = pack_bf16(s[j][8 * kk + 2 * r], s[j][8 * kk + 2 * r + 1]);
 }
 
+// Kernel 5: this thread's bias of one 64-key tile as the initial value of its
+// S = Q K^T accumulators: d[4 jj + 2 r + e] = bias(row r, key key0 + 8 jj +
+// e) / scale, rows[r] pointing at row g + 8 r's bias (clamped into the
+// tensor) from key 2 t4. With TAIL, keys at or past n_valid (counted from
+// rows[r]'s first key) read 0 (they are masked). kRound rounds an f32 bias
+// to bf16 first (the bf16 design adds the bias rounded to q's dtype).
+template <bool TAIL, bool kRound, typename T>
+__device__ __forceinline__ void bias_tile(float (&d)[32], const T* const (&rows)[2], int key0,
+                                          int n_valid, float inv_scale) {
+#pragma unroll
+  for (int jj = 0; jj < 8; ++jj)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int off = 8 * jj;
+      float x0 = !TAIL || off < n_valid ? flash_fwd::bias_value(rows[r] + key0 + off) : 0.f;
+      float x1 = !TAIL || off + 1 < n_valid ? flash_fwd::bias_value(rows[r] + key0 + off + 1)
+                                            : 0.f;
+      if constexpr (kRound) {  // both rounded to bf16 by one conversion
+        const uint32_t pair = pack_bf16(x0, x1);
+        x0 = __uint_as_float(pair << 16);
+        x1 = __uint_as_float(pair & 0xffff0000u);
+      }
+      d[4 * jj + 2 * r] = x0 * inv_scale;
+      d[4 * jj + 2 * r + 1] = x1 * inv_scale;
+    }
+}
+
 // Turns of the consumer warpgroups (kTurns): wait for this warpgroup's turn
 // (barrier 1 + wg), then hand it to the next one in the ring.
 [[maybe_unused]] __device__ __forceinline__ void turn_wait(int wg) {
@@ -206,21 +271,22 @@ __device__ __forceinline__ void turn_pass(int wg) {
   hopper::named_arrive(1 + (wg + 1) % CWG, 256);
 }
 
-// Kernels 1-2. A work item is (64 CWG query rows, batch * head): Q resident,
-// K and V streamed over ceil(n_actual / (64 KT)) steps of KT 64-key tiles.
-// With kPersistent one block an SM walks items blockIdx.x, + gridDim.x, ...
-// (query tiles fastest, so the blocks at work share their (b, h)'s K and V
-// in L2): the producer loads the next item's Q as soon as the consumers
-// hold this one's in registers and runs the ring on across items, so an
-// item's start and its epilogue overlap its neighbours' loads. Without it,
-// one block an item.
-template <int HD, int CWG, bool kLse>
+// Kernels 1-2 (and 5, with kBias). A work item is (64 CWG query rows,
+// batch * head): Q resident, K and V streamed over ceil(n_actual / (64 KT))
+// steps of KT 64-key tiles. With kPersistent one block an SM walks items
+// blockIdx.x, + gridDim.x, ... (query tiles fastest, so the blocks at work
+// share their (b, h)'s K and V in L2; kernel 5: in the bias's item order,
+// item_coords): the producer loads the next item's Q as soon as the
+// consumers hold this one's in registers and runs the ring on across items,
+// so an item's start and its epilogue overlap its neighbours' loads.
+// Without it, one block an item.
+template <int HD, int CWG, bool kLse, int kBias>
 __global__ void __launch_bounds__(128 * (CWG + 1), 1)
 fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                  const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ o,
                  float* __restrict__ lse, int BH, int H, int Nq, int D, int n_actual,
                  long long sob, long long son, long long soh, float scale, int pos_q, int pos_k,
-                 int pos_v) {
+                 int pos_v, flash_fwd::BiasArgs bias) {
   using G = FwdGeom<HD>;
   constexpr int S = G::kStages, KT = G::kStepTiles;
   constexpr int kStepBytes = KT * G::kTileBytes;  // the K (or V) tiles of a step
@@ -249,6 +315,7 @@ fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__
   const int n_qt = (Nq + 64 * CWG - 1) / (64 * CWG);
   const int n_items = n_qt * BH;
   const int n_steps = (n_actual + 64 * KT - 1) / (64 * KT);
+  const int order = kBias != 0 ? bias.order : 0;  // the items' order (item_coords)
 
   const int role = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
   if (role == 0) {
@@ -256,7 +323,9 @@ fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__
     if (threadIdx.x == 0) {
       int step = 0;  // ring steps loaded so far, over every item
       for (int item = blockIdx.x, it = 0; item < n_items; item += gridDim.x, ++it) {
-        const int bh = item / n_qt, b = bh / H, h = bh % H, row0 = item % n_qt * 64 * CWG;
+        int qt, b, h;
+        flash_fwd::item_coords(order, item, n_qt, BH / H, H, qt, b, h);
+        const int row0 = qt * 64 * CWG;
         hopper::mbar_wait(q_empty, (it & 1) ^ 1);
         hopper::mbar_arrive_expect_tx(q_full, CWG * G::kTileBytes);
         for (int r = 0; r < CWG; ++r)
@@ -291,13 +360,30 @@ fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__
     float m[2], l[2], alpha[2];
     if (kTurns && wg == CWG - 1) turn_pass<CWG>(wg);  // warpgroup 0 issues first
     uint32_t qa[kQRegs ? HD / 16 : 1][4];
-    auto scores = [&](float (&d)[KT][32], int t) {  // d = Q K^T over step t's keys
+    // d = Q K^T over step t's keys (kernel 5: d += Q K^T, d holding the bias)
+    auto scores = [&](float (&d)[KT][32], int t) {
 #pragma unroll
       for (int j = 0; j < KT; ++j) {
         if constexpr (kQRegs)
-          wg_abt_rs<HD>(d[j], qa, k_step(t) + j * G::kTileBytes);
+          wg_abt_rs<HD, kBias != 0>(d[j], qa, k_step(t) + j * G::kTileBytes);
         else
-          wg_abt<HD>(d[j], q_w, k_step(t) + j * G::kTileBytes);
+          wg_abt<HD, kBias != 0>(d[j], q_w, k_step(t) + j * G::kTileBytes);
+      }
+    };
+    // Kernel 5: this thread's bias rows g and g + 8 of the item (from key
+    // 2 t4), and step t's bias loaded into d (bias_tile) ahead of its S.
+    const float inv_scale = 1.f / scale;
+    const flash_fwd::BiasT<kBias>* brow[2] = {nullptr, nullptr};
+    [[maybe_unused]] auto load_bias = [&](float (&d)[KT][32], int t) {
+      if constexpr (kBias != 0) {
+        const int key0 = 64 * KT * t, n_valid = n_actual - key0 - 2 * t4;
+#pragma unroll
+        for (int j = 0; j < KT; ++j) {
+          if (n_actual - key0 >= 64 * KT)
+            bias_tile<false, kBias == 1>(d[j], brow, key0 + 64 * j, 0, inv_scale);
+          else
+            bias_tile<true, kBias == 1>(d[j], brow, key0 + 64 * j, n_valid - 64 * j, inv_scale);
+        }
       }
     };
     auto pv = [&](const uint32_t (&p)[KT][4][4], int t) {  // acc += P V over step t's keys
@@ -335,6 +421,16 @@ fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__
     };
     for (int item = blockIdx.x, it = 0; item < n_items; item += gridDim.x, ++it) {
       [[maybe_unused]] const bool last_item = item + gridDim.x >= n_items;
+      if constexpr (kBias != 0) {
+        int qt, b, h;
+        flash_fwd::item_coords(order, item, n_qt, BH / H, H, qt, b, h);
+#pragma unroll
+        for (int r = 0; r < 2; ++r)
+          brow[r] = flash_fwd::bias_row_ptr<kBias>(
+                        bias, b, h, min(qt * 64 * CWG + 64 * wg + 16 * warp + g + 8 * r,
+                                        Nq - 1)) + 2 * t4;
+        load_bias(sn, 0);
+      }
       zero_panels<HD>(acc);
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
@@ -360,6 +456,7 @@ fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__
       // own S again, unused: no branch among the products.
       auto step = [&](int t, float (&cur)[KT][32], float (&next)[KT][32]) {
         const int tn = t + 1 < n_steps ? t + 1 : t;
+        if (kBias != 0 && t + 1 < n_steps) load_bias(next, t + 1);  // lands during the softmax
         if constexpr (kSchedule == kNextSOverlap) {
           wait_k(tn);
           hopper::wgmma_fence();
@@ -388,7 +485,9 @@ fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__
       }
       if constexpr (!kQRegs) arrive(q_empty);
       step0 += n_steps;
-      const int bh = item / n_qt, b = bh / H, h = bh % H, row0 = item % n_qt * 64 * CWG;
+      int qt, b, h;
+      flash_fwd::item_coords(order, item, n_qt, BH / H, H, qt, b, h);
+      const int bh = b * H + h, row0 = qt * 64 * CWG;
       float inv[2];
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
@@ -424,10 +523,10 @@ int sm_count() {
   return sms;
 }
 
-template <int HD, bool kLse>
+template <int HD, bool kLse, int kBias>
 cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* o, float* lse,
                          int B, int Nq, int Nk, int H, int D, int n_actual, const long long* st,
-                         float scale, cudaStream_t stream) {
+                         float scale, const flash_fwd::BiasArgs& bias, cudaStream_t stream) {
   using G = FwdGeom<HD>;
   constexpr int CWG = kFwdWarpgroups<HD>;
   const CUtensorMapSwizzle sw = HD == 32 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_128B;
@@ -440,15 +539,15 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* o, f
                                  st[3 * i + 2], G::kPanelCols, 64, sw, &pos[i]))
       return cudaErrorInvalidValue;
   const size_t smem = G::smem_bytes(CWG);
-  cudaError_t err = cudaFuncSetAttribute(fwd_wgmma_kernel<HD, CWG, kLse>,
+  cudaError_t err = cudaFuncSetAttribute(fwd_wgmma_kernel<HD, CWG, kLse, kBias>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const int n_items = (Nq + 64 * CWG - 1) / (64 * CWG) * B * H;
   int grid = n_items;
   if (kPersistent) grid = n_items < sm_count() ? n_items : sm_count();
-  fwd_wgmma_kernel<HD, CWG, kLse><<<grid, 128 * (CWG + 1), smem, stream>>>(
+  fwd_wgmma_kernel<HD, CWG, kLse, kBias><<<grid, 128 * (CWG + 1), smem, stream>>>(
       m[0], m[1], m[2], static_cast<__nv_bfloat16*>(o), lse, B * H, H, Nq, D, n_actual, st[9],
-      st[10], st[11], scale, pos[0], pos[1], pos[2]);
+      st[10], st[11], scale, pos[0], pos[1], pos[2], bias);
   return cudaGetLastError();
 }
 
@@ -492,7 +591,8 @@ struct Tf32Geom {
 // d (64 x 64) = Q K^T over one 64-key tile: per k8 step the three products
 // Q_small K_big + Q_big K_small + Q_big K_big (3xTF32), Q big from
 // registers, Q small from `qs_tile` and K's parts K-major from shared memory.
-template <int HD>
+// With kAcc, d += Q K^T (kernel 5: d holds the bias).
+template <int HD, bool kAcc = false>
 __device__ __forceinline__ void tf32_scores(float (&d)[32], const uint32_t (&qb)[HD / 8][4],
                                             const unsigned char* qs_tile,
                                             const unsigned char* kb, const unsigned char* ks) {
@@ -502,7 +602,7 @@ __device__ __forceinline__ void tf32_scores(float (&d)[32], const uint32_t (&qb)
 #pragma unroll
   for (int k = 0; k < HD / 8; ++k) {
     const uint32_t off = (k / 4 * Tf32Geom<HD>::kPanelBytes + k % 4 * 32) >> 4;
-    hopper::wgmma_m64n64k8_tf32_ss(d, dq + off, db + off, k > 0);
+    hopper::wgmma_m64n64k8_tf32_ss(d, dq + off, db + off, kAcc || k > 0);
     hopper::wgmma_m64n64k8_tf32_rs(d, qb[k], ds + off, 1);
     hopper::wgmma_m64n64k8_tf32_rs(d, qb[k], db + off, 1);
   }
@@ -576,13 +676,13 @@ __device__ __forceinline__ void tf32_softmax(float (&s)[32], float (&m)[2], floa
 // wgmma (HD = 64), which it waits for in the same iteration. The last
 // step's next S reads the step's V^T (a tile of the same size that is still
 // held) and is discarded, so no branch falls among the products.
-template <int HD, bool kLse>
+template <int HD, bool kLse, int kBias>
 __global__ void __launch_bounds__(128 * (Tf32Geom<HD>::kCwg + 1), 1)
 fwd_tf32_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                 const __grid_constant__ CUtensorMap tv, float* __restrict__ o,
                 float* __restrict__ lse, int BH, int H, int Nq, int D, int n_actual,
                 long long sob, long long son, long long soh, float scale, int pos_q, int pos_k,
-                int pos_v) {
+                int pos_v, flash_fwd::BiasArgs bias) {
   using G = Tf32Geom<HD>;
   constexpr int CWG = G::kCwg, KS = G::kKStages, VS = G::kVStages, T = G::kTileBytes;
   extern __shared__ __align__(1024) unsigned char tf32_smem_raw[];
@@ -616,6 +716,7 @@ fwd_tf32_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
   const int n_qt = (Nq + 64 * CWG - 1) / (64 * CWG);
   const int n_items = n_qt * BH;
   const int n_steps = (n_actual + 63) / 64;
+  const int order = kBias != 0 ? bias.order : 0;  // the items' order (item_coords)
   const int lane = threadIdx.x % 32;
 
   const int role = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
@@ -626,7 +727,9 @@ fwd_tf32_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
       if (lane == 0) {
         int step = 0;  // K and V tiles loaded so far, over every item
         for (int item = blockIdx.x, it = 0; item < n_items; item += gridDim.x, ++it) {
-          const int bh = item / n_qt, b = bh / H, h = bh % H, row0 = item % n_qt * 64 * CWG;
+          int qt, b, h;
+          flash_fwd::item_coords(order, item, n_qt, BH / H, H, qt, b, h);
+          const int row0 = qt * 64 * CWG;
           hopper::mbar_wait(q_empty, (it & 1) ^ 1);
           hopper::mbar_arrive_expect_tx(q_full, CWG * T);
           for (int r = 0; r < CWG; ++r)
@@ -696,7 +799,29 @@ fwd_tf32_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
     auto wait_v = [&](int t) {
       hopper::mbar_wait(&v_ready[(step0 + t) % VS], ((step0 + t) / VS) & 1);
     };
+    // Kernel 5: this thread's bias rows g and g + 8 of the item (from key
+    // 2 t4), and step t's bias loaded into d (bias_tile) ahead of its S.
+    const float inv_scale = 1.f / scale;
+    const flash_fwd::BiasT<kBias>* brow[2] = {nullptr, nullptr};
+    [[maybe_unused]] auto load_bias = [&](float (&d)[32], int t) {
+      if constexpr (kBias != 0) {
+        if (n_actual - 64 * t >= 64)
+          bias_tile<false, false>(d, brow, 64 * t, 0, inv_scale);
+        else
+          bias_tile<true, false>(d, brow, 64 * t, n_actual - 64 * t - 2 * t4, inv_scale);
+      }
+    };
     for (int item = blockIdx.x, it = 0; item < n_items; item += gridDim.x, ++it) {
+      if constexpr (kBias != 0) {
+        int qt, b, h;
+        flash_fwd::item_coords(order, item, n_qt, BH / H, H, qt, b, h);
+#pragma unroll
+        for (int r = 0; r < 2; ++r)
+          brow[r] = flash_fwd::bias_row_ptr<kBias>(
+                        bias, b, h, min(qt * 64 * CWG + 64 * wg + 16 * warp + g + 8 * r,
+                                        Nq - 1)) + 2 * t4;
+        load_bias(sn, 0);
+      }
 #pragma unroll
       for (int i = 0; i < HD / 2; ++i) acc[i] = 0.f;
 #pragma unroll
@@ -711,7 +836,7 @@ fwd_tf32_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
       hopper::named_sync(1 + wg, 128);
       wait_k(0);
       hopper::wgmma_fence();
-      tf32_scores<HD>(sn, qb, qs_w, k_tile(0), k_tile(0) + T);
+      tf32_scores<HD, kBias != 0>(sn, qb, qs_w, k_tile(0), k_tile(0) + T);
       hopper::wgmma_commit();
       hopper::wgmma_wait<0>();
       hopper::fence_regs(sn);
@@ -721,6 +846,7 @@ fwd_tf32_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
       auto step = [&](int t, float (&cur)[32], float (&next)[32]) {
         const bool more = t + 1 < n_steps;
         const int n_valid = n_actual - 64 * t;
+        if (kBias != 0 && more) load_bias(next, t + 1);  // lands during the softmax
         if (n_valid < 64)
           tf32_softmax<true>(cur, m, l, alpha, pb, ps, sl2, n_valid, t4);
         else
@@ -732,7 +858,7 @@ fwd_tf32_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
         const unsigned char* kn_small = more ? kn + T : vt + T;
         hopper::wgmma_fence();
         tf32_pv<HD>(pv, pb, ps, vt + T, vt + 2 * T);
-        tf32_scores<HD>(next, qb, qs_w, kn, kn_small);
+        tf32_scores<HD, kBias != 0>(next, qb, qs_w, kn, kn_small);
         hopper::wgmma_commit();
         hopper::wgmma_wait<0>();
         hopper::fence_regs(next);
@@ -747,7 +873,9 @@ fwd_tf32_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
         if (t + 1 < n_steps) step(t + 1, s, sn);
       }
       step0 += n_steps;
-      const int bh = item / n_qt, b = bh / H, h = bh % H, row0 = item % n_qt * 64 * CWG;
+      int qt, b, h;
+      flash_fwd::item_coords(order, item, n_qt, BH / H, H, qt, b, h);
+      const int bh = b * H + h, row0 = qt * 64 * CWG;
       float* ob = o + b * sob + h * soh;
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
@@ -768,10 +896,10 @@ fwd_tf32_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
   }
 }
 
-template <int HD, bool kLse>
+template <int HD, bool kLse, int kBias>
 cudaError_t launch_tf32(const void* q, const void* k, const void* v, void* o, float* lse,
                         int B, int Nq, int Nk, int H, int D, int n_actual, const long long* st,
-                        float scale, cudaStream_t stream) {
+                        float scale, const flash_fwd::BiasArgs& bias, cudaStream_t stream) {
   using G = Tf32Geom<HD>;
   CUtensorMap m[3];
   int pos[3];
@@ -783,54 +911,77 @@ cudaError_t launch_tf32(const void* q, const void* k, const void* v, void* o, fl
                                  CU_TENSOR_MAP_DATA_TYPE_FLOAT32))
       return cudaErrorInvalidValue;
   const size_t smem = G::smem_bytes();
-  cudaError_t err = cudaFuncSetAttribute(fwd_tf32_kernel<HD, kLse>,
+  cudaError_t err = cudaFuncSetAttribute(fwd_tf32_kernel<HD, kLse, kBias>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const int n_items = (Nq + 64 * G::kCwg - 1) / (64 * G::kCwg) * B * H;
   const int grid = n_items < sm_count() ? n_items : sm_count();
-  fwd_tf32_kernel<HD, kLse><<<grid, 128 * (G::kCwg + 1), smem, stream>>>(
+  fwd_tf32_kernel<HD, kLse, kBias><<<grid, 128 * (G::kCwg + 1), smem, stream>>>(
       m[0], m[1], m[2], static_cast<float*>(o), lse, B * H, H, Nq, D, n_actual, st[9], st[10],
-      st[11], scale, pos[0], pos[1], pos[2]);
+      st[11], scale, pos[0], pos[1], pos[2], bias);
   return cudaGetLastError();
 }
 
-// The design of the last launch of kernel 1 ([0]) and kernel 2 ([1]), as
-// launch_fwd chooses it: 0 = FMA (f32), 1 = mma.sync, 2 = wgmma (bf16),
-// 3 = wgmma.tf32x3 (f32); -1 before the first launch. Read through
+// The design of the last launch of kernel 1 ([0]), kernel 2 ([1]) and kernel
+// 5 ([2]), as launch_fwd chooses it: 0 = FMA (f32), 1 = mma.sync, 2 = wgmma
+// (bf16), 3 = wgmma.tf32x3 (f32); -1 before the first launch. Read through
 // flash_attention_fwd_last_design.
 enum Design { kFma = 0, kMmaSync = 1, kWgmma = 2, kWgmmaTf32 = 3 };
-int g_last_design[2] = {-1, -1};
+int g_last_design[3] = {-1, -1, -1};
 
-// dtype: 0 = float32, 1 = bfloat16. Unless `mma_only`, and when every
-// stride is positive: bf16 runs the wgmma design, f32 at D <= 64 the
-// wgmma.tf32x3 one. Otherwise bf16 runs the mma.sync design and f32 the FMA
-// kernel (flash_attention_fwd.cuh).
-template <bool kLse>
+// The design of kernels 1, 2 and 5 for dtype (0 = float32, 1 = bfloat16),
+// head dim D and the q, k, v, o strides `st`: unless `mma_only`, and when
+// every q, k and v stride is positive, bf16 runs the wgmma design and f32 at
+// D <= 64 the wgmma.tf32x3 one; otherwise bf16 runs the mma.sync design and
+// f32 the FMA kernel (flash_attention_fwd.cuh).
+int design_of(int dtype, int D, const long long* st, bool mma_only) {
+  if (!mma_only && wgmma_takes(st)) {
+    if (dtype == 1) return kWgmma;
+    if (D <= 64) return kWgmmaTf32;
+  }
+  return dtype == 1 ? kMmaSync : kFma;
+}
+
+// One launch in the design design_of picks; kBias (kernel 5) reads `bias`.
+template <bool kLse, int kBias>
 int launch_fwd(const void* q, const void* k, const void* v, void* o, float* lse, int dtype,
                int B, int Nq, int Nk, int H, int D, int n_actual, const long long* st,
-               float scale, bool mma_only, void* stream) {
+               float scale, const flash_fwd::BiasArgs& bias, bool mma_only, void* stream) {
   if (D <= 0 || D > 128 || D % 8 != 0 || B * H > 65535 || n_actual < 1 ||
-      (dtype != 0 && dtype != 1))
+      (dtype != 0 && dtype != 1) || bias.order < 0 || bias.order > 3)
     return (int)cudaErrorInvalidValue;
-  if (dtype == 0 && !mma_only && D <= 64 && wgmma_takes(st)) {
-    g_last_design[kLse] = kWgmmaTf32;
-    cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int design = design_of(dtype, D, st, mma_only);
+  g_last_design[kBias != 0 ? 2 : kLse] = design;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (design == kWgmmaTf32) {
     if (D <= 32)
-      return (int)launch_tf32<32, kLse>(q, k, v, o, lse, B, Nq, Nk, H, D, n_actual, st, scale, s);
-    return (int)launch_tf32<64, kLse>(q, k, v, o, lse, B, Nq, Nk, H, D, n_actual, st, scale, s);
+      return (int)launch_tf32<32, kLse, kBias>(q, k, v, o, lse, B, Nq, Nk, H, D, n_actual, st, scale, bias, s);
+    return (int)launch_tf32<64, kLse, kBias>(q, k, v, o, lse, B, Nq, Nk, H, D, n_actual, st, scale, bias, s);
   }
-  if (dtype == 1 && !mma_only && wgmma_takes(st)) {
-    g_last_design[kLse] = kWgmma;
-    cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (design == kWgmma) {
     if (D <= 32)
-      return (int)launch_wgmma<32, kLse>(q, k, v, o, lse, B, Nq, Nk, H, D, n_actual, st, scale, s);
+      return (int)launch_wgmma<32, kLse, kBias>(q, k, v, o, lse, B, Nq, Nk, H, D, n_actual, st, scale, bias, s);
     if (D <= 64)
-      return (int)launch_wgmma<64, kLse>(q, k, v, o, lse, B, Nq, Nk, H, D, n_actual, st, scale, s);
-    return (int)launch_wgmma<128, kLse>(q, k, v, o, lse, B, Nq, Nk, H, D, n_actual, st, scale, s);
+      return (int)launch_wgmma<64, kLse, kBias>(q, k, v, o, lse, B, Nq, Nk, H, D, n_actual, st, scale, bias, s);
+    return (int)launch_wgmma<128, kLse, kBias>(q, k, v, o, lse, B, Nq, Nk, H, D, n_actual, st, scale, bias, s);
   }
-  g_last_design[kLse] = dtype == 1 ? kMmaSync : kFma;
-  return flash_fwd::launch<kLse, 0>(q, k, v, o, lse, dtype, B, Nq, Nk, H, D, n_actual, st,
-                                    scale, flash_fwd::kNoBias, stream);
+  return flash_fwd::launch<kLse, kBias>(q, k, v, o, lse, dtype, B, Nq, Nk, H, D, n_actual, st,
+                                        scale, bias, stream);
+}
+
+// Kernel 5 through launch_fwd: bias_dtype 0 = float32, 1 = bfloat16.
+int launch_bias(const void* q, const void* k, const void* v, const void* bias, void* o,
+                int dtype, int bias_dtype, int B, int Nq, int Nk, int H, int D, int n_actual,
+                const long long* st, long long sbb, long long sbh, long long sbq, int order,
+                float scale, bool mma_only, void* stream) {
+  const flash_fwd::BiasArgs args = {bias, sbb, sbh, sbq, order};
+  if (bias_dtype == 0)
+    return launch_fwd<false, 1>(q, k, v, o, nullptr, dtype, B, Nq, Nk, H, D, n_actual, st,
+                                scale, args, mma_only, stream);
+  if (bias_dtype == 1)
+    return launch_fwd<false, 2>(q, k, v, o, nullptr, dtype, B, Nq, Nk, H, D, n_actual, st,
+                                scale, args, mma_only, stream);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -852,8 +1003,8 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
                                    float scale, void* stream) {
   const long long st[12] = {sqb, sqn, sqh, skb, skn, skh,
                             svb, svn, svh, sob, son, soh};
-  return launch_fwd<false>(q, k, v, o, nullptr, dtype, B, Nq, Nk, H, D, n_actual, st, scale,
-                           false, stream);
+  return launch_fwd<false, 0>(q, k, v, o, nullptr, dtype, B, Nq, Nk, H, D, n_actual, st, scale,
+                              flash_fwd::kNoBias, false, stream);
 }
 
 // As flash_attention_fwd, plus lse: float32 (B, H, Nq) contiguous, the
@@ -868,8 +1019,8 @@ extern "C" int flash_attention_fwd_lse(const void* q, const void* k, const void*
                                        float scale, void* stream) {
   const long long st[12] = {sqb, sqn, sqh, skb, skn, skh,
                             svb, svn, svh, sob, son, soh};
-  return launch_fwd<true>(q, k, v, o, static_cast<float*>(lse), dtype, B, Nq, Nk, H, D,
-                          n_actual, st, scale, false, stream);
+  return launch_fwd<true, 0>(q, k, v, o, static_cast<float*>(lse), dtype, B, Nq, Nk, H, D,
+                             n_actual, st, scale, flash_fwd::kNoBias, false, stream);
 }
 
 // The two entries above with the mma.sync design for bf16 and the FMA
@@ -885,8 +1036,8 @@ extern "C" int flash_attention_fwd_mma(const void* q, const void* k, const void*
                                        float scale, void* stream) {
   const long long st[12] = {sqb, sqn, sqh, skb, skn, skh,
                             svb, svn, svh, sob, son, soh};
-  return launch_fwd<false>(q, k, v, o, nullptr, dtype, B, Nq, Nk, H, D, n_actual, st, scale,
-                           true, stream);
+  return launch_fwd<false, 0>(q, k, v, o, nullptr, dtype, B, Nq, Nk, H, D, n_actual, st, scale,
+                              flash_fwd::kNoBias, true, stream);
 }
 
 extern "C" int flash_attention_fwd_lse_mma(const void* q, const void* k, const void* v,
@@ -899,13 +1050,62 @@ extern "C" int flash_attention_fwd_lse_mma(const void* q, const void* k, const v
                                            float scale, void* stream) {
   const long long st[12] = {sqb, sqn, sqh, skb, skn, skh,
                             svb, svn, svh, sob, son, soh};
-  return launch_fwd<true>(q, k, v, o, static_cast<float*>(lse), dtype, B, Nq, Nk, H, D,
-                          n_actual, st, scale, true, stream);
+  return launch_fwd<true, 0>(q, k, v, o, static_cast<float*>(lse), dtype, B, Nq, Nk, H, D,
+                             n_actual, st, scale, flash_fwd::kNoBias, true, stream);
+}
+
+// Kernel 5: flash_attention_fwd plus an additive logits bias, bias_dtype 0 =
+// float32, 1 = bfloat16, read through the element strides (sbb, sbh, sbq)
+// of its broadcast to (B, H, Nq, Nk) (0 on a broadcast axis, any
+// alignment), its key stride 1. order is the items' order (item_coords):
+// the wrapper puts the bias's broadcast axes fastest. Designs as in
+// flash_attention_fwd. Returns the cudaError_t of the launch (0 = success).
+extern "C" int flash_attention_fwd_bias(const void* q, const void* k, const void* v,
+                                        const void* bias, void* o, int dtype, int bias_dtype,
+                                        int B, int Nq, int Nk, int H, int D, int n_actual,
+                                        long long sqb, long long sqn, long long sqh,
+                                        long long skb, long long skn, long long skh,
+                                        long long svb, long long svn, long long svh,
+                                        long long sob, long long son, long long soh,
+                                        long long sbb, long long sbh, long long sbq,
+                                        int order, float scale, void* stream) {
+  const long long st[12] = {sqb, sqn, sqh, skb, skn, skh,
+                            svb, svn, svh, sob, son, soh};
+  return launch_bias(q, k, v, bias, o, dtype, bias_dtype, B, Nq, Nk, H, D, n_actual, st, sbb,
+                     sbh, sbq, order, scale, false, stream);
+}
+
+// Kernel 5 on the earlier designs at every shape: the mma.sync template for
+// bf16, the FMA kernel for f32 (kept to time the new designs against).
+extern "C" int flash_attention_fwd_bias_mma(const void* q, const void* k, const void* v,
+                                            const void* bias, void* o, int dtype,
+                                            int bias_dtype, int B, int Nq, int Nk, int H, int D,
+                                            int n_actual, long long sqb, long long sqn,
+                                            long long sqh, long long skb, long long skn,
+                                            long long skh, long long svb, long long svn,
+                                            long long svh, long long sob, long long son,
+                                            long long soh, long long sbb, long long sbh,
+                                            long long sbq, int order, float scale,
+                                            void* stream) {
+  const long long st[12] = {sqb, sqn, sqh, skb, skn, skh,
+                            svb, svn, svh, sob, son, soh};
+  return launch_bias(q, k, v, bias, o, dtype, bias_dtype, B, Nq, Nk, H, D, n_actual, st, sbb,
+                     sbh, sbq, order, scale, true, stream);
 }
 
 // The design (0 = FMA, 1 = mma.sync, 2 = wgmma, 3 = wgmma.tf32x3) of the
-// last launch of kernel 1 (which = 0) or kernel 2 (which = 1) through any
-// entry above; -1 before the first.
+// last launch of kernel 1 (which = 0), kernel 2 (which = 1) or kernel 5
+// (which = 2) through any entry above; -1 before the first.
 extern "C" int flash_attention_fwd_last_design(int which) {
-  return which == 0 || which == 1 ? g_last_design[which] : -1;
+  return which >= 0 && which <= 2 ? g_last_design[which] : -1;
+}
+
+// The design (numbered as above) that kernels 1, 2 and 5 run for a call of
+// this dtype, D (padded) and 12 strides `st` (q, k, v, o: batch, sequence,
+// head), through their _mma entries with mma_only = 1; -1 for a dtype or D
+// they refuse. The Python mirror (flash_attention.forward_design) is held
+// against it on the card.
+extern "C" int flash_attention_fwd_design(int dtype, int D, const long long* st, int mma_only) {
+  if ((dtype != 0 && dtype != 1) || D <= 0 || D > 128 || D % 8 != 0) return -1;
+  return design_of(dtype, D, st, mma_only != 0);
 }

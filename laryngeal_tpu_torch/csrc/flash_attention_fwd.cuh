@@ -1,5 +1,6 @@
-// The flash-attention forward template shared by flash_attention_fwd.cu
-// (kernels 1-2) and flash_attention_bias.cu (kernel 5); see the notes at
+// The mma.sync (bf16) and FMA (f32) flash-attention forward template of
+// flash_attention_fwd.cu: kernels 1-2, and kernel 5 (the bias on) where its
+// wgmma designs do not take a call and in its _mma entry; see the notes at
 // the top of flash_attention_fwd.cu. With the bias off (kBias = 0) every
 // bias statement compiles away and the code is kernels 1 and 2's.
 
@@ -25,17 +26,35 @@ struct BiasArgs {
   const void* ptr;
   long long sb, sh, sq;  // element strides of the (B, H, Nq, Nk) broadcast view;
                          // the key stride is 1
-  int order;             // block order, see block_coords
+  int order;             // item order, see item_coords
 };
 inline constexpr BiasArgs kNoBias = {nullptr, 0, 0, 0, 0};
 
 template <int kBias>
 using BiasT = std::conditional_t<kBias == 2, __nv_bfloat16, float>;
 
-// (query tile, b, h) of this block. Order 0: a (q tiles, B*H) grid, q tiles
-// fastest (kernels 1-2 and an unbroadcast bias). Orders 1-3, a 1-D grid
-// whose fastest axes are the bias's broadcast ones, slowest first:
-// 1 = (h, q tile, b), 2 = (b, q tile, h), 3 = (q tile, b, h).
+// (query tile, b, h) of work item i in `order`, slowest axis first:
+// 0 = (b, h, q tile), q tiles fastest (kernels 1-2 and an unbroadcast
+// bias); 1-3 put the bias's broadcast axes fastest, so the items that read
+// the same bias tile run next to each other: 1 = (h, q tile, b), 2 = (b,
+// q tile, h), 3 = (q tile, b, h).
+__device__ __forceinline__ void item_coords(int order, int i, int n_qt, int B, int H, int& qt,
+                                            int& b, int& h) {
+  if (order == 0) {
+    qt = i % n_qt;
+    b = i / n_qt / H;
+    h = i / n_qt % H;
+  } else if (order == 1) {
+    b = i % B; i /= B; qt = i % n_qt; h = i / n_qt;
+  } else if (order == 2) {
+    h = i % H; i /= H; qt = i % n_qt; b = i / n_qt;
+  } else {
+    h = i % H; i /= H; b = i % B; qt = i / B;
+  }
+}
+
+// (query tile, b, h) of this block: order 0 on a (q tiles, B*H) grid, orders
+// 1-3 on a 1-D grid of items (item_coords).
 __device__ __forceinline__ void block_coords(int order, int n_qt, int B, int H, int& qt,
                                              int& b, int& h) {
   if (order == 0) {
@@ -44,14 +63,7 @@ __device__ __forceinline__ void block_coords(int order, int n_qt, int B, int H, 
     h = blockIdx.y % H;
     return;
   }
-  int i = blockIdx.x;
-  if (order == 1) {
-    b = i % B; i /= B; qt = i % n_qt; h = i / n_qt;
-  } else if (order == 2) {
-    h = i % H; i /= H; qt = i % n_qt; b = i / n_qt;
-  } else {
-    h = i % H; i /= H; b = i % B; qt = i / B;
-  }
+  item_coords(order, blockIdx.x, n_qt, B, H, qt, b, h);
 }
 
 // The row pointer of the bias at (b, h, row) of the broadcast view.

@@ -489,11 +489,13 @@ inline bool encode_bnhd_map(CUtensorMap* map, const void* base, int B, int N, in
 
 // A 3-D tensor map over `planes` planes of `rows` x `cols` f32 (rows `pitch`
 // floats apart, planes `plane_floats` apart; both multiples of 4), read in
-// boxes of `box_cols` x `box_rows` of one plane with the 128-byte swizzle
-// (box_cols = 32: one 128-byte row). Returns false if the driver refuses it.
+// boxes of `box_cols` x `box_rows` of one plane, with the 128-byte swizzle
+// unless given (box_cols = 32: one 128-byte row). Returns false if
+// cuTensorMapEncodeTiled refuses it.
 inline bool encode_planes_f32(CUtensorMap* map, const float* base, long long cols, long long rows,
                               long long planes, long long pitch, long long plane_floats,
-                              int box_cols, int box_rows) {
+                              int box_cols, int box_rows,
+                              CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
   EncodeTiledFn encode = encode_tiled_fn();
   if (encode == nullptr) return false;
   const cuuint64_t dims[3] = {(cuuint64_t)cols, (cuuint64_t)rows, (cuuint64_t)planes};
@@ -501,7 +503,7 @@ inline bool encode_planes_f32(CUtensorMap* map, const float* base, long long col
   const cuuint32_t box[3] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows, 1};
   const cuuint32_t elem_strides[3] = {1, 1, 1};
   return encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, const_cast<float*>(base), dims, strides,
-                box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE)
          == CUDA_SUCCESS;
 }

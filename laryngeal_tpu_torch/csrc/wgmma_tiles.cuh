@@ -51,8 +51,8 @@ __device__ __forceinline__ void wg_load_tile(unsigned char* dst, const CUtensorM
 }
 
 // d (64 x 64 f32) = A B^T, contracting over the head dim: A and B are
-// 64-row tiles, both read K-major (SS wgmma).
-template <int HD>
+// 64-row tiles, both read K-major (SS wgmma). With kAcc, d += A B^T.
+template <int HD, bool kAcc = false>
 __device__ __forceinline__ void wg_abt(float (&d)[32], const unsigned char* a,
                                        const unsigned char* b) {
   using G = WgTile<HD>;
@@ -63,7 +63,7 @@ __device__ __forceinline__ void wg_abt(float (&d)[32], const unsigned char* a,
 #pragma unroll
     for (int ks = 0; ks < G::kPanelCols / 16; ++ks) {
       const uint32_t off = (p * G::kPanelBytes + ks * 32) >> 4;
-      hopper::wgmma_m64n64k16_ss(d, da + off, db + off, p + ks > 0);
+      hopper::wgmma_m64n64k16_ss(d, da + off, db + off, kAcc || p + ks > 0);
     }
 }
 
@@ -91,8 +91,8 @@ __device__ __forceinline__ void wg_load_frags(uint32_t (&a)[HD / 16][4], const u
 
 // d (64 x 64 f32) = A B^T, contracting over the head dim: A (64 x HD) in
 // registers as HD / 16 k16 fragments (wg_load_frags), B a 64-row tile read
-// K-major (RS wgmma).
-template <int HD>
+// K-major (RS wgmma). With kAcc, d += A B^T.
+template <int HD, bool kAcc = false>
 __device__ __forceinline__ void wg_abt_rs(float (&d)[32], const uint32_t (&a)[HD / 16][4],
                                           const unsigned char* b) {
   using G = WgTile<HD>;
@@ -102,7 +102,8 @@ __device__ __forceinline__ void wg_abt_rs(float (&d)[32], const uint32_t (&a)[HD
 #pragma unroll
     for (int ks = 0; ks < G::kPanelCols / 16; ++ks) {
       const uint32_t off = (p * G::kPanelBytes + ks * 32) >> 4;
-      hopper::wgmma_m64n64k16_rs(d, a[p * (G::kPanelCols / 16) + ks], db + off, p + ks > 0);
+      hopper::wgmma_m64n64k16_rs(d, a[p * (G::kPanelCols / 16) + ks], db + off,
+                                 kAcc || p + ks > 0);
     }
 }
 

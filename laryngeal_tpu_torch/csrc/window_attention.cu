@@ -43,6 +43,10 @@
 //   * kernel 12 gives a block 2 or 3 heads of one window, each on its own 4
 //     warps and tiles, the region ids loaded once. Several heads' bias rows
 //     do not fit beside the tiles, so it reads the bias per element (L2).
+//     Where the wgmma design takes the call (bf16, N <= 400 with N % 4 == 0,
+//     D <= 32, positive strides) kernel 12 runs window_attention_wgmma.cu's
+//     design instead (the bias streamed by TMA in 64-key tiles); this one
+//     stays for every other variant shape and in window_attention_fwd_mma.
 //   * backward (kernel 9), four launches: (a) statistics and dQ, blocked as
 //     the forward (held bias rows, slots): a pass for each row's max, sum
 //     and delta, stored to a scratch buffer, a pass for ds and dQ; (b) dK
@@ -75,9 +79,12 @@
 //   * bf16, mode 0, one head a block, N <= 400, D <= 32 (after padding), every
 //     stride positive: the wgmma/TMA design of window_attention_wgmma.cu
 //     (Swin3D's N = 392, D = 32), built into the same library;
-//   * other bf16 at N <= 448, D <= 128 (and kernels 11-12): the held
-//     mma.sync design above; window_attention_fwd_mma / _bwd_mma run it at
-//     every shape it takes, to time the wgmma design against;
+//   * kernel 12 at bf16, N <= 400 with N % 4 == 0, D <= 32, every stride
+//     positive: the wgmma/TMA design of window_attention_wgmma.cu (HB heads
+//     of a window a block, the bias streamed in 64-key tiles);
+//   * other bf16 at N <= 448, D <= 128 (and kernels 11-12 elsewhere): the
+//     held mma.sync design above; window_attention_fwd_mma / _bwd_mma run it
+//     at every shape it takes, to time the wgmma designs against;
 //   * f32 at N <= 400, D <= 32 (after padding), every stride positive: the
 //     3xTF32 tensor-core design of window_attention_wgmma.cu ("wgmma.tf32x3":
 //     the bf16 design's blocks on operands split into two TF32 parts by a
@@ -1459,6 +1466,12 @@ int design_of(int which, int dtype, int N, int D, const long long* st, bool mma_
   return !mma_only && winwg::takes(dtype, N, D, st, n) ? kDesignWgmma : kDesignMmaSync;
 }
 
+// Kernel 12's design (hb heads a block, bf16 at N <= kMaxN, D <= 64): the
+// wgmma design where it takes the call, unless `mma_only`; else mma.sync.
+int heads_design(int N, int D, const long long* st, bool mma_only) {
+  return !mma_only && winwg::takes_heads(1, N, D, st, 12) ? kDesignWgmma : kDesignMmaSync;
+}
+
 bool bad_args(int dtype, int BW, int H, int N, int D, int nW) {
   return (dtype != 0 && dtype != 1) || BW < 1 || H < 1 || N < 1 || D <= 0 || D > 256
          || D % 8 != 0 || nW < 1 || BW % nW != 0 || H > 65535
@@ -1476,7 +1489,8 @@ int fwd_entry(const void* q, const void* k, const void* v, void* o, const float*
   FwdStrides s;
   std::memcpy(&s, st, sizeof(s));
   cudaStream_t cs = static_cast<cudaStream_t>(stream);
-  const int design = design_of(0, dtype, N, D, st, mma_only || variant);
+  const int design = hb > 0 ? heads_design(N, D, st, mma_only)
+                            : design_of(0, dtype, N, D, st, mma_only || variant);
   g_last_design[0] = design;
   if (design == kDesignWide) {
     if (D <= 32) return (int)launch_fwd_wide<32>(dtype, q, k, v, o, bias, rid, BW, H, N, D, nW, s, scale, cs);
@@ -1485,7 +1499,9 @@ int fwd_entry(const void* q, const void* k, const void* v, void* o, const float*
     return (int)launch_fwd_wide<256>(dtype, q, k, v, o, bias, rid, BW, H, N, D, nW, s, scale, cs);
   }
   if (design == kDesignWgmma)
-    return (int)winwg::fwd(q, k, v, o, bias, rid, BW, H, N, D, nW, st, scale, cs);
+    return (int)(hb > 0 ? winwg::fwd_heads(q, k, v, o, bias, rid, BW, H, hb, N, D, nW, st,
+                                           scale, cs)
+                        : winwg::fwd(q, k, v, o, bias, rid, BW, H, N, D, nW, st, scale, cs));
   if (design == kDesignTf32) {
     if (split == nullptr) return (int)cudaErrorInvalidValue;
     return (int)winwg::fwd_tf32(q, k, v, o, bias, rid, split, BW, H, N, D, nW, st, scale, cs);
@@ -1559,7 +1575,8 @@ int bwd_entry(const void* q, const void* k, const void* v, const void* g, const 
 // elsewhere). mode: 0 exp (kernel 8), 1 bf16 (S - max), 2 exp2 (kernel 11);
 // hb: 0 for kernels 8 and 11 (held bias rows), or 1-3 heads a block for
 // kernel 12 (H % hb == 0, mode 0). The variants take bfloat16, N <= 448 and
-// D <= 64 and run the mma.sync template. Returns the cudaError_t of the
+// D <= 64 and run the mma.sync template, but kernel 12 where its wgmma
+// design takes the call (heads_design). Returns the cudaError_t of the
 // launch (0 = success).
 extern "C" int window_attention_fwd(const void* q, const void* k, const void* v, void* o,
                                     const float* bias, const int* rid, float* split, int dtype,
@@ -1618,15 +1635,18 @@ extern "C" int window_attention_last_design(int which) {
 }
 
 // The design (numbered as above) that window_attention_fwd (which = 0, mode 0
-// with one head a block) or window_attention_bwd (which = 1) runs for a call
-// of this dtype, N, D and strides `st` (12 or 21, as the entry takes them),
-// or their _mma entries with mma_only = 1; -1 for arguments they refuse. The
-// Python wrapper sizes kernel 9's dbias groups by it.
+// with one head a block; which = 2, kernel 12: mode 0 with heads a block) or
+// window_attention_bwd (which = 1) runs for a call of this dtype, N, D and
+// strides `st` (12 or 21, as the entry takes them), or their _mma entries
+// with mma_only = 1; -1 for arguments they refuse. The Python wrapper sizes
+// kernel 9's dbias groups by it.
 extern "C" int window_attention_design(int which, int dtype, int N, int D, const long long* st,
                                        int mma_only) {
-  if ((which != 0 && which != 1) || (dtype != 0 && dtype != 1) || N < 1 || D <= 0 || D > 256
+  if (which < 0 || which > 2 || (dtype != 0 && dtype != 1) || N < 1 || D <= 0 || D > 256
       || D % 8 != 0)
     return -1;
+  if (which == 2)
+    return dtype == 1 && N <= kMaxN && D <= 64 ? heads_design(N, D, st, mma_only != 0) : -1;
   return design_of(which, dtype, N, D, st, mma_only != 0);
 }
 

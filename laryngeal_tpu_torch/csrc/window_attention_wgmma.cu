@@ -67,6 +67,24 @@
 //     partial dK/dV to warpgroup 0 through a shared buffer (a second named
 //     barrier says when it is free again); at the end the block writes its
 //     dbias partial (the caller sums the groups).
+//   * Kernel 12 (window_fwd_heads_kernel): the TPU ablation's schedule of
+//     scripts/bench_window_kernel.py :96 _fwd_kernel_h2 (launched at :142),
+//     HB heads of one window a program (3 at Swin3D-T's stage 1, 2 at stages
+//     2-4), computing kernel 8's function. A block takes (head group, 64-query
+//     tile, window group) and walks the group's windows, each window's HB
+//     heads in turn: the producer loads a window's region ids once (shared
+//     by its heads) and, per (window, head), the Q tile and each warpgroup's
+//     key chunks through a ring of 24 KB slots, NC a warpgroup (one slot per
+//     chunk, each slot kept by its owner warpgroup): the chunk's K and V rows
+//     by TMA and its 64 x 64 f32 bias tile by TMA (two 32-key panels,
+//     128-byte swizzle; 64 x 8 for the 8-wide chunk). Three heads' held bias
+//     rows (3 x 100 KB at N = 392) do not fit a block, so the bias is
+//     streamed (the TMA box needs N % 4 == 0: a bias row of 4 N bytes,
+//     a multiple of 16). K and the bias of a slot are released after the
+//     logits, V after O += P V, so the next head's K and bias tiles load
+//     while this head's softmax and P V run. The arithmetic is kernel 8's:
+//     S once, the exact softmax split over the two warpgroups, P V, the
+//     hand-over of warpgroup 1's partial O.
 // Every register array is indexed statically: the key (query) width is a
 // template parameter, KW = 72, 136 or 200 (64 c + 8).
 
@@ -160,14 +178,15 @@ __device__ __forceinline__ void abt(float (&d)[N], const unsigned char* a,
   }
 }
 
-// A warpgroup's 64 x KW scores: A B^T over its NC chunks of B's rows.
-template <int NC>
+// A warpgroup's 64 x KW scores: A B^T over its NC chunks of B's rows, the
+// chunks STRIDE bytes apart.
+template <int NC, int STRIDE = kTile>
 __device__ __forceinline__ void scores(float (&s)[NC][32], const unsigned char* a,
                                        const unsigned char* b) {
   hopper::wgmma_fence();
 #pragma unroll
-  for (int c = 0; c < NC - 1; ++c) abt<64>(s[c], a, b + c * kTile);
-  abt<8>(s[NC - 1], a, b + (NC - 1) * kTile);
+  for (int c = 0; c < NC - 1; ++c) abt<64>(s[c], a, b + c * STRIDE);
+  abt<8>(s[NC - 1], a, b + (NC - 1) * STRIDE);
   hopper::wgmma_commit();
   hopper::wgmma_wait<0>();
 #pragma unroll
@@ -203,15 +222,15 @@ __device__ __forceinline__ void pack_ds(uint32_t (&a)[4][4], const float (&p)[32
 }
 
 // Scores of one warpgroup's keys [key0, key0 + KW) to logits in place, rows
-// as queries: b0, b1 are the bias rows of the thread's rows g and g + 8 from
-// key0, kid the region ids from key0 (null: no mask) and id0, id1 the rows'
-// own. Keys >= N get kMaskValue: every block is computed alike (reads past
-// key N - 1 stay inside shared memory and are discarded), then the block
-// holding key N - 1 (or past it) masks its keys one by one.
-template <int NC>
-__device__ __forceinline__ void row_logits(float (&s)[NC][32], const float* b0, const float* b1,
-                                           const int* kid, int id0, int id1, int key0, int N,
-                                           float scale, int t4) {
+// as queries: bias(c, j, r) is the bias pair of the thread's row g + 8 r at
+// keys key0 + 64 c + 8 j + 2 t4 (+ 1), kid the region ids from key0 (null:
+// no mask) and id0, id1 the rows' own. Keys >= N get kMaskValue: every
+// block is computed alike (reads past key N - 1 stay inside shared memory
+// and are discarded), then the block holding key N - 1 (or past it) masks
+// its keys one by one.
+template <int NC, typename Bias>
+__device__ __forceinline__ void logits(float (&s)[NC][32], Bias bias, const int* kid, int id0,
+                                       int id1, int key0, int N, float scale, int t4) {
 #pragma unroll
   for (int c = 0; c < NC; ++c)
 #pragma unroll
@@ -219,8 +238,8 @@ __device__ __forceinline__ void row_logits(float (&s)[NC][32], const float* b0, 
       if (!live<NC>(c, 4 * j)) continue;
       const int col = 64 * c + 8 * j + 2 * t4;
       float* e = &s[c][4 * j];
-      const float2 x0 = *reinterpret_cast<const float2*>(b0 + col);
-      const float2 x1 = *reinterpret_cast<const float2*>(b1 + col);
+      const float2 x0 = bias(c, j, 0);
+      const float2 x1 = bias(c, j, 1);
       bool d00 = false, d01 = false, d10 = false, d11 = false;
       if (kid != nullptr) {
         const int2 ki = *reinterpret_cast<const int2*>(kid + col);
@@ -238,6 +257,20 @@ __device__ __forceinline__ void row_logits(float (&s)[NC][32], const float* b0, 
         if (key0 + col + 1 >= N) e[1] = e[3] = kMaskValue;
       }
     }
+}
+
+// logits with the bias from held rows: b0, b1 are the bias rows of the
+// thread's rows g and g + 8 from key0.
+template <int NC>
+__device__ __forceinline__ void row_logits(float (&s)[NC][32], const float* b0, const float* b1,
+                                           const int* kid, int id0, int id1, int key0, int N,
+                                           float scale, int t4) {
+  logits<NC>(
+      s,
+      [&](int c, int j, int r) {
+        return *reinterpret_cast<const float2*>((r ? b1 : b0) + 64 * c + 8 * j + 2 * t4);
+      },
+      kid, id0, id1, key0, N, scale, t4);
 }
 
 // Each row's value over both warpgroups: warpgroup wg's partial v (rows g,
@@ -545,6 +578,209 @@ window_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       wgtile::wg_store<32>(acc, o + w * ob + h * oh, on, q0, N, N, D, 1.f, warp, g, t4);
     __syncwarp();
     if (lane == 0) hopper::mbar_arrive(&empty[s]);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Kernel 12: HB heads of a window a block, the bias streamed in 64-key tiles
+// ---------------------------------------------------------------------------
+
+// A warpgroup's chunk slot: the chunk's K rows, its V rows (64, or 16 for the
+// 8-wide chunk; 64-byte swizzle), then its bias tile: 64 query rows x 64 keys
+// f32 as two 32-key panels of 128-byte rows (128-byte swizzle), or 64 x 8
+// unswizzled (32 bytes a row) for the 8-wide chunk.
+constexpr int kHbBias = 2 * kTile;             // the bias tile's offset in a slot
+constexpr int kHbPanel = 64 * 128;             // one 32-key panel of it
+constexpr int kHbSlot = kHbBias + 2 * kHbPanel;  // 24 KB
+constexpr int kHbNarrowRows = 16;              // K / V rows of the 8-wide chunk
+constexpr int kHbXch = 8192;                   // warpgroup 1's partial O (hand_over)
+
+// Shared memory of kernel 12: both warpgroups' NC slots, the Q ring (2
+// tiles), the hand-over buffer, the exchange rows, two windows' region ids,
+// the barriers (q_full, q_empty, ids_full, ids_empty: 2 each; kb_full,
+// kb_empty, v_full, v_empty: one a slot), 1024 B of slack for the base.
+template <int KW>
+__host__ __device__ constexpr size_t heads_smem() {
+  return 1024 + 2 * Geo<KW>::kChunks * (size_t)kHbSlot + 2 * kTile + kHbXch
+         + 4 * (3 * 128 + 2 * kIds) + 8 * (8 + 8 * Geo<KW>::kChunks);
+}
+
+// The float pair of a slot's bias tile at query row r (0-63), keys k and k + 1
+// of the chunk (k even): a 64-wide chunk's two 128-byte-swizzled panels (the
+// 16-byte chunk c of row r at c ^ (r % 8)), or the 8-wide chunk's 32-byte rows.
+template <bool kNarrow>
+__device__ __forceinline__ float2 tile_bias(const unsigned char* tile, int r, int k) {
+  if constexpr (kNarrow) return *reinterpret_cast<const float2*>(tile + 32 * r + 4 * k);
+  const int byte = 4 * (k % 32);
+  return *reinterpret_cast<const float2*>(tile + (k / 32) * kHbPanel + 128 * r
+                                          + (((byte >> 4) ^ (r % 8)) << 4) + (byte & 15));
+}
+
+template <int KW>
+__global__ void __launch_bounds__(kThreads, 1)
+window_fwd_heads_kernel(const __grid_constant__ CUtensorMap tq,
+                        const __grid_constant__ CUtensorMap tk,
+                        const __grid_constant__ CUtensorMap tk16,
+                        const __grid_constant__ CUtensorMap tv,
+                        const __grid_constant__ CUtensorMap tv16,
+                        const __grid_constant__ CUtensorMap tb,
+                        const __grid_constant__ CUtensorMap tb8, bf16* __restrict__ o,
+                        const int* __restrict__ rid, int BW, int HB, int N, int D, int nW,
+                        int per_group, long long ob, long long on, long long oh, float scale,
+                        int pos_q, int pos_k, int pos_v) {
+  constexpr int NC = Geo<KW>::kChunks;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* slots = wgtile::align1024(smem_raw);  // warpgroup 0's NC, then 1's
+  unsigned char* q_s = slots + 2 * NC * kHbSlot;        // [2] Q tiles
+  unsigned char* xch = q_s + 2 * kTile;
+  float* red = reinterpret_cast<float*>(xch + kHbXch);  // [2][2][64]: max, sum
+  int* ids_s = reinterpret_cast<int*>(red + 3 * 128);   // [2][kIds]
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(ids_s + 2 * kIds);
+  uint64_t* q_empty = q_full + 2;
+  uint64_t* ids_full = q_empty + 2;
+  uint64_t* ids_empty = ids_full + 2;
+  uint64_t* kb_full = ids_empty + 2;
+  uint64_t* kb_empty = kb_full + 2 * NC;
+  uint64_t* v_full = kb_empty + 2 * NC;
+  uint64_t* v_empty = v_full + 2 * NC;
+  const int hg = blockIdx.x, q0 = blockIdx.y * 64;
+  const int w0 = blockIdx.z * per_group, w_end = min(BW, w0 + per_group);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < 2; ++s) {
+      hopper::mbar_init(&q_full[s], 1);
+      hopper::mbar_init(&q_empty[s], kConsumerWarps);
+      hopper::mbar_init(&ids_full[s], 32);
+      hopper::mbar_init(&ids_empty[s], kConsumerWarps);
+    }
+    for (int i = 0; i < 2 * NC; ++i) {
+      hopper::mbar_init(&kb_full[i], 1);
+      hopper::mbar_init(&kb_empty[i], 4);
+      hopper::mbar_init(&v_full[i], 1);
+      hopper::mbar_init(&v_empty[i], 4);
+    }
+    hopper::mbar_init_fence();
+  }
+  __syncthreads();
+
+  const int role = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+  if (role == 0) {
+    hopper::regs_release<kProducerRegs>();
+    if (threadIdx.x >= 32) return;
+    // The producer warp: per window its region ids, per (window, head) unit u
+    // the Q tile, then each slot's K rows and bias tile (freed by the
+    // unit before's logits), then each slot's V rows (freed by its P V).
+    const int lane = threadIdx.x;
+    for (int w = w0, n = 0, u = 0; w < w_end; ++w, ++n) {
+      if (rid != nullptr) {
+        hopper::mbar_wait(&ids_empty[n & 1], ((n >> 1) & 1) ^ 1);
+        produce_ids(ids_s + (n & 1) * kIds, rid, w, nW, N, &ids_full[n & 1], lane);
+      }
+      for (int hh = 0; hh < HB; ++hh, ++u) {
+        const int h = hg * HB + hh, qs = u & 1;
+        hopper::mbar_wait(&q_empty[qs], ((u >> 1) & 1) ^ 1);
+        if (lane == 0) {
+          hopper::mbar_arrive_expect_tx(&q_full[qs], kTile);
+          wgtile::wg_load_tile<32>(q_s + qs * kTile, &tq, pos_q, &q_full[qs], h, q0, w);
+        }
+        for (int i = 0; i < 2 * NC; ++i) {
+          hopper::mbar_wait(&kb_empty[i], (u & 1) ^ 1);
+          if (lane != 0) continue;
+          const int c = i % NC, key = i / NC * KW + 64 * c;
+          unsigned char* sl = slots + i * kHbSlot;
+          if (c < NC - 1) {
+            hopper::mbar_arrive_expect_tx(&kb_full[i], kTile + 2 * kHbPanel);
+            wgtile::wg_load_tile<32>(sl, &tk, pos_k, &kb_full[i], h, key, w);
+            hopper::tma_load_3d(sl + kHbBias, &tb, &kb_full[i], key, q0, h);
+            hopper::tma_load_3d(sl + kHbBias + kHbPanel, &tb, &kb_full[i], key + 32, q0, h);
+          } else {
+            hopper::mbar_arrive_expect_tx(&kb_full[i], kHbNarrowRows * 64 + 64 * 32);
+            wgtile::wg_load_tile<32>(sl, &tk16, pos_k, &kb_full[i], h, key, w);
+            hopper::tma_load_3d(sl + kHbBias, &tb8, &kb_full[i], key, q0, h);
+          }
+        }
+        for (int i = 0; i < 2 * NC; ++i) {
+          hopper::mbar_wait(&v_empty[i], (u & 1) ^ 1);
+          if (lane != 0) continue;
+          const int c = i % NC, key = i / NC * KW + 64 * c;
+          hopper::mbar_arrive_expect_tx(&v_full[i], c < NC - 1 ? kTile : kHbNarrowRows * 64);
+          wgtile::wg_load_tile<32>(slots + i * kHbSlot + kTile, c < NC - 1 ? &tv : &tv16, pos_v,
+                                   &v_full[i], h, key, w);
+        }
+      }
+    }
+    return;
+  }
+  hopper::regs_claim<kConsumerRegs>();
+  const int tid = threadIdx.x - 128, wg = tid / 128, t128 = tid % 128;
+  const int warp = t128 / 32, lane = tid % 32, g = lane / 4, t4 = lane % 4;
+  const int lr0 = 16 * warp + g;
+  const bool dead = q0 + 16 * warp >= N;  // this warp's rows all past N (never stored)
+  unsigned char* mine = slots + wg * NC * kHbSlot;  // this warpgroup's slots
+  auto arrive = [&](uint64_t* bar) {  // this warp is done with what `bar` guards
+    __syncwarp();
+    if (lane == 0) hopper::mbar_arrive(bar);
+  };
+  auto bias = [&](int c, int j, int r) {
+    const unsigned char* tile = mine + c * kHbSlot + kHbBias;
+    return c < NC - 1 ? tile_bias<false>(tile, lr0 + 8 * r, 8 * j + 2 * t4)
+                      : tile_bias<true>(tile, lr0 + 8 * r, 2 * t4);
+  };
+
+  for (int w = w0, n = 0, u = 0; w < w_end; ++w, ++n) {
+    const int* ids = nullptr;
+    int id0 = 0, id1 = 0;
+    if (rid != nullptr) {
+      hopper::mbar_wait(&ids_full[n & 1], (n >> 1) & 1);
+      const int* held = ids_s + (n & 1) * kIds;
+      if (held[kIds - 1]) {
+        ids = held;
+        id0 = held[min(q0 + lr0, N - 1)];
+        id1 = held[min(q0 + lr0 + 8, N - 1)];
+      }
+    }
+    for (int hh = 0; hh < HB; ++hh, ++u) {
+      const int h = hg * HB + hh, qs = u & 1;
+      hopper::mbar_wait(&q_full[qs], (u >> 1) & 1);
+#pragma unroll
+      for (int c = 0; c < NC; ++c) hopper::mbar_wait(&kb_full[wg * NC + c], u & 1);
+      float sc[NC][32];
+      scores<NC, kHbSlot>(sc, q_s + qs * kTile, mine);
+      arrive(&q_empty[qs]);
+      if (!dead)
+        logits<NC>(sc, bias, ids != nullptr ? ids + wg * KW : nullptr, id0, id1, wg * KW, N,
+                   scale, t4);
+#pragma unroll
+      for (int c = 0; c < NC; ++c) arrive(&kb_empty[wg * NC + c]);
+      if (rid != nullptr && hh == HB - 1) arrive(&ids_empty[n & 1]);
+      float m2[2], il[2];
+      softmax<NC>(sc, red, wg, lr0, t4, dead, m2, il);
+
+      // O = P V over this warpgroup's keys, P in bf16 register fragments.
+      uint32_t pa[NC][4][4];
+      if (!dead) {
+#pragma unroll
+        for (int c = 0; c < NC - 1; ++c) pack<4, 32>(pa[c], sc[c]);
+        pack<1, 4>(pa[NC - 1], sc[NC - 1]);
+      }
+#pragma unroll
+      for (int c = 0; c < NC; ++c) hopper::mbar_wait(&v_full[wg * NC + c], u & 1);
+      wgtile::Acc<32> acc;
+      wgtile::zero_panels<32>(acc);
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int c = 0; c < NC - 1; ++c) wgtile::wg_ab<32>(acc, pa[c], mine + c * kHbSlot + kTile);
+      wgtile::wg_ab<32, 1>(acc, pa[NC - 1], mine + (NC - 1) * kHbSlot + kTile);
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      wgtile::fence_panels<32>(acc);
+#pragma unroll
+      for (int c = 0; c < NC; ++c) arrive(&v_empty[wg * NC + c]);
+
+      // Warpgroup 0 adds warpgroup 1's partial O to its own and stores.
+      hand_over(acc, xch, xch + kHbXch / 2, wg, t128);
+      if (wg == 0)
+        wgtile::wg_store<32>(acc, o + w * ob + h * oh, on, q0, N, N, D, 1.f, warp, g, t4);
+    }
   }
 }
 
@@ -1942,6 +2178,33 @@ cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* o, con
   return cudaGetLastError();
 }
 
+// Kernel 12: HB heads of a window a block (windows_a_block sizes the window
+// groups over the (head group, query tile) pairs).
+template <int KW>
+cudaError_t launch_fwd_heads(const void* q, const void* k, const void* v, void* o,
+                             const float* bias, const int* rid, int BW, int H, int HB, int N,
+                             int D, int nW, const long long* st, float scale, cudaStream_t s) {
+  CUtensorMap tq, tk, tk16, tv, tv16, tb, tb8;
+  int pq, pk, pv, unused;
+  if (!map(&tq, &pq, q, BW, N, H, D, st, 64) || !map(&tk, &pk, k, BW, N, H, D, st + 3, 64)
+      || !map(&tk16, &unused, k, BW, N, H, D, st + 3, kHbNarrowRows)
+      || !map(&tv, &pv, v, BW, N, H, D, st + 6, 64)
+      || !map(&tv16, &unused, v, BW, N, H, D, st + 6, kHbNarrowRows)
+      || !hopper::encode_planes_f32(&tb, bias, N, N, H, N, (long long)N * N, 32, 64)
+      || !hopper::encode_planes_f32(&tb8, bias, N, N, H, N, (long long)N * N, 8, 64,
+                                    CU_TENSOR_MAP_SWIZZLE_NONE))
+    return cudaErrorInvalidValue;
+  const size_t smem = heads_smem<KW>();
+  cudaError_t err = set_smem(window_fwd_heads_kernel<KW>, smem);
+  if (err != cudaSuccess) return err;
+  const int n_qt = (N + 63) / 64;
+  const int per = windows_a_block(BW, H / HB * n_qt, sm_count());
+  window_fwd_heads_kernel<KW><<<dim3(H / HB, n_qt, (BW + per - 1) / per), kThreads, smem, s>>>(
+      tq, tk, tk16, tv, tv16, tb, tb8, static_cast<bf16*>(o), rid, BW, HB, N, D, nW, per, st[9],
+      st[10], st[11], scale, pq, pk, pv);
+  return cudaGetLastError();
+}
+
 template <int KW>
 cudaError_t launch_bwd(const void* q, const void* k, const void* v, const void* g,
                        const float* bias, const int* rid, void* dq, void* dk, void* dv,
@@ -2103,6 +2366,23 @@ bool takes(int dtype, int N, int D, const long long* st, int n) {
   for (int i = 0; i < n; ++i)
     if (st[i] <= 0) return false;
   return true;
+}
+
+bool takes_heads(int dtype, int N, int D, const long long* st, int n) {
+  return N % 4 == 0 && takes(dtype, N, D, st, n);
+}
+
+// KW by N, as fwd.
+cudaError_t fwd_heads(const void* q, const void* k, const void* v, void* o, const float* bias,
+                      const int* rid, int BW, int H, int HB, int N, int D, int nW,
+                      const long long* st, float scale, cudaStream_t s) {
+  if (HB < 1 || H % HB != 0) return cudaErrorInvalidValue;
+#define WINWG_HEADS(KW) \
+  return launch_fwd_heads<KW>(q, k, v, o, bias, rid, BW, H, HB, N, D, nW, st, scale, s)
+  if (N <= 144) WINWG_HEADS(72);
+  if (N <= 272) WINWG_HEADS(136);
+  WINWG_HEADS(200);
+#undef WINWG_HEADS
 }
 
 // KW by N: 72 (N <= 144), 136 (N <= 272), 200 (N <= 400).

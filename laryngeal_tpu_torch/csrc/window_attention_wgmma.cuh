@@ -27,6 +27,16 @@ cudaError_t fwd(const void* q, const void* k, const void* v, void* o, const floa
                 const int* rid, int BW, int H, int N, int D, int nW, const long long* st,
                 float scale, cudaStream_t s);
 
+// Whether kernel 12's design (HB heads of a window a block, the bias
+// streamed by TMA) takes a call: what `takes` takes, and N % 4 == 0 (the
+// bias rows, 4 N bytes, a multiple of 16 for TMA).
+bool takes_heads(int dtype, int N, int D, const long long* st, int n);
+
+// Kernel 12, as fwd, with HB heads of a window a block (H % HB == 0).
+cudaError_t fwd_heads(const void* q, const void* k, const void* v, void* o, const float* bias,
+                      const int* rid, int BW, int H, int HB, int N, int D, int nW,
+                      const long long* st, float scale, cudaStream_t s);
+
 // Kernel 9: dq, dk, dv out through the 21 strides `st` (q, k, v, g, dq, dk,
 // dv), the row statistics in `stats` ((BW, H, 3, N) f32 scratch), dbias's
 // partial over each group of `per_group` windows in partial[group] (straight

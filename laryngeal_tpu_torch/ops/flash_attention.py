@@ -14,7 +14,7 @@ TPU kernels have CUDA counterparts here:
  4    ``_dkv_kernel`` :168 (:451)                 ``flash_attention_bwd_dkv``
                                                   (both ``csrc/flash_attention_bwd.cu``)
  5    ``_attention_kernel_bias`` :213 (:359)      ``flash_attention_fwd_bias``
-                                                  (``csrc/flash_attention_bias.cu``)
+                                                  (``csrc/flash_attention_fwd.cu``)
 ====  =========================================  ==============================
 
 Kernels 1-4 have two bf16 designs behind their entries, ``wgmma`` (a
@@ -34,7 +34,15 @@ allocates) and the FMA kernels elsewhere. The C side picks one per call
 the ``mma.sync`` design (f32: the FMA kernel) at every shape, so that
 ``chip_smoke.py`` and the card tests can hold the designs against each
 other; they count no launch.
-Kernel 5 keeps the ``mma.sync`` design (``csrc/flash_attention_fwd.cuh``).
+Kernel 5 runs kernel 1's designs with the bias as a template parameter
+(bf16 on ``wgmma``, f32 at D <= 64 on ``wgmma.tf32x3``, strides of 0 and
+f32 at D = 128 on the ``mma.sync`` / FMA template of
+``csrc/flash_attention_fwd.cuh``); ``flash_attention_bias_mma_cuda`` (C
+entry ``flash_attention_fwd_bias_mma``) runs the template at every shape
+and counts no launch. ``forward_design`` mirrors the C choice of kernels
+1, 2 and 5 (``flash_attention_fwd_design``, which ``c_forward_design``
+asks); ``last_bias_design`` reports kernel 5's last and
+``bias_design_launches`` counts its launches by design.
 
 ``flash_attention`` takes (B, Nq, H, D) x (B, Nk, H, D), non-causal,
 D <= 128, Nq != Nk allowed, float32 or bfloat16; ``kv_valid`` masks keys at
@@ -75,8 +83,9 @@ from . import _build
 
 SOURCE = "flash_attention_fwd.cu"
 BWD_SOURCE = "flash_attention_bwd.cu"
-BIAS_SOURCE = "flash_attention_bias.cu"
 MAX_HEAD_DIM = 128
+# The largest head dim of the f32 design wgmma.tf32x3 (kernels 1-5).
+TF32_MAX_HEAD_DIM = 64
 # Kernel launches since the counts were last set to 0 (plain CPU calls do not
 # count); ``chip_smoke.py`` reads them to prove the main path used the kernels.
 launches = 0          # kernel 1, flash_attention_fwd
@@ -92,6 +101,8 @@ _fns: Dict[str, object] = {}
 def reset_launches() -> None:
     global launches, lse_launches, dq_launches, dkv_launches, bias_launches
     launches = lse_launches = dq_launches = dkv_launches = bias_launches = 0
+    for d in bias_design_launches:
+        bias_design_launches[d] = 0
 
 
 def launch_counts() -> Dict[str, int]:
@@ -109,8 +120,8 @@ def _kernel(name: str):
             source, args = SOURCE, [ptr] * 4 + [i32] * 7 + [i64] * 12
         elif name in ("flash_attention_fwd_lse", "flash_attention_fwd_lse_mma"):
             source, args = SOURCE, [ptr] * 5 + [i32] * 7 + [i64] * 12
-        elif name == "flash_attention_fwd_bias":
-            source, args = BIAS_SOURCE, [ptr] * 5 + [i32] * 8 + [i64] * 15 + [i32]
+        elif name in ("flash_attention_fwd_bias", "flash_attention_fwd_bias_mma"):
+            source, args = SOURCE, [ptr] * 5 + [i32] * 8 + [i64] * 15 + [i32]
         elif name in ("flash_attention_bwd_dq", "flash_attention_bwd_dq_mma"):
             source, args = BWD_SOURCE, [ptr] * 7 + [i32] * 7 + [strides]
         elif name == "flash_attention_bwd_dkv_scratch_floats":
@@ -411,13 +422,25 @@ def flash_attention_lse_mma_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tens
 def flash_attention_bias_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                               bias: torch.Tensor, kv_valid: Optional[int] = None
                               ) -> torch.Tensor:
-    """Kernel 5 on CUDA tensors: ``bias`` broadcastable to (B, H, Nq, Nk);
-    raises if it cannot launch."""
+    """Kernel 5 on CUDA tensors, in the design the C side picks:
+    ``bias`` broadcastable to (B, H, Nq, Nk); raises if it cannot launch
+    (the new designs' failures included: there is no fallback)."""
     global bias_launches
     out = _forward_cuda("flash_attention_fwd_bias", q, k, v, kv_valid, bias=bias)
     if q.shape[1] > 0:
         bias_launches += 1
+        bias_design_launches[last_bias_design()] += 1
     return out
+
+
+def flash_attention_bias_mma_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                                  bias: torch.Tensor, kv_valid: Optional[int] = None
+                                  ) -> torch.Tensor:
+    """Kernel 5's earlier designs at every shape, on CUDA tensors: the
+    ``mma.sync`` template for bfloat16, the FMA kernel for float32; the
+    yardsticks of the ``wgmma`` and ``wgmma.tf32x3`` designs. Counts no
+    launch; raises if it cannot launch."""
+    return _forward_cuda("flash_attention_fwd_bias_mma", q, k, v, kv_valid, bias=bias)
 
 
 def _backward_launch(name, q, k, v, do, lse, delta, outs, kv_valid):
@@ -508,26 +531,30 @@ def flash_attention_dkv_mma_cuda(q, k, v, do, lse, delta, kv_valid=None
     return _dkv("flash_attention_bwd_dkv_mma", q, k, v, do, lse, delta, kv_valid)[0]
 
 
-# Designs of kernels 1-4, by the code ``flash_attention_fwd_last_design`` and
+# Designs of kernels 1-5, by the code ``flash_attention_fwd_last_design`` and
 # ``flash_attention_bwd_last_design`` return ("wgmma.tf32x3": f32 on the
 # tensor cores, each product as three TF32 products).
 DESIGNS = ("fma", "mma.sync", "wgmma", "wgmma.tf32x3")
+# Kernel 5's launches by the design the C side ran (they add up to
+# ``bias_launches``).
+bias_design_launches: Dict[str, int] = {d: 0 for d in DESIGNS}
 
 
 # The C design queries, bound once each, by (source, entry).
 _design_queries: Dict[Tuple[str, str], object] = {}
 
 
-def _last_designs(source: str, entry: str, designs=DESIGNS
-                  ) -> Tuple[Optional[str], Optional[str]]:
+def _last_designs(source: str, entry: str, designs=DESIGNS, which=(0, 1)
+                  ) -> Tuple[Optional[str], ...]:
     """The names (``designs``, by code) of the designs the C entry ``entry``
-    reports for its two kernels' last launches; None before the first."""
+    reports for the last launches of its kernels ``which`` (two unless
+    given); None before the first."""
     fn = _design_queries.get((source, entry))
     if fn is None:
         fn = getattr(_build.load(source), entry)
         fn.restype, fn.argtypes = ctypes.c_int, [ctypes.c_int]
         _design_queries[(source, entry)] = fn
-    return tuple(designs[c] if c >= 0 else None for c in (fn(0), fn(1)))
+    return tuple(designs[c] if c >= 0 else None for c in map(fn, which))
 
 
 def last_forward_designs() -> Tuple[Optional[str], Optional[str]]:
@@ -535,6 +562,55 @@ def last_forward_designs() -> Tuple[Optional[str], Optional[str]]:
     kernel 2 in this process, through any of their entries (the ``_mma``
     ones included), as the C side chose them; None before the first."""
     return _last_designs(SOURCE, "flash_attention_fwd_last_design")
+
+
+def last_bias_design() -> Optional[str]:
+    """The design (``DESIGNS``) of kernel 5's last launch in this process,
+    through either of its entries, as the C side chose it; None before the
+    first."""
+    return _last_designs(SOURCE, "flash_attention_fwd_last_design", which=(2,))[0]
+
+
+def forward_design(dtype: torch.dtype, d: int, strides=None) -> str:
+    """The design (``DESIGNS``) kernels 1, 2 and 5 run at head dim ``d``
+    (padded to a multiple of 8 inside) in ``dtype``: a mirror of the C
+    choice (``flash_attention_fwd_design``, ``c_forward_design``) for the
+    CPU tests. ``wgmma`` in bf16 and ``wgmma.tf32x3`` in f32 at D <=
+    ``TF32_MAX_HEAD_DIM`` when every q, k and v (batch, sequence, head)
+    stride of the launch is positive (TMA cannot describe a stride of 0;
+    ``strides`` the 12 of q, k, v and o as the wrapper passes them, None for
+    tensors laid out by ``_prepare`` from positive strides); else
+    ``mma.sync`` in bf16 and ``fma`` in f32. The bias's strides do not
+    enter: every design reads it through its broadcast view."""
+    d_pad = -(-d // 8) * 8
+    if dtype not in _DTYPE_CODE or not 0 < d_pad <= MAX_HEAD_DIM:
+        raise ValueError(f"kernels 1, 2 and 5 take float32 and bfloat16 at D <= "
+                         f"{MAX_HEAD_DIM}, got {dtype} at D = {d}")
+    f32 = dtype == torch.float32
+    if strides is None or all(s > 0 for s in strides[:9]):
+        if not f32:
+            return "wgmma"
+        if d_pad <= TF32_MAX_HEAD_DIM:
+            return "wgmma.tf32x3"
+    return "fma" if f32 else "mma.sync"
+
+
+def c_forward_design(dtype: torch.dtype, d_pad: int, strides, mma_only: bool = False) -> str:
+    """The design (``DESIGNS``) the C side runs for kernels 1, 2 and 5 in
+    ``dtype`` at ``d_pad`` with the launch's 12 q, k, v, o ``strides``;
+    ``mma_only`` for the ``_mma`` entries. Needs the built library."""
+    fn = _design_queries.get((SOURCE, "flash_attention_fwd_design"))
+    if fn is None:
+        fn = getattr(_build.load(SOURCE), "flash_attention_fwd_design")
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_longlong),
+                       ctypes.c_int]
+        _design_queries[(SOURCE, "flash_attention_fwd_design")] = fn
+    st = (ctypes.c_longlong * 12)(*strides)
+    code = fn(_DTYPE_CODE[dtype], d_pad, st, int(mma_only))
+    if code < 0:
+        raise ValueError(f"flash_attention_fwd_design refuses {dtype} at D = {d_pad}")
+    return DESIGNS[code]
 
 
 def last_backward_designs() -> Tuple[Optional[str], Optional[str]]:

@@ -60,10 +60,19 @@ reports which ran:
   and dO^T written transposed, since TF32 wgmma reads both operands K-major;
   the blocks are the bf16 design's, with K/V (Q/dO) streamed in 64-key
   (32-query) chunks through a ring instead of held whole a window.
+* kernel 12 (``window_attention_variant(..., "h2")``) on ``wgmma``: the
+  same source's design with ``heads_per_block`` heads of a window a block,
+  the region ids loaded once a window, each head's K/V chunks and 64-key f32
+  bias tiles streamed by TMA through a ring (three heads' held bias rows do
+  not fit a block), at the ``wgmma`` domain with N % 4 == 0 (a bias row of
+  4·N bytes, a multiple of 16, as TMA needs); ``design_takes(..., kind=
+  "h2")`` mirrors the choice, ``window_attention_variant_mma_cuda`` runs the
+  held design in its place and counts no launch.
 * ``mma.sync``: the held design (a block holds its query tile's bias rows in
   shared memory, slots of 4 warps stream 64-key tiles) at every other bf16
-  shape with N <= ``HELD_MAX_SEQ`` and D <= ``HELD_MAX_HEAD_DIM`` (128), and
-  kernels 11-12. ``window_attention_fwd_mma_cuda`` and
+  shape with N <= ``HELD_MAX_SEQ`` and D <= ``HELD_MAX_HEAD_DIM`` (128),
+  kernel 11, and kernel 12 (2-3 heads a block, the bias read per element)
+  outside its ``wgmma`` domain. ``window_attention_fwd_mma_cuda`` and
   ``window_attention_bwd_mma_cuda`` run it wherever the wgmma design would;
   only ``chip_smoke.py``, ``scripts/ablate_window.py`` and the card tests
   call them, to time and hold the designs against each other, and they
@@ -74,7 +83,8 @@ reports which ran:
 * ``wide``: every other shape, in either dtype, on the FMA units, the bias,
   region ids and row statistics read from device memory, up to D = 256.
 
-``design_launches`` counts each kernel's launches by the design that ran.
+``design_launches`` counts each kernel's launches by the design that ran,
+``variant_design_launches`` each variant's.
 The bias stays f32 at every shape the kernels take. Where JAX takes XLA and
 the kernels do not take the shape (N % 8 != 0 with N > 448, or D > 256),
 the router (``ops.attention.window_attention``) runs
@@ -120,9 +130,11 @@ fwd_launches = 0   # kernel 8, window_attention_fwd
 bwd_launches = 0   # kernel 9, window_attention_bwd
 variant_launches = {kind: 0 for kind in VARIANTS}  # kernels 11 (bf16sm, exp2), 12 (h2)
 # Kernels 8 and 9's launches by the design the C side ran (they add up to
-# ``fwd_launches`` and ``bwd_launches``).
+# ``fwd_launches`` and ``bwd_launches``), and the variants' (``variant_launches``).
 design_launches: Dict[str, Dict[str, int]] = {
     e: {d: 0 for d in DESIGNS} for e in ("window_attention_fwd", "window_attention_bwd")}
+variant_design_launches: Dict[str, Dict[str, int]] = {
+    kind: {d: 0 for d in DESIGNS} for kind in VARIANTS}
 
 _fns: Dict[str, object] = {}
 
@@ -132,7 +144,7 @@ def reset_launches() -> None:
     fwd_launches = bwd_launches = 0
     for kind in VARIANTS:
         variant_launches[kind] = 0
-    for counts in design_launches.values():
+    for counts in (*design_launches.values(), *variant_design_launches.values()):
         for d in counts:
             counts[d] = 0
 
@@ -204,33 +216,43 @@ def jax_takes_pallas(n: int, d: int) -> bool:
     return n % 8 == 0 and d <= JAX_PALLAS_MAX_HEAD_DIM
 
 
-def design_takes(n: int, d: int, dtype: torch.dtype, strides=None) -> str:
-    """The design (``DESIGNS``) kernels 8-9 run for windows of ``n``
-    positions at head dim ``d`` (padded to a multiple of 8 inside) in
-    ``dtype``: a mirror of the C entries' choice (``window_attention_design``,
-    which the wrappers ask; kernels 11-12 always run mma.sync) for the CPU
-    tests and the checks that name the design a shape should run. ``wgmma``
-    in bf16 and ``wgmma.tf32x3`` in f32 at N <= ``WGMMA_MAX_SEQ`` and D <=
-    ``WGMMA_MAX_HEAD_DIM`` when every (window, position, head) stride of the
-    launch is positive (TMA cannot describe a stride of 0; ``strides`` as the
-    wrapper passes them, None for tensors laid out by ``_prepare`` from
-    positive strides); else ``fma`` in f32 and ``mma.sync`` in bf16."""
+def design_takes(n: int, d: int, dtype: torch.dtype, strides=None, kind: str = "exp") -> str:
+    """The design (``DESIGNS``) kernels 8-9 (``kind`` 'exp') or a kernel-11/12
+    variant (``VARIANTS``) run for windows of ``n`` positions at head dim
+    ``d`` (padded to a multiple of 8 inside) in ``dtype``: a mirror of the C
+    entries' choice (``window_attention_design``, which the wrappers ask) for
+    the CPU tests and the checks that name the design a shape should run.
+    Kernels 8-9: ``wgmma`` in bf16 and ``wgmma.tf32x3`` in f32 at N <=
+    ``WGMMA_MAX_SEQ`` and D <= ``WGMMA_MAX_HEAD_DIM`` when every (window,
+    position, head) stride of the launch is positive (TMA cannot describe a
+    stride of 0; ``strides`` as the wrapper passes them, None for tensors
+    laid out by ``_prepare`` from positive strides); else ``fma`` in f32 and
+    ``mma.sync`` in bf16; ``wide`` beyond the held designs. Kernel 12
+    (``h2``, bf16 only) runs ``wgmma`` at those shapes when N % 4 == 0 too
+    (its bias rows, 4·N bytes, streamed by TMA), ``mma.sync`` elsewhere;
+    kernel 11 always ``mma.sync``."""
     d_pad = -(-d // 8) * 8
+    wgmma = (n <= WGMMA_MAX_SEQ and d_pad <= WGMMA_MAX_HEAD_DIM
+             and (strides is None or all(s > 0 for s in strides)))
+    if kind != "exp":
+        if kind not in VARIANTS or dtype != torch.bfloat16 or n > HELD_MAX_SEQ \
+                or d_pad > VARIANT_MAX_HEAD_DIM:
+            raise ValueError(f"the variants take bfloat16 at N <= {HELD_MAX_SEQ}, D <= "
+                             f"{VARIANT_MAX_HEAD_DIM}; got {kind!r}, {dtype}, {n}, {d}")
+        return "wgmma" if kind == "h2" and wgmma and n % 4 == 0 else "mma.sync"
     if not held_takes(n, d_pad):
         return "wide"
-    f32 = dtype == torch.float32
-    if (n <= WGMMA_MAX_SEQ and d_pad <= WGMMA_MAX_HEAD_DIM
-            and (strides is None or all(s > 0 for s in strides))):
-        return "wgmma.tf32x3" if f32 else "wgmma"
-    return "fma" if f32 else "mma.sync"
+    if wgmma:
+        return "wgmma.tf32x3" if dtype == torch.float32 else "wgmma"
+    return "fma" if dtype == torch.float32 else "mma.sync"
 
 
 def c_design(which: int, dtype: torch.dtype, n: int, d_pad: int, strides,
              mma_only: bool = False) -> str:
-    """The design (``DESIGNS``) the C entry of kernel 8 (``which`` 0) or 9
-    (1) runs for a call in ``dtype`` at (n, d_pad) with the launch's 12 or 21
-    (window, position, head) ``strides``; ``mma_only`` for the ``_mma``
-    entries. Needs the built library."""
+    """The design (``DESIGNS``) the C entry of kernel 8 (``which`` 0), 9 (1)
+    or 12 (2) runs for a call in ``dtype`` at (n, d_pad) with the launch's
+    12 or 21 (window, position, head) ``strides``; ``mma_only`` for the
+    ``_mma`` entries. Needs the built library."""
     if "window_attention_design" not in _fns:
         fn = getattr(_build.load(SOURCE), "window_attention_design")
         fn.restype = ctypes.c_int
@@ -460,6 +482,8 @@ def _launch_fwd(q, k, v, bias, region_id, mode: int, heads_per_block: int,
     qp, kp, vp = (_prepare(x, d_pad) for x in (q, k, v))
     out = torch.empty((bw, n, h, d_pad), dtype=q.dtype, device=q.device)
     bias_f = bias.to(device=q.device, dtype=torch.float32).contiguous()
+    if bias_f.data_ptr() % 16:  # kernel 12's TMA reads the bias from a 16-byte aligned base
+        bias_f = bias_f.clone()
     rid_ptr, nw, rid = _rid_arg(region_id, q.device)
     strides = [s for x in (qp, kp, vp, out) for s in x.stride()[:3]]
     split_ptr, split = None, None
@@ -513,19 +537,33 @@ def _check_variant(q, k, v, bias, region_id, kind: str):
                          f"and N <= {HELD_MAX_SEQ}, got {q.shape[-1]} and {q.shape[1]}")
 
 
-def window_attention_variant_cuda(q, k, v, bias, region_id, kind: str) -> torch.Tensor:
-    """Kernel 11 (``kind`` 'bf16sm' or 'exp2') or kernel 12 ('h2') on CUDA
-    bfloat16 tensors; raises if it cannot launch."""
+def _launch_variant(q, k, v, bias, region_id, kind: str, entry: str) -> torch.Tensor:
     _check_variant(q, k, v, bias, region_id, kind)
     if q.dtype != torch.bfloat16:
         raise ValueError(f"the kernel-11/12 variants take bfloat16 (the ablation's dtype), "
                          f"got {q.dtype}")
     if kind == "h2":
-        out = _launch_fwd(q, k, v, bias, region_id, MODES["exp"], heads_per_block(q.shape[2]))
-    else:
-        out = _launch_fwd(q, k, v, bias, region_id, MODES[kind], 0)
+        return _launch_fwd(q, k, v, bias, region_id, MODES["exp"], heads_per_block(q.shape[2]),
+                           entry)
+    return _launch_fwd(q, k, v, bias, region_id, MODES[kind], 0, entry)
+
+
+def window_attention_variant_cuda(q, k, v, bias, region_id, kind: str) -> torch.Tensor:
+    """Kernel 11 (``kind`` 'bf16sm' or 'exp2') or kernel 12 ('h2') on CUDA
+    bfloat16 tensors, in the design the C side picks (``design_takes(...,
+    kind=kind)``); raises if it cannot launch (kernel 12's wgmma design's
+    failures included: there is no fallback)."""
+    out = _launch_variant(q, k, v, bias, region_id, kind, "window_attention_fwd")
     variant_launches[kind] += 1
+    variant_design_launches[kind][last_designs()[0]] += 1
     return out
+
+
+def window_attention_variant_mma_cuda(q, k, v, bias, region_id, kind: str) -> torch.Tensor:
+    """A kernel-11/12 variant on the held mma.sync design at every shape (the
+    yardstick of kernel 12's wgmma design), on CUDA bfloat16 tensors; counts
+    no launch, raises if it cannot launch."""
+    return _launch_variant(q, k, v, bias, region_id, kind, "window_attention_fwd_mma")
 
 
 def window_attention_variant(q, k, v, bias, region_id, kind: str) -> torch.Tensor:

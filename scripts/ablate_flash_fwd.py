@@ -1,8 +1,10 @@
 """What the wgmma designs of kernels 1-2 (the flash-attention forward, without
-and with lse) spend their time on, on one CUDA card.
+and with lse) and of kernel 5 (with a logits bias) spend their time on, on
+one CUDA card.
 
-    python3 scripts/ablate_flash_fwd.py          # bf16, the wgmma design
-    python3 scripts/ablate_flash_fwd.py --f32    # f32, the wgmma.tf32x3 design
+    python3 scripts/ablate_flash_fwd.py                 # bf16, the wgmma design
+    python3 scripts/ablate_flash_fwd.py --f32           # f32, the wgmma.tf32x3 design
+    python3 scripts/ablate_flash_fwd.py --bias [--f32]  # kernel 5, either design
 
 Builds ``laryngeal_tpu_torch/csrc/flash_attention_fwd.cu`` as it is and with
 one part of the wgmma kernel's work taken out or changed at a time (text
@@ -62,6 +64,21 @@ wgmma.tf32x3 kernel, with its own variants:
   added to O on the FMA units (less accurate: see the source);
 - ``regs_56_224``: 56 / 224 registers.
 
+With ``--bias`` kernel 5 (``flash_attention_fwd_bias``) is timed instead,
+at the ViViT-B shape with a (1, 12, N, N) f32 per-head bias and an (8, 1, 1,
+N) key-padding one, in bf16 (wgmma) or with ``--f32`` in f32
+(wgmma.tf32x3), with the variants of how the bias is read:
+
+- ``as_is``: each consumer thread loads its S fragment's bias values of the
+  next 64-key step (4-byte loads through L1) at the top of the current
+  step, into the next S's accumulators, which S = Q K^T accumulates onto;
+- ``late_bias``: the same loads issued just before the step's batch of
+  products instead of a softmax ahead;
+- ``no_bias_loads``: the loads replaced by zeros (kernel 1's work with the
+  accumulate flag on: the bias reads' share);
+- ``order_0``: the persistent blocks walk the items in kernels 1-2's order
+  (query tiles fastest) instead of with the bias's broadcast axes fastest.
+
 Prints the card's name and power limit, one line per variant, and the
 variants as one JSON object last. Needs nvcc and a card. Exits 1 if a
 variant does not build (the others are still timed, unless it is ``as_is``).
@@ -102,7 +119,8 @@ LOADS_ONLY = ("    for (int item = blockIdx.x, it = 0; item < n_items; item += g
               "      step0 += n_steps;\n"
               "    }\n"
               "    if (n_items > 0) return;\n")
-SOFTMAX = "  const float neg_inf = __int_as_float(0xff800000);\n"
+SOFTMAX = ("  const float neg_inf = __int_as_float(0xff800000);\n  float mx[2] = {neg_inf, neg_inf};\n"
+           "#pragma unroll\n  for (int j = 0; j < KT; ++j)\n")
 PRODUCTS_ONLY = ("  alpha[0] = alpha[1] = 1.f;  // ablation: products only\n"
                  "#pragma unroll\n"
                  "  for (int j = 0; j < KT; ++j)\n"
@@ -151,7 +169,7 @@ TF32_PRODUCTS_ONLY = ("  alpha[0] = alpha[1] = 1.f;  // ablation: products only\
                       "      tf32_split(s[4 * kk + r], pb[kk][r], ps[kk][r]);\n"
                       "  if (n_valid > -1) return;\n")
 TF32_CONSUMER = ("    for (int item = blockIdx.x, it = 0; item < n_items; item += gridDim.x, ++it) {\n"
-                 "#pragma unroll\n      for (int i = 0; i < HD / 2; ++i) acc[i] = 0.f;")
+                 "      if constexpr (kBias != 0) {\n")
 TF32_LOADS_ONLY = ("    for (int item = blockIdx.x, it = 0; item < n_items; item += gridDim.x, ++it) {\n"
                    "      hopper::mbar_wait(q_full, it & 1);  // ablation: loads only\n"
                    "      arrive(q_empty);\n"
@@ -164,7 +182,7 @@ TF32_LOADS_ONLY = ("    for (int item = blockIdx.x, it = 0; item < n_items; item
                    "      step0 += n_steps;\n"
                    "    }\n"
                    "    if (n_items > 0) return;\n")
-TF32_SCORES = ("    hopper::wgmma_m64n64k8_tf32_ss(d, dq + off, db + off, k > 0);\n"
+TF32_SCORES = ("    hopper::wgmma_m64n64k8_tf32_ss(d, dq + off, db + off, kAcc || k > 0);\n"
                "    hopper::wgmma_m64n64k8_tf32_rs(d, qb[k], ds + off, 1);\n"
                "    hopper::wgmma_m64n64k8_tf32_rs(d, qb[k], db + off, 1);\n")
 TF32_PV = ("    tf32_mma_hd<HD>(acc, ps[kk], db + off, kk > 0);\n"
@@ -201,7 +219,7 @@ F32_VARIANTS = {
     "tma_only": [[TF32_CONSUMER, TF32_LOADS_ONLY + TF32_CONSUMER], *NO_TRANSFORM],
     "products_only": [[TF32_SOFTMAX, TF32_PRODUCTS_ONLY + TF32_SOFTMAX]],
     "no_exp": [["hopper::exp2_approx(fmaf(s[i], sl2, -m[r]))", "fmaf(s[i], sl2, -m[r])"]],
-    "one_term": [[TF32_SCORES, "    hopper::wgmma_m64n64k8_tf32_rs(d, qb[k], db + off, k > 0);"
+    "one_term": [[TF32_SCORES, "    hopper::wgmma_m64n64k8_tf32_rs(d, qb[k], db + off, kAcc || k > 0);"
                                + ONE_TERM],
                  [TF32_PV, "    tf32_mma_hd<HD>(acc, pb[kk], db + off, kk > 0);"
                            + ONE_TERM]],
@@ -212,12 +230,35 @@ F32_VARIANTS = {
     "o_in_tensor_cores": TC_ACC,
     "regs_56_224": [[REGS, REGS.replace("40", "56").replace("232", "224")]],
 }
-F32 = "--f32" in sys.argv[1:]
+# Kernel 5's variants (both designs: each edit applies to the bf16 and the f32
+# kernel where it names both).
+BIAS_LOAD = ("      float x0 = !TAIL || off < n_valid ? flash_fwd::bias_value(rows[r] + key0 + off) : 0.f;\n"
+             "      float x1 = !TAIL || off + 1 < n_valid ? flash_fwd::bias_value(rows[r] + key0 + off + 1)\n"
+             "                                            : 0.f;\n")
+EARLY_BF16 = "        if (kBias != 0 && t + 1 < n_steps) load_bias(next, t + 1);  // lands during the softmax\n"
+EARLY_TF32 = "        if (kBias != 0 && more) load_bias(next, t + 1);  // lands during the softmax\n"
+BATCH_BF16 = "        if constexpr (kTurns) turn_wait(wg);\n        hopper::wgmma_fence();\n        pv(pa, t);\n"
+BATCH_TF32 = "        hopper::wgmma_fence();\n        tf32_pv<HD>(pv, pb, ps, vt + T, vt + 2 * T);\n"
+BIAS_VARIANTS = {
+    "as_is": [],
+    "late_bias": [[EARLY_BF16, ""], [EARLY_TF32, ""],
+                  [BATCH_BF16, EARLY_BF16.replace("  // lands during the softmax", "") + BATCH_BF16],
+                  [BATCH_TF32, EARLY_TF32.replace("  // lands during the softmax", "") + BATCH_TF32]],
+    "no_bias_loads": [[BIAS_LOAD, "      float x0 = 0.f, x1 = 0.f;  // ablation: no bias loads\n"]],
+    "order_0": [["  const flash_fwd::BiasArgs args = {bias, sbb, sbh, sbq, order};",
+                 "  const flash_fwd::BiasArgs args = {bias, sbb, sbh, sbq, 0};"]],
+}
+ARGS = sys.argv[1:]
+F32, BIAS = "--f32" in ARGS, "--bias" in ARGS
 if F32:
     VARIANTS = F32_VARIANTS
+if BIAS:
+    VARIANTS = BIAS_VARIANTS
 KERNEL = "fwd_tf32_kernel" if F32 else "fwd_wgmma_kernel"
 DTYPE = torch.float32 if F32 else torch.bfloat16
-ENTRIES = ("flash_attention_fwd", "flash_attention_fwd_lse")  # kernel 1, then kernel 2
+# kernel 1, then kernel 2; or kernel 5 with a per-head and a key-padding bias
+ENTRIES = ("flash_attention_fwd_bias",) if BIAS else ("flash_attention_fwd",
+                                                      "flash_attention_fwd_lse")
 
 
 def build(name: str, workdir: Path) -> dict:
@@ -275,14 +316,26 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("ablate_flash_fwd: no CUDA device is available", file=sys.stderr)
         return 2
+    if not set(ARGS) <= {"--f32", "--bias"}:
+        print("usage: ablate_flash_fwd.py [--f32] [--bias]", file=sys.stderr)
+        return 2
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip(), flush=True)
     b, n, h, d = SHAPE
     gen = torch.Generator(device="cuda").manual_seed(0)
     q, k, v = (torch.randn((b, n, h, d), generator=gen, device="cuda").to(DTYPE)
                for _ in range(3))
+    head = torch.randn((1, h, n, n), generator=gen, device="cuda")
+    keys = torch.zeros((b, 1, 1, n), device="cuda")
+    keys[..., n - 64:] = -1e9
     calls = {"flash_attention_fwd": lambda: fa.flash_attention_cuda(q, k, v),
-             "flash_attention_fwd_lse": lambda: fa.flash_attention_lse_cuda(q, k, v)}
+             "flash_attention_fwd_lse": lambda: fa.flash_attention_lse_cuda(q, k, v),
+             # kernel 5 through the launch helper: a variant's library reports no design
+             "flash_attention_fwd_bias": lambda: fa._forward_cuda(
+                 "flash_attention_fwd_bias", q, k, v, None, bias=head),
+             "flash_attention_fwd_bias keys": lambda: fa._forward_cuda(
+                 "flash_attention_fwd_bias", q, k, v, None, bias=keys)}
+    timed = ("flash_attention_fwd_bias", "flash_attention_fwd_bias keys") if BIAS else ENTRIES
     def try_build(name, tmp):
         try:
             return build(name, Path(tmp))
@@ -296,25 +349,28 @@ def main() -> int:
         not_built = [name for name in VARIANTS if name not in libs]
         if "as_is" in not_built:
             return 1
-        ref = fa.attention_plain(q, k, v).float()
+        first = timed[0]
+        ref = (fa.attention_plain_bias(q, k, v, head) if BIAS
+               else fa.attention_plain(q, k, v)).float()
         for name, fns in libs.items():  # variants that take work out are wrong by design
-            fa._fns["flash_attention_fwd"] = fns["flash_attention_fwd"]
-            err = (calls["flash_attention_fwd"]().float() - ref).abs().max().item()
-            print(f"{name}: kernel 1 max |err| against attention_plain {err:.3e}", flush=True)
+            fa._fns[ENTRIES[0]] = fns[ENTRIES[0]]
+            err = (calls[first]().float() - ref).abs().max().item()
+            print(f"{name}: {first} max |err| against its plain twin {err:.3e}", flush=True)
         del ref
-        times = {entry: {name: [] for name in libs} for entry in ENTRIES}
-        for entry in ENTRIES:
+        times = {key: {name: [] for name in libs} for key in timed}
+        for key in timed:
+            entry = key.split(" ")[0]
             for order in (list(libs), list(libs)[::-1]):
                 for name in order:
                     fa._fns[entry] = libs[name][entry]  # the wrapper launches the variant
-                    times[entry][name].append(queued_ms(calls[entry]))
+                    times[key][name].append(queued_ms(calls[key]))
         fa._fns.clear()
     ms = {entry: {name: sum(t) / len(t) for name, t in by.items()} for entry, by in times.items()}
     for entry, by in ms.items():
         for name, t in by.items():
             print(f"{entry} {name}: {t:.4f} ms ({t / by['as_is']:.3f} of as_is)", flush=True)
-    print(json.dumps({"shape": list(SHAPE), "dtype": str(DTYPE)[6:], "queued_ms": ms,
-                      "not_built": not_built}), flush=True)
+    print(json.dumps({"shape": list(SHAPE), "dtype": str(DTYPE)[6:], "bias": BIAS,
+                      "queued_ms": ms, "not_built": not_built}), flush=True)
     return 1 if not_built else 0
 
 

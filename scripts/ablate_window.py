@@ -1,7 +1,9 @@
-"""What kernels 8-9's wgmma designs spend their time on, on one CUDA card.
+"""What kernels 8-9's wgmma designs, and kernel 12's, spend their time on, on
+one CUDA card.
 
     python3 scripts/ablate_window.py          # the bf16 design
     python3 scripts/ablate_window.py --f32    # the f32 design, wgmma.tf32x3
+    python3 scripts/ablate_window.py --h2     # kernel 12's design (heads a block)
 
 Builds ``laryngeal_tpu_torch/csrc/window_attention_wgmma.cu`` as it is and
 with one part of its work taken out or one of its choices changed at a time
@@ -57,6 +59,19 @@ With ``--f32`` the same is done for the f32 design (``wgmma.tf32x3``, the
 - ``dq_only`` / ``dkv_only``: kernel 9's dQ launch or its dK/dV launch
   alone, after the pre-pass.
 
+With ``--h2`` kernel 12's wgmma design (``window_fwd_heads_kernel``: 2-3
+heads of a window a block, each head's K/V chunks and 64-key bias tiles
+streamed by TMA) is timed at the same stages, bf16, with ``heads_per_block``
+heads a block, beside kernel 8 (``kernel8``, the same library). Variants:
+
+- ``as_is``: the design;
+- ``loads_only``: the consumers wait for each unit's Q, K, bias and V and
+  release them (the TMA traffic through the ring and the barriers alone);
+- ``no_bias_stream``: the producer loads no bias tiles (the consumers read
+  whatever the slots hold: the bias stream's share);
+- ``one_head``: the design with one head a block (``as_is`` launched with
+  HB = 1: the region ids loaded once a head instead of once a window).
+
 Prints the card's name and power limit, each variant's ptxas spills, one
 line per variant and shape, and the times as one JSON object last; exits
 non-zero if a variant does not build or launch. Needs nvcc and a card.
@@ -97,6 +112,14 @@ extern "C" int ablate_bwd(const void* q, const void* k, const void* v, const voi
                           void* s) {
   return (int)winwg::bwd(q, k, v, g, bias, rid, dq, dk, dv, dbias, stats, partial, BW, H, N, D,
                          nW, per_group, groups, st, scale, static_cast<cudaStream_t>(s));
+}
+'''
+H2_ENTRY = '''
+extern "C" int ablate_heads(const void* q, const void* k, const void* v, void* o,
+                            const float* bias, const int* rid, int BW, int H, int HB, int N, int D,
+                            int nW, const long long* st, float scale, void* s) {
+  return (int)winwg::fwd_heads(q, k, v, o, bias, rid, BW, H, HB, N, D, nW, st, scale,
+                               static_cast<cudaStream_t>(s));
 }
 '''
 F32_ENTRIES = '''
@@ -246,8 +269,51 @@ F32_VARIANTS = {
 F32_RIGHT = ("as_is", "kernels_only", "pipelined_s")
 
 
-def build(name: str, workdir: Path, f32: bool = False):
+# Kernel 12's anchors: its consumers' work per unit, its producer's bias tiles.
+H2_WORK = ("      float sc[NC][32];\n      scores<NC, kHbSlot>(sc, q_s + qs * kTile, mine);\n",
+           "        wgtile::wg_store<32>(acc, o + w * ob + h * oh, on, q0, N, N, D, 1.f, warp, g, "
+           "t4);\n")
+H2_LOADS_ONLY = ("      arrive(&q_empty[qs]);  // ablation: loads only\n"
+                 "#pragma unroll\n"
+                 "      for (int c = 0; c < NC; ++c) arrive(&kb_empty[wg * NC + c]);\n"
+                 "      if (rid != nullptr && hh == HB - 1) arrive(&ids_empty[n & 1]);\n"
+                 "#pragma unroll\n"
+                 "      for (int c = 0; c < NC; ++c) hopper::mbar_wait(&v_full[wg * NC + c], u & 1);\n"
+                 "#pragma unroll\n"
+                 "      for (int c = 0; c < NC; ++c) arrive(&v_empty[wg * NC + c]);\n"
+                 "      (void)h;\n")
+H2_BIAS = [
+    ("            hopper::mbar_arrive_expect_tx(&kb_full[i], kTile + 2 * kHbPanel);",
+     "            hopper::mbar_arrive_expect_tx(&kb_full[i], kTile);  // ablation: no bias"),
+    ("            hopper::tma_load_3d(sl + kHbBias, &tb, &kb_full[i], key, q0, h);\n"
+     "            hopper::tma_load_3d(sl + kHbBias + kHbPanel, &tb, &kb_full[i], key + 32, q0, h);\n",
+     ""),
+    ("            hopper::mbar_arrive_expect_tx(&kb_full[i], kHbNarrowRows * 64 + 64 * 32);",
+     "            hopper::mbar_arrive_expect_tx(&kb_full[i], kHbNarrowRows * 64);"),
+    ("            hopper::tma_load_3d(sl + kHbBias, &tb8, &kb_full[i], key, q0, h);\n", "")]
+
+
+def _h2_loads_only(text: str) -> str:
+    i = text.index(H2_WORK[0])
+    j = text.index(H2_WORK[1], i) + len(H2_WORK[1])
+    return text[:i] + H2_LOADS_ONLY + text[j:]
+
+
+def _h2_no_bias(text: str) -> str:
+    for old, new in H2_BIAS:
+        if text.count(old) != 1:
+            raise RuntimeError(f"no_bias_stream: anchor {old[:60]!r} not found once")
+        text = text.replace(old, new)
+    return text
+
+
+H2_VARIANTS = {"as_is": lambda t: t, "loads_only": _h2_loads_only, "no_bias_stream": _h2_no_bias}
+
+
+def build(name: str, workdir: Path, f32: bool = False, h2: bool = False):
     variants, entries = (F32_VARIANTS, F32_ENTRIES) if f32 else (VARIANTS, ENTRIES)
+    if h2:
+        variants, entries = H2_VARIANTS, ENTRIES + H2_ENTRY
     text = variants[name]((_build.CSRC_DIR / SOURCE).read_text())
     if name != "as_is" and text == (_build.CSRC_DIR / SOURCE).read_text():
         raise RuntimeError(f"variant {name}: no edit applied (the source has moved on)")
@@ -266,6 +332,13 @@ def build(name: str, workdir: Path, f32: bool = False):
     bwd.argtypes = [ptr] * (13 if f32 else 12) + [i32] * 7 + [st, ctypes.c_float, ptr]
     spills = [line.strip() for line in (proc.stdout + proc.stderr).splitlines()
               if "spill" in line and " 0 bytes spill stores" not in line]
+    if h2:
+        heads = dll.ablate_heads
+        heads.restype = ctypes.c_int
+        heads.argtypes = [ptr] * 6 + [i32] * 6 + [st, ctypes.c_float, ptr]
+        spills += [line.strip()[:160] for line in (proc.stdout + proc.stderr).splitlines()
+                   if "(C75" in line and "window_fwd_heads_kernel" in line]
+        return (fwd, heads), spills
     return (fwd, bwd), spills
 
 
@@ -303,9 +376,11 @@ def main() -> int:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip(), flush=True)
     f32 = sys.argv[1:] == ["--f32"]
-    if sys.argv[1:] not in ([], ["--f32"]):
-        print("usage: ablate_window.py [--f32]", file=sys.stderr)
+    if sys.argv[1:] not in ([], ["--f32"], ["--h2"]):
+        print("usage: ablate_window.py [--f32 | --h2]", file=sys.stderr)
         return 2
+    if sys.argv[1:] == ["--h2"]:
+        return main_h2()
     variants, right = (F32_VARIANTS, F32_RIGHT) if f32 else (VARIANTS, RIGHT)
     dtype = torch.float32 if f32 else torch.bfloat16
     design = "wgmma.tf32x3" if f32 else "wgmma"
@@ -377,6 +452,61 @@ def main() -> int:
             results[f"stage{stage}"] = {"shape": list(shape), "dtype": str(dtype)[6:],
                                         "queued_ms": ms}
             del q, k, v, g, bias, rid, o, dq, dk, dv, dbias, stats, partial, want, splits
+            torch.cuda.empty_cache()
+    print(json.dumps(results), flush=True)
+    return 0
+
+
+def main_h2() -> int:
+    """``--h2``: kernel 12's design and its variants at stages 1 and 4,
+    beside kernel 8, in turns; ``as_is`` and ``one_head`` checked bitwise
+    equal (the same arithmetic a unit, grouped differently)."""
+    stream = torch.cuda.current_stream().cuda_stream
+    results = {}
+    with tempfile.TemporaryDirectory() as tmp, ThreadPoolExecutor(len(H2_VARIANTS)) as pool:
+        built = dict(zip(H2_VARIANTS, pool.map(lambda name: build(name, Path(tmp), h2=True),
+                                               H2_VARIANTS)))
+        for name, (_, lines) in built.items():
+            for line in lines:
+                print(f"{name}: ptxas {line}", flush=True)
+        for stage, (shape, grid) in STAGES.items():
+            bw, n, h, d = shape
+            q, k, v, _, bias, rid = stage_inputs(shape, grid)
+            o = torch.empty((bw, n, h, d), dtype=torch.bfloat16, device="cuda")
+            st = (ctypes.c_longlong * 12)(*(s for x in (q, k, v, o) for s in x.stride()[:3]))
+            hb, scale, nw = wa.heads_per_block(h), 1.0 / math.sqrt(d), rid.shape[0]
+            args = lambda: (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                            bias.data_ptr(), rid.data_ptr())
+
+            def heads(name, blocking):
+                err = built[name][0][1](*args(), bw, h, blocking, n, d, nw, st, scale, stream)
+                if err != 0:
+                    raise RuntimeError(f"{name}: kernel 12 launch failed: cudaError {err}")
+
+            def kernel8():
+                err = built["as_is"][0][0](*args(), bw, h, n, d, nw, st, scale, stream)
+                if err != 0:
+                    raise RuntimeError(f"kernel 8 launch failed: cudaError {err}")
+
+            heads("as_is", hb)
+            want = o.clone()
+            heads("as_is", 1)
+            torch.cuda.synchronize()
+            print(f"stage {stage}: one_head bitwise as_is {torch.equal(o, want)}", flush=True)
+            fns = {f"kernel 12 {name}": (lambda name=name: heads(name, hb)) for name in H2_VARIANTS}
+            fns["kernel 12 one_head"] = lambda: heads("as_is", 1)
+            fns["kernel8"] = kernel8
+            times = {key: [] for key in fns}
+            for order in (list(fns), list(fns)[::-1]):
+                for key in order:
+                    times[key].append(queued_ms(fns[key]))
+            ms = {key: sum(t) / len(t) for key, t in times.items()}
+            for key, t in ms.items():
+                print(f"stage {stage} {shape} hb {hb} {key}: {t:.4f} ms "
+                      f"({t / ms['kernel 12 as_is']:.3f} of as_is)", flush=True)
+            results[f"stage{stage}"] = {"shape": list(shape), "heads_per_block": hb,
+                                        "queued_ms": ms}
+            del q, k, v, bias, rid, o, want
             torch.cuda.empty_cache()
     print(json.dumps(results), flush=True)
     return 0

@@ -192,17 +192,24 @@ def _split_bf16(x):
     return hi, (x.float() - hi).to(torch.bfloat16).float()
 
 
-def _emulate_kernel_f32(q, k, v, kv_valid=None, split="tf32x3"):
+def _emulate_kernel_f32(q, k, v, kv_valid=None, split="tf32x3", bias=None):
     """The f32 wgmma design's arithmetic on the CPU: per 64-key tile, S = Q K^T
     and O += P V on split operands, each product as the three terms
     small.big + big.small + big.big: two TF32 parts (``"tf32x3"``, the
     kernel's split) or two bf16 parts (``"bf16x3"``, a split no kernel
     runs); or one TF32 product of the operands rounded to nearest
     (``"tf32"``). The online softmax in f32, base 2, keys >= ``kv_valid``
-    dropped, the row sum floored at 1e-30."""
+    dropped, the row sum floored at 1e-30. With a ``bias`` (kernel 5,
+    broadcastable to (B, H, Nq, Nk)) each tile's S starts from the f32 bias
+    divided by the scale, unsplit, as the kernel loads it into the S
+    accumulators, and the products add to it."""
     b, nq, h, d = q.shape
     n_act = k.shape[1] if kv_valid is None else min(kv_valid, k.shape[1])
     sl2 = 1.4426950408889634 / d ** 0.5
+    if bias is not None:  # bias / scale in f32, the kernel's x * (1 / scale)
+        inv_scale = 1.0 / torch.tensor(1.0 / d ** 0.5, dtype=torch.float32)
+        bias = torch.broadcast_to(bias.float()[(None,) * (4 - bias.ndim)],
+                                  (b, h, nq, k.shape[1])) * inv_scale
     parts = {"tf32x3": _split_tf32, "bf16x3": _split_bf16,
              "tf32": lambda x: (_tf32(x), x)}[split]  # "tf32": small unused
     (qb, qs), (kb, ks), (vb, vs) = (parts(x) for x in (q, k, v))
@@ -219,6 +226,8 @@ def _emulate_kernel_f32(q, k, v, kv_valid=None, split="tf32x3"):
     for k0 in range(0, n_act, 64):
         t = slice(k0, min(k0 + 64, n_act))
         s = prod("bqhd,bkhd->bhqk", qb, kb[:, t], qs, ks[:, t])
+        if bias is not None:
+            s = bias[..., t] + s
         m_new = torch.maximum(m, s.amax(-1, keepdim=True) * sl2)
         alpha = torch.exp2(m - m_new)
         p = torch.exp2(s * sl2 - m_new)
@@ -261,6 +270,75 @@ def test_f32_split_bf16x3_emulation_holds_1e4_above_tf32x3(b, n, h, kv_valid):
     tf32x3 = np.abs(_emulate_kernel_f32(*_torch(q, k, v), kv_valid).numpy() - ref).max()
     assert bf16x3 <= 1e-4
     assert bf16x3 > tf32x3
+
+
+def _emulation_bias(kind, b, h, nq, nk, seed):
+    """A kernel-5 bias: per-head (1, H, Nq, Nk), key-padding (B, 1, 1, Nk)
+    with its last keys at -1e9 (keys >= 192: the tiles of 64 keys from 192
+    on wholly padded), or full-shape (B, H, Nq, Nk)."""
+    rng = np.random.default_rng(seed)
+    if kind == "keys":
+        bias = np.zeros((b, 1, 1, nk), np.float32)
+        bias[..., 192:] = -1e9
+        return bias
+    shape = (1, h, nq, nk) if kind == "head" else (b, h, nq, nk)
+    return 2.0 * rng.standard_normal(shape, dtype=np.float32)
+
+
+@pytest.mark.parametrize("kv_valid", [None, 250], ids=str)
+@pytest.mark.parametrize("kind", ["head", "keys", "full"])
+def test_f32_split_tf32_emulation_with_a_bias_holds_1e4(kind, kv_valid):
+    """Kernel 5's f32 design (kernels 1-2's wgmma.tf32x3 with the bias as the
+    S accumulators' initial value) emulated on the CPU at D = 64 stays within
+    the 1e-4 f32 limit of the JAX package's ``_attention_kernel_bias``
+    (interpret mode) with a per-head, a key-padding (two wholly padded key
+    tiles) and a full-shape bias, with and without kv_valid; one-term TF32
+    on the same inputs does not."""
+    b, n, h = 2, 300, 2
+    q, k, v = _qkv(b=b, nq=n, h=h, d=64, seed=22)
+    bias = _emulation_bias(kind, b, h, n, n, seed=23)
+    ref = np.asarray(jax_flash_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                         jnp.asarray(bias), 128, 128, kv_valid))
+    tb = torch.from_numpy(bias)
+    split = _emulate_kernel_f32(*_torch(q, k, v), kv_valid, bias=tb).numpy()
+    one_term = _emulate_kernel_f32(*_torch(q, k, v), kv_valid, split="tf32", bias=tb).numpy()
+    assert np.isfinite(split).all()
+    assert np.abs(split - ref).max() <= 1e-4
+    assert np.abs(one_term - ref).max() > 1e-4
+
+
+# (dtype, D, the 12 q, k, v, o strides or None) -> the design kernels 1, 2 and 5
+# run: wgmma (bf16) and wgmma.tf32x3 (f32 at D <= 64) with every q, k, v stride
+# positive; mma.sync (bf16) and FMA (f32) otherwise.
+FORWARD_DESIGN_CASES = [
+    ((torch.bfloat16, 64, None), "wgmma"),
+    ((torch.bfloat16, 128, None), "wgmma"),
+    ((torch.bfloat16, 20, None), "wgmma"),             # padded to 24
+    ((torch.float32, 64, None), "wgmma.tf32x3"),
+    ((torch.float32, 32, None), "wgmma.tf32x3"),
+    ((torch.float32, 40, None), "wgmma.tf32x3"),       # padded to 40
+    ((torch.float32, 72, None), "fma"),
+    ((torch.float32, 128, None), "fma"),
+    ((torch.bfloat16, 64, (0, 8, 64, 1, 8, 64, 1, 8, 64, 1, 8, 64)), "mma.sync"),
+    ((torch.float32, 64, (1, 8, 64, 0, 8, 64, 1, 8, 64, 1, 8, 64)), "fma"),
+    ((torch.float32, 64, (1, 8, 64, 1, 8, 64, 1, 8, 0, 1, 8, 64)), "fma"),
+    ((torch.bfloat16, 64, (1, 8, 64, 1, 8, 64, 1, 8, 64, 0, 8, 64)), "wgmma"),  # o is written
+]
+
+
+@pytest.mark.parametrize("case,want", FORWARD_DESIGN_CASES, ids=str)
+def test_forward_design_mirrors_the_c_choice(case, want):
+    """``forward_design``, the Python mirror of the C choice of kernels 1, 2
+    and 5 (held against it on the card), by dtype, D and strides; the bias's
+    strides do not enter."""
+    assert fa.forward_design(*case) == want
+
+
+def test_forward_design_refuses_what_no_kernel_takes():
+    with pytest.raises(ValueError):
+        fa.forward_design(torch.float16, 64)
+    with pytest.raises(ValueError):
+        fa.forward_design(torch.float32, 136)
 
 
 @pytest.mark.parametrize("n,h,d", [(1200, 2, 64), (300, 3, 32), (64, 3, 32), (5, 1, 8)])

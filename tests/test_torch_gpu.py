@@ -2166,3 +2166,218 @@ def test_window_tf32_gradients_through_autograd_match_plain(cuda):
     for name, got, ref_g, lim in zip(("dq", "dk", "dv", "dbias"),
                                      (*qkv.grad.unbind(2), bias.grad), refs, limits):
         assert ((got - ref_g).abs() / lim).max().item() <= 1.0, name
+
+
+# -- kernel 5's designs: bf16 on wgmma, f32 at D <= 64 on wgmma.tf32x3 ------
+# (B, Nq, Nk, H, D, kv_valid, bias layout): N < 64, Nq != Nk, kv_valid, a
+# key-padding bias with wholly padded key tiles, a full bf16 bias, a 1-D bias,
+# D padded (40 -> 40, 20 -> 24), D = 128 (bf16 wgmma, f32 FMA).
+BIAS_DESIGN_CASES = [
+    (2, 40, 40, 3, 64, None, "1hqk"),
+    (2, 300, 170, 2, 64, None, "keys"),
+    (1, 333, 520, 2, 32, 400, "bhqk16"),
+    (2, 257, 257, 3, 40, 200, "k"),
+    (1, 600, 600, 2, 128, None, "1hqk"),
+    (2, 130, 700, 2, 20, 650, "hqk"),
+    (1, 1, 3, 1, 8, None, "keys"),
+]
+
+
+def _design_bias(layout, b, h, nq, nk, device, seed=9):
+    """A kernel-5 bias in one of the broadcast forms (``keys``: (B, 1, 1, Nk)
+    zeros with its keys from 64 on at -1e9, ``k``: a 1-D (Nk,) bias,
+    ``bhqk16``: a full (B, H, Nq, Nk) bias in bf16)."""
+    if layout == "keys":
+        bias = torch.zeros((b, 1, 1, nk), device=device)
+        bias[..., min(64, nk - 1):] = -1e9
+        return bias
+    if layout == "k":
+        return 2.0 * torch.from_numpy(
+            np.random.default_rng(seed).standard_normal(nk, dtype=np.float32)).to(device)
+    if layout == "bhqk16":
+        return _bias("bhqk", b, h, nq, nk, torch.bfloat16, device, seed)
+    return _bias(layout, b, h, nq, nk, torch.float32, device, seed)
+
+
+def _bias_use(q, k, v, bias, kv_valid, out):
+    ref = fa.attention_plain_bias(q, k, v, bias, kv_valid)
+    limit = fa.error_limit(q, k, v, kv_valid, ref, bias=bias.to(q.dtype))
+    return ((out.float() - ref.float()).abs() / limit).max().item()
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=str)
+@pytest.mark.parametrize("case", BIAS_DESIGN_CASES, ids=str)
+def test_bias_designs_both_match_plain_and_repeat(cuda, case, dtype):
+    """Kernel 5's entry runs the design ``forward_design`` names (wgmma in
+    bf16, wgmma.tf32x3 in f32 at D <= 64, FMA at D = 128), bitwise the same
+    on a second call, within its limit of ``attention_plain_bias``; the
+    ``_mma`` entry runs mma.sync / FMA and holds the same limit."""
+    b, nq, nk, h, d, kv_valid, layout = case
+    q, k, v = _qkv((b, nq, h, d), (b, nk, h, d), dtype, cuda, seed=10)
+    bias = _design_bias(layout, b, h, nq, nk, cuda)
+    out = fa.flash_attention_bias_cuda(q, k, v, bias, kv_valid)
+    again = fa.flash_attention_bias_cuda(q, k, v, bias, kv_valid)
+    torch.cuda.synchronize()
+    design = fa.forward_design(dtype, d)
+    assert fa.last_bias_design() == design
+    assert torch.equal(out, again)
+    assert out.dtype == dtype and out.shape == (b, nq, h, d)
+    use = _bias_use(q, k, v, bias, kv_valid, out)
+    assert use <= 1.0, use
+    old = fa.flash_attention_bias_mma_cuda(q, k, v, bias, kv_valid)
+    torch.cuda.synchronize()
+    assert fa.last_bias_design() == {"wgmma": "mma.sync", "wgmma.tf32x3": "fma"}.get(design,
+                                                                                     design)
+    use_old = _bias_use(q, k, v, bias, kv_valid, old)
+    assert use_old <= 1.0, use_old
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=str)
+@pytest.mark.parametrize("which", ["q", "k", "v"])
+def test_bias_kernel_with_a_stride_of_0_runs_the_mma_design(cuda, which, dtype):
+    """A broadcast (stride 0) head axis in q, k or v, which TMA cannot
+    describe, takes the mma.sync / FMA template, within its limit."""
+    q, k, v = _qkv((2, 300, 3, 64), (2, 300, 3, 64), dtype, cuda, seed=11)
+    x = {"q": q, "k": k, "v": v}
+    x[which] = x[which][:, :, :1].expand(2, 300, 3, 64)
+    bias = _design_bias("1hqk", 2, 3, 300, 300, cuda)
+    out = fa.flash_attention_bias_cuda(x["q"], x["k"], x["v"], bias)
+    torch.cuda.synchronize()
+    assert fa.last_bias_design() == ("fma" if dtype == torch.float32 else "mma.sync")
+    use = _bias_use(x["q"], x["k"], x["v"], bias, None, out)
+    assert use <= 1.0, use
+
+
+def test_forward_design_mirror_matches_the_c_choice(cuda):
+    """``forward_design``, the Python mirror of kernels 1, 2 and 5's design
+    choice, names the design the C side picks (``flash_attention_fwd_design``)
+    at every D, in both dtypes, with every stride positive and with a stride
+    of 0 in each of q, k, v and o; the ``_mma`` entries' choice is mma.sync
+    (bf16) or FMA (f32)."""
+    for d in range(8, 129, 8):
+        for dtype in (torch.float32, torch.bfloat16):
+            for zero in (None, 0, 4, 8, 10):
+                strides = [96] * 12
+                if zero is not None:
+                    strides[zero] = 0
+                want = fa.forward_design(dtype, d, strides)
+                assert fa.c_forward_design(dtype, d, strides) == want, (d, dtype, zero)
+                assert fa.c_forward_design(dtype, d, strides, mma_only=True) == (
+                    "fma" if dtype == torch.float32 else "mma.sync")
+
+
+def test_bias_kernel_counts_one_launch_a_call_by_design(cuda):
+    """Each kernel-5 call counts one launch under the design the C side ran
+    (``bias_design_launches``); the ``_mma`` entry counts none."""
+    q, k, v = _qkv((2, 520, 2, 64), (2, 520, 2, 64), torch.bfloat16, cuda, seed=12)
+    bias = _design_bias("1hqk", 2, 2, 520, 520, cuda)
+    before, designs = fa.bias_launches, dict(fa.bias_design_launches)
+    fa.flash_attention_bias_cuda(q, k, v, bias)
+    fa.flash_attention_bias_cuda(*(x.float() for x in (q, k, v)), bias)
+    fa.flash_attention_bias_mma_cuda(q, k, v, bias)
+    torch.cuda.synchronize()
+    assert fa.bias_launches == before + 2
+    assert {d: fa.bias_design_launches[d] - designs[d] for d in fa.DESIGNS} == {
+        "fma": 0, "mma.sync": 0, "wgmma": 1, "wgmma.tf32x3": 1}
+
+
+def test_bias_launch_error_raises_and_runs_no_other_design(cuda, monkeypatch):
+    """A launch the C side refuses raises RuntimeError: no launch is counted
+    and no other design runs in its place."""
+    q, k, v = _qkv((1, 520, 2, 64), (1, 520, 2, 64), torch.float32, cuda, seed=13)
+    bias = _design_bias("1hqk", 1, 2, 520, 520, cuda)
+    before = dict(fa.bias_design_launches)
+    monkeypatch.setitem(fa._fns, "flash_attention_fwd_bias", lambda *a: 1)
+    with pytest.raises(RuntimeError):
+        fa.flash_attention_bias_cuda(q, k, v, bias)
+    assert fa.bias_design_launches == before
+
+
+# -- kernel 12's design: wgmma + TMA, hb heads of a window a block ----------
+# (B·nW, N, H, D, nW): the Swin3D-T stage shapes' N = 392 with hb = 3 and 2,
+# N = 100 with hb = 2 and 3, the smallest window, D below 32 (padded).
+H2_SHAPES = [(4, 392, 3, 32, 2), (2, 392, 6, 32, None), (2, 392, 24, 32, 1),
+             (4, 100, 2, 32, 2), (3, 100, 3, 32, None), (6, 8, 3, 16, 3), (2, 200, 6, 24, 2)]
+
+
+@pytest.mark.parametrize("shape", H2_SHAPES, ids=str)
+def test_window_h2_designs_both_match_plain_and_repeat(cuda, shape):
+    """Kernel 12 runs its wgmma design (bitwise the same on a second call)
+    within the variant's limit of its plain twin; the held mma.sync design
+    (``window_attention_variant_mma_cuda``) holds it too."""
+    q, k, v, bias, rid, _ = _window_inputs(shape, torch.bfloat16, cuda, seed=14)
+    out = wa.window_attention_variant_cuda(q, k, v, bias, rid, "h2")
+    again = wa.window_attention_variant_cuda(q, k, v, bias, rid, "h2")
+    torch.cuda.synchronize()
+    assert wa.last_designs()[0] == "wgmma"
+    assert torch.equal(out, again)
+    ref = wa.window_attention_plain(q, k, v, bias, rid, "h2")
+    limit = wa.error_limit(q, k, v, bias, rid, ref, "h2")
+    use = ((out.float() - ref.float()).abs() / limit).max().item()
+    assert use <= 1.0, use
+    old = wa.window_attention_variant_mma_cuda(q, k, v, bias, rid, "h2")
+    torch.cuda.synchronize()
+    assert wa.last_designs()[0] == "mma.sync"
+    use_old = ((old.float() - ref.float()).abs() / limit).max().item()
+    assert use_old <= 1.0, use_old
+
+
+def test_window_h2_reads_fused_views(cuda):
+    """q, k, v as views of one fused (B·nW, N, 3, H, D) qkv, as Swin3D gives
+    them: the wgmma design reads them through their strides."""
+    bw, n, h, d = 4, 392, 6, 32
+    rng = np.random.default_rng(15)
+    qkv = torch.from_numpy(rng.standard_normal((bw, n, 3, h, d), dtype=np.float32)).to(
+        cuda, torch.bfloat16)
+    q, k, v = qkv.unbind(2)
+    bias = torch.from_numpy(rng.standard_normal((h, n, n), dtype=np.float32)).to(cuda)
+    rid = torch.from_numpy(rng.integers(0, 4, (2, n)).astype(np.int32)).to(cuda)
+    out = wa.window_attention_variant_cuda(q, k, v, bias, rid, "h2")
+    torch.cuda.synchronize()
+    assert wa.last_designs()[0] == "wgmma"
+    ref = wa.window_attention_variant_cuda(*(x.contiguous() for x in (q, k, v)), bias, rid, "h2")
+    assert torch.equal(out, ref)
+
+
+def test_window_h2_design_mirror_matches_the_c_choice(cuda):
+    """``design_takes(..., kind="h2")`` names kernel 12's design as the C
+    entry chooses it (``window_attention_design``, which = 2) at the wgmma
+    design's edges and past them, with every stride positive and with a
+    stride of 0; the ``_mma`` entry's choice is mma.sync."""
+    for n in (1, 4, 8, 30, 100, 144, 145, 148, 272, 276, 392, 398, 400, 401, 404, 448):
+        for d in (8, 16, 24, 32, 40, 64):
+            for strides in ([96] * 12, [96] * 11 + [0], [96] * 4 + [0] + [96] * 7):
+                want = wa.design_takes(n, d, torch.bfloat16, strides, kind="h2")
+                assert wa.c_design(2, torch.bfloat16, n, d, strides) == want, (n, d, strides)
+                assert wa.c_design(2, torch.bfloat16, n, d, strides, mma_only=True) == "mma.sync"
+
+
+def test_window_h2_counts_one_launch_a_call_by_design(cuda):
+    """Each kernel-12 call counts one launch under the design that ran
+    (``variant_design_launches``); the held-design entry counts none."""
+    q, k, v, bias, rid, _ = _window_inputs((4, 392, 3, 32, 2), torch.bfloat16, cuda, seed=16)
+    before = dict(wa.variant_launches)
+    designs = dict(wa.variant_design_launches["h2"])
+    wa.window_attention_variant_cuda(q, k, v, bias, rid, "h2")
+    wa.window_attention_variant_cuda(q[:, :30], k[:, :30], v[:, :30], bias[:, :30, :30],
+                                     rid[:, :30], "h2")
+    wa.window_attention_variant_mma_cuda(q, k, v, bias, rid, "h2")
+    torch.cuda.synchronize()
+    assert wa.variant_launches["h2"] == before["h2"] + 2
+    assert {d: wa.variant_design_launches["h2"][d] - designs[d] for d in wa.DESIGNS} == {
+        "fma": 0, "mma.sync": 1, "wide": 0, "wgmma": 1, "wgmma.tf32x3": 0}
+
+
+def test_window_h2_failure_raises_and_runs_no_other_design(cuda, monkeypatch):
+    """A refused dtype raises ValueError before any launch, and a launch the
+    C side refuses raises RuntimeError: no launch is counted and no other
+    design runs in its place."""
+    q, k, v, bias, rid, _ = _window_inputs((4, 392, 3, 32, 2), torch.float32, cuda, seed=17)
+    with pytest.raises(ValueError):
+        wa.window_attention_variant_cuda(q, k, v, bias, rid, "h2")
+    q, k, v = (x.to(torch.bfloat16) for x in (q, k, v))
+    before = dict(wa.variant_launches)
+    monkeypatch.setitem(wa._fns, "window_attention_fwd", lambda *a: 1)
+    with pytest.raises(RuntimeError):
+        wa.window_attention_variant_cuda(q, k, v, bias, rid, "h2")
+    assert wa.variant_launches == before

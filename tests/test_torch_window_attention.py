@@ -305,6 +305,115 @@ def test_bf16sm_variant_in_bf16_matches_the_script_kernel():
     assert not torch.equal(out, wa.window_attention_plain(tq, tk, tv, tb, tr))
 
 
+def _emulate_h2_schedule(q, k, v, bias, rid):
+    """Kernel 12's wgmma design on the CPU, in its schedule: per window the
+    region ids once (a window whose ids name one region skips the mask), per
+    block of ``heads_per_block`` heads each head in turn, per 64-query tile
+    the two warpgroups' key ranges of KW (72, 136 or 200: 64-key chunks and
+    an 8-wide last one), each chunk's S = Q K^T in f32 plus its bias tile as
+    TMA streams it (rows and keys past N zero-filled), the -100 region mask,
+    keys past N masked; the exact softmax over both warpgroups (the row max
+    and sum exchanged, exp2 of S·log2(e) - max·log2(e)), P normalised and
+    rounded to v's dtype, and warpgroup 1's partial P V added to warpgroup
+    0's. Returns the output in q's dtype."""
+    bw, n, h, d = q.shape
+    hb = wa.heads_per_block(h)
+    kw = 72 if n <= 144 else 136 if n <= 272 else 200
+    nc = kw // 64 + 1
+    log2e = 1.4426950408889634
+    scale = torch.tensor(1.0 / d ** 0.5, dtype=torch.float32)
+    span = 2 * kw + 64  # the keys the last chunk's box reaches
+    n_rows = -(-n // 64) * 64
+    bias_t = torch.zeros((h, n_rows, span))
+    bias_t[:, :n, :n] = bias.float()
+    kp, vp = (torch.zeros((bw, span, h, d)) for _ in range(2))
+    kp[:, :n], vp[:, :n] = k.float(), v.float()
+    ids = None if rid is None else rid.long()[torch.arange(bw) % rid.shape[0]]
+    mixed = None if ids is None else (ids != ids[:, :1]).any(-1)
+    out = torch.empty(q.shape, dtype=torch.float32)
+    for hg in range(h // hb):
+        for head in range(hg * hb, hg * hb + hb):
+            for q0 in range(0, n, 64):
+                rows = torch.arange(q0, min(q0 + 64, n))
+                qt = q[:, rows, head].float()
+                parts = []
+                for wg in (0, 1):
+                    chunks = []
+                    for c in range(nc):
+                        key0 = wg * kw + 64 * c
+                        keys = torch.arange(key0, key0 + (64 if c < nc - 1 else 8))
+                        s = torch.einsum("bqd,bkd->bqk", qt, kp[:, keys, head]) * scale
+                        s = s + bias_t[head, rows][:, keys]
+                        if ids is not None:
+                            kid = ids[:, keys.clamp(max=n - 1)]
+                            differ = (ids[:, rows, None] != kid[:, None, :]) & mixed[:, None, None]
+                            s = torch.where(differ, s + wa.MASK_VALUE, s)
+                        s[..., keys >= n] = -1e30
+                        chunks.append((s, keys))
+                    parts.append(chunks)
+                m2 = torch.maximum(*(torch.cat([s for s, _ in ch], -1).amax(-1, keepdim=True)
+                                     for ch in parts)) * log2e
+                ps = [[(torch.exp2(s * log2e - m2), keys) for s, keys in ch] for ch in parts]
+                l = sum(p.sum(-1, keepdim=True) for ch in ps for p, _ in ch)
+                o = sum(torch.einsum("bqk,bkd->bqd", (p / l).to(v.dtype).float(),
+                                     vp[:, keys, head]) for ch in ps for p, keys in ch)
+                out[:, rows, head] = o
+    return out.to(q.dtype)
+
+
+@pytest.mark.parametrize("shape,masked", [((2, 392, 3, 32, 2), True), ((2, 392, 6, 16, 1), False),
+                                          ((3, 100, 2, 32, 3), True)], ids=str)
+def test_h2_wgmma_schedule_emulation_matches_the_script_kernel(shape, masked):
+    """Kernel 12's new design, emulated in its schedule on the CPU (bias tiles
+    of 64 keys as TMA streams them, the two warpgroups' 200-key ranges with
+    N = 392's tail in the second, hb heads sharing a window's region ids), is
+    held against the script's ``_fwd_kernel_h2`` in interpret mode at the
+    JAX test's f32 tolerance, masked and unmasked, and in bf16 under the
+    variant's ``error_limit``."""
+    q, k, v, bias, rid, _ = _inputs(shape, masked, seed=8)
+    rid_j = None if rid is None else jnp.asarray(rid)
+    ref = np.asarray(_jax_variant(*(_jax(x) for x in (q, k, v, bias)), rid_j, "h2"))
+    tq, tk, tv, tb, tr = (*(_torch(x) for x in (q, k, v, bias)), _rid_t(rid))
+    emu = _emulate_h2_schedule(tq, tk, tv, tb, tr)
+    np.testing.assert_allclose(emu.numpy(), ref, atol=ATOL, rtol=RTOL)
+    bq, bk, bv = (_torch(x, torch.bfloat16) for x in (q, k, v))
+    ref16 = np.asarray(_jax_variant(*(_jax(x, jnp.bfloat16) for x in (q, k, v)),
+                                    jnp.asarray(bias), rid_j, "h2"), np.float32)
+    emu16 = _emulate_h2_schedule(bq, bk, bv, tb, tr)
+    limit = wa.error_limit(bq, bk, bv, tb, tr, emu16, "h2").numpy()
+    assert (np.abs(emu16.float().numpy() - ref16) / limit).max() <= 1.0
+
+
+# (N, D, strides) -> kernel 12's design (bf16): wgmma at N <= 400 with N % 4 == 0
+# and D <= 32 (padded) with every stride positive, mma.sync elsewhere.
+H2_DESIGN_CASES = [
+    ((392, 32, None), "wgmma"),            # every Swin3D-T stage
+    ((100, 32, None), "wgmma"),
+    ((8, 16, None), "wgmma"),
+    ((400, 24, None), "wgmma"),
+    ((392, 20, None), "wgmma"),            # D padded to 24
+    ((30, 16, None), "mma.sync"),          # a bias row of 120 bytes: no TMA box
+    ((402, 32, None), "mma.sync"),
+    ((448, 32, None), "mma.sync"),
+    ((77, 64, None), "mma.sync"),
+    ((392, 40, None), "mma.sync"),         # padded to 48
+    ((392, 32, (1, 8, 8, 0, 8, 8)), "mma.sync"),  # a broadcast stride
+]
+
+
+@pytest.mark.parametrize("case,want", H2_DESIGN_CASES, ids=str)
+def test_h2_design_takes_mirrors_the_c_choice(case, want):
+    """``design_takes(..., kind="h2")`` names kernel 12's design as the C
+    entry chooses it (held against ``window_attention_design`` on the card);
+    kernel 11's variants always run mma.sync, and the variants refuse f32."""
+    n, d, strides = case
+    assert wa.design_takes(n, d, torch.bfloat16, strides, kind="h2") == want
+    for kind in ("bf16sm", "exp2"):
+        assert wa.design_takes(n, d, torch.bfloat16, strides, kind=kind) == "mma.sync"
+    with pytest.raises(ValueError):
+        wa.design_takes(n, d, torch.float32, strides, kind="h2")
+
+
 def test_heads_per_block_matches_the_script():
     for h in (1, 2, 3, 4, 5, 6, 9, 12, 24):
         assert wa.heads_per_block(h) == (2 if h % 2 == 0 else (3 if h % 3 == 0 else 1))
