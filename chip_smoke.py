@@ -132,10 +132,11 @@ Phases, in order; any failure ends the run with a non-zero exit:
    ``scripts/bench_window_kernel.py``): bf16 and exp2 softmaxes, 2-3 heads
    a block, at the four stage shapes; the launch counts (and kernel 12's
    by design) are set to 0 around the ablation; then each is held against
-   its twin and timed beside kernel 8. Kernel 12 runs its wgmma design
-   (the bias streamed by TMA), checked in the design ``design_takes``
+   its twin and timed beside kernel 8. Kernel 11 runs kernel 8's wgmma
+   design (its softmax mode a template parameter), kernel 12 its own (the
+   bias streamed by TMA); each is checked in the design ``design_takes``
    names, bitwise repeatable, with the held mma.sync design under the same
-   limit and the two timed in turns beside sdpa; its ptxas report.
+   limit and the two timed in turns beside sdpa; their ptxas reports.
 12. Swin3D-T serving at full width and depth: a 32-frame 224^2 Predictor in
    bf16, seeded weights, a (8, 32, 224, 224, 3) uint8 batch: probabilities
    finite and summing to 1, exactly 12 launches of kernel 8, all on its
@@ -159,8 +160,11 @@ Phases, in order; any failure ends the run with a non-zero exit:
    ViViT-B stem shape (video (8, 32, 224, 224, 3), D = 768), an M tail,
    D = 48, and four shapes of the general path (kw*C = 24 and 42, D = 100,
    an odd W*C), bf16 and f32, under ``tubelet.error_limit`` and in the
-   design the C side reports; timed beside cuDNN's
-   conv3d and extract_tubelets + addmm. Then the path: the port's vivit
+   design ``tubelet.design_takes`` names (wgmma, wgmma.tf32x3 at the
+   run-length shapes), bitwise repeatable; at the stem shape the new design
+   and the earlier one (``tubelet_embed_mma_cuda``) timed in turns, single
+   calls and queued, beside cuDNN's conv3d and extract_tubelets + addmm,
+   and the new design's ptxas report. Then the path: the port's vivit
    preprocessing of a uint8 batch, ``tubelet_embed(impl="kernel")`` with the
    seeded ViViT-B model's own projection weights, held against the model's
    conv3d stem; one launch of kernel 10 and none of any other kernel.
@@ -2088,6 +2092,13 @@ WINDOW_H2_DESIGN = ("wgmma + TMA: a block per (head group, 64-query tile, window
                     "and bias freed after the logits, V after P V); kernel 8's two warpgroups "
                     "splitting the keys, S once, the exact softmax; mma.sync with the bias read "
                     "per element at other shapes and in the _mma entry")
+# Kernel 11's wgmma design (window_attention_wgmma.cu, window_fwd_wgmma_kernel<KW, MODE>).
+WINDOW_SM_DESIGN = ("wgmma + TMA: kernel 8's design with the softmax mode a template parameter "
+                    "(mode 1 rounds z = S - max to bf16 before exp2(z log2e), mode 2 takes "
+                    "exp2((S - max) log2e)): a block per (head, 64-query tile, window group) "
+                    "holding the tile's f32 bias rows, two consumer warpgroups splitting the "
+                    "keys, the row max and sum exchanged, S once; the held mma.sync design at "
+                    "other shapes and in the _mma entry")
 
 
 def window_variants(kernel8: dict):
@@ -2096,16 +2107,19 @@ def window_variants(kernel8: dict):
     the four stage shapes (shifted, bf16). The launch counts are set to 0,
     the ablation runs each variant once per stage, and the counts (and
     kernel 12's by design) are read; then each variant is held against its
-    plain twin and timed beside kernel 8. Kernel 12 runs its wgmma design:
-    it is checked in the design ``design_takes`` names, bitwise repeatable,
-    with the held mma.sync design (``window_attention_variant_mma_cuda``)
-    under the same limit, and the two timed in turns (single calls and
-    queued) beside sdpa with the materialised bias. Returns ({entry:
-    numbers}, launches during the ablation)."""
+    plain twin and timed beside kernel 8. Kernels 11 and 12 run wgmma
+    designs (kernel 11 kernel 8's, its softmax mode a template parameter):
+    each is checked in the design ``design_takes`` names, bitwise
+    repeatable, with the held mma.sync design
+    (``window_attention_variant_mma_cuda``) under the same limit, and the
+    two timed in turns (single calls and queued) beside sdpa with the
+    materialised bias. Returns ({entry: numbers}, launches during the
+    ablation)."""
     from laryngeal_tpu_torch.ops import window_attention as wa
 
-    for line in ptxas_lines("window_attention.cu", "window_fwd_heads_kernel"):
-        log(f"ptxas {line}")
+    for kernel in ("window_fwd_wgmma_kernel", "window_fwd_heads_kernel"):
+        for line in ptxas_lines("window_attention.cu", kernel):
+            log(f"ptxas {line}")
     inputs = {}
     for stage, (shape, grid, _) in SWIN_STAGES.items():
         q, k, v, _, bias = window_inputs(shape, torch.bfloat16, 80 + stage)
@@ -2134,28 +2148,24 @@ def window_variants(kernel8: dict):
             err = diff.max().item()
             del diff
             new = lambda: wa.window_attention_variant_cuda(q, k, v, bias, rid, kind)
-            extra = {}
-            if kind == "h2":
-                want = wa.design_takes(shape[1], shape[3], torch.bfloat16, kind="h2")
-                same = torch.equal(out, new())
-                design = wa.last_designs()[0]
-                old = lambda: wa.window_attention_variant_mma_cuda(q, k, v, bias, rid, kind)
-                use_old = ((old().float() - ref.float()).abs() / limit).max().item()
-                if not (same and design == want and use_old <= 1.0):
-                    raise AssertionError(f"kernel 12 at stage {stage}: design {design} (want "
-                                         f"{want}), bitwise repeatable {same}, the held "
-                                         f"design's |err|/limit {use_old}")
-                t = turns_ms({"old": old, "new": new})
-                ms = t["new"]
-                extra = dict(design=design, queued_ms=t["new_q"], old_ms=t["old"],
-                             old_queued_ms=t["old_q"], library_queued_ms=k8["library_queued_ms"])
-                log(f"{e} stage {stage} {shape}: {design} {ms:.4f} ms (queued {t['new_q']:.4f}), "
-                    f"the held mma.sync design {t['old']:.4f} ms ({t['old'] / ms:.2f}x; queued "
-                    f"{t['old_q']:.4f}), sdpa with the materialised bias {k8['library_ms']:.4f} "
-                    f"ms (queued {k8['library_queued_ms']:.4f}), kernel 8 {k8['ms']:.4f} ms; "
-                    f"|err|/limit {use:.3f} (held design {use_old:.3f}), bitwise repeatable")
-            else:
-                ms = cuda_time_ms(new)
+            want = wa.design_takes(shape[1], shape[3], torch.bfloat16, kind=kind)
+            same = torch.equal(out, new())
+            design = wa.last_designs()[0]
+            old = lambda: wa.window_attention_variant_mma_cuda(q, k, v, bias, rid, kind)
+            use_old = ((old().float() - ref.float()).abs() / limit).max().item()
+            if not (same and design == want and use_old <= 1.0):
+                raise AssertionError(f"{e} at stage {stage}: design {design} (want {want}), "
+                                     f"bitwise repeatable {same}, the held design's "
+                                     f"|err|/limit {use_old}")
+            t = turns_ms({"old": old, "new": new})
+            ms = t["new"]
+            extra = dict(design=design, queued_ms=t["new_q"], old_ms=t["old"],
+                         old_queued_ms=t["old_q"], library_queued_ms=k8["library_queued_ms"])
+            log(f"{e} stage {stage} {shape}: {design} {ms:.4f} ms (queued {t['new_q']:.4f}), "
+                f"the held mma.sync design {t['old']:.4f} ms ({t['old'] / ms:.2f}x; queued "
+                f"{t['old_q']:.4f}), sdpa with the materialised bias {k8['library_ms']:.4f} "
+                f"ms (queued {k8['library_queued_ms']:.4f}), kernel 8 {k8['ms']:.4f} ms; "
+                f"|err|/limit {use:.3f} (held design {use_old:.3f}), bitwise repeatable")
             del ref, limit
             if not (math.isfinite(err) and use <= 1.0):
                 raise AssertionError(f"kernel {e} disagrees with its twin at stage {stage}: "
@@ -2177,8 +2187,10 @@ def window_variants(kernel8: dict):
         nums.update(max_abs_err=worst[e][0], err_over_limit=worst[e][1],
                     tol="window_attention.error_limit (bf16; bf16sm adds its z-rounding term)",
                     headline="stage 1 (1024, 392, 3, 32) shifted bf16")
-    entries["window_attention_fwd_h2"]["design"] = (
-        f"{entries['window_attention_fwd_h2']['design']} at every stage; {WINDOW_H2_DESIGN}")
+    for kind, text in (("bf16sm", WINDOW_SM_DESIGN), ("exp2", WINDOW_SM_DESIGN),
+                       ("h2", WINDOW_H2_DESIGN)):
+        nums = entries[f"window_attention_fwd_{kind}"]
+        nums["design"] = f"{nums['design']} at every stage; {text}"
     del inputs, outs
     torch.cuda.empty_cache()
     return entries, counts
@@ -2425,16 +2437,31 @@ BIAS_CASES = [("vivit_b", VIVIT_B["B"], VIVIT_B["N"], VIVIT_B["N"], None, "head"
               ("nq_ne_nk", 2, 257, 1100, None, "full")]
 
 
-def tubelet_bound_ms(video_shape, d, dtype):
-    """Least time for kernel 10: 2*M*K*D operations at the peak for the type,
-    against the video, W and bias read once and the output written once."""
+def tubelet_bound_ms(video_shape, d, dtype, products: int = 1, peak=None):
+    """Least time for kernel 10: ``products`` times 2*M*K*D operations at
+    ``peak`` (the peak for the type unless given; the f32 design's 3xTF32
+    is 3 products at the TF32 peak), against the video, W and bias read
+    once and the output written once."""
     b, t, h, w, c = video_shape
     kt, kh, kw = TUBELET
     m, k = b * (t // kt) * (h // kh) * (w // kw), kt * kh * kw * c
     size = torch.tensor([], dtype=dtype).element_size()
-    t_ops = 2.0 * m * k * d / PEAK_FLOPS[dtype]
+    t_ops = products * 2.0 * m * k * d / (peak or PEAK_FLOPS[dtype])
     t_bytes = (b * t * h * w * c + k * d + d + m * d) * size / PEAK_BYTES_PER_S
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+# Kernel 10's wgmma designs (tubelet_embed_wgmma.cu, tubelet_wgmma_kernel).
+TUBELET_DESIGN = ("wgmma + TMA: persistent CTAs, one an SM, walking 128-row output tiles, "
+                  "each a ring of K-steps (dt, dh) filled by warp 0's lanes: lane j slot j's "
+                  "box of a 5-D tensor map over the video (an h'-row of patches a 16-row slot), "
+                  "lane 8 the rows of W^T (written once a call by a pre-pass); the CTAs that "
+                  "compute one row tile's column tiles form a cluster of 4 or 2 and share its "
+                  "video boxes by multicast; two consumer warpgroups; bf16 128 x 192 tiles on "
+                  "wgmma.m64n192k16, one batch in flight; f32 (wgmma.tf32x3) 128 x 128 tiles, "
+                  "A fragments split into TF32 big and small parts in registers, three "
+                  "wgmma.m64n128k8 a k8 step, each K-step's products added to the f32 sum on "
+                  "the FMA units; the mma.sync / FMA designs in the _mma entry")
 
 
 def tubelet_inputs(shape, d, dtype, seed, tubelet=TUBELET):
@@ -2450,13 +2477,19 @@ def check_tubelet_kernel():
     """Phase 15, the kernel: kernel 10 vs ``tubelet_embed_plain`` under
     ``tubelet.error_limit`` at the ViViT-B stem shape, an M tail, D = 48, and
     four shapes of the general path (kw*C = 24 and 42, D = 100, an odd W*C),
-    bf16 and f32, each in the design the C side reports; timed at the stem
-    shape beside cuDNN's conv3d (the model's stem) and extract_tubelets +
-    addmm, yardsticks the kernel route never calls."""
+    bf16 and f32, each in the design ``tubelet.design_takes`` names and
+    bitwise repeatable; at the stem shape the new design and the earlier one
+    (``tubelet_embed_mma_cuda``: mma.sync, FMA) timed in turns, single calls
+    and queued, beside cuDNN's conv3d (the model's stem) and
+    extract_tubelets + addmm, yardsticks the kernel route never calls; the
+    ptxas report of the new design's instances."""
     import torch.nn.functional as F
 
     from laryngeal_tpu_torch.ops import tubelet as tt
 
+    for kernel in ("tubelet_wgmma_kernel", "transpose_w_kernel"):
+        for line in ptxas_lines("tubelet_embed.cu", kernel):
+            log(f"ptxas {line}")
     entry = {}
     for dtype in (torch.bfloat16, torch.float32):
         tag = str(dtype)[6:]
@@ -2464,41 +2497,56 @@ def check_tubelet_kernel():
             video, kernel, bias = tubelet_inputs(shape, d, dtype, 40 + seed, tubelet)
             out = tt.tubelet_embed_cuda(video, kernel, bias, tubelet)
             design = tt.last_design()
-            want = ("general" if not tt.run_length_takes(video, kernel, tubelet) else
-                    "mma.sync" if dtype == torch.bfloat16 else "fma")
+            want = tt.design_takes(shape, d, tubelet, dtype)
+            same = torch.equal(out, tt.tubelet_embed_cuda(video, kernel, bias, tubelet))
             ref = tt.tubelet_embed_plain(video, kernel, bias, tubelet)
             diff = (out.float() - ref.float()).abs()
             limit = tt.error_limit(video, kernel, ref, tubelet)
             err, use = diff.max().item(), (diff / limit).max().item()
             ok = (out.shape == ref.shape and math.isfinite(err) and use <= 1.0
-                  and design == want)
+                  and design == want and same)
             log(f"tubelet {name} {tag} (M={out.shape[0] * out.shape[1]}, kw*C="
                 f"{tubelet[2] * shape[-1]}, W*C={shape[3] * shape[4]}, D={d}; {design}): "
-                f"max_abs_err {err:.3e}, largest |err| / limit {use:.3f} "
-                f"{'ok' if ok else 'FAIL'}")
+                f"max_abs_err {err:.3e}, largest |err| / limit {use:.3f}, bitwise repeatable "
+                f"{same} {'ok' if ok else 'FAIL'}")
             del diff, limit
             if not ok:
-                raise AssertionError(f"kernel 10 disagrees with its plain twin: {name} {tag}")
+                raise AssertionError(f"kernel 10 disagrees with its plain twin or runs another "
+                                     f"design: {name} {tag} ({design}, want {want})")
             if name != "vivit_b":
                 continue
-            ms = cuda_time_ms(lambda: tt.tubelet_embed_cuda(video, kernel, bias))
+            old = lambda: tt.tubelet_embed_mma_cuda(video, kernel, bias)
+            use_old = ((old().float() - ref.float()).abs()
+                       / tt.error_limit(video, kernel, ref)).max().item()
+            if use_old > 1.0:
+                raise AssertionError(f"kernel 10's earlier design disagrees: {tag} {use_old}")
+            t = turns_ms({"old": old, "new": lambda: tt.tubelet_embed_cuda(video, kernel, bias)})
+            ms = t["new"]
             plain_ms = cuda_time_ms(lambda: tt.tubelet_embed_plain(video, kernel, bias),
                                     reps=3, warmup=1)
             x_cf, b_dt = video.permute(0, 4, 1, 2, 3), bias.to(dtype)
             w_cf = kernel.to(dtype).permute(4, 3, 0, 1, 2).contiguous()
             conv_ms = cuda_time_ms(lambda: F.conv3d(x_cf, w_cf, b_dt, stride=TUBELET))
             w2 = tt.flatten_kernel(kernel).to(dtype)
-            mm_ms = cuda_time_ms(lambda: torch.addmm(
-                b_dt, tt.extract_tubelets(video, TUBELET).reshape(-1, w2.shape[0]), w2))
-            bound_ms, bound_by = tubelet_bound_ms(shape, d, dtype)
-            log(f"tubelet_embed vivit_b {tag}: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, "
-                f"cuDNN conv3d {conv_ms:.4f} ms, extract_tubelets + addmm {mm_ms:.4f} ms, "
-                f"bound {bound_ms:.4f} ms ({bound_by})")
+            mm = lambda: torch.addmm(
+                b_dt, tt.extract_tubelets(video, TUBELET).reshape(-1, w2.shape[0]), w2)
+            mm_ms = cuda_time_ms(mm)
+            mm_q = cuda_time_ms(mm, reps=20, queued=True)
+            bound_ms, bound_by = (tubelet_bound_ms(shape, d, dtype) if dtype == torch.bfloat16
+                                  else tubelet_bound_ms(shape, d, dtype, 3, PEAK_TF32))
+            log(f"tubelet_embed vivit_b {tag}: {design} {ms:.4f} ms (queued {t['new_q']:.4f}), "
+                f"the earlier design {t['old']:.4f} ms ({t['old'] / ms:.2f}x; queued "
+                f"{t['old_q']:.4f}), plain {plain_ms:.3f} ms, cuDNN conv3d {conv_ms:.4f} ms, "
+                f"extract_tubelets + addmm {mm_ms:.4f} ms (queued {mm_q:.4f}), bound "
+                f"{bound_ms:.4f} ms ({bound_by}{', 3xTF32' if dtype == torch.float32 else ''}); "
+                f"|err|/limit {use:.3f} (earlier design {use_old:.3f})")
             tol = ("1e-5*sum|x*w| + 1e-6" if dtype == torch.float32
                    else "2^-7*|ref| + 1e-5*sum|x*w| + 1e-6")
             numbers = dict(max_abs_err=err, tol=tol, err_over_limit=use, ms=ms, kernel_ms=ms,
+                           queued_ms=t["new_q"], old_ms=t["old"], old_queued_ms=t["old_q"],
                            plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                           library_ms=conv_ms, matmul_ms=mm_ms)
+                           library_ms=conv_ms, matmul_ms=mm_ms, matmul_queued_ms=mm_q,
+                           design=f"{design}; {TUBELET_DESIGN}")
             if dtype == torch.bfloat16:
                 entry.update(numbers)
             else:
@@ -2527,8 +2575,8 @@ def tubelet_path(model, pixel) -> dict:
     seeded ViViT-B model's own projection weights, on the port's
     preprocessing of a uint8 batch (``vivit_b_and_pixels``), held against
     the model's own stem (cuDNN conv3d, which may round the product to bf16
-    before it adds the bias: 2^-8*|ref - bias| more than kernel 10's limit).
-    Returns the launches."""
+    before it adds the bias: 2^-8*|ref - bias| more than kernel 10's limit),
+    in kernel 10's bf16 wgmma design. Returns the launches."""
     from laryngeal_tpu_torch.ops import tubelet as tt
 
     proj = model.vivit.embeddings.patch_embeddings.projection
@@ -2537,6 +2585,7 @@ def tubelet_path(model, pixel) -> dict:
         kernel = tt.kernel_from_conv3d(proj.weight)
         tokens, counts = launched(
             lambda: tt.tubelet_embed(video, kernel, proj.bias, TUBELET, impl="kernel"))
+        design = tt.last_design()
         ref = model.vivit.embeddings.patch_embeddings(pixel)
         limit = (tt.error_limit(video, kernel, ref)
                  + 2.0 ** -8 * (ref.float() - proj.bias.to(torch.bfloat16).float()).abs())
@@ -2545,8 +2594,8 @@ def tubelet_path(model, pixel) -> dict:
     want = {k: 0 for k in counts}
     want["tubelet_embed"] = 1
     ok = (counts == want and tokens.shape == ref.shape == (8, 3136, 768)
-          and math.isfinite(err) and use <= 1.0)
-    log(f"vivit-b stem through kernel 10 (bf16, B=8, the model's weights): tokens "
+          and math.isfinite(err) and use <= 1.0 and design == "wgmma")
+    log(f"vivit-b stem through kernel 10 ({design}, bf16, B=8, the model's weights): tokens "
         f"{tuple(tokens.shape)}, vs the model's conv3d stem max_abs_err {err:.3e}, largest "
         f"|err| / limit {use:.3f}; launches {counts} {'ok' if ok else 'FAIL'}")
     if not ok:
@@ -2917,7 +2966,6 @@ def main() -> int:
                             source="laryngeal_tpu_torch/csrc/short_attention.cu",
                             replaces=f"laryngeal_tpu/ops/short_attention.py:{line}",
                             launches=counts[name], **short_entries[name]))
-    window_src = "laryngeal_tpu_torch/csrc/window_attention.cu"
     for name, line, counts in (("window_attention_fwd", 55, swin_serve_counts),
                                ("window_attention_bwd", 95, swin_train_counts)):
         # The main path runs kernels 8-9's wgmma design (its own source).
@@ -2925,13 +2973,12 @@ def main() -> int:
                             source="laryngeal_tpu_torch/csrc/window_attention_wgmma.cu",
                             replaces=f"laryngeal_tpu/ops/window_attention.py:{line}",
                             launches=counts[name], **window_entries[name]))
-    # Kernel 11 runs the held design (window_attention.cu), kernel 12 its wgmma
-    # design (window_attention_wgmma.cu); kernel 5 runs kernel 1's designs.
-    for name, line, src in (("window_attention_fwd_bf16sm", 76, window_src),
-                            ("window_attention_fwd_exp2", 76, window_src),
-                            ("window_attention_fwd_h2", 96,
-                             "laryngeal_tpu_torch/csrc/window_attention_wgmma.cu")):
-        kernels.append(dict(name=name, route="cuda", source=src,
+    # Kernels 11 and 12 run wgmma designs (window_attention_wgmma.cu); kernel 5
+    # runs kernel 1's designs.
+    for name, line in (("window_attention_fwd_bf16sm", 76), ("window_attention_fwd_exp2", 76),
+                       ("window_attention_fwd_h2", 96)):
+        kernels.append(dict(name=name, route="cuda",
+                            source="laryngeal_tpu_torch/csrc/window_attention_wgmma.cu",
                             replaces=f"scripts/bench_window_kernel.py:{line}",
                             launches=variant_counts[name], **variant_entries[name]))
     kernels.append(dict(name="flash_attention_fwd_bias", route="cuda",
@@ -2939,7 +2986,7 @@ def main() -> int:
                         replaces=f"{tpu}:213", launches=bias_counts["flash_attention_fwd_bias"],
                         **bias_entry))
     kernels.append(dict(name="tubelet_embed", route="cuda",
-                        source="laryngeal_tpu_torch/csrc/tubelet_embed.cu",
+                        source="laryngeal_tpu_torch/csrc/tubelet_embed_wgmma.cu",
                         replaces="laryngeal_tpu/ops/tubelet.py:73",
                         launches=tubelet_counts["tubelet_embed"], **tubelet_entry))
     for k in kernels:

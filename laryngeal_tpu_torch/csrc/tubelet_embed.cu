@@ -21,9 +21,10 @@
 // What bounds it on the H100: at ViViT-B (M = 8*3136 = 25088, K = 1536,
 // D = 768) one call is 2*M*K*D = 59.2 GFLOP against ~118 MB of video, W
 // and output: ~500 FLOP per byte, above the ~295 FLOP/byte ridge, so in
-// bf16 it is bound by tensor-core operations (0.060 ms at 989 TFLOP/s). The
-// design puts the product on the tensor cores and reads each video byte
-// from HBM about once:
+// bf16 it is bound by tensor-core operations (0.060 ms at 989 TFLOP/s).
+// This file's run-length designs (the first port's, which tubelet_embed_mma
+// keeps) put the product on the tensor cores and read each video byte from
+// HBM about once:
 //   * bf16: 128 x 128 output tiles, 8 warps of 64 x 32, mma.sync.m16n8k16
 //     (bf16 operands, f32 accumulators); A (the video runs) and B (rows of
 //     W) stream through a 3-stage cp.async ring, one K-step of kw*C values
@@ -42,9 +43,19 @@
 // chunks of 32 values, f32 accumulation, the output rounded once. No model
 // reaches it; it is correct, not fast. tubelet_embed_last_design reports
 // which design the last call ran.
-// Not yet done (later work): wgmma/TMA and a persistent schedule.
+//
+// Designs by call: at the run-length shapes (ViViT-B's stem) the wgmma/TMA
+// designs of tubelet_embed_wgmma.cu, "wgmma" in bf16 and "wgmma.tf32x3" in
+// f32 (persistent blocks, the video's patch runs read by TMA and shared by
+// multicast within a cluster, W transposed once a call into the caller's
+// scratch), built into the same library; tubelet_embed_mma runs the two
+// designs above (mma.sync, FMA) there instead, to time the new ones
+// against; every other shape the general path. A refused build, launch or
+// shared-memory size of the design a call takes returns its error; no call
+// slips to another design.
 
 #include "flash_attention_common.cuh"
+#include "tubelet_embed_wgmma.cuh"
 
 namespace {
 
@@ -387,9 +398,29 @@ cudaError_t launch_general(const void* video, const void* w, const void* bias, v
 }
 
 // The design of the last launch: 0 = FMA (f32, a run-length instance),
-// 1 = mma.sync (bf16, a run-length instance), 2 = general; -1 before the
-// first. Read through tubelet_embed_last_design.
+// 1 = mma.sync (bf16, a run-length instance), 2 = general, 3 = wgmma (bf16),
+// 4 = wgmma.tf32x3 (f32; both tubelet_embed_wgmma.cu); -1 before the first.
+// Read through tubelet_embed_last_design.
+enum Design {
+  kDesignFma = 0, kDesignMmaSync = 1, kDesignGeneral = 2, kDesignWgmma = 3, kDesignTf32 = 4
+};
 int g_last_design = -1;
+
+// The design a call runs: the general path off the run-length shapes; there,
+// unless `mma_only`, the wgmma design of the call's dtype where it takes the
+// call; else mma.sync (bf16) or FMA (f32).
+int design_of(int dtype, int C, int W, int kt, int kw, int D, bool mma_only) {
+  const int L = kw * C;
+  const bool run = (L == 16 || L == 32 || L == 48 || L == 64) && (W * C) % 8 == 0 && D % 8 == 0;
+  if (!run) return kDesignGeneral;
+  if (!mma_only && tubwg::takes(C, W, kw, D)) return dtype == 1 ? kDesignWgmma : kDesignTf32;
+  return dtype == 1 ? kDesignMmaSync : kDesignFma;
+}
+
+bool bad_args(int dtype, int T, int H, int W, int C, int kt, int kh, int kw, int D) {
+  return (dtype != 0 && dtype != 1) || D <= 0 || C < 1 || kt < 1 || kh < 1 || kw < 1
+         || T % kt || H % kh || W % kw;
+}
 
 template <int L>
 cudaError_t launch_l(const void* video, const void* w, const void* bias, void* out, int dtype,
@@ -418,21 +449,11 @@ cudaError_t launch_l(const void* video, const void* w, const void* bias, void* o
   return cudaGetLastError();
 }
 
-}  // namespace
-
-// video (B, T, H, W, C), w (kt*kh*kw*C, D), bias (D,) and out (B*N, D), all
-// contiguous, of one dtype (0 = float32, 1 = bfloat16), 16-byte aligned,
-// T, H, W multiples of kt, kh, kw (the Python wrapper checks all of it).
-// kw*C in {16, 32, 48, 64} with W*C and D multiples of 8 runs its
-// run-length instance; every other shape the general path. Returns the
-// cudaError_t of the launch (0 = success).
-extern "C" int tubelet_embed(const void* video, const void* w, const void* bias, void* out,
-                             int dtype, int B, int T, int H, int W, int C, int kt, int kh,
-                             int kw, int D, void* stream) {
+int embed_entry(const void* video, const void* w, const void* bias, void* out, void* scratch,
+                int dtype, int B, int T, int H, int W, int C, int kt, int kh, int kw, int D,
+                bool mma_only, void* stream) {
   const int L = kw * C;
-  if ((dtype != 0 && dtype != 1) || D <= 0 || C < 1 || kt < 1 || kh < 1 || kw < 1 ||
-      T % kt || H % kh || W % kw)
-    return (int)cudaErrorInvalidValue;
+  if (bad_args(dtype, T, H, W, C, kt, kh, kw, D)) return (int)cudaErrorInvalidValue;
   Geometry g;
   g.n_t = T / kt;
   g.n_h = H / kh;
@@ -446,13 +467,14 @@ extern "C" int tubelet_embed(const void* video, const void* w, const void* bias,
   g.sb = g.st * T;
   if (g.M <= 0 || (g.M + kF32BM - 1) / kF32BM > 65535) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool run = (L == 16 || L == 32 || L == 48 || L == 64) && (W * C) % 8 == 0 && D % 8 == 0;
-  if (!run) {
-    g_last_design = 2;
+  const int design = design_of(dtype, C, W, kt, kw, D, mma_only);
+  g_last_design = design;
+  if (design == kDesignGeneral)
     return (int)(dtype == 1 ? launch_general<__nv_bfloat16>(video, w, bias, out, g, L, s)
                             : launch_general<float>(video, w, bias, out, g, L, s));
-  }
-  g_last_design = dtype == 1 ? 1 : 0;
+  if (design == kDesignWgmma || design == kDesignTf32)
+    return (int)tubwg::launch(video, w, bias, out, scratch, dtype, B, T, H, W, C, kt, kh, kw, D,
+                              s);
   switch (L) {
     case 16: return (int)launch_l<16>(video, w, bias, out, dtype, g, s);
     case 32: return (int)launch_l<32>(video, w, bias, out, dtype, g, s);
@@ -461,6 +483,54 @@ extern "C" int tubelet_embed(const void* video, const void* w, const void* bias,
   }
 }
 
-// The design (0 = FMA, 1 = mma.sync, 2 = general) of the last launch; -1
-// before the first.
+}  // namespace
+
+// video (B, T, H, W, C), w (kt*kh*kw*C, D), bias (D,) and out (B*N, D), all
+// contiguous, of one dtype (0 = float32, 1 = bfloat16), 16-byte aligned,
+// T, H, W multiples of kt, kh, kw (the Python wrapper checks all of it).
+// kw*C in {16, 32, 48, 64} with W*C and D multiples of 8 runs the wgmma
+// design of its dtype, which needs `scratch` (tubelet_embed_scratch_bytes,
+// 16-byte aligned); every other shape the general path. Returns the cudaError_t of
+// the first launch that fails (0 = success).
+extern "C" int tubelet_embed(const void* video, const void* w, const void* bias, void* out,
+                             void* scratch, int dtype, int B, int T, int H, int W, int C, int kt,
+                             int kh, int kw, int D, void* stream) {
+  return embed_entry(video, w, bias, out, scratch, dtype, B, T, H, W, C, kt, kh, kw, D, false,
+                     stream);
+}
+
+// As tubelet_embed, with the run-length instances (mma.sync in bf16, FMA in
+// f32) wherever the wgmma designs would run (the earlier kernels, kept to
+// time the new ones against); `scratch` is not read.
+extern "C" int tubelet_embed_mma(const void* video, const void* w, const void* bias, void* out,
+                                 void* scratch, int dtype, int B, int T, int H, int W, int C,
+                                 int kt, int kh, int kw, int D, void* stream) {
+  return embed_entry(video, w, bias, out, scratch, dtype, B, T, H, W, C, kt, kh, kw, D, true,
+                     stream);
+}
+
+// The design (0 = FMA, 1 = mma.sync, 2 = general, 3 = wgmma, 4 =
+// wgmma.tf32x3) of the last launch through either entry; -1 before the
+// first.
 extern "C" int tubelet_embed_last_design() { return g_last_design; }
+
+// The design tubelet_embed (mma_only = 0) or tubelet_embed_mma (1) runs for
+// a call of this dtype, channels C, width W, tubelet and D; -1 for
+// arguments it refuses (T and H are not asked: any multiples of kt, kh).
+extern "C" int tubelet_embed_design(int dtype, int W, int C, int kt, int kh, int kw, int D,
+                                    int mma_only) {
+  if (bad_args(dtype, kt, kh, W, C, kt, kh, kw, D)) return -1;
+  return design_of(dtype, C, W, kt, kw, D, mma_only != 0);
+}
+
+// Bytes of scratch tubelet_embed needs for a call of this dtype, channels,
+// width, tubelet and D: W transposed (and, in f32, split) by the wgmma
+// designs' pre-pass; 0 where the call runs another design, -1 for arguments
+// it refuses.
+extern "C" long long tubelet_embed_scratch_bytes(int dtype, int W, int C, int kt, int kh, int kw,
+                                                 int D) {
+  if (bad_args(dtype, kt, kh, W, C, kt, kh, kw, D)) return -1;
+  const int design = design_of(dtype, C, W, kt, kw, D, false);
+  if (design != kDesignWgmma && design != kDesignTf32) return 0;
+  return (long long)tubwg::scratch_bytes(dtype, kt * kh * kw * C, D);
+}

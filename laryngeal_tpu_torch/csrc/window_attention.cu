@@ -10,7 +10,9 @@
 //     (row max subtracted, exp, normalised BEFORE P V), P rounded to v's
 //     dtype, P V accumulated in f32, cast to q's dtype;
 //   * kernel 11, _fwd_kernel_sm (the same entry, mode 1: (S - max) rounded
-//     to bf16 before exp; mode 2: exp2 of (S - max) * log2(e));
+//     to bf16 before exp; mode 2: exp2 of (S - max) * log2(e)), on kernel
+//     8's designs: the wgmma one where it takes the call, its softmax mode a
+//     template parameter;
 //   * kernel 12, _fwd_kernel_h2 (the same entry, 2 or 3 heads a block);
 //   * kernel 9, _bwd_kernel (entry window_attention_bwd): P recomputed,
 //     delta = sum_k P dP from the f32 P and dP, ds = P (dP - delta) in f32;
@@ -76,15 +78,17 @@
 // correct, not fast.
 //
 // Designs by call (window_attention_last_design reports which ran):
-//   * bf16, mode 0, one head a block, N <= 400, D <= 32 (after padding), every
-//     stride positive: the wgmma/TMA design of window_attention_wgmma.cu
-//     (Swin3D's N = 392, D = 32), built into the same library;
+//   * bf16, one head a block (kernel 8, mode 0; kernel 11, modes 1-2), N <=
+//     400, D <= 32 (after padding), every stride positive: the wgmma/TMA
+//     design of window_attention_wgmma.cu (Swin3D's N = 392, D = 32), built
+//     into the same library;
 //   * kernel 12 at bf16, N <= 400 with N % 4 == 0, D <= 32, every stride
 //     positive: the wgmma/TMA design of window_attention_wgmma.cu (HB heads
 //     of a window a block, the bias streamed in 64-key tiles);
 //   * other bf16 at N <= 448, D <= 128 (and kernels 11-12 elsewhere): the
 //     held mma.sync design above; window_attention_fwd_mma / _bwd_mma run it
-//     at every shape it takes, to time the wgmma designs against;
+//     at every shape it takes (kernels 11-12 included), to time the wgmma
+//     designs against;
 //   * f32 at N <= 400, D <= 32 (after padding), every stride positive: the
 //     3xTF32 tensor-core design of window_attention_wgmma.cu ("wgmma.tf32x3":
 //     the bf16 design's blocks on operands split into two TF32 parts by a
@@ -1454,7 +1458,7 @@ int g_last_design[2] = {-1, -1};
 // N <= kMaxN and D <= 128; the wide path every other shape.
 bool held_takes(int N, int D) { return N <= kMaxN && D <= 128; }
 
-// The design kernel 8 (which = 0; mode 0, one head a block) or kernel 9
+// The design kernel 8 (which = 0; one head a block, kernel 11's modes too) or kernel 9
 // (which = 1) runs for a call: the wide path beyond the held designs' domain;
 // unless `mma_only`, the wgmma design of the call's dtype where it takes the
 // call (its 12 or 21 strides `st`); else FMA in f32 and mma.sync in bf16.
@@ -1489,8 +1493,9 @@ int fwd_entry(const void* q, const void* k, const void* v, void* o, const float*
   FwdStrides s;
   std::memcpy(&s, st, sizeof(s));
   cudaStream_t cs = static_cast<cudaStream_t>(stream);
+  // Kernel 11 (modes 1-2, one head a block) takes kernel 8's choice.
   const int design = hb > 0 ? heads_design(N, D, st, mma_only)
-                            : design_of(0, dtype, N, D, st, mma_only || variant);
+                            : design_of(0, dtype, N, D, st, mma_only);
   g_last_design[0] = design;
   if (design == kDesignWide) {
     if (D <= 32) return (int)launch_fwd_wide<32>(dtype, q, k, v, o, bias, rid, BW, H, N, D, nW, s, scale, cs);
@@ -1501,7 +1506,8 @@ int fwd_entry(const void* q, const void* k, const void* v, void* o, const float*
   if (design == kDesignWgmma)
     return (int)(hb > 0 ? winwg::fwd_heads(q, k, v, o, bias, rid, BW, H, hb, N, D, nW, st,
                                            scale, cs)
-                        : winwg::fwd(q, k, v, o, bias, rid, BW, H, N, D, nW, st, scale, cs));
+                        : winwg::fwd(q, k, v, o, bias, rid, BW, H, N, D, nW, st, scale, mode,
+                                     cs));
   if (design == kDesignTf32) {
     if (split == nullptr) return (int)cudaErrorInvalidValue;
     return (int)winwg::fwd_tf32(q, k, v, o, bias, rid, split, BW, H, N, D, nW, st, scale, cs);
@@ -1575,9 +1581,9 @@ int bwd_entry(const void* q, const void* k, const void* v, const void* g, const 
 // elsewhere). mode: 0 exp (kernel 8), 1 bf16 (S - max), 2 exp2 (kernel 11);
 // hb: 0 for kernels 8 and 11 (held bias rows), or 1-3 heads a block for
 // kernel 12 (H % hb == 0, mode 0). The variants take bfloat16, N <= 448 and
-// D <= 64 and run the mma.sync template, but kernel 12 where its wgmma
-// design takes the call (heads_design). Returns the cudaError_t of the
-// launch (0 = success).
+// D <= 64 and run the mma.sync template, but kernel 11 where kernel 8's
+// wgmma design takes the call (design_of) and kernel 12 where its own does
+// (heads_design). Returns the cudaError_t of the launch (0 = success).
 extern "C" int window_attention_fwd(const void* q, const void* k, const void* v, void* o,
                                     const float* bias, const int* rid, float* split, int dtype,
                                     int BW, int N, int H, int D, int nW, int mode, int hb,
@@ -1635,18 +1641,20 @@ extern "C" int window_attention_last_design(int which) {
 }
 
 // The design (numbered as above) that window_attention_fwd (which = 0, mode 0
-// with one head a block; which = 2, kernel 12: mode 0 with heads a block) or
+// with one head a block; which = 2, kernel 12: mode 0 with heads a block;
+// which = 3, kernel 11: mode 1 or 2, one head a block) or
 // window_attention_bwd (which = 1) runs for a call of this dtype, N, D and
 // strides `st` (12 or 21, as the entry takes them), or their _mma entries
 // with mma_only = 1; -1 for arguments they refuse. The Python wrapper sizes
 // kernel 9's dbias groups by it.
 extern "C" int window_attention_design(int which, int dtype, int N, int D, const long long* st,
                                        int mma_only) {
-  if (which < 0 || which > 2 || (dtype != 0 && dtype != 1) || N < 1 || D <= 0 || D > 256
+  if (which < 0 || which > 3 || (dtype != 0 && dtype != 1) || N < 1 || D <= 0 || D > 256
       || D % 8 != 0)
     return -1;
-  if (which == 2)
-    return dtype == 1 && N <= kMaxN && D <= 64 ? heads_design(N, D, st, mma_only != 0) : -1;
+  if (which >= 2 && (dtype != 1 || N > kMaxN || D > 64)) return -1;
+  if (which == 2) return heads_design(N, D, st, mma_only != 0);
+  if (which == 3) return design_of(0, dtype, N, D, st, mma_only != 0);
   return design_of(which, dtype, N, D, st, mma_only != 0);
 }
 

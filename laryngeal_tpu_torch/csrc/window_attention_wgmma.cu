@@ -8,8 +8,13 @@
 // Both sources build into one library (ops/_build.py), compiled in parallel.
 //
 // It replaces the Pallas TPU kernels laryngeal_tpu/ops/window_attention.py
-// :55 _fwd_kernel and :95 _bwd_kernel and computes what window_attention.cu's
-// held mma.sync design computes: per (window w, head h) S = (Q K^T in f32)
+// :55 _fwd_kernel and :95 _bwd_kernel (and, with the forward's softmax mode
+// a template parameter, kernel 11: scripts/bench_window_kernel.py :76
+// _fwd_kernel_sm, launched at :124, whose softmax rounds z = S - max to
+// bf16 before the exp (mode 1) or takes exp2(z log2e) (mode 2); the row max
+// is exchanged over both warpgroups as in mode 0, the sum and the
+// normalisation stay f32) and computes what window_attention.cu's held
+// mma.sync design computes: per (window w, head h) S = (Q K^T in f32)
 // * scale + bias[h], -100 added where the two positions' region ids (row
 // w % nW) differ, an exact f32 softmax with P normalised before it is
 // rounded to bf16 for P V and dV; the backward takes delta = sum_k P dP from
@@ -292,12 +297,16 @@ __device__ __forceinline__ void exchange(float* red, int which, int wg, int lr0,
 }
 
 // The exact softmax of the logits in s, rows over both warpgroups: P =
-// exp2(S log2e - m2) / l in place; m2 (the base-2 row max) and il = 1 / l
-// out. A `dead` warp (its 16 rows all past N) only takes part in the
-// exchanges: its rows are never stored.
-template <int NC>
+// e / l in place with e = exp2(S log2e - m2) (MODE 0, kernel 8), exp of z =
+// S - max with z rounded to bf16 first, as exp2(bf16(z) log2e) (MODE 1,
+// kernel 11's bf16sm), or exp2((S - max) log2e) (MODE 2, kernel 11's
+// exp2: the subtraction, then the product, each rounded); m2 (the base-2
+// row max) and il = 1 / l out. A `dead` warp (its 16 rows all past N) only
+// takes part in the exchanges: its rows are never stored.
+template <int NC, int MODE = 0>
 __device__ __forceinline__ void softmax(float (&s)[NC][32], float* red, int wg, int lr0, int t4,
                                         bool dead, float (&m2)[2], float (&il)[2]) {
+  static_assert(MODE >= 0 && MODE <= 2, "softmax modes: 0 exp, 1 bf16sm, 2 exp2");
   float mx[2][4];
 #pragma unroll
   for (int i = 0; i < 8; ++i) mx[i & 1][i >> 1] = kMaskValue;
@@ -316,10 +325,11 @@ __device__ __forceinline__ void softmax(float (&s)[NC][32], float* red, int wg, 
   for (int r = 0; r < 2; ++r)
     part[r] = quad_max(fmaxf(fmaxf(mx[r][0], mx[r][1]), fmaxf(mx[r][2], mx[r][3])));
   exchange(red, 0, wg, lr0, t4, part, a, b);
-  float sum[2][4];
+  float sum[2][4], mrow[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    m2[r] = fmaxf(a[r], b[r]) * kLog2e;
+    mrow[r] = fmaxf(a[r], b[r]);
+    m2[r] = mrow[r] * kLog2e;
 #pragma unroll
     for (int i = 0; i < 4; ++i) sum[r][i] = 0.f;
   }
@@ -330,7 +340,14 @@ __device__ __forceinline__ void softmax(float (&s)[NC][32], float* red, int wg, 
       for (int i = 0; i < 32; ++i)
         if (live<NC>(c, i)) {
           const int r = (i >> 1) & 1;
-          const float p = hopper::exp2_approx(fmaf(s[c][i], kLog2e, -m2[r]));
+          float p;
+          if constexpr (MODE == 0) {
+            p = hopper::exp2_approx(fmaf(s[c][i], kLog2e, -m2[r]));
+          } else {
+            float z = __fsub_rn(s[c][i], mrow[r]);
+            if constexpr (MODE == 1) z = __bfloat162float(__float2bfloat16_rn(z));
+            p = hopper::exp2_approx(__fmul_rn(z, kLog2e));
+          }
           s[c][i] = p;
           sum[r][(c * 8 + (i >> 2)) & 3] += p;
         }
@@ -485,7 +502,7 @@ __device__ __forceinline__ void produce_rows(unsigned char* smem, int stage_byte
 template <int KW>
 __host__ __device__ constexpr int fwd_stage() { return kTile + 2 * Geo<KW>::kRows; }
 
-template <int KW>
+template <int KW, int MODE>
 __global__ void __launch_bounds__(kThreads, 1)
 window_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                         const __grid_constant__ CUtensorMap tk,
@@ -552,7 +569,7 @@ window_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       row_logits<NC>(sc, b0, b1, ids != nullptr ? ids + wg * KW : nullptr, id0, id1, wg * KW, N,
                      scale, t4);
     float m2[2], il[2];
-    softmax<NC>(sc, red, wg, lr0, t4, dead, m2, il);
+    softmax<NC, MODE>(sc, red, wg, lr0, t4, dead, m2, il);
 
     // O = P V over this warpgroup's keys, P in bf16 register fragments.
     uint32_t pa[NC][4][4];
@@ -2158,7 +2175,7 @@ size_t rows_smem(int stage, int N) {
   return 1024 + 2 * (size_t)stage + 4 * ((size_t)64 * bias_stride(N) + 3 * 128 + 2 * kIds) + 32;
 }
 
-template <int KW>
+template <int KW, int MODE>
 cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* o, const float* bias,
                        const int* rid, int BW, int H, int N, int D, int nW, const long long* st,
                        float scale, cudaStream_t s) {
@@ -2168,11 +2185,11 @@ cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* o, con
       || !map(&tv, &pv, v, BW, N, H, D, st + 6, KW))
     return cudaErrorInvalidValue;
   const size_t smem = rows_smem(fwd_stage<KW>(), N);
-  cudaError_t err = set_smem(window_fwd_wgmma_kernel<KW>, smem);
+  cudaError_t err = set_smem(window_fwd_wgmma_kernel<KW, MODE>, smem);
   if (err != cudaSuccess) return err;
   const int n_qt = (N + 63) / 64;
   const int per = windows_a_block(BW, H * n_qt, sm_count());
-  window_fwd_wgmma_kernel<KW><<<dim3(H, n_qt, (BW + per - 1) / per), kThreads, smem, s>>>(
+  window_fwd_wgmma_kernel<KW, MODE><<<dim3(H, n_qt, (BW + per - 1) / per), kThreads, smem, s>>>(
       tq, tk, tv, static_cast<bf16*>(o), bias, rid, BW, H, N, D, nW, per, st[9], st[10], st[11],
       scale, pq, pk, pv);
   return cudaGetLastError();
@@ -2385,13 +2402,25 @@ cudaError_t fwd_heads(const void* q, const void* k, const void* v, void* o, cons
 #undef WINWG_HEADS
 }
 
-// KW by N: 72 (N <= 144), 136 (N <= 272), 200 (N <= 400).
+// KW by N: 72 (N <= 144), 136 (N <= 272), 200 (N <= 400); the softmax mode
+// a template parameter.
 cudaError_t fwd(const void* q, const void* k, const void* v, void* o, const float* bias,
                 const int* rid, int BW, int H, int N, int D, int nW, const long long* st,
-                float scale, cudaStream_t s) {
-  if (N <= 144) return launch_fwd<72>(q, k, v, o, bias, rid, BW, H, N, D, nW, st, scale, s);
-  if (N <= 272) return launch_fwd<136>(q, k, v, o, bias, rid, BW, H, N, D, nW, st, scale, s);
-  return launch_fwd<200>(q, k, v, o, bias, rid, BW, H, N, D, nW, st, scale, s);
+                float scale, int mode, cudaStream_t s) {
+#define WINWG_FWD(KW, MODE) \
+  return launch_fwd<KW, MODE>(q, k, v, o, bias, rid, BW, H, N, D, nW, st, scale, s)
+#define WINWG_FWD_MODES(KW)                    \
+  {                                            \
+    if (mode == 1) WINWG_FWD(KW, 1);           \
+    if (mode == 2) WINWG_FWD(KW, 2);           \
+    WINWG_FWD(KW, 0);                          \
+  }
+  if (mode < 0 || mode > 2) return cudaErrorInvalidValue;
+  if (N <= 144) WINWG_FWD_MODES(72);
+  if (N <= 272) WINWG_FWD_MODES(136);
+  WINWG_FWD_MODES(200);
+#undef WINWG_FWD_MODES
+#undef WINWG_FWD
 }
 
 cudaError_t bwd(const void* q, const void* k, const void* v, const void* g, const float* bias,

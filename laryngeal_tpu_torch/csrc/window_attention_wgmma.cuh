@@ -20,12 +20,14 @@ constexpr int kMaxN = 400;
 // 0).
 bool takes(int dtype, int N, int D, const long long* st, int n);
 
-// Kernel 8: q, k, v, o (BW, N, H, D) bf16 through the 12 strides `st`
-// (window, position, head of q, k, v, o); bias (H, N, N) f32; rid (nW, N)
-// int32 or null. Returns the launch's error.
+// Kernel 8 (mode 0) and kernel 11 (mode 1 bf16sm: S - max rounded to bf16
+// before the exp; mode 2 exp2: exp2((S - max) log2e)): q, k, v, o (BW, N,
+// H, D) bf16 through the 12 strides `st` (window, position, head of q, k,
+// v, o); bias (H, N, N) f32; rid (nW, N) int32 or null. Returns the
+// launch's error.
 cudaError_t fwd(const void* q, const void* k, const void* v, void* o, const float* bias,
                 const int* rid, int BW, int H, int N, int D, int nW, const long long* st,
-                float scale, cudaStream_t s);
+                float scale, int mode, cudaStream_t s);
 
 // Whether kernel 12's design (HB heads of a window a block, the bias
 // streamed by TMA) takes a call: what `takes` takes, and N % 4 == 0 (the

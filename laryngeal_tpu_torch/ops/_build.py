@@ -11,7 +11,9 @@ of ``window_attention.cu`` beside the wgmma design of
 the short kernels: ``short_attention.cu`` beside its f32 tensor-core
 designs ``short_attention_tf32.cu`` and ``short_attention_tf32_mma.cu``;
 the flash backward: ``flash_attention_bwd.cu`` beside its f32 tensor-core
-design ``flash_attention_bwd_tf32.cu``).
+design ``flash_attention_bwd_tf32.cu``; the tubelet embedding:
+``tubelet_embed.cu`` beside its wgmma/TMA designs
+``tubelet_embed_wgmma.cu``).
 The library's name carries a hash of its sources and of the shared headers
 (``csrc/*.cuh``), so an edited source is rebuilt and a stale library is
 never loaded. A file lock serialises concurrent builds (several processes,
@@ -42,6 +44,7 @@ MEMBERS: Dict[str, Tuple[str, ...]] = {
     "flash_attention_bwd.cu": ("flash_attention_bwd.cu", "flash_attention_bwd_tf32.cu"),
     "short_attention.cu": ("short_attention.cu", "short_attention_tf32.cu",
                            "short_attention_tf32_mma.cu"),
+    "tubelet_embed.cu": ("tubelet_embed.cu", "tubelet_embed_wgmma.cu"),
     "window_attention.cu": ("window_attention.cu", "window_attention_wgmma.cu")}
 
 _loaded: Dict[str, ctypes.CDLL] = {}

@@ -17,12 +17,22 @@ product. Three routes, picked by ``tubelet_embed(impl=...)`` or
   runs its plain twin ``tubelet_embed_plain``, which rounds where the TPU
   kernel rounds: the weight and the bias are cast to the video's dtype, the
   product is accumulated in f32, the bias added in f32 and the output
-  rounded once. Kernel 10 takes every shape, as the TPU kernel does: kw·C
-  in ``RUN_LENGTHS`` with W·C and D multiples of 8 (ViViT-B's stem) runs
-  its run-length instance (``mma.sync`` in bf16), every other shape its
-  general path (the FMA units, scalar loads); ``last_design`` reports which
-  ran. The TPU kernel has no VJP, so this route raises ``RuntimeError``
-  when autograd would need a gradient, on both devices.
+  rounded once. Kernel 10 takes every shape, as the TPU kernel does; the C
+  side picks its design (``c_design``; ``design_takes`` mirrors it) and
+  ``last_design`` reports which ran. kw·C in ``RUN_LENGTHS`` with W·C and
+  D multiples of 8 (ViViT-B's stem) runs the wgmma/TMA designs of
+  ``csrc/tubelet_embed_wgmma.cu``: ``wgmma`` in bf16, ``wgmma.tf32x3`` in
+  f32 (TF32 operands split into big and small parts, three products a
+  product, each K-step's products added to an f32 sum on the FMA units):
+  persistent blocks, the video's patch runs read by TMA as boxes of a 5-D
+  tensor map (an h'-row of patches a 16-row slot of the tile) and shared by
+  multicast among the blocks of a cluster that compute one row tile's
+  column tiles, W transposed (and split) once a call into scratch the
+  wrapper allocates (``scratch_bytes``) and loaded by TMA. ``tubelet_embed_mma_cuda`` runs the
+  earlier run-length instances there (``mma.sync`` in bf16, ``fma`` in
+  f32), to time the new designs against; every other shape runs the
+  general path (the FMA units, scalar loads). The TPU kernel has no VJP, so this route raises
+  ``RuntimeError`` when autograd would need a gradient, on both devices.
 
 All take channels-last video (B, T, H, W, C) and the Flax kernel layout
 (kt, kh, kw, C, D) with a (D,) bias; ``kernel_from_conv3d`` turns a
@@ -47,13 +57,13 @@ SOURCE = "tubelet_embed.cu"
 # other shape takes the general path.
 RUN_LENGTHS = (16, 32, 48, 64)
 # Designs of kernel 10, by the code ``tubelet_embed_last_design`` returns.
-DESIGNS = ("fma", "mma.sync", "general")
+DESIGNS = ("fma", "mma.sync", "general", "wgmma", "wgmma.tf32x3")
 # Kernel launches since the count was last set to 0 (plain CPU calls do not
 # count); ``chip_smoke.py`` reads it to prove the path used the kernel.
 launches = 0
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_fn = None
+_fns: Dict[str, Callable] = {}
 
 
 def reset_launches() -> None:
@@ -154,6 +164,53 @@ def run_length_takes(video, kernel, tubelet=(2, 16, 16)) -> bool:
     return tubelet[2] * c in RUN_LENGTHS and (w * c) % 8 == 0 and d % 8 == 0
 
 
+def design_takes(video_shape, d: int, tubelet=(2, 16, 16), dtype=torch.bfloat16) -> str:
+    """The design (``DESIGNS``) kernel 10 runs for a video of ``video_shape``
+    (B, T, H, W, C), ``d`` outputs and ``tubelet`` in ``dtype``: a mirror of
+    the C entry's choice (``tubelet_embed_design``, which ``c_design`` asks)
+    for the CPU tests and the checks that name the design a shape should
+    run. ``wgmma`` (bf16) or ``wgmma.tf32x3`` (f32) at the run-length shapes,
+    ``general`` elsewhere (``tubelet_embed_mma_cuda`` runs ``mma.sync`` or
+    ``fma`` where these run)."""
+    c, w = video_shape[-1], video_shape[-2]
+    if not (tubelet[2] * c in RUN_LENGTHS and (w * c) % 8 == 0 and d % 8 == 0):
+        return "general"
+    return "wgmma" if dtype == torch.bfloat16 else "wgmma.tf32x3"
+
+
+def _c_fn(name: str, restype, argtypes):
+    if name not in _fns:
+        fn = getattr(_build.load(SOURCE), name)
+        fn.restype, fn.argtypes = restype, argtypes
+        _fns[name] = fn
+    return _fns[name]
+
+
+def c_design(video_shape, d: int, tubelet=(2, 16, 16), dtype=torch.bfloat16,
+             mma_only: bool = False) -> str:
+    """The design (``DESIGNS``) the C entry (``tubelet_embed``, or
+    ``tubelet_embed_mma`` with ``mma_only``) runs for this call. Needs the
+    built library."""
+    fn = _c_fn("tubelet_embed_design", ctypes.c_int, [ctypes.c_int] * 8)
+    code = fn(_DTYPE_CODE[dtype], video_shape[-2], video_shape[-1], *tubelet, d, int(mma_only))
+    if code < 0:
+        raise ValueError(f"tubelet_embed_design refuses {tuple(video_shape)}, D = {d}, "
+                         f"{tuple(tubelet)}, {dtype}")
+    return DESIGNS[code]
+
+
+def scratch_bytes(video_shape, d: int, tubelet=(2, 16, 16), dtype=torch.bfloat16) -> int:
+    """Bytes of scratch the C entry needs for this call (W transposed, and in
+    f32 split, by the wgmma designs' pre-pass; 0 for the other designs), as
+    the C side sizes it (``tubelet_embed_scratch_bytes``). Needs the built
+    library."""
+    fn = _c_fn("tubelet_embed_scratch_bytes", ctypes.c_longlong, [ctypes.c_int] * 7)
+    n = fn(_DTYPE_CODE[dtype], video_shape[-2], video_shape[-1], *tubelet, d)
+    if n < 0:
+        raise ValueError(f"tubelet_embed_scratch_bytes refuses {tuple(video_shape)}, D = {d}")
+    return n
+
+
 def kernel_takes(video, kernel, tubelet=(2, 16, 16)) -> bool:
     """Whether kernel 10 takes this shape: every shape that fits the tubelet,
     as the TPU kernel takes any (it pads M)."""
@@ -163,16 +220,13 @@ def kernel_takes(video, kernel, tubelet=(2, 16, 16)) -> bool:
 def last_design() -> Optional[str]:
     """The design (``DESIGNS``) of kernel 10's last launch in this process,
     as the C side chose it; None before the first."""
-    fn = _build.load(SOURCE).tubelet_embed_last_design
-    fn.restype, fn.argtypes = ctypes.c_int, []
-    code = fn()
+    code = _c_fn("tubelet_embed_last_design", ctypes.c_int, [])()
     return DESIGNS[code] if code >= 0 else None
 
 
-def tubelet_embed_cuda(video, kernel, bias, tubelet=(2, 16, 16)) -> torch.Tensor:
-    """Kernel 10 on CUDA tensors: (B, N, D) in the video's dtype, float32 or
-    bfloat16, at every shape; raises if it cannot launch."""
-    global launches, _fn
+def _launch(video, kernel, bias, tubelet, entry: str) -> torch.Tensor:
+    """One launch of C entry ``entry`` (``tubelet_embed`` or
+    ``tubelet_embed_mma``) on CUDA tensors; raises if it cannot launch."""
     _check(video, kernel, bias, tubelet)
     if not (video.is_cuda and kernel.is_cuda and bias.is_cuda):
         raise ValueError("tubelet_embed_cuda needs CUDA tensors")
@@ -188,19 +242,36 @@ def tubelet_embed_cuda(video, kernel, bias, tubelet=(2, 16, 16)) -> torch.Tensor
     out = torch.empty((b, n, d), dtype=video.dtype, device=video.device)
     if b * n == 0:
         return out
-    if _fn is None:
-        fn = _build.load(SOURCE).tubelet_embed
-        fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
-        _fn = fn
+    fn = _c_fn(entry, ctypes.c_int, [ctypes.c_void_p] * 5 + [ctypes.c_int] * 10
+               + [ctypes.c_void_p])
     with torch.cuda.device(video.device):
-        err = _fn(x.data_ptr(), wk.data_ptr(), bk.data_ptr(), out.data_ptr(),
-                  _DTYPE_CODE[video.dtype], b, t, h, w, c, kt, kh, kw, d,
-                  torch.cuda.current_stream(video.device).cuda_stream)
+        nbytes = 0 if entry != "tubelet_embed" else scratch_bytes(video.shape, d, tubelet,
+                                                                   video.dtype)
+        scratch = torch.empty((nbytes,), dtype=torch.uint8, device=video.device)
+        err = fn(x.data_ptr(), wk.data_ptr(), bk.data_ptr(), out.data_ptr(),
+                 scratch.data_ptr() if nbytes else None, _DTYPE_CODE[video.dtype], b, t, h, w,
+                 c, kt, kh, kw, d, torch.cuda.current_stream(video.device).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"tubelet_embed launch failed: cudaError {err}")
+        raise RuntimeError(f"{entry} launch failed: cudaError {err}")
+    return out
+
+
+def tubelet_embed_cuda(video, kernel, bias, tubelet=(2, 16, 16)) -> torch.Tensor:
+    """Kernel 10 on CUDA tensors: (B, N, D) in the video's dtype, float32 or
+    bfloat16, at every shape, in the design the C side picks; raises if it
+    cannot launch (the wgmma designs' failures included: there is no
+    fallback)."""
+    global launches
+    out = _launch(video, kernel, bias, tubelet, "tubelet_embed")
     launches += 1
     return out
+
+
+def tubelet_embed_mma_cuda(video, kernel, bias, tubelet=(2, 16, 16)) -> torch.Tensor:
+    """Kernel 10 with the earlier run-length instances (``mma.sync`` in bf16,
+    ``fma`` in f32) wherever the wgmma designs would run (their yardstick),
+    on CUDA tensors; counts no launch, raises if it cannot launch."""
+    return _launch(video, kernel, bias, tubelet, "tubelet_embed_mma")
 
 
 def tubelet_embed_kernel(video, kernel, bias, tubelet=(2, 16, 16)) -> torch.Tensor:

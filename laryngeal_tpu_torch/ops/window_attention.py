@@ -60,6 +60,13 @@ reports which ran:
   and dO^T written transposed, since TF32 wgmma reads both operands K-major;
   the blocks are the bf16 design's, with K/V (Q/dO) streamed in 64-key
   (32-query) chunks through a ring instead of held whole a window.
+* kernel 11 (``window_attention_variant(..., "bf16sm" | "exp2")``) on
+  ``wgmma``: kernel 8's design, its softmax mode a template parameter (mode
+  1 rounds z = S - max to bf16 before the exp, mode 2 takes exp2(z·log2e),
+  the subtraction and the product each rounded), at kernel 8's ``wgmma``
+  domain; ``design_takes(..., kind="bf16sm" | "exp2")`` mirrors the
+  choice, ``window_attention_variant_mma_cuda`` runs the held design in its
+  place and counts no launch.
 * kernel 12 (``window_attention_variant(..., "h2")``) on ``wgmma``: the
   same source's design with ``heads_per_block`` heads of a window a block,
   the region ids loaded once a window, each head's K/V chunks and 64-key f32
@@ -71,8 +78,8 @@ reports which ran:
 * ``mma.sync``: the held design (a block holds its query tile's bias rows in
   shared memory, slots of 4 warps stream 64-key tiles) at every other bf16
   shape with N <= ``HELD_MAX_SEQ`` and D <= ``HELD_MAX_HEAD_DIM`` (128),
-  kernel 11, and kernel 12 (2-3 heads a block, the bias read per element)
-  outside its ``wgmma`` domain. ``window_attention_fwd_mma_cuda`` and
+  and kernels 11 and 12 (2-3 heads a block, the bias read per element)
+  outside their ``wgmma`` domains. ``window_attention_fwd_mma_cuda`` and
   ``window_attention_bwd_mma_cuda`` run it wherever the wgmma design would;
   only ``chip_smoke.py``, ``scripts/ablate_window.py`` and the card tests
   call them, to time and hold the designs against each other, and they
@@ -227,10 +234,10 @@ def design_takes(n: int, d: int, dtype: torch.dtype, strides=None, kind: str = "
     position, head) stride of the launch is positive (TMA cannot describe a
     stride of 0; ``strides`` as the wrapper passes them, None for tensors
     laid out by ``_prepare`` from positive strides); else ``fma`` in f32 and
-    ``mma.sync`` in bf16; ``wide`` beyond the held designs. Kernel 12
-    (``h2``, bf16 only) runs ``wgmma`` at those shapes when N % 4 == 0 too
-    (its bias rows, 4·N bytes, streamed by TMA), ``mma.sync`` elsewhere;
-    kernel 11 always ``mma.sync``."""
+    ``mma.sync`` in bf16; ``wide`` beyond the held designs. The variants
+    take bf16 only: kernel 11 (``bf16sm``, ``exp2``) runs ``wgmma`` where
+    kernel 8 does, kernel 12 (``h2``) where N % 4 == 0 too (its bias rows,
+    4·N bytes, streamed by TMA); both ``mma.sync`` elsewhere."""
     d_pad = -(-d // 8) * 8
     wgmma = (n <= WGMMA_MAX_SEQ and d_pad <= WGMMA_MAX_HEAD_DIM
              and (strides is None or all(s > 0 for s in strides)))
@@ -239,7 +246,7 @@ def design_takes(n: int, d: int, dtype: torch.dtype, strides=None, kind: str = "
                 or d_pad > VARIANT_MAX_HEAD_DIM:
             raise ValueError(f"the variants take bfloat16 at N <= {HELD_MAX_SEQ}, D <= "
                              f"{VARIANT_MAX_HEAD_DIM}; got {kind!r}, {dtype}, {n}, {d}")
-        return "wgmma" if kind == "h2" and wgmma and n % 4 == 0 else "mma.sync"
+        return "wgmma" if wgmma and (kind != "h2" or n % 4 == 0) else "mma.sync"
     if not held_takes(n, d_pad):
         return "wide"
     if wgmma:
@@ -249,8 +256,8 @@ def design_takes(n: int, d: int, dtype: torch.dtype, strides=None, kind: str = "
 
 def c_design(which: int, dtype: torch.dtype, n: int, d_pad: int, strides,
              mma_only: bool = False) -> str:
-    """The design (``DESIGNS``) the C entry of kernel 8 (``which`` 0), 9 (1)
-    or 12 (2) runs for a call in ``dtype`` at (n, d_pad) with the launch's
+    """The design (``DESIGNS``) the C entry of kernel 8 (``which`` 0), 9 (1),
+    12 (2) or 11 (3) runs for a call in ``dtype`` at (n, d_pad) with the launch's
     12 or 21 (window, position, head) ``strides``; ``mma_only`` for the
     ``_mma`` entries. Needs the built library."""
     if "window_attention_design" not in _fns:
@@ -551,8 +558,8 @@ def _launch_variant(q, k, v, bias, region_id, kind: str, entry: str) -> torch.Te
 def window_attention_variant_cuda(q, k, v, bias, region_id, kind: str) -> torch.Tensor:
     """Kernel 11 (``kind`` 'bf16sm' or 'exp2') or kernel 12 ('h2') on CUDA
     bfloat16 tensors, in the design the C side picks (``design_takes(...,
-    kind=kind)``); raises if it cannot launch (kernel 12's wgmma design's
-    failures included: there is no fallback)."""
+    kind=kind)``); raises if it cannot launch (the wgmma designs' failures
+    included: there is no fallback)."""
     out = _launch_variant(q, k, v, bias, region_id, kind, "window_attention_fwd")
     variant_launches[kind] += 1
     variant_design_launches[kind][last_designs()[0]] += 1
@@ -561,8 +568,8 @@ def window_attention_variant_cuda(q, k, v, bias, region_id, kind: str) -> torch.
 
 def window_attention_variant_mma_cuda(q, k, v, bias, region_id, kind: str) -> torch.Tensor:
     """A kernel-11/12 variant on the held mma.sync design at every shape (the
-    yardstick of kernel 12's wgmma design), on CUDA bfloat16 tensors; counts
-    no launch, raises if it cannot launch."""
+    yardstick of their wgmma designs), on CUDA bfloat16 tensors; counts no
+    launch, raises if it cannot launch."""
     return _launch_variant(q, k, v, bias, region_id, kind, "window_attention_fwd_mma")
 
 

@@ -1914,10 +1914,10 @@ def test_tubelet_general_path_matches_plain(cuda, shape, tubelet, d, dtype):
 
 
 def test_tubelet_kernel_reports_the_design_it_ran(cuda):
-    """The ViViT-B stem's run length (kw·C = 48) runs the mma.sync instance
-    in bf16 and the FMA one in f32; kw·C = 24 the general path."""
-    for tubelet, dtype, want in (((2, 16, 16), torch.bfloat16, "mma.sync"),
-                                 ((2, 16, 16), torch.float32, "fma"),
+    """The ViViT-B stem's run length (kw·C = 48) runs the wgmma design in
+    bf16 and the wgmma.tf32x3 one in f32; kw·C = 24 the general path."""
+    for tubelet, dtype, want in (((2, 16, 16), torch.bfloat16, "wgmma"),
+                                 ((2, 16, 16), torch.float32, "wgmma.tf32x3"),
                                  ((2, 8, 8), torch.bfloat16, "general")):
         video, kernel, bias = _tubelet_inputs((1, 2, 32, 32, 3), tubelet, 48, dtype, cuda)
         tt.tubelet_embed_cuda(video, kernel, bias, tubelet)
@@ -2381,3 +2381,172 @@ def test_window_h2_failure_raises_and_runs_no_other_design(cuda, monkeypatch):
     with pytest.raises(RuntimeError):
         wa.window_attention_variant_cuda(q, k, v, bias, rid, "h2")
     assert wa.variant_launches == before
+
+
+# -- kernel 11's design: kernel 8's wgmma + TMA with its softmax modes --------
+# (B·nW, N, H, D, nW): the four Swin3D-T stage shapes with region ids, N = 100
+# and 30 (no N % 4 rule), D below 32 (padded), an unshifted stage.
+SM_SHAPES = [(1024, 392, 3, 32, 2), (256, 392, 6, 32, 2), (64, 392, 12, 32, 8),
+             (16, 392, 24, 32, 2), (64, 392, 3, 32, None), (6, 100, 2, 32, 3),
+             (4, 30, 2, 16, 2), (2, 200, 6, 24, 2)]
+
+
+@pytest.mark.parametrize("kind", ["bf16sm", "exp2"])
+@pytest.mark.parametrize("shape", SM_SHAPES, ids=str)
+def test_window_sm_designs_both_match_plain_and_repeat(cuda, shape, kind):
+    """Kernel 11 runs kernel 8's wgmma design in the mode of its softmax
+    (bitwise the same on a second call) within the variant's limit of its
+    plain twin, in the design ``design_takes`` names; the held mma.sync
+    design (``window_attention_variant_mma_cuda``) holds it too."""
+    q, k, v, bias, rid, _ = _window_inputs(shape, torch.bfloat16, cuda, seed=18)
+    out = wa.window_attention_variant_cuda(q, k, v, bias, rid, kind)
+    again = wa.window_attention_variant_cuda(q, k, v, bias, rid, kind)
+    torch.cuda.synchronize()
+    assert wa.last_designs()[0] == wa.design_takes(shape[1], shape[3], torch.bfloat16,
+                                                   kind=kind) == "wgmma"
+    assert torch.equal(out, again)
+    ref = wa.window_attention_plain(q, k, v, bias, rid, kind)
+    limit = wa.error_limit(q, k, v, bias, rid, ref, kind)
+    use = ((out.float() - ref.float()).abs() / limit).max().item()
+    assert use <= 1.0, use
+    old = wa.window_attention_variant_mma_cuda(q, k, v, bias, rid, kind)
+    torch.cuda.synchronize()
+    assert wa.last_designs()[0] == "mma.sync"
+    use_old = ((old.float() - ref.float()).abs() / limit).max().item()
+    assert use_old <= 1.0, use_old
+
+
+def test_window_sm_design_mirror_matches_the_c_choice(cuda):
+    """``design_takes(..., kind="bf16sm" | "exp2")`` names kernel 11's design
+    as the C entry chooses it (``window_attention_design``, which = 3) at the
+    wgmma design's edges and past them, with every stride positive and with
+    a stride of 0; the ``_mma`` entry's choice is mma.sync."""
+    for n in (1, 8, 30, 100, 144, 145, 272, 273, 392, 400, 401, 448):
+        for d in (8, 16, 24, 32, 40, 64):
+            for strides in ([96] * 12, [96] * 11 + [0], [96] * 4 + [0] + [96] * 7):
+                for kind in ("bf16sm", "exp2"):
+                    want = wa.design_takes(n, d, torch.bfloat16, strides, kind=kind)
+                    assert wa.c_design(3, torch.bfloat16, n, d, strides) == want, (n, d, strides)
+                assert wa.c_design(3, torch.bfloat16, n, d, strides, mma_only=True) == "mma.sync"
+
+
+def test_window_sm_counts_one_launch_a_call_by_design(cuda):
+    """Each kernel-11 call counts one launch under the design that ran; the
+    held-design entry counts none; a launch the C side refuses raises and
+    runs no other design."""
+    q, k, v, bias, rid, _ = _window_inputs((4, 392, 3, 32, 2), torch.bfloat16, cuda, seed=19)
+    wide = _window_inputs((2, 408, 2, 32, 2), torch.bfloat16, cuda, seed=21)[:5]  # N > 400
+    for kind in ("bf16sm", "exp2"):
+        before = dict(wa.variant_launches)
+        designs = dict(wa.variant_design_launches[kind])
+        wa.window_attention_variant_cuda(q, k, v, bias, rid, kind)
+        wa.window_attention_variant_cuda(*wide, kind)
+        wa.window_attention_variant_mma_cuda(q, k, v, bias, rid, kind)
+        torch.cuda.synchronize()
+        assert wa.variant_launches[kind] == before[kind] + 2
+        assert {d: wa.variant_design_launches[kind][d] - designs[d] for d in wa.DESIGNS} == {
+            "fma": 0, "mma.sync": 1, "wide": 0, "wgmma": 1, "wgmma.tf32x3": 0}
+    before = dict(wa.variant_launches)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setitem(wa._fns, "window_attention_fwd", lambda *a: 1)
+        with pytest.raises(RuntimeError):
+            wa.window_attention_variant_cuda(q, k, v, bias, rid, "exp2")
+    assert wa.variant_launches == before
+
+
+def _mode0_digests(device):
+    """sha256 (first 16 hex digits) of kernel 8's bf16 output (mode 0, the
+    wgmma design) on seeded inputs: the digests the kernel gave before its
+    softmax mode became a template parameter are pinned below."""
+    import hashlib
+
+    out = {}
+    for shape in ((64, 392, 3, 32, 2), (16, 392, 24, 32, None), (6, 100, 2, 32, 3),
+                  (4, 30, 2, 16, 2), (2, 200, 6, 24, 2)):
+        q, k, v, bias, rid, _ = _window_inputs(shape, torch.bfloat16, device, seed=20)
+        o = wa.window_attention_fwd_cuda(q, k, v, bias, rid)
+        out[str(shape)] = hashlib.sha256(
+            o.contiguous().view(torch.uint8).cpu().numpy().tobytes()).hexdigest()[:16]
+    return out
+
+
+MODE0_DIGESTS = {"(64, 392, 3, 32, 2)": "4c4278380bfc1253",
+                 "(16, 392, 24, 32, None)": "13b94c2ea612a52a",
+                 "(6, 100, 2, 32, 3)": "927d1d0ab97d78d7",
+                 "(4, 30, 2, 16, 2)": "2db6c2b5c0cf0130",
+                 "(2, 200, 6, 24, 2)": "4cd7a90b76dcb6d7"}
+
+
+def test_window_mode0_is_bitwise_unchanged(cuda):
+    """Kernel 8 (mode 0) gives bitwise the output it gave before kernel 11
+    took its design (``MODE0_DIGESTS``, read on an H100 from the earlier
+    kernel)."""
+    assert _mode0_digests(cuda) == MODE0_DIGESTS
+
+
+# -- kernel 10's designs: wgmma + TMA (bf16), wgmma.tf32x3 (f32) -------------
+# chip_smoke.py phase 15's shapes: (video (B, T, H, W, C), D, tubelet).
+PHASE15_TUBELET_SHAPES = [((8, 32, 224, 224, 3), 768, (2, 16, 16)),
+                          ((5, 4, 64, 112, 3), 768, (2, 16, 16)),
+                          ((2, 6, 48, 64, 3), 48, (2, 16, 16)),
+                          ((2, 4, 64, 64, 3), 96, (2, 8, 8)),
+                          ((2, 4, 56, 56, 3), 768, (2, 14, 14)),
+                          ((2, 4, 32, 48, 3), 100, (2, 16, 16)),
+                          ((2, 4, 21, 49, 3), 64, (2, 7, 7)),
+                          ((1, 4, 48, 288, 3), 200, (2, 16, 16)),   # W' = 18: two slots a row
+                          ((1, 8, 16, 64, 1), 16, (4, 4, 16))]      # kw·C = 16, kt = 4
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=str)
+@pytest.mark.parametrize("shape,d,tubelet", PHASE15_TUBELET_SHAPES, ids=str)
+def test_tubelet_designs_match_plain_at_phase15_shapes(cuda, shape, d, tubelet, dtype):
+    """Kernel 10 runs the design ``design_takes`` names (wgmma / wgmma.tf32x3
+    at the run-length shapes), bitwise repeatable, within ``error_limit`` of
+    its plain twin; the earlier design (``tubelet_embed_mma_cuda``) holds it
+    too and counts no launch."""
+    video, kernel, bias = _tubelet_inputs(shape, tubelet, d, dtype, cuda, seed=5)
+    before = tt.launches
+    out = tt.tubelet_embed_cuda(video, kernel, bias, tubelet)
+    again = tt.tubelet_embed_cuda(video, kernel, bias, tubelet)
+    torch.cuda.synchronize()
+    assert tt.launches == before + 2
+    assert tt.last_design() == tt.design_takes(shape, d, tubelet, dtype)
+    assert torch.equal(out, again)
+    ref = tt.tubelet_embed_plain(video, kernel, bias, tubelet)
+    limit = tt.error_limit(video, kernel, ref, tubelet)
+    assert out.dtype == dtype and out.shape == ref.shape
+    assert ((out.float() - ref.float()).abs() / limit).max().item() <= 1.0
+    old = tt.tubelet_embed_mma_cuda(video, kernel, bias, tubelet)
+    torch.cuda.synchronize()
+    assert tt.launches == before + 2
+    assert tt.last_design() in ("mma.sync", "fma", "general")
+    assert ((old.float() - ref.float()).abs() / limit).max().item() <= 1.0
+
+
+def test_tubelet_design_mirror_matches_the_c_choice(cuda):
+    """``design_takes`` names the design the C entry chooses
+    (``tubelet_embed_design``) across run lengths, tubelets, widths, D and
+    both dtypes; the ``_mma`` entry keeps the earlier designs."""
+    for c, kw, w in ((3, 16, 224), (3, 8, 64), (4, 4, 32), (1, 16, 64), (3, 7, 49), (5, 16, 32),
+                     (4, 16, 32), (3, 14, 56)):
+        for kt in (1, 2, 4, 5):
+            for d in (8, 48, 100, 768):
+                for dtype in (torch.bfloat16, torch.float32):
+                    shape = (1, kt, 16, w, c)
+                    tubelet = (kt, 16, kw)
+                    want = tt.design_takes(shape, d, tubelet, dtype)
+                    assert tt.c_design(shape, d, tubelet, dtype) == want, (shape, d, tubelet)
+                    old = tt.c_design(shape, d, tubelet, dtype, mma_only=True)
+                    assert old == {"wgmma": "mma.sync", "wgmma.tf32x3": "fma"}.get(want, want)
+
+
+def test_tubelet_wgmma_launch_error_raises_and_runs_no_other_design(cuda, monkeypatch):
+    """A launch the C side refuses raises RuntimeError: no launch is counted
+    and no other design runs in its place."""
+    video, kernel, bias = _tubelet_inputs((1, 2, 32, 32, 3), (2, 16, 16), 48, torch.bfloat16,
+                                          cuda)
+    before = tt.launches
+    monkeypatch.setitem(tt._fns, "tubelet_embed", lambda *a: 1)
+    with pytest.raises(RuntimeError):
+        tt.tubelet_embed_cuda(video, kernel, bias)
+    assert tt.launches == before

@@ -221,3 +221,147 @@ def test_kernel_route_refuses_autograd_and_counts_no_cpu_launch(data):
     assert tt.launch_counts() == {"tubelet_embed": 0}
     with pytest.raises(ValueError, match="CUDA"):
         tt.tubelet_embed_cuda(video, kernel, bias)
+
+
+# -- kernel 10's wgmma designs, emulated on the CPU ---------------------------
+
+# (video shape, D, tubelet, dtype) -> the design the C entry runs: the wgmma
+# designs at the run-length shapes, the general path off them.
+DESIGN_CASES = [
+    (((8, 32, 224, 224, 3), 768, (2, 16, 16), torch.bfloat16), "wgmma"),  # ViViT-B's stem
+    (((8, 32, 224, 224, 3), 768, (2, 16, 16), torch.float32), "wgmma.tf32x3"),
+    (((1, 4, 16, 32, 4), 32, (2, 4, 8), torch.bfloat16), "wgmma"),          # kw·C = 32
+    (((1, 2, 32, 32, 4), 96, (2, 16, 16), torch.float32), "wgmma.tf32x3"),  # kw·C = 64
+    (((1, 4, 16, 64, 1), 16, (4, 4, 16), torch.bfloat16), "wgmma"),         # kw·C = 16, kt = 4
+    (((1, 5, 16, 64, 1), 16, (5, 4, 16), torch.bfloat16), "wgmma"),         # kt = 5
+    (((1, 5, 16, 64, 1), 16, (5, 4, 16), torch.float32), "wgmma.tf32x3"),
+    (((2, 4, 64, 64, 3), 96, (2, 8, 8), torch.bfloat16), "general"),        # kw·C = 24
+    (((2, 4, 32, 48, 3), 100, (2, 16, 16), torch.float32), "general"),      # D % 8 != 0
+    (((2, 4, 21, 49, 3), 64, (2, 7, 7), torch.bfloat16), "general"),        # W·C = 147
+]
+
+
+@pytest.mark.parametrize("case,want", DESIGN_CASES, ids=str)
+def test_design_takes_mirrors_the_c_choice(case, want):
+    """``design_takes`` names the design the C entry runs (held against
+    ``tubelet_embed_design`` on the card): ``wgmma`` / ``wgmma.tf32x3`` at
+    the run-length shapes, ``general`` elsewhere."""
+    shape, d, tubelet, dtype = case
+    assert tt.design_takes(shape, d, tubelet, dtype) == want
+    video, kernel = torch.zeros(shape), torch.zeros((*tubelet, shape[-1], d))
+    assert tt.run_length_takes(video, kernel, tubelet) == (want != "general")
+
+
+def _tf32(x):
+    """x rounded to TF32 to nearest, ties away from zero (``cvt.rna``)."""
+    bits = x.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _split_tf32(x):
+    """``tf32tile::tf32_split``: big = x with its low 13 bits masked, small =
+    tf32(x - big)."""
+    big = (x.float().contiguous().view(torch.int32) & ~0x1FFF).view(torch.float32)
+    return big, _tf32(x.float() - big)
+
+
+def _emulate_wgmma(video, kernel, bias, tubelet, split="tf32x3"):
+    """Kernel 10's wgmma designs on the CPU, in their schedule: 8 slots of 16
+    rows a tile, a slot one h'-row's 16-patch chunk (rows past W' idle),
+    slots walked in (b, t', h', chunk) order across clips and frame pairs,
+    128-row tiles by 192 (bf16) or 128 (f32) columns of W^T; each K-step
+    (dt, dh) one run of kw·C values a row. bf16 (``split`` None): the
+    products summed in f32 over every step. f32: each step's products, three
+    TF32 products (small·big, big·small, big·big; ``"tf32x3"``) or one of the
+    operands rounded to TF32 (``"tf32"``), in a fresh accumulator added to
+    the f32 sum. The bias is added in f32, the output rounded once; every
+    token is written exactly once."""
+    b, t, h, w, c = video.shape
+    kt, kh, kw = tubelet
+    run, d = kw * c, kernel.shape[-1]
+    n_w, n_h, n_bt = w // kw, h // kh, b * (t // kt)
+    n_wc = -(-n_w // 16)
+    slots, bn = n_bt * n_h * n_wc, 128 if split else 192
+    patches = tt.extract_tubelets(video, tubelet).reshape(-1, kt * kh * run).float()
+    wt = tt.flatten_kernel(kernel).to(video.dtype).float().t()  # (D, K): the pre-pass
+    parts = {"tf32x3": _split_tf32, "tf32": lambda x: (_tf32(x), None), None: None}[split]
+    out = torch.zeros((patches.shape[0], d))
+    written = torch.zeros(patches.shape[0], dtype=torch.int64)
+    for slot0 in range(0, slots, 8):
+        rows = []  # the tile's 128 rows: a token, or -1 for an idle row
+        for slot in range(slot0, slot0 + 8):
+            for i in range(16):
+                wp = 16 * (slot % n_wc) + i
+                rows.append((slot // n_wc) * n_w + wp if slot < slots and wp < n_w else -1)
+        rows = torch.tensor(rows)
+        live = rows >= 0
+        a = torch.zeros((128, patches.shape[1]))
+        a[live] = patches[rows[live]]
+        for n0 in range(0, d, bn):
+            bt = wt[n0:n0 + bn]
+            total = torch.zeros((128, bt.shape[0]))
+            for s in range(kt * kh):
+                ak, bk = a[:, s * run:(s + 1) * run], bt[:, s * run:(s + 1) * run]
+                if parts is None:
+                    total += ak @ bk.t()
+                    continue
+                (a_big, a_small), (b_big, b_small) = parts(ak), parts(bk)
+                step = a_big @ b_big.t()
+                if a_small is not None:
+                    step = a_small @ b_big.t() + a_big @ b_small.t() + step
+                total += step
+            out[rows[live], n0:n0 + bn] = total[live]
+            written[rows[live]] += 1
+    assert torch.equal(written, torch.full_like(written, -(-d // bn)))
+    out = out + bias.to(video.dtype).float()
+    return out.to(video.dtype).reshape(b, -1, d)
+
+
+# (video (B, T, H, W, C), tubelet, D): kw·C = 48 with W' = 18 (two chunks a
+# row) and 3 tiles, kw·C = 32 over 4 tiles, kw·C = 16 with kt = 4, kw·C = 64.
+WGMMA_SHAPES = [((1, 4, 48, 288, 3), (2, 16, 16), 200),
+                ((2, 4, 32, 64, 4), (2, 4, 8), 136),
+                ((1, 8, 16, 64, 1), (4, 4, 16), 16),
+                ((1, 2, 32, 64, 4), (2, 16, 16), 24)]
+
+
+@pytest.mark.parametrize("shape,tubelet,d", WGMMA_SHAPES, ids=str)
+def test_tf32x3_emulation_holds_the_f32_limit_where_one_term_does_not(shape, tubelet, d):
+    """The f32 design (``wgmma.tf32x3``) emulated in its schedule stays within
+    kernel 10's unchanged f32 limit (``error_limit``: 1e-5·Σ|x·w| + 1e-6) of
+    the JAX package's Pallas kernel (interpret mode); one TF32 product of
+    the rounded operands does not, which is why the split exists."""
+    rng = np.random.default_rng(7)
+    video = rng.standard_normal(shape, dtype=np.float32)
+    fan_in = tubelet[0] * tubelet[1] * tubelet[2] * shape[-1]
+    kernel = rng.standard_normal((*tubelet, shape[-1], d), dtype=np.float32) / np.sqrt(fan_in)
+    bias = 0.1 * rng.standard_normal(d, dtype=np.float32)
+    ref = torch.from_numpy(np.array(jt.tubelet_embed_pallas(
+        jnp.asarray(video), jnp.asarray(kernel), jnp.asarray(bias), tubelet, block_n=64)))
+    tv, tk, tb = _torch(video, kernel, bias)
+    limit = tt.error_limit(tv, tk, ref, tubelet)
+    emu = _emulate_wgmma(tv, tk, tb, tubelet, "tf32x3")
+    assert ((emu - ref).abs() / limit).max().item() <= 0.25
+    one = _emulate_wgmma(tv, tk, tb, tubelet, "tf32")
+    assert ((one - ref).abs() / limit).max().item() > 1.0
+
+
+@pytest.mark.parametrize("shape,tubelet,d", WGMMA_SHAPES, ids=str)
+def test_bf16_wgmma_emulation_matches_jax_kernel(shape, tubelet, d):
+    """The bf16 design (``wgmma``) emulated in its schedule (the tile walk,
+    the idle rows, each token written once) matches the JAX package's
+    Pallas kernel in bf16 (interpret mode) under ``error_limit``."""
+    rng = np.random.default_rng(8)
+    video = rng.standard_normal(shape, dtype=np.float32)
+    fan_in = tubelet[0] * tubelet[1] * tubelet[2] * shape[-1]
+    kernel = rng.standard_normal((*tubelet, shape[-1], d), dtype=np.float32) / np.sqrt(fan_in)
+    bias = 0.1 * rng.standard_normal(d, dtype=np.float32)
+    ref = torch.from_numpy(np.array(jt.tubelet_embed_pallas(
+        jnp.asarray(video, jnp.bfloat16), jnp.asarray(kernel), jnp.asarray(bias), tubelet,
+        block_n=64), np.float32))
+    tv = torch.from_numpy(video).to(torch.bfloat16)
+    tk, tb = _torch(kernel, bias)
+    emu = _emulate_wgmma(tv, tk, tb, tubelet, None)
+    limit = tt.error_limit(tv, tk, ref, tubelet)
+    assert emu.dtype == torch.bfloat16
+    assert ((emu.float() - ref).abs() / limit).max().item() <= 1.0

@@ -305,7 +305,7 @@ def test_bf16sm_variant_in_bf16_matches_the_script_kernel():
     assert not torch.equal(out, wa.window_attention_plain(tq, tk, tv, tb, tr))
 
 
-def _emulate_h2_schedule(q, k, v, bias, rid):
+def _emulate_h2_schedule(q, k, v, bias, rid, kind="h2"):
     """Kernel 12's wgmma design on the CPU, in its schedule: per window the
     region ids once (a window whose ids name one region skips the mask), per
     block of ``heads_per_block`` heads each head in turn, per 64-query tile
@@ -315,9 +315,16 @@ def _emulate_h2_schedule(q, k, v, bias, rid):
     keys past N masked; the exact softmax over both warpgroups (the row max
     and sum exchanged, exp2 of S·log2(e) - max·log2(e)), P normalised and
     rounded to v's dtype, and warpgroup 1's partial P V added to warpgroup
-    0's. Returns the output in q's dtype."""
+    0's. Returns the output in q's dtype.
+
+    With ``kind`` "bf16sm" or "exp2" it is kernel 11 on kernel 8's wgmma
+    design (one head a block, the same key split, logits, exchanges and P V;
+    the held bias rows give the logits the streamed tiles give): the
+    exponential takes z = S - max (the exchanged row max), rounded to bf16
+    before exp2(z·log2(e)) for bf16sm, or exp2(z·log2(e)) with the
+    subtraction and the product each rounded for exp2."""
     bw, n, h, d = q.shape
-    hb = wa.heads_per_block(h)
+    hb = wa.heads_per_block(h) if kind == "h2" else 1
     kw = 72 if n <= 144 else 136 if n <= 272 else 200
     nc = kw // 64 + 1
     log2e = 1.4426950408889634
@@ -351,9 +358,18 @@ def _emulate_h2_schedule(q, k, v, bias, rid):
                         s[..., keys >= n] = -1e30
                         chunks.append((s, keys))
                     parts.append(chunks)
-                m2 = torch.maximum(*(torch.cat([s for s, _ in ch], -1).amax(-1, keepdim=True)
-                                     for ch in parts)) * log2e
-                ps = [[(torch.exp2(s * log2e - m2), keys) for s, keys in ch] for ch in parts]
+                mx = torch.maximum(*(torch.cat([s for s, _ in ch], -1).amax(-1, keepdim=True)
+                                     for ch in parts))
+
+                def exp(s):
+                    if kind == "h2":
+                        return torch.exp2(s * log2e - mx * log2e)
+                    z = s - mx
+                    if kind == "bf16sm":
+                        z = z.to(torch.bfloat16).float()
+                    return torch.exp2(z * log2e)
+
+                ps = [[(exp(s), keys) for s, keys in ch] for ch in parts]
                 l = sum(p.sum(-1, keepdim=True) for ch in ps for p, _ in ch)
                 o = sum(torch.einsum("bqk,bkd->bqd", (p / l).to(v.dtype).float(),
                                      vp[:, keys, head]) for ch in ps for p, keys in ch)
@@ -384,6 +400,38 @@ def test_h2_wgmma_schedule_emulation_matches_the_script_kernel(shape, masked):
     assert (np.abs(emu16.float().numpy() - ref16) / limit).max() <= 1.0
 
 
+@pytest.mark.parametrize("kind", ["bf16sm", "exp2"])
+@pytest.mark.parametrize("shape,masked", [((2, 392, 3, 32, 2), True), ((2, 392, 6, 16, 1), False),
+                                          ((3, 100, 2, 32, 3), True), ((2, 30, 2, 16, 1), True)],
+                         ids=str)
+def test_sm_wgmma_schedule_emulation_matches_the_script_kernel(shape, masked, kind):
+    """Kernel 11 on kernel 8's wgmma design, emulated in its schedule on the
+    CPU (the two warpgroups' key ranges with the row max and sum exchanged,
+    z = S - max rounded to bf16 after the subtraction for bf16sm, the
+    subtraction then the product by log2(e) for exp2), is held against the
+    script's ``_fwd_kernel_sm`` in interpret mode under the variant's
+    ``error_limit``, in f32 and in bf16, masked and unmasked."""
+    q, k, v, bias, rid, _ = _inputs(shape, masked, seed=9)
+    rid_j = None if rid is None else jnp.asarray(rid)
+    tb, tr = _torch(bias), _rid_t(rid)
+    for dtype, jdtype in ((torch.float32, jnp.float32), (torch.bfloat16, jnp.bfloat16)):
+        ref = np.asarray(_jax_variant(*(_jax(x, jdtype) for x in (q, k, v)), jnp.asarray(bias),
+                                      rid_j, kind), np.float32)
+        tq, tk, tv = (_torch(x, dtype) for x in (q, k, v))
+        emu = _emulate_h2_schedule(tq, tk, tv, tb, tr, kind)
+        limit = wa.error_limit(tq, tk, tv, tb, tr, emu, kind, f32_tol=ATOL).numpy()
+        assert emu.dtype == dtype
+        assert (np.abs(emu.float().numpy() - ref) / limit).max() <= 1.0
+
+
+# (N, D, strides) -> kernel 11's design (bf16): kernel 8's, wgmma at N <= 400 and
+# D <= 32 (padded) with every stride positive, mma.sync elsewhere.
+SM_DESIGN = {(392, 32, None): "wgmma", (100, 32, None): "wgmma", (8, 16, None): "wgmma",
+             (400, 24, None): "wgmma", (392, 20, None): "wgmma", (30, 16, None): "wgmma",
+             (402, 32, None): "mma.sync", (448, 32, None): "mma.sync",
+             (77, 64, None): "mma.sync", (392, 40, None): "mma.sync",
+             (392, 32, (1, 8, 8, 0, 8, 8)): "mma.sync"}
+
 # (N, D, strides) -> kernel 12's design (bf16): wgmma at N <= 400 with N % 4 == 0
 # and D <= 32 (padded) with every stride positive, mma.sync elsewhere.
 H2_DESIGN_CASES = [
@@ -405,11 +453,14 @@ H2_DESIGN_CASES = [
 def test_h2_design_takes_mirrors_the_c_choice(case, want):
     """``design_takes(..., kind="h2")`` names kernel 12's design as the C
     entry chooses it (held against ``window_attention_design`` on the card);
-    kernel 11's variants always run mma.sync, and the variants refuse f32."""
+    kernel 11's variants run kernel 8's choice (``SM_DESIGN``: wgmma where
+    kernel 8 runs it, with no N % 4 rule), and the variants refuse f32."""
     n, d, strides = case
     assert wa.design_takes(n, d, torch.bfloat16, strides, kind="h2") == want
     for kind in ("bf16sm", "exp2"):
-        assert wa.design_takes(n, d, torch.bfloat16, strides, kind=kind) == "mma.sync"
+        assert wa.design_takes(n, d, torch.bfloat16, strides, kind=kind) == SM_DESIGN[case]
+        assert wa.design_takes(n, d, torch.bfloat16, strides, kind=kind) == (
+            wa.design_takes(n, d, torch.bfloat16, strides))
     with pytest.raises(ValueError):
         wa.design_takes(n, d, torch.float32, strides, kind="h2")
 
