@@ -183,14 +183,39 @@ Phases, in order; any failure ends the run with a non-zero exit:
    B=2 against plain attention; one forward + backward + AdamW step of the
    block at B=8 timed, with its peak memory.
 
+17. 3D-ResNet50 (slow_r50) at full width and depth, 32f 224^2, seeded
+   weights; no kernel of the table lies on its path (cuDNN convolutions), so
+   every launch count must read 0 across the phase. Serving:
+   ``Predictor.predict_clip`` on a (8, 32, 224, 224, 3) uint8 batch in f32
+   (the CLI's default) and bf16, probabilities finite and summing to 1; the
+   f32 eval logits against the same weights in float64 on the card (B=1)
+   within 1e-4 x max(1, max |logit|) with TF32 off, the bf16 logits against
+   the f32 ones within 3e-2 x max(1, max |logit|); the forward's time and
+   clips/s with cuDNN's TF32 off and on (on is torch's default, which the
+   CLI runs with; this script turns both TF32 flags off at its start), the
+   TF32 logits' deviation from float64 printed, not held. The train step at
+   B=8 in f32 (Adam, CE, the pytorchvideo augmentation, dropout on): loss
+   finite, the last BatchNorm's running statistics moved by the biased rule
+   (recomputed on the host from its captured input, and told apart from
+   torch's unbiased one), the step's time, clips/s and peak memory with
+   cuDNN's TF32 off and on, its device time by kernel (torch.profiler) with
+   it on. Then ``cli.main --model resnet3d`` for one epoch on 8 / 4 / 4
+   synthetic videos and ``Predictor.from_checkpoint`` on its best_model/.
+18. ResNet50-2D + LSTM(256, 2 layers) the same way, with BCE and pos_weight
+   and the trunk frozen in the train step: every trunk parameter bitwise
+   unchanged while its BN statistics moved, every LSTM and classifier
+   parameter moved.
+
 The kernel checks (2, 2b, 7, 11, 11b, 15, 16) run first, then the paths. The
 launch counts are set to 0 before each path (ViViT serving 3-4, ViViT
 training 5-6, TimeSformer serving 8, TimeSformer training 9-10, Swin3D
 serving 12, Swin3D training 13-14, the ablation of 11b, the ViViT-B stem of
-15 and the biased block of 16) and read after it. Each phase
+15, the biased block of 16, and the CNN families of 17 and 18) and read
+after it. Each phase
 prints its time. The second-to-last line of output is ``{"kernels": [...]}``;
 the last is ``{"ok": true, "device": {...}}``. Decode is skipped in 3-5, 8-9,
-12-13 and 15-16 (clips are uint8 arrays); phases 6, 10 and 14 decode mp4s.
+12-13, 15-16 and the serving and train steps of 17-18 (clips are uint8
+arrays); phases 6, 10, 14 and the CLI runs of 17-18 decode mp4s.
 """
 
 from __future__ import annotations
@@ -2864,6 +2889,303 @@ def bias_block_path(model, pixel) -> dict:
         f"{ {d: n for d, n in fa.bias_design_launches.items() if n} }")
     return launch_counts()
 
+
+# Phases 17-18: the CNN families. No kernel of the table lies on their path
+# (cuDNN convolutions, the LSTM's products); every launch count must stay 0.
+# Each family's label, seed and the BatchNorm whose update phase 17b / 18b recomputes
+# (the last: the fewest elements a channel, so the biased and unbiased rules lie furthest apart).
+CNN_FAMILIES = {
+    "resnet3d": dict(label="resnet3d (slow_r50)", seed=17,
+                     bn="blocks.4.res_blocks.2.branch2.norm_c"),
+    "resnet50_lstm": dict(label="resnet50-2d + lstm(256, 2)", seed=18, bn="resnet50.7.2.bn3"),
+}
+
+
+def cnn_model(name: str, dtype, seed: int):
+    """The family's model at full width and depth with seeded weights: slow_r50
+    (2 classes) or ResNet50 + LSTM(256, 2 layers)."""
+    from laryngeal_tpu_torch.models.registry import create_model
+
+    return create_model(name, num_classes=2, dtype=dtype, seed=seed)
+
+
+def conv_flops(model, pixel) -> float:
+    """Operations of one forward, counted from this run's shapes: 2 x the
+    multiply-adds of every convolution and linear layer (hooks)."""
+    total = [0.0]
+
+    def hook(m, args, out):
+        if isinstance(m, torch.nn.Linear):
+            total[0] += 2.0 * out.numel() * m.in_features
+        else:
+            total[0] += 2.0 * out.numel() * m.weight[0].numel()
+
+    handles = [m.register_forward_hook(hook) for m in model.modules()
+               if isinstance(m, (torch.nn.Conv2d, torch.nn.Conv3d, torch.nn.Linear))]
+    try:
+        with torch.inference_mode():
+            model(pixel)
+    finally:
+        for h in handles:
+            h.remove()
+    return total[0]
+
+
+def set_tf32(on: bool) -> None:
+    """TF32 for cuDNN's f32 convolutions: on is torch's default, which the
+    CLI runs with (it sets no flag); matmuls stay off, torch's default too."""
+    torch.backends.cudnn.allow_tf32 = on
+
+
+def cnn_serving(name: str, card: str) -> None:
+    """Phase 17a / 18a: ``Predictor.predict_clip`` at full width on a
+    (8, 32, 224, 224, 3) uint8 batch in f32 (the CLI's default) and bf16:
+    probabilities finite and summing to 1; the f32 eval logits against the
+    same model and weights in float64 on the card (B=1: cuDNN's float64
+    convolutions are slow) within 1e-4 x max(1, max |logit|) with TF32 off;
+    the bf16 logits against the f32 ones within 3e-2 x max(1, max |logit|);
+    the forward's time and clips/s with cuDNN's TF32 off and on (and the
+    logits' deviation from float64 with it on, not held)."""
+    from laryngeal_tpu_torch.infer.predictor import Predictor
+    from laryngeal_tpu_torch.models.registry import get_model_spec
+    from laryngeal_tpu_torch.preprocess.transforms import batch_preprocess
+
+    fam = CNN_FAMILIES[name]
+    label, seed = fam["label"], fam["seed"]
+    spec = get_model_spec(name)
+    clips = np.random.default_rng(seed).integers(0, 256, (8, 32, 224, 224, 3), dtype=np.uint8)
+    with torch.inference_mode():
+        pixel = batch_preprocess(torch.from_numpy(clips).cuda(), spec.preprocess_regime,
+                                 crop=224)
+    results = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        model = cnn_model(name, dtype, seed).cuda().eval()
+        predictor = Predictor(model, spec, num_frames=32, crop_size=224, device="cuda")
+        probs = predictor.predict_clip(clips)
+        if probs.shape != (8, 2) or not np.isfinite(probs).all() \
+                or not np.allclose(probs.sum(-1), 1.0, atol=1e-5):
+            raise AssertionError(f"{label} {dtype} predictor: bad probabilities {probs}")
+        with torch.inference_mode():
+            logits = model(pixel)
+            forward_ms = cuda_time_ms(lambda: model(pixel), reps=5, warmup=1)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(3):
+                predictor.predict_clip(clips)
+            e2e_s = (time.perf_counter() - t0) / 3
+            results[dtype] = logits.float()
+            ops = conv_flops(model, pixel)
+            log(f"{label} 32f 224 {str(dtype)[6:]} B=8 TF32 off: forward {forward_ms:.2f} ms "
+                f"-> {8e3 / forward_ms:.2f} clips/s (model only; {ops:.4e} operations counted "
+                f"from the convolutions and linear layers), predict_clip {e2e_s * 1e3:.2f} ms "
+                f"-> {8 / e2e_s:.2f} clips/s (uint8 host batch -> probabilities on the host); "
+                f"{card}")
+            if dtype == torch.float32:
+                wide = cnn_model(name, torch.float64, seed).double().cuda().eval()
+                ref = wide(pixel[:1].double())
+                t0 = time.perf_counter()
+                wide(pixel[:1].double())
+                torch.cuda.synchronize()
+                f64_s = time.perf_counter() - t0
+                del wide
+                scale = max(1.0, ref.abs().max().item())
+                err = (logits[:1].double() - ref).abs().max().item()
+                log(f"{label} f32 eval logits vs float64 on the card (B=1, TF32 off): "
+                    f"max_abs_err {err:.3e} (tol 1e-4 x {scale:.3f}); float64 forward "
+                    f"{f64_s * 1e3:.1f} ms")
+                if not (np.isfinite(err) and err <= 1e-4 * scale):
+                    raise AssertionError(f"{label} f32 logits disagree with float64")
+                set_tf32(True)
+                try:
+                    tf32_logits = model(pixel)
+                    tf32_ms = cuda_time_ms(lambda: model(pixel), reps=5, warmup=1)
+                finally:
+                    set_tf32(False)
+                dev = (tf32_logits[:1].double() - ref).abs().max().item()
+                log(f"{label} 32f 224 f32 B=8 cuDNN TF32 on (torch's default, the CLI's): "
+                    f"forward {tf32_ms:.2f} ms -> {8e3 / tf32_ms:.2f} clips/s; logits vs "
+                    f"float64 max_abs_err {dev:.3e} (not held); {card}")
+        del predictor, model
+        torch.cuda.empty_cache()
+    f32, bf16 = results[torch.float32], results[torch.bfloat16]
+    scale = max(1.0, f32.abs().max().item())
+    err = (bf16 - f32).abs().max().item()
+    log(f"{label} bf16 logits vs f32 (B=8): max_abs_err {err:.3e} (tol 3e-2 x {scale:.3f})")
+    if not (np.isfinite(err) and err <= 3e-2 * scale):
+        raise AssertionError(f"{label} bf16 logits disagree with f32")
+    del pixel
+    torch.cuda.empty_cache()
+
+
+def cnn_training(name: str, card: str) -> None:
+    """Phase 17b / 18b: the train step at full width, B=8, f32 (the CLI's
+    default), Adam with CE (resnet3d) or BCE with pos_weight and the trunk
+    frozen (resnet50_lstm), the pytorchvideo augmentation and dropout on:
+    the loss finite; one BatchNorm layer's running statistics moved by the
+    biased rule, recomputed on the host from its captured input; for
+    resnet50_lstm every trunk parameter bitwise unchanged while its BN
+    buffers moved, and every LSTM and classifier parameter moved; the step's
+    time, clips/s and peak memory with cuDNN's TF32 off and on, and its
+    device time by kernel with it on."""
+    from laryngeal_tpu_torch.models.resnet import backbone_param_mask
+    from laryngeal_tpu_torch.models.registry import get_model_spec
+    from laryngeal_tpu_torch.train.state import create_train_state
+    from laryngeal_tpu_torch.train.steps import make_train_step
+
+    fam = CNN_FAMILIES[name]
+    label, seed = fam["label"], fam["seed"]
+    spec = get_model_spec(name)
+    b = 8
+    model = cnn_model(name, torch.float32, seed).cuda()
+    mask_fn = backbone_param_mask(model) if name == "resnet50_lstm" else None
+    state = create_train_state(model, spec.optimizer, spec.default_lr,
+                               spec.default_weight_decay, trainable_mask=mask_fn)
+    pos_weight = 1.5
+    step = make_train_step(model, spec.preprocess_regime, spec.loss, pos_weight, crop=224,
+                           seed=0)
+    rng = np.random.default_rng(seed + 100)
+    pixel_u8 = torch.from_numpy(rng.integers(0, 256, (b, 32, 224, 224, 3),
+                                             dtype=np.uint8)).cuda()
+    labels = torch.from_numpy(rng.integers(0, 2, b)).cuda()
+    mask = torch.ones(b, dtype=torch.bool, device="cuda")
+
+    bn = model.get_submodule(fam["bn"])
+    captured = {}
+
+    def capture(module, args):
+        if "x" not in captured:
+            captured["x"] = args[0].detach().float().cpu()
+
+    hook = bn.register_forward_pre_hook(capture)
+    before = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    try:
+        state, m = step(state, pixel_u8, labels, mask)
+        torch.cuda.synchronize()
+    finally:
+        hook.remove()
+    loss0 = m["loss"].item()
+    if not math.isfinite(loss0):
+        raise AssertionError(f"{label} train step: non-finite loss {loss0}")
+    x = captured["x"].double().numpy()
+    axes = (0,) + tuple(range(2, x.ndim))
+    n = x.size // x.shape[1]
+    mean, var = x.mean(axis=axes), x.var(axis=axes)
+    old_m = before[f"{fam['bn']}.running_mean"].double().cpu().numpy()
+    old_v = before[f"{fam['bn']}.running_var"].double().cpu().numpy()
+    new_m = bn.running_mean.double().cpu().numpy()
+    new_v = bn.running_var.double().cpu().numpy()
+    want_m, want_v = 0.9 * old_m + 0.1 * mean, 0.9 * old_v + 0.1 * var
+    torch_v = 0.9 * old_v + 0.1 * var * n / (n - 1)
+    err_m, err_v = np.abs(new_m - want_m).max(), np.abs(new_v - want_v).max()
+    gap = np.abs(torch_v - want_v).max()
+    log(f"{label} BN {fam['bn']} (n = {n} a channel): running mean off the biased rule by "
+        f"{err_m:.3e}, running var by {err_v:.3e}; torch's unbiased rule would sit {gap:.3e} "
+        f"off (max |var| {np.abs(var).max():.3e})")
+    if not (err_m <= 1e-5 * max(1.0, np.abs(want_m).max()) and err_v <= 0.1 * gap):
+        raise AssertionError(f"{label} BN running statistics did not move by the biased rule")
+    after = model.state_dict()
+    if name == "resnet50_lstm":
+        frozen = [k for k, t in mask_fn.items() if not t]
+        moved_params = [k for k, t in mask_fn.items() if t]
+        bad = [k for k in frozen if not torch.equal(after[k], before[k])]
+        still = [k for k in moved_params if torch.equal(after[k], before[k])]
+        stats = [k for k in after if k.startswith("resnet50.") and "running_" in k]
+        unmoved = [k for k in stats if torch.equal(after[k], before[k])]
+        if bad or still or unmoved:
+            raise AssertionError(f"frozen trunk: changed {bad[:3]}, unmoved trainable "
+                                 f"{still[:3]}, unmoved BN statistics {unmoved[:3]}")
+        log(f"{label}: {len(frozen)} trunk parameters bitwise unchanged, its {len(stats)} BN "
+            f"statistics moved, {len(moved_params)} LSTM / classifier parameters moved; "
+            f"optimizer state for {len(state.optimizer.state)} tensors")
+    del captured, before, after
+    for tf32 in (False, True):
+        set_tf32(tf32)
+        try:
+            for _ in range(2):
+                step(state, pixel_u8, labels, mask)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reps = 5
+            t0 = time.perf_counter()
+            losses = [step(state, pixel_u8, labels, mask)[1]["loss"] for _ in range(reps)]
+            torch.cuda.synchronize()
+            step_s = (time.perf_counter() - t0) / reps
+        finally:
+            set_tf32(False)
+        peak = torch.cuda.max_memory_allocated()
+        losses = [x.item() for x in losses]
+        if not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"{label} non-finite loss {losses}")
+        log(f"{label} 32f 224 f32 B=8 train step, cuDNN TF32 {'on' if tf32 else 'off'}: "
+            f"{step_s * 1e3:.2f} ms -> {b / step_s:.2f} clips/s (uint8 batch on the card -> "
+            f"augmented -> updated weights), peak memory {peak / 2**30:.2f} GiB; losses "
+            f"{[loss0] + losses}; {card}")
+    # Where the step's device time goes under the CLI's setting.
+    set_tf32(True)
+    try:
+        parts = launch_breakdown(lambda: step(state, pixel_u8, labels, mask), reps=2)
+    finally:
+        set_tf32(False)
+    total = sum(parts.values())
+    top = sorted(parts.items(), key=lambda kv: -kv[1])[:10]
+    log(f"{label} train step device time (torch.profiler, a step, cuDNN TF32 on): "
+        f"{total:.2f} ms in kernels; top: " + ", ".join(f"{k} {v:.2f}" for k, v in top))
+    del state, step, model, pixel_u8
+    torch.cuda.empty_cache()
+
+
+def cnn_cli(name: str) -> None:
+    """Phase 17c / 18c: ``cli.main --model <name>`` (f32, the defaults) for
+    one epoch over 8 / 4 / 4 synthetic videos in a temporary directory
+    (deleted at the end), then ``Predictor.from_checkpoint`` on best_model/
+    for two clips."""
+    from laryngeal_tpu_torch.cli import main as cli
+    from laryngeal_tpu_torch.data.synthetic import make_synthetic_dataset
+    from laryngeal_tpu_torch.infer.predictor import Predictor
+
+    label = CNN_FAMILIES[name]["label"]
+    tmp = Path(tempfile.mkdtemp(prefix=f"chip_smoke_{name}_cli_"))
+    try:
+        data = make_synthetic_dataset(str(tmp / "data"), {"train": 4, "val": 2, "test": 2},
+                                      num_frames=40, h=112, w=112, seed=CNN_FAMILIES[name]["seed"])
+        t0 = time.perf_counter()
+        out = cli.main(["--model", name, "--data_dir", str(data), "--log_dir",
+                        str(tmp / "logs"), "--batch_size", "4", "--epochs", "1",
+                        "--no-pretrained", "--decode_workers", "4"])
+        dt = time.perf_counter() - t0
+        exp = Path(out["exp_dir"])
+        for f in ("best_model", "latest", "training_history.json", "test_metrics_uniform.json"):
+            if not (exp / f).exists():
+                raise AssertionError(f"{label} cli wrote no {f}")
+        h = out["history"]
+        if not all(math.isfinite(x) for x in h["train_loss"] + h["val_loss"]):
+            raise AssertionError(f"{label} cli history {h}")
+        predictor = Predictor.from_checkpoint(name, exp / "best_model")
+        clips = np.random.default_rng(3).integers(0, 256, (2, 32, 112, 112, 3), dtype=np.uint8)
+        probs = predictor.predict_clip(clips)
+        if not np.isfinite(probs).all() or not np.allclose(probs.sum(-1), 1.0, atol=1e-5):
+            raise AssertionError(f"predictor on the {label} cli checkpoint: {probs}")
+        log(f"{label} cli (f32, B=4): 1 epoch over 8 / 4 / 4 videos in {dt:.1f} s; history "
+            f"{h['train_loss']} / {h['val_loss']}; test auroc {out['auroc']:.3f}; "
+            f"Predictor.from_checkpoint({name!r}, best_model): {probs.tolist()}")
+        del predictor
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        torch.cuda.empty_cache()
+
+
+def cnn_path(name: str, card: str) -> dict:
+    """Phases 17 (resnet3d) and 18 (resnet50_lstm): serving, the train step
+    and the CLI. Returns the launch counts, all of which must read 0."""
+    cnn_serving(name, card)
+    cnn_training(name, card)
+    cnn_cli(name)
+    counts = launch_counts()
+    if any(counts.values()):
+        raise AssertionError(f"a kernel launched on the {name} path: {counts}")
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -2944,11 +3266,18 @@ def main() -> int:
     phase_done("16 vivit-b block with a bias through kernel 5")
     del model, pixel
     torch.cuda.empty_cache()
+    card = card_line()
+    cnn_counts = {}
+    for number, name in (("17", "resnet3d"), ("18", "resnet50_lstm")):
+        reset_launches()
+        cnn_counts[name] = cnn_path(name, card)
+        phase_done(f"{number} {name} serving, training, cli")
     log(f"launches: vivit serving path {serve_counts}; vivit training path {train_counts}; "
         f"timesformer serving path {ts_serve_counts}; timesformer training path "
         f"{ts_train_counts}; swin3d serving path {swin_serve_counts}; swin3d training path "
         f"{swin_train_counts}; window ablation {variant_counts}; vivit-b stem path "
-        f"{tubelet_counts}; biased block path {bias_counts}")
+        f"{tubelet_counts}; biased block path {bias_counts}; "
+        + "; ".join(f"{name} path: all {len(c)} counts 0" for name, c in cnn_counts.items()))
     tpu = "laryngeal_tpu/ops/flash_attention.py"
     kernels = [dict(name="flash_attention_fwd", route="cuda",
                     source="laryngeal_tpu_torch/csrc/flash_attention_fwd.cu",

@@ -1,13 +1,14 @@
 """Inference CLI — single-video and batch modes (counterpart of
 ``laryngeal_tpu/cli/inference.py``).
 
-``python -m laryngeal_tpu_torch.cli.inference --model {vivit,timesformer,swin3d}
---model_path CKPT --video_path V.mp4 [--model_size tiny] [--device cuda]``
+``python -m laryngeal_tpu_torch.cli.inference --model
+{vivit,timesformer,swin3d,resnet3d,resnet50_lstm} --model_path CKPT --video_path V.mp4
+[--model_size tiny] [--hidden_size 256 --num_layers 2] [--device cuda]``
 
 Single video -> JSON result (schema of ``vivit_transformer/inference.py:225-248``);
 ``--video_dir`` walks a tree of .mp4s and writes a CSV + JSON summary
-(``resnet50-2d-lstm/inference.py:250-351``). Ported: ``--model vivit``,
-``timesformer`` and ``swin3d`` on the rgb wire. AOT artifacts (``--exported``), the other wires, frame
+(``resnet50-2d-lstm/inference.py:250-351``). Ported: every model on the rgb
+wire. AOT artifacts (``--exported``), the other wires, frame
 visualisations and the batch-mode plots are not yet ported (ROADMAP.md).
 """
 
@@ -37,6 +38,10 @@ def add_model_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--image_size", type=int, default=None)
     p.add_argument("--model_size", type=str, default="tiny",
                    help="swin3d size: tiny|small|base|base_in22k (checkpoint metadata wins)")
+    p.add_argument("--hidden_size", type=int, default=None,
+                   help="resnet50_lstm LSTM width (checkpoint metadata wins, else 256)")
+    p.add_argument("--num_layers", type=int, default=None,
+                   help="resnet50_lstm LSTM depth (checkpoint metadata wins, else 2)")
     p.add_argument("--log_dir", type=str, default="logs")
     p.add_argument("--wire", type=str, default="rgb",
                    choices=("rgb", "i420", "delta", "dct", "dctp"),

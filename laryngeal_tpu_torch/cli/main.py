@@ -1,13 +1,18 @@
 """Training CLI (counterpart of ``laryngeal_tpu/cli/main.py``).
 
-``python -m laryngeal_tpu_torch.cli.main --model {vivit,timesformer,swin3d}
---data_dir D [--model_size tiny] [--stochastic_depth R] [--bf16] [--device cuda]`` runs the JAX CLI's chain (``cli/main.py:220-585``)
+``python -m laryngeal_tpu_torch.cli.main --model
+{vivit,timesformer,swin3d,resnet3d,resnet50_lstm} --data_dir D
+[--model_size tiny] [--stochastic_depth R] [--hidden_size 256] [--num_layers 2]
+[--dropout 0.5] [--bf16] [--device cuda]`` runs the JAX CLI's chain (``cli/main.py:220-585``)
 on one device: dataset and loaders, the trainer's train/validation epochs
 with model selection, early stopping, best and rolling ``latest`` checkpoints
 and the best-model reload, then the test-set evaluator. The parser keeps the
 JAX flag surface, plus ``--device`` (default ``cuda``; the CPU only when
-asked for). Ported: ``--model vivit``, ``timesformer`` and ``swin3d`` on the
-rgb wire; Swin3D, as in the JAX CLI, trains without early stopping. Flags of features not yet ported (ROADMAP.md) raise when set to
+asked for). Ported: every model on the rgb wire; Swin3D, as in the JAX CLI,
+trains without early stopping; resnet50_lstm takes ``--hidden_size`` /
+``--num_layers`` (256 / 2 unless given) and ``--dropout`` as its LSTM's,
+resnet3d ``--dropout`` as its head's, and resnet3d's per-video sampled
+indices are written as the JAX CLI writes them. Flags of features not yet ported (ROADMAP.md) raise when set to
 anything but their default:
 the mesh / pipeline / fsdp axes, ``--remat``, ``--grad_accum_steps > 1``,
 non-rgb wires, ``--torch_weights``, ``--profile_dir``, the on-disk clip and
@@ -24,7 +29,7 @@ from pathlib import Path
 
 import numpy as np
 
-PORTED_MODELS = ("vivit", "timesformer", "swin3d")
+PORTED_MODELS = ("vivit", "timesformer", "swin3d", "resnet3d", "resnet50_lstm")
 # Flags of features not yet ported, with their defaults.
 NOT_PORTED = {
     "mesh_data": None, "mesh_model": 1, "mesh_seq": 1, "pp_stages": 1,
@@ -276,6 +281,9 @@ def run(args) -> dict:
     for k in spec.arch_flags:
         if getattr(args, k) is not None:
             model_kwargs[k] = getattr(args, k)
+    if args.model == "resnet50_lstm":
+        model_kwargs.update(hidden_size=args.hidden_size or 256,
+                            num_layers=args.num_layers or 2)
     model = create_model(args.model, seed=args.seed, **model_kwargs)
 
     loaders = create_dataloaders(

@@ -1,8 +1,9 @@
 """Serving CLI — online HTTP inference with dynamic batching (counterpart of
 ``laryngeal_tpu/cli/serve.py``).
 
-``python -m laryngeal_tpu_torch.cli.serve --model {vivit,timesformer,swin3d}
---model_path CKPT [--model_size tiny] [--port N] [--device cuda]``
+``python -m laryngeal_tpu_torch.cli.serve --model
+{vivit,timesformer,swin3d,resnet3d,resnet50_lstm} --model_path CKPT
+[--model_size tiny] [--hidden_size 256 --num_layers 2] [--port N] [--device cuda]``
 
 Loads a port checkpoint into ``infer.predictor.Predictor`` on the card and
 serves it; the checkpoint's ``model_kwargs.dtype`` sets the compute dtype.

@@ -1,20 +1,22 @@
-"""Flax params -> torch state_dict (HF / torchvision names).
+"""Flax params -> torch state_dict (HF / torchvision / pytorchvideo names).
 
 The inverses of ``laryngeal_tpu/compat/torch_port.py::port_vivit``,
-``::port_timesformer`` and ``::port_swin3d``: each takes the nested dict of
-numpy arrays that the JAX package's ``create_vivit(...).init`` /
-``create_timesformer(...).init`` / ``create_swin3d(...).init`` produces
-(``variables["params"]``, converted with ``np.asarray``) and returns the
-state_dict of the port's ``VivitForVideoClassification`` /
-``TimesformerForVideoClassification`` / ``SwinTransformer3D``. No JAX
-import: the input is plain numpy.
+``::port_timesformer``, ``::port_swin3d``, ``::port_resnet3d`` and
+``::port_resnet50_lstm``: each takes the nested dict of numpy arrays that the
+JAX package's ``create_*(...).init`` produces (``variables["params"]``, and
+for the two CNN families the whole ``variables`` with its
+``"batch_stats"``, converted with ``np.asarray``) and returns the state_dict
+of the port's model. No JAX import: the input is plain numpy.
 
 - Dense ``kernel`` (in, out) -> ``weight`` (out, in);
 - Conv3d ``kernel`` (kt, kh, kw, C, D) -> ``weight`` (D, C, kt, kh, kw);
 - Conv2d ``kernel`` (kh, kw, C, D) -> ``weight`` (D, C, kh, kw);
 - arrays without a layout (embeddings, Swin's relative-position tables) as
   they are;
-- LayerNorm ``scale`` -> ``weight``.
+- LayerNorm ``scale`` -> ``weight``;
+- BatchNorm ``scale`` / ``bias`` and the batch stats ``mean`` / ``var`` ->
+  ``weight`` / ``bias`` / ``running_mean`` / ``running_var``, with
+  ``num_batches_tracked`` 0 (Flax keeps no count).
 
 Every array is copied: a CPU JAX array can alias the numpy buffer it was
 made from, and torch.from_numpy aliases too, so without the copy an
@@ -127,4 +129,75 @@ def swin3d_state_dict_from_flax(params: Mapping, depths=(2, 2, 6, 2)) -> Dict[st
             _dense(m["reduction"], f"features.{2 * stage + 1}.reduction", sd)
     _layernorm(params["norm"], "norm", sd)
     _dense(params["head"], "head", sd)
+    return sd
+
+
+RESNET50_STAGES = (3, 4, 6, 3)  # both CNN families' blocks a stage
+
+
+def _conv(p: Mapping, prefix: str, out: Dict) -> None:
+    """A bias-free Conv2d / Conv3d kernel, (k..., C, D) -> (D, C, k...)."""
+    k = np.asarray(p["kernel"])
+    out[f"{prefix}.weight"] = _t(k.transpose(k.ndim - 1, k.ndim - 2, *range(k.ndim - 2)))
+
+
+def _batchnorm(p: Mapping, stats: Mapping, prefix: str, out: Dict) -> None:
+    out[f"{prefix}.weight"] = _t(p["scale"])
+    out[f"{prefix}.bias"] = _t(p["bias"])
+    out[f"{prefix}.running_mean"] = _t(stats["mean"])
+    out[f"{prefix}.running_var"] = _t(stats["var"])
+    out[f"{prefix}.num_batches_tracked"] = torch.tensor(0, dtype=torch.long)
+
+
+def resnet3d_state_dict_from_flax(variables: Mapping) -> Dict[str, torch.Tensor]:
+    """Flax ResNet3D variables (``stem_*``, ``stage{s}_{i}``, ``proj``) ->
+    pytorchvideo-named torch state_dict (``blocks.0`` stem,
+    ``blocks.{s}.res_blocks.{i}``, ``blocks.5.proj``)."""
+    params, stats = variables["params"], variables["batch_stats"]
+    sd: Dict[str, torch.Tensor] = {}
+    _conv(params["stem_conv"], "blocks.0.conv", sd)
+    _batchnorm(params["stem_bn"], stats["stem_bn"], "blocks.0.norm", sd)
+    for stage, blocks in enumerate(RESNET50_STAGES):
+        for i in range(blocks):
+            key = f"stage{stage + 1}_{i}"
+            bp, bs = params[key], stats[key]
+            p = f"blocks.{stage + 1}.res_blocks.{i}"
+            if "shortcut_conv" in bp:
+                _conv(bp["shortcut_conv"], f"{p}.branch1_conv", sd)
+                _batchnorm(bp["shortcut_bn"], bs["shortcut_bn"], f"{p}.branch1_norm", sd)
+            for br in ("a", "b", "c"):
+                _conv(bp[f"conv_{br}"], f"{p}.branch2.conv_{br}", sd)
+                _batchnorm(bp[f"bn_{br}"], bs[f"bn_{br}"], f"{p}.branch2.norm_{br}", sd)
+    _dense(params["proj"], "blocks.5.proj", sd)
+    return sd
+
+
+def resnet50_lstm_state_dict_from_flax(variables: Mapping,
+                                       num_layers: int = 2) -> Dict[str, torch.Tensor]:
+    """Flax VideoResNet50LSTM variables -> the reference's sequential names
+    (``resnet50.{0,1,4-7}``, ``lstm.*_l{k}``, ``classifier.{0,3}``)."""
+    params, stats = variables["params"], variables["batch_stats"]
+    trunk, trunk_stats = params["resnet50"], stats["resnet50"]
+    sd: Dict[str, torch.Tensor] = {}
+    _conv(trunk["conv1"], "resnet50.0", sd)
+    _batchnorm(trunk["bn1"], trunk_stats["bn1"], "resnet50.1", sd)
+    for stage, blocks in enumerate(RESNET50_STAGES):
+        for i in range(blocks):
+            key = f"layer{stage + 1}_{i}"
+            bp, bs = trunk[key], trunk_stats[key]
+            p = f"resnet50.{stage + 4}.{i}"
+            for j in (1, 2, 3):
+                _conv(bp[f"conv{j}"], f"{p}.conv{j}", sd)
+                _batchnorm(bp[f"bn{j}"], bs[f"bn{j}"], f"{p}.bn{j}", sd)
+            if "downsample_conv" in bp:
+                _conv(bp["downsample_conv"], f"{p}.downsample.0", sd)
+                _batchnorm(bp["downsample_bn"], bs["downsample_bn"], f"{p}.downsample.1", sd)
+    lstm = params["lstm"]
+    for k in range(num_layers):
+        sd[f"lstm.weight_ih_l{k}"] = _t(np.asarray(lstm[f"w_ih_l{k}"]).T)
+        sd[f"lstm.weight_hh_l{k}"] = _t(np.asarray(lstm[f"w_hh_l{k}"]).T)
+        sd[f"lstm.bias_ih_l{k}"] = _t(lstm[f"b_ih_l{k}"])
+        sd[f"lstm.bias_hh_l{k}"] = _t(lstm[f"b_hh_l{k}"])
+    _dense(params["fc1"], "classifier.0", sd)
+    _dense(params["fc2"], "classifier.3", sd)
     return sd

@@ -4,9 +4,11 @@
 Decode and frame sampling stay on the host; from the uint8 clip batch on,
 everything runs eagerly under ``torch.inference_mode()`` on ``device``:
 rgb wire passthrough, the model's preprocessing regime (ViViT, TimeSformer
-or pytorchvideo for Swin3D), the model (its attention in the CUDA kernels:
-flash for ViViT, short-sequence for TimeSformer, shifted-window for Swin3D),
-softmax. ``device=None`` means ``cuda`` and raises
+or pytorchvideo for Swin3D and the two CNN families), the model (its
+attention in the CUDA kernels: flash for ViViT, short-sequence for
+TimeSformer, shifted-window for Swin3D; cuDNN convolutions for 3D-ResNet50
+and ResNet50 + LSTM), softmax, or for resnet50_lstm's one BCE logit its
+sigmoid as two-class probabilities. ``device=None`` means ``cuda`` and raises
 without a card; the CPU is used only when asked for.
 """
 
@@ -85,7 +87,8 @@ class Predictor(VideoPredictorBase):
         compute dtype is part of it: ``model_kwargs['dtype']`` ('bfloat16',
         'float32'), float32 when neither names one. ``arch_defaults`` (the
         CLIs' architecture flags, e.g. Swin3D's ``model_size``) apply only
-        where the metadata names nothing."""
+        where the metadata names nothing; resnet50_lstm's ``hidden_size`` /
+        ``num_layers`` come this way from ``cli.inference``."""
         spec = get_model_spec(model_name)
         device = resolve_device(device)
         meta_cfg = read_metadata(checkpoint_path).get("config", {})

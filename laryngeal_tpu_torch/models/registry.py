@@ -1,7 +1,7 @@
 """Model registry (counterpart of ``laryngeal_tpu/models/registry.py``).
 
-Ported: ViViT, TimeSformer and Swin3D; the two CNN families raise until
-their slice lands (ROADMAP.md).
+All five families: ViViT, TimeSformer, Swin3D, 3D-ResNet50 and
+ResNet50-2D + LSTM.
 """
 
 from __future__ import annotations
@@ -9,11 +9,12 @@ from __future__ import annotations
 import dataclasses
 from typing import Callable, Dict, Tuple
 
+from .resnet import create_resnet50_lstm
+from .resnet3d import create_resnet3d
 from .swin3d import create_swin3d
 from .timesformer import create_timesformer
 from .vivit import create_vivit
 
-NOT_PORTED = ("resnet50_lstm", "resnet3d")
 VIT_FLAGS = ("hidden_size", "num_layers", "num_heads", "intermediate_size")
 
 
@@ -37,6 +38,24 @@ class ModelSpec:
 
 
 MODEL_REGISTRY: Dict[str, ModelSpec] = {
+    "resnet50_lstm": ModelSpec(
+        name="resnet50_lstm", factory=create_resnet50_lstm,
+        preprocess_regime="pytorchvideo", loss="bce_pos_weight",
+        optimizer="adam", default_num_frames=32, default_lr=1e-3,
+        default_weight_decay=0.0, label_policy="referral",
+        selection="composite",
+        reference="resnet50-2d-lstm/src/models/model.py:10-59",
+        arch_flags=("hidden_size", "num_layers", "dropout"),
+    ),
+    "resnet3d": ModelSpec(
+        name="resnet3d", factory=create_resnet3d,
+        preprocess_regime="pytorchvideo", loss="ce",
+        optimizer="adam", default_num_frames=32, default_lr=1e-3,
+        default_weight_decay=0.0, label_policy="referral",
+        selection="loss_acc_threshold", per_video_seed=True,
+        reference="resnet50-3d-video/video_classifier/models/resnet3d.py:4-49",
+        arch_flags=("dropout",),
+    ),
     "vivit": ModelSpec(
         name="vivit", factory=create_vivit,
         preprocess_regime="vivit", loss="ce",
@@ -69,9 +88,6 @@ MODEL_REGISTRY: Dict[str, ModelSpec] = {
 
 
 def get_model_spec(name: str) -> ModelSpec:
-    if name in NOT_PORTED:
-        raise NotImplementedError(
-            f"model {name!r} is not yet ported to laryngeal_tpu_torch, see ROADMAP.md")
     if name not in MODEL_REGISTRY:
         raise ValueError(f"Unknown model {name!r}; expected one of {sorted(MODEL_REGISTRY)}")
     return MODEL_REGISTRY[name]

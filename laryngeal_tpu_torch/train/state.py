@@ -7,14 +7,20 @@ second moment, and (AdamW) decoupled weight decay lr * wd * p on every
 parameter, biases and LayerNorm scales included, as ``optax.adamw`` does
 with no mask. The learning rate lives in the optimizer's ``param_groups``,
 so the host-side ReduceLROnPlateau (train/selection.py) rewrites it between
-epochs. The JAX package's ``_freeze_by_mask`` (the resnet50_lstm trunk) is
-not ported yet (ROADMAP.md).
+epochs.
+
+A trainable mask (``models.resnet.backbone_param_mask``: the resnet50_lstm
+trunk frozen) is the counterpart of the JAX package's ``_freeze_by_mask``:
+a frozen parameter gets ``requires_grad_(False)`` and stays out of the
+optimizer, so it takes no update and keeps no Adam moments. JAX computes
+those gradients only to zero them. Its module's BatchNorm statistics still
+move in train mode.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Iterable
+from typing import Dict, Iterable, Optional
 
 import torch
 
@@ -44,10 +50,18 @@ class TrainState:
 
 
 def create_train_state(model: torch.nn.Module, optimizer: str = "adam",
-                       learning_rate: float = 1e-3, weight_decay: float = 0.0) -> TrainState:
-    """``model`` already on its device (the optimizer state follows it)."""
-    return TrainState(model, make_optimizer(optimizer, model.parameters(), learning_rate,
-                                            weight_decay))
+                       learning_rate: float = 1e-3, weight_decay: float = 0.0,
+                       trainable_mask: Optional[Dict[str, bool]] = None) -> TrainState:
+    """``model`` already on its device (the optimizer state follows it).
+    ``trainable_mask`` maps parameter names to trainable; the others are
+    frozen (``requires_grad_(False)``) and left out of the optimizer."""
+    params = []
+    for name, p in model.named_parameters():
+        if trainable_mask is None or trainable_mask[name]:
+            params.append(p)
+        else:
+            p.requires_grad_(False)
+    return TrainState(model, make_optimizer(optimizer, params, learning_rate, weight_decay))
 
 
 def set_learning_rate(state: TrainState, lr: float) -> TrainState:

@@ -8,16 +8,21 @@ the epoch's end. Under autograd every attention call of the model goes
 through ``FlashAttentionFn`` (kernels 2-4 on the card: ViViT),
 ``ShortAttentionFn`` (kernels 6-7: TimeSformer) or ``WindowAttentionFn``
 (kernels 8-9: Swin3D); the eval step runs under ``torch.inference_mode`` and
-takes kernel 1, 6 or 8.
+takes kernel 1, 6 or 8. The two CNN families (3D-ResNet50, ResNet50 + LSTM)
+reach no kernel of the port: cuDNN convolutions and the LSTM's products. The
+step puts the model in train mode and the eval step in eval mode, so their
+BatchNorm layers normalise with the batch's statistics (padded rows of a
+last partial batch included, as the JAX step counts them) and move their
+running statistics in the one, and use the running statistics in the other.
 
 The step is model-agnostic: ``batch_preprocess`` dispatches on the regime.
 Like the JAX step (``steps.py:108-123``), each step derives its randomness
 from the seed and ``state.step``, so a resumed run draws what an
 uninterrupted one draws: a CPU generator for the pytorchvideo regime's
-augmentation and one on the model's device for Swin3D's stochastic depth
-(every model's forward takes it as ``generator``). The ViViT and
-TimeSformer regimes draw no augmentation and neither model has dropout, so
-those forwards ignore it.
+augmentation and one on the model's device for Swin3D's stochastic depth and
+the CNN families' dropout (every model's forward takes it as ``generator``).
+The ViViT and TimeSformer regimes draw no augmentation and neither model has
+dropout, so those forwards ignore it.
 ``LARYNGEAL_NO_AUGMENT=1``, read once when the step is made (as the JAX
 factory reads it, ``:82-90``), trains the pytorchvideo regime on its
 deterministic eval transform, so the port and JAX steps can be compared

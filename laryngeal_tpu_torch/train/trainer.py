@@ -8,8 +8,11 @@ rolling ``latest/`` every ``save_every`` epochs, ``training_history.json``;
 at the end the best model is reloaded. ``resume`` restores model, optimizer
 state, history and epoch counter and re-primes selection, early stopping and
 plateau from the history, so a resumed run continues as an uninterrupted
-one: the train step's random draws (Swin3D's augmentation and stochastic
-depth) come from the config's seed and the restored step count. Runs on the
+one: the train step's random draws (the pytorchvideo augmentation, Swin3D's
+stochastic depth, the CNN families' dropout) come from the config's seed and
+the restored step count. resnet50_lstm trains with its ResNet trunk frozen
+(``models.resnet.backbone_param_mask``) and, as in the JAX trainer, with the
+LR plateau on. Runs on the
 card unless ``device="cpu"`` is asked for. Not ported: the
 mesh / tensor / pipeline / fsdp axes, the multi-process mode, the tracker
 and the training-history plots (ROADMAP.md).
@@ -28,6 +31,7 @@ import torch
 
 from ..evals import metrics as M
 from ..models.registry import ModelSpec
+from ..models.resnet import backbone_param_mask
 from ..utils.device import resolve_device
 from .checkpoint import load_checkpoint, save_checkpoint
 from .losses import reference_pos_weight
@@ -60,10 +64,14 @@ class Trainer:
         self.pos_weight = reference_pos_weight(pos, neg) if spec.loss == "bce_pos_weight" else 1.0
 
         self.crop = int(config.get("crop_size", 224))
+        trainable_mask = None
+        if spec.name == "resnet50_lstm":  # the reference freezes the ResNet trunk
+            trainable_mask = backbone_param_mask(self.model)
         self.state: TrainState = create_train_state(
             self.model, optimizer=spec.optimizer,
             learning_rate=config.get("learning_rate", spec.default_lr),
-            weight_decay=config.get("weight_decay", spec.default_weight_decay))
+            weight_decay=config.get("weight_decay", spec.default_weight_decay),
+            trainable_mask=trainable_mask)
         self.train_step = make_train_step(
             self.model, spec.preprocess_regime, spec.loss, self.pos_weight, crop=self.crop,
             grad_accum=int(config.get("grad_accum_steps", 1)),

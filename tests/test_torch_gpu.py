@@ -11,6 +11,8 @@ They skip on a machine without CUDA. On the card, run them with
 machine does not need). This file imports no JAX.
 """
 
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -2550,3 +2552,120 @@ def test_tubelet_wgmma_launch_error_raises_and_runs_no_other_design(cuda, monkey
     with pytest.raises(RuntimeError):
         tt.tubelet_embed_cuda(video, kernel, bias)
     assert tt.launches == before
+
+
+# -- the CNN families: no kernel of the port lies on their path -------------
+
+def _all_launches():
+    return {**fa.launch_counts(), **sa.launch_counts(), **wa.launch_counts(),
+            **tt.launch_counts()}
+
+
+def _cnn(name, dtype, seed=0, dropout=0.5):
+    from laryngeal_tpu_torch.models.registry import create_model
+
+    kwargs = {"hidden_size": 16} if name == "resnet50_lstm" else {}
+    return create_model(name, num_classes=2, dtype=dtype, seed=seed, dropout=dropout, **kwargs)
+
+
+@pytest.mark.parametrize("name", ["resnet3d", "resnet50_lstm"])
+def test_cnn_f32_logits_match_float64_on_card(cuda, name):
+    """Eval logits at full width and depth (4 frames of 64^2, B=2) in f32
+    with TF32 off against the same weights in float64 on the card, within
+    1e-4 x max(1, max |logit|); bf16 within 3e-2 of f32; no kernel of the
+    port launches."""
+    x = torch.from_numpy(np.random.default_rng(1).standard_normal(
+        (2, 4, 64, 64, 3)).astype(np.float32)).to(cuda)
+    before = _all_launches()
+    with torch.inference_mode():
+        out = _cnn(name, torch.float32).to(cuda).eval()(x)
+        ref = _cnn(name, torch.float64).double().to(cuda).eval()(x.double())
+        half = _cnn(name, torch.bfloat16).to(cuda).eval()(x)
+    torch.cuda.synchronize()
+    assert _all_launches() == before
+    scale = max(1.0, ref.abs().max().item())
+    assert (out.double() - ref).abs().max().item() <= 1e-4 * scale
+    assert (half.double() - out.double()).abs().max().item() <= 3e-2 * max(
+        1.0, out.abs().max().item())
+
+
+@pytest.mark.parametrize("name", ["resnet3d", "resnet50_lstm"])
+def test_cnn_train_step_on_card(cuda, name, monkeypatch):
+    """The train step on the card (Adam; CE, or BCE with pos_weight and the
+    trunk frozen; no augmentation or dropout, so both devices see the same
+    clips): the loss and every BN running statistic agree with the same step
+    on the CPU (f32); the last BatchNorm's running variance moved by the
+    biased rule on both; for resnet50_lstm the trunk's parameters bitwise
+    unchanged and every other parameter moved; no kernel of the port
+    launches. The updated weights are not compared: at this size the f32
+    gradients are ill-conditioned (tests/test_torch_resnet3d.py)."""
+    from laryngeal_tpu_torch.models.registry import get_model_spec
+    from laryngeal_tpu_torch.models.resnet import backbone_param_mask
+    from laryngeal_tpu_torch.train.state import create_train_state
+    from laryngeal_tpu_torch.train.steps import make_train_step
+
+    monkeypatch.setenv("LARYNGEAL_NO_AUGMENT", "1")
+    spec = get_model_spec(name)
+    rng = np.random.default_rng(5)
+    pix = torch.from_numpy(rng.integers(0, 256, (2, 4, 72, 80, 3), dtype=np.uint8))
+    labels, mask = torch.tensor([1, 0]), torch.tensor([True, True])
+    bn_name = ("blocks.4.res_blocks.2.branch2.norm_c" if name == "resnet3d"
+               else "resnet50.7.2.bn3")
+    results = {}
+    for dev in ("cpu", cuda):
+        model = _cnn(name, torch.float32, dropout=0.0).to(dev)
+        start = {k: v.clone() for k, v in model.state_dict().items()}
+        trainable = backbone_param_mask(model) if name == "resnet50_lstm" else None
+        state = create_train_state(model, "adam", 1e-3, trainable_mask=trainable)
+        step = make_train_step(model, "pytorchvideo", spec.loss, 1.5, crop=64, seed=0)
+        bn = model.get_submodule(bn_name)
+        seen = {}
+        hook = bn.register_forward_pre_hook(lambda m, a: seen.update(x=a[0].detach()))
+        before = _all_launches()
+        state, m = step(state, pix.to(dev), labels.to(dev), mask.to(dev))
+        hook.remove()
+        if dev == cuda:
+            torch.cuda.synchronize()
+            assert _all_launches() == before
+        x = seen["x"].double()
+        dims = (0,) + tuple(range(2, x.ndim))
+        want = 0.9 * start[f"{bn_name}.running_var"].double() + 0.1 * x.var(dims,
+                                                                            unbiased=False)
+        assert (bn.running_var.double() - want).abs().max().item() <= 1e-6
+        after = model.state_dict()
+        if trainable is not None:
+            for n, t in trainable.items():
+                assert torch.equal(after[n], start[n]) != t, n
+        results[str(dev)] = (m["loss"].item(), {n: v.detach().cpu() for n, v in after.items()})
+    (loss_c, w_c), (loss_g, w_g) = results["cpu"], results[str(cuda)]
+    assert math.isfinite(loss_g) and abs(loss_c - loss_g) <= 1e-4 * max(1.0, abs(loss_c))
+    for n, w in w_c.items():
+        if "running_" in n:
+            assert (w_g[n] - w).abs().max().item() <= 1e-4 * max(1.0, w.abs().max().item()), n
+
+
+@pytest.mark.parametrize("name", ["resnet3d", "resnet50_lstm"])
+def test_cnn_bf16_train_step_on_card(cuda, name):
+    """The train step in bf16 compute (``--bf16``) on the card: cuDNN's
+    BatchNorm takes a bf16 input with f32 parameters and statistics; the
+    loss is finite, the parameters and statistics stay f32 and finite, and
+    the statistics moved."""
+    from laryngeal_tpu_torch.models.registry import get_model_spec
+    from laryngeal_tpu_torch.train.state import create_train_state
+    from laryngeal_tpu_torch.train.steps import make_train_step
+
+    spec = get_model_spec(name)
+    model = _cnn(name, torch.bfloat16).to(cuda)
+    before = {k: v.clone() for k, v in model.state_dict().items()}
+    state = create_train_state(model, "adam", 1e-3)
+    step = make_train_step(model, "pytorchvideo", spec.loss, 1.5, crop=64, seed=0)
+    pix = torch.from_numpy(np.random.default_rng(6).integers(0, 256, (2, 4, 72, 80, 3),
+                                                             dtype=np.uint8)).to(cuda)
+    state, m = step(state, pix, torch.tensor([1, 0], device=cuda),
+                    torch.tensor([True, True], device=cuda))
+    assert math.isfinite(m["loss"].item())
+    for k, v in model.state_dict().items():
+        if v.is_floating_point():
+            assert v.dtype == torch.float32 and torch.isfinite(v).all(), k
+            if "running_" in k:
+                assert not torch.equal(v, before[k]), k

@@ -29,6 +29,8 @@ def test_every_module_is_listed():
     assert "laryngeal_tpu_torch.ops.window_attention" in MODULES
     assert "laryngeal_tpu_torch.models.swin3d" in MODULES
     assert "laryngeal_tpu_torch.ops.tubelet" in MODULES
+    assert "laryngeal_tpu_torch.models.resnet3d" in MODULES
+    assert "laryngeal_tpu_torch.models.resnet" in MODULES
 
 
 def test_importing_the_port_loads_no_jax():

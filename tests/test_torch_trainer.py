@@ -242,7 +242,8 @@ def test_cli_trains_resumes_evaluates_and_serves(root, tmp_path):
 
 @pytest.mark.parametrize("flags", [["--fsdp"], ["--remat"], ["--grad_accum_steps", "2"],
                                    ["--wire", "i420"], ["--mesh_model", "2"],
-                                   ["--model", "swin3d", "--remat"], ["--model", "resnet3d"]],
+                                   ["--model", "swin3d", "--remat"],
+                                   ["--model", "resnet3d", "--clip_cache_dir", "cache"]],
                          ids=["fsdp", "remat", "grad_accum", "wire", "mesh", "swin3d",
                               "resnet3d"])
 def test_cli_refuses_unported_flags(flags, tmp_path):

@@ -146,7 +146,8 @@ def test_layers_gelu_fast_matches_jax():
 
 
 def test_registry_only_vivit():
-    """ViViT and TimeSformer are registered; the CNN families raise."""
+    """ViViT and TimeSformer are registered, and the CNN families build
+    through ``create_model`` with the registry's arguments."""
     assert get_model_spec("vivit").preprocess_regime == "vivit"
     assert get_model_spec("timesformer").preprocess_regime == "timesformer"
     for name in ("vivit", "timesformer"):
@@ -154,7 +155,8 @@ def test_registry_only_vivit():
                                        hidden_size=32, num_heads=2, intermediate_size=64),
                           torch.nn.Module)
     for name in ("resnet3d", "resnet50_lstm"):
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            get_model_spec(name)
+        assert get_model_spec(name).preprocess_regime == "pytorchvideo"
+        assert isinstance(create_model(name, num_classes=2, num_frames=4, image_size=32,
+                                       seed=None), torch.nn.Module)
     with pytest.raises(ValueError):
         get_model_spec("nope")
