@@ -206,12 +206,35 @@ Phases, in order; any failure ends the run with a non-zero exit:
    unchanged while its BN statistics moved, every LSTM and classifier
    parameter moved.
 
+19. Remat: ViViT-B, TimeSformer-B and Swin3D-T (stochastic depth 0.1, the
+   step's generators from the same seed) at full width, 32f 224^2, B=8, f32
+   (TF32 off, as set at the start): one train step with ``remat=True`` and one
+   without, from the same weights and batch; loss and every gradient held
+   to each other within the f32 limits of the gradient checks; every kernel,
+   the forward kernels 2, 6 and 8 included, launching as often each way;
+   the step time and ``torch.cuda.max_memory_allocated()`` each way.
+20. Gradient accumulation: ViViT-B f32 B=8 at ``grad_accum=2`` against
+   phase 19's step at 1 (gradients within the f32 limits, one optimizer
+   update, peak memory both ways); slow_r50 f32 B=8 at ``grad_accum=2``,
+   its running statistics against two train-mode forwards over the strided
+   micro-batches in order, recomputed here.
+21. TimeSformer-B ``layout="nt"`` against the flat layout on the same
+   weights: the B=8 forward's logits in f32 (1e-4) and bf16 (3e-2, times
+   max(1, max |logit|)), forward times both ways, kernel 6 launching 12
+   times per nt forward; the nt f32 train step (kernels 6-7, 12 each) against
+   phase 19's flat one: gradients, time and peak memory.
+22. ``cli.main --model vivit --num_layers 2`` (f32) with ``--grad_accum_steps
+   2 --remat --torch_weights <a .pth it writes> --clip_cache_dir
+   --profile_dir``: the weights load, the cache holds every clip and a
+   second pass decodes nothing, the trace names kernels 2-4's CUDA symbols.
+
 The kernel checks (2, 2b, 7, 11, 11b, 15, 16) run first, then the paths. The
 launch counts are set to 0 before each path (ViViT serving 3-4, ViViT
 training 5-6, TimeSformer serving 8, TimeSformer training 9-10, Swin3D
 serving 12, Swin3D training 13-14, the ablation of 11b, the ViViT-B stem of
-15, the biased block of 16, and the CNN families of 17 and 18) and read
-after it. Each phase
+15, the biased block of 16, the CNN families of 17 and 18, and phases 19,
+20, 21 and 22) and read after it; each of phases 19-22 must launch every
+kernel of its path. Each phase
 prints its time. The second-to-last line of output is ``{"kernels": [...]}``;
 the last is ``{"ok": true, "device": {...}}``. Decode is skipped in 3-5, 8-9,
 12-13, 15-16 and the serving and train steps of 17-18 (clips are uint8
@@ -3186,6 +3209,323 @@ def cnn_path(name: str, card: str) -> dict:
     return counts
 
 
+# ---------- phases 19-22: remat, accumulation, the nt layout, the CLI's options ----------
+
+# family: (label, preprocess regime, (optimizer, lr, weight decay), key_free, forward kernel)
+TRAIN_PATHS = {
+    "vivit": ("vivit-b", "vivit", ("adamw", 1e-4, 0.01), vivit_key_free,
+              "flash_attention_fwd_lse"),
+    "timesformer": ("timesformer-b", "timesformer", ("adamw", 1e-4, 0.01),
+                    timesformer_key_free, "short_attention_fwd"),
+    "swin3d": ("swin3d-t", "pytorchvideo", ("adamw", 1e-4, 0.05), swin_key_free,
+               "window_attention_fwd"),
+    "resnet3d": ("resnet3d (slow_r50)", "pytorchvideo", ("adam", 1e-3, 0.0),
+                 lambda n, g: g, None),
+}
+
+
+def full_width(family: str, seed=None, dtype=torch.float32, **kwargs):
+    """ViViT-B / TimeSformer-B (32f 224^2), Swin3D-T or slow_r50, 2 classes,
+    on the CPU, its weights drawn from ``seed`` (None: no init, the caller
+    loads them)."""
+    from laryngeal_tpu_torch.models.registry import create_model
+
+    size = {"swin3d": dict(model_size="tiny"), "resnet3d": {}}.get(
+        family, dict(num_frames=32, image_size=224))
+    return create_model(family, num_classes=2, dtype=dtype, seed=seed, **size, **kwargs)
+
+
+def path_batch(seed: int, b: int = 8):
+    """A (b, 32, 224, 224, 3) uint8 batch, labels and an all-valid mask on
+    the card."""
+    rng = np.random.default_rng(seed)
+    pixel = torch.from_numpy(rng.integers(0, 256, (b, 32, 224, 224, 3), dtype=np.uint8)).cuda()
+    return pixel, torch.from_numpy(rng.integers(0, 2, b)).cuda(), torch.ones(
+        b, dtype=torch.bool, device="cuda")
+
+
+def train_run(model, family: str, batch, grad_accum: int = 1, timed: int = 2) -> dict:
+    """``make_train_step`` (step seed 0) on ``model``, moved to the card: the
+    first step's launches and loss, the gradients it left (on the host,
+    without the key biases, as ``grad_check`` takes them), the step
+    counters; then ``timed`` steps, host clock around each synchronised
+    step (median), and the peak memory over them: weights, AdamW moments,
+    activations, gradients (over the first step when ``timed`` is 0)."""
+    from laryngeal_tpu_torch.train.state import create_train_state
+    from laryngeal_tpu_torch.train.steps import make_train_step
+
+    _, regime, (opt, lr, wd), key_free, _ = TRAIN_PATHS[family]
+    model = model.cuda()
+    state = create_train_state(model, opt, lr, wd)
+    step = make_train_step(model, regime, "ce", crop=224, grad_accum=grad_accum, seed=0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    (state, m), counts = launched(lambda: step(state, *batch))
+    grads = ((n, key_free(n, p.grad.detach().float().cpu())) for n, p in model.named_parameters())
+    out = dict(loss=m["loss"].item(), counts=counts, state_step=state.step, ms=None,
+               opt_steps=sorted({int(s["step"]) for s in state.optimizer.state.values()}),
+               grads={n: g for n, g in grads if g is not None})
+    times = []
+    if timed:
+        torch.cuda.reset_peak_memory_stats()
+    for _ in range(timed):
+        t0 = time.perf_counter()
+        state, m = step(state, *batch)
+        m["loss"].item()
+        times.append((time.perf_counter() - t0) * 1e3)
+    out.update(ms=float(np.median(times)) if times else None,
+               peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    del state, step, m, model
+    torch.cuda.empty_cache()
+    return out
+
+
+def compare_run(label: str, got: dict, want: dict) -> str:
+    """The loss within the f32 logit limit and the gradients within the f32
+    limits of ``grad_check`` (relative L2 over all, and per tensor)."""
+    tol_all, tol_each = GRAD_TOL[torch.float32]
+    names = list(want["grads"])
+    diff = {n: got["grads"][n] - want["grads"][n] for n in names}
+    num = math.sqrt(sum((d ** 2).sum().item() for d in diff.values()))
+    den = math.sqrt(sum((want["grads"][n] ** 2).sum().item() for n in names))
+    per = {n: (diff[n].norm() / want["grads"][n].norm().clamp_min(1e-30)).item() for n in names}
+    worst = max(per, key=per.get)
+    dloss = abs(got["loss"] - want["loss"])
+    ok = (set(got["grads"]) == set(names) and num / den <= tol_all and per[worst] <= tol_each
+          and dloss <= LOGIT_TOL[torch.float32] * max(1.0, abs(want["loss"])))
+    text = (f"loss {got['loss']:.7f} vs {want['loss']:.7f}; gradients relative L2 "
+            f"{num / den:.3e} (tol {tol_all:g}), worst tensor {worst} {per[worst]:.3e} (tol "
+            f"{tol_each:g})")
+    if not ok:
+        raise AssertionError(f"{label}: {text}")
+    return text
+
+
+def remat_phase() -> dict:
+    """Phase 19: ViViT-B, TimeSformer-B and Swin3D-T (stochastic depth 0.1,
+    the step's generators from the same seed both ways) at full width, f32,
+    B=8: a train step with remat and one without from the same weights and
+    batch, held to each other (``compare_run``), every kernel launching as
+    often each way (the forward kernels 2, 6 and 8 included); the step time
+    and peak memory each way. Returns each family's run without remat."""
+    refs = {}
+    for family, seed in (("vivit", 31), ("timesformer", 32), ("swin3d", 33)):
+        label, _, _, _, fwd_key = TRAIN_PATHS[family]
+        sd = full_width(family, seed).state_dict()
+        batch = path_batch(seed)
+        runs = {}
+        for remat in (False, True):
+            model = full_width(family, remat=remat)
+            model.load_state_dict(sd)
+            runs[remat] = train_run(model, family, batch)
+        plain, remat = runs[False], runs[True]
+        if plain["counts"] != remat["counts"] or plain["counts"][fwd_key] < 1:
+            raise AssertionError(f"{label} launches without remat {plain['counts']}, with "
+                                 f"{remat['counts']}")
+        text = compare_run(f"{label} remat", remat, plain)
+        log(f"{label} 32f 224 f32 B=8 train step, remat vs none: {text}; launches each way "
+            f"{ {k: v for k, v in remat['counts'].items() if v} }; step {remat['ms']:.2f} ms "
+            f"with remat, {plain['ms']:.2f} ms without (x{remat['ms'] / plain['ms']:.3f}); "
+            f"peak memory {remat['peak_gib']:.2f} GiB with, {plain['peak_gib']:.2f} GiB "
+            f"without (median of 2 steps after the first, host clock)")
+        refs[family] = plain
+        del batch, sd, runs
+    return refs
+
+
+def accumulation_phase(vivit_ref: dict) -> dict:
+    """Phase 20: ViViT-B f32 B=8 at grad_accum 2 against phase 19's run at 1
+    (the same weights and batch): loss and gradients within the f32 limits,
+    one optimizer update, the step time and peak memory. Then slow_r50 f32
+    B=8 at grad_accum 2 (Adam, the pytorchvideo augmentation and dropout
+    on): its BatchNorm running statistics after the step against two
+    train-mode forwards of the same weights over the strided micro-batches,
+    in order, each with its micro-batch's generators (seed, step, i).
+    Returns the ViViT-B run's launches."""
+    from laryngeal_tpu_torch.preprocess.transforms import batch_preprocess, decode_wire_batch
+    from laryngeal_tpu_torch.train.steps import step_generators
+
+    model = full_width("vivit")
+    model.load_state_dict(full_width("vivit", 31).state_dict())
+    run = train_run(model, "vivit", path_batch(31), grad_accum=2)
+    text = compare_run("vivit-b grad_accum 2", run, vivit_ref)
+    key = "flash_attention_fwd_lse"
+    if run["state_step"] != 1 or run["opt_steps"] != [1] \
+            or run["counts"][key] != 2 * vivit_ref["counts"][key]:
+        raise AssertionError(f"grad_accum 2: state.step {run['state_step']}, optimizer steps "
+                             f"{run['opt_steps']}, launches {run['counts']}")
+    log(f"vivit-b 32f 224 f32 B=8 grad_accum 2 vs 1: {text}; one optimizer update; step "
+        f"{run['ms']:.2f} ms vs {vivit_ref['ms']:.2f} ms, peak memory {run['peak_gib']:.2f} "
+        f"GiB vs {vivit_ref['peak_gib']:.2f} GiB; launches "
+        f"{ {k: v for k, v in run['counts'].items() if v} }")
+
+    start = full_width("resnet3d", 34).state_dict()
+    model = full_width("resnet3d")
+    model.load_state_dict(start)
+    pixel, labels, mask = batch = path_batch(34)
+    r3d = train_run(model, "resnet3d", batch, grad_accum=2, timed=0)
+    if not math.isfinite(r3d["loss"]) or r3d["opt_steps"] != [1] or any(r3d["counts"].values()):
+        raise AssertionError(f"slow_r50 grad_accum 2: loss {r3d['loss']}, optimizer steps "
+                             f"{r3d['opt_steps']}, launches {r3d['counts']}")
+    twin = full_width("resnet3d")
+    twin.load_state_dict(start)
+    twin.cuda().train()
+    with torch.no_grad():
+        for i in range(2):
+            aug, drop = step_generators(0, 0, "cuda", micro=i)
+            twin(batch_preprocess(decode_wire_batch(pixel[i::2], "rgb"), "pytorchvideo",
+                                  train=True, crop=224, generator=aug), generator=drop)
+    got, want = model.state_dict(), twin.state_dict()
+    stats = [k for k in want if k.endswith(("running_mean", "running_var"))]
+    err = max(((got[k] - want[k]).abs().max() / want[k].abs().max().clamp_min(1.0)).item()
+              for k in stats)
+    moved = sum(not torch.equal(got[k], start[k].cuda()) for k in stats)
+    counted = {int(got[k].item()) for k in got if k.endswith("num_batches_tracked")}
+    if err > 1e-6 or moved != len(stats) or counted != {2}:
+        raise AssertionError(f"slow_r50 grad_accum 2 statistics: err {err:.3e}, {moved} of "
+                             f"{len(stats)} moved, num_batches_tracked {counted}")
+    log(f"resnet3d (slow_r50) 32f 224 f32 B=8 grad_accum 2: loss {r3d['loss']:.6f}, one "
+        f"optimizer update, peak memory {r3d['peak_gib']:.2f} GiB; all {len(stats)} BatchNorm "
+        f"running statistics moved twice (num_batches_tracked 2) and match two train-mode "
+        f"forwards over rows 0::2 then 1::2 to {err:.3e} (relative to max(1, |stat|), "
+        f"tol 1e-6)")
+    del model, twin, got, want, start, batch, pixel
+    torch.cuda.empty_cache()
+    return run["counts"]
+
+
+def nt_phase(flat_ref: dict) -> dict:
+    """Phase 21: TimeSformer-B nt against flat on the same weights (phase
+    19's): the B=8 forward's logits in f32 (within 1e-4 x max(1, max
+    |logit|)) and bf16 (within 3e-2 x ...), the forward times (CUDA events,
+    median of 3); kernel 6 launched 12 times per nt forward (the temporal
+    calls; the spatial attention is plain PyTorch) against 24 per flat
+    one; then the nt f32 train step at B=8: 12 launches each of kernels 6
+    and 7, its gradients against the flat run of phase 19 within the f32
+    limits, its time and peak memory beside the flat one's. Returns the nt
+    step's launches."""
+    from laryngeal_tpu_torch.preprocess.transforms import batch_preprocess
+
+    sd = full_width("timesformer", 32).state_dict()
+    batch = path_batch(32)
+    pixel = batch_preprocess(batch[0], "timesformer", crop=224)
+    fwd = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for layout in ("flat", "nt"):
+            model = full_width("timesformer", dtype=dtype, layout=layout)
+            model.load_state_dict(sd)
+            model.cuda().eval()
+            with torch.inference_mode():
+                logits, counts = launched(lambda: model(pixel))
+                ms = cuda_time_ms(lambda: model(pixel), reps=3, warmup=1)
+            fwd[dtype, layout] = (logits.float(), counts, ms)
+            del model
+            torch.cuda.empty_cache()
+        (flat, flat_counts, flat_ms), (nt, nt_counts, nt_ms) = fwd[dtype, "flat"], fwd[dtype, "nt"]
+        scale = max(1.0, flat.abs().max().item())
+        err = (nt - flat).abs().max().item()
+        want = {k: 0 for k in nt_counts}
+        want["short_attention_fwd"] = 12
+        if nt_counts != want or flat_counts["short_attention_fwd"] != 24 \
+                or not err <= LOGIT_TOL[dtype] * scale:
+            raise AssertionError(f"timesformer-b nt {dtype}: logits err {err:.3e}, launches "
+                                 f"nt {nt_counts}, flat {flat_counts}")
+        log(f"timesformer-b 32f 224 {str(dtype)[6:]} B=8 forward, nt vs flat: logits "
+            f"max_abs_err {err:.3e} (tol {LOGIT_TOL[dtype]:g} x {scale:.3f}); {nt_ms:.2f} ms "
+            f"nt, {flat_ms:.2f} ms flat (x{nt_ms / flat_ms:.3f}); kernel 6 launches 12 nt, "
+            f"24 flat")
+    model = full_width("timesformer", layout="nt")
+    model.load_state_dict(sd)
+    run = train_run(model, "timesformer", batch)
+    want = {k: 0 for k in run["counts"]}
+    want.update(short_attention_fwd=12, short_attention_bwd=12)
+    if run["counts"] != want:
+        raise AssertionError(f"nt train step launches {run['counts']}, want {want}")
+    text = compare_run("timesformer-b nt step", run, flat_ref)
+    log(f"timesformer-b 32f 224 f32 B=8 train step, nt vs flat: {text}; step {run['ms']:.2f} "
+        f"ms nt, {flat_ref['ms']:.2f} ms flat (x{run['ms'] / flat_ref['ms']:.3f}); peak memory "
+        f"{run['peak_gib']:.2f} GiB nt, {flat_ref['peak_gib']:.2f} GiB flat")
+    del pixel, batch, sd
+    torch.cuda.empty_cache()
+    return run["counts"]
+
+
+# Kernels 2-4's CUDA symbols in every f32 design at D = 64 (flash_attention_fwd.cu,
+# flash_attention_bwd*.cu): what the CLI phase's trace must name.
+FLASH_SYMBOLS = {"kernel 2": ("fwd_tf32_kernel", "flash_fwd_f32_kernel"),
+                 "kernel 3": ("bwd_dq_tf32_kernel", "dq_f32_kernel"),
+                 "kernel 4": ("bwd_dkv_tf32_kernel", "dkv_f32_kernel")}
+
+
+def cli_options_phase() -> dict:
+    """Phase 22: ``cli.main --model vivit --num_layers 2`` (ViViT-B's width,
+    f32) for one epoch on 8 / 4 / 4 synthetic videos with
+    ``--grad_accum_steps 2 --remat --torch_weights <a .pth written here>
+    --clip_cache_dir <tmp> --profile_dir <tmp>``: the log says the weights
+    loaded, every clip is in the cache and a second pass over the three
+    splits decodes nothing, and the trace names kernels 2-4's CUDA
+    symbols. Returns the run's launches."""
+    from laryngeal_tpu_torch.cli import main as cli
+    from laryngeal_tpu_torch.data import dataset as port_dataset
+    from laryngeal_tpu_torch.data.synthetic import make_synthetic_dataset
+
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_cli_options_"))
+    try:
+        data = make_synthetic_dataset(str(tmp / "data"), {"train": 4, "val": 2, "test": 2},
+                                      num_frames=40, h=112, w=112, seed=35)
+        weights = full_width("vivit", 35, num_layers=2)
+        torch.save({"model_state_dict": weights.state_dict()}, tmp / "weights.pth")
+        del weights
+        t0 = time.perf_counter()
+        out, counts = launched(lambda: cli.main([
+            "--model", "vivit", "--num_layers", "2", "--data_dir", str(data), "--log_dir",
+            str(tmp / "logs"), "--batch_size", "4", "--epochs", "1", "--no-pretrained",
+            "--decode_workers", "4", "--grad_accum_steps", "2", "--remat", "--torch_weights",
+            str(tmp / "weights.pth"), "--clip_cache_dir", str(tmp / "cache"), "--profile_dir",
+            str(tmp / "prof")]))
+        dt = time.perf_counter() - t0
+        exp = Path(out["exp_dir"])
+        text = (exp / "experiment.log").read_text()
+        if "Loaded torch weights from" not in text or not all(
+                math.isfinite(x) for x in out["history"]["train_loss"]):
+            raise AssertionError(f"cli options run: {out['history']}")
+        files = list((tmp / "cache").glob("*.npy"))
+        decoded = []
+        real = port_dataset.decode_frames
+        port_dataset.decode_frames = lambda *a, **k: decoded.append(a[0]) or real(*a, **k)
+        try:
+            n_items = 0
+            for split in ("train", "val", "test"):
+                ds = port_dataset.VideoDataset(data, split, num_frames=32, resize_to=(224, 224),
+                                               cache_clips=False, cache_dir=tmp / "cache")
+                for i in range(len(ds)):
+                    ds[i]
+                n_items += len(ds)
+        finally:
+            port_dataset.decode_frames = real
+        if len(files) != n_items or decoded:
+            raise AssertionError(f"clip cache: {len(files)} files for {n_items} clips, "
+                                 f"{len(decoded)} decodes on the second pass")
+        traces = list((tmp / "prof").glob("*.pt.trace.json"))
+        if len(traces) != 1:
+            raise AssertionError(f"profile_dir holds {traces}")
+        names = {e.get("name", "") for e in json.loads(traces[0].read_text())["traceEvents"]}
+        found = {k: sorted({s for s in syms for n in names if s in n})
+                 for k, syms in FLASH_SYMBOLS.items()}
+        if not all(found.values()):
+            raise AssertionError(f"the trace names no symbol of {found}")
+        log(f"cli vivit (ViViT-B width, 2 layers, f32) --grad_accum_steps 2 --remat "
+            f"--torch_weights --clip_cache_dir --profile_dir: 1 epoch in {dt:.1f} s, history "
+            f"{out['history']['train_loss']} / {out['history']['val_loss']}; weights loaded; "
+            f"{len(files)} cached clips, a second pass decoded {len(decoded)}; trace "
+            f"{traces[0].name} ({traces[0].stat().st_size / 2**20:.1f} MiB) names {found}; "
+            f"launches {counts}")
+        return counts
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -3272,6 +3612,35 @@ def main() -> int:
         reset_launches()
         cnn_counts[name] = cnn_path(name, card)
         phase_done(f"{number} {name} serving, training, cli")
+    reset_launches()
+    refs = remat_phase()
+    remat_counts = launch_counts()
+    phase_done("19 remat: vivit-b, timesformer-b, swin3d-t")
+    reset_launches()
+    accum_counts = accumulation_phase(refs["vivit"])
+    phase_done("20 gradient accumulation: vivit-b, slow_r50")
+    reset_launches()
+    nt_counts = nt_phase(refs["timesformer"])
+    phase_done("21 timesformer-b nt layout")
+    del refs
+    reset_launches()
+    cli_counts = cli_options_phase()
+    phase_done("22 cli --grad_accum_steps --remat --torch_weights --clip_cache_dir "
+               "--profile_dir")
+    for name, counts, keys in (
+            ("remat", remat_counts, ("flash_attention_fwd_lse", "flash_attention_bwd_dq",
+                                     "flash_attention_bwd_dkv", "short_attention_fwd",
+                                     "short_attention_bwd", "window_attention_fwd",
+                                     "window_attention_bwd")),
+            ("accumulation", accum_counts, ("flash_attention_fwd_lse", "flash_attention_bwd_dq",
+                                            "flash_attention_bwd_dkv")),
+            ("nt", nt_counts, ("short_attention_fwd", "short_attention_bwd")),
+            ("cli options", cli_counts, ("flash_attention_fwd", "flash_attention_fwd_lse",
+                                         "flash_attention_bwd_dq", "flash_attention_bwd_dkv"))):
+        if not all(counts[k] > 0 for k in keys):
+            raise AssertionError(f"a kernel of the {name} path never launched: {counts}")
+    log(f"launches: remat path {remat_counts}; accumulation path {accum_counts}; nt path "
+        f"{nt_counts}; cli options path {cli_counts}")
     log(f"launches: vivit serving path {serve_counts}; vivit training path {train_counts}; "
         f"timesformer serving path {ts_serve_counts}; timesformer training path "
         f"{ts_train_counts}; swin3d serving path {swin_serve_counts}; swin3d training path "

@@ -12,13 +12,28 @@ asked for). Ported: every model on the rgb wire; Swin3D, as in the JAX CLI,
 trains without early stopping; resnet50_lstm takes ``--hidden_size`` /
 ``--num_layers`` (256 / 2 unless given) and ``--dropout`` as its LSTM's,
 resnet3d ``--dropout`` as its head's, and resnet3d's per-video sampled
-indices are written as the JAX CLI writes them. Flags of features not yet ported (ROADMAP.md) raise when set to
-anything but their default:
-the mesh / pipeline / fsdp axes, ``--remat``, ``--grad_accum_steps > 1``,
-non-rgb wires, ``--torch_weights``, ``--profile_dir``, the on-disk clip and
-compile caches and the multi-process flags. ``--pretrained`` (the default)
-finds no weights, warns loudly and trains from the seeded random init, as
-the JAX CLI does when no weights are found; ``--no-pretrained`` silences it.
+indices are written as the JAX CLI writes them.
+
+- ``--remat`` (ViViT, TimeSformer, Swin3D; a CNN family refuses it, as in
+  the JAX CLI) rematerialises each block in the backward and keeps its
+  attention outputs. The JAX CLI turns it on by itself for TimeSformer at
+  32 frames x batch 8 on a TPU; this CLI never does.
+- ``--grad_accum_steps k`` splits each batch into k strided micro-batches
+  with one update a batch (``--batch_size`` must be a multiple of k).
+- ``--torch_weights F`` loads a local ``.pth`` / ``.npz`` state dict into
+  the model before ``--checkpoint_path`` and ``--resume``
+  (``compat/loading.py``), in place of the pretrained warning.
+- ``--clip_cache_dir D`` keeps every decoded clip on disk (``.npy`` files
+  the JAX package reads too) and reads them back instead of decoding.
+- ``--profile_dir D`` writes a ``torch.profiler`` trace of the training
+  (``trainer.train()``, the region the JAX CLI traces) into D.
+
+Flags of features not yet ported (ROADMAP.md) raise when set to anything
+but their default: the mesh / pipeline / fsdp axes, non-rgb wires, the
+compile cache and the multi-process flags. ``--pretrained`` (the default)
+needs the network: it finds no weights, warns loudly and trains from the
+seeded random init, as the JAX CLI does when no weights are found;
+``--no-pretrained`` silences it.
 """
 
 from __future__ import annotations
@@ -33,11 +48,11 @@ PORTED_MODELS = ("vivit", "timesformer", "swin3d", "resnet3d", "resnet50_lstm")
 # Flags of features not yet ported, with their defaults.
 NOT_PORTED = {
     "mesh_data": None, "mesh_model": 1, "mesh_seq": 1, "pp_stages": 1,
-    "pp_microbatches": None, "fsdp": False, "remat": False, "grad_accum_steps": 1,
-    "wire": "rgb", "wire_lowres": 0, "torch_weights": None, "profile_dir": None,
-    "clip_cache_dir": None, "compile_cache_dir": None, "coordinator": None,
-    "num_processes": None, "process_id": None,
+    "pp_microbatches": None, "fsdp": False, "wire": "rgb", "wire_lowres": 0,
+    "compile_cache_dir": None, "coordinator": None, "num_processes": None,
+    "process_id": None,
 }
+TRANSFORMERS = ("vivit", "timesformer", "swin3d")
 
 
 def build_parser(model_default: str = None) -> argparse.ArgumentParser:
@@ -124,7 +139,8 @@ def build_parser(model_default: str = None) -> argparse.ArgumentParser:
                         "(preemption-safe resume point; 0 disables). Best-"
                         "model checkpoints are separate and unaffected")
     p.add_argument("--profile_dir", type=str, default=None,
-                   help="Profiler trace of the first train epoch (not yet ported)")
+                   help="Write a torch.profiler trace (Chrome / TensorBoard) of the "
+                        "training into this directory")
     # Extras of the JAX package; the parallel axes are not yet ported.
     p.add_argument("--mesh_data", type=int, default=None,
                    help="Data-parallel device count (default: all devices)")
@@ -158,16 +174,16 @@ def build_parser(model_default: str = None) -> argparse.ArgumentParser:
                         "amortizes the pipeline ramp)")
     p.add_argument("--crop_size", type=int, default=224)
     p.add_argument("--grad_accum_steps", type=int, default=1,
-                   help="Split each batch into this many micro-batches and "
-                        "accumulate gradients inside one jitted step "
+                   help="Split each batch into this many strided micro-batches "
+                        "and accumulate their gradients into one update "
                         "(activation memory / grad_accum, identical update "
                         "for BN-free models; batch_size must divide evenly)")
     p.add_argument("--bf16", action="store_true", help="bfloat16 compute")
     p.add_argument("--remat", action="store_true",
                    help="Rematerialize each transformer block in the backward "
-                        "pass (jax.checkpoint): ~30%% more FLOPs for O(layers) "
-                        "less activation HBM — e.g. TimeSformer at 32 frames "
-                        "OOMs at batch 8 without it (transformer families)")
+                        "pass (torch.utils.checkpoint, attention outputs kept): "
+                        "more FLOPs for less activation memory (transformer "
+                        "families; never turned on by itself)")
     p.add_argument("--wire", type=str, default="rgb",
                    choices=("rgb", "i420", "delta", "dct", "dctp"),
                    help="host->device payload format for the training/eval "
@@ -241,6 +257,13 @@ def _refuse_unported(args) -> None:
     if args.model not in PORTED_MODELS:
         raise SystemExit(f"--model {args.model} is not yet ported to laryngeal_tpu_torch "
                          "(see ROADMAP.md)")
+    # The JAX CLI's pure-flag refusals (cli/main.py:251-259).
+    if args.remat and args.model not in TRANSFORMERS:
+        raise SystemExit("--remat applies to the transformer families "
+                         "(vivit/timesformer/swin3d)")
+    if args.grad_accum_steps > 1 and args.batch_size % args.grad_accum_steps:
+        raise SystemExit(f"--batch_size {args.batch_size} must be divisible by "
+                         f"--grad_accum_steps {args.grad_accum_steps}")
 
 
 def run(args) -> dict:
@@ -284,6 +307,8 @@ def run(args) -> dict:
     if args.model == "resnet50_lstm":
         model_kwargs.update(hidden_size=args.hidden_size or 256,
                             num_layers=args.num_layers or 2)
+    if args.remat:
+        model_kwargs["remat"] = True
     model = create_model(args.model, seed=args.seed, **model_kwargs)
 
     loaders = create_dataloaders(
@@ -294,7 +319,7 @@ def run(args) -> dict:
         label_policy=spec.label_policy, per_video_seed=spec.per_video_seed,
         resize_to=(args.crop_size, args.crop_size), pad_last=True,
         cache_clips=not args.no_cache_clips, clip_cache_mb=args.clip_cache_mb,
-        verify_integrity=args.verify_integrity, num_workers=args.decode_workers)
+        cache_dir=args.clip_cache_dir, verify_integrity=args.verify_integrity, num_workers=args.decode_workers)
     try:
         for split in ("train", "val", "test"):
             ds = loaders[split].dataset
@@ -333,7 +358,11 @@ def run(args) -> dict:
         trainer = Trainer(model, spec, loaders, config, logger=logger, exp_dir=exp_dir,
                           device=device)
 
-        if args.pretrained and not args.checkpoint_path and not args.resume \
+        if args.torch_weights:
+            from ..compat.loading import load_torch_weights
+
+            load_torch_weights(trainer.model, args.model, args.torch_weights, logger)
+        elif args.pretrained and not args.checkpoint_path and not args.resume \
                 and not args.skip_train:
             logger.warning(
                 "PRETRAINED WEIGHTS UNAVAILABLE (no cache, no network): "
@@ -356,7 +385,10 @@ def run(args) -> dict:
             trainer.resume(args.resume)
 
         if not args.skip_train:
-            trainer.train()
+            from ..utils.profiling import trace
+
+            with trace(args.profile_dir, cuda=device.type == "cuda"):
+                trainer.train()
 
         evaluator = Evaluator(
             trainer.eval_step, loaders["test"],

@@ -12,16 +12,19 @@ Label policies:
   (resnet50-3d-video dataset.py:68-73, 2d-lstm, swin).
 
 Decode goes through the port's cv2 ``data/video.py``; the JAX dataset takes
-its native C++ decoder when that is built. Ported: the rgb wire and the RAM
-clip cache. The other wires and the on-disk clip cache are not yet ported
+its native C++ decoder when that is built. Ported: the rgb wire, the RAM
+clip cache and the on-disk clip cache (``cache_dir``, ``DiskClipCache``,
+whose files either package reads). The other wires are not yet ported
 (ROADMAP.md) and raise.
 """
 
 from __future__ import annotations
 
 import csv
+import hashlib
 import logging
 import os
+import tempfile
 import threading
 from collections import OrderedDict
 from pathlib import Path
@@ -101,6 +104,49 @@ class ClipCache:
             self._bytes = 0
 
 
+class DiskClipCache:
+    """The persistent clip-cache tier (the JAX ``DiskClipCache``,
+    ``laryngeal_tpu/data/dataset.py:116-159``): decoded uint8 clips as
+    ``.npy`` files named by the sha1 of (resolved path, mtime, indices,
+    resize, rest), the JAX package's key rule, so a directory written by
+    either package is read by the other. Writes are atomic (a temporary file,
+    then a rename), so workers and processes can share a directory; an entry
+    that does not load (truncated, corrupt) is a miss. No eviction: the
+    directory is the user's."""
+
+    def __init__(self, cache_dir):
+        self.dir = Path(cache_dir)
+        self.dir.mkdir(parents=True, exist_ok=True)
+
+    def _file(self, key) -> Path:
+        path, indices, resize, *rest = key  # rest: the wire format and its lowres
+        try:
+            mtime = int(Path(path).stat().st_mtime)
+        except OSError:
+            mtime = 0
+        raw = f"{Path(path).resolve()}|{mtime}|{indices}|{resize}|{rest}"
+        return self.dir / (hashlib.sha1(raw.encode()).hexdigest() + ".npy")
+
+    def get(self, key) -> Optional[np.ndarray]:
+        f = self._file(key)
+        if not f.exists():
+            return None
+        try:
+            return np.load(f)
+        except Exception:
+            return None  # truncated or corrupt entry: a miss
+
+    def put(self, key, clip: np.ndarray) -> None:
+        f = self._file(key)
+        try:
+            fd, tmp = tempfile.mkstemp(dir=str(self.dir), suffix=".tmp")
+            with os.fdopen(fd, "wb") as fh:
+                np.save(fh, clip)
+            os.replace(tmp, f)
+        except OSError:
+            pass  # best effort: the decode itself succeeded
+
+
 class VideoDataset:
     """Walks ``{data_dir}/{class}/*.mp4``, assigns labels, samples frame
     indices, and decodes fixed-length uint8 RGB clips (T, H, W, 3).
@@ -108,7 +154,8 @@ class VideoDataset:
     Decoded clips are cached in RAM (``cache_clips``, byte-budget LRU) when
     the sampled indices recur: uniform sampling and per-video-seeded
     samplers. Stream-seeded random samplers draw fresh indices every epoch
-    and are not cached."""
+    and are not cached in RAM. With ``cache_dir`` every decoded clip is also
+    kept on disk (``DiskClipCache``) and read back instead of decoded."""
 
     def __init__(
         self,
@@ -130,10 +177,6 @@ class VideoDataset:
             raise NotImplementedError(
                 f"wire format {wire!r} is not yet ported to laryngeal_tpu_torch, "
                 "see ROADMAP.md")
-        if cache_dir is not None:
-            raise NotImplementedError(
-                "the on-disk clip cache (cache_dir) is not yet ported to "
-                "laryngeal_tpu_torch, see ROADMAP.md")
         self.root_dir = Path(root_dir)
         self.mode = mode
         self.num_frames = int(num_frames)
@@ -142,6 +185,7 @@ class VideoDataset:
         self.wire = wire
         self.cache_clips = cache_clips and (per_video_seed or sampling_method == "uniform")
         self._clip_cache = ClipCache(max_bytes=int(clip_cache_mb) << 20)
+        self._disk_cache = DiskClipCache(cache_dir) if cache_dir else None
         self._props_cache: Dict = {}
         self.sampler = FrameSampler(sampling_method, num_frames, seed=seed,
                                     per_video_seed=per_video_seed)
@@ -215,11 +259,18 @@ class VideoDataset:
         key = (path, tuple(indices))
         clip = self._clip_cache.get(key) if self.cache_clips else None
         if clip is None:
-            try:
-                clip = decode_frames(path, indices, resize_to=self.resize_to)
-            except Exception as e:  # the data path never raises for one bad video
-                logger.warning("Decode failed for %s: %s — placeholder clip", path, e)
-                clip = self._placeholder_clip()
+            # The JAX key: (path, indices, resize, wire, wire_lowres).
+            disk_key = (path, tuple(indices), self.resize_to, self.wire, 0)
+            if self._disk_cache is not None:
+                clip = self._disk_cache.get(disk_key)
+            if clip is None:
+                try:
+                    clip = decode_frames(path, indices, resize_to=self.resize_to)
+                except Exception as e:  # the data path never raises for one bad video
+                    logger.warning("Decode failed for %s: %s — placeholder clip", path, e)
+                    clip = self._placeholder_clip()
+                if self._disk_cache is not None:
+                    self._disk_cache.put(disk_key, clip)
             if self.cache_clips:
                 self._clip_cache.put(key, clip)
         return {"pixel_values": clip, "label": label, "video_path": path,

@@ -152,7 +152,9 @@ def create_dataloaders(data_dir, test_data_dir=None,
                        process_index: int = 0,
                        process_count: int = 1) -> Dict[str, ClipLoader]:
     """Train/val/test loaders — the reference ``create_dataloaders`` surface
-    (vivit_transformer/.../dataloader.py:52-135)."""
+    (vivit_transformer/.../dataloader.py:52-135). ``cache_dir`` is each
+    split's on-disk clip cache (``dataset.DiskClipCache``), shared by the
+    three."""
     sampling_methods = sampling_methods or {}
     loaders = {}
     for split in ("train", "val", "test"):

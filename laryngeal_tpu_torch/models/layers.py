@@ -23,6 +23,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops import remat as _remat
 from ..ops.attention import dot_product_attention
 
 
@@ -101,6 +102,18 @@ class BatchNorm(nn.BatchNorm3d):
             self.running_var.mul_(keep).add_(var * ((n - 1) / n), alpha=1.0 - keep)
             self.num_batches_tracked.add_(1)
         return y.to(self.dtype)
+
+
+def call_block(block: Callable, *args, remat: bool = False,
+               generator: Optional[torch.Generator] = None):
+    """``block(*args)``; with ``remat`` and grad enabled, rematerialised in
+    the backward with its attention outputs kept (``ops/remat.py``, the JAX
+    package's ``nn.remat`` with ``save_only_these_names("attn_out")``).
+    ``generator``, the one the block draws from, is rewound for the
+    recompute."""
+    if remat and torch.is_grad_enabled():
+        return _remat.checkpoint(block, *args, generator=generator)
+    return block(*args)
 
 
 @torch.no_grad()

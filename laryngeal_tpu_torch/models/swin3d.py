@@ -34,7 +34,12 @@ broadcast never exists.
   float32.
 - ``DropPath`` draws from an explicit ``torch.Generator`` handed to the
   forward; without one (eval, or rate 0) it is the identity.
-- Not yet ported: ``remat`` (per-block rematerialisation) raises.
+- ``remat=True`` rematerialises each block in the backward and keeps its
+  attention output (``layers.call_block``), as the JAX model's
+  ``nn.remat(..., save_only_these_names("attn_out"))`` does: kernel 8 runs
+  once a block per step, kernel 9 as without remat. The recompute rewinds
+  the drop-path generator to the block's start, so it draws the forward's
+  masks. Nothing turns it on by itself.
 """
 
 from __future__ import annotations
@@ -50,7 +55,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.attention import window_attention
-from .layers import Dense, LayerNorm, gelu_exact
+from .layers import Dense, LayerNorm, call_block, gelu_exact
 
 
 def adjust_window(size_dhw, window, shift):
@@ -266,11 +271,6 @@ class Swin3DConfig:
     dtype: torch.dtype = torch.float32
     remat: bool = False
 
-    def __post_init__(self):
-        if self.remat:
-            raise NotImplementedError(
-                "remat is not yet ported to laryngeal_tpu_torch, see ROADMAP.md")
-
 
 SWIN3D_VARIANTS = {
     "tiny": dict(embed_dim=96, depths=(2, 2, 6, 2), num_heads=(3, 6, 12, 24)),
@@ -317,7 +317,8 @@ class SwinTransformer3D(nn.Module):
                 x = layer(x)
             else:
                 for block in layer:
-                    x = block(x, generator)
+                    x = call_block(block, x, generator, remat=self.config.remat,
+                                   generator=generator)
         x = self.norm(x).mean(dim=(1, 2, 3))
         return self.head(x).float()
 

@@ -1,7 +1,7 @@
 """TimeSformer-B — divided space-time attention (PyTorch).
 
-Counterpart of ``laryngeal_tpu/models/timesformer.py`` (its flat layout,
-``:42-149`` and ``:258-344``): architectural parity with HF
+Counterpart of ``laryngeal_tpu/models/timesformer.py`` (both layouts,
+``:42-344``): architectural parity with HF
 ``TimesformerForVideoClassification``
 (``facebook/timesformer-base-finetuned-k400``), the model the reference
 trains (``timesformer/timesformer_classifier/models/timesformer_model.py:27-43``):
@@ -28,11 +28,22 @@ take the short-sequence kernels (kernel 6, and kernel 7 under autograd).
 - Precision follows Flax's ``dtype``: parameters stay float32; the
   convolution, the projections and attention compute in ``config.dtype``;
   LayerNorms and the classifier compute in float32, and logits are float32.
-- Not yet ported: ``layout="nt"`` (the transpose-free einsum layout, whose
-  attention reaches no kernel) and ``remat`` (per-layer rematerialisation);
-  both raise. The JAX model's sequence-parallel hooks are no-ops on one
-  device and are left out; stochastic depth is 0 in the reference and
-  omitted there too.
+- ``layout="nt"`` (the JAX ``TimesformerLayerNT``, ``:152-256``) carries
+  (cls (B, 1, D), patches (B, N, T, D)) through the layers: the temporal
+  split is a free reshape (kernels 6-7 at the (B·N, T) shape on the card),
+  and the spatial attention (``DividedSpatialAttention``) takes the cls row
+  as one extra score column per frame in einsums, plain PyTorch, as the JAX
+  package computes it outside any Pallas kernel. Its parameter tree is the
+  flat layout's, so checkpoints interchange. No CLI flag reaches it, in
+  either package: ``create_model("timesformer", layout="nt")`` only.
+- ``remat=True`` rematerialises each layer in the backward and keeps its
+  attention outputs (``layers.call_block``), as the JAX model's
+  ``nn.remat(..., save_only_these_names("attn_out"))`` does, the nt
+  layout's two spatial contexts included: kernel 6 runs twice a layer per
+  step (once in nt), kernel 7 as without remat. Nothing turns it on by
+  itself; the JAX CLI does so only on a TPU.
+- The JAX model's sequence-parallel hooks are no-ops on one device and are
+  left out; stochastic depth is 0 in the reference and omitted there too.
 """
 
 from __future__ import annotations
@@ -45,8 +56,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops import remat as _remat
 from ..ops.attention import dot_product_attention
-from .layers import Dense, LayerNorm, Mlp, _DenseOut, gelu_exact
+from .layers import Dense, LayerNorm, Mlp, _DenseOut, call_block, gelu_exact
 
 
 @dataclasses.dataclass(frozen=True)
@@ -67,13 +79,6 @@ class TimesformerConfig:
     def __post_init__(self):
         if self.layout not in ("flat", "nt"):
             raise ValueError(f"layout must be 'flat' or 'nt', got {self.layout!r}")
-        if self.layout == "nt":
-            raise NotImplementedError(
-                "TimeSformer layout='nt' is not yet ported to laryngeal_tpu_torch, "
-                "see ROADMAP.md")
-        if self.remat:
-            raise NotImplementedError(
-                "remat is not yet ported to laryngeal_tpu_torch, see ROADMAP.md")
 
     @property
     def num_spatial_patches(self) -> int:
@@ -147,6 +152,112 @@ class TimesformerLayer(Mlp):
         return x + super().forward(self.layernorm_after(x))
 
 
+def divided_spatial_attention_plain(q_p, k_p, v_p, q_c, k_c, v_c):
+    """Per-frame attention over [cls | the frame's patches], the JAX
+    ``DividedSpatialAttention`` einsums (``laryngeal_tpu/models/
+    timesformer.py:186-200``) with f32 logits and softmax: patch queries
+    (B, N, T, H, hd) and the cls query (B, H, hd), against keys and values
+    of the same shapes. Returns (ctx_c (B, T, H, hd), ctx_p (B, N, T, H, hd))
+    in q's dtype."""
+    return _divided_spatial(q_p, k_p, v_p, q_c, k_c, v_c)
+
+
+def _divided_spatial(q_p, k_p, v_p, q_c, k_c, v_c):
+    dt = q_p.dtype
+    q_p, k_p, v_p, q_c, k_c, v_c = (x.float() for x in (q_p, k_p, v_p, q_c, k_c, v_c))
+    b, _, t, h, hd = q_p.shape
+    scale = hd ** -0.5
+    s_pp = torch.einsum("bnthd,bmthd->bthnm", q_p, k_p) * scale
+    s_pc = torch.einsum("bnthd,bhd->bthn", q_p, k_c) * scale
+    w = torch.softmax(torch.cat([s_pc[..., None], s_pp], dim=-1), dim=-1)
+    ctx_p = (torch.einsum("bthn,bhd->bnthd", w[..., 0], v_c)
+             + torch.einsum("bthnm,bmthd->bnthd", w[..., 1:], v_p))
+    s_cc = torch.einsum("bhd,bhd->bh", q_c, k_c) * scale
+    s_cp = torch.einsum("bhd,bnthd->bthn", q_c, k_p) * scale
+    wc = torch.softmax(torch.cat([s_cc[:, None, :, None].expand(b, t, h, 1), s_cp], dim=-1),
+                       dim=-1)
+    ctx_c = (torch.einsum("bth,bhd->bthd", wc[..., 0], v_c)
+             + torch.einsum("bthn,bnthd->bthd", wc[..., 1:], v_p))
+    return ctx_c.to(dt), ctx_p.to(dt)
+
+
+class DividedSpatialAttentionFn(torch.autograd.Function):
+    """The nt layout's spatial attention with a recompute backward, as the
+    attention kernels have: the forward saves q, k, v (the (B, T, H, N, 1+N)
+    probabilities are never kept) and the backward recomputes the plain
+    function and differentiates it. Inside a rematerialised layer the
+    recompute takes both contexts off the layer's tape (``ops/remat.py``),
+    the JAX ``checkpoint_name(..., "attn_out")`` on ``ctx_p`` and ``ctx_c``."""
+
+    @staticmethod
+    def forward(ctx, q_p, k_p, v_p, q_c, k_c, v_c):
+        ctx.save_for_backward(q_p, k_p, v_p, q_c, k_c, v_c)
+        return _remat.saved_output(divided_spatial_attention_plain, q_p, k_p, v_p, q_c, k_c, v_c)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, d_c, d_p):
+        return divided_spatial_attention_bwd(*ctx.saved_tensors, d_c, d_p)
+
+
+def divided_spatial_attention_bwd(q_p, k_p, v_p, q_c, k_c, v_c, d_c, d_p):
+    """Gradients of the six inputs: the plain function recomputed and
+    differentiated by autograd."""
+    inputs = [x.detach().requires_grad_() for x in (q_p, k_p, v_p, q_c, k_c, v_c)]
+    with torch.enable_grad():
+        return torch.autograd.grad(_divided_spatial(*inputs), inputs, (d_c, d_p))
+
+
+def divided_spatial_attention(q_p, k_p, v_p, q_c, k_c, v_c):
+    """``divided_spatial_attention_plain``, under autograd through
+    ``DividedSpatialAttentionFn``."""
+    args = (q_p, k_p, v_p, q_c, k_c, v_c)
+    if torch.is_grad_enabled() and any(x.requires_grad for x in args):
+        return DividedSpatialAttentionFn.apply(*args)
+    return divided_spatial_attention_plain(*args)
+
+
+class DividedSpatialAttention(FusedQKVAttention):
+    """The nt layout's spatial attention (the JAX ``DividedSpatialAttention``):
+    the same ``attention.qkv`` / ``output.dense`` parameters as
+    ``FusedQKVAttention``, applied to the n-major patches (B, N, T, D) and
+    the cls vector (B, 1, D). Returns (out_c (B, T, D), out_p (B, N, T, D))."""
+
+    def forward(self, cls: torch.Tensor, patches: torch.Tensor):
+        b, n, t, d = patches.shape
+        h = self.num_heads
+        qkv = self.attention.qkv
+        q_p, k_p, v_p = qkv(patches).reshape(b, n, t, 3, h, d // h).unbind(3)
+        q_c, k_c, v_c = qkv(cls).reshape(b, 3, h, d // h).unbind(1)
+        ctx_c, ctx_p = divided_spatial_attention(q_p, k_p, v_p, q_c, k_c, v_c)
+        out = self.output.dense
+        return out(ctx_c.reshape(b, t, d)), out(ctx_p.reshape(b, n, t, d))
+
+
+class TimesformerLayerNT(TimesformerLayer):
+    """One layer of the transpose-free nt layout (the JAX
+    ``TimesformerLayerNT``): carries (cls (B, 1, D), patches (B, N, T, D)).
+    Its parameters, their names and their order are the flat layer's."""
+
+    def __init__(self, cfg: TimesformerConfig):
+        super().__init__(cfg)
+        self.attention = DividedSpatialAttention(cfg.hidden_size, cfg.num_heads, cfg.dtype)
+
+    def forward(self, cls: torch.Tensor, patches: torch.Tensor):
+        b, n, t, d = patches.shape
+        # Temporal attention: (B, N, T, D) -> (B*N, T, D), a free reshape.
+        h = self.temporal_attention(self.temporal_layernorm(patches.reshape(b * n, t, d)))
+        patches = patches + self.temporal_dense(h.reshape(b, n, t, d))
+
+        out_c, out_p = self.attention(self.layernorm_before(cls), self.layernorm_before(patches))
+        cls = cls + out_c.mean(dim=1, keepdim=True)
+        patches = patches + out_p
+
+        mlp = super(TimesformerLayer, self).forward  # per token, shared by both
+        return (cls + mlp(self.layernorm_after(cls)),
+                patches + mlp(self.layernorm_after(patches)))
+
+
 class TimesformerPatchEmbeddings(nn.Module):
     def __init__(self, cfg: TimesformerConfig):
         super().__init__()
@@ -187,12 +298,24 @@ class TimesformerEmbeddings(nn.Module):
 class TimesformerEncoder(nn.Module):
     def __init__(self, cfg: TimesformerConfig):
         super().__init__()
-        self.layer = nn.ModuleList(TimesformerLayer(cfg) for _ in range(cfg.num_layers))
+        self.num_frames, self.remat, self.nt = cfg.num_frames, cfg.remat, cfg.layout == "nt"
+        layer_cls = TimesformerLayerNT if self.nt else TimesformerLayer
+        self.layer = nn.ModuleList(layer_cls(cfg) for _ in range(cfg.num_layers))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """(B, 1 + N*T, D) -> the same (flat), or -> the cls row (B, 1, D)
+        (nt: the JAX model normalises and classifies only that)."""
+        if not self.nt:
+            for layer in self.layer:
+                x = call_block(layer, x, remat=self.remat)
+            return x
+        b, total, d = x.shape
+        t = self.num_frames
+        # The flat order is spatial-major, so the 4-D split is a reshape.
+        cls, patches = x[:, :1], x[:, 1:].reshape(b, (total - 1) // t, t, d)
         for layer in self.layer:
-            x = layer(x)
-        return x
+            cls, patches = call_block(layer, cls, patches, remat=self.remat)
+        return cls
 
 
 class TimesformerModel(nn.Module):

@@ -17,6 +17,11 @@ on the CLS token.
 - Attention runs through ``ops.attention.dot_product_attention`` (the CUDA
   flash kernel on the card). The JAX model's sequence-parallel hooks are
   no-ops on one device and are left out.
+- ``remat=True`` rematerialises each block in the backward and keeps its
+  attention output (``layers.call_block``), as the JAX model's
+  ``nn.remat(..., save_only_these_names("attn_out"))`` does: kernel 2 runs
+  once a block per step, kernels 3-4 as without remat. Nothing turns it on
+  by itself.
 """
 
 from __future__ import annotations
@@ -29,7 +34,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .layers import Dense, LayerNorm, TransformerBlock, gelu_fast
+from .layers import Dense, LayerNorm, TransformerBlock, call_block, gelu_fast
 
 
 @dataclasses.dataclass(frozen=True)
@@ -44,6 +49,7 @@ class VivitConfig:
     num_classes: int = 2
     layer_norm_eps: float = 1e-6
     dtype: torch.dtype = torch.float32
+    remat: bool = False
 
     @property
     def num_patches(self) -> int:
@@ -84,6 +90,7 @@ class VivitEmbeddings(nn.Module):
 class VivitEncoder(nn.Module):
     def __init__(self, cfg: VivitConfig):
         super().__init__()
+        self.remat = cfg.remat
         self.layer = nn.ModuleList(
             TransformerBlock(cfg.hidden_size, cfg.num_heads, cfg.intermediate_size,
                              act=gelu_fast, layer_norm_eps=cfg.layer_norm_eps,
@@ -92,7 +99,7 @@ class VivitEncoder(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         for block in self.layer:
-            x = block(x)
+            x = call_block(block, x, remat=self.remat)
         return x
 
 

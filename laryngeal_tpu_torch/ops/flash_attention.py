@@ -79,7 +79,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from . import _build
+from . import _build, remat
 
 SOURCE = "flash_attention_fwd.cu"
 BWD_SOURCE = "flash_attention_bwd.cu"
@@ -659,11 +659,13 @@ def flash_attention_bwd(q, k, v, o, lse, do, kv_valid=None):
 class FlashAttentionFn(torch.autograd.Function):
     """Attention with the flash backward: the port's counterpart of the JAX
     ``custom_vjp``. Forward: kernel 2, saving (q, k, v, o, lse); backward:
-    delta, kernel 3 (dq) and kernel 4 (dk, dv). Plain twins on the CPU."""
+    delta, kernel 3 (dq) and kernel 4 (dk, dv). Plain twins on the CPU.
+    Inside a rematerialised block the recompute takes (o, lse) off the
+    block's tape (``ops/remat.py``) and launches no kernel 2."""
 
     @staticmethod
     def forward(ctx, q, k, v, kv_valid):
-        o, lse = flash_attention_lse(q, k, v, kv_valid)
+        o, lse = remat.saved_output(flash_attention_lse, q, k, v, kv_valid)
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.kv_valid = kv_valid
         return o
@@ -687,7 +689,7 @@ class FlashAttentionBiasFn(torch.autograd.Function):
     def forward(ctx, q, k, v, bias, kv_valid):
         ctx.save_for_backward(q, k, v, bias)
         ctx.kv_valid = kv_valid
-        return flash_attention_bias(q, k, v, bias, kv_valid)
+        return remat.saved_output(flash_attention_bias, q, k, v, bias, kv_valid)
 
     @staticmethod
     @torch.autograd.function.once_differentiable

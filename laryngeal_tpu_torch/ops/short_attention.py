@@ -60,7 +60,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from . import _build
+from . import _build, remat
 from .flash_attention import (F32_REL, _DTYPE_CODE, _check_cuda, _head_dims, _last_designs,
                               _on_cpu, _prepare, _stream)
 
@@ -405,12 +405,14 @@ def short_attention_backward(q, k, v, do):
 class ShortAttentionFn(torch.autograd.Function):
     """Short attention with its own backward: the port's counterpart of the
     JAX ``custom_vjp``. Forward: kernel 6, saving (q, k, v); backward:
-    kernel 7. Plain twins on the CPU."""
+    kernel 7. Plain twins on the CPU. Inside a rematerialised block the
+    recompute takes the output off the block's tape (``ops/remat.py``) and
+    launches no kernel 6."""
 
     @staticmethod
     def forward(ctx, q, k, v):
         ctx.save_for_backward(q, k, v)
-        return short_attention_forward(q, k, v)
+        return remat.saved_output(short_attention_forward, q, k, v)
 
     @staticmethod
     @torch.autograd.function.once_differentiable

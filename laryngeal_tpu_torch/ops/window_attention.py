@@ -108,7 +108,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from . import _build
+from . import _build, remat
 from .flash_attention import F32_REL, _DTYPE_CODE, _check_cuda, _head_dims, _last_designs, \
     _on_cpu, _prepare, _stream
 
@@ -696,13 +696,15 @@ class WindowAttentionFn(torch.autograd.Function):
     """Window attention with its own backward: the port's counterpart of the
     JAX ``custom_vjp``. Forward: kernel 8, saving (q, k, v, bias); backward:
     kernel 9, giving dq, dk, dv and dbias, and nothing for ``region_id``.
-    Plain twins on the CPU."""
+    Plain twins on the CPU. Inside a rematerialised block the recompute
+    takes the output off the block's tape (``ops/remat.py``) and launches no
+    kernel 8."""
 
     @staticmethod
     def forward(ctx, q, k, v, bias, region_id):
         ctx.save_for_backward(q, k, v, bias)
         ctx.region_id = region_id
-        return window_attention_forward(q, k, v, bias, region_id)
+        return remat.saved_output(window_attention_forward, q, k, v, bias, region_id)
 
     @staticmethod
     @torch.autograd.function.once_differentiable

@@ -26,15 +26,28 @@ dropout, so those forwards ignore it.
 ``LARYNGEAL_NO_AUGMENT=1``, read once when the step is made (as the JAX
 factory reads it, ``:82-90``), trains the pytorchvideo regime on its
 deterministic eval transform, so the port and JAX steps can be compared
-without aligning their random streams. Ported: one device and the rgb wire.
-Gradient accumulation, the mesh / tensor-parallel arguments and the non-rgb
-wires raise.
+without aligning their random streams.
+
+``grad_accum > 1`` (the JAX step's ``lax.scan``, ``steps.py:128-188``)
+splits the batch into strided micro-batches (micro-batch ``g`` takes rows
+``g, g + ga, ...``), preprocesses and runs each on its own, so decoded-clip
+and activation memory scale with the micro-batch, and accumulates their
+gradients, each micro-batch's masked-mean loss weighted by its valid count
+and the sum divided by ``max(total count, 1)``: for a model without
+BatchNorm the update is the full batch's, and a micro-batch that is all
+padding adds zero. One optimizer update a batch; probabilities come back in
+batch order. BatchNorm statistics move once per micro-batch, in order, as
+the JAX scan carry threads them. Micro-batch ``i`` draws its augmentation
+and dropout from generators seeded by (seed, step, i).
+
+Ported: one device and the rgb wire. The mesh / tensor-parallel arguments
+and the non-rgb wires raise.
 """
 
 from __future__ import annotations
 
 import os
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -48,7 +61,6 @@ def _check_ported(mesh, tp: bool, grad_accum: int, wire: str) -> None:
     if grad_accum < 1:
         raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
     unported = {
-        "grad_accum > 1": grad_accum > 1,
         "a device mesh": mesh is not None,
         "tensor parallelism (tp)": tp,
         f"wire format {wire!r}": wire != "rgb",
@@ -67,10 +79,13 @@ def _metrics(loss_val, logits, labels, mask, get_probs) -> Dict[str, torch.Tenso
             "count": valid.sum(), "probs": probs}
 
 
-def step_generators(seed: int, step: int, device) -> Tuple[torch.Generator, torch.Generator]:
+def step_generators(seed: int, step: int, device,
+                    micro: Optional[int] = None) -> Tuple[torch.Generator, torch.Generator]:
     """(augmentation generator on the CPU, stochastic-depth generator on
-    ``device``) of one train step, seeded from (seed, step) only."""
-    aug_seed, drop_seed = np.random.SeedSequence([int(seed), int(step)]).generate_state(2)
+    ``device``) of one train step, seeded from (seed, step) only, or of its
+    micro-batch ``micro`` from (seed, step, micro)."""
+    entropy = [int(seed), int(step)] + ([] if micro is None else [int(micro)])
+    aug_seed, drop_seed = np.random.SeedSequence(entropy).generate_state(2)
     return (torch.Generator().manual_seed(int(aug_seed)),
             torch.Generator(device=device).manual_seed(int(drop_seed)))
 
@@ -82,21 +97,46 @@ def make_train_step(model: torch.nn.Module, regime: str, loss: str, pos_weight: 
 
     ``state`` holds ``model`` and its optimizer; the step updates both in
     place and counts ``state.step``. ``seed`` and ``state.step`` seed the
-    step's augmentation and stochastic depth (``step_generators``)."""
+    step's augmentation and stochastic depth (``step_generators``).
+    ``grad_accum``: micro-batches a batch (module docstring); the batch size
+    must be a multiple of it."""
     _check_ported(mesh, tp, grad_accum, wire)
     loss_fn = make_loss_fn(loss, pos_weight)
     get_probs = probs_fn(loss)
     augment = regime == "pytorchvideo" and os.environ.get("LARYNGEAL_NO_AUGMENT") != "1"
 
-    def step(state: TrainState, pixel_u8, labels, mask):
-        model.train()
-        aug_gen, drop_gen = step_generators(seed, state.step, pixel_u8.device)
+    def forward_loss(pixel_u8, labels, mask, generators):
+        aug_gen, drop_gen = generators
         clips = batch_preprocess(decode_wire_batch(pixel_u8, wire), regime, train=augment,
                                  crop=crop, generator=aug_gen)
         logits = model(clips, generator=drop_gen)
-        loss_val = loss_fn(logits, labels, mask)
+        return loss_fn(logits, labels, mask), logits
+
+    def step(state: TrainState, pixel_u8, labels, mask):
+        model.train()
         state.optimizer.zero_grad(set_to_none=True)
-        loss_val.backward()
+        if grad_accum == 1:
+            loss_val, logits = forward_loss(pixel_u8, labels, mask,
+                                            step_generators(seed, state.step, pixel_u8.device))
+            loss_val.backward()
+        else:
+            batch = pixel_u8.shape[0]
+            if batch % grad_accum:
+                raise ValueError(f"batch size {batch} not divisible by grad_accum {grad_accum}")
+            denom = torch.clamp(mask.float().sum(), min=1.0)
+            loss_sum, parts = 0.0, []
+            for i in range(grad_accum):
+                rows = slice(i, None, grad_accum)
+                loss_i, logits_i = forward_loss(
+                    pixel_u8[rows], labels[rows], mask[rows],
+                    step_generators(seed, state.step, pixel_u8.device, micro=i))
+                weight = mask[rows].float().sum() / denom
+                (loss_i * weight).backward()
+                loss_sum = loss_sum + loss_i.detach() * weight
+                parts.append(logits_i.detach())
+            loss_val = loss_sum
+            # Micro-batch g holds rows g, g + ga, ...: interleave them back.
+            logits = torch.stack(parts, dim=1).reshape(batch, *parts[0].shape[1:])
         state.optimizer.step()
         state.step += 1
         return state, _metrics(loss_val, logits, labels, mask, get_probs)

@@ -119,8 +119,6 @@ def test_unported_dataset_options_raise(roots):
     with pytest.raises(NotImplementedError, match="not yet ported"):
         VideoDataset(roots[0], "train", wire="i420")
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        VideoDataset(roots[0], "train", cache_dir="/nonexistent")
-    with pytest.raises(NotImplementedError, match="not yet ported"):
         ClipLoader(VideoDataset(roots[0], "val"), process_count=2)
 
 
@@ -184,6 +182,61 @@ def test_clip_cache_budget_and_hits():
     assert "big" not in cache and "b" in cache
     assert cache.get("b") is not None and cache.get("a") is None
     assert cache.stats()["hits"] == 1 and cache.stats()["misses"] == 1
+
+
+def _counting_decode(monkeypatch):
+    """Counts the port dataset's decodes."""
+    from laryngeal_tpu_torch.data import dataset as port_dataset
+
+    calls = []
+    real = port_dataset.decode_frames
+
+    def decode(*args, **kwargs):
+        calls.append(args[0])
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(port_dataset, "decode_frames", decode)
+    return calls
+
+
+@pytest.mark.parametrize("method,per_video_seed", [("uniform", False), ("random", True)])
+def test_port_reads_a_jax_written_clip_cache(roots, tmp_path, cv2_decode, monkeypatch, method,
+                                             per_video_seed):
+    """A directory the JAX dataset filled is read by the port: the same file
+    names (the JAX key rule), the same clips, no decode."""
+    kw = dict(num_frames=6, resize_to=(32, 32), sampling_method=method,
+              per_video_seed=per_video_seed, cache_clips=False, cache_dir=tmp_path / "c")
+    jds = JaxVideoDataset(roots[0], "train", **kw)
+    want = [jds[i]["pixel_values"] for i in range(len(jds))]
+    files = sorted((tmp_path / "c").glob("*.npy"))
+    assert len(files) == len(jds)
+    calls = _counting_decode(monkeypatch)
+    ds = VideoDataset(roots[0], "train", **kw)
+    for i in range(len(ds)):
+        assert np.array_equal(ds[i]["pixel_values"], want[i])
+    assert calls == [] and sorted((tmp_path / "c").glob("*.npy")) == files
+
+
+def test_port_writes_a_clip_cache_jax_reads_and_skips_corrupt_entries(roots, tmp_path,
+                                                                      monkeypatch):
+    kw = dict(num_frames=6, resize_to=(32, 32), cache_clips=False, cache_dir=tmp_path / "c")
+    calls = _counting_decode(monkeypatch)
+    ds = VideoDataset(roots[0], "val", **kw)
+    first = [ds[i]["pixel_values"] for i in range(len(ds))]
+    assert len(calls) == len(ds)
+    files = sorted((tmp_path / "c").glob("*.npy"))
+    assert len(files) == len(ds) and not list((tmp_path / "c").glob("*.tmp"))
+    again = [VideoDataset(roots[0], "val", **kw)[i]["pixel_values"] for i in range(len(ds))]
+    assert len(calls) == len(ds)  # the second pass decoded nothing
+    assert all(np.array_equal(a, b) for a, b in zip(first, again))
+    jds = JaxVideoDataset(roots[0], "val", **kw)
+    monkeypatch.setattr(native, "decode_frames_auto",
+                        lambda *a, **k: pytest.fail("the JAX dataset decoded"))
+    assert all(np.array_equal(jds[i]["pixel_values"], first[i]) for i in range(len(jds)))
+    files[0].write_bytes(b"truncated")  # a corrupt entry is a miss, decoded again
+    assert all(np.array_equal(VideoDataset(roots[0], "val", **kw)[i]["pixel_values"], first[i])
+               for i in range(len(ds)))
+    assert len(calls) == len(ds) + 1
 
 
 def test_save_sampled_indices_matches_jax(roots, tmp_path):

@@ -2,8 +2,10 @@
 with kernels 3-4 in both bf16 designs; short-sequence, kernels 6-7;
 shifted-window, kernels 8-9 and the ablation variants 11-12; the biased
 flash forward, kernel 5; the tubelet embedding, kernel 10) against their
-plain versions, gradients through them, the routing, and the ViViT,
-TimeSformer and Swin3D train steps on the card.
+plain versions, gradients through them, the routing, the ViViT,
+TimeSformer and Swin3D train steps on the card, and remat (every kernel
+launched as often as without it), gradient accumulation and the profiler's
+trace there.
 
 They skip on a machine without CUDA. On the card, run them with
 ``python -m pytest --noconftest -p no:cacheprovider tests/test_torch_gpu.py``
@@ -2669,3 +2671,103 @@ def test_cnn_bf16_train_step_on_card(cuda, name):
             assert v.dtype == torch.float32 and torch.isfinite(v).all(), k
             if "running_" in k:
                 assert not torch.equal(v, before[k]), k
+
+
+# ---------- remat, accumulation, the nt layout, the profiler (on the card) ----------
+
+REMAT_MODELS = {
+    # N = 513 ViViT tokens: kernels 2-4; TimeSformer: kernels 6-7 (both layouts);
+    # Swin3D with drop path on its device generator: kernels 8-9.
+    "vivit": ("vivit", dict(num_frames=16, image_size=128, hidden_size=64, num_layers=2,
+                            num_heads=4, intermediate_size=128), (2, 16, 128, 128, 3)),
+    "timesformer_flat": ("timesformer", dict(num_frames=8, image_size=64, hidden_size=64,
+                                             num_layers=2, num_heads=2, intermediate_size=128),
+                         (2, 8, 64, 64, 3)),
+    "timesformer_nt": ("timesformer", dict(num_frames=8, image_size=64, hidden_size=64,
+                                           num_layers=2, num_heads=2, intermediate_size=128,
+                                           layout="nt"), (2, 8, 64, 64, 3)),
+    "swin3d": ("swin3d", dict(embed_dim=48, depths=(2, 2), num_heads=(2, 4), window=(4, 7, 7),
+                              stochastic_depth=0.3), (2, 8, 56, 56, 3)),
+}
+
+
+def _all_launches():
+    return {**fa.launch_counts(), **sa.launch_counts(), **wa.launch_counts()}
+
+
+def _remat_run(cuda, family, remat, dtype):
+    from laryngeal_tpu_torch.models.registry import create_model
+
+    name, kw, shape = REMAT_MODELS[family]
+    model = create_model(name, seed=0, dtype=dtype, remat=remat, **kw).to(cuda).train()
+    x = torch.from_numpy(np.random.default_rng(3).standard_normal(shape).astype(
+        np.float32)).to(cuda)
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    before = _all_launches()
+    loss = (model(x, generator=gen).float() ** 2).mean()
+    loss.backward()
+    torch.cuda.synchronize()
+    after = _all_launches()
+    counts = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+    return loss.item(), {n: p.grad for n, p in model.named_parameters()}, counts
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("family", sorted(REMAT_MODELS))
+def test_remat_on_card_launches_each_forward_kernel_once(cuda, family, dtype):
+    """Remat on CUDA tensors: every kernel launches as often as without it
+    (the forward kernels 2, 6 and 8 are not relaunched by the recompute),
+    and the loss and gradients are those without remat."""
+    l0, g0, c0 = _remat_run(cuda, family, False, dtype)
+    l1, g1, c1 = _remat_run(cuda, family, True, dtype)
+    assert c0 == c1 and c1, (c0, c1)
+    assert l1 == pytest.approx(l0, rel=1e-6)
+    for n in g0:
+        torch.testing.assert_close(g1[n], g0[n], rtol=1e-5, atol=1e-6, msg=n)
+
+
+def test_grad_accum_on_card_matches_the_full_batch(cuda):
+    from laryngeal_tpu_torch.models.vivit import create_vivit
+    from laryngeal_tpu_torch.train.state import create_train_state
+    from laryngeal_tpu_torch.train.steps import make_train_step
+
+    rng = np.random.default_rng(4)
+    pix = torch.from_numpy(rng.integers(0, 256, (4, 16, 136, 136, 3), dtype=np.uint8)).to(cuda)
+    labels = torch.tensor([0, 1, 1, 0], device=cuda)
+    mask = torch.tensor([True, True, True, False], device=cuda)
+    grads = {}
+    for accum in (1, 2):
+        model = create_vivit(num_frames=16, image_size=128, hidden_size=64, num_layers=2,
+                             num_heads=4, intermediate_size=128, seed=0).to(cuda)
+        state = create_train_state(model, "adamw", 1e-3, 0.01)
+        before = fa.lse_launches
+        state, m = make_train_step(model, "vivit", "ce", crop=128, grad_accum=accum)(
+            state, pix, labels, mask)
+        assert state.step == 1 and fa.lse_launches - before == 2 * accum
+        grads[accum] = ({n: p.grad.clone() for n, p in model.named_parameters()},
+                        m["loss"].item(), m["probs"])
+    (g1, l1, p1), (g2, l2, p2) = grads[1], grads[2]
+    assert l2 == pytest.approx(l1, rel=2e-5)
+    torch.testing.assert_close(p2, p1, atol=2e-5, rtol=0)
+    for n, b in g1.items():
+        atol = max(1e-4 * b.abs().max().item(), 3e-8)
+        torch.testing.assert_close(g2[n], b, atol=atol, rtol=0, msg=n)
+
+
+def test_profiler_trace_on_card_names_the_kernels(cuda, tmp_path):
+    import json
+
+    from laryngeal_tpu_torch.utils.profiling import trace
+
+    model = _tiny_vivit(torch.float32).to(cuda).train()
+    x = torch.randn((1, 16, 128, 128, 3), device=cuda)
+    with trace(tmp_path, cuda=True):
+        model(x).sum().backward()
+        torch.cuda.synchronize()
+    (path,) = tmp_path.glob("*.pt.trace.json")
+    names = {e.get("name", "") for e in json.loads(path.read_text())["traceEvents"]}
+    # Kernel 2 (any design of flash_attention_fwd.cu), kernels 3 and 4.
+    for symbols in (("fwd_tf32_kernel", "fwd_wgmma_kernel", "flash_fwd_"),
+                    ("dq_tf32_kernel", "dq_wgmma_kernel", "dq_f32_kernel", "dq_bf16_kernel"),
+                    ("dkv_tf32_kernel", "dkv_wgmma_kernel", "dkv_f32_kernel", "dkv_bf16_kernel")):
+        assert any(s in n for n in names for s in symbols), symbols

@@ -31,6 +31,8 @@ def test_every_module_is_listed():
     assert "laryngeal_tpu_torch.ops.tubelet" in MODULES
     assert "laryngeal_tpu_torch.models.resnet3d" in MODULES
     assert "laryngeal_tpu_torch.models.resnet" in MODULES
+    for name in ("ops.remat", "compat.loading", "compat.manifests", "utils.profiling"):
+        assert f"laryngeal_tpu_torch.{name}" in MODULES
 
 
 def test_importing_the_port_loads_no_jax():

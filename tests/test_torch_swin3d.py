@@ -204,10 +204,11 @@ def test_init_weights_is_seeded():
 
 
 def test_unported_remat_and_unknown_size_raise():
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        swin3d.Swin3DConfig(remat=True)
+    """remat is ported (tests/test_torch_remat.py holds it); an unknown
+    size still raises, with or without it."""
+    assert swin3d.Swin3DConfig(remat=True).remat
     with pytest.raises(ValueError):
-        swin3d.create_swin3d("huge")
+        swin3d.create_swin3d("huge", remat=True)
 
 
 def test_stochastic_depth_draws_only_with_a_generator(port_model, pixels):
@@ -271,7 +272,11 @@ def test_cli_trains_without_early_stopping_and_predictor_serves(tmp_path, monkey
 
 
 def test_cli_refuses_remat_for_swin3d(tmp_path):
-    with pytest.raises(SystemExit, match="not yet ported"):
+    """--remat is ported for Swin3D; a remat run whose batch does not split
+    into --grad_accum_steps is still refused, as the JAX CLI refuses it,
+    before the experiment directory exists."""
+    with pytest.raises(SystemExit, match="divisible"):
         cli.main(["--model", "swin3d", "--device", "cpu", "--data_dir", str(tmp_path),
-                  "--log_dir", str(tmp_path / "logs"), "--remat"])
+                  "--log_dir", str(tmp_path / "logs"), "--remat", "--batch_size", "4",
+                  "--grad_accum_steps", "3"])
     assert not (tmp_path / "logs").exists()

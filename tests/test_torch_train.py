@@ -280,11 +280,15 @@ def test_set_learning_rate_takes_effect(shared, lr):
         assert torch.equal(model.state_dict()[name], start[name]) == (lr == 0.0), name
 
 
-@pytest.mark.parametrize("kwargs", [dict(grad_accum=2), dict(mesh=object()), dict(tp=True),
+@pytest.mark.parametrize("kwargs", [dict(grad_accum=0), dict(mesh=object()), dict(tp=True),
                                     dict(wire="i420")],
                          ids=["grad_accum", "mesh", "tp", "wire"])
 def test_unported_step_options_raise(kwargs):
-    with pytest.raises(NotImplementedError, match="not yet ported"):
+    """Gradient accumulation is ported (tests/test_torch_grad_accum.py);
+    a grad_accum below 1 raises ValueError, as in the JAX step."""
+    error, match = ((ValueError, "grad_accum must be >= 1") if "grad_accum" in kwargs
+                    else (NotImplementedError, "not yet ported"))
+    with pytest.raises(error, match=match):
         steps.make_train_step(torch.nn.Linear(1, 1), "vivit", "ce", **kwargs)
 
 

@@ -240,14 +240,86 @@ def test_cli_trains_resumes_evaluates_and_serves(root, tmp_path):
     assert probs.shape == (2, 2) and np.allclose(probs.sum(-1), 1.0, atol=1e-6)
 
 
-@pytest.mark.parametrize("flags", [["--fsdp"], ["--remat"], ["--grad_accum_steps", "2"],
-                                   ["--wire", "i420"], ["--mesh_model", "2"],
-                                   ["--model", "swin3d", "--remat"],
-                                   ["--model", "resnet3d", "--clip_cache_dir", "cache"]],
-                         ids=["fsdp", "remat", "grad_accum", "wire", "mesh", "swin3d",
-                              "resnet3d"])
-def test_cli_refuses_unported_flags(flags, tmp_path):
-    with pytest.raises(SystemExit, match="not yet ported"):
+def test_cli_runs_the_training_options(root, flax_params, tmp_path):
+    """--grad_accum_steps 2 --remat --torch_weights --clip_cache_dir
+    --profile_dir on the CPU: the weights file is what the run starts from,
+    every clip lands in the cache and a second run decodes none, and the
+    profiler writes a Chrome trace."""
+    from laryngeal_tpu_torch.data import dataset as port_dataset
+
+    weights = create_vivit(num_frames=FRAMES, image_size=SIZE, seed=5, **TINY).state_dict()
+    torch.save({"model_state_dict": weights}, tmp_path / "w.pth")
+    flags = CLI_FLAGS + ["--data_dir", str(root), "--epochs", "1", "--grad_accum_steps", "2",
+                         "--remat", "--torch_weights", str(tmp_path / "w.pth"),
+                         "--clip_cache_dir", str(tmp_path / "cache"),
+                         "--profile_dir", str(tmp_path / "prof")]
+    out = cli.main(flags + ["--log_dir", str(tmp_path / "logs")])
+    exp = tmp_path / "logs" / out["exp_dir"].split("/")[-1]
+    log = (exp / "experiment.log").read_text()
+    assert "Loaded torch weights from" in log and "PRETRAINED WEIGHTS UNAVAILABLE" not in log
+    meta = ckpt.read_metadata(exp / "best_model")
+    assert meta["config"]["grad_accum_steps"] == 2 and meta["config"]["model_kwargs"]["remat"]
+    assert len(list((tmp_path / "cache").glob("*.npy"))) == 2 * (3 + 2 + 2)  # 2 classes
+    traces = list((tmp_path / "prof").glob("*.pt.trace.json"))
+    assert len(traces) == 1 and '"traceEvents"' in traces[0].read_text()
+    assert np.isfinite(out["history"]["train_loss"]).all()
+
+    decoded = []
+    real = port_dataset.decode_frames
+    mp = pytest.MonkeyPatch()
+    mp.setattr(port_dataset, "decode_frames", lambda *a, **k: decoded.append(a) or real(*a, **k))
+    try:
+        time.sleep(1.1)  # experiment dirs are stamped to the second
+        cli.main(flags + ["--log_dir", str(tmp_path / "logs2"), "--no_cache_clips"])
+    finally:
+        mp.undo()
+    assert decoded == []
+
+
+def test_profiling_timer_block_and_a_trace_that_cannot_start(tmp_path, monkeypatch):
+    """``StepTimer`` summarises as the JAX one does; ``block`` and
+    ``trace(None)`` are no-ops on the CPU; a profiler that cannot start is
+    an error when the card is traced, and a no-op otherwise."""
+    from laryngeal_tpu.utils.profiling import StepTimer as JaxStepTimer
+    from laryngeal_tpu_torch.utils import profiling
+
+    port, ref = profiling.StepTimer(warmup=1, items_per_step=8), JaxStepTimer(1, 8)
+    for timer in (port, ref):
+        timer._count = 1
+        timer.times = [0.5, 0.25, 0.75, 1.0]
+    assert port.summary() == ref.summary()
+    with profiling.StepTimer(warmup=0) as timer:
+        profiling.block(torch.ones(2))
+        profiling.block()
+    assert timer.summary()["steps"] == 1
+    with profiling.trace(None) as prof:
+        assert prof is None
+
+    def refuse(self):
+        raise RuntimeError("no CUPTI")
+
+    monkeypatch.setattr(torch.profiler.profile, "start", refuse)
+    with pytest.raises(RuntimeError, match="did not start on the card"):
+        with profiling.trace(tmp_path / "card", cuda=True):
+            pass
+    with profiling.trace(tmp_path / "host", cuda=False) as prof:
+        assert prof is None
+
+
+@pytest.mark.parametrize("flags,match", [
+    (["--fsdp"], "not yet ported"),
+    (["--model", "resnet50_lstm", "--remat"], "transformer families"),
+    (["--grad_accum_steps", "3"], "must be divisible"),
+    (["--wire", "i420"], "not yet ported"),
+    (["--mesh_model", "2"], "not yet ported"),
+    (["--model", "swin3d", "--mesh_seq", "2"], "not yet ported"),
+    (["--model", "resnet3d", "--remat"], "transformer families")],
+    ids=["fsdp", "remat", "grad_accum", "wire", "mesh", "swin3d", "resnet3d"])
+def test_cli_refuses_unported_flags(flags, match, tmp_path):
+    """Unported flags, and (as the JAX CLI refuses them) --remat on a CNN
+    family and a batch that does not split into --grad_accum_steps, are
+    refused before the experiment directory exists."""
+    with pytest.raises(SystemExit, match=match):
         cli.main(CLI_FLAGS + ["--data_dir", str(tmp_path), "--log_dir",
                               str(tmp_path / "logs")] + flags)
     assert not (tmp_path / "logs").exists()
