@@ -228,17 +228,41 @@ Phases, in order; any failure ends the run with a non-zero exit:
    --profile_dir``: the weights load, the cache holds every clip and a
    second pass decodes nothing, the trace names kernels 2-4's CUDA symbols.
 
+23. The wires' host side and decode heads, on 8 / 4 / 4 synthetic mp4v
+   videos (40 frames, 320 x 256) in a temporary directory: the decoder line
+   (the native library must build and load where g++ and the libav
+   development files are present; else cv2 decodes and numpy encodes, and
+   the line says so); native decode against cv2 at the source size (the same
+   frames, mean |diff| <= 1 level), the native dct encoder against numpy
+   (+-1 on under 2e-3 of the coefficients) and its nibble pack bitwise; host
+   decode ms a clip (cv2 rgb, native rgb, i420, i420 lowres 1). Then, at
+   ViViT-B's clip (32 frames, 224^2), B=8, for rgb, i420, delta, dct k31,
+   dctp k31 p14 and dctp k15 p8: payload bytes a clip, host encode ms a clip,
+   H2D ms, the decode head's ms on the card (CUDA events), and the card's
+   head against the CPU's on the same payload (i420 / delta within 1e-3;
+   dct / dctp every element within 2 levels, all but 1e-3 within 1e-3).
+24. ViViT-B/16x2 32f 224^2 bf16 served at B=8 over i420, delta, dct, dctp
+   and i420 at wire_lowres 1 (clips decoded by ``extract_clip``): 12
+   launches of kernel 1 a forward and no other kernel, probabilities finite
+   and summing to 1, the logits of the card-decoded batch against the same
+   model fed the CPU-decoded pixels (bf16 limit), ``predict_clip`` ms and
+   clips/s; an f32 pass on two clips over dctp (f32 limit); one
+   ``cli.serve --wire dctp`` process on a bf16 checkpoint, one /predict.
+25. ``cli.main --model vivit --bf16 --wire dctp`` for one epoch on the 8 / 4
+   / 4 videos, and ``Predictor.from_checkpoint(..., wire="dctp")`` serving
+   its best_model/ in f32 (12 launches of kernel 1).
+
 The kernel checks (2, 2b, 7, 11, 11b, 15, 16) run first, then the paths. The
 launch counts are set to 0 before each path (ViViT serving 3-4, ViViT
 training 5-6, TimeSformer serving 8, TimeSformer training 9-10, Swin3D
 serving 12, Swin3D training 13-14, the ablation of 11b, the ViViT-B stem of
 15, the biased block of 16, the CNN families of 17 and 18, and phases 19,
-20, 21 and 22) and read after it; each of phases 19-22 must launch every
-kernel of its path. Each phase
+20, 21, 22, 24 and 25) and read after it; each of phases 19-22, 24 and 25
+must launch every kernel of its path. Each phase
 prints its time. The second-to-last line of output is ``{"kernels": [...]}``;
 the last is ``{"ok": true, "device": {...}}``. Decode is skipped in 3-5, 8-9,
 12-13, 15-16 and the serving and train steps of 17-18 (clips are uint8
-arrays); phases 6, 10, 14 and the CLI runs of 17-18 decode mp4s.
+arrays); phases 6, 10, 14, the CLI runs of 17-18 and 22-25 decode mp4s.
 """
 
 from __future__ import annotations
@@ -800,14 +824,13 @@ def check_training_kernels():
     return entries
 
 
-def check_logits(label, logits, logits_plain, tol, model="vivit-b"):
+def check_logits(label, logits, logits_plain, tol, model="vivit-b",
+                 what="kernel vs plain attention"):
     scale = max(1.0, logits_plain.abs().max().item())
     err = (logits.float() - logits_plain.float()).abs().max().item()
-    log(f"{model} {label} logits kernel vs plain attention: max_abs_err {err:.3e} "
-        f"(tol {tol:g} x {scale:.3f})")
+    log(f"{model} {label} logits {what}: max_abs_err {err:.3e} (tol {tol:g} x {scale:.3f})")
     if not (np.isfinite(err) and err <= tol * scale):
-        raise AssertionError(f"{label} model logits with the kernel disagree with "
-                             "plain attention")
+        raise AssertionError(f"{label} model logits, {what}, disagree")
 
 
 def main_path(kernel1_f32_ms: float) -> dict:
@@ -3467,6 +3490,7 @@ def cli_options_phase() -> dict:
     symbols. Returns the run's launches."""
     from laryngeal_tpu_torch.cli import main as cli
     from laryngeal_tpu_torch.data import dataset as port_dataset
+    from laryngeal_tpu_torch.data import native
     from laryngeal_tpu_torch.data.synthetic import make_synthetic_dataset
 
     tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_cli_options_"))
@@ -3491,8 +3515,8 @@ def cli_options_phase() -> dict:
             raise AssertionError(f"cli options run: {out['history']}")
         files = list((tmp / "cache").glob("*.npy"))
         decoded = []
-        real = port_dataset.decode_frames
-        port_dataset.decode_frames = lambda *a, **k: decoded.append(a[0]) or real(*a, **k)
+        real = native.decode_frames_auto  # the dataset decodes through it
+        native.decode_frames_auto = lambda *a, **k: decoded.append(a[0]) or real(*a, **k)
         try:
             n_items = 0
             for split in ("train", "val", "test"):
@@ -3502,7 +3526,7 @@ def cli_options_phase() -> dict:
                     ds[i]
                 n_items += len(ds)
         finally:
-            port_dataset.decode_frames = real
+            native.decode_frames_auto = real
         if len(files) != n_items or decoded:
             raise AssertionError(f"clip cache: {len(files)} files for {n_items} clips, "
                                  f"{len(decoded)} decodes on the second pass")
@@ -3521,6 +3545,359 @@ def cli_options_phase() -> dict:
             f"{traces[0].name} ({traces[0].stat().st_size / 2**20:.1f} MiB) names {found}; "
             f"launches {counts}")
         return counts
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        torch.cuda.empty_cache()
+
+
+# The wires (phases 23-25): limits of the decode heads, the card against the
+# CPU on the same payload. i420 / delta: float round-off only. dct / dctp:
+# the IDCT's round may land on the other side of .5 where two sums differ,
+# a plane sample one level off (at most 2.02 levels of B through BT.601).
+WIRE_I420_TOL = 1e-3
+WIRE_DCT_LEVELS = 2.0
+WIRE_DCT_FRACTION = 1e-3  # the share of elements allowed past 1e-3
+# (name, wire, wire_keep_ac, wire_pack_from): the serving CLIs' defaults
+# (k31, p14) and the training CLI's (k15, p8), quality 75 throughout.
+WIRE_CASES = (("i420", "i420", 31, 14), ("delta", "delta", 31, 14),
+              ("dct k31", "dct", 31, 14), ("dctp k31 p14", "dctp", 31, 14),
+              ("dctp k15 p8", "dctp", 15, 8))
+
+
+def wire_decoder_line() -> str:
+    """Which host decoder and encoder the wires run on. With g++ and the
+    libav development files present the native library must build and
+    load; without them the port decodes with cv2 and encodes with numpy."""
+    from laryngeal_tpu_torch.data import native
+
+    ok, detail = native.toolchain()
+    if not ok:
+        return f"decoder: cv2, encoder: numpy (native library not built: {detail})"
+    if not native.available():
+        raise AssertionError(f"g++ and libav are present ({detail}) but the native library "
+                             f"did not build or load: {native.unavailable_reason()}")
+    return (f"decoder: native ({detail}; {native.library_path().name} built in "
+            f"{native.build_seconds:.2f} s)")
+
+
+def wire_videos(root: Path) -> Path:
+    """The phases' synthetic dataset: 8 / 4 / 4 mp4v videos (MPEG-4 part 2,
+    so lowres decodes them) of 40 frames at 320 x 256, resized to 224^2 or
+    112^2 by the decode."""
+    from laryngeal_tpu_torch.data.synthetic import make_synthetic_dataset
+
+    return Path(make_synthetic_dataset(str(root), {"train": 4, "val": 2, "test": 2},
+                                       num_frames=40, h=256, w=320, seed=23))
+
+
+def host_median_ms(fn, reps: int = 5) -> float:
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times))
+
+
+def wire_payload(wire, i420_clips, keep_ac, pack_from):
+    """Batched host payload of the wire from I420 clips (quality 75)."""
+    from laryngeal_tpu_torch.preprocess import dct_wire
+    from laryngeal_tpu_torch.preprocess.transforms import temporal_delta_encode
+
+    if wire == "i420":
+        return np.stack(i420_clips)
+    if wire == "delta":
+        return np.stack([temporal_delta_encode(c) for c in i420_clips])
+    if wire == "dct":
+        parts = [dct_wire.encode_clip(c, 75, keep_ac) for c in i420_clips]
+    else:
+        parts = [dct_wire.encode_clip_packed(c, 75, keep_ac, pack_from) for c in i420_clips]
+    return tuple(np.stack([p[i] for p in parts]) for i in range(len(parts[0])))
+
+
+def leaves(payload):
+    return payload if isinstance(payload, tuple) else (payload,)
+
+
+def to_device(payload, device):
+    out = tuple(torch.from_numpy(x).to(device) for x in leaves(payload))
+    return out if isinstance(payload, tuple) else out[0]
+
+
+def hold_decode(label, got, want, wire):
+    """The card's decode head against the CPU's on the same payload."""
+    diff = (got.float().cpu() - want).abs()
+    worst, share = diff.max().item(), (diff > 1e-3).float().mean().item()
+    if wire in ("i420", "delta"):
+        ok = worst <= WIRE_I420_TOL
+        limit = f"max <= {WIRE_I420_TOL:g}"
+    else:
+        ok = worst <= WIRE_DCT_LEVELS and share <= WIRE_DCT_FRACTION
+        limit = f"max <= {WIRE_DCT_LEVELS:g} levels, share past 1e-3 <= {WIRE_DCT_FRACTION:g}"
+    log(f"wire {label} decode head, card vs cpu: max_abs_err {worst:.3e}, share past 1e-3 "
+        f"{share:.3e} ({limit}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"the {label} decode head on the card disagrees with the CPU's")
+
+
+def wire_heads_phase(data: Path):
+    """Phase 23: the host decoder and encoders, then each wire's decode head
+    on the card at ViViT-B's clip (32 frames, 224^2), B=8: payload bytes a
+    clip, host decode and encode ms a clip, H2D ms for the batch, the head's
+    ms on the card, and the card's head against the CPU's on the same
+    payload. Returns the train split's 8 I420 clips and their paths."""
+    from laryngeal_tpu_torch.data import native, video
+    from laryngeal_tpu_torch.data.samplers import FrameSampler
+    from laryngeal_tpu_torch.preprocess import dct_wire
+    from laryngeal_tpu_torch.preprocess.transforms import decode_wire_batch
+
+    log(wire_decoder_line())
+    paths = sorted((data / "train").rglob("*.mp4"))
+    sampler = FrameSampler("uniform", 32)
+    idx = {p: sampler(str(p), video.get_video_properties(p)[0]) for p in paths}
+
+    # Host decode, a clip of 32 frames from the 320 x 256 source, on the
+    # route decode_frames_auto takes here (native, or cv2 and a colour
+    # conversion) and on cv2 for rgb.
+    p = paths[0]
+    route = "native" if native.available() else "cv2"
+    decode_ms = {
+        "cv2 rgb 224": host_median_ms(lambda: video.decode_frames(p, idx[p], (224, 224)), 3),
+        f"{route} i420 224": host_median_ms(
+            lambda: native.decode_frames_auto(p, idx[p], (224, 224), "i420"), 3),
+        f"{route} i420 112 lowres 1": host_median_ms(
+            lambda: native.decode_frames_auto(p, idx[p], (112, 112), "i420", lowres=1), 3)}
+    if native.available():
+        decode_ms["native rgb 224"] = host_median_ms(
+            lambda: native.decode_frames(p, idx[p], (224, 224)), 3)
+        # Native decode against cv2 at the source size: the same stream, the
+        # same frames (each native frame nearest its cv2 twin), pixels within
+        # the decoders' IDCT differences.
+        ours = native.decode_frames(p, idx[p]).astype(np.int16)
+        ref = video.decode_frames(p, idx[p]).astype(np.int16)
+        mean_err = np.abs(ours - ref).mean()
+        nearest = [int(np.argmin([np.abs(o - r).mean() for r in ref])) for o in ours]
+        same = [i for i, j in enumerate(nearest) if ref[j].tobytes() == ref[i].tobytes()]
+        log(f"native vs cv2 decode at the source size (320 x 256, 32 frames): mean |diff| "
+            f"{mean_err:.4f}, max {np.abs(ours - ref).max()} levels; "
+            f"{len(same)}/32 frames nearest their own index")
+        if ours.shape != ref.shape or mean_err > 1.0 or len(same) != 32:
+            raise AssertionError("the native decoder disagrees with cv2 at the source size")
+    clips = [native.decode_frames_auto(p, idx[p], resize_to=(224, 224), fmt="i420")
+             for p in paths]
+    log("host decode ms a clip (32 frames): " + ", ".join(f"{k} {v:.2f}"
+                                                         for k, v in decode_ms.items()))
+
+    # The native encoders against numpy.
+    if native.available():
+        dc, ac = native.dct_encode(clips[0], 75, 31)
+        ndc, nac = dct_wire.encode_clip_np(clips[0], 75, 31)
+        d = np.concatenate([np.abs(dc.astype(np.int32) - ndc).ravel(),
+                            np.abs(ac.astype(np.int32) - nac).ravel()])
+        packed = native.ac_pack(ac[14:])
+        rest = np.clip(ac[14:].astype(np.int16), -8, 7)
+        rest = np.concatenate([rest, np.zeros((1,) + rest.shape[1:], np.int16)])
+        want = ((rest[0::2] & 15) | ((rest[1::2] & 15) << 4)).astype(np.uint8)
+        log(f"native dct encode vs numpy: max {d.max()}, share differing {np.mean(d > 0):.2e}; "
+            f"ac_pack vs numpy: {'bitwise' if np.array_equal(packed, want) else 'DIFFERS'}")
+        if d.max() > 1 or np.mean(d > 0) >= 2e-3 or not np.array_equal(packed, want):
+            raise AssertionError("the native encoder disagrees with numpy")
+
+    for label, wire, keep_ac, pack_from in (("rgb", "rgb", 31, 14),) + WIRE_CASES:
+        if wire == "rgb":
+            rgb = [native.decode_frames_auto(p, idx[p], resize_to=(224, 224)) for p in paths]
+            payload, enc_ms = np.stack(rgb), 0.0
+        else:
+            payload = wire_payload(wire, clips, keep_ac, pack_from)
+            enc_ms = host_median_ms(lambda: wire_payload(wire, clips[:1], keep_ac, pack_from), 3)
+        nbytes = sum(x.nbytes for x in leaves(payload)) // len(clips)
+
+        def h2d():
+            out = to_device(payload, "cuda")
+            torch.cuda.synchronize()
+            return out
+
+        h2d()
+        h2d_ms = host_median_ms(h2d)
+        dev = h2d()
+        if wire == "rgb":
+            log(f"wire rgb: {nbytes} bytes a clip, H2D B=8 {h2d_ms:.2f} ms (host clock)")
+            continue
+        run = lambda: decode_wire_batch(dev, wire, (224, 224), 75, keep_ac)
+        with torch.inference_mode():
+            got = run()
+            head_ms = cuda_time_ms(run, reps=10, warmup=2)
+            two = to_device(tuple(x[:2] for x in leaves(payload))
+                            if isinstance(payload, tuple) else payload[:2], "cpu")
+            want = decode_wire_batch(two, wire, (224, 224), 75, keep_ac)
+        if got.shape != (8, 32, 224, 224, 3) or got.dtype != torch.float32:
+            raise AssertionError(f"wire {label} decoded to {got.shape} {got.dtype}")
+        hold_decode(label, got[:2], want, wire)
+        encoder = "native" if native.available() and wire in ("dct", "dctp") else "numpy"
+        log(f"wire {label}: {nbytes} bytes a clip, host encode ({encoder}) {enc_ms:.2f} ms a "
+            f"clip, H2D B=8 {h2d_ms:.2f} ms (host clock), decode head on the card "
+            f"{head_ms:.3f} ms (CUDA events, median of 10)")
+        del dev, got
+    torch.cuda.empty_cache()
+    return clips, paths
+
+
+def wire_serving_phase(clips, paths) -> None:
+    """Phase 24: ViViT-B/16x2 32f 224^2 in bf16 served at B=8 over i420,
+    delta, dct, dctp and i420 at wire_lowres 1: 12 launches of kernel 1 a
+    forward, probabilities finite and summing to 1, the logits of the
+    card-decoded batch against the same model fed the CPU-decoded pixels;
+    predict_clip ms and clips/s. Then in f32 on two clips over dctp, and one
+    ``cli.serve --wire dctp`` HTTP round trip."""
+    from laryngeal_tpu_torch.data import native
+    from laryngeal_tpu_torch.infer.predictor import Predictor
+    from laryngeal_tpu_torch.models.registry import get_model_spec
+    from laryngeal_tpu_torch.models.vivit import create_vivit
+    from laryngeal_tpu_torch.ops import flash_attention as fa
+    from laryngeal_tpu_torch.preprocess.transforms import batch_preprocess, decode_wire_batch
+    from laryngeal_tpu_torch.train.checkpoint import save_checkpoint
+
+    spec = get_model_spec("vivit")
+    model = create_vivit(num_classes=2, num_frames=32, image_size=224, dtype=torch.bfloat16,
+                         seed=0)
+    n_layers = model.config.num_layers
+
+    def serve(pred, batch, dtype, label):
+        before = fa.launches
+        probs = pred.predict_clip(batch)
+        launches = fa.launches - before
+        if launches != n_layers:
+            raise AssertionError(f"{label}: {launches} launches of kernel 1, want {n_layers}")
+        if probs.shape != (len(batch), 2) or not np.isfinite(probs).all() \
+                or not np.allclose(probs.sum(-1), 1.0, atol=1e-5):
+            raise AssertionError(f"{label}: bad probabilities {probs}")
+        payload = pred._stack_payload(list(batch))
+        with torch.inference_mode():
+            on_card = decode_wire_batch(pred.payload_to_device(payload), pred.wire,
+                                        pred.wire_hw, pred.wire_quality, pred.wire_keep_ac)
+            on_cpu = decode_wire_batch(to_device(payload, "cpu"), pred.wire, pred.wire_hw,
+                                       pred.wire_quality, pred.wire_keep_ac).cuda()
+            logits = pred.model(batch_preprocess(on_card, "vivit", crop=224))
+            logits_cpu = pred.model(batch_preprocess(on_cpu, "vivit", crop=224))
+        check_logits(label, logits, logits_cpu, LOGIT_TOL[dtype],
+                     what="card-decoded batch vs the CPU-decoded pixels")
+        return probs
+
+    for wire, lowres in (("i420", 0), ("delta", 0), ("dct", 0), ("dctp", 0), ("i420", 1)):
+        pred = Predictor(model, spec, num_frames=32, crop_size=224, device="cuda", wire=wire,
+                         wire_lowres=lowres)
+        label = f"{wire}{' lowres 1' if lowres else ''}"
+        if lowres:
+            t0 = time.perf_counter()
+            batch = np.stack([pred.extract_clip(p) for p in paths])
+            extract_ms = (time.perf_counter() - t0) * 1e3 / len(paths)
+        else:
+            batch, extract_ms = np.stack(clips), None
+        serve(pred, batch, torch.bfloat16, f"bf16 {label} B=8")
+        torch.cuda.synchronize()
+        ms = host_median_ms(lambda: pred.predict_clip(batch), 3)
+        log(f"vivit-b bf16 over {label}: predict_clip B=8 {ms:.2f} ms -> {8e3 / ms:.2f} clips/s "
+            f"(I420 host batch {batch.shape} -> wire encode -> H2D -> decode head -> "
+            f"preprocess -> forward -> probabilities on the host)"
+            + (f"; extract_clip ({'native' if native.available() else 'cv2'} lowres decode) "
+               f"{extract_ms:.2f} ms a clip" if extract_ms else ""))
+
+    # f32, the compute dtype of a checkpoint whose metadata names none.
+    model_f32 = create_vivit(num_classes=2, num_frames=32, image_size=224, seed=0)
+    pred = Predictor(model_f32, spec, num_frames=32, crop_size=224, device="cuda", wire="dctp")
+    serve(pred, np.stack(clips[:2]), torch.float32, "f32 dctp B=2")
+    del pred, model_f32
+    torch.cuda.empty_cache()
+
+    # One cli.serve --wire dctp process, one HTTP round trip.
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_wire_serve_"))
+    proc = None
+    try:
+        cfg = model.config
+        arch = {k: getattr(cfg, k) for k in ("hidden_size", "num_layers", "num_heads",
+                                             "intermediate_size")}
+        save_checkpoint(tmp / "ckpt", model.state_dict(), class_labels=["non_referral",
+                                                                         "referral"],
+                        config={"model_kwargs": dict(num_frames=32, image_size=224,
+                                                     dtype="bfloat16", **arch)})
+        repo = Path(__file__).resolve().parent
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "laryngeal_tpu_torch.cli.serve", "--model", "vivit",
+             "--model_path", str(tmp / "ckpt"), "--port", "0", "--max_batch", "2",
+             "--wire", "dctp", "--log_dir", str(tmp / "logs")],
+            cwd=repo, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        t0 = time.perf_counter()
+        base, lines = None, []
+        while time.perf_counter() - t0 < 300:
+            line = proc.stdout.readline()
+            if not line:
+                break
+            lines.append(line.rstrip())
+            m = re.search(r"serving on (http://\S+)", line)
+            if m:
+                base = m.group(1)
+                break
+        if base is None:
+            raise AssertionError("cli.serve did not start:\n" + "\n".join(lines[-20:]))
+        start_s = time.perf_counter() - t0
+        req = urllib.request.Request(base + "/predict",
+                                     data=json.dumps({"video_path": str(paths[0])}).encode(),
+                                     headers={"Content-Type": "application/json"})
+        t1 = time.perf_counter()
+        with urllib.request.urlopen(req, timeout=300) as r:
+            result = json.loads(r.read())
+        rt_ms = (time.perf_counter() - t1) * 1e3
+        probs = list(result["probabilities"].values())
+        if len(probs) != 2 or abs(sum(probs) - 1.0) > 1e-5 or len(result["frame_indices"]) != 32:
+            raise AssertionError(f"cli.serve --wire dctp answered {result}")
+        log(f"cli.serve --wire dctp (bf16 checkpoint, max_batch 2): up in {start_s:.1f} s "
+            f"(process start, model load, warm-up), /predict of one video {rt_ms:.1f} ms "
+            f"(decode, wire encode, forward), probabilities {result['probabilities']}")
+    finally:
+        if proc is not None:
+            proc.terminate()
+            try:
+                proc.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait(timeout=30)
+            proc.stdout.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+        del model
+        torch.cuda.empty_cache()
+
+
+def wire_cli_phase(data: Path) -> None:
+    """Phase 25: ``cli.main --model vivit --bf16 --wire dctp`` (the training
+    CLI's k15 p8) for one epoch on the 8 / 4 / 4 videos, then
+    ``Predictor.from_checkpoint(..., wire="dctp")`` serving best_model/ in
+    f32 on two clips (12 launches of kernel 1)."""
+    from laryngeal_tpu_torch.cli import main as cli
+    from laryngeal_tpu_torch.infer.predictor import Predictor
+
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_wire_cli_"))
+    try:
+        t0 = time.perf_counter()
+        out = cli.main(["--model", "vivit", "--data_dir", str(data), "--log_dir",
+                        str(tmp / "logs"), "--bf16", "--batch_size", "8", "--epochs", "1",
+                        "--no-pretrained", "--decode_workers", "4", "--wire", "dctp"])
+        dt = time.perf_counter() - t0
+        exp = Path(out["exp_dir"])
+        h = out["history"]
+        if not (exp / "best_model").exists() or not all(
+                math.isfinite(x) for x in h["train_loss"] + h["val_loss"]):
+            raise AssertionError(f"cli --wire dctp: {h}")
+        pred = Predictor.from_checkpoint("vivit", exp / "best_model", wire="dctp")
+        paths = sorted((data / "test").rglob("*.mp4"))[:2]
+        batch = np.stack([pred.extract_clip(p) for p in paths])
+        probs, per = launched(lambda: pred.predict_clip(batch))
+        if per["flash_attention_fwd"] != 12 or not np.isfinite(probs).all() \
+                or not np.allclose(probs.sum(-1), 1.0, atol=1e-5):
+            raise AssertionError(f"predictor on the dctp cli checkpoint: {probs}, {per}")
+        log(f"cli vivit --bf16 --wire dctp (k15 p8): 1 epoch in {dt:.1f} s (8 train / 4 val / "
+            f"4 test videos), history {h['train_loss']} / {h['val_loss']}, test auroc "
+            f"{out['auroc']:.3f}; Predictor.from_checkpoint(best_model, wire='dctp') f32: 12 "
+            f"launches of kernel 1, probabilities {probs.tolist()}")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
         torch.cuda.empty_cache()
@@ -3627,6 +4004,24 @@ def main() -> int:
     cli_counts = cli_options_phase()
     phase_done("22 cli --grad_accum_steps --remat --torch_weights --clip_cache_dir "
                "--profile_dir")
+    wire_dir = Path(tempfile.mkdtemp(prefix="chip_smoke_wires_"))
+    try:
+        data = wire_videos(wire_dir / "data")
+        clips, paths = wire_heads_phase(data)
+        phase_done("23 wire decode heads, native decoder and encoders")
+        reset_launches()
+        wire_serving_phase(clips, paths)
+        wire_serve_counts = launch_counts()
+        phase_done("24 vivit-b served over i420, delta, dct, dctp and i420 lowres 1")
+        reset_launches()
+        wire_cli_phase(data)
+        wire_cli_counts = launch_counts()
+        phase_done("25 cli --wire dctp")
+    finally:
+        shutil.rmtree(wire_dir, ignore_errors=True)
+    if any(v for k, v in wire_serve_counts.items() if k != "flash_attention_fwd"):
+        raise AssertionError(f"the wire serving path launched another kernel than kernel 1: "
+                             f"{wire_serve_counts}")
     for name, counts, keys in (
             ("remat", remat_counts, ("flash_attention_fwd_lse", "flash_attention_bwd_dq",
                                      "flash_attention_bwd_dkv", "short_attention_fwd",
@@ -3636,11 +4031,15 @@ def main() -> int:
                                             "flash_attention_bwd_dkv")),
             ("nt", nt_counts, ("short_attention_fwd", "short_attention_bwd")),
             ("cli options", cli_counts, ("flash_attention_fwd", "flash_attention_fwd_lse",
-                                         "flash_attention_bwd_dq", "flash_attention_bwd_dkv"))):
+                                         "flash_attention_bwd_dq", "flash_attention_bwd_dkv")),
+            ("wire serving", wire_serve_counts, ("flash_attention_fwd",)),
+            ("wire cli", wire_cli_counts, ("flash_attention_fwd", "flash_attention_fwd_lse",
+                                           "flash_attention_bwd_dq", "flash_attention_bwd_dkv"))):
         if not all(counts[k] > 0 for k in keys):
             raise AssertionError(f"a kernel of the {name} path never launched: {counts}")
     log(f"launches: remat path {remat_counts}; accumulation path {accum_counts}; nt path "
-        f"{nt_counts}; cli options path {cli_counts}")
+        f"{nt_counts}; cli options path {cli_counts}; wire serving path {wire_serve_counts}; "
+        f"wire cli path {wire_cli_counts}")
     log(f"launches: vivit serving path {serve_counts}; vivit training path {train_counts}; "
         f"timesformer serving path {ts_serve_counts}; timesformer training path "
         f"{ts_train_counts}; swin3d serving path {swin_serve_counts}; swin3d training path "

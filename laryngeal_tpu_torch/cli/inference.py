@@ -7,8 +7,10 @@
 
 Single video -> JSON result (schema of ``vivit_transformer/inference.py:225-248``);
 ``--video_dir`` walks a tree of .mp4s and writes a CSV + JSON summary
-(``resnet50-2d-lstm/inference.py:250-351``). Ported: every model on the rgb
-wire. AOT artifacts (``--exported``), the other wires, frame
+(``resnet50-2d-lstm/inference.py:250-351``). Ported: every model on every
+wire (``--wire rgb|i420|delta|dct|dctp`` with ``--wire_quality`` 75,
+``--wire_keep_ac`` 31, ``--wire_pack_from`` 14 and ``--wire_lowres`` 0 unless
+given, the JAX CLI's defaults). AOT artifacts (``--exported``), frame
 visualisations and the batch-mode plots are not yet ported (ROADMAP.md).
 """
 
@@ -45,7 +47,15 @@ def add_model_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--log_dir", type=str, default="logs")
     p.add_argument("--wire", type=str, default="rgb",
                    choices=("rgb", "i420", "delta", "dct", "dctp"),
-                   help="host->device payload format (only rgb is ported yet)")
+                   help="host->device payload format for the clip transfer (dct/dctp "
+                        "are lossy transform-coded wires; the decode runs on the card)")
+    p.add_argument("--wire_quality", type=int, default=75)
+    p.add_argument("--wire_keep_ac", type=int, default=31)
+    p.add_argument("--wire_pack_from", type=int, default=14)
+    p.add_argument("--wire_lowres", type=int, default=0,
+                   help="non-rgb wires: decode the source at 1/2**n resolution (native "
+                        "mpeg4 lowres) and carry the reduced geometry through the wire; "
+                        "lossy")
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device; 'cpu' only when asked for")
 
@@ -63,7 +73,9 @@ def load_predictor(args, logger):
         num_frames=args.num_frames, sampling_method=args.sampling_method,
         num_classes=args.num_classes, crop_size=args.crop_size,
         image_size=args.image_size, arch_defaults=arch_defaults, logger=logger,
-        wire=args.wire, device=args.device)
+        wire=args.wire, device=args.device, wire_quality=args.wire_quality,
+        wire_keep_ac=args.wire_keep_ac, wire_pack_from=args.wire_pack_from,
+        wire_lowres=args.wire_lowres)
 
 
 def build_parser() -> argparse.ArgumentParser:

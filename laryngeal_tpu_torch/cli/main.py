@@ -8,7 +8,9 @@ on one device: dataset and loaders, the trainer's train/validation epochs
 with model selection, early stopping, best and rolling ``latest`` checkpoints
 and the best-model reload, then the test-set evaluator. The parser keeps the
 JAX flag surface, plus ``--device`` (default ``cuda``; the CPU only when
-asked for). Ported: every model on the rgb wire; Swin3D, as in the JAX CLI,
+asked for). Ported: every model on every wire (``--wire rgb|i420|delta|dct|dctp``
+with ``--wire_quality`` 75, ``--wire_keep_ac`` 15, ``--wire_pack_from`` 8 and
+``--wire_lowres`` 0 unless given, the JAX CLI's defaults); Swin3D, as in the JAX CLI,
 trains without early stopping; resnet50_lstm takes ``--hidden_size`` /
 ``--num_layers`` (256 / 2 unless given) and ``--dropout`` as its LSTM's,
 resnet3d ``--dropout`` as its head's, and resnet3d's per-video sampled
@@ -29,8 +31,8 @@ indices are written as the JAX CLI writes them.
   (``trainer.train()``, the region the JAX CLI traces) into D.
 
 Flags of features not yet ported (ROADMAP.md) raise when set to anything
-but their default: the mesh / pipeline / fsdp axes, non-rgb wires, the
-compile cache and the multi-process flags. ``--pretrained`` (the default)
+but their default: the mesh / pipeline / fsdp axes, the compile cache and
+the multi-process flags. ``--pretrained`` (the default)
 needs the network: it finds no weights, warns loudly and trains from the
 seeded random init, as the JAX CLI does when no weights are found;
 ``--no-pretrained`` silences it.
@@ -48,9 +50,8 @@ PORTED_MODELS = ("vivit", "timesformer", "swin3d", "resnet3d", "resnet50_lstm")
 # Flags of features not yet ported, with their defaults.
 NOT_PORTED = {
     "mesh_data": None, "mesh_model": 1, "mesh_seq": 1, "pp_stages": 1,
-    "pp_microbatches": None, "fsdp": False, "wire": "rgb", "wire_lowres": 0,
-    "compile_cache_dir": None, "coordinator": None, "num_processes": None,
-    "process_id": None,
+    "pp_microbatches": None, "fsdp": False, "compile_cache_dir": None, "coordinator": None,
+    "num_processes": None, "process_id": None,
 }
 TRANSFORMERS = ("vivit", "timesformer", "swin3d")
 
@@ -192,7 +193,7 @@ def build_parser(model_default: str = None) -> argparse.ArgumentParser:
                         "delta (i420 temporal deltas), dct (quantized DCT "
                         "planes, ~1/4 the bytes, bounded loss), dctp (dct "
                         "with nibble-packed high-frequency planes, ~3/4 the "
-                        "dct bytes) — the decode fuses into the jitted step")
+                        "dct bytes); the decode runs on the card in the step")
     p.add_argument("--wire_quality", type=int, default=75,
                    help="dct wire quantizer quality (1-100)")
     p.add_argument("--wire_keep_ac", type=int, default=15,
@@ -264,6 +265,12 @@ def _refuse_unported(args) -> None:
     if args.grad_accum_steps > 1 and args.batch_size % args.grad_accum_steps:
         raise SystemExit(f"--batch_size {args.batch_size} must be divisible by "
                          f"--grad_accum_steps {args.grad_accum_steps}")
+    # The JAX dataset's refusal of a wire geometry (data/dataset.py), made
+    # before the experiment directory exists.
+    side = args.crop_size >> args.wire_lowres
+    if args.wire != "rgb" and side % 16:
+        raise SystemExit(f"--wire {args.wire} needs (--crop_size >> --wire_lowres) multiples "
+                         f"of 16, got {args.crop_size} >> {args.wire_lowres} = {side}")
 
 
 def run(args) -> dict:
@@ -319,7 +326,10 @@ def run(args) -> dict:
         label_policy=spec.label_policy, per_video_seed=spec.per_video_seed,
         resize_to=(args.crop_size, args.crop_size), pad_last=True,
         cache_clips=not args.no_cache_clips, clip_cache_mb=args.clip_cache_mb,
-        cache_dir=args.clip_cache_dir, verify_integrity=args.verify_integrity, num_workers=args.decode_workers)
+        cache_dir=args.clip_cache_dir, verify_integrity=args.verify_integrity,
+        num_workers=args.decode_workers, wire=args.wire, wire_lowres=args.wire_lowres,
+        wire_quality=args.wire_quality, wire_keep_ac=args.wire_keep_ac,
+        wire_pack_from=args.wire_pack_from)
     try:
         for split in ("train", "val", "test"):
             ds = loaders[split].dataset

@@ -6,7 +6,10 @@
 [--model_size tiny] [--hidden_size 256 --num_layers 2] [--port N] [--device cuda]``
 
 Loads a port checkpoint into ``infer.predictor.Predictor`` on the card and
-serves it; the checkpoint's ``model_kwargs.dtype`` sets the compute dtype.
+serves it over the chosen wire (``--wire``, ``--wire_quality``,
+``--wire_keep_ac``, ``--wire_pack_from``, ``--wire_lowres``, shared with
+``cli.inference``); the checkpoint's ``model_kwargs.dtype`` sets the compute
+dtype.
 ``serve/server.py`` gives the endpoint contract. AOT artifacts
 (``--exported``) are not yet ported (ROADMAP.md).
 """

@@ -11,11 +11,14 @@ Label policies:
 - ``referral``: hardcoded ``referral``->1, everything else 0
   (resnet50-3d-video dataset.py:68-73, 2d-lstm, swin).
 
-Decode goes through the port's cv2 ``data/video.py``; the JAX dataset takes
-its native C++ decoder when that is built. Ported: the rgb wire, the RAM
-clip cache and the on-disk clip cache (``cache_dir``, ``DiskClipCache``,
-whose files either package reads). The other wires are not yet ported
-(ROADMAP.md) and raise.
+Decode goes through ``native.decode_frames_auto``, as in the JAX package:
+the port's native C++ decoder where it is built, cv2 (``data/video.py``)
+otherwise. Each clip ships in one of the five wire formats
+(``preprocess.transforms.decode_wire_batch``): rgb, or, decoded straight to
+the codec's 4:2:0 planes (no host RGB pass), i420, delta, dct or dctp, at
+``resize_to >> wire_lowres``. The RAM clip cache holds the payloads; the
+on-disk cache (``cache_dir``, ``DiskClipCache``, whose files either package
+reads) the dense ones (rgb, i420, delta).
 """
 
 from __future__ import annotations
@@ -32,8 +35,10 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
+from ..preprocess.transforms import encode_wire
+from . import native
 from .samplers import FrameSampler
-from .video import decode_frames, get_video_properties, verify_video_integrity
+from .video import get_video_properties, rgb_to_yuv420, verify_video_integrity
 
 logger = logging.getLogger(__name__)
 
@@ -47,10 +52,14 @@ def resolve_data_dir(root_dir, mode: str) -> Path:
     return root / "dataset" / mode
 
 
+WIRES = ("rgb", "i420", "delta", "dct", "dctp")
+
+
 class ClipCache:
-    """Byte-budgeted LRU cache for decoded uint8 clips, shared by the decode
-    threads. Entries are evicted least-recently-used once the byte budget is
-    exceeded; a clip over the whole budget is never cached."""
+    """Byte-budgeted LRU cache for decoded clips (arrays, or the dct wires'
+    tuples of arrays), shared by the decode threads. Entries are evicted
+    least-recently-used once the byte budget is exceeded; a clip over the
+    whole budget is never cached."""
 
     def __init__(self, max_bytes: int = 2 << 30):
         self.max_bytes = int(max_bytes)
@@ -86,17 +95,24 @@ class ClipCache:
             return {"hits": self.n_hits, "misses": self.n_misses,
                     "entries": len(self._store), "bytes": self._bytes}
 
-    def put(self, key, clip: np.ndarray) -> None:
-        if clip.nbytes > self.max_bytes:
+    @staticmethod
+    def _nbytes(clip) -> int:
+        if isinstance(clip, tuple):
+            return sum(a.nbytes for a in clip)
+        return clip.nbytes
+
+    def put(self, key, clip) -> None:
+        nbytes = self._nbytes(clip)
+        if nbytes > self.max_bytes:
             return  # one clip over budget: never cache, never evict others
         with self._lock:
             if key in self._store:
-                self._bytes -= self._store.pop(key).nbytes
+                self._bytes -= self._nbytes(self._store.pop(key))
             self._store[key] = clip
-            self._bytes += clip.nbytes
+            self._bytes += nbytes
             while self._bytes > self.max_bytes and self._store:
                 _, evicted = self._store.popitem(last=False)
-                self._bytes -= evicted.nbytes
+                self._bytes -= self._nbytes(evicted)
 
     def clear(self) -> None:
         with self._lock:
@@ -149,7 +165,11 @@ class DiskClipCache:
 
 class VideoDataset:
     """Walks ``{data_dir}/{class}/*.mp4``, assigns labels, samples frame
-    indices, and decodes fixed-length uint8 RGB clips (T, H, W, 3).
+    indices, and decodes fixed-length clips in the ``wire`` format: uint8
+    RGB (T, H, W, 3) on rgb, I420 (T, H*3/2, W) at ``wire_wh`` on i420, its
+    temporal deltas on delta, ``(dc, ac)`` on dct and ``(dc, ac_hi, ac_pk)``
+    on dctp (``wire_quality``, ``wire_keep_ac``, ``wire_pack_from``).
+    ``wire_lowres=n`` (non-rgb wires) decodes at 1/2**n resolution.
 
     Decoded clips are cached in RAM (``cache_clips``, byte-budget LRU) when
     the sampled indices recur: uniform sampling and per-video-seeded
@@ -172,17 +192,36 @@ class VideoDataset:
         clip_cache_mb: int = 2048,
         cache_dir=None,
         wire: str = "rgb",
+        wire_quality: int = 75,
+        wire_keep_ac: int = 31,
+        wire_pack_from: int = 14,
+        wire_lowres: int = 0,
     ):
-        if wire != "rgb":
-            raise NotImplementedError(
-                f"wire format {wire!r} is not yet ported to laryngeal_tpu_torch, "
-                "see ROADMAP.md")
+        if wire not in WIRES:
+            raise ValueError(f"Unknown wire format {wire!r}")
         self.root_dir = Path(root_dir)
         self.mode = mode
         self.num_frames = int(num_frames)
         self.sampling_method = sampling_method
         self.resize_to = resize_to
+        self.wire_lowres = int(wire_lowres) if wire != "rgb" else 0
+        if wire != "rgb":
+            # The payload geometry must be static (the steps decode at a
+            # fixed wire_hw) and tile into 16 x 16 for 4:2:0 and the DCT.
+            if resize_to is None:
+                raise ValueError(
+                    f"wire={wire!r} requires an explicit resize_to (the wire payload "
+                    f"geometry must be static); got resize_to=None")
+            ww, wh = resize_to[0] >> self.wire_lowres, resize_to[1] >> self.wire_lowres
+            if ww % 16 or wh % 16:
+                raise ValueError(
+                    f"wire={wire!r} needs (resize_to >> wire_lowres) multiples of 16, got "
+                    f"{resize_to} >> {self.wire_lowres} = {(ww, wh)}")
+            self.wire_wh = (ww, wh)  # (w, h): the payload geometry
         self.wire = wire
+        self.wire_quality = int(wire_quality)
+        self.wire_keep_ac = int(wire_keep_ac)
+        self.wire_pack_from = int(wire_pack_from)
         self.cache_clips = cache_clips and (per_video_seed or sampling_method == "uniform")
         self._clip_cache = ClipCache(max_bytes=int(clip_cache_mb) << 20)
         self._disk_cache = DiskClipCache(cache_dir) if cache_dir else None
@@ -243,10 +282,20 @@ class VideoDataset:
             indices = None
         return {"video_path": path, "label": int(self.labels[idx]), "frame_indices": indices}
 
-    def _placeholder_clip(self) -> np.ndarray:
-        """Gray clip (robustness contract, vivit dataset.py:370-381)."""
-        w, h = self.resize_to or (224, 224)
-        return np.full((self.num_frames, h, w, 3), 127, np.uint8)
+    def _placeholder_clip(self):
+        """Gray clip in the wire's format (robustness contract, vivit
+        dataset.py:370-381)."""
+        if self.wire == "rgb":
+            w, h = self.resize_to or (224, 224)
+            return np.full((self.num_frames, h, w, 3), 127, np.uint8)
+        w, h = self.wire_wh
+        return self._encode_wire(rgb_to_yuv420(np.full((self.num_frames, h, w, 3), 127,
+                                                       np.uint8)))
+
+    def _encode_wire(self, i420: np.ndarray):
+        """I420 clip -> the wire's payload (itself on i420)."""
+        return encode_wire(i420, self.wire, self.wire_quality, self.wire_keep_ac,
+                           self.wire_pack_from)
 
     def materialize(self, plan: Dict) -> Dict:
         """Decode the planned clip; thread-safe (the cache is locked, decode
@@ -259,22 +308,45 @@ class VideoDataset:
         key = (path, tuple(indices))
         clip = self._clip_cache.get(key) if self.cache_clips else None
         if clip is None:
-            # The JAX key: (path, indices, resize, wire, wire_lowres).
-            disk_key = (path, tuple(indices), self.resize_to, self.wire, 0)
-            if self._disk_cache is not None:
+            # The JAX key: (path, indices, resize, wire, wire_lowres). The
+            # dct wires' payloads are tuples, which .npy files do not hold.
+            disk_key = (path, tuple(indices), self.resize_to, self.wire, self.wire_lowres)
+            use_disk = self._disk_cache is not None and self.wire not in ("dct", "dctp")
+            if use_disk:
                 clip = self._disk_cache.get(disk_key)
             if clip is None:
                 try:
-                    clip = decode_frames(path, indices, resize_to=self.resize_to)
+                    if self.wire == "rgb":
+                        clip = native.decode_frames_auto(path, indices,
+                                                         resize_to=self.resize_to, fmt="rgb")
+                    else:
+                        clip = self._encode_wire(native.decode_frames_auto(
+                            path, indices, resize_to=self.wire_wh, fmt="i420",
+                            lowres=self.wire_lowres))
                 except Exception as e:  # the data path never raises for one bad video
                     logger.warning("Decode failed for %s: %s — placeholder clip", path, e)
                     clip = self._placeholder_clip()
-                if self._disk_cache is not None:
+                if use_disk:
                     self._disk_cache.put(disk_key, clip)
             if self.cache_clips:
                 self._clip_cache.put(key, clip)
         return {"pixel_values": clip, "label": label, "video_path": path,
                 "frame_indices": list(indices)}
+
+    def rgb_clip(self, idx: int, indices=None) -> np.ndarray:
+        """The decoded RGB clip whatever the wire (for frame grids: the feed
+        ships the wire). Pass ``indices`` of an item already materialized so
+        as not to draw a stream-seeded sampler again."""
+        w, h = self.resize_to or (224, 224)
+        if indices is None:
+            indices = self.plan(idx)["frame_indices"]
+        if not indices:
+            return np.full((self.num_frames, h, w, 3), 127, np.uint8)
+        try:
+            return native.decode_frames_auto(self.video_paths[idx], indices,
+                                             resize_to=self.resize_to)
+        except Exception:  # a frame grid never fails the run
+            return np.full((self.num_frames, h, w, 3), 127, np.uint8)
 
     def __getitem__(self, idx: int) -> Dict:
         return self.materialize(self.plan(idx))

@@ -4,8 +4,10 @@
 Item planning (frame-index sampling) runs serially, to keep the reference's
 sampler RNG order; the decodes fan out over a thread pool (cv2 releases the
 GIL); finished batches wait in a bounded queue, so decode overlaps the
-card's compute. Batches are dense uint8 (B, T, H, W, C); preprocessing runs
-on the card (preprocess/transforms.py). One process only: the JAX package's
+card's compute. Batches stack the dataset's wire payloads: dense uint8
+(B, T, H, W, C) on the rgb wire, (B, T, H*3/2, W) on i420 and delta, a
+tuple stacked leaf by leaf on dct and dctp; the wire decode and the
+preprocessing run on the card (preprocess/transforms.py). One process only: the JAX package's
 process-sharded feed is not yet ported (ROADMAP.md).
 """
 
@@ -88,8 +90,14 @@ class ClipLoader:
             items = [self.dataset.materialize(p) for p in plans]
         # Padding rows repeat the last real clip and are masked out.
         items += [items[-1]] * pad
+        first = items[0]["pixel_values"]
+        if isinstance(first, tuple):  # a dct wire payload: stack leaf by leaf
+            pixel = tuple(np.stack([it["pixel_values"][k] for it in items])
+                          for k in range(len(first)))
+        else:
+            pixel = np.stack([it["pixel_values"] for it in items])
         return {
-            "pixel_values": np.stack([it["pixel_values"] for it in items]),
+            "pixel_values": pixel,
             "labels": np.asarray([it["label"] for it in items], np.int32),
             "mask": np.concatenate([np.ones(n_real, np.bool_), np.zeros(pad, np.bool_)]),
             "video_paths": [it["video_path"] for it in items],
@@ -149,12 +157,15 @@ def create_dataloaders(data_dir, test_data_dir=None,
                        drop_last_train: bool = False, pad_last: bool = False,
                        cache_clips: bool = True, clip_cache_mb: int = 2048, cache_dir=None,
                        num_workers: Optional[int] = None, wire: str = "rgb",
+                       wire_quality: int = 75, wire_keep_ac: int = 31,
+                       wire_pack_from: int = 14, wire_lowres: int = 0,
                        process_index: int = 0,
                        process_count: int = 1) -> Dict[str, ClipLoader]:
     """Train/val/test loaders — the reference ``create_dataloaders`` surface
     (vivit_transformer/.../dataloader.py:52-135). ``cache_dir`` is each
     split's on-disk clip cache (``dataset.DiskClipCache``), shared by the
-    three."""
+    three; ``wire*`` pick the payload format (``dataset.VideoDataset``),
+    which steps made with the same wire decode."""
     sampling_methods = sampling_methods or {}
     loaders = {}
     for split in ("train", "val", "test"):
@@ -165,7 +176,9 @@ def create_dataloaders(data_dir, test_data_dir=None,
                           per_video_seed=per_video_seed, seed=seed,
                           verify_integrity=verify_integrity, resize_to=resize_to,
                           cache_clips=cache_clips, clip_cache_mb=clip_cache_mb,
-                          cache_dir=cache_dir, wire=wire)
+                          cache_dir=cache_dir, wire=wire, wire_quality=wire_quality,
+                          wire_keep_ac=wire_keep_ac, wire_pack_from=wire_pack_from,
+                          wire_lowres=wire_lowres)
         loaders[split] = ClipLoader(ds, batch_size=batch_size, shuffle=(split == "train"),
                                     seed=seed, drop_last=(split == "train" and drop_last_train),
                                     pad_last=pad_last, num_workers=num_workers,

@@ -1,6 +1,6 @@
 """Host-side video decode and encode with OpenCV (counterpart of
-``get_video_properties``, ``verify_video_integrity``, ``decode_frames`` and
-``write_video`` in ``laryngeal_tpu/data/video.py``).
+``get_video_properties``, ``verify_video_integrity``, ``rgb_to_yuv420``,
+``decode_frames`` and ``write_video`` in ``laryngeal_tpu/data/video.py``).
 
 cv2 is imported on first use, so the package imports without it; the
 functions raise a clear error when it is missing. Index-based OpenCV decode
@@ -59,6 +59,14 @@ def verify_video_integrity(path) -> bool:
         return bool(ret) and int(cap.get(cv2.CAP_PROP_FRAME_COUNT)) > 0
     finally:
         cap.release()
+
+
+def rgb_to_yuv420(frames_rgb: np.ndarray) -> np.ndarray:
+    """RGB uint8 (T, H, W, 3) -> I420 planar uint8 (T, H*3/2, W) with cv2's
+    ``COLOR_RGB2YUV_I420``: the non-rgb wires' host format (half the bytes of
+    RGB24), expanded on the device by ``preprocess.transforms.yuv420_to_rgb``."""
+    cv2 = _cv2()
+    return np.stack([cv2.cvtColor(f, cv2.COLOR_RGB2YUV_I420) for f in frames_rgb])
 
 
 def decode_frames(path, indices: Sequence[int],

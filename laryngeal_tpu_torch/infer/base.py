@@ -1,11 +1,14 @@
 """Host-side predictor machinery (counterpart of
-``laryngeal_tpu/infer/base.py``) for the rgb wire.
+``laryngeal_tpu/infer/base.py``).
 
-Sampling, cv2 decode, batching and the result schema. Subclasses provide
-``_forward(clips_u8)`` ((B, T, H, W, 3) uint8 numpy -> (B, num_classes)
-probability tensor), ``sampler``, ``class_labels``, ``num_frames``,
-``sampling_method``, ``crop_size`` and ``logger``. The non-rgb wires and the
-native decoder are not yet ported (ROADMAP.md).
+Sampling, decode, the wire payload, batching and the result schema.
+Subclasses provide ``_forward(payload)`` (the batched wire payload as numpy:
+(B, T, H, W, 3) uint8 on the rgb wire, (B, T, H*3/2, W) I420 planes or their
+deltas, or the dct wires' tuples -> (B, num_classes) probability tensor),
+``sampler``, ``class_labels``, ``num_frames``, ``sampling_method``,
+``crop_size`` and ``logger``, and may set the ``wire*`` attributes (the
+class defaults: rgb). The non-rgb wires decode I420 straight from the
+codec (``native.decode_frames_auto``) at ``crop_size >> wire_lowres``.
 
 Result schema parity: ``vivit_transformer/inference.py:225-248`` (single)
 and ``resnet50-2d-lstm/inference.py:250-351`` (batch skip semantics).
@@ -23,25 +26,101 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from ..data.video import decode_frames, get_video_properties
+from ..data import native
+from ..data.video import decode_frames, get_video_properties, rgb_to_yuv420
+from ..preprocess.transforms import encode_wire
 
 
 class VideoPredictorBase:
+    # Host->device payload format (preprocess.transforms.decode_wire_batch)
+    # and its parameters; Predictor sets them.
+    wire: str = "rgb"
+    wire_quality: int = 75
+    wire_keep_ac: int = 31
+    wire_pack_from: int = 14
+    # Non-rgb wires: decode at 1/2**n resolution (native mpeg4 lowres) and
+    # ship (crop >> n) pixels; the preprocessing resizes them to the crop.
+    wire_lowres: int = 0
+
+    def _wire_hw(self) -> int:
+        return self.crop_size >> (self.wire_lowres if self.wire != "rgb" else 0)
+
     def extract_clip_with_indices(self, video_path):
         total_frames, *_ = get_video_properties(video_path)
         indices = self.sampler(str(video_path), total_frames)
-        hw = (self.crop_size, self.crop_size)
-        clip = decode_frames(video_path, indices, resize_to=hw)
+        if self.wire != "rgb":
+            # The codec's own 4:2:0 planes at the wire's geometry.
+            w = self._wire_hw()
+            clip = native.decode_frames_auto(video_path, indices, resize_to=(w, w),
+                                             fmt="i420", lowres=self.wire_lowres)
+        else:
+            hw = (self.crop_size, self.crop_size)
+            clip = decode_frames(video_path, indices, resize_to=hw)
         return clip, indices, total_frames
+
+    def extract_clip(self, video_path) -> np.ndarray:
+        return self.extract_clip_with_indices(video_path)[0]
+
+    def _encode_wire(self, i420: np.ndarray):
+        """One clip's host-side wire encode: I420 (T, H*3/2, W) -> payload."""
+        return encode_wire(i420, self.wire, self.wire_quality, self.wire_keep_ac,
+                           self.wire_pack_from)
+
+    def _stack_payload(self, clips):
+        """Clips in the wire's host format (rgb: (T, H, W, 3) uint8; the
+        others: I420 (T, H*3/2, W) uint8) -> the batched payload (numpy; a
+        tuple on the dct wires)."""
+        if self.wire == "rgb":
+            return np.stack(clips)
+        payloads = [self._encode_wire(c) for c in clips]
+        if isinstance(payloads[0], tuple):
+            return tuple(np.stack([p[i] for p in payloads]) for i in range(len(payloads[0])))
+        return np.stack(payloads)
 
     def predict_clip(self, clip_u8: np.ndarray) -> np.ndarray:
         """(T,H,W,3) or (B,T,H,W,3) RGB uint8 -> (B, num_classes)
-        probabilities. The rule is ndim-only: 4D is one clip, 5D a batch."""
-        if clip_u8.ndim not in (4, 5):
-            raise ValueError(
-                f"rgb wire expects (T,H,W,C) or (B,T,H,W,C); got shape {clip_u8.shape}")
-        batch = clip_u8 if clip_u8.ndim == 5 else clip_u8[None]
-        return self._forward(np.ascontiguousarray(batch)).cpu().numpy()
+        probabilities. On a non-rgb wire RGB input becomes I420 on the host
+        (4:2:0 chroma, the loss the video source already carries), and I420
+        input (T,H*3/2,W) or (B,T,H*3/2,W) is taken as it is.
+
+        Shape dispatch: on the rgb wire by ndim only (4D one clip, 5D a
+        batch), so a (T,H,W,1) clip is never read as batched I420. On the
+        other wires a last dim of 3 marks RGB; a 4D input whose last dim is
+        another channel-like size (<= 4) is ambiguous and raises."""
+        if self.wire == "rgb":
+            if clip_u8.ndim not in (4, 5):
+                raise ValueError(
+                    f"rgb wire expects (T,H,W,C) or (B,T,H,W,C); got shape {clip_u8.shape}")
+            rgb_in, batched = True, clip_u8.ndim == 5
+        elif clip_u8.ndim == 3:
+            rgb_in, batched = False, False
+        elif clip_u8.ndim == 5:
+            if clip_u8.shape[-1] != 3:
+                raise ValueError(f"5D input must be (B,T,H,W,3) RGB; got shape {clip_u8.shape}")
+            rgb_in, batched = True, True
+        elif clip_u8.ndim == 4:
+            if clip_u8.shape[-1] == 3:
+                rgb_in, batched = True, False
+            elif clip_u8.shape[-1] <= 4:
+                raise ValueError(
+                    f"4D input with trailing dim {clip_u8.shape[-1]} is neither RGB (C=3) nor "
+                    f"batched I420 (B,T,H*3/2,W); got shape {clip_u8.shape}")
+            else:
+                rgb_in, batched = False, True
+        else:
+            raise ValueError(f"unsupported input shape {clip_u8.shape}")
+        clips = list(clip_u8) if batched else [clip_u8]
+        if self.wire != "rgb" and rgb_in:
+            w = self._wire_hw()
+            if clips and clips[0].shape[1] != w:
+                # A lowres wire: RGB input to the wire's geometry first (an
+                # area downscale, the analogue of the lowres decode's loss).
+                import cv2
+
+                clips = [np.stack([cv2.resize(f, (w, w), interpolation=cv2.INTER_AREA)
+                                   for f in c]) for c in clips]
+            clips = [rgb_to_yuv420(np.ascontiguousarray(c)) for c in clips]
+        return self._forward(self._stack_payload(clips)).cpu().numpy()
 
     def save_sampled_frames(self, log_dir) -> Optional[str]:
         """CSV audit of the indices every prediction of this session sampled
@@ -95,10 +174,12 @@ class VideoPredictorBase:
     def predict_videos(self, video_paths, batch_size: int = 4,
                        prefetch: int = 2, num_workers: Optional[int] = None):
         """Batch mode: serial sampling (RNG-order parity with dataset
-        iteration), pooled cv2 decode, prefetched batches of one shape (the
-        last is padded with its final clip). Per-video results match
-        ``predict_video``'s; unreadable videos are skipped with a warning
-        (the reference batch mode, resnet50-2d-lstm/inference.py:263-276)."""
+        iteration), pooled decode (``native.decode_frames_auto`` at the
+        wire's geometry), prefetched batches of one shape (the last is
+        padded with its final clip). Per-video results follow
+        ``predict_video``'s schema; unreadable videos are skipped with a
+        warning (the reference batch mode, resnet50-2d-lstm/inference.py:
+        263-276)."""
         plans = []
         for p in video_paths:
             try:
@@ -108,12 +189,15 @@ class VideoPredictorBase:
                 self.logger.warning("Skipping unreadable video %s: %s", p, e)
         if not plans:
             return []
-        hw = (self.crop_size, self.crop_size)
+        w = self._wire_hw()
+        fmt = "rgb" if self.wire == "rgb" else "i420"
+        lowres = self.wire_lowres if self.wire != "rgb" else 0
 
         def decode(plan):
             path, idx, _ = plan
             try:
-                return decode_frames(path, idx, resize_to=hw)
+                return native.decode_frames_auto(path, idx, resize_to=(w, w), fmt=fmt,
+                                                 lowres=lowres)
             except Exception as e:
                 self.logger.warning("Decode failed for %s: %s — skipped", path, e)
                 return None
@@ -134,13 +218,13 @@ class VideoPredictorBase:
                             batch_plans.append(plan)
                             batch_clips.append(clip)
                             if len(batch_clips) == batch_size:
-                                q.put((batch_plans, np.stack(batch_clips)))
+                                q.put((batch_plans, self._stack_payload(batch_clips)))
                                 batch_plans, batch_clips = [], []
                     if batch_clips:
                         n_real = len(batch_clips)
                         while len(batch_clips) < batch_size:  # keep one batch shape
                             batch_clips.append(batch_clips[-1])
-                        q.put((batch_plans[:n_real], np.stack(batch_clips)))
+                        q.put((batch_plans[:n_real], self._stack_payload(batch_clips)))
             finally:
                 q.put(sentinel)
 
@@ -150,8 +234,8 @@ class VideoPredictorBase:
             item = q.get()
             if item is sentinel:
                 break
-            bplans, clips = item
-            probs = self._forward(clips)
+            bplans, payload = item
+            probs = self._forward(payload)
             out_plans.extend(bplans)
             out_probs.append(probs[: len(bplans)])
         if not out_plans:

@@ -9,10 +9,13 @@ x/255 -> normalize (.5, .5), net affine 2x/255 - 1), the pytorchvideo
 regime of the CNN and Swin3D pipelines (eval: ShortSideScale(256) ->
 CenterCrop(224) -> Normalize(.45, .225), antialias off; train:
 RandomShortSideScale(256, 320) -> RandomCrop(224) -> RandomHorizontalFlip(.5)
--> Normalize, one draw per sample from an explicit ``torch.Generator``) and
-the rgb wire. Train-mode augmentation of the HF regimes (which have none in
-the reference either), the bit-exact Pillow resize (``LARYNGEAL_PIL_EXACT``)
-and the i420/delta/dct/dctp wires are not yet ported (ROADMAP.md).
+-> Normalize, one draw per sample from an explicit ``torch.Generator``), the
+bit-exact Pillow resize of the HF regimes (``LARYNGEAL_PIL_EXACT=1``,
+``preprocess/pil_resize.py``) and the five host->device wire formats
+(``decode_wire_batch``: rgb passes through; i420, delta, dct and dctp decode
+to RGB on the payload's device, the BT.601 constants in
+``yuv_planes_to_rgb`` alone). The HF regimes have no train-mode
+augmentation, in the reference either.
 
 The geometric chain *scale by f, then crop at an offset* is one linear
 resample per axis, as ``jax.image.scale_and_translate(method="linear")``
@@ -30,6 +33,9 @@ from typing import Sequence, Tuple
 
 import numpy as np
 import torch
+
+from . import dct_wire
+from .pil_resize import hf_resize_center_crop_u8
 
 _F32_EPS = float(np.finfo(np.float32).eps)
 
@@ -196,18 +202,121 @@ def batch_preprocess(clips_u8: torch.Tensor, regime: str, train: bool = False,
     if regime not in ("vivit", "timesformer"):
         raise ValueError(f"Unknown preprocessing regime {regime!r}")
     if os.environ.get("LARYNGEAL_PIL_EXACT") == "1":
-        raise NotImplementedError(
-            "LARYNGEAL_PIL_EXACT (the bit-exact Pillow resize) is not yet "
-            "ported, see ROADMAP.md")
+        # The bit-exact Pillow 8-bit resample of the HF processors (read at
+        # each call, as the JAX package reads it at trace time): integer
+        # coefficients, a uint8 round trip between the passes; a parity
+        # tool, not the fast path.
+        size = scale(256) if regime == "vivit" else crop
+        u8 = torch.clamp(torch.round(clips_u8.float()), 0, 255).to(torch.uint8)
+        v = hf_resize_center_crop_u8(u8, size, crop).float()
+        if regime == "vivit":
+            return v * (4.0 / 255.0) - 3.0
+        return v * (2.0 / 255.0) - 1.0
     if regime == "timesformer":
         return timesformer_pixels(clips_u8, crop=crop, size=crop)
     return vivit_pixels(clips_u8, crop=crop, size=scale(256))
 
 
-def decode_wire_batch(pixel, wire: str = "rgb"):
-    """Wire payload -> RGB clip batch. Only the rgb wire (a (B,T,H,W,3) uint8
-    passthrough) is ported."""
+WIRES = ("rgb", "i420", "delta", "dct", "dctp")
+
+
+def temporal_delta_encode(clip_u8: np.ndarray) -> np.ndarray:
+    """Host side (numpy): uint8 clip (T, ...) -> mod-256 temporal deltas,
+    frame 0 unchanged, delta[t] = frame[t] - frame[t-1] (uint8 wraps)."""
+    out = clip_u8.copy()
+    out[1:] = clip_u8[1:] - clip_u8[:-1]
+    return out
+
+
+def encode_wire(i420: np.ndarray, wire: str, quality: int = 75, keep_ac: int = 31,
+                pack_from: int = 14):
+    """Host side: one I420 clip (T, H*3/2, W) -> its payload on ``wire``
+    (i420: the clip itself; delta: its temporal deltas; dct: (dc, ac);
+    dctp: (dc, ac_hi, ac_pk))."""
+    if wire == "i420":
+        return i420
+    if wire == "delta":
+        return temporal_delta_encode(i420)
+    if wire == "dct":
+        return dct_wire.encode_clip(i420, quality, keep_ac)
+    if wire == "dctp":
+        return dct_wire.encode_clip_packed(i420, quality, keep_ac, pack_from)
+    raise ValueError(f"unknown wire {wire!r}")
+
+
+def temporal_delta_decode(delta_u8: torch.Tensor, axis: int = 0) -> torch.Tensor:
+    """Device side: the exact inverse of ``temporal_delta_encode``, a
+    running sum along ``axis`` taken modulo 256."""
+    total = torch.cumsum(delta_u8, dim=axis, dtype=torch.int32)
+    return torch.bitwise_and(total, 255).to(torch.uint8)
+
+
+def yuv420_to_rgb(yuv: torch.Tensor, height: int, width: int) -> torch.Tensor:
+    """I420 planar uint8 (..., T, H*3/2, W) -> RGB float32 (..., T, H, W, 3),
+    0-255. U and V are each (H/4, W) rows reshaped to (H/2, W/2), the
+    layout cv2's ``COLOR_RGB2YUV_I420`` writes."""
+    h, w = height, width
+    lead = yuv.shape[:-2]
+    y = yuv[..., :h, :].float()
+    u = yuv[..., h:h + h // 4, :].reshape(*lead, h // 2, w // 2).float()
+    v = yuv[..., h + h // 4:, :].reshape(*lead, h // 2, w // 2).float()
+    return yuv_planes_to_rgb(y, u, v)
+
+
+def yuv_planes_to_rgb(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """BT.601 video-range planes (Y (..., H, W), U and V (..., H/2, W/2),
+    float32) -> RGB float32 (..., H, W, 3) clipped to 0-255, chroma
+    upsampled by nearest neighbour. The one copy of the conversion: the
+    i420 / delta wires and the dct / dctp wires (``dct_wire``) both decode
+    through it."""
+    u = u.repeat_interleave(2, dim=-2).repeat_interleave(2, dim=-1)
+    v = v.repeat_interleave(2, dim=-2).repeat_interleave(2, dim=-1)
+    yf = 1.164383 * (y - 16.0)
+    uf = u - 128.0
+    vf = v - 128.0
+    r = yf + 1.596027 * vf
+    g = yf - 0.391762 * uf - 0.812968 * vf
+    b = yf + 2.017232 * uf
+    return torch.clamp(torch.stack([r, g, b], dim=-1), 0.0, 255.0)
+
+
+def check_wire(wire: str, wire_hw=None) -> None:
+    """The refusals of the JAX ``decode_wire_batch``: an unknown wire, and
+    dct / dctp without their static geometry ``wire_hw=(h, w)`` (multiples
+    of 16)."""
+    if wire not in WIRES:
+        raise ValueError(f"Unknown wire format {wire!r}")
+    if wire in ("dct", "dctp"):
+        if wire_hw is None:
+            raise ValueError(f"wire={wire!r} needs wire_hw=(h, w) (static geometry)")
+        dct_wire.block_geometry(int(wire_hw[0]), int(wire_hw[1]))
+
+
+def decode_wire_batch(pixel, wire: str = "rgb", wire_hw=None, wire_quality: int = 75,
+                      wire_keep_ac: int = 31):
+    """Wire payload -> RGB clip batch, on the payload's device:
+
+    - rgb: (B, T, H, W, 3) uint8, passed through;
+    - i420: (B, T, H*3/2, W) uint8 4:2:0 planes;
+    - delta: i420 as mod-256 temporal deltas;
+    - dct: (dc (B, T, NB) int16, ac (B, K, T, NB) int8) quantized DCT planes
+      in zigzag order (``preprocess/dct_wire.py``), needs ``wire_hw=(h, w)``;
+    - dctp: (dc, ac_hi (B, P, T, NB) int8, ac_pk (B, Q, T, NB) uint8), the
+      planes from ``P + 1`` on nibble-packed in pairs; needs ``wire_hw`` and
+      ``wire_keep_ac``, the total AC plane count.
+
+    Returns the uint8 clip (rgb) or float32 0-255 (the decoded wires); every
+    preprocessing regime takes either."""
+    check_wire(wire, wire_hw)
     if wire == "rgb":
         return pixel
-    raise NotImplementedError(
-        f"wire format {wire!r} is not yet ported to laryngeal_tpu_torch, see ROADMAP.md")
+    if wire in ("i420", "delta"):
+        x = temporal_delta_decode(pixel, axis=1) if wire == "delta" else pixel
+        return yuv420_to_rgb(x, x.shape[2] * 2 // 3, x.shape[3])
+    h, w = int(wire_hw[0]), int(wire_hw[1])
+    if wire == "dct":
+        dc, ac = pixel
+        return dct_wire.decode_to_rgb(dc, ac, h, w, int(wire_quality))
+    dc, ac_hi, ac_pk = pixel
+    return dct_wire.decode_to_rgb_packed(dc, ac_hi, ac_pk, h, w, int(wire_quality),
+                                         int(wire_keep_ac))

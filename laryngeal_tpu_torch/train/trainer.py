@@ -72,13 +72,23 @@ class Trainer:
             learning_rate=config.get("learning_rate", spec.default_lr),
             weight_decay=config.get("weight_decay", spec.default_weight_decay),
             trainable_mask=trainable_mask)
+        # The steps decode whatever wire the loaders ship; the dct wires need
+        # the payload's geometry, the dataset's (w, h) wire_wh as (h, w).
+        wire = getattr(train_ds, "wire", "rgb")
+        wire_hw = None
+        if wire in ("dct", "dctp"):
+            ww, wh = getattr(train_ds, "wire_wh", train_ds.resize_to or (224, 224))
+            wire_hw = (wh, ww)
+        wire_kw = dict(wire=wire, wire_hw=wire_hw,
+                       wire_quality=getattr(train_ds, "wire_quality", 75),
+                       wire_keep_ac=getattr(train_ds, "wire_keep_ac", 31))
         self.train_step = make_train_step(
             self.model, spec.preprocess_regime, spec.loss, self.pos_weight, crop=self.crop,
             grad_accum=int(config.get("grad_accum_steps", 1)),
-            wire=getattr(train_ds, "wire", "rgb"), seed=int(config.get("seed", 42)))
+            seed=int(config.get("seed", 42)), **wire_kw)
         self.eval_step = make_eval_step(
             self.model, spec.preprocess_regime, spec.loss, self.pos_weight, crop=self.crop,
-            wire=getattr(train_ds, "wire", "rgb"))
+            **wire_kw)
 
         self.selection = make_selection(spec.selection,
                                         loss_weight=config.get("loss_weight", 0.3),

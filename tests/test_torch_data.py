@@ -2,12 +2,14 @@
 synthetic writer, ``VideoDataset`` (paths, labels, sampled indices, pixels),
 ``ClipLoader`` (batch order per epoch, padding masks) and the numpy metrics.
 
-Pixels: the JAX dataset decodes through ``native.decode_frames_auto``, which
-takes the C++ decoder when it is built. On the synthetic mp4s that decoder
-gives the same pixels as cv2 at the source size but not after a resize
-(its scaler differs from ``cv2.resize``), so the port's clips are held to
-``laryngeal_tpu.data.video.decode_frames``, the JAX package's cv2 decode,
-bit for bit, and the JAX datasets here are made to take that path too.
+Pixels: both datasets decode through ``native.decode_frames_auto``, which
+takes the package's C++ decoder when it is built. On the synthetic mp4s that
+decoder gives the same pixels as cv2 at the source size but not after a
+resize (its scaler differs from ``cv2.resize``), so the tests that hold the
+port's clips to ``laryngeal_tpu.data.video.decode_frames`` (the JAX
+package's cv2 decode) bit for bit make both packages take the cv2 route
+(``cv2_decode``). ``tests/test_torch_wire.py`` holds the native route of
+both, and the wires' payloads.
 """
 
 import filecmp
@@ -21,6 +23,7 @@ from laryngeal_tpu.data.dataset import VideoDataset as JaxVideoDataset
 from laryngeal_tpu.data.pipeline import ClipLoader as JaxClipLoader
 from laryngeal_tpu.data.synthetic import make_synthetic_dataset as jax_make_synthetic
 from laryngeal_tpu.evals import metrics as jax_metrics
+from laryngeal_tpu_torch.data import native as port_native
 from laryngeal_tpu_torch.data import video
 from laryngeal_tpu_torch.data.dataset import ClipCache, VideoDataset, resolve_data_dir
 from laryngeal_tpu_torch.data.pipeline import ClipLoader, create_dataloaders
@@ -42,8 +45,9 @@ def roots(tmp_path_factory):
 
 @pytest.fixture
 def cv2_decode(monkeypatch):
-    """JAX datasets in this test decode with cv2 (see the module docstring)."""
+    """Both packages' datasets decode with cv2 (see the module docstring)."""
     monkeypatch.setattr(native, "available", lambda: False)
+    monkeypatch.setattr(port_native, "available", lambda: False)
 
 
 def test_synthetic_writer_matches_jax_bytes(roots):
@@ -72,7 +76,7 @@ def test_dataset_plan_matches_jax(roots, method, policy, cv2_decode):
 
 
 @pytest.mark.parametrize("resize", [(32, 32), None])
-def test_clip_pixels_match_jax_cv2_decode(roots, resize):
+def test_clip_pixels_match_jax_cv2_decode(roots, resize, cv2_decode):
     root = roots[0]
     ds = VideoDataset(root, "val", num_frames=8, resize_to=resize)
     for i in range(len(ds)):
@@ -116,8 +120,17 @@ def test_layout_tolerance_and_missing_dir(tmp_path):
 
 
 def test_unported_dataset_options_raise(roots):
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        VideoDataset(roots[0], "train", wire="i420")
+    """The wires are ported: the dataset refuses what the JAX one refuses (an
+    unknown wire, a non-rgb wire without a static geometry or at one that is
+    not a multiple of 16); the multi-process feed is not ported."""
+    for kw, match in ((dict(wire="nope"), "Unknown wire format"),
+                      (dict(wire="i420", resize_to=None), "explicit resize_to"),
+                      (dict(wire="dct", resize_to=(40, 48)), "multiples of 16"),
+                      (dict(wire="dctp", resize_to=(48, 48), wire_lowres=1), "multiples of 16")):
+        with pytest.raises(ValueError, match=match):
+            VideoDataset(roots[0], "train", **kw)
+        with pytest.raises(ValueError, match=match):
+            JaxVideoDataset(roots[0], "train", **kw)
     with pytest.raises(NotImplementedError, match="not yet ported"):
         ClipLoader(VideoDataset(roots[0], "val"), process_count=2)
 
@@ -185,17 +198,15 @@ def test_clip_cache_budget_and_hits():
 
 
 def _counting_decode(monkeypatch):
-    """Counts the port dataset's decodes."""
-    from laryngeal_tpu_torch.data import dataset as port_dataset
-
+    """Counts the port dataset's decodes (``native.decode_frames_auto``)."""
     calls = []
-    real = port_dataset.decode_frames
+    real = port_native.decode_frames_auto
 
     def decode(*args, **kwargs):
         calls.append(args[0])
         return real(*args, **kwargs)
 
-    monkeypatch.setattr(port_dataset, "decode_frames", decode)
+    monkeypatch.setattr(port_native, "decode_frames_auto", decode)
     return calls
 
 

@@ -3,9 +3,11 @@ with kernels 3-4 in both bf16 designs; short-sequence, kernels 6-7;
 shifted-window, kernels 8-9 and the ablation variants 11-12; the biased
 flash forward, kernel 5; the tubelet embedding, kernel 10) against their
 plain versions, gradients through them, the routing, the ViViT,
-TimeSformer and Swin3D train steps on the card, and remat (every kernel
+TimeSformer and Swin3D train steps on the card, remat (every kernel
 launched as often as without it), gradient accumulation and the profiler's
-trace there.
+trace there, and the wires (``-k wire``: each decode head against the CPU's,
+the native library where libav is present, a tiny ViViT served over each
+wire and trained on dctp, the Pillow route).
 
 They skip on a machine without CUDA. On the card, run them with
 ``python -m pytest --noconftest -p no:cacheprovider tests/test_torch_gpu.py``
@@ -2771,3 +2773,139 @@ def test_profiler_trace_on_card_names_the_kernels(cuda, tmp_path):
                     ("dq_tf32_kernel", "dq_wgmma_kernel", "dq_f32_kernel", "dq_bf16_kernel"),
                     ("dkv_tf32_kernel", "dkv_wgmma_kernel", "dkv_f32_kernel", "dkv_bf16_kernel")):
         assert any(s in n for n in names for s in symbols), symbols
+
+
+# ---------- the wires: decode heads, the predictor and the train step on the card ----------
+
+WIRE_DCT_LEVELS, WIRE_DCT_FRACTION = 2.0, 1e-3
+
+
+def _wire_payload(wire, clips_rgb, keep_ac=31, pack_from=14):
+    """The wire's batched host payload (quality 75) of RGB clips."""
+    from laryngeal_tpu_torch.data.video import rgb_to_yuv420
+    from laryngeal_tpu_torch.preprocess import dct_wire
+    from laryngeal_tpu_torch.preprocess.transforms import temporal_delta_encode
+
+    i420 = [rgb_to_yuv420(c) for c in clips_rgb]
+    if wire == "i420":
+        return np.stack(i420)
+    if wire == "delta":
+        return np.stack([temporal_delta_encode(c) for c in i420])
+    if wire == "dct":
+        parts = [dct_wire.encode_clip(c, 75, keep_ac) for c in i420]
+    else:
+        parts = [dct_wire.encode_clip_packed(c, 75, keep_ac, pack_from) for c in i420]
+    return tuple(np.stack([p[i] for p in parts]) for i in range(len(parts[0])))
+
+
+def _on(payload, device):
+    if isinstance(payload, tuple):
+        return tuple(torch.from_numpy(x).to(device) for x in payload)
+    return torch.from_numpy(payload).to(device)
+
+
+def _wire_clips(b, t, h, w, seed):
+    from laryngeal_tpu_torch.data.synthetic import synth_video
+
+    rng = np.random.default_rng(seed)
+    return [synth_video(rng, t, h, w, referral=bool(i % 2)) for i in range(b)]
+
+
+@pytest.mark.parametrize("wire,keep_ac,pack_from", [("i420", 31, 14), ("delta", 31, 14),
+                                                    ("dct", 31, 14), ("dctp", 31, 14),
+                                                    ("dctp", 15, 8)])
+def test_wire_decode_heads_on_card_match_the_cpu(cuda, wire, keep_ac, pack_from):
+    """Each wire's decode head on the card against the CPU's on the same
+    payload: i420 / delta within 1e-3, dct / dctp every element within 2
+    levels and all but 1e-3 within 1e-3; float32 on the payload's device."""
+    from laryngeal_tpu_torch.preprocess.transforms import decode_wire_batch
+
+    payload = _wire_payload(wire, _wire_clips(3, 4, 64, 96, seed=keep_ac), keep_ac, pack_from)
+    got = decode_wire_batch(_on(payload, cuda), wire, (64, 96), 75, keep_ac)
+    want = decode_wire_batch(_on(payload, "cpu"), wire, (64, 96), 75, keep_ac)
+    assert got.is_cuda and got.dtype == torch.float32 and got.shape == (3, 4, 64, 96, 3)
+    diff = (got.cpu() - want).abs()
+    if wire in ("i420", "delta"):
+        assert diff.max().item() <= 1e-3
+    else:
+        assert diff.max().item() <= WIRE_DCT_LEVELS
+        assert (diff > 1e-3).float().mean().item() <= WIRE_DCT_FRACTION
+
+
+def test_wire_native_library_builds_where_libav_is_present(cuda, tmp_path):
+    """Where g++ and the libav development files are present the port's
+    native library builds and decodes; elsewhere this skips with the reason
+    (the port then decodes with cv2)."""
+    from laryngeal_tpu_torch.data import native, video
+
+    ok, detail = native.toolchain()
+    if not ok:
+        pytest.skip(f"no native toolchain on this host: {detail}")
+    assert native.available(), native.unavailable_reason()
+    path = tmp_path / "clip.mp4"
+    video.write_video(path, _wire_clips(1, 8, 64, 96, seed=1)[0])
+    i420 = native.decode_frames(path, [0, 2, 4, 6], (64, 64), "i420", lowres=1)
+    assert i420.shape == (4, 96, 64)
+    rgb = native.decode_frames(path, [0, 2, 4, 6])
+    assert np.abs(rgb.astype(int) - video.decode_frames(path, [0, 2, 4, 6])).mean() <= 1.0
+
+
+@pytest.mark.parametrize("wire", ["i420", "delta", "dct", "dctp"])
+def test_wire_predictor_on_card_launches_kernel_1(cuda, wire):
+    """A tiny ViViT served over each wire on the card: one launch of kernel 1
+    a layer, probabilities within 1e-4 of the same predictor on the CPU
+    (f32, the plain twins there)."""
+    from laryngeal_tpu_torch.infer.predictor import Predictor
+    from laryngeal_tpu_torch.models.registry import get_model_spec
+
+    clips = np.stack(_wire_clips(2, 16, 128, 128, seed=3))
+    probs = {}
+    for dev in ("cpu", cuda):
+        pred = Predictor(_tiny_vivit(torch.float32), get_model_spec("vivit"), num_frames=16,
+                         crop_size=128, device=dev, wire=wire)
+        before = fa.launches
+        probs[str(dev)] = pred.predict_clip(clips)
+        if dev == cuda:
+            assert fa.launches - before == 2
+    np.testing.assert_allclose(probs[str(cuda)], probs["cpu"], atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("grad_accum", [1, 2])
+def test_wire_dctp_train_step_on_card(cuda, grad_accum):
+    """A tiny ViViT train step on a dctp payload on the card: kernels 2-4 a
+    layer a micro-batch, the loss within 1e-4 of the CPU step's."""
+    from laryngeal_tpu_torch.train.state import create_train_state
+    from laryngeal_tpu_torch.train.steps import make_train_step
+
+    payload = _wire_payload("dctp", _wire_clips(2, 16, 128, 128, seed=4), 15, 8)
+    labels, mask = torch.tensor([0, 1]), torch.tensor([True, True])
+    losses = {}
+    for dev in ("cpu", cuda):
+        model = _tiny_vivit(torch.float32).to(dev)
+        state = create_train_state(model, "adamw", 1e-3, 0.01)
+        step = make_train_step(model, "vivit", "ce", crop=128, grad_accum=grad_accum,
+                               wire="dctp", wire_hw=(128, 128), wire_keep_ac=15)
+        before = fa.launch_counts()
+        state, m = step(state, _on(payload, dev), labels.to(dev), mask.to(dev))
+        if dev == cuda:
+            torch.cuda.synchronize()
+            after = fa.launch_counts()
+            for k in ("flash_attention_fwd_lse", "flash_attention_bwd_dq",
+                      "flash_attention_bwd_dkv"):
+                assert after[k] - before[k] == 2 * grad_accum, k
+        losses[str(dev)] = m["loss"].item()
+    assert np.isfinite(losses[str(cuda)])
+    assert abs(losses[str(cuda)] - losses["cpu"]) <= 1e-4 * max(1.0, abs(losses["cpu"]))
+
+
+def test_wire_pil_exact_route_on_card_matches_the_cpu(cuda, monkeypatch):
+    """``LARYNGEAL_PIL_EXACT=1`` on the card: the Pillow resample's integer
+    sums are exact in float64, so the card equals the CPU bit for bit."""
+    from laryngeal_tpu_torch.preprocess.transforms import batch_preprocess
+
+    monkeypatch.setenv("LARYNGEAL_PIL_EXACT", "1")
+    clips = torch.from_numpy(np.stack(_wire_clips(2, 3, 120, 160, seed=5)))
+    for regime in ("vivit", "timesformer"):
+        got = batch_preprocess(clips.to(cuda), regime, crop=112)
+        torch.testing.assert_close(got.cpu(), batch_preprocess(clips, regime, crop=112),
+                                   rtol=0, atol=0)

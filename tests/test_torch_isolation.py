@@ -31,8 +31,18 @@ def test_every_module_is_listed():
     assert "laryngeal_tpu_torch.ops.tubelet" in MODULES
     assert "laryngeal_tpu_torch.models.resnet3d" in MODULES
     assert "laryngeal_tpu_torch.models.resnet" in MODULES
-    for name in ("ops.remat", "compat.loading", "compat.manifests", "utils.profiling"):
+    for name in ("ops.remat", "compat.loading", "compat.manifests", "utils.profiling",
+                 "data.native", "preprocess.dct_wire", "preprocess.pil_resize"):
         assert f"laryngeal_tpu_torch.{name}" in MODULES
+
+
+def test_native_library_builds_from_the_port_s_own_source():
+    """The port compiles its own copy of the C++ decoder into its own build
+    directory and reads nothing of the JAX package's ``native/``."""
+    text = (PORT / "data" / "native.py").read_text()
+    assert (PORT / "native" / "cliploader.cpp").is_file()
+    assert 'PKG_DIR / "native" / "cliploader.cpp"' in text and 'PKG_DIR / "_build"' in text
+    assert "parent.parent.parent" not in text and "make" not in text.split()
 
 
 def test_importing_the_port_loads_no_jax():

@@ -174,8 +174,13 @@ def test_predictor_defaults_to_cuda(port_model, checkpoint, monkeypatch):
         Predictor(port_model, get_model_spec("vivit"), num_frames=FRAMES, crop_size=SIZE)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         Predictor.from_checkpoint("vivit", checkpoint)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        Predictor(port_model, get_model_spec("vivit"), wire="dct", device="cpu")
+    # The wires are ported (tests/test_torch_wire.py): refused is what the
+    # JAX predictor refuses, an unknown wire and a dct geometry that is not
+    # a multiple of 16.
+    with pytest.raises(ValueError, match="Unknown wire format"):
+        Predictor(port_model, get_model_spec("vivit"), wire="nope", device="cpu")
+    with pytest.raises(ValueError, match="multiples of 16"):
+        Predictor(port_model, get_model_spec("vivit"), crop_size=40, wire="dct", device="cpu")
 
 
 def test_cli_inference_single_and_batch(checkpoint, video_path, tmp_path, capsys):

@@ -93,19 +93,31 @@ def test_hf_regimes_train_mode_matches_jax(regime):
 
 
 def test_rgb_wire_passthrough_and_unported_paths(monkeypatch):
+    """rgb passes through; the other wires and LARYNGEAL_PIL_EXACT are
+    ported (tests/test_torch_wire.py, test_torch_pil_resize.py), so what is
+    refused is what the JAX function refuses: an unknown wire, dct / dctp
+    without wire_hw or at a geometry that is not a multiple of 16."""
     x = torch.zeros((1, 2, 8, 8, 3), dtype=torch.uint8)
     assert tt.decode_wire_batch(x, "rgb") is x
-    for wire in ("i420", "delta", "dct", "dctp"):
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            tt.decode_wire_batch(x, wire)
+    pair = (torch.zeros((1, 2, 30), dtype=torch.int16),
+            torch.zeros((1, 3, 2, 30), dtype=torch.int8))
+    for wire, hw, match in (("nope", None, "Unknown wire format"), ("dct", None, "wire_hw"),
+                            ("dctp", None, "wire_hw"), ("dct", (40, 48), "multiples of 16")):
+        with pytest.raises(ValueError, match=match):
+            tt.decode_wire_batch(pair, wire, hw)
+        with pytest.raises(ValueError, match=match):
+            jt.decode_wire_batch(tuple(jnp.asarray(a.numpy()) for a in pair), wire, hw)
     with pytest.raises(ValueError, match="Unknown preprocessing regime"):
         tt.batch_preprocess(x, "nope")
     with pytest.raises(ValueError, match="Generator"):
         tt.batch_preprocess(x, "pytorchvideo", train=True)
     monkeypatch.setenv("LARYNGEAL_PIL_EXACT", "1")
+    clips = _clip((1, 2, 40, 56, 3), seed=9)
     for regime in ("vivit", "timesformer"):
-        with pytest.raises(NotImplementedError, match="PIL"):
-            tt.batch_preprocess(x, regime)
+        out = tt.batch_preprocess(torch.from_numpy(clips), regime, crop=32)
+        ref = jt.batch_preprocess(jnp.asarray(clips), regime, False, crop=32)
+        assert out.shape == (1, 2, 32, 32, 3)
+        np.testing.assert_array_equal(out.numpy(), np.asarray(ref))
 
 
 # ---------- the pytorchvideo regime (Swin3D) ----------

@@ -280,16 +280,24 @@ def test_set_learning_rate_takes_effect(shared, lr):
         assert torch.equal(model.state_dict()[name], start[name]) == (lr == 0.0), name
 
 
-@pytest.mark.parametrize("kwargs", [dict(grad_accum=0), dict(mesh=object()), dict(tp=True),
-                                    dict(wire="i420")],
-                         ids=["grad_accum", "mesh", "tp", "wire"])
-def test_unported_step_options_raise(kwargs):
-    """Gradient accumulation is ported (tests/test_torch_grad_accum.py);
-    a grad_accum below 1 raises ValueError, as in the JAX step."""
-    error, match = ((ValueError, "grad_accum must be >= 1") if "grad_accum" in kwargs
-                    else (NotImplementedError, "not yet ported"))
+@pytest.mark.parametrize("kwargs,error,match", [
+    (dict(grad_accum=0), ValueError, "grad_accum must be >= 1"),
+    (dict(mesh=object()), NotImplementedError, "not yet ported"),
+    (dict(tp=True), NotImplementedError, "not yet ported"),
+    (dict(wire="nope"), ValueError, "Unknown wire format"),
+    (dict(wire="dct"), ValueError, "wire_hw"),
+    (dict(wire="dctp", wire_hw=(40, 48)), ValueError, "multiples of 16")],
+    ids=["grad_accum", "mesh", "tp", "wire", "dct_without_wire_hw", "dctp_geometry"])
+def test_unported_step_options_raise(kwargs, error, match):
+    """Gradient accumulation and the wires are ported
+    (tests/test_torch_grad_accum.py, test_torch_wire.py): a grad_accum below
+    1, an unknown wire and a dct wire without its multiple-of-16 geometry
+    raise ValueError, as in the JAX step; the mesh and tp do not port."""
     with pytest.raises(error, match=match):
         steps.make_train_step(torch.nn.Linear(1, 1), "vivit", "ce", **kwargs)
+    if "grad_accum" not in kwargs:
+        with pytest.raises(error, match=match):
+            steps.make_eval_step(torch.nn.Linear(1, 1), "vivit", "ce", **kwargs)
 
 
 def test_prepare_batch_moves_to_device():

@@ -30,6 +30,7 @@ from laryngeal_tpu.train.state import make_optimizer as jax_make_optimizer
 from laryngeal_tpu.train.trainer import Trainer as JaxTrainer
 from laryngeal_tpu_torch.cli import main as cli
 from laryngeal_tpu_torch.compat.flax_weights import vivit_state_dict_from_flax
+from laryngeal_tpu_torch.data import native as port_native
 from laryngeal_tpu_torch.data.pipeline import create_dataloaders
 from laryngeal_tpu_torch.data.synthetic import make_synthetic_dataset
 from laryngeal_tpu_torch.evals.evaluator import Evaluator
@@ -94,6 +95,7 @@ def both_trained(root, flax_params, tmp_path_factory):
 
     mp = pytest.MonkeyPatch()
     mp.setattr(native, "available", lambda: False)
+    mp.setattr(port_native, "available", lambda: False)
     mp.setattr(jax_trainer_module, "create_train_state", shared_state)
     try:
         jt = JaxTrainer(jmodel, jax_get_model_spec("vivit"),
@@ -142,13 +144,14 @@ def test_evaluator_matches_jax(both_trained, root):
     jt, pt = both_trained
     mp = pytest.MonkeyPatch()
     mp.setattr(native, "available", lambda: False)
+    mp.setattr(port_native, "available", lambda: False)
     try:
         jloaders = _loaders(root, jax_create_dataloaders)
         want = JaxEvaluator(jt.eval_step, jloaders["test"], exp_dir=jt.exp_dir).evaluate(jt.state)
+        got = Evaluator(pt.eval_step, pt.loaders["test"], exp_dir=pt.exp_dir,
+                        device="cpu").evaluate(pt.state)
     finally:
         mp.undo()
-    got = Evaluator(pt.eval_step, pt.loaders["test"], exp_dir=pt.exp_dir,
-                    device="cpu").evaluate(pt.state)
     assert got[0] == pytest.approx(want[0], abs=1e-9) and got[1] == pytest.approx(want[1])
     np.testing.assert_array_equal(got[2], want[2])
     a = json.loads((pt.exp_dir / "test_metrics_uniform.json").read_text())
@@ -245,8 +248,6 @@ def test_cli_runs_the_training_options(root, flax_params, tmp_path):
     --profile_dir on the CPU: the weights file is what the run starts from,
     every clip lands in the cache and a second run decodes none, and the
     profiler writes a Chrome trace."""
-    from laryngeal_tpu_torch.data import dataset as port_dataset
-
     weights = create_vivit(num_frames=FRAMES, image_size=SIZE, seed=5, **TINY).state_dict()
     torch.save({"model_state_dict": weights}, tmp_path / "w.pth")
     flags = CLI_FLAGS + ["--data_dir", str(root), "--epochs", "1", "--grad_accum_steps", "2",
@@ -265,9 +266,10 @@ def test_cli_runs_the_training_options(root, flax_params, tmp_path):
     assert np.isfinite(out["history"]["train_loss"]).all()
 
     decoded = []
-    real = port_dataset.decode_frames
+    real = port_native.decode_frames_auto
     mp = pytest.MonkeyPatch()
-    mp.setattr(port_dataset, "decode_frames", lambda *a, **k: decoded.append(a) or real(*a, **k))
+    mp.setattr(port_native, "decode_frames_auto",
+               lambda *a, **k: decoded.append(a) or real(*a, **k))
     try:
         time.sleep(1.1)  # experiment dirs are stamped to the second
         cli.main(flags + ["--log_dir", str(tmp_path / "logs2"), "--no_cache_clips"])
@@ -310,14 +312,15 @@ def test_profiling_timer_block_and_a_trace_that_cannot_start(tmp_path, monkeypat
     (["--fsdp"], "not yet ported"),
     (["--model", "resnet50_lstm", "--remat"], "transformer families"),
     (["--grad_accum_steps", "3"], "must be divisible"),
-    (["--wire", "i420"], "not yet ported"),
+    (["--wire", "dct", "--crop_size", "40"], "multiples of 16"),
     (["--mesh_model", "2"], "not yet ported"),
     (["--model", "swin3d", "--mesh_seq", "2"], "not yet ported"),
     (["--model", "resnet3d", "--remat"], "transformer families")],
     ids=["fsdp", "remat", "grad_accum", "wire", "mesh", "swin3d", "resnet3d"])
 def test_cli_refuses_unported_flags(flags, match, tmp_path):
     """Unported flags, and (as the JAX CLI refuses them) --remat on a CNN
-    family and a batch that does not split into --grad_accum_steps, are
+    family, a batch that does not split into --grad_accum_steps and a wire
+    geometry that is not a multiple of 16 (the JAX dataset's refusal), are
     refused before the experiment directory exists."""
     with pytest.raises(SystemExit, match=match):
         cli.main(CLI_FLAGS + ["--data_dir", str(tmp_path), "--log_dir",
